@@ -1,0 +1,651 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one H100 and check it end to end.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, one line or more each before the last:
+
+1. device: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions; exits non-zero without a CUDA device;
+2. build: ``nvcc`` for every ``src/repro_torch/csrc/*.cu`` (one process
+   per source, started together) and the seconds it took; then the card
+   tests, ``pytest --noconftest tests/test_torch_cuda.py``, in a child
+   process;
+3. check: every kernel against its plain PyTorch version on the card at
+   the shapes llama2-7b-proxy's serving path gives it, bf16 and float32
+   (TF32 off for matmul and cuDNN), with a masked tail and a windowed
+   case; errors (absolute, relative, in ulps) against the stated limits,
+   and for each kernel a planted bf16 rounding fault that must fail them;
+   kernel / plain / library times from CUDA events with the L2 flushed
+   before each call, and the least time the card could take (bytes over
+   3.35 TB/s, operations over the dtype's peak);
+4. f32: llama2-7b-proxy widths cut to 2 layers, float32, perturbed QuanTA
+   on q/v: the kernel engine and the plain engine must generate
+   identical greedy tokens for 5 prompts x 16 new tokens;
+5. serve: llama2-7b-proxy FULL (32 layers, bf16) with folded, perturbed
+   QuanTA serves 8 requests (prompts of 32-384 tokens, 32 new tokens each)
+   through ``ServingEngine(n_slots=8, max_len=512)``, then its merged twin
+   serves them too; every kernel's launch count must have moved in the
+   adapted run, adapted vs merged prefill logits must agree within the
+   stated bf16 tolerance, and a planted fault (one chain stage skipped)
+   must exceed it;
+6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
+   prefill wave and over decode ticks, device time by kernel (where the
+   serving time goes).
+
+Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
+as the last line ``{"ok": true, "device": {...}}``.  An error raises at
+once; a reading outside its limit prints ``FAIL``, the run goes on so
+that every reading is printed, and the script then exits 1 without the
+last line.  Weights are random from fixed seeds; nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+HOLD_CYCLES = 40_000_000                  # ~20 ms of card time, see timed()
+HOLD_CYCLES_PER_S = 2e9                   # at most the H100's 1.98 GHz boost
+# kernel vs plain in float32: (rtol, atol), as the JAX package's own tests
+# hold its kernels
+F32_TOL = {
+    "quanta_apply": (2e-5, 2e-5),
+    # 4096-term fp32 sums in another order than cuBLAS
+    "quanta_linear": (1e-4, 1e-4),
+    "flash_attention": (3e-5, 3e-5),
+    "flash_decode_attention": (3e-5, 3e-5),
+}
+# kernel vs plain in bfloat16, with errors in bf16 ulps of each element of
+# the plain output: (max ulps of any element or None, share of elements
+# more than 1 ulp off, max |err| / max |plain|).  The plain versions round
+# where the kernels round, so only the order of fp32 sums differs and a
+# rounding tips over now and then; near-zero outputs of a long sum can
+# then be many of their own ulps off, so only the chain, whose output
+# equals its plain version's bit for bit, is held to a max.  Set from
+# readings on the H100 (PERF.md): sound shares of 0, <= 1.6e-4, <= 3.2e-6
+# and 3.1e-5 against planted rounding faults at 0.25, 0.051, 0.11 and
+# 0.089; max_rel is one bf16 ulp at the top of the output range (sound
+# readings <= 3.0e-3).  Each planted fault must fail them in every run.
+BF16_TOL = {
+    "quanta_apply": (1, 0.0, 2 ** -7),
+    "quanta_linear": (None, 1e-3, 2 ** -7),
+    "flash_attention": (None, 1e-4, 2 ** -7),
+    "flash_decode_attention": (None, 3e-4, 2 ** -7),
+}
+SOURCES = {
+    "quanta_apply": ("src/repro_torch/csrc/quanta_apply.cu",
+                     "src/repro/kernels/quanta_apply.py:77"),
+    "quanta_linear": ("src/repro_torch/csrc/quanta_linear.cu",
+                      "src/repro/kernels/quanta_linear.py:58"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:181"),
+    "flash_decode_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:484"),
+}
+# adapted vs merged prefill logits of the 32-layer bf16 model: the two
+# differ by where bf16 rounds (W0' + T merged in fp32 then rounded, vs the
+# chain rounded per stage), compounded over 32 layers.  About twice the
+# sound reading on the H100 (0.0285, PERF.md); a planted fault (the first
+# chain stage skipped, 0.549 there) must exceed it
+SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
+FAILURES = []
+
+
+def flush_bytes():
+    """Bytes written between timed calls: four times the card's L2."""
+    import torch
+
+    return max(4 * torch.cuda.get_device_properties(0).L2_cache_size,
+               64 << 20)
+
+
+def timed(fn, iters=10, warmup=2):
+    """Mean ms of ``fn`` from CUDA events around each call, with the L2
+    flushed before each (the serving path meets every input cold).  The
+    card is held busy first, for at least twice the host time of the
+    timed calls, so that the host has queued them all before the card
+    reaches them and no host time falls between a pair of events (unless
+    ``fn`` itself waits for the card)."""
+    import torch
+
+    flush = torch.empty(flush_bytes() // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.zero_()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(max(HOLD_CYCLES,
+                          int(2 * iters * host_s * HOLD_CYCLES_PER_S)))
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def error_stats(got, want, dtype):
+    """Max |err| and max |err| / max |want|; in bfloat16 also the error in
+    bf16 ulps of each element of ``want``: its max, and the share of
+    elements more than 1 ulp off."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite kernel output")
+    err = (got - want).abs()
+    st = dict(max_abs_err=float(err.max()),
+              max_rel=float(err.max() / want.abs().max().clamp_min(1e-30)))
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(want.abs().clamp_min(2.0 ** -126))
+        ulps = err / torch.ldexp(torch.ones_like(want), e - 8)
+        st.update(max_ulp=float(ulps.max()),
+                  off=float((ulps > 1).float().mean()))
+    return st
+
+
+def stats_text(st):
+    text = f"max_abs_err {st['max_abs_err']:.3e} max_rel {st['max_rel']:.3e}"
+    if "off" in st:
+        text += f" max_ulp {st['max_ulp']:.4g} off {st['off']:.3e}"
+    return text
+
+
+def judge(name, got, want, dtype):
+    """Error stats of ``got`` against ``want``, whether they meet
+    ``name``'s limits in ``dtype``, and the limits as text."""
+    import torch
+
+    st = error_stats(got, want, dtype)
+    if dtype == torch.float32:
+        rtol, atol = F32_TOL[name]
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= atol + rtol * want.float().abs()).all())
+        return st, ok, f"rtol/atol {rtol:g}/{atol:g}"
+    max_ulp, off, max_rel = BF16_TOL[name]
+    ok = ((max_ulp is None or st["max_ulp"] <= max_ulp)
+          and st["off"] <= off and st["max_rel"] <= max_rel)
+    return st, ok, (f"limits max_ulp {max_ulp} off {off:g} max_rel "
+                    f"{max_rel:g}")
+
+
+def fail(msg):
+    print(f"FAIL {msg}")
+    FAILURES.append(msg)
+
+
+# --------------------------------------------------------------- phase 3
+def check_kernels(card):
+    """Every kernel against its plain version at llama2-7b-proxy serving
+    shapes.  Returns the bf16 main-path record of each kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.factorize import pair_schedule
+    from repro_torch.core.quanta import (
+        apply_einsum, apply_sequential, tensor_shapes,
+    )
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.quanta_apply import chain_widths, quanta_apply
+    from repro_torch.kernels.quanta_linear import (
+        quanta_linear, quanta_linear_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dims = (16, 8, 8, 4)
+    pairs = pair_schedule(4)
+    shapes = tensor_shapes(dims, pairs)
+    d = math.prod(dims)
+    chain_macs = sum(om * on * im * i_n * (d // (im * i_n))
+                     for om, on, im, i_n in shapes)
+    records = {}
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def report(name, label, dtype, got, want, t_k, t_p, t_lib, nbytes,
+               flops, main):
+        st, ok, limits = judge(name, got, want, dtype)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        print(f"check {name} {label} {str(dtype)[6:]}: {stats_text(st)} "
+              f"({limits}) {'ok' if ok else 'FAIL'} | kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, library "
+              f"{'-' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+        if not ok:
+            fail(f"{name} {label} {dtype} disagrees with its plain version")
+        if main and dtype == torch.bfloat16:
+            records[name] = dict(max_abs_err=st["max_abs_err"], ms=t_k,
+                                 plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=t_lib)
+
+    def planted(name, what, faulty, want):
+        """A rounding fault made from the plain version must fail the
+        bf16 limits that the kernel meets."""
+        st, ok, limits = judge(name, faulty, want, torch.bfloat16)
+        print(f"fault {name} ({what}): {stats_text(st)} ({limits}) "
+              f"{'passes: limits too loose' if ok else 'caught'}")
+        if ok:
+            fail(f"{name}: the planted fault ({what}) passes the bf16 limits")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        sz = torch.tensor([], dtype=dtype).element_size()
+        tensors = [
+            (torch.eye(om * on, im * i_n, device=dev).reshape(om, on, im, i_n)
+             + 0.05 * torch.randn((om, on, im, i_n), generator=gen,
+                                  device=dev)).to(dtype)
+            for om, on, im, i_n in shapes
+        ]
+        t_bytes = sum(t.numel() for t in tensors) * sz
+        w = rnd(d, d, dtype=dtype, scale=d ** -0.5)
+        # rows: a prefill wave of 8 x 384, one decode tick of 8, a masked
+        # tail of 1001 (not a multiple of any row tile)
+        for rows, label, main in ((3072, "prefill", True),
+                                  (8, "decode", False),
+                                  (1001, "tail", False)):
+            x = rnd(rows, d, dtype=dtype)
+            got = quanta_apply(x, tensors, dims, pairs)
+            want = apply_sequential(x, tensors, dims, pairs)
+            report("quanta_apply", f"rows={rows} {label}", dtype, got, want,
+                   timed(lambda: quanta_apply(x, tensors, dims, pairs)),
+                   timed(lambda: apply_sequential(x, tensors, dims, pairs)),
+                   timed(lambda: apply_einsum(x, tensors, dims, pairs)),
+                   2 * rows * d * sz + t_bytes, 2 * rows * chain_macs, main)
+            got = quanta_linear(x, w, tensors, dims, pairs)
+            want = quanta_linear_plain(x, w, tensors, dims, pairs)
+            report("quanta_linear", f"rows={rows} {label}", dtype, got, want,
+                   timed(lambda: quanta_linear(x, w, tensors, dims, pairs)),
+                   timed(lambda: quanta_linear_plain(x, w, tensors, dims,
+                                                     pairs)),
+                   timed(lambda: torch.matmul(x, w) + apply_sequential(
+                       x, tensors, dims, pairs)),
+                   (2 * rows * d + d * d) * sz + t_bytes,
+                   2 * rows * (d * d + chain_macs), main)
+            if main and dtype == torch.bfloat16:
+                chain = apply_sequential(x, tensors, dims, pairs)
+                planted("quanta_apply", "stages not rounded to bf16",
+                        apply_sequential(x.float(),
+                                         [t.float() for t in tensors],
+                                         dims, pairs).to(dtype), chain)
+                planted("quanta_linear", "x @ W rounded before the delta",
+                        ((x.float() @ w.float()).to(dtype).float()
+                         + chain.float()).to(dtype), want)
+        assert chain_widths(dims, shapes, pairs) == (d, d)
+
+        # prefill attention: B=8 slots, S=384, 32 heads of 128
+        b, h, hd = 8, 32, 128
+        for s, window, label, main in ((384, None, "S=384", True),
+                                       (300, None, "S=300 tail", False),
+                                       (384, 100, "S=384 window=100", False)):
+            q = rnd(b, s, h, hd, dtype=dtype)
+            k = rnd(b, s, h, hd, dtype=dtype)
+            v = rnd(b, s, h, hd, dtype=dtype)
+            got = FA.flash_attention(q, k, v, window=window)
+            want = FA.flash_attention_plain(q, k, v, window=window)
+            pairs_vis = sum(min(i + 1, window or i + 1) for i in range(s))
+            lib = None
+            if window is None:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib = timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+            report("flash_attention", label, dtype, got, want,
+                   timed(lambda: FA.flash_attention(q, k, v, window=window)),
+                   timed(lambda: FA.flash_attention_plain(
+                       q, k, v, window=window)),
+                   lib, 4 * b * s * h * hd * sz, 4 * hd * pairs_vis * h * b,
+                   main)
+            if main and dtype == torch.bfloat16:
+                planted("flash_attention", "p not cast before PV",
+                        FA.flash_attention_plain(q, k, v.float(),
+                                                 window=window).to(dtype),
+                        want)
+
+        # decode attention: 8 slots over a 512-entry cache, mixed lengths
+        s_max = 512
+        lens = torch.tensor([33, 100, 385, 512, 1, 64, 65, 200],
+                            dtype=torch.int32, device=dev)
+        kc = rnd(b, s_max, h, hd, dtype=dtype)
+        vc = rnd(b, s_max, h, hd, dtype=dtype)
+        q = rnd(b, 1, h, hd, dtype=dtype)
+        for window, label, main in ((None, "S_max=512", True),
+                                    (50, "S_max=512 window=50", False)):
+            got = FA.flash_decode_attention(q, kc, vc, lens, window=window)
+            want = FA.flash_decode_attention_plain(q, kc, vc, lens,
+                                                   window=window)
+            used = [min(int(n), window or int(n)) for n in lens.tolist()]
+            lib = None
+            if window is None:
+                mask = (torch.arange(s_max, device=dev)[None, :]
+                        < lens[:, None])[:, None, None, :]
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+                lib = timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask))
+            report("flash_decode_attention", label, dtype, got, want,
+                   timed(lambda: FA.flash_decode_attention(
+                       q, kc, vc, lens, window=window)),
+                   timed(lambda: FA.flash_decode_attention_plain(
+                       q, kc, vc, lens, window=window)),
+                   lib, (2 * b * h * hd + 2 * sum(used) * h * hd) * sz
+                   + 4 * b, 4 * hd * h * sum(used), main)
+            if main and dtype == torch.bfloat16:
+                planted("flash_decode_attention", "p not cast before PV",
+                        FA.flash_decode_attention_plain(
+                            q, kc, vc.float(), lens, window=window).to(dtype),
+                        want)
+    return records
+
+
+def card_tests():
+    """The card tests, in a child process (``--noconftest``: the suite's
+    conftest imports jax, which the port does not need)."""
+    import os
+
+    env = dict(os.environ,
+               HYPOTHESIS_STORAGE_DIRECTORY=str(HERE / "build" / "hypothesis"))
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=900,
+    )
+    lines = res.stdout.strip().splitlines() or [""]
+    print(f"card tests: {lines[-1]} (rc {res.returncode})")
+    if res.returncode != 0:
+        print("\n".join(lines[-40:]))
+        fail("the card tests failed")
+
+
+# ------------------------------------------------------------ phases 4, 5
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(model, params, peft, prompts, max_new, n_slots, max_len):
+    from repro_torch.serve import Request, ServingEngine
+
+    dev = model.device
+    eng = ServingEngine(model, params, peft, n_slots=n_slots,
+                        max_len=max_len, device=dev)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    _sync(dev)
+    t0 = time.monotonic()
+    eng._admit()                      # the first wave's prefill
+    _sync(dev)
+    t1 = time.monotonic()
+    eng.run()
+    _sync(dev)
+    t2 = time.monotonic()
+    return [r.output for r in reqs], eng.stats, t1 - t0, t2 - t1
+
+
+def _adapted(cfg, seed, dev):
+    """Random base + folded QuanTA on q/v with tensors perturbed away from
+    S, so the adapter's delta is not zero."""
+    import torch
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device=dev)
+    params = model.init(seed)
+    base, peft = attach(seed + 1, params, PeftConfig(
+        method="quanta", n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    for a in peft.flat().values():
+        for t in a.tensors:
+            t.add_(0.02 * torch.randn(t.shape, generator=gen, device=dev,
+                                      dtype=t.dtype))
+    return model, base, peft
+
+
+def f32_exactness(dev, cfg):
+    """``cfg``: llama2-7b-proxy cut to 2 layers in float32."""
+    import torch
+
+    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
+    model, base, peft = _adapted(cfg, 100, dev)
+    plain = type(model)(cfg.replace(attn_backend="reference",
+                                    peft_backend="reference"), device=dev)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64)]
+    out_k, _, _, _ = _serve(model, base, peft, prompts, 16, 4, 256)
+    out_p, _, _, _ = _serve(plain, base, peft, prompts, 16, 4, 256)
+    same = sum(a == b for a, b in zip(out_k, out_p))
+    print(f"f32: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"float32: kernel vs plain "
+          f"engine identical greedy tokens {same}/{len(prompts)} requests "
+          f"x 16 tokens")
+    if out_k != out_p:
+        raise AssertionError(f"kernel and plain tokens differ: {out_k} vs "
+                             f"{out_p}")
+
+
+def full_serve(card, dev, cfg):
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.peft import merge_all
+
+    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
+    t0 = time.monotonic()
+    model, base, peft = _adapted(cfg, 200, dev)
+    merged = merge_all(base, peft)
+    _sync(dev)
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} params), "
+          f"set-up {time.monotonic() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(9)
+    lengths = [32, 82, 132, 182, 232, 282, 332, 384]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lengths]
+
+    kernels.reset_launch_counts()
+    out_a, stats, t_pre, t_dec = _serve(model, base, peft, prompts, 32, 8,
+                                        512)
+    counts = kernels.launch_counts()
+    print(f"serve adapted: prefill {t_pre * 1e3:.1f} ms (wall, 8 prompts, "
+          f"{sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms (wall, "
+          f"{stats['decode_calls']} ticks), stats {stats}, launches "
+          f"{counts} [{card}]")
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    out_m, stats_m, t_pre_m, t_dec_m = _serve(model, merged, None, prompts,
+                                              32, 8, 512)
+    print(f"serve merged: prefill {t_pre_m * 1e3:.1f} ms, decode "
+          f"{t_dec_m * 1e3:.1f} ms (wall) [{card}]")
+    agree = sum(a == b for ra, rb in zip(out_a, out_m) for a, b in zip(ra, rb))
+    total = sum(len(r) for r in out_a)
+    print(f"serve: adapted vs merged token agreement {agree}/{total}; "
+          f"first request adapted {out_a[0][:8]} merged {out_m[0][:8]}")
+    if any(len(r) != 32 for r in out_a + out_m):
+        raise AssertionError("a request did not get its 32 tokens")
+    toks = torch.zeros((8, 384), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    la, _ = model.prefill(base, peft, {"tokens": toks.to(dev)}, lengths=lens)
+    lm, _ = model.prefill(merged, None, {"tokens": toks.to(dev)},
+                          lengths=lens)
+    la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
+    if not (torch.isfinite(la).all() and torch.isfinite(lm).all()):
+        raise AssertionError("non-finite prefill logits")
+    rel = float((la - lm).abs().max() / lm.abs().max())
+    print(f"serve: adapted vs merged prefill logits max_rel {rel:.3e} "
+          f"(tolerance {SERVE_LOGIT_TOL}); logits shape {tuple(la.shape)}")
+    if rel > SERVE_LOGIT_TOL:
+        fail("adapted and merged prefill logits disagree")
+    # planted fault: the first chain stage of every adapter skipped (its
+    # tensor made the identity), then put back
+    firsts = [a.tensors[0] for a in peft.flat().values()]
+    saved = [t.clone() for t in firsts]
+    for t in firsts:               # (..., om, on, im, in), maybe stacked
+        om, on, im, i_n = t.shape[-4:]
+        t.copy_(torch.eye(om * on, im * i_n, device=dev, dtype=t.dtype
+                          ).reshape(om, on, im, i_n).expand_as(t))
+    lf, _ = model.prefill(base, peft, {"tokens": toks.to(dev)}, lengths=lens)
+    for t, old in zip(firsts, saved):
+        t.copy_(old)
+    lf = lf[..., :cfg.vocab_size].float()
+    rel_f = float((lf - lm).abs().max() / lm.abs().max())
+    print(f"fault serve (first chain stage skipped): adapted vs merged "
+          f"prefill logits max_rel {rel_f:.3e} "
+          f"{'caught' if rel_f > SERVE_LOGIT_TOL else 'passes: too loose'}")
+    if rel_f <= SERVE_LOGIT_TOL:
+        fail("a skipped chain stage passes the serve logit tolerance")
+    return counts, (model, base, peft, prompts)
+
+
+def _device_ms(prof):
+    """Device time by kernel name, in ms, from a finished profiler."""
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.device_type.name == "CUDA":
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out
+
+
+def profile_serve(card, model, base, peft, prompts):
+    """Device time of the adapted model's prefill wave and of 8 decode
+    ticks, by kernel, beside the wall time of the same window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request, ServingEngine
+
+    dev = model.device
+    eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32))
+    groups = (("quanta_apply", "quanta_chain_kernel"),
+              ("quanta_linear", "gemm_bf16_kernel"),
+              ("flash_attention", "flash_forward_kernel"),
+              ("flash_decode_attention", "flash_decode_kernel"))
+    for label, work, n in (("prefill", eng._admit, 1),
+                           ("decode", eng.step, 8)):
+        _sync(dev)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                work()
+            _sync(dev)
+            wall = (time.monotonic() - t0) * 1e3
+        by_name = _device_ms(prof)
+        busy = sum(by_name.values())
+        parts = {g: sum(v for k, v in by_name.items() if sub in k)
+                 for g, sub in groups}
+        parts["other"] = busy - sum(parts.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"profile {label} ({n} call{'s' * (n > 1)}): device busy "
+              f"{busy:.2f} ms of {wall:.2f} ms wall under the profiler; by "
+              f"kernel " + ", ".join(f"{g} {v:.2f}" for g, v in parts.items())
+              + f" ms [{card}]")
+        for name, v in top:
+            print(f"profile {label} top: {v:.3f} ms {name[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (HERE / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = smi
+    print(f"device: {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"numerics: matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}; timing: CUDA events around "
+          f"each call, a {flush_bytes() >> 20} MiB write before it (L2 "
+          f"{torch.cuda.get_device_properties(0).L2_cache_size >> 20} MiB)")
+
+    secs = _build.build_all()
+    print(f"build: {len(_build.SOURCES)} sources with nvcc for sm_90a in "
+          f"{secs:.1f} s")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "Used" in line or "error" in line or "warning" in line:
+                print(f"build {name}: {line.strip()}")
+    card_tests()
+
+    records = check_kernels(card)
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    full = get_config("llama2-7b-proxy")
+    f32_exactness(dev, full.replace(n_layers=2, param_dtype=torch.float32,
+                                    compute_dtype=torch.float32))
+    counts, served = full_serve(card, dev, full)
+    if "--profile" in sys.argv[1:]:
+        profile_serve(card, *served)
+
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
+              file=sys.stderr)
+        return 1
+    rows = []
+    for name, (src, replaces) in SOURCES.items():
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=counts[name],
+                         **records[name]))
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

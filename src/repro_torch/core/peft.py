@@ -1,0 +1,301 @@
+"""PEFT attachment layer, QuanTA only (port of ``repro/core/peft.py``).
+
+Models store every adaptable linear as ``(d_in, d_out)`` or, stacked over
+layers, ``(L, d_in, d_out)``.  :func:`attach` builds an
+:class:`AdapterSet` whose ``tree`` mirrors the parameter paths (adapters
+stacked along the layer axis for stacked weights) and returns the base
+params with the frozen copy folded in (``W0' = W0 - S``).
+:func:`peft_linear` is the adapted linear every model calls;
+:func:`merge_all` merges trained adapters into the weights.  Fold-free
+QuanTA and the other methods of the JAX package (LoRA, DoRA, DoTA, KronA)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import quanta as Q
+from repro_torch.core.adapters import base_matmul
+from repro_torch.core.factorize import factorize, pair_schedule, parse_scheme
+from repro_torch.kernels.dispatch import default_device
+
+__all__ = [
+    "PeftConfig",
+    "AdapterLeafSpec",
+    "AdapterSet",
+    "choose_dims",
+    "attach",
+    "merge_all",
+    "peft_linear",
+    "adapter_subtree",
+    "get_adapter",
+    "layer_tree",
+    "count_params",
+    "flatten_paths",
+]
+
+DEFAULT_TARGETS = (r".*/(q_proj|v_proj)$",)
+
+
+@dataclasses.dataclass(frozen=True)
+class PeftConfig:
+    """Which method to attach, where, and with what hyperparameters."""
+
+    method: str = "quanta"
+    targets: Tuple[str, ...] = DEFAULT_TARGETS
+    n_axes: int = 4
+    scheme: Optional[str] = None          # e.g. "16-8-8-4"
+    rounds: int = 1
+    init: str = "identity_noise"
+    noise_scale: float = 0.02
+    fold: bool = True
+    dtype: Any = torch.float32
+
+    def replace(self, **kw) -> "PeftConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def flatten_paths(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` of a nested dict (adapters are leaves)."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_paths(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _set_path(tree: Dict[str, Any], path: str, value: Any) -> None:
+    keys = path.split("/")
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+
+
+def _copy_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of the dict structure sharing every leaf."""
+    return {k: _copy_tree(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def _match(path: str, patterns: Tuple[str, ...]) -> bool:
+    return any(re.fullmatch(p, path) for p in patterns)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterLeafSpec:
+    """Static per-path record of what ``attach`` created."""
+
+    path: str
+    method: str
+    stacked: bool
+    d_in: int
+    d_out: int
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterSet:
+    """Adapters of one model: ``tree`` mirrors the parameter paths,
+    ``specs`` records method and layout per adapted path."""
+
+    tree: Dict[str, Any]
+    specs: Tuple[AdapterLeafSpec, ...] = ()
+
+    def subtree(self, key: str) -> Dict[str, Any]:
+        return self.tree.get(key, {})
+
+    def __getitem__(self, key: str):
+        return self.tree[key]
+
+    def flat(self) -> Dict[str, Any]:
+        return flatten_paths(self.tree)
+
+    @property
+    def paths(self) -> Tuple[str, ...]:
+        return tuple(s.path for s in self.specs)
+
+    @property
+    def num_params(self) -> int:
+        return count_params(self.tree)
+
+
+def choose_dims(
+    d_in: int, d_out: int, n_axes: int, scheme: Optional[str] = None
+) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """QuanTA axis factorizations for a (possibly rectangular) weight: the
+    scheme or a balanced factorization when square; the simple ratio
+    carried by axis 0 when rectangular (App. B)."""
+    if d_in == d_out:
+        dims = parse_scheme(scheme) if scheme else factorize(d_in, n_axes)
+        if math.prod(dims) != d_in:
+            raise ValueError(f"scheme {scheme} does not factor d={d_in}")
+        return dims, dims
+    g = math.gcd(d_in, d_out)
+    p, q = d_in // g, d_out // g
+    if d_in % p:
+        raise ValueError(f"no simple-ratio factorization for {d_in}->{d_out}")
+    base = factorize(d_in // p, n_axes)
+    return (p * base[0],) + base[1:], (q * base[0],) + base[1:]
+
+
+def _make_adapter(gen: torch.Generator, w: torch.Tensor, cfg: PeftConfig,
+                  device) -> Q.QuantaAdapter:
+    """One QuanTA adapter for weight ``w``; layer-stacked for 3-D ``w``."""
+    stacked = w.dim() == 3
+    d_in, d_out = w.shape[-2], w.shape[-1]
+    dims_in, dims_out = choose_dims(d_in, d_out, cfg.n_axes, cfg.scheme)
+    pairs = pair_schedule(len(dims_in)) * cfg.rounds
+
+    def make_one():
+        return Q.QuantaAdapter.create(
+            gen, d_in, d_out, n_axes=cfg.n_axes, dims_in=dims_in,
+            dims_out=dims_out, pairs=pairs, init=cfg.init,
+            noise_scale=cfg.noise_scale, dtype=cfg.dtype, device=device,
+        )
+
+    if not stacked:
+        return make_one()
+    layers = [make_one() for _ in range(w.shape[0])]
+    tensors = tuple(
+        torch.stack([a.tensors[i] for a in layers])
+        for i in range(len(layers[0].tensors))
+    )
+    return Q.QuantaAdapter(tensors, layers[0].dims_in, layers[0].dims_out,
+                           layers[0].pairs)
+
+
+def _per_layer(fn, w: torch.Tensor, adapter) -> torch.Tensor:
+    """``fn(w, adapter)`` for a flat weight, layer by layer for a stacked
+    one (the JAX package's ``vmap``)."""
+    if w.dim() == 3:
+        return torch.stack([fn(w[i], adapter.layer(i))
+                            for i in range(w.shape[0])])
+    return fn(w, adapter)
+
+
+def attach(
+    seed, params: Dict[str, Any], cfg: PeftConfig, *, device=None
+) -> Tuple[Dict[str, Any], Any]:
+    """Create adapters for every parameter path matching ``cfg.targets``.
+
+    ``seed`` is an int or a ``torch.Generator`` on ``device``.  Returns
+    ``(base_params, adapter_set)``; the adapted base weights are ``W0 - S``
+    (the model is exactly the base model at step 0).  Runs on the card
+    unless ``device`` says otherwise.
+    """
+    device = default_device(device)
+    if cfg.method in ("ft", "none"):
+        return params, {}
+    if cfg.method != "quanta":
+        raise NotImplementedError(
+            f"PEFT method {cfg.method!r} is not ported yet (QuanTA only)"
+        )
+    if not cfg.fold:
+        raise NotImplementedError("fold-free QuanTA is not ported yet")
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+    flat = flatten_paths(params)
+    targets = {p: w for p, w in flat.items() if _match(p, cfg.targets)}
+    if not targets:
+        raise ValueError(
+            f"no parameter matched targets {cfg.targets}; available paths: "
+            f"{sorted(flat)[:20]}..."
+        )
+    peft: Dict[str, Any] = {}
+    specs = []
+    new_params = _copy_tree(params)
+    for path, w in sorted(targets.items()):
+        if w.dim() not in (2, 3):
+            raise ValueError(f"target {path} has ndim={w.dim()}; expected 2 or 3")
+        adapter = _make_adapter(gen, w, cfg, device)
+        _set_path(peft, path, adapter)
+        specs.append(AdapterLeafSpec(
+            path, cfg.method, w.dim() == 3, w.shape[-2], w.shape[-1],
+        ))
+        _set_path(new_params, path,
+                  _per_layer(Q.fold_frozen_copy, w, adapter))
+    return new_params, AdapterSet(tree=peft, specs=tuple(specs))
+
+
+def adapter_subtree(peft, key: str) -> Dict[str, Any]:
+    """The nested adapter tree of one model group (``None``, a bare dict
+    or an :class:`AdapterSet`)."""
+    if peft is None:
+        return {}
+    sub = getattr(peft, "subtree", None)
+    if sub is not None:
+        return sub(key)
+    return peft.get(key, {})
+
+
+def layer_tree(tree: Dict[str, Any], index: int) -> Dict[str, Any]:
+    """Layer ``index`` of a nested dict of layer-stacked tensors and
+    adapters (views, no copies)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = layer_tree(v, index)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v[index]
+        else:
+            out[k] = v.layer(index)
+    return out
+
+
+def get_adapter(peft: Optional[Dict[str, Any]], *keys: str):
+    """Walk the adapter tree; None when the path is not adapted."""
+    node = peft
+    for k in keys:
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node if not isinstance(node, dict) else None
+
+
+def peft_linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    adapter=None,
+    bias: Optional[torch.Tensor] = None,
+    backend: str = "reference",
+) -> torch.Tensor:
+    """The adapted linear of every model: ``adapter.apply`` (protocol
+    dispatch) or ``x @ w``, plus the bias."""
+    y = base_matmul(x, w) if adapter is None else adapter.apply(x, w, backend)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def merge_all(params: Dict[str, Any], peft) -> Dict[str, Any]:
+    """Merge every adapter into the base weights (the deployment form,
+    §6).  Unadapted leaves are shared with ``params``, not copied."""
+    flat_adapters = flatten_paths(getattr(peft, "tree", peft) or {})
+    flat_params = flatten_paths(params)
+    merged = _copy_tree(params)
+    for path, adapter in flat_adapters.items():
+        _set_path(merged, path, _per_layer(
+            lambda w, a: a.merge(w), flat_params[path], adapter
+        ))
+    return merged
+
+
+def count_params(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    return tree.num_params
+

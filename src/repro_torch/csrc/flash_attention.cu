@@ -1,0 +1,353 @@
+// Causal flash attention (prefill) and dense-cache flash decode, for
+// Hopper (sm_90a).
+//
+// Replaces two TPU kernels of repro/kernels/flash_attention.py:
+//   * _flash_forward / _flash_kernel (public flash_attention): causal,
+//     optionally sliding-window GQA attention, q (B,S,H,hd), k/v
+//     (B,S,KV,hd);
+//   * flash_decode_attention / _decode_kernel: one query token per slot
+//     over a dense cache (B,S_max,KV,hd), masked by each slot's cache_len.
+//
+// Both share one block body (attend_block): up to 64 query rows against a
+// walk over 64-key tiles, with the TPU kernels' softmax rules -- fp32
+// running max, denominator and accumulator (online softmax), p cast to the
+// value dtype before the PV product, masking by MASK_VALUE = -1e30 (finite,
+// so a fully masked tile never makes inf - inf), and denom == 0 guarded.
+//
+// What bounds them on the H100: the prefill forward at llama2-7b widths
+// (hd = 128, S of a few hundred) does 4*hd FLOPs per visible (query, key)
+// pair against 2*hd bytes per key it reads: operations, not bytes.  Decode
+// reads each valid key and value row once for G = H/KV query rows: bytes.
+//
+// What the design does about it: only key tiles that the causal mask (and
+// the window) leave visible are visited -- [j_lo, j_hi] of
+// _visible_j_range for prefill, and for decode the tiles up to the slot's
+// cache_len, which the block reads itself, so the blocks of short slots
+// cost nothing past their length.  K and V tiles sit in shared memory as
+// fp32 (rows padded by one word against bank conflicts), the score tile is
+// a 4x4 register micro-tile per thread, and each thread owns 8 rows x 4
+// head dims of the output accumulator in registers.  The arithmetic is
+// SIMT fp32 (no tensor cores, no TMA): simple and exact first; wgmma comes
+// in a later PR.  Any S is taken: query rows and keys past the end are
+// masked, with no padding copy.  GQA reads KV head h / (H / KV).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 64;     // query rows per block
+constexpr int kKeys = 64;     // keys per KV tile
+constexpr int kThreads = 256;
+constexpr int kMaxHd = 128;
+constexpr float kMask = -1e30f;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+size_t smem_bytes(int hd) {
+  return sizeof(float) * ((size_t)kRows * (hd + 1) + (size_t)kKeys * (hd + 1) +
+                          (size_t)kKeys * hd + (size_t)kRows * (kKeys + 1) +
+                          2 * kRows);
+}
+
+// Rows r < n_rows of q (row stride q_rs elements) attend to keys at
+// positions kv (key stride kv_s) in tiles j_lo..j_hi; row r sits at
+// position q_pos0 + r * q_pos_step and sees key kv iff kv <= q_pos,
+// kv < s_kv and (window < 0 or q_pos - kv < window).
+template <typename T>
+__device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v, long long q_rs,
+                             long long kv_s, int n_rows, int hd, int q_pos0,
+                             int q_pos_step, int s_kv, int j_lo, int j_hi,
+                             int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldq = hd + 1;
+  const int ldp = kKeys + 1;
+  float* Qs = smem;
+  float* Ks = Qs + kRows * ldq;
+  float* Vs = Ks + kKeys * ldq;
+  float* Ps = Vs + kKeys * hd;
+  float* row_m = Ps + kRows * ldp;
+  float* row_l = row_m + kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < kRows * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    Qs[r * ldq + d] = r < n_rows ? to_f(q[r * q_rs + d]) : 0.f;
+  }
+  for (int r = tid; r < kRows; r += kThreads) {
+    row_m[r] = kMask;
+    row_l[r] = 0.f;
+  }
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jd = 0; jd < 4; ++jd) acc[i][jd] = 0.f;
+  __syncthreads();
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int kv0 = j * kKeys;
+    const int n_keys = min(kKeys, s_kv - kv0);
+    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
+    for (int i = tid; i < kKeys * hd; i += kThreads) {
+      const int kk = i / hd, d = i - kk * hd;
+      float kval = 0.f, vval = 0.f;
+      if (kk < n_keys) {
+        const long long off = (long long)(kv0 + kk) * kv_s + d;
+        kval = to_f(k[off]);
+        vval = to_f(v[off]);
+      }
+      Ks[kk * ldq + d] = kval;
+      Vs[kk * hd + d] = vval;
+    }
+    __syncthreads();
+
+    // scores: rows rg + 16*i, keys kg + 16*jj
+    {
+      const int rg = tid >> 4, kg = tid & 15;
+      if (rg < n_rows) {
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+        for (int d = 0; d < hd; ++d) {
+          float qa[4], kb[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = Qs[(rg + 16 * i) * ldq + d];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) kb[jj] = Ks[(kg + 16 * jj) * ldq + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              s[i][jj] = fmaf(qa[i], kb[jj], s[i][jj]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg + 16 * i;
+          const int q_pos = q_pos0 + r * q_pos_step;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int kk = kg + 16 * jj;
+            const int kv_pos = kv0 + kk;
+            const bool ok = kk < n_keys && kv_pos <= q_pos &&
+                            (window < 0 || q_pos - kv_pos < window);
+            Ps[r * ldp + kk] = ok ? s[i][jj] * scale : kMask;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax + PV: warp w owns rows w + 8*i
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= n_rows) continue;  // uniform across the warp
+      float* pr = Ps + r * ldp;
+      const float s0 = pr[lane], s1 = pr[lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = row_m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float alpha = expf(m_prev - m_new);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      pr[lane] = to_f(from_f<T>(p0));  // p in the value dtype for PV
+      pr[lane + 32] = to_f(from_f<T>(p1));
+      __syncwarp();
+      if (lane == 0) {
+        row_m[r] = m_new;
+        row_l[r] = alpha * row_l[r] + sum;
+      }
+#pragma unroll
+      for (int jd = 0; jd < 4; ++jd) acc[i][jd] *= alpha;
+      for (int kk = 0; kk < kKeys; ++kk) {
+        const float p = pr[kk];
+#pragma unroll
+        for (int jd = 0; jd < 4; ++jd) {
+          const int d = lane + 32 * jd;
+          if (d < hd) acc[i][jd] = fmaf(p, Vs[kk * hd + d], acc[i][jd]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = warp + 8 * i;
+    if (r >= n_rows) continue;
+    const float l = row_l[r];
+    const float denom = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int jd = 0; jd < 4; ++jd) {
+      const int d = lane + 32 * jd;
+      if (d < hd) o[r * q_rs + d] = from_f<T>(acc[i][jd] / denom);
+    }
+  }
+}
+
+// grid (ceil(S/64), H, B): one block per (b, h, 64-query tile)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_forward_kernel(const T* q, const T* k, const T* v, T* o, int S,
+                         int H, int KV, int hd, int window, float scale) {
+  const int q_lo = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int n_k = (S + kKeys - 1) / kKeys;
+  const int j_hi = min((q_lo + kRows - 1) / kKeys, n_k - 1);
+  int j_lo = 0;
+  if (window > 0) {
+    const int first = q_lo - window + 1;
+    j_lo = first > 0 ? first / kKeys : 0;
+  }
+  const long long q_off = (((long long)b * S + q_lo) * H + h) * hd;
+  const long long kv_off = ((long long)b * S * KV + kvh) * hd;
+  attend_block<T>(q + q_off, o + q_off, k + kv_off, v + kv_off,
+                  (long long)H * hd, (long long)KV * hd, min(kRows, S - q_lo),
+                  hd, q_lo, 1, S, j_lo, j_hi, window, scale);
+}
+
+// grid (KV, B): one block per (b, kv head) holding the G query rows of the
+// group; the block reads its slot's cache_len itself
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_kernel(const T* q, const T* kc, const T* vc,
+                        const int* __restrict__ lens, T* o, int S_max, int H,
+                        int KV, int hd, int window, float scale) {
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = H / KV;
+  const int length = lens[b];
+  const int q_pos = length - 1;
+  const int n_k = (S_max + kKeys - 1) / kKeys;
+  const int j_hi = length > 0 ? min(q_pos / kKeys, n_k - 1) : -1;
+  int j_lo = 0;
+  if (window > 0) {
+    const int first = q_pos - window + 1;
+    j_lo = first > 0 ? first / kKeys : 0;
+  }
+  const long long q_off = ((long long)b * H + (long long)kvh * G) * hd;
+  const long long kv_off = ((long long)b * S_max * KV + kvh) * hd;
+  attend_block<T>(q + q_off, o + q_off, kc + kv_off, vc + kv_off,
+                  (long long)hd, (long long)KV * hd, G, hd, q_pos, 0, S_max,
+                  j_lo, j_hi, window, scale);
+}
+
+// Raise the kernel's dynamic shared-memory cap to `bytes` on the current
+// device, once per device and size; refuse what the device cannot give.
+template <typename K>
+int allow_smem(K kernel, size_t bytes, int smem_limit, int* granted) {
+  if (bytes > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if ((int)bytes <= granted[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  granted[dev] = (int)bytes;
+  return 0;
+}
+
+template <typename T>
+int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
+            int H, int KV, int hd, int window, float scale, int smem_limit,
+            cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const size_t smem = smem_bytes(hd);
+  int err = allow_smem(flash_forward_kernel<T>, smem, smem_limit, granted);
+  if (err) return err;
+  dim3 grid((S + kRows - 1) / kRows, H, B);
+  flash_forward_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int decode(const void* q, const void* kc, const void* vc, const int* lens,
+           void* o, int B, int S_max, int H, int KV, int hd, int window,
+           float scale, int smem_limit, cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const size_t smem = smem_bytes(hd);
+  int err = allow_smem(flash_decode_kernel<T>, smem, smem_limit, granted);
+  if (err) return err;
+  dim3 grid(KV, B);
+  flash_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), lens, static_cast<T*>(o), S_max, H, KV, hd,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+bool shapes_ok(int H, int KV, int hd) {
+  return hd >= 1 && hd <= kMaxHd && KV >= 1 && H % KV == 0 &&
+         H / KV <= kRows;
+}
+
+}  // namespace
+
+// q, k, v, o contiguous (B, S, H|KV, hd) in one dtype (0 float32,
+// 1 bfloat16); window < 0 means full causal attention.  smem_limit: the
+// shared memory a block of this device may opt in to.
+extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
+                                    const void* v, void* o, int B, int S,
+                                    int H, int KV, int hd, int window,
+                                    float scale, int smem_limit,
+                                    void* stream) {
+  if (!shapes_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return forward<float>(q, k, v, o, B, S, H, KV, hd, window, scale,
+                          smem_limit, s);
+  if (dtype == 1)
+    return forward<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, window, scale,
+                                  smem_limit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, o contiguous (B, 1, H, hd); caches contiguous (B, S_max, KV, hd);
+// lens (B,) int32 valid entries per slot, the new token included.
+extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
+                                   const void* vc, const void* lens, void* o,
+                                   int B, int S_max, int H, int KV, int hd,
+                                   int window, float scale, int smem_limit,
+                                   void* stream) {
+  if (!shapes_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* l = static_cast<const int*>(lens);
+  if (dtype == 0)
+    return decode<float>(q, kc, vc, l, o, B, S_max, H, KV, hd, window, scale,
+                         smem_limit, s);
+  if (dtype == 1)
+    return decode<__nv_bfloat16>(q, kc, vc, l, o, B, S_max, H, KV, hd, window,
+                                 scale, smem_limit, s);
+  return (int)cudaErrorInvalidValue;
+}

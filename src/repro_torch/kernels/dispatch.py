@@ -1,0 +1,64 @@
+"""Backend helpers shared by every kernel wrapper of the port.
+
+A wrapper runs its plain PyTorch version when its tensors lie on the CPU
+and launches its hand-written CUDA kernel when they lie on the card; any
+other device raises.  There is no fallback from a CUDA tensor to the
+plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["MASK_VALUE", "masked_softmax", "route", "default_device"]
+
+# The additive mask for attention logits.  Finite (not -inf) so masked
+# rows exp() to exactly 0.0 without NaN-producing inf-inf in the online
+# softmax rescale; shared by the plain paths and the flash kernels.
+MASK_VALUE = -1e30
+
+
+def masked_softmax(scores: torch.Tensor, value_dtype,
+                   fast: bool) -> torch.Tensor:
+    """Row softmax of already-masked fp32 ``scores``, cast for the PV
+    matmul.  ``fast=True`` keeps fp32 row statistics but the exp tensor in
+    the value dtype."""
+    if fast:
+        m = scores.amax(dim=-1, keepdim=True)
+        e = torch.exp(scores - m).to(value_dtype)
+        denom = e.float().sum(dim=-1, keepdim=True)
+        return e / denom.to(value_dtype)
+    return torch.softmax(scores, dim=-1).to(value_dtype)
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """``"plain"`` when every tensor lies on the CPU, ``"cuda"`` when every
+    tensor lies on one CUDA device; raises otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return "plain"
+    if dev.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: the caller's, else the card.
+
+    Entry points never fall back to the CPU on their own: the CPU is used
+    only when the caller passes ``device="cpu"``.
+    """
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card by default; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,362 @@
+"""Causal flash attention (prefill) and dense-cache flash decode: CUDA
+kernels in ``csrc/flash_attention.cu`` and their plain PyTorch versions.
+
+Replaces the TPU kernels of ``repro/kernels/flash_attention.py``:
+``_flash_forward`` (public ``flash_attention``) and
+``flash_decode_attention``.  Layouts are the JAX package's: ``q (B, S, H,
+hd)``, ``k/v (B, S, KV, hd)``, a dense cache ``(B, S_max, KV, hd)`` and
+``cache_len (B,)``.  CPU tensors run the plain versions
+(:func:`flash_attention_plain` and :func:`flash_decode_attention_plain`),
+which walk the same 64-key tiles as the kernels with the same online
+softmax and the same rounding points; CUDA tensors launch the kernels.
+:func:`blockwise_reference_attention` and
+:func:`decode_reference_attention` are the reference backend's
+attention, with the softmax normalised before ``p`` is cast.  Forward
+only: prefill needs no gradient, and the recompute backward comes with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.dispatch import MASK_VALUE, masked_softmax, route
+from repro_torch.kernels.smem import device_limits
+
+__all__ = [
+    "flash_attention",
+    "flash_decode_attention",
+    "flash_attention_plain",
+    "flash_decode_attention_plain",
+    "blockwise_reference_attention",
+    "decode_reference_attention",
+    "pad_to_q_block",
+    "KERNEL_BLOCK",
+]
+
+# query rows per block and keys per tile of both CUDA kernels
+KERNEL_BLOCK = 64
+_MAX_HEAD_DIM = 128
+
+
+def _visible_j_range(q_lo: int, bq: int, bk: int, n_k: int,
+                     window: Optional[int]):
+    """Inclusive KV-tile range ``[j_lo, j_hi]`` visible to the query tile
+    starting at ``q_lo`` (the CUDA forward computes the same range)."""
+    j_hi = min((q_lo + bq - 1) // bk, n_k - 1)
+    j_lo = 0 if window is None else max(0, (q_lo - window + 1) // bk)
+    return j_lo, j_hi
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def pad_to_q_block(s: int, q_block: int) -> tuple:
+    """Effective ``(q_block, padded_s)`` for a sequence of length ``s``."""
+    bq = min(q_block, s)
+    return bq, s + ((-s) % bq)
+
+
+def _block_attend(
+    q: torch.Tensor,          # (B, Bq, KV, G, hd)
+    k: torch.Tensor,          # (B, S, KV, hd)
+    v: torch.Tensor,          # (B, S, KV, hd)
+    q_pos: torch.Tensor,      # (Bq,)
+    kv_pos: torch.Tensor,     # (S,)
+    window: Optional[int],
+    softmax_scale: float,
+    fast_softmax: bool,
+) -> torch.Tensor:
+    scores = torch.einsum(
+        "bqkgh,bskh->bkgqs", q.float(), k.float()
+    ) * softmax_scale                                   # (B, KV, G, Bq, S)
+    causal = q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        causal &= (q_pos[:, None] - kv_pos[None, :]) < window
+    scores = torch.where(causal, scores, MASK_VALUE)
+    probs = masked_softmax(scores, v.dtype, fast_softmax)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def blockwise_reference_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_block: int = 512,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain causal attention over query blocks: full score rows are
+    computed and masked.  Returns ``(B, S, H, hd)``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, kv, g, hd)
+    kv_pos = torch.arange(s, device=q.device)
+    bq, s_pad = pad_to_q_block(s, q_block)
+    outs = []
+    for lo in range(0, s_pad, bq):
+        hi = min(lo + bq, s)
+        outs.append(_block_attend(
+            qg[:, lo:hi], k, v, kv_pos[lo:hi], kv_pos, window, scale,
+            fast_softmax,
+        ))
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+def decode_reference_attention(
+    q: torch.Tensor,              # (B, 1, H, hd)
+    k_cache: torch.Tensor,        # (B, S_max, KV, hd)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,      # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain single-step attention over a dense cache (the reference
+    branch of ``models/attention.decode_attention``)."""
+    b, _, h, hd = q.shape
+    s_max, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, 1, kv, g, hd)
+    kv_pos = torch.arange(s_max, device=q.device)
+    cache_len = cache_len.to(q.device)
+    q_pos = cache_len - 1
+    scores = torch.einsum(
+        "bqkgh,bskh->bkgqs", qg.float(), k_cache.float()
+    ) * scale                                           # (B, KV, G, 1, S)
+    valid = kv_pos[None, :] < cache_len[:, None]
+    if window is not None:
+        valid &= (q_pos[:, None] - kv_pos[None, :]) < window
+    scores = torch.where(valid[:, None, None, None, :], scores, MASK_VALUE)
+    probs = masked_softmax(scores, v_cache.dtype, fast_softmax)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def _attend_tiles(
+    qg: torch.Tensor,         # (B, R, KV, G, hd)
+    k: torch.Tensor,          # (B, S, KV, hd)
+    v: torch.Tensor,          # (B, S, KV, hd)
+    q_pos: torch.Tensor,      # (B, R) position of each query row
+    j_lo: torch.Tensor,       # (B,) first KV tile each slot visits
+    j_hi: torch.Tensor,       # (B,) last KV tile each slot visits
+    window: Optional[int],
+    scale: float,
+) -> torch.Tensor:
+    """The CUDA kernels' ``attend_block`` in plain PyTorch: an online
+    softmax over 64-key tiles ``j_lo..j_hi`` (fp32 running max,
+    denominator and accumulator), ``p`` cast to v's dtype before PV, the
+    output rounded once.  Returns ``(B, R, KV, G, hd)`` in v's dtype."""
+    b, r, kvh, g, hd = qg.shape
+    s_kv = k.shape[1]
+    dev = qg.device
+    m = torch.full((b, kvh, g, r), MASK_VALUE, dtype=torch.float32,
+                   device=dev)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, r, hd), dtype=torch.float32, device=dev)
+    qf = qg.float()
+    n_tiles = int(j_hi.max()) + 1 if j_hi.numel() else 0
+    for j in range(int(j_lo.min()) if j_lo.numel() else 0, n_tiles):
+        kv0 = j * KERNEL_BLOCK
+        kv1 = min(kv0 + KERNEL_BLOCK, s_kv)
+        kv_pos = torch.arange(kv0, kv1, device=dev)
+        scores = torch.einsum(
+            "brkgh,bskh->bkgrs", qf, k[:, kv0:kv1].float()) * scale
+        ok = kv_pos[None, None, :] <= q_pos[:, :, None]          # (B, R, s)
+        if window is not None:
+            ok &= (q_pos[:, :, None] - kv_pos[None, None, :]) < window
+        scores = torch.where(ok[:, None, None], scores, MASK_VALUE)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        pv = torch.einsum("bkgrs,bskh->bkgrh", p.to(v.dtype).float(),
+                          v[:, kv0:kv1].float())
+        visit = ((j_lo <= j) & (j <= j_hi))[:, None, None, None]
+        denom = torch.where(visit, alpha * denom + p.sum(dim=-1), denom)
+        acc = torch.where(visit[..., None], acc * alpha[..., None] + pv, acc)
+        m = torch.where(visit, m_new, m)
+    out = acc / torch.where(denom == 0, 1.0, denom)[..., None]
+    return out.to(v.dtype).permute(0, 3, 1, 2, 4)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,               # (B, S, H, hd)
+    k: torch.Tensor,               # (B, S, KV, hd)
+    v: torch.Tensor,               # (B, S, KV, hd)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The flash forward kernel's arithmetic in plain PyTorch: each
+    64-row query tile walks the KV tiles of :func:`_visible_j_range`.
+    Returns ``(B, S, H, hd)`` in v's dtype."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    n_k = -(-s // KERNEL_BLOCK)
+    outs = []
+    for q_lo in range(0, s, KERNEL_BLOCK):
+        q_hi = min(q_lo + KERNEL_BLOCK, s)
+        j_lo, j_hi = _visible_j_range(q_lo, KERNEL_BLOCK, KERNEL_BLOCK, n_k,
+                                      window)
+        pos = torch.arange(q_lo, q_hi, device=q.device).expand(b, -1)
+        outs.append(_attend_tiles(
+            qg[:, q_lo:q_hi], k, v, pos,
+            torch.full((b,), j_lo, device=q.device),
+            torch.full((b,), j_hi, device=q.device), window, scale))
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+def flash_decode_attention_plain(
+    q: torch.Tensor,               # (B, 1, H, hd)
+    k_cache: torch.Tensor,         # (B, S_max, KV, hd)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,       # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The flash decode kernel's arithmetic in plain PyTorch: each slot
+    walks the KV tiles up to its own ``cache_len`` (and from its window's
+    first tile).  Returns ``(B, 1, H, hd)`` in v's dtype."""
+    b, _, h, hd = q.shape
+    s_max, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    q_pos = cache_len.to(device=q.device, dtype=torch.long) - 1
+    n_k = -(-s_max // KERNEL_BLOCK)
+    j_hi = torch.where(q_pos >= 0, torch.clamp(q_pos // KERNEL_BLOCK,
+                                               max=n_k - 1), -1)
+    j_lo = torch.zeros_like(q_pos)
+    if window is not None:
+        j_lo = torch.clamp(q_pos - window + 1, min=0) // KERNEL_BLOCK
+    out = _attend_tiles(q.reshape(b, 1, kvh, h // kvh, hd), k_cache, v_cache,
+                        q_pos[:, None], j_lo, j_hi, window, scale)
+    return out.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _bind(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(_build.load("flash_attention"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_int] * n_ints
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+    return fn
+
+
+def _check_heads(h: int, kv: int, hd: int) -> None:
+    if h % kv:
+        raise ValueError(f"n_heads {h} must be a multiple of n_kv_heads {kv}")
+    if hd > _MAX_HEAD_DIM or h // kv > KERNEL_BLOCK:
+        raise ValueError(
+            f"the CUDA attention kernels take head_dim <= {_MAX_HEAD_DIM} and "
+            f"at most {KERNEL_BLOCK} query heads per KV head"
+        )
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def flash_attention(
+    q: torch.Tensor,               # (B, S, H, hd)
+    k: torch.Tensor,               # (B, S, KV, hd)
+    v: torch.Tensor,               # (B, S, KV, hd)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) flash attention, forward only.
+    Returns ``(B, S, H, hd)``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if h % kv:
+        raise ValueError(f"n_heads {h} must be a multiple of n_kv_heads {kv}")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    if route(q, k, v) == "plain":
+        return flash_attention_plain(q, k, v, window=window,
+                                     softmax_scale=scale)
+    _check_heads(h, kv, hd)
+    if k.shape != (b, s, kv, hd) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k and v must share one dtype")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    rc = _bind("flash_forward_launch", 4, 6)(
+        _build.dtype_code(q.dtype), _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        b, s, h, kv, hd, -1 if window is None else int(window), scale,
+        device_limits(q.device).smem_block, _build.stream_ptr(),
+    )
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_decode_attention(
+    q: torch.Tensor,               # (B, 1, H, hd)
+    k_cache: torch.Tensor,         # (B, S_max, KV, hd)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,       # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step flash attention over a dense cache; each slot attends
+    to its first ``cache_len`` entries.  Returns ``(B, 1, H, hd)``."""
+    b, q_len, h, hd = q.shape
+    if q_len != 1:
+        raise ValueError(f"decode kernel expects q_len == 1, got {q_len}")
+    s_max, kv = k_cache.shape[1], k_cache.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    if route(q, k_cache, v_cache, cache_len) == "plain":
+        return flash_decode_attention_plain(
+            q, k_cache, v_cache, cache_len, window=window,
+            softmax_scale=scale,
+        )
+    _check_heads(h, kv, hd)
+    if k_cache.shape != (b, s_max, kv, hd) or v_cache.shape != k_cache.shape \
+            or cache_len.shape != (b,):
+        raise ValueError(
+            f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} and "
+            f"cache_len {tuple(cache_len.shape)} do not fit q "
+            f"{tuple(q.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise ValueError("q and the caches must share one dtype")
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    lens = cache_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    rc = _bind("flash_decode_launch", 5, 6)(
+        _build.dtype_code(q.dtype), _ptr(q), _ptr(k_cache), _ptr(v_cache),
+        _ptr(lens), _ptr(out), b, s_max, h, kv, hd,
+        -1 if window is None else int(window), scale,
+        device_limits(q.device).smem_block, _build.stream_ptr(),
+    )
+    _build.check(rc, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_decode_attention.launches = 0

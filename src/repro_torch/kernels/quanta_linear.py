@@ -1,0 +1,101 @@
+"""The adapted linear ``y = x @ W + chain(x)``: two-phase CUDA kernel
+(``csrc/quanta_apply.cu`` then ``csrc/quanta_linear.cu``) and its plain
+PyTorch version.
+
+Replaces the TPU kernel ``repro/kernels/quanta_linear.py``
+(``quanta_linear_kernel_call``).  Hopper blocks run in no fixed order, so
+the TPU kernel's per-row-block fp32 chain scratch cannot be carried across
+column tiles.  Instead: (a) the chain kernel writes the chain of every row
+once to a ``(rows, d_out)`` buffer in x's dtype; (b) a hand-written tiled
+GEMM computes ``x @ W`` with fp32 accumulators and adds the delta tile in
+its epilogue.  There is no full-width scratch, so the JAX wrapper's VMEM
+gate (``fused_vmem_ok``) has no counterpart: every shape takes the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from repro_torch.core.quanta import apply_sequential
+from repro_torch.kernels import _build
+from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.quanta_apply import _check, _launch_chain
+
+__all__ = ["quanta_linear", "quanta_linear_plain"]
+
+
+def quanta_linear_plain(
+    x: torch.Tensor,                      # (rows, d_in)
+    w: torch.Tensor,                      # (d_in, d_out)
+    tensors: Sequence[torch.Tensor],
+    dims_in: Tuple[int, ...],
+    pairs: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: the chain in x's dtype,
+    then ``x @ w`` accumulated in fp32 plus that delta, rounded once."""
+    delta = apply_sequential(x, tensors, dims_in, pairs)
+    return (x.float() @ w.float() + delta.float()).to(x.dtype)
+
+
+def _bind():
+    fn = _build.load("quanta_linear").quanta_linear_gemm_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+    return fn
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the bf16 GEMM's vector loads
+    need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def quanta_linear(
+    x: torch.Tensor,                      # (rows, d_in)
+    w: torch.Tensor,                      # (d_in, d_out)
+    tensors: Sequence[torch.Tensor],
+    dims_in: Tuple[int, ...],
+    pairs: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """``x @ w + chain(x)`` in x's dtype.  CPU tensors run the plain
+    version; CUDA tensors launch the two kernels or raise."""
+    tensors = list(tensors)
+    _check(x, tensors, dims_in, pairs)
+    if w.dim() != 2 or w.shape[0] != x.shape[1] or w.dtype != x.dtype:
+        raise ValueError(
+            f"w {tuple(w.shape)} {w.dtype} does not fit x "
+            f"{tuple(x.shape)} {x.dtype}"
+        )
+    if route(x, w, *tensors) == "plain":
+        return quanta_linear_plain(x, w, tensors, tuple(dims_in), pairs)
+    rows, d_in = x.shape
+    d_out = w.shape[1]
+    if x.dtype == torch.bfloat16 and (d_in % 8 or d_out % 8):
+        raise ValueError("the bf16 GEMM needs d_in and d_out multiples of 8")
+    code = _build.dtype_code(x.dtype)
+    x = _aligned(x)
+    w = _aligned(w)
+    delta = _launch_chain(x, tensors, tuple(dims_in), pairs)   # phase (a)
+    if delta.shape[1] != d_out:
+        raise ValueError(f"chain output {delta.shape[1]} != w cols {d_out}")
+    out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
+    rc = _bind()(
+        code, ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+        ctypes.c_void_p(delta.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        rows, d_out, d_in, _build.stream_ptr(),
+    )                                                          # phase (b)
+    _build.check(rc, "quanta_linear")
+    quanta_linear.launches += 1
+    return out
+
+
+quanta_linear.launches = 0

@@ -1,0 +1,15 @@
+"""Model registry (port of ``repro/models/api.py``, dense family)."""
+
+from __future__ import annotations
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import Transformer
+
+__all__ = ["build_model"]
+
+
+def build_model(cfg: ModelConfig, device=None) -> Transformer:
+    """The model of ``cfg`` on ``device`` (default: the card; raises when
+    there is none).  Only the dense family is ported."""
+    return Transformer(cfg, device=device)
+

@@ -1,0 +1,91 @@
+"""Attention behind a backend switch (port of
+``repro/models/attention.py``, dense paths).
+
+* ``backend="reference"`` -- plain PyTorch: blockwise causal attention
+  over query blocks, and the masked-softmax decode over the whole cache.
+* ``backend="pallas"`` -- the hand-written CUDA flash kernels
+  (``kernels/flash_attention.py``; the name is the JAX package's, kept so
+  that configs carry over).  On CPU tensors their wrappers run the plain
+  versions.
+
+GQA layout: ``q (B, S, H, hd)``, ``k/v (B, S, KV, hd)``, ``H % KV == 0``.
+``q_block`` and ``fast_softmax`` are knobs of the reference path: the
+kernels take their own 64-row tiles and always keep fp32 softmax
+statistics with ``p`` cast to v's dtype, so they refuse ``fast_softmax``.
+Chunked-prefill and paged attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.dispatch import MASK_VALUE
+from repro_torch.kernels.flash_attention import (
+    blockwise_reference_attention,
+    decode_reference_attention,
+    flash_attention,
+    flash_decode_attention,
+)
+
+__all__ = ["MASK_VALUE", "blockwise_causal_attention", "decode_attention"]
+
+_BACKENDS = ("reference", "pallas")
+
+
+def _check_backend(backend: str, fast_softmax: bool) -> None:
+    if backend not in _BACKENDS:
+        raise ValueError(
+            f"unknown attention backend {backend!r}; expected one of "
+            f"{_BACKENDS}"
+        )
+    if backend == "pallas" and fast_softmax:
+        raise ValueError("fast_softmax is a knob of the reference backend")
+
+
+def blockwise_causal_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_block: int = 512,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+    backend: str = "reference",
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention.  Returns ``(B, S, H,
+    hd)``."""
+    _check_backend(backend, fast_softmax)
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"n_heads {q.shape[2]} must be a multiple of n_kv_heads "
+            f"{k.shape[2]}"
+        )
+    if backend == "pallas":
+        return flash_attention(q, k, v, window=window)
+    return blockwise_reference_attention(
+        q, k, v, q_block=q_block, window=window, fast_softmax=fast_softmax,
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,           # (B, 1, H, hd)
+    k_cache: torch.Tensor,     # (B, S_max, KV, hd)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,   # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+    backend: str = "reference",
+) -> torch.Tensor:
+    """Single-step attention over a dense cache.  Returns ``(B, 1, H,
+    hd)``."""
+    _check_backend(backend, fast_softmax)
+    if backend == "pallas":
+        return flash_decode_attention(q, k_cache, v_cache, cache_len,
+                                      window=window)
+    return decode_reference_attention(
+        q, k_cache, v_cache, cache_len, window=window,
+        fast_softmax=fast_softmax,
+    )

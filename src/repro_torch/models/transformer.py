@@ -1,0 +1,292 @@
+"""Decoder-only transformer, dense family (port of
+``repro/models/transformer.py``).
+
+Parameters are the JAX package's nested dict with layer-stacked leaves
+(``params["layers"]`` leaves have leading dim L); the layer loop takes
+views ``w[l]`` where the JAX package scans.  PEFT adapters are stacked
+the same way and sliced in lockstep.  Serving updates the dense decode
+cache in place.  The MoE branch and chunked prefill are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.peft import (
+    adapter_subtree, get_adapter, layer_tree, peft_linear,
+)
+from repro_torch.kernels.dispatch import default_device
+from repro_torch.models.attention import (
+    blockwise_causal_attention, decode_attention,
+)
+from repro_torch.models.common import (
+    CacheLeafSpec,
+    ModelConfig,
+    apply_rope,
+    dense_init,
+    embed_init,
+    insert_cache_slots,
+    make_rope,
+    rms_norm,
+)
+
+__all__ = ["Transformer", "padded_vocab"]
+
+
+def padded_vocab(vocab: int) -> int:
+    """Pad vocab to a multiple of 128 (the JAX package's layout)."""
+    return ((vocab + 127) // 128) * 128
+
+
+class Transformer(nn.Module):
+    """Decoder-only transformer whose methods take the params dict (the
+    JAX package's functional layout, so weights carry over by a copy).
+
+    Runs on ``device`` (default: the card; raises when there is none).
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not ported yet (dense only)"
+            )
+        for field, value, default in (("kv_cache", cfg.kv_cache, "dense"),
+                                      ("base_quant", cfg.base_quant, None),
+                                      ("kv_quant", cfg.kv_quant, None)):
+            if value != default:
+                raise NotImplementedError(
+                    f"{field}={value!r} is not ported yet"
+                )
+        self.cfg = cfg
+        self.device = default_device(device)
+
+    def _linear(self, x, w, adapter=None, bias=None):
+        return peft_linear(x, w, adapter, bias, backend=self.cfg.peft_backend)
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed) -> Dict[str, Any]:
+        """Random weights from ``seed`` (an int or a ``torch.Generator`` on
+        the model's device), drawn in fp32 layer by layer and stored in
+        ``cfg.param_dtype``."""
+        cfg, dev, dt = self.cfg, self.device, self.cfg.param_dtype
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+        L = cfg.n_layers
+        vpad = padded_vocab(cfg.vocab_size)
+        d, ad, kvd, ff = cfg.d_model, cfg.attn_dim, cfg.kv_dim, cfg.d_ff
+
+        def stack(d_in, d_out):
+            out = torch.empty((L, d_in, d_out), dtype=dt, device=dev)
+            for i in range(L):
+                out[i] = dense_init(gen, d_in, d_out, dt, dev)
+            return out
+
+        attn = {
+            "q_proj": stack(d, ad),
+            "k_proj": stack(d, kvd),
+            "v_proj": stack(d, kvd),
+            "o_proj": stack(ad, d),
+        }
+        if cfg.qkv_bias:
+            attn["q_bias"] = torch.zeros((L, ad), dtype=dt, device=dev)
+            attn["k_bias"] = torch.zeros((L, kvd), dtype=dt, device=dev)
+            attn["v_bias"] = torch.zeros((L, kvd), dtype=dt, device=dev)
+        layers = {
+            "attn": attn,
+            "ln1": torch.ones((L, d), dtype=dt, device=dev),
+            "ln2": torch.ones((L, d), dtype=dt, device=dev),
+            "mlp": {
+                "gate_proj": stack(d, ff),
+                "up_proj": stack(d, ff),
+                "down_proj": stack(ff, d),
+            },
+        }
+        params: Dict[str, Any] = {
+            "layers": layers,
+            "final_norm": torch.ones((d,), dtype=dt, device=dev),
+            "embed": {"tokens": embed_init(gen, vpad, d, dt, dev)},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, d, vpad, dt, dev)
+        return params
+
+    # ------------------------------------------------------------- embedding
+    def _tokens(self, batch) -> torch.Tensor:
+        return torch.as_tensor(batch["tokens"], dtype=torch.long,
+                               device=self.device)
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        return params["embed"]["tokens"][tokens].to(self.cfg.compute_dtype)
+
+    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return x @ params["embed"]["tokens"].to(cfg.compute_dtype).T
+        return x @ params["lm_head"].to(cfg.compute_dtype)
+
+    # ------------------------------------------------------------ layer body
+    def _attn(self, lp, la, x, *, rope, window, cache=None):
+        """Attention sub-block.  ``cache=(k_cache, v_cache, cache_len)``
+        for dense decode: the new token's K/V are written in place at
+        ``cache_len - 1``.  Returns ``(out, new_kv)``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self._linear(x, lp["q_proj"], get_adapter(la, "q_proj"),
+                         lp.get("q_bias"))
+        k = self._linear(x, lp["k_proj"], get_adapter(la, "k_proj"),
+                         lp.get("k_bias"))
+        v = self._linear(x, lp["v_proj"], get_adapter(la, "v_proj"),
+                         lp.get("v_bias"))
+        q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if cache is None:
+            out = blockwise_causal_attention(
+                q, k, v, q_block=cfg.q_block, window=window,
+                fast_softmax=cfg.fast_softmax, backend=cfg.attn_backend,
+            )
+            new_kv = (k, v)
+        else:
+            k_cache, v_cache, cache_len = cache
+            idx = (cache_len - 1).long()
+            b_idx = torch.arange(b, device=x.device)
+            k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
+            v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
+            out = decode_attention(
+                q, k_cache, v_cache, cache_len, window=window,
+                fast_softmax=cfg.fast_softmax, backend=cfg.attn_backend,
+            )
+            new_kv = (k_cache, v_cache)
+        out = out.reshape(b, s, cfg.attn_dim)
+        out = self._linear(out, lp["o_proj"], get_adapter(la, "o_proj"))
+        return out, new_kv
+
+    def _mlp(self, lp, la, x):
+        g = self._linear(x, lp["gate_proj"], get_adapter(la, "gate_proj"))
+        u = self._linear(x, lp["up_proj"], get_adapter(la, "up_proj"))
+        return self._linear(F.silu(g) * u, lp["down_proj"],
+                            get_adapter(la, "down_proj"))
+
+    def _layer(self, lp, la, x, *, rope, cache=None):
+        cfg = self.cfg
+        h, new_kv = self._attn(
+            lp["attn"], la.get("attn", {}),
+            rms_norm(x, lp["ln1"], cfg.norm_eps),
+            rope=rope, window=cfg.sliding_window, cache=cache,
+        )
+        x = x + h
+        hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + self._mlp(lp["mlp"], la.get("mlp", {}), hn), new_kv
+
+    def _layers(self, params, peft):
+        """``(layer params, layer adapters)`` views, layer by layer."""
+        adapters = adapter_subtree(peft, "layers")
+        for i in range(self.cfg.n_layers):
+            yield i, layer_tree(params["layers"], i), layer_tree(adapters, i)
+
+    # --------------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, params, batch, peft=None):
+        """Full-sequence forward: ``(logits, aux)``; ``aux`` is 0 for the
+        dense family."""
+        cfg = self.cfg
+        x = self._embed(params, self._tokens(batch))
+        s = x.shape[1]
+        rope = make_rope(torch.arange(s, device=x.device)[None, :],
+                         cfg.head_dim, cfg.rope_theta)
+        for _, lp, la in self._layers(params, peft):
+            x, _ = self._layer(lp, la, x, rope=rope)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x), 0.0
+
+    # ----------------------------------------------------------------- serve
+    def init_cache(self, batch: int, max_len: int, dtype=None
+                   ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        dt = dtype or cfg.param_dtype
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+        }
+
+    def cache_spec(self) -> Dict[str, CacheLeafSpec]:
+        kv = CacheLeafSpec(slot_axis=1)
+        return {"k": kv, "v": kv, "len": CacheLeafSpec(slot_axis=0)}
+
+    def insert_cache(self, cache, slot_ids, prefill_cache, lengths=None):
+        """Scatter a prefill wave's KV prefixes into the given slots (in
+        place); rows past each request's length hold pad-token garbage
+        that decode masks and overwrites in order."""
+        return insert_cache_slots(self.cache_spec(), cache, slot_ids,
+                                  prefill_cache, lengths)
+
+    @torch.no_grad()
+    def prefill(self, params, peft, batch, lengths=None):
+        """Batched prefill of right-padded rows: returns the logits of each
+        row's last real position and the wave's cache.  Causality makes the
+        right padding exact."""
+        cfg = self.cfg
+        x = self._embed(params, self._tokens(batch))
+        b, s, _ = x.shape
+        rope = make_rope(torch.arange(s, device=x.device)[None, :],
+                         cfg.head_dim, cfg.rope_theta)
+        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
+        v_all = torch.empty(shape, dtype=x.dtype, device=x.device)
+        for i, lp, la in self._layers(params, peft):
+            x, (k, v) = self._layer(lp, la, x, rope=rope)
+            k_all[i] = k
+            v_all[i] = v
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if lengths is None:
+            lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        else:
+            lens = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
+        x = x[torch.arange(b, device=x.device), lens.long() - 1][:, None]
+        logits = self._unembed(params, x)
+        return logits, {"k": k_all, "v": v_all, "len": lens}
+
+    @torch.no_grad()
+    def decode_step(self, params, peft, cache, batch):
+        """One decode step: writes each slot's new K/V at ``len`` in place
+        and attends over the first ``len + 1`` entries.  Returns
+        ``(logits, cache)`` with ``cache["len"]`` advanced by one."""
+        cfg = self.cfg
+        x = self._embed(params, self._tokens(batch))            # (B, 1, d)
+        new_len = cache["len"] + 1
+        rope = make_rope((new_len - 1)[:, None], cfg.head_dim, cfg.rope_theta)
+        for i, lp, la in self._layers(params, peft):
+            x, _ = self._layer(
+                lp, la, x, rope=rope,
+                cache=(cache["k"][i], cache["v"][i], new_len),
+            )
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._unembed(params, x)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": new_len}
+        return _mask_vocab_pad(logits, cfg.vocab_size), new_cache
+
+    def prefill_chunk(self, *args, **kwargs):
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+
+def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mask padded vocab columns so they never win softmax/argmax."""
+    vpad = logits.shape[-1]
+    if vpad == vocab:
+        return logits
+    col = torch.arange(vpad, device=logits.device)
+    return torch.where(col < vocab, logits,
+                       torch.finfo(logits.dtype).min)

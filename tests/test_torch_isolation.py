@@ -1,0 +1,138 @@
+"""The port stands alone: it imports neither ``jax`` nor anything of the
+JAX package, its entry points refuse to fall back to the CPU on their own,
+and CPU tensors never launch a kernel."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_smoke
+from repro_torch.core.peft import PeftConfig, attach
+from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+from repro_torch.models import build_model
+from repro_torch.serve import Request, ServingEngine
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")
+    )
+
+
+# a subprocess prelude in which ``jax``, ``jaxlib`` and the JAX package
+# cannot be imported at all
+_BLOCK = (
+    "import importlib, importlib.abc, sys\n"
+    "class Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
+
+
+def test_every_module_imports_without_jax():
+    code = _BLOCK + (
+        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(_modules()) >= 20
+
+
+def test_the_blocker_blocks():
+    """The prelude above really makes ``jax`` unimportable."""
+    res = subprocess.run(
+        [sys.executable, "-c", _BLOCK + "import jax\n"],
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "blocked: jax" in res.stderr
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_points_need_a_device(monkeypatch):
+    """With no device given and no card present, the entry points raise
+    instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("llama2-7b-proxy")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attach(1, params, PeftConfig(n_axes=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, params, n_slots=2, max_len=32)
+
+
+def test_cpu_path_launches_no_kernel():
+    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas",
+                                               peft_backend="pallas")
+    model = build_model(cfg, device="cpu")
+    base, peft = attach(1, model.init(0), PeftConfig(n_axes=4),
+                        device="cpu")
+    reset_launch_counts()
+    eng = ServingEngine(model, base, peft, n_slots=2, max_len=32,
+                        device="cpu")
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4))
+    eng.run()
+    assert eng.stats["decode_calls"] > 0
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+def test_cuda_tensors_never_take_the_plain_version():
+    """The wrappers route by device: a tensor on a device they have no
+    kernel for raises instead of silently running the plain version."""
+    from repro_torch.kernels.dispatch import route
+
+    assert route(torch.zeros(1)) == "plain"
+    with pytest.raises(ValueError):
+        route(torch.zeros(1, device="meta"))
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_card_or_repo(alone, tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result without a
+    card, and likewise when it stands in a directory without the port."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    res = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

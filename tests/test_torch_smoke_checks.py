@@ -1,0 +1,68 @@
+"""The error measures of ``chip_smoke.py`` on the CPU: bf16 errors read in
+ulps of the plain output, and the planted rounding faults that the card
+run must catch are caught by the same limits at a small size."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core.factorize import pair_schedule
+from repro_torch.core.quanta import QuantaAdapter, apply_sequential
+from repro_torch.kernels import flash_attention as FA
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ulps_of_bf16(smoke):
+    want = torch.tensor([1.0, -3.0, 0.5, 2.0 ** -20], dtype=torch.bfloat16)
+    ulp = torch.tensor([2.0 ** -7, 2.0 ** -6, 2.0 ** -8, 2.0 ** -27])
+    st = smoke.error_stats(want.float() + ulp, want, torch.bfloat16)
+    assert st["max_ulp"] == 1.0 and st["off"] == 0.0
+    got = want.float() + ulp * torch.tensor([1.0, 3.0, 1.0, 1.0])
+    st = smoke.error_stats(got, want, torch.bfloat16)
+    assert st["max_ulp"] == 3.0 and st["off"] == 0.25
+    with pytest.raises(AssertionError, match="non-finite"):
+        smoke.error_stats(torch.full((2,), float("nan")), want[:2],
+                          torch.bfloat16)
+
+
+def test_planted_faults_fail_the_bf16_limits(smoke):
+    """The chain left unrounded and ``p`` not cast before PV fail the
+    limits that the sound plain versions meet."""
+    gen = torch.Generator().manual_seed(0)
+    dims, pairs = (8, 4, 4, 2), pair_schedule(4)
+    ad = QuantaAdapter.create(gen, 256, dims_in=dims, dtype=torch.bfloat16,
+                              noise_scale=0.05)
+    x = torch.randn((64, 256), generator=gen).to(torch.bfloat16)
+    chain = apply_sequential(x, ad.tensors, dims, pairs)
+    _, ok, _ = smoke.judge("quanta_apply", chain, chain, torch.bfloat16)
+    assert ok
+    faulty = apply_sequential(x.float(), [t.float() for t in ad.tensors],
+                                dims, pairs).to(torch.bfloat16)
+    _, ok, _ = smoke.judge("quanta_apply", faulty, chain, torch.bfloat16)
+    assert not ok
+
+    q, k, v = (torch.randn((2, 130, 4, 32), generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    want = FA.flash_attention_plain(q, k, v)
+    faulty = FA.flash_attention_plain(q, k, v.float()).to(torch.bfloat16)
+    _, ok, _ = smoke.judge("flash_attention", faulty, want, torch.bfloat16)
+    assert not ok
+
+
+def test_bound_takes_the_larger_time(smoke):
+    ms, by = smoke.bound(3.35e12, 1.0, torch.bfloat16)
+    assert (ms, by) == (1e3, "bytes")
+    ms, by = smoke.bound(1.0, 989e12, torch.bfloat16)
+    assert (ms, by) == (1e3, "operations")

@@ -13,25 +13,52 @@ Phases, one line or more each before the last:
    process;
 3. check: every kernel against its plain PyTorch version on the card at
    the shapes llama2-7b-proxy's serving path gives it, bf16 and float32
-   (TF32 off for matmul and cuDNN), with a masked tail and a windowed
-   case; errors (absolute, relative, in ulps) against the stated limits,
-   and for each kernel a planted bf16 rounding fault that must fail them;
-   kernel / plain / library times from CUDA events with the L2 flushed
-   before each call, and the least time the card could take (bytes over
-   3.35 TB/s, operations over the dtype's peak);
+   (TF32 and cuBLAS's reduced-precision bf16 reduction off), with a
+   masked tail and a windowed case; errors (absolute, relative, in ulps)
+   against the stated limits, and for each kernel a planted fault that
+   must fail them (a bf16 rounding fault; for the paged decode the table
+   ignored, for its quantized twin a scale block off by one, for the
+   quantized matmul the nibbles swapped); kernel / plain / library times
+   from CUDA events with the L2 flushed before each call, and the least
+   time the card could take (bytes over 3.35 TB/s, operations over the
+   dtype's peak).  The quantized matmul runs NF4 and int8, with and
+   without row/column norms, at 3072 and 8 rows of 4096->4096,
+   4096->11008 and 11008->4096; the paged decodes at 8 slots of lengths
+   1-512 through shuffled tables, bf16 rows and NF4 and int8 codes;
 4. f32: llama2-7b-proxy widths cut to 2 layers, float32, perturbed QuanTA
    on q/v: the kernel engine and the plain engine must generate
-   identical greedy tokens for 5 prompts x 16 new tokens;
+   identical greedy tokens for 5 prompts x 16 new tokens, on the dense
+   cache, and on a paged pool too small for the whole batch (at least one
+   preemption) of f32 rows, of NF4 codes and under an NF4 base; the
+   paged engines must also give the tokens of their dense-cache twin
+   (under NF4 KV, the tight pool up to each request's first preemption,
+   since its re-prefill attends to unquantized rows where the twin
+   decoded over quantized ones, and a pool that holds the whole batch
+   throughout);
 5. serve: llama2-7b-proxy FULL (32 layers, bf16) with folded, perturbed
    QuanTA serves 8 requests (prompts of 32-384 tokens, 32 new tokens each)
    through ``ServingEngine(n_slots=8, max_len=512)``, then its merged twin
-   serves them too; every kernel's launch count must have moved in the
-   adapted run, adapted vs merged prefill logits must agree within the
+   serves them too; the launch counts of kernels 1-4 must have moved in
+   the adapted run, adapted vs merged prefill logits must agree within the
    stated bf16 tolerance, and a planted fault (one chain stage skipped)
    must exceed it;
+   then the QLoRA path: the same model with an NF4 base serves the same
+   requests from a paged pool of NF4 KV codes (``ServingEngine(
+   cache="paged", block_size=16, base_quant="nf4", kv_quant="nf4")``,
+   a pool too small for every request at once), and its twin with bf16 KV
+   rows; the kernels of each run must have launched, and one decode
+   step's logits from the paged NF4 pool must agree with those of a dense
+   cache of the fake-quantized rows within the stated tolerance, while a
+   planted fault (every slot reading its neighbour's block table) must
+   exceed it;
 6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
    prefill wave and over decode ticks, device time by kernel (where the
-   serving time goes).
+   serving time goes), on the dense path and on the QLoRA path.
+
+Each kernel reports the launches of the serve run whose path it is on:
+kernels 1-4 of the dense adapted run, the NF4-KV decode and the
+quantized matmul of the QLoRA run, the paged bf16 decode of its bf16-KV
+twin; every count is set to 0 just before its run.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -42,6 +69,7 @@ last line.  Weights are random from fixed seeds; nothing is downloaded.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -62,6 +90,10 @@ F32_TOL = {
     "quanta_linear": (1e-4, 1e-4),
     "flash_attention": (3e-5, 3e-5),
     "flash_decode_attention": (3e-5, 3e-5),
+    "paged_flash_decode_attention": (3e-5, 3e-5),
+    "paged_flash_decode_attention_quant": (3e-5, 3e-5),
+    # up to 11008-term fp32 sums, split over K, in another order than cuBLAS
+    "quantized_matmul": (1e-4, 1e-4),
 }
 # kernel vs plain in bfloat16, with errors in bf16 ulps of each element of
 # the plain output: (max ulps of any element or None, share of elements
@@ -74,11 +106,20 @@ F32_TOL = {
 # and 3.1e-5 against planted rounding faults at 0.25, 0.051, 0.11 and
 # 0.089; max_rel is one bf16 ulp at the top of the output range (sound
 # readings <= 3.0e-3).  Each planted fault must fail them in every run.
+# The quantized matmul takes the limit of quanta_linear, whose arithmetic
+# it shares.  The paged decodes took the dense decode's 3e-4 before their
+# first card reading; the bf16-row pool read off 3.052e-4 there on its own
+# random data (the kernel equals the dense kernel bit for bit on the
+# gathered cache, which the check phase also holds), so they are held at
+# 1e-3, 3.3x above that reading and 970x under their planted faults.
 BF16_TOL = {
     "quanta_apply": (1, 0.0, 2 ** -7),
     "quanta_linear": (None, 1e-3, 2 ** -7),
     "flash_attention": (None, 1e-4, 2 ** -7),
     "flash_decode_attention": (None, 3e-4, 2 ** -7),
+    "paged_flash_decode_attention": (None, 1e-3, 2 ** -7),
+    "paged_flash_decode_attention_quant": (None, 1e-3, 2 ** -7),
+    "quantized_matmul": (None, 1e-3, 2 ** -7),
 }
 SOURCES = {
     "quanta_apply": ("src/repro_torch/csrc/quanta_apply.cu",
@@ -89,13 +130,31 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:181"),
     "flash_decode_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:484"),
+    "paged_flash_decode_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:689"),
+    "paged_flash_decode_attention_quant": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:616"),
+    "quantized_matmul": ("src/repro_torch/csrc/quantized_matmul.cu",
+                         "src/repro/kernels/quantized_matmul.py:86"),
 }
+# the kernels of the dense-cache serve run, which reports their launches
+DENSE_KERNELS = ("quanta_apply", "quanta_linear", "flash_attention",
+                 "flash_decode_attention")
 # adapted vs merged prefill logits of the 32-layer bf16 model: the two
 # differ by where bf16 rounds (W0' + T merged in fp32 then rounded, vs the
 # chain rounded per stage), compounded over 32 layers.  About twice the
 # sound reading on the H100 (0.0285, PERF.md); a planted fault (the first
 # chain stage skipped, 0.549 there) must exceed it
 SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
+# one decode step of the 32-layer bf16 model over an NF4 base: paged NF4 KV
+# pool vs dense cache of the fake-quantized rows.  Both hold the same
+# values and the paged and dense decode kernels share one block body, so
+# the two should agree to the bit; the limit allows one bf16 rounding of
+# the top logit.  A planted fault (each slot reading its neighbour's block
+# table) must exceed it
+PAGED_LOGIT_TOL = 2 ** -7  # max |paged - dense| / max |dense|
 FAILURES = []
 
 
@@ -207,8 +266,12 @@ def check_kernels(card):
     from repro_torch.core.quanta import (
         apply_einsum, apply_sequential, tensor_shapes,
     )
+    from repro_torch.core.quantize import (
+        dequantize, matmul_ref, quantize_kv, quantize_linear,
+    )
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.quanta_apply import chain_widths, quanta_apply
+    from repro_torch.kernels.quantized_matmul import quantized_matmul
     from repro_torch.kernels.quanta_linear import (
         quanta_linear, quanta_linear_plain,
     )
@@ -235,7 +298,7 @@ def check_kernels(card):
               f"({limits}) {'ok' if ok else 'FAIL'} | kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms, library "
               f"{'-' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
-              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+              f"{b_ms:.4g} ms ({b_by}) [{card}]")
         if not ok:
             fail(f"{name} {label} {dtype} disagrees with its plain version")
         if main and dtype == torch.bfloat16:
@@ -244,8 +307,8 @@ def check_kernels(card):
                                  library_ms=t_lib)
 
     def planted(name, what, faulty, want):
-        """A rounding fault made from the plain version must fail the
-        bf16 limits that the kernel meets."""
+        """A fault made from the plain version must fail the bf16 limits
+        that the kernel meets."""
         st, ok, limits = judge(name, faulty, want, torch.bfloat16)
         print(f"fault {name} ({what}): {stats_text(st)} ({limits}) "
               f"{'passes: limits too loose' if ok else 'caught'}")
@@ -285,6 +348,9 @@ def check_kernels(card):
                        x, tensors, dims, pairs)),
                    (2 * rows * d + d * d) * sz + t_bytes,
                    2 * rows * (d * d + chain_macs), main)
+            print(f"check quanta_linear rows={rows} {label} "
+                  f"{str(dtype)[6:]}: torch.matmul alone (x @ W, no chain) "
+                  f"{timed(lambda: torch.matmul(x, w)):.4f} ms [{card}]")
             if main and dtype == torch.bfloat16:
                 chain = apply_sequential(x, tensors, dims, pairs)
                 planted("quanta_apply", "stages not rounded to bf16",
@@ -356,7 +422,145 @@ def check_kernels(card):
                         FA.flash_decode_attention_plain(
                             q, kc, vc.float(), lens, window=window).to(dtype),
                         want)
+
+        # paged decode: the same 8 slots in a pool of 16-token blocks,
+        # read through shuffled tables whose entries past a slot's block
+        # count repeat its last row; bf16 rows (kernel 5), NF4 and int8
+        # codes with fp32 scales per 64 elements (kernel 6)
+        bs, n_b = 16, s_max // 16
+        n_blocks = b * n_b + 1
+        tables = paged_tables(lens.tolist(), bs, n_b, n_blocks, seed=5)
+        tables = tables.to(dev)
+        # the fault of kernel 5: the table ignored, each slot's blocks read
+        # in pool order
+        ignored = (torch.arange(b * n_b, dtype=torch.int32, device=dev)
+                   .reshape(b, n_b) + 1)
+        kp = rnd(n_blocks, bs, h, hd, dtype=dtype)
+        vp = rnd(n_blocks, bs, h, hd, dtype=dtype)
+        mask = (torch.arange(s_max, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        io = 2 * b * h * hd * sz + 4 * b * (n_b + 1)
+        for quant in (None, "nf4", "int8"):
+            name = ("paged_flash_decode_attention" if quant is None
+                    else "paged_flash_decode_attention_quant")
+            kw, k_src, v_src = {}, kp, vp
+            per_key = 2 * h * hd * sz
+            if quant is not None:
+                (k_src, ks), (v_src, vs) = (quantize_kv(kp, quant),
+                                            quantize_kv(vp, quant))
+                kw = dict(kv_quant=quant, k_scales=ks, v_scales=vs)
+                per_key = 2 * h * (k_src.shape[-1] * k_src.element_size()
+                                   + 4 * ks.shape[-1])
+            for window, label, main in ((None, "S_max=512", quant != "int8"),
+                                        (50, "S_max=512 window=50", False)):
+                label = f"{quant or 'rows'} {label}"
+                used = [min(int(n), window or int(n)) for n in lens.tolist()]
+                got = FA.paged_flash_decode_attention(
+                    q, k_src, v_src, tables, lens, window=window, **kw)
+                want = FA.paged_decode_attention_plain(
+                    q, k_src, v_src, tables, lens, window=window, **kw)
+                lib = None
+                if window is None and quant is None:
+                    # SDPA over the cache gathered beforehand
+                    kg, vg = (t.transpose(1, 2) for t in FA.gather_kv(
+                        q, kp, vp, tables))
+                    lib = timed(lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kg, vg, attn_mask=mask))
+                    # the paged kernel is the dense kernel reading through
+                    # the table: bit for bit the same on the gathered cache
+                    dense = FA.flash_decode_attention(
+                        q, kg.transpose(1, 2), vg.transpose(1, 2), lens)
+                    same = torch.equal(got, dense)
+                    print(f"check {name} {label} {str(dtype)[6:]}: equals "
+                          f"the dense decode kernel on the gathered cache "
+                          f"bit for bit: {same}")
+                    if not same:
+                        fail(f"{name} differs from the dense decode kernel")
+                elif window is None:
+                    def library():      # dequantize + SDPA, one timed call
+                        kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
+                        return F.scaled_dot_product_attention(
+                            q.transpose(1, 2), kg.transpose(1, 2),
+                            vg.transpose(1, 2), attn_mask=mask)
+                    lib = timed(library)
+                report(name, label, dtype, got, want,
+                       timed(lambda: FA.paged_flash_decode_attention(
+                           q, k_src, v_src, tables, lens, window=window,
+                           **kw)),
+                       timed(lambda: FA.paged_decode_attention_plain(
+                           q, k_src, v_src, tables, lens, window=window,
+                           **kw)),
+                       lib, io + sum(used) * per_key,
+                       4 * hd * h * sum(used), main)
+                if not (main and dtype == torch.bfloat16):
+                    continue
+                if quant is None:
+                    planted(name, "table ignored",
+                            FA.paged_decode_attention_plain(
+                                q, kp, vp, ignored, lens), want)
+                else:
+                    off = dict(kw, k_scales=ks.roll(1, dims=-1),
+                               v_scales=vs.roll(1, dims=-1))
+                    planted(name, "scale block off by one",
+                            FA.paged_decode_attention_plain(
+                                q, k_src, v_src, tables, lens, **off), want)
+
+        # quantized matmul (kernel 7): NF4 and int8 weights with fp32
+        # scales per 64 rows of d_in, the projections of llama2-7b at a
+        # prefill wave and a decode tick; library: torch.matmul on the
+        # dense dequantized weight
+        for fmt in ("nf4", "int8"):
+            for d_in, d_out in ((4096, 4096), (4096, 11008), (11008, 4096)):
+                w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
+                for norm in ((None, "rowcol") if d_in == d_out else (None,)):
+                    qw = quantize_linear(w, fmt, block_size=64,
+                                         normalize=norm)
+                    wd = dequantize(qw, torch.float32).to(dtype)
+                    w_bytes = sum(t.numel() * t.element_size()
+                                  for t in qw.tensors())
+                    for rows, phase in ((3072, "prefill"), (8, "decode")):
+                        x = rnd(rows, d_in, dtype=dtype)
+                        main = (fmt == "nf4" and d_in == d_out
+                                and norm is None and rows == 3072)
+                        got = quantized_matmul(x, qw)
+                        want = matmul_ref(x, qw)
+                        label = (f"{fmt} {d_in}->{d_out}"
+                                 f"{' ' + norm if norm else ''} rows={rows} "
+                                 f"{phase}")
+                        report("quantized_matmul", label, dtype, got, want,
+                               timed(lambda: quantized_matmul(x, qw)),
+                               timed(lambda: matmul_ref(x, qw)),
+                               timed(lambda: torch.matmul(x, wd)),
+                               rows * (d_in + d_out) * sz + w_bytes,
+                               2 * rows * d_in * d_out, main)
+                        if main and dtype == torch.bfloat16:
+                            p = qw.packed
+                            swapped = dataclasses.replace(
+                                qw, packed=(p << 4) | (p >> 4))
+                            planted("quantized_matmul", "nibbles swapped",
+                                    matmul_ref(x, swapped), want)
+                    del qw, wd
+                del w
     return records
+
+
+def paged_tables(lens, bs, n_b, n_blocks, seed):
+    """Block tables of slots holding ``lens`` tokens in a pool of
+    ``n_blocks`` blocks of ``bs``: shuffled pool rows, and entries past a
+    slot's block count repeating its last row (as the engine's
+    ``PagedCacheView.device_tables`` exports them)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_blocks - 1, generator=gen) + 1
+    tables = torch.zeros((len(lens), n_b), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lens):
+        c = -(-n // bs)
+        tables[i, :c] = perm[used:used + c]
+        tables[i, c:] = tables[i, c - 1]
+        used += c
+    return tables
 
 
 def card_tests():
@@ -386,12 +590,18 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _serve(model, params, peft, prompts, max_new, n_slots, max_len):
+def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
+           **engine_kw):
+    """Serve ``prompts`` greedily; returns the outputs, the engine's stats
+    and the wall times of the first wave's prefill and of the rest of the
+    run.  The stats add ``readmit_s``, the wall time of the prefills after
+    the first wave (each timed to the device's end), and ``preempted``,
+    ``(request, tokens it had)`` for each preemption."""
     from repro_torch.serve import Request, ServingEngine
 
     dev = model.device
     eng = ServingEngine(model, params, peft, n_slots=n_slots,
-                        max_len=max_len, device=dev)
+                        max_len=max_len, device=dev, **engine_kw)
     reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
@@ -401,10 +611,30 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len):
     eng._admit()                      # the first wave's prefill
     _sync(dev)
     t1 = time.monotonic()
+    first_wave_bytes = eng.stats.get("cache_bytes_allocated")
+    readmit, preempted = [0.0], []
+    admit, preempt = eng._admit, eng._preempt
+
+    def timed_admit():
+        waves = eng.stats["prefill_calls"]
+        ta = time.monotonic()
+        admit()
+        if eng.stats["prefill_calls"] != waves:
+            _sync(dev)
+            readmit[0] += time.monotonic() - ta
+
+    def recorded_preempt(slot):
+        req = eng.slots[slot]
+        preempted.append((req.uid, len(req.output)))
+        preempt(slot)
+
+    eng._admit, eng._preempt = timed_admit, recorded_preempt
     eng.run()
     _sync(dev)
     t2 = time.monotonic()
-    return [r.output for r in reqs], eng.stats, t1 - t0, t2 - t1
+    stats = dict(eng.stats, cache_bytes_first_wave=first_wave_bytes,
+                 readmit_s=readmit[0], preempted=preempted)
+    return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
 def _adapted(cfg, seed, dev):
@@ -431,7 +661,6 @@ def f32_exactness(dev, cfg):
     """``cfg``: llama2-7b-proxy cut to 2 layers in float32."""
     import torch
 
-    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
     model, base, peft = _adapted(cfg, 100, dev)
     plain = type(model)(cfg.replace(attn_backend="reference",
                                     peft_backend="reference"), device=dev)
@@ -448,6 +677,88 @@ def f32_exactness(dev, cfg):
     if out_k != out_p:
         raise AssertionError(f"kernel and plain tokens differ: {out_k} vs "
                              f"{out_p}")
+
+
+# pool of the f32 cut's paged engines: 31 blocks of 16 tokens admit the
+# first four prompts (30 blocks) and run dry as they grow
+F32_POOL_BLOCKS = 32
+
+
+def f32_paged(dev, cfg):
+    """``cfg``: llama2-7b-proxy cut to 2 layers in float32.  Three paged
+    engines over a pool too small for the batch -- of rows (kernel 5), of
+    NF4 KV codes (kernel 6), of rows under an NF4 base (kernel 7) -- each
+    against its plain-version engine and its dense-cache twin (for NF4
+    KV, the cache of fake-quantized rows)."""
+    import torch
+    from repro_torch.core.quantize import quantize_params
+
+    model, base, peft = _adapted(cfg, 100, dev)
+    qbase = quantize_params(base, "nf4", block_size=cfg.quant_block_size)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64)]
+    cases = (("rows (kernel 5)", {}, base, {}),
+             ("NF4 KV (kernel 6)", dict(kv_quant="nf4"), base,
+              dict(kv_quant="nf4")),
+             ("NF4 base (kernel 7)", {}, qbase, dict(base_quant="nf4")))
+    # (run, backend, cache, pool): the kernel and plain engines share the
+    # small pool and so its preemptions.  Under NF4 KV a preempted request
+    # re-prefills ``prompt + output`` over unquantized rows, where the
+    # dense twin decoded over the fake-quantized ones, so its tokens may
+    # leave the twin's after the preemption (the JAX engine does the same:
+    # tests/test_torch_paging.py pins it); the tight engine must match the
+    # twin up to each request's first preemption, and a kernel engine on a
+    # pool that holds the whole batch must match it throughout
+    for label, cfg_kw, params, engine_kw in cases:
+        runs = [("kernel", "pallas", "paged", F32_POOL_BLOCKS),
+                ("plain", "reference", "paged", F32_POOL_BLOCKS),
+                ("dense", "pallas", "dense", None)]
+        if "kv_quant" in cfg_kw:
+            runs.append(("kernel, ample pool", "pallas", "paged", None))
+        outs, pre = {}, {}
+        for run, backend, cache, pool in runs:
+            m = type(model)(cfg.replace(attn_backend=backend,
+                                        peft_backend=backend, **cfg_kw),
+                            device=dev)
+            kw = dict(engine_kw, cache=cache)
+            if cache == "paged":
+                kw.update(block_size=16, n_blocks=pool)
+            outs[run], stats, _, _ = _serve(m, params, peft, prompts, 16, 4,
+                                            256, **kw)
+            pre[run] = stats["preempted"]
+        same_p = sum(a == b for a, b in zip(outs["kernel"], outs["plain"]))
+        same_d = {r: sum(a == b for a, b in zip(outs[r], outs["dense"]))
+                  for r in outs if r.startswith("kernel")}
+        first = {}
+        for uid, n in pre["kernel"]:
+            first.setdefault(uid, n)
+        # tokens of the tight kernel engine that must equal the dense twin's
+        cut = [first.get(i, len(o)) if "kv_quant" in cfg_kw else len(o)
+               for i, o in enumerate(outs["kernel"])]
+        print(f"f32 paged {label}: {F32_POOL_BLOCKS - 1} blocks of 16, "
+              f"preemptions (request, tokens it had) kernel {pre['kernel']} "
+              f"plain {pre['plain']}; identical greedy tokens kernel vs "
+              f"plain engine {same_p}/{len(prompts)}, "
+              + ", ".join(f"{r} vs dense-cache twin {n}/{len(prompts)}"
+                          for r, n in same_d.items())
+              + " requests x 16 tokens"
+              + (f"; tight kernel engine vs twin before each first "
+                 f"preemption: {sum(cut)} tokens compared" if "kv_quant"
+                 in cfg_kw else ""))
+        if not pre["kernel"] or pre["plain"] != pre["kernel"] or pre.get(
+                "kernel, ample pool"):
+            raise AssertionError(f"f32 paged {label}: preemptions {pre}")
+        if outs["kernel"] != outs["plain"]:
+            raise AssertionError(f"f32 paged {label}: kernel and plain "
+                                 f"tokens differ: {outs}")
+        if any(o[:c] != d[:c] for o, d, c in zip(outs["kernel"],
+                                                 outs["dense"], cut)):
+            raise AssertionError(f"f32 paged {label}: tokens differ from "
+                                 f"the dense twin: {outs}")
+        if outs.get("kernel, ample pool", outs["dense"]) != outs["dense"]:
+            raise AssertionError(f"f32 paged {label}: ample pool differs "
+                                 f"from the dense twin: {outs}")
 
 
 def full_serve(card, dev, cfg):
@@ -477,6 +788,7 @@ def full_serve(card, dev, cfg):
           f"{sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms (wall, "
           f"{stats['decode_calls']} ticks), stats {stats}, launches "
           f"{counts} [{card}]")
+    counts = {k: counts[k] for k in DENSE_KERNELS}
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -527,6 +839,133 @@ def full_serve(card, dev, cfg):
     return counts, (model, base, peft, prompts)
 
 
+# the FULL-width QLoRA runs: a pool for 119 blocks of 16 tokens, while the
+# 8 requests grow to 123 blocks, so the batch preempts near its end
+QLORA_POOL_BLOCKS = 120
+# the kernels each run drives, and of which it reports the launches
+QLORA_KERNELS = {
+    "nf4 KV": ("quanta_apply", "flash_attention",
+               "paged_flash_decode_attention_quant", "quantized_matmul"),
+    "bf16 KV": ("quanta_apply", "flash_attention",
+                "paged_flash_decode_attention", "quantized_matmul"),
+}
+
+
+def _decode_once(eng, toks):
+    """One decode step of every occupied slot, outside ``step()``: grow
+    the paged tables, dispatch, advance the host lengths.  Returns the
+    logits."""
+    import numpy as np
+
+    active = np.array([r is not None for r in eng.slots])
+    if eng.pager is not None:
+        eng._ensure_growth(active)
+    logits = eng.dispatch_decode(toks, active)
+    eng._lengths[active] += 1
+    return logits
+
+
+def qlora_serve(card, dev, model, base, peft, prompts):
+    """The NF4-base, NF4-KV paged serving path at FULL width, its bf16-KV
+    twin, and one decode step of the paged NF4 pool against a dense cache
+    of the fake-quantized rows.  Returns the launch counts of kernels 5,
+    6 and 7, each from the run that drives it."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.quantize import quantize_params
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = model.cfg
+    t0 = time.monotonic()
+    qbase = quantize_params(base, "nf4", block_size=cfg.quant_block_size)
+    _sync(dev)
+    mq = type(model)(cfg.replace(kv_quant="nf4"), device=dev)
+    print(f"qlora: {cfg.name} base packed to NF4 (blocks of "
+          f"{cfg.quant_block_size}) in {time.monotonic() - t0:.1f} s")
+    outs, counts = {}, {}
+    for label, m in (("nf4 KV", mq), ("bf16 KV", model)):
+        kw = dict(cache="paged", block_size=16, n_blocks=QLORA_POOL_BLOCKS,
+                  base_quant="nf4")
+        if m is mq:
+            kw["kv_quant"] = "nf4"
+        kernels.reset_launch_counts()
+        outs[label], stats, t_pre, t_dec = _serve(m, qbase, peft, prompts,
+                                                  32, 8, 512, **kw)
+        run = kernels.launch_counts()
+        t_tick = (t_dec - stats["readmit_s"]) / stats["decode_calls"]
+        print(f"qlora {label}: prefill {t_pre * 1e3:.1f} ms (wall, first "
+              f"wave), then {t_dec * 1e3:.1f} ms (wall) of "
+              f"{stats['decode_calls']} ticks and "
+              f"{stats['prefill_calls'] - 1} more prefills taking "
+              f"{stats['readmit_s'] * 1e3:.1f} ms, so "
+              f"{t_tick * 1e3:.2f} ms a tick; param_bytes "
+              f"{stats['param_bytes']}, "
+              f"cache_bytes_allocated {stats['cache_bytes_first_wave']} "
+              f"after the first wave, peak_block_utilization "
+              f"{stats['peak_block_utilization']:.3f} of "
+              f"{stats['blocks_total']} blocks, preemptions "
+              f"{stats['preempted']}, launches {run} [{card}]")
+        missing = [k for k in QLORA_KERNELS[label] if run[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {label} "
+                                 f"path: {missing}")
+        if any(len(r) != 32 for r in outs[label]):
+            raise AssertionError("a request did not get its 32 tokens")
+        counts.update({k: run[k] for k in QLORA_KERNELS[label]
+                       if k.startswith(("paged", "quantized"))})
+    agree = sum(a == b for ra, rb in zip(outs["nf4 KV"], outs["bf16 KV"])
+                for a, b in zip(ra, rb))
+    print(f"qlora: nf4 KV vs bf16 KV token agreement {agree}/"
+          f"{sum(len(r) for r in outs['nf4 KV'])}")
+
+    # one decode step: paged NF4 pool vs dense cache of the same values
+    engines = []
+    for cache in ("paged", "dense"):
+        eng = ServingEngine(mq, qbase, peft, n_slots=8, max_len=512,
+                            cache=cache, block_size=16, base_quant="nf4",
+                            kv_quant="nf4", device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32))
+        eng._admit()
+        engines.append(eng)
+    ep, ed = engines
+    if not np.array_equal(ep._last_token, ed._last_token):
+        fail("paged and dense prefill gave other first tokens")
+    toks = torch.from_numpy(ed._last_token.reshape(-1, 1).astype(np.int64)
+                            ).to(dev)
+    v = cfg.vocab_size
+
+    def rel_err(a, b):
+        a, b = a[..., :v].float(), b[..., :v].float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite decode logits")
+        return float((a - b).abs().max() / b.abs().max())
+
+    lp = _decode_once(ep, toks)
+    ld = _decode_once(ed, toks)
+    rel = rel_err(lp, ld)
+    print(f"qlora: one decode step, paged NF4 pool vs dense fake-quantized "
+          f"cache, logits max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); "
+          f"logits shape {tuple(ld.shape)}")
+    if rel > PAGED_LOGIT_TOL:
+        fail("paged and dense decode logits disagree")
+    # planted fault: every slot reads its neighbour's block table
+    toks = ld[:, :, :v].argmax(-1)
+    active = np.array([r is not None for r in ep.slots])
+    ep._ensure_growth(active)
+    ep.pager._device_tables = ep.pager.device_tables().roll(1, dims=0)
+    rel_f = rel_err(_decode_once(ep, toks), _decode_once(ed, toks))
+    ep.pager._device_tables = None
+    print(f"fault qlora (neighbour's block table): logits max_rel "
+          f"{rel_f:.3e} "
+          f"{'caught' if rel_f > PAGED_LOGIT_TOL else 'passes: too loose'}")
+    if rel_f <= PAGED_LOGIT_TOL:
+        fail("a slot reading another's blocks passes the paged tolerance")
+    del engines, ep, ed
+    return counts, (mq, qbase, peft, prompts)
+
+
 def _device_ms(prof):
     """Device time by kernel name, in ms, from a finished profiler."""
     out = {}
@@ -539,7 +978,8 @@ def _device_ms(prof):
     return out
 
 
-def profile_serve(card, model, base, peft, prompts):
+def profile_serve(card, model, base, peft, prompts, path="dense",
+                  **engine_kw):
     """Device time of the adapted model's prefill wave and of 8 decode
     ticks, by kernel, beside the wall time of the same window."""
     import torch
@@ -549,15 +989,18 @@ def profile_serve(card, model, base, peft, prompts):
 
     dev = model.device
     eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
-                        device=dev)
+                        device=dev, **engine_kw)
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32))
     groups = (("quanta_apply", "quanta_chain_kernel"),
               ("quanta_linear", "gemm_bf16_kernel"),
               ("flash_attention", "flash_forward_kernel"),
-              ("flash_decode_attention", "flash_decode_kernel"))
+              ("flash_decode_attention", "flash_decode_kernel"),
+              ("paged_decode", "paged_decode_kernel"),
+              ("quantized_matmul", "qmm_"))
     for label, work, n in (("prefill", eng._admit, 1),
                            ("decode", eng.step, 8)):
+        label = f"{path} {label}"
         _sync(dev)
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
@@ -604,9 +1047,14 @@ def main() -> int:
           f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products reduce in fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"numerics: matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32}; timing: CUDA events around "
+          f"{torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+          f"; timing: CUDA events around "
           f"each call, a {flush_bytes() >> 20} MiB write before it (L2 "
           f"{torch.cuda.get_device_properties(0).L2_cache_size >> 20} MiB)")
 
@@ -624,11 +1072,18 @@ def main() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     full = get_config("llama2-7b-proxy")
-    f32_exactness(dev, full.replace(n_layers=2, param_dtype=torch.float32,
-                                    compute_dtype=torch.float32))
+    cut = full.replace(n_layers=2, param_dtype=torch.float32,
+                       compute_dtype=torch.float32, attn_backend="pallas",
+                       peft_backend="pallas")
+    f32_exactness(dev, cut)
+    f32_paged(dev, cut)
     counts, served = full_serve(card, dev, full)
+    qlora_counts, qlora = qlora_serve(card, dev, *served)
+    counts.update(qlora_counts)
     if "--profile" in sys.argv[1:]:
         profile_serve(card, *served)
+        profile_serve(card, *qlora, path="qlora", cache="paged",
+                      block_size=16, base_quant="nf4", kv_quant="nf4")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",

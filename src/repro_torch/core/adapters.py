@@ -9,8 +9,9 @@
 
 Adapters are frozen dataclasses whose tensor fields may carry a leading
 layer axis (one adapter per stacked ``(L, d_in, d_out)`` weight);
-``layer(l)`` returns the view of one layer.  Only dense frozen bases are
-taken (:func:`base_matmul`): quantized bases come with a later slice.
+``layer(l)`` returns the view of one layer.  The frozen base ``w`` is a
+dense tensor or a ``core.quantize.QuantizedLinear``; :func:`base_matmul`
+takes both.
 """
 
 from __future__ import annotations
@@ -19,18 +20,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.quantize import base_matmul
+
 __all__ = ["Adapter", "base_matmul"]
-
-
-def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a dense frozen base (the library matmul, as the JAX
-    package left it to XLA)."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"frozen base of type {type(w).__name__}: quantized bases are "
-            "not ported yet"
-        )
-    return x @ w
 
 
 class Adapter:

@@ -273,7 +273,8 @@ def peft_linear(
 ) -> torch.Tensor:
     """The adapted linear of every model: ``adapter.apply`` (protocol
     dispatch) or ``x @ w``, plus the bias."""
-    y = base_matmul(x, w) if adapter is None else adapter.apply(x, w, backend)
+    y = (base_matmul(x, w, backend) if adapter is None
+         else adapter.apply(x, w, backend))
     if bias is not None:
         y = y + bias
     return y

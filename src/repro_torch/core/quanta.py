@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.adapters import Adapter, base_matmul
 from repro_torch.core.factorize import factorize, pair_schedule, param_count
+from repro_torch.core.quantize import QuantizedLinear
 
 __all__ = [
     "QuantaAdapter",
@@ -282,17 +283,23 @@ class QuantaAdapter(Adapter):
         """Adapted linear ``x @ w + delta(x)``.
 
         ``backend="pallas"`` (the name the configs carry: the hand-written
-        kernels) goes through the two-phase ``quanta_linear`` kernel, which
-        raises for a weight that is not 2-D; ``"reference"`` is plain
-        PyTorch.
+        kernels) goes through the two-phase ``quanta_linear`` kernel for a
+        dense ``w``, which raises for a weight that is not 2-D; for a
+        quantized ``w`` through the dequant-matmul kernel plus the chain
+        kernel, cast to x's dtype.  ``"reference"`` is plain PyTorch.
         """
         if backend == "pallas":
-            from repro_torch.kernels.ops import quanta_linear_fused
+            from repro_torch.kernels.ops import (
+                quanta_apply_fused, quanta_linear_fused,
+            )
 
+            if isinstance(w, QuantizedLinear):
+                return base_matmul(x, w, backend) + quanta_apply_fused(
+                    x, self).to(x.dtype)
             return quanta_linear_fused(x, w, self)
         if backend != "reference":
             raise ValueError(f"unknown PEFT backend {backend!r}")
-        return base_matmul(x, w) + self.delta(x)
+        return base_matmul(x, w, backend) + self.delta(x)
 
     def merge(self, w: torch.Tensor) -> torch.Tensor:
         """``W = W0' + T_theta`` (paper §6, no inference overhead)."""

@@ -1,29 +1,45 @@
-// Causal flash attention (prefill) and dense-cache flash decode, for
-// Hopper (sm_90a).
+// Causal flash attention (prefill), and flash decode over a dense cache
+// or a paged block pool of bf16/f32 rows or of NF4/int8 codes, for Hopper
+// (sm_90a).
 //
-// Replaces two TPU kernels of repro/kernels/flash_attention.py:
+// Replaces four TPU kernels of repro/kernels/flash_attention.py:
 //   * _flash_forward / _flash_kernel (public flash_attention): causal,
 //     optionally sliding-window GQA attention, q (B,S,H,hd), k/v
 //     (B,S,KV,hd);
 //   * flash_decode_attention / _decode_kernel: one query token per slot
-//     over a dense cache (B,S_max,KV,hd), masked by each slot's cache_len.
+//     over a dense cache (B,S_max,KV,hd), masked by each slot's cache_len;
+//   * paged_flash_decode_attention / _paged_decode_kernel: the same over a
+//     pool (n_blocks, bs, KV, hd) whose rows a per-slot block table names
+//     (slot b's logical block j is pool row table[b, j]);
+//   * its kv_quant branch / _paged_decode_quant_kernel: the pool holds
+//     NF4 codes (uint8 (.., hd/2), high nibble = even element) or int8
+//     codes, with fp32 scales per quant_block elements of each row; each
+//     element is decoded (codebook entry or int8 code, times its scale)
+//     and rounded to the value dtype as it enters shared memory, so no
+//     decoded copy of the cache exists in device memory.
 //
-// Both share one block body (attend_block): up to 64 query rows against a
-// walk over 64-key tiles, with the TPU kernels' softmax rules -- fp32
-// running max, denominator and accumulator (online softmax), p cast to the
-// value dtype before the PV product, masking by MASK_VALUE = -1e30 (finite,
-// so a fully masked tile never makes inf - inf), and denom == 0 guarded.
+// All share one block body (attend_block), templated on how a key and
+// value element is fetched: up to 64 query rows against a walk over
+// 64-key tiles, with the TPU kernels' softmax rules -- fp32 running max,
+// denominator and accumulator (online softmax), p cast to the value dtype
+// before the PV product, masking by MASK_VALUE = -1e30 (finite, so a fully
+// masked tile never makes inf - inf), and denom == 0 guarded.  A 64-key
+// tile of a paged pool gathers 64 / bs table entries (4 at the serving
+// block size of 16); the TPU kernel visits one pool block per grid step.
 //
 // What bounds them on the H100: the prefill forward at llama2-7b widths
 // (hd = 128, S of a few hundred) does 4*hd FLOPs per visible (query, key)
 // pair against 2*hd bytes per key it reads: operations, not bytes.  Decode
-// reads each valid key and value row once for G = H/KV query rows: bytes.
+// reads each valid key and value row once for G = H/KV query rows: bytes
+// (2 B an element in bf16, 0.5 B plus a 4 B scale per 64 in NF4).
 //
 // What the design does about it: only key tiles that the causal mask (and
 // the window) leave visible are visited -- [j_lo, j_hi] of
 // _visible_j_range for prefill, and for decode the tiles up to the slot's
-// cache_len, which the block reads itself, so the blocks of short slots
-// cost nothing past their length.  K and V tiles sit in shared memory as
+// length, which the block reads itself, so the blocks of short slots cost
+// nothing past their length; a paged block reads its table only for keys
+// below the length, so entries past the slot's block count (which repeat
+// its last row) are never read.  K and V tiles sit in shared memory as
 // fp32 (rows padded by one word against bank conflicts), the score tile is
 // a 4x4 register micro-tile per thread, and each thread owns 8 rows x 4
 // head dims of the output accumulator in registers.  The arithmetic is
@@ -33,6 +49,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -64,17 +81,86 @@ size_t smem_bytes(int hd) {
                           2 * kRows);
 }
 
-// Rows r < n_rows of q (row stride q_rs elements) attend to keys at
-// positions kv (key stride kv_s) in tiles j_lo..j_hi; row r sits at
-// position q_pos0 + r * q_pos_step and sees key kv iff kv <= q_pos,
-// kv < s_kv and (window < 0 or q_pos - kv < window).
+// How attend_block fetches element d of the key and value at position
+// pos, as fp32 values already rounded to the value dtype T.
+
+// A dense (.., S, KV, hd) stripe of one KV head (key stride kv_s).
 template <typename T>
+struct DenseKV {
+  const T* k;
+  const T* v;
+  long long kv_s;
+  __device__ __forceinline__ void load(int pos, int d, float* kval,
+                                       float* vval) const {
+    const long long off = (long long)pos * kv_s + d;
+    *kval = to_f(k[off]);
+    *vval = to_f(v[off]);
+  }
+};
+
+// The pool row of position pos of one slot: table entry pos / bs, row
+// pos % bs, KV head kvh; in units of (token, head) rows.
+struct PagedRows {
+  const int* table;  // this slot's table row
+  int bs, KV, kvh;
+  __device__ __forceinline__ long long row(int pos) const {
+    const long long blk = __ldg(table + pos / bs);
+    return (blk * bs + pos % bs) * KV + kvh;
+  }
+};
+
+// A paged pool of rows in T.
+template <typename T>
+struct PagedKV {
+  const T* k;
+  const T* v;
+  PagedRows rows;
+  int hd;
+  __device__ __forceinline__ void load(int pos, int d, float* kval,
+                                       float* vval) const {
+    const long long off = rows.row(pos) * hd + d;
+    *kval = to_f(k[off]);
+    *vval = to_f(v[off]);
+  }
+};
+
+// A paged pool of NF4 (FMT 0) or int8 (FMT 1) codes with fp32 scales per
+// qb elements; cb is the 16-entry NF4 codebook in shared memory.
+template <typename T, int FMT>
+struct PagedQuantKV {
+  const uint8_t* k;
+  const uint8_t* v;
+  const float* ks;
+  const float* vs;
+  const float* cb;
+  PagedRows rows;
+  int hd, qb, nsb;
+  __device__ __forceinline__ float code(const uint8_t* c, long long row,
+                                        int d) const {
+    if (FMT == 0) {
+      const uint8_t b = c[row * (hd >> 1) + (d >> 1)];
+      return cb[(d & 1) ? (b & 15) : (b >> 4)];
+    }
+    return (float)reinterpret_cast<const int8_t*>(c)[row * hd + d];
+  }
+  __device__ __forceinline__ void load(int pos, int d, float* kval,
+                                       float* vval) const {
+    const long long row = rows.row(pos);
+    const long long si = row * nsb + d / qb;
+    *kval = to_f(from_f<T>(code(k, row, d) * ks[si]));
+    *vval = to_f(from_f<T>(code(v, row, d) * vs[si]));
+  }
+};
+
+// Rows r < n_rows of q (row stride q_rs elements) attend to the keys that
+// kv fetches, in tiles j_lo..j_hi; row r sits at position q_pos0 + r *
+// q_pos_step and sees key kv iff kv <= q_pos, kv < s_kv and (window < 0
+// or q_pos - kv < window).  Keys at or past s_kv are never fetched.
+template <typename T, typename KV>
 __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v, long long q_rs,
-                             long long kv_s, int n_rows, int hd, int q_pos0,
-                             int q_pos_step, int s_kv, int j_lo, int j_hi,
-                             int window, float scale) {
+                             const KV& kv, long long q_rs, int n_rows, int hd,
+                             int q_pos0, int q_pos_step, int s_kv, int j_lo,
+                             int j_hi, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldq = hd + 1;
   const int ldp = kKeys + 1;
@@ -108,11 +194,7 @@ __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
     for (int i = tid; i < kKeys * hd; i += kThreads) {
       const int kk = i / hd, d = i - kk * hd;
       float kval = 0.f, vval = 0.f;
-      if (kk < n_keys) {
-        const long long off = (long long)(kv0 + kk) * kv_s + d;
-        kval = to_f(k[off]);
-        vval = to_f(v[off]);
-      }
+      if (kk < n_keys) kv.load(kv0 + kk, d, &kval, &vval);
       Ks[kk * ldq + d] = kval;
       Vs[kk * hd + d] = vval;
     }
@@ -226,9 +308,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   const long long q_off = (((long long)b * S + q_lo) * H + h) * hd;
   const long long kv_off = ((long long)b * S * KV + kvh) * hd;
-  attend_block<T>(q + q_off, o + q_off, k + kv_off, v + kv_off,
-                  (long long)H * hd, (long long)KV * hd, min(kRows, S - q_lo),
-                  hd, q_lo, 1, S, j_lo, j_hi, window, scale);
+  const DenseKV<T> kv{k + kv_off, v + kv_off, (long long)KV * hd};
+  attend_block<T>(q + q_off, o + q_off, kv, (long long)H * hd,
+                  min(kRows, S - q_lo), hd, q_lo, 1, S, j_lo, j_hi, window,
+                  scale);
 }
 
 // grid (KV, B): one block per (b, kv head) holding the G query rows of the
@@ -251,9 +334,61 @@ __global__ void __launch_bounds__(kThreads)
   }
   const long long q_off = ((long long)b * H + (long long)kvh * G) * hd;
   const long long kv_off = ((long long)b * S_max * KV + kvh) * hd;
-  attend_block<T>(q + q_off, o + q_off, kc + kv_off, vc + kv_off,
-                  (long long)hd, (long long)KV * hd, G, hd, q_pos, 0, S_max,
-                  j_lo, j_hi, window, scale);
+  const DenseKV<T> kv{kc + kv_off, vc + kv_off, (long long)KV * hd};
+  attend_block<T>(q + q_off, o + q_off, kv, (long long)hd, G, hd, q_pos, 0,
+                  S_max, j_lo, j_hi, window, scale);
+}
+
+// Decode over a paged pool.  grid (KV, B): one block per (b, kv head); the
+// block reads its slot's length and table row itself and fetches keys only
+// below min(length, n_b * bs).
+struct PagedArgs {
+  const void* q;
+  void* o;
+  const void* k;       // pools: T rows, or codes
+  const void* v;
+  const float* ks;     // scale pools (quantized only)
+  const float* vs;
+  const float* cb;     // NF4 codebook (global)
+  const int* tables;   // (B, n_b)
+  const int* lens;     // (B,)
+  int n_b, bs, H, KV, hd, qb, window;
+  float scale;
+};
+
+template <typename T, int FMT>  // FMT -1: rows in T; 0 NF4; 1 int8
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_kernel(PagedArgs a) {
+  __shared__ float cb[16];
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.KV;
+  if (FMT == 0 && threadIdx.x < 16) cb[threadIdx.x] = a.cb[threadIdx.x];
+  __syncthreads();
+  const int length = a.lens[b];
+  const int q_pos = length - 1;
+  const int s_kv = min(length, a.n_b * a.bs);
+  const int j_hi = s_kv > 0 ? (s_kv - 1) / kKeys : -1;
+  int j_lo = 0;
+  if (a.window > 0) {
+    const int first = q_pos - a.window + 1;
+    j_lo = first > 0 ? first / kKeys : 0;
+  }
+  const long long q_off = ((long long)b * a.H + (long long)kvh * G) * a.hd;
+  const PagedRows rows{a.tables + (long long)b * a.n_b, a.bs, a.KV, kvh};
+  const T* q = static_cast<const T*>(a.q) + q_off;
+  T* o = static_cast<T*>(a.o) + q_off;
+  if constexpr (FMT < 0) {
+    const PagedKV<T> kv{static_cast<const T*>(a.k),
+                        static_cast<const T*>(a.v), rows, a.hd};
+    attend_block<T>(q, o, kv, (long long)a.hd, G, a.hd, q_pos, 0, s_kv, j_lo,
+                    j_hi, a.window, a.scale);
+  } else {
+    const PagedQuantKV<T, FMT> kv{
+        static_cast<const uint8_t*>(a.k), static_cast<const uint8_t*>(a.v),
+        a.ks, a.vs, cb, rows, a.hd, a.qb, (a.hd + a.qb - 1) / a.qb};
+    attend_block<T>(q, o, kv, (long long)a.hd, G, a.hd, q_pos, 0, s_kv, j_lo,
+                    j_hi, a.window, a.scale);
+  }
 }
 
 // Raise the kernel's dynamic shared-memory cap to `bytes` on the current
@@ -305,6 +440,27 @@ int decode(const void* q, const void* kc, const void* vc, const int* lens,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int FMT>
+int paged(const PagedArgs& a, int B, int smem_limit, cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const size_t smem = smem_bytes(a.hd);
+  int err = allow_smem(paged_decode_kernel<T, FMT>, smem + 16 * sizeof(float),
+                       smem_limit, granted);
+  if (err) return err;
+  dim3 grid(a.KV, B);
+  paged_decode_kernel<T, FMT><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int paged_fmt(int fmt, const PagedArgs& a, int B, int smem_limit,
+              cudaStream_t s) {
+  if (fmt == -1) return paged<T, -1>(a, B, smem_limit, s);
+  if (fmt == 0) return paged<T, 0>(a, B, smem_limit, s);
+  if (fmt == 1) return paged<T, 1>(a, B, smem_limit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 bool shapes_ok(int H, int KV, int hd) {
   return hd >= 1 && hd <= kMaxHd && KV >= 1 && H % KV == 0 &&
          H / KV <= kRows;
@@ -349,5 +505,38 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
   if (dtype == 1)
     return decode<__nv_bfloat16>(q, kc, vc, l, o, B, S_max, H, KV, hd, window,
                                  scale, smem_limit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, o contiguous (B, 1, H, hd) in dtype (0 float32, 1 bfloat16).  fmt -1:
+// k/v pools contiguous (n_blocks, bs, KV, hd) in q's dtype; fmt 0 (NF4):
+// uint8 code pools (n_blocks, bs, KV, hd/2) and the 16-entry fp32
+// codebook; fmt 1 (int8): int8 code pools (n_blocks, bs, KV, hd); for both,
+// fp32 scale pools (n_blocks, bs, KV, ceil(hd/qb)).  tables (B, n_b) int32
+// pool rows, lens (B,) int32 valid entries per slot, the new token
+// included.  window < 0: full causal attention.
+extern "C" int paged_decode_launch(int dtype, int fmt, const void* q,
+                                   const void* k, const void* v,
+                                   const void* ks, const void* vs,
+                                   const void* codebook, const void* tables,
+                                   const void* lens, void* o, int B, int n_b,
+                                   int bs, int H, int KV, int hd, int qb,
+                                   int window, float scale, int smem_limit,
+                                   void* stream) {
+  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1)
+    return (int)cudaErrorInvalidValue;
+  if (fmt >= 0 && (qb < 1 || ks == nullptr || vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (fmt == 0 && (codebook == nullptr || hd % 2))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  PagedArgs a{q, o, k, v, static_cast<const float*>(ks),
+              static_cast<const float*>(vs),
+              static_cast<const float*>(codebook),
+              static_cast<const int*>(tables), static_cast<const int*>(lens),
+              n_b, bs, H, KV, hd, qb, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return paged_fmt<float>(fmt, a, B, smem_limit, s);
+  if (dtype == 1) return paged_fmt<__nv_bfloat16>(fmt, a, B, smem_limit, s);
   return (int)cudaErrorInvalidValue;
 }

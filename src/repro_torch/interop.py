@@ -7,7 +7,9 @@ conversion is a plain copy.  Nothing here imports ``jax`` or ``repro``:
 callers hand over nested dicts of arrays (anything ``numpy.asarray``
 takes) and, for adapters, objects or dicts that carry the JAX adapter's
 fields by name (``tensors``, ``dims_in``, ``dims_out``, ``pairs``;
-``tree`` and ``specs`` for an adapter set).  Fold-free adapters (a
+``tree`` and ``specs`` for an adapter set).  A quantized weight (an object
+with ``packed`` and ``scales``, as the JAX ``QuantizedLinear``) crosses as
+a plain copy of its codes, scales and norms.  Fold-free adapters (a
 ``frozen`` copy S) are not ported yet and raise.
 """
 
@@ -20,9 +22,10 @@ import torch
 
 from repro_torch.core.peft import AdapterLeafSpec, AdapterSet
 from repro_torch.core.quanta import QuantaAdapter
+from repro_torch.core.quantize import QuantizedLinear
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "quanta_from_numpy",
-           "adapter_set_from_numpy"]
+           "adapter_set_from_numpy", "quantized_linear_from_numpy"]
 
 
 def _field(obj, name, default=None):
@@ -42,14 +45,35 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return t.to(device=device)
 
 
+def quantized_linear_from_numpy(qw, device) -> QuantizedLinear:
+    """A quantized weight (``packed``, ``scales``, ``fmt``, ``block_size``,
+    ``dtype`` as a dtype name, optional ``row_norm``/``col_norm``)."""
+    def opt(name):
+        a = _field(qw, name)
+        return None if a is None else tensor_from_numpy(a, device)
+
+    return QuantizedLinear(
+        packed=tensor_from_numpy(_field(qw, "packed"), device),
+        scales=tensor_from_numpy(_field(qw, "scales"), device),
+        fmt=str(_field(qw, "fmt")),
+        block_size=_field(qw, "block_size"),
+        dtype=getattr(torch, str(_field(qw, "dtype"))),
+        row_norm=opt("row_norm"), col_norm=opt("col_norm"),
+    )
+
+
 def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """A nested param dict of arrays as the port's param dict (stacked
-    leaves stay stacked: the port keeps the JAX layout)."""
-    return {
-        k: params_from_numpy(v, device) if isinstance(v, dict)
-        else tensor_from_numpy(v, device)
-        for k, v in tree.items()
-    }
+    """A nested param dict of arrays (and quantized weights) as the port's
+    param dict (stacked leaves stay stacked: the port keeps the JAX
+    layout)."""
+    def leaf(v):
+        if isinstance(v, dict):
+            return params_from_numpy(v, device)
+        if _field(v, "packed") is not None:
+            return quantized_linear_from_numpy(v, device)
+        return tensor_from_numpy(v, device)
+
+    return {k: leaf(v) for k, v in tree.items()}
 
 
 def quanta_from_numpy(adapter, device) -> QuantaAdapter:

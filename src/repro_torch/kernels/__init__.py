@@ -11,6 +11,7 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quanta_apply as _qa
 from repro_torch.kernels import quanta_linear as _ql
+from repro_torch.kernels import quantized_matmul as _qm
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
@@ -19,6 +20,10 @@ KERNELS = {
     "quanta_linear": _ql.quanta_linear,
     "flash_attention": _fa.flash_attention,
     "flash_decode_attention": _fa.flash_decode_attention,
+    "paged_flash_decode_attention": _fa.paged_flash_decode_attention,
+    "paged_flash_decode_attention_quant":
+        _fa.paged_flash_decode_attention_quant,
+    "quantized_matmul": _qm.quantized_matmul,
 }
 
 

@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "nvcc_path", "build", "load",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels (the package lives at <checkout>/src/repro_torch)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quanta_apply", "quanta_linear", "flash_attention")
+SOURCES = ("quanta_apply", "quanta_linear", "flash_attention",
+           "quantized_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,14 +1,20 @@
-"""Causal flash attention (prefill) and dense-cache flash decode: CUDA
-kernels in ``csrc/flash_attention.cu`` and their plain PyTorch versions.
+"""Causal flash attention (prefill) and flash decode over a dense cache or
+a paged pool (of rows, or of NF4/int8 codes): CUDA kernels in
+``csrc/flash_attention.cu`` and their plain PyTorch versions.
 
 Replaces the TPU kernels of ``repro/kernels/flash_attention.py``:
-``_flash_forward`` (public ``flash_attention``) and
-``flash_decode_attention``.  Layouts are the JAX package's: ``q (B, S, H,
-hd)``, ``k/v (B, S, KV, hd)``, a dense cache ``(B, S_max, KV, hd)`` and
+``_flash_forward`` (public ``flash_attention``), ``flash_decode_attention``
+and ``paged_flash_decode_attention`` with and without ``kv_quant``.
+Layouts are the JAX package's: ``q (B, S, H, hd)``, ``k/v (B, S, KV,
+hd)``, a dense cache ``(B, S_max, KV, hd)``, pools ``(n_blocks, bs, KV,
+hd)`` (codes ``(.., hd // 2)`` uint8 for NF4, ``(.., hd)`` int8, scales
+``(.., ceil(hd / quant_block))`` fp32), block tables ``(B, n_b)`` and
 ``cache_len (B,)``.  CPU tensors run the plain versions
-(:func:`flash_attention_plain` and :func:`flash_decode_attention_plain`),
-which walk the same 64-key tiles as the kernels with the same online
-softmax and the same rounding points; CUDA tensors launch the kernels.
+(:func:`flash_attention_plain`, :func:`flash_decode_attention_plain` and
+:func:`paged_decode_attention_plain`), which walk the same 64-key tiles as
+the kernels with the same online softmax and the same rounding points
+(the paged one gathers the pool through the table, decoded and rounded
+to the value dtype, first); CUDA tensors launch the kernels.
 :func:`blockwise_reference_attention` and
 :func:`decode_reference_attention` are the reference backend's
 attention, with the softmax normalised before ``p`` is cast.  Forward
@@ -24,15 +30,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quantize import codebook, kv_dequant_values
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import MASK_VALUE, masked_softmax, route
-from repro_torch.kernels.smem import device_limits
+from repro_torch.kernels.smem import attention_smem_bytes, device_limits
 
 __all__ = [
     "flash_attention",
     "flash_decode_attention",
     "flash_attention_plain",
     "flash_decode_attention_plain",
+    "paged_flash_decode_attention",
+    "paged_flash_decode_attention_quant",
+    "paged_decode_attention_plain",
+    "gather_pages",
+    "gather_kv",
     "blockwise_reference_attention",
     "decode_reference_attention",
     "pad_to_q_block",
@@ -247,16 +259,83 @@ def flash_decode_attention_plain(
     return out.reshape(b, 1, h, hd)
 
 
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """The dense ``(B, n_b * bs, ...)`` view of a pool ``(n_blocks, bs,
+    ...)`` through per-slot block tables ``(B, n_b)``."""
+    b, n_b = block_tables.shape
+    g = pool[block_tables.long()]                     # (B, n_b, bs, ...)
+    return g.reshape(b, n_b * pool.shape[1], *pool.shape[2:])
+
+
+def gather_kv(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    kv_quant: Optional[str] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    quant_block: int = 64,
+    value_dtype=None,
+):
+    """Dense ``(B, n_b * bs, KV, hd)`` keys and values of a paged pool;
+    under ``kv_quant`` decoded to fp32 and rounded to ``value_dtype``
+    (default q's)."""
+    k = gather_pages(k_pool, block_tables)
+    v = gather_pages(v_pool, block_tables)
+    if kv_quant is None:
+        return k, v
+    hd, dt = q.shape[-1], value_dtype or q.dtype
+
+    def decode(codes, scales):
+        return kv_dequant_values(codes, gather_pages(scales, block_tables),
+                                 fmt=kv_quant, block_size=quant_block,
+                                 d=hd).to(dt)
+
+    return decode(k, k_scales), decode(v, v_scales)
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,               # (B, 1, H, hd)
+    k_pool: torch.Tensor,          # (n_blocks, bs, KV, hd | hd//2)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,    # (B, n_b) pool rows
+    cache_len: torch.Tensor,       # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    kv_quant: Optional[str] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    quant_block: int = 64,
+    value_dtype=None,
+) -> torch.Tensor:
+    """The paged decode kernels' arithmetic in plain PyTorch: the pool
+    gathered through the table (decoded to fp32 and rounded to
+    ``value_dtype``, default q's, under ``kv_quant``), then the dense
+    decode's 64-key tile walk.  Returns ``(B, 1, H, hd)``."""
+    k, v = gather_kv(q, k_pool, v_pool, block_tables, kv_quant=kv_quant,
+                     k_scales=k_scales, v_scales=v_scales,
+                     quant_block=quant_block, value_dtype=value_dtype)
+    return flash_decode_attention_plain(q, k, v, cache_len, window=window,
+                                        softmax_scale=softmax_scale)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _bind(name: str, n_ptrs: int, n_ints: int):
+def _bind(name: str, n_ptrs: int, n_ints: int, n_lead: int = 1):
+    """A C entry point taking ``n_lead`` int codes, ``n_ptrs`` pointers,
+    ``n_ints`` ints, then the scale, the shared-memory limit and the
+    stream."""
     fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
+            [ctypes.c_int] * n_lead + [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * n_ints
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
@@ -358,5 +437,157 @@ def flash_decode_attention(
     return out
 
 
+_FMT_CODES = {"nf4": 0, "int8": 1}
+
+
+def _paged_launch(fmt: int, q, k, v, ks, vs, tables, lens, window, scale,
+                  quant_block: int):
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    _check_heads(h, kvh, hd)
+    smem = attention_smem_bytes(hd)
+    limit = device_limits(q.device).smem_block
+    if smem > limit:
+        raise ValueError(f"the decode block needs {smem} bytes of shared "
+                         f"memory; a block may use {limit}")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    null = ctypes.c_void_p(0)
+    rc = _bind("paged_decode_launch", 9, 8, n_lead=2)(
+        _build.dtype_code(q.dtype), fmt, _ptr(q), _ptr(k), _ptr(v),
+        null if ks is None else _ptr(ks), null if vs is None else _ptr(vs),
+        _ptr(codebook(q.device)) if fmt == 0 else null, _ptr(tables),
+        _ptr(lens), _ptr(out), b, tables.shape[1], k.shape[1], h, kvh, hd,
+        quant_block, -1 if window is None else int(window), scale, limit,
+        _build.stream_ptr(),
+    )
+    return rc, out
+
+
+def _tables_and_lens(block_tables, cache_len, b):
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or cache_len.shape != (b,):
+        raise ValueError(
+            f"block tables {tuple(block_tables.shape)} and cache_len "
+            f"{tuple(cache_len.shape)} do not fit {b} slots")
+    return (block_tables.to(torch.int32).contiguous(),
+            cache_len.to(torch.int32).contiguous())
+
+
+def paged_flash_decode_attention(
+    q: torch.Tensor,               # (B, 1, H, hd)
+    k_pool: torch.Tensor,          # (n_blocks, bs, KV, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,    # (B, n_b) pool rows
+    cache_len: torch.Tensor,       # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    kv_quant: Optional[str] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    quant_block: int = 64,
+    value_dtype=None,
+) -> torch.Tensor:
+    """Single-step flash attention over a paged pool: slot ``b``'s logical
+    block ``j`` is pool row ``block_tables[b, j]``; entries past the
+    slot's block count must repeat its last row (they are never read).
+    ``kv_quant`` ("nf4" | "int8") takes code pools and their scale pools
+    (:func:`paged_flash_decode_attention_quant`).  Returns ``(B, 1, H,
+    hd)``."""
+    if kv_quant is not None:
+        return paged_flash_decode_attention_quant(
+            q, k_pool, k_scales, v_pool, v_scales, block_tables, cache_len,
+            kv_quant=kv_quant, quant_block=quant_block,
+            value_dtype=value_dtype, window=window,
+            softmax_scale=softmax_scale)
+    b, q_len, h, hd = q.shape
+    if q_len != 1:
+        raise ValueError(f"decode kernel expects q_len == 1, got {q_len}")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    if route(q, k_pool, v_pool, block_tables, cache_len) == "plain":
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, block_tables, cache_len, window=window,
+            softmax_scale=scale)
+    if k_pool.dim() != 4 or k_pool.shape[3] != hd \
+            or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise ValueError("q and the pools must share one dtype")
+    tables, lens = _tables_and_lens(block_tables, cache_len, b)
+    rc, out = _paged_launch(-1, q, k_pool.contiguous(), v_pool.contiguous(),
+                            None, None, tables, lens, window, scale, 0)
+    _build.check(rc, "paged_flash_decode_attention")
+    paged_flash_decode_attention.launches += 1
+    return out
+
+
+def paged_flash_decode_attention_quant(
+    q: torch.Tensor,               # (B, 1, H, hd)
+    k_codes: torch.Tensor,         # (n_blocks, bs, KV, hd//2) u8 | hd i8
+    k_scales: torch.Tensor,        # (n_blocks, bs, KV, ceil(hd/qb)) fp32
+    v_codes: torch.Tensor,
+    v_scales: torch.Tensor,
+    block_tables: torch.Tensor,    # (B, n_b) pool rows
+    cache_len: torch.Tensor,       # (B,)
+    *,
+    kv_quant: str,
+    quant_block: int = 64,
+    value_dtype=None,
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step flash attention over paged NF4/int8 code pools: each
+    key and value element is decoded (codebook entry or int8 code, times
+    the fp32 scale of its ``quant_block`` slice of head_dim) and rounded
+    to ``value_dtype`` (default q's) in shared memory.  Returns ``(B, 1,
+    H, hd)``."""
+    b, q_len, h, hd = q.shape
+    if q_len != 1:
+        raise ValueError(f"decode kernel expects q_len == 1, got {q_len}")
+    if kv_quant not in _FMT_CODES:
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    if k_scales is None or v_scales is None:
+        raise ValueError("kv_quant needs k_scales and v_scales")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    if route(q, k_codes, k_scales, v_codes, v_scales, block_tables,
+             cache_len) == "plain":
+        return paged_decode_attention_plain(
+            q, k_codes, v_codes, block_tables, cache_len, window=window,
+            softmax_scale=scale, kv_quant=kv_quant, k_scales=k_scales,
+            v_scales=v_scales, quant_block=quant_block,
+            value_dtype=value_dtype)
+    if (value_dtype or q.dtype) != q.dtype:
+        raise ValueError("the kernel decodes to q's dtype; value_dtype "
+                         f"{value_dtype} differs from {q.dtype}")
+    code_dt, width = ((torch.uint8, hd // 2) if kv_quant == "nf4"
+                      else (torch.int8, hd))
+    if kv_quant == "nf4" and hd % 2:
+        raise ValueError(f"NF4 pools need an even head_dim, got {hd}")
+    lead = k_codes.shape[:3]
+    if k_codes.dim() != 4 or k_codes.dtype != code_dt \
+            or k_codes.shape[3] != width or v_codes.shape != k_codes.shape \
+            or v_codes.dtype != code_dt:
+        raise ValueError(f"{kv_quant} code pools {tuple(k_codes.shape)} "
+                         f"{k_codes.dtype} do not fit q {tuple(q.shape)}")
+    nsb = -(-hd // quant_block)
+    for s in (k_scales, v_scales):
+        if s.shape != (*lead, nsb) or s.dtype != torch.float32:
+            raise ValueError(f"scale pool {tuple(s.shape)} {s.dtype} is not "
+                             f"fp32 {(*lead, nsb)}")
+    tables, lens = _tables_and_lens(block_tables, cache_len, b)
+    rc, out = _paged_launch(
+        _FMT_CODES[kv_quant], q, k_codes.contiguous(), v_codes.contiguous(),
+        k_scales.contiguous(), v_scales.contiguous(), tables, lens, window,
+        scale, int(quant_block))
+    _build.check(rc, "paged_flash_decode_attention_quant")
+    paged_flash_decode_attention_quant.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 flash_decode_attention.launches = 0
+paged_flash_decode_attention.launches = 0
+paged_flash_decode_attention_quant.launches = 0

@@ -1,9 +1,11 @@
-"""Shared-memory budget of one thread block, read from the card.
+"""Shared-memory budget of one thread block, and the tiles sized against
+it, read from the card.
 
 Takes the place of the JAX package's VMEM budget: the QuanTA chain
-kernel's row tile, the one tile of the port that depends on the problem
-width, is sized here against the block's limit.  The limit and the SM
-count come from ``torch.cuda.get_device_properties``, once per device.
+kernel's row tile and the attention kernels' working set are sized here
+against the block's shared-memory limit, and the quantized matmul's K
+split against the SM count; both come from
+``torch.cuda.get_device_properties``, once per device.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ __all__ = [
     "chain_stage_words",
     "chain_smem_bytes",
     "chain_rows_per_block",
+    "attention_smem_bytes",
+    "QmmPlan",
+    "quantized_matmul_plan",
 ]
 
 
@@ -80,3 +85,65 @@ def chain_rows_per_block(d_max: int, stage_words: int, itemsize: int,
             f"does not fit a block's {smem_limit} bytes of shared memory"
         )
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+ATTN_ROWS = 64    # query rows per block
+ATTN_KEYS = 64    # keys per shared-memory tile
+
+
+def attention_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one attention block (``smem_bytes`` in
+    ``csrc/flash_attention.cu``): the fp32 query tile and key tile with
+    rows padded by one word, the value tile, the score tile and two row
+    statistics, plus the 16-entry NF4 codebook of the quantized decode."""
+    return 4 * (ATTN_ROWS * (hd + 1) + ATTN_KEYS * (hd + 1) + ATTN_KEYS * hd
+                + ATTN_ROWS * (ATTN_KEYS + 1) + 2 * ATTN_ROWS + 16)
+
+
+# ---------------------------------------------------------------------------
+# Quantized matmul (csrc/quantized_matmul.cu)
+# ---------------------------------------------------------------------------
+
+QMM_BK = 64       # K rows per step: a multiple of the 64-element quant
+                  # block and of the two rows of an NF4 byte
+# variant code -> (block rows, block cols): the output tiles of ``Tile<V>``
+# in the CUDA source, whose shared memory is static and under 48 KB
+QMM_TILES = {
+    0: (128, 128),    # bf16, many rows
+    1: (16, 64),      # bf16, few rows
+    2: (64, 64),      # float32
+}
+QMM_NARROW_ROWS = 64      # at most this many rows take the narrow tile
+QMM_WAVES = 2             # blocks wanted per SM before K is split
+
+
+class QmmPlan(NamedTuple):
+    variant: int          # tile code of the CUDA entry point
+    splits: int           # K splits (1: no partials)
+
+
+@functools.lru_cache(maxsize=None)
+def quantized_matmul_plan(rows: int, d_in: int, d_out: int, bf16: bool,
+                          sms: int) -> QmmPlan:
+    """Tile and K split of the quantized matmul for one problem shape.
+
+    bf16 takes the 128 x 128 tile for many rows and the 16 x 64 tile for
+    at most 64 rows; float32 the 64 x 64 SIMT tile.  When the output
+    tiles give fewer than two blocks per SM, K is split into as many
+    non-empty parts as it takes to reach that (decode at d_out 4096: 64
+    tiles, so 5 splits of 13 steps at d_in 4096).
+    """
+    if not bf16:
+        variant = 2
+    else:
+        variant = 1 if rows <= QMM_NARROW_ROWS else 0
+    bm, bn = QMM_TILES[variant]
+    tiles = -(-rows // bm) * -(-d_out // bn)
+    steps = -(-d_in // QMM_BK)
+    want = min(steps, max(1, -(-QMM_WAVES * sms // tiles)))
+    per = -(-steps // want)
+    return QmmPlan(variant, -(-steps // per))

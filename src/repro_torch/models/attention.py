@@ -1,5 +1,5 @@
 """Attention behind a backend switch (port of
-``repro/models/attention.py``, dense paths).
+``repro/models/attention.py``, single device).
 
 * ``backend="reference"`` -- plain PyTorch: blockwise causal attention
   over query blocks, and the masked-softmax decode over the whole cache.
@@ -12,7 +12,9 @@ GQA layout: ``q (B, S, H, hd)``, ``k/v (B, S, KV, hd)``, ``H % KV == 0``.
 ``q_block`` and ``fast_softmax`` are knobs of the reference path: the
 kernels take their own 64-row tiles and always keep fp32 softmax
 statistics with ``p`` cast to v's dtype, so they refuse ``fast_softmax``.
-Chunked-prefill and paged attention are not ported yet.
+Paged decode (:func:`paged_decode_attention`) reads a block pool through
+per-slot tables, optionally of NF4/int8 codes.  Chunked-prefill attention
+and the sharded (``shard_map``) paged branch are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,9 +29,12 @@ from repro_torch.kernels.flash_attention import (
     decode_reference_attention,
     flash_attention,
     flash_decode_attention,
+    gather_kv,
+    paged_flash_decode_attention,
 )
 
-__all__ = ["MASK_VALUE", "blockwise_causal_attention", "decode_attention"]
+__all__ = ["MASK_VALUE", "blockwise_causal_attention", "decode_attention",
+           "paged_decode_attention"]
 
 _BACKENDS = ("reference", "pallas")
 
@@ -88,4 +93,48 @@ def decode_attention(
     return decode_reference_attention(
         q, k_cache, v_cache, cache_len, window=window,
         fast_softmax=fast_softmax,
+    )
+
+
+def paged_decode_attention(
+    q: torch.Tensor,               # (B, 1, H, hd), one new token
+    k_pool: torch.Tensor,          # (n_blocks, bs, KV, hd) or codes
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,    # (B, max_blocks) pool rows
+    cache_len: torch.Tensor,       # (B,) valid entries (incl. the new token)
+    *,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+    backend: str = "reference",
+    kv_quant: Optional[str] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    quant_block: int = 64,
+    value_dtype=None,
+) -> torch.Tensor:
+    """Single-step attention over a paged pool.  Returns ``(B, 1, H,
+    hd)``.
+
+    Table entries past a slot's block count must repeat its last row
+    (``serve/paging.PagedCacheView.device_tables``).  ``kv_quant`` marks
+    the pools as codes with scale pools ``k_scales``/``v_scales``
+    (``core.quantize.quantize_kv`` layout), decoded and cast to
+    ``value_dtype`` (default q's) before attention.  ``backend="pallas"``
+    takes the paged flash kernels; the reference path gathers the pool
+    into a dense view and runs the dense reference decode.
+    """
+    _check_backend(backend, fast_softmax)
+    if kv_quant is not None and (k_scales is None or v_scales is None):
+        raise ValueError("kv_quant needs k_scales and v_scales")
+    if backend == "pallas":
+        return paged_flash_decode_attention(
+            q, k_pool, v_pool, block_tables, cache_len, window=window,
+            kv_quant=kv_quant, k_scales=k_scales, v_scales=v_scales,
+            quant_block=quant_block, value_dtype=value_dtype,
+        )
+    k, v = gather_kv(q, k_pool, v_pool, block_tables, kv_quant=kv_quant,
+                     k_scales=k_scales, v_scales=v_scales,
+                     quant_block=quant_block, value_dtype=value_dtype)
+    return decode_reference_attention(
+        q, k, v, cache_len, window=window, fast_softmax=fast_softmax,
     )

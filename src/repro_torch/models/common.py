@@ -1,12 +1,15 @@
 """Shared model-building blocks, dense subset (port of
-``repro/models/common.py``): config, cache slot layout and surgery, norms,
-RoPE, init helpers.
+``repro/models/common.py``): config, cache slot layout and surgery (dense
+stripes and paged block pools), norms, RoPE, init helpers.
 
 Parameters are nested dicts of tensors with the JAX package's layouts
 (linears ``(d_in, d_out)``, stacked ``(L, d_in, d_out)`` over layers), so
 weights carry over from the JAX package by a plain copy.  The dense cache
-is ``{"k", "v": (L, B, S_max, KV, hd), "len": (B,) int32}``; unlike the
-JAX package's immutable arrays, the port updates its leaves in place.
+is ``{"k", "v": (L, B, S_max, KV, hd), "len": (B,) int32}``; the paged
+cache replaces the ``(B, S_max)`` axes of ``k``/``v`` by ``(n_blocks,
+block_size)`` (and under ``kv_quant`` holds codes plus ``k_qscale`` /
+``v_qscale`` scale pools).  Unlike the JAX package's immutable arrays,
+the port updates cache leaves in place.
 """
 
 from __future__ import annotations
@@ -17,10 +20,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
+
 __all__ = [
     "ModelConfig",
     "CacheLeafSpec",
+    "PagedCacheLeafSpec",
+    "reset_cache_slots",
     "merge_cache_slots",
+    "scatter_cache_slots",
     "insert_cache_slots",
     "rms_norm",
     "make_rope",
@@ -33,9 +41,16 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters of the dense family, with the JAX
-    package's field names and torch dtypes.  ``kv_cache``, ``base_quant``
-    and ``kv_quant`` name paths the port does not run yet; the model
-    refuses them."""
+    package's field names and torch dtypes.
+
+    ``kv_quant`` ("nf4" | "int8" | None) makes the decode step quantize
+    each new K/V row on write (paged pools of codes, or the fake-quantized
+    round trip in a dense cache), in blocks of ``quant_block_size``
+    elements along head_dim.  ``base_quant`` and ``quant_block_size`` are
+    what ``ServingEngine(base_quant=)`` packs the projections with;
+    ``kv_cache`` and ``kv_block_size`` describe the serving cache for
+    accounting, as in the JAX package (the engine takes its own
+    ``cache=`` and ``block_size=``)."""
 
     name: str
     family: str
@@ -62,7 +77,9 @@ class ModelConfig:
     q_block: int = 512            # query tile of the reference attention
     fast_softmax: bool = False    # reference attention only
     kv_cache: str = "dense"
+    kv_block_size: int = 64
     base_quant: Optional[str] = None
+    quant_block_size: int = 64
     kv_quant: Optional[str] = None
     quanta_scheme: Optional[str] = None
 
@@ -85,9 +102,35 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class CacheLeafSpec:
     """Slot layout of one decode-cache leaf: the axis indexed by serving
-    slot."""
+    slot, and the value a freed slot resets to."""
 
     slot_axis: int
+    fill: Any = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedCacheLeafSpec(CacheLeafSpec):
+    """A cache leaf with a per-token axis that the paged cache pools.
+
+    ``page_axis`` is the token axis of the dense layout (directly after
+    ``slot_axis``).  Under ``ServingEngine(cache="paged")`` the leaf is a
+    block pool: the ``(slot, token)`` axes become ``(n_blocks,
+    block_size)`` and a host-side block table maps each slot's logical
+    blocks to pool rows (``serve/paging.py``).  Pool row 0 is the null
+    block: scatter padding and the writes of freed slots land there and
+    are never read.
+
+    ``kv_quant`` ("nf4" | "int8" | None) marks a float leaf whose pool
+    stores quantized rows: codes under the leaf's key plus a
+    ``<key>_qscale`` sibling of fp32 scales per ``quant_block`` elements
+    of the last axis.  The commit scatter quantizes wave stripes into
+    both; the dense engine writes the fake-quantized round trip into the
+    one float leaf instead.  The scale sibling's spec has ``kv_quant=None``.
+    """
+
+    page_axis: int = 2
+    kv_quant: Optional[str] = None
+    quant_block: int = 64
 
 
 def _slot_index(leaf: torch.Tensor, axis: int, ids) -> list:
@@ -96,18 +139,36 @@ def _slot_index(leaf: torch.Tensor, axis: int, ids) -> list:
     return idx
 
 
+def reset_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
+                      skip_paged: bool = False):
+    """Reset the given slots of every leaf to its spec's fill, in place.
+    ``skip_paged`` leaves paged pools alone: freeing their rows is a
+    block-table operation, and stale rows are never read."""
+    for key, ls in spec.items():
+        if skip_paged and isinstance(ls, PagedCacheLeafSpec):
+            continue
+        leaf = cache[key]
+        leaf[tuple(_slot_index(leaf, ls.slot_axis, slot_ids))] = ls.fill
+    return cache
+
+
 def merge_cache_slots(spec: Dict[str, CacheLeafSpec], new_cache, old_cache,
-                      active):
+                      active, skip_paged: bool = False):
     """Keep ``new_cache`` stripes only where ``active`` (bool per slot).
 
     A leaf that the decode step updated in place (``new is old``) is kept
     as it is: the stripes of inactive slots then hold entries past their
     length, which every reader masks and the next admission overwrites.
+    ``skip_paged`` takes paged pools from ``new_cache`` as they are: the
+    writes of inactive slots landed in the null block.
     """
     out = dict(old_cache)
     for key, ls in spec.items():
         new, old = new_cache[key], old_cache[key]
         if new is old:
+            continue
+        if skip_paged and isinstance(ls, PagedCacheLeafSpec):
+            out[key] = new
             continue
         act = torch.as_tensor(active, dtype=torch.bool, device=new.device)
         sel = act.reshape(
@@ -117,18 +178,68 @@ def merge_cache_slots(spec: Dict[str, CacheLeafSpec], new_cache, old_cache,
     return out
 
 
-def insert_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
-                       prefill_cache, lengths=None):
-    """Scatter the first ``len(slot_ids)`` stripes of a prefill wave into
-    ``cache`` at ``slot_ids``, in place.  Wave axes shorter than the cache
-    are written as a prefix (every reader masks by the slot's length);
-    ``lengths`` overrides the wave's ``len`` leaf."""
-    if lengths is not None:
-        prefill_cache = dict(prefill_cache, len=torch.as_tensor(
-            lengths, dtype=torch.int32, device=cache["len"].device))
-    n = len(slot_ids)
+def _scatter_paged_leaf(ls: PagedCacheLeafSpec, dst: torch.Tensor,
+                        src: torch.Tensor, n: int, tables) -> None:
+    """Scatter the token blocks of a wave leaf ``(..., rows, S, ...)``
+    into the pool ``dst (..., n_blocks, bs, ...)`` through ``tables (n,
+    nb)``, in place; entries past a row's block count name the null
+    block, so pad-token garbage lands there."""
+    s_ax, p_ax = ls.slot_axis, ls.page_axis
+    if p_ax != s_ax + 1:
+        raise ValueError("paged leaf needs page_axis == slot_axis + 1")
+    tables = torch.as_tensor(tables, dtype=torch.long, device=dst.device)
+    nb = tables.shape[1]
+    bs = dst.shape[p_ax]
+    src = src.narrow(s_ax, 0, n)
+    s = src.shape[p_ax]
+    if s > nb * bs:
+        raise ValueError(f"wave extent {s} exceeds table span {nb * bs}")
+    if s < nb * bs:
+        shape = list(src.shape)
+        shape[p_ax] = nb * bs - s
+        src = torch.cat([src, src.new_zeros(shape)], dim=p_ax)
+    shp = src.shape
+    src = src.reshape(shp[:s_ax] + (n * nb, bs) + shp[p_ax + 1:])
+    idx = [slice(None)] * dst.dim()
+    idx[s_ax] = tables.reshape(-1)
+    dst[tuple(idx)] = src.to(dst.dtype)
+
+
+def _quantize_wave_leaves(spec: Dict[str, CacheLeafSpec], wave, paged: bool):
+    """Quantize-on-commit of ``kv_quant`` leaves: under a paged cache whose
+    spec has the ``<key>_qscale`` sibling, the float stripe becomes codes
+    (under its key) and scales (under the sibling); otherwise its
+    fake-quantized round trip, which the dense engine stores."""
+    out = wave
     for key, ls in spec.items():
-        dst, src = cache[key], prefill_cache[key]
+        if not isinstance(ls, PagedCacheLeafSpec) or ls.kv_quant is None:
+            continue
+        if out is wave:
+            out = dict(wave)
+        if paged and key + "_qscale" in spec:
+            out[key], out[key + "_qscale"] = quantize_kv(
+                out[key], ls.kv_quant, block_size=ls.quant_block)
+        else:
+            out[key] = fake_quantize_kv(out[key], ls.kv_quant,
+                                        block_size=ls.quant_block)
+    return out
+
+
+def scatter_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
+                        wave_cache, block_tables=None):
+    """Scatter the first ``len(slot_ids)`` slot stripes of ``wave_cache``
+    into ``cache`` at ``slot_ids``, in place.  Wave axes shorter than the
+    cache are written as a prefix (every reader masks by the slot's
+    length).  With ``block_tables (len(slot_ids), nb)`` the paged leaves
+    scatter into their pools through the table instead."""
+    n = len(slot_ids)
+    wave_cache = _quantize_wave_leaves(spec, wave_cache,
+                                       paged=block_tables is not None)
+    for key, ls in spec.items():
+        dst, src = cache[key], wave_cache[key]
+        if block_tables is not None and isinstance(ls, PagedCacheLeafSpec):
+            _scatter_paged_leaf(ls, dst, src, n, block_tables)
+            continue
         ax = ls.slot_axis
         src = src.narrow(ax, 0, n)
         idx = _slot_index(dst, ax, slot_ids)
@@ -141,6 +252,17 @@ def insert_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
                 idx[d] = slice(0, src.shape[d])
         dst[tuple(idx)] = src.to(dst.dtype)
     return cache
+
+
+def insert_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
+                       prefill_cache, lengths=None, block_tables=None):
+    """``insert_cache`` of every model: :func:`scatter_cache_slots`, with
+    ``lengths`` overriding the wave's ``len`` leaf."""
+    if lengths is not None:
+        prefill_cache = dict(prefill_cache, len=torch.as_tensor(
+            lengths, dtype=torch.int32, device=cache["len"].device))
+    return scatter_cache_slots(spec, cache, slot_ids, prefill_cache,
+                               block_tables)
 
 
 # ---------------------------------------------------------------------------

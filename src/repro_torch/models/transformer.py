@@ -4,8 +4,12 @@
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``params["layers"]`` leaves have leading dim L); the layer loop takes
 views ``w[l]`` where the JAX package scans.  PEFT adapters are stacked
-the same way and sliced in lockstep.  Serving updates the dense decode
-cache in place.  The MoE branch and chunked prefill are not ported yet.
+the same way and sliced in lockstep.  A projection may be a
+``QuantizedLinear`` (``core/quantize.py``), layer-stacked like the dense
+weight it replaces.  Serving updates the decode cache in place: a dense
+cache, or paged block pools addressed through per-slot block tables
+(of rows, or of NF4/int8 codes under ``cfg.kv_quant``).  The MoE branch
+and chunked prefill are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,13 +23,15 @@ from torch import nn
 from repro_torch.core.peft import (
     adapter_subtree, get_adapter, layer_tree, peft_linear,
 )
+from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 from repro_torch.kernels.dispatch import default_device
 from repro_torch.models.attention import (
-    blockwise_causal_attention, decode_attention,
+    blockwise_causal_attention, decode_attention, paged_decode_attention,
 )
 from repro_torch.models.common import (
     CacheLeafSpec,
     ModelConfig,
+    PagedCacheLeafSpec,
     apply_rope,
     dense_init,
     embed_init,
@@ -55,13 +61,6 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet (dense only)"
             )
-        for field, value, default in (("kv_cache", cfg.kv_cache, "dense"),
-                                      ("base_quant", cfg.base_quant, None),
-                                      ("kv_quant", cfg.kv_quant, None)):
-            if value != default:
-                raise NotImplementedError(
-                    f"{field}={value!r} is not ported yet"
-                )
         self.cfg = cfg
         self.device = default_device(device)
 
@@ -134,9 +133,14 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------ layer body
     def _attn(self, lp, la, x, *, rope, window, cache=None):
-        """Attention sub-block.  ``cache=(k_cache, v_cache, cache_len)``
-        for dense decode: the new token's K/V are written in place at
-        ``cache_len - 1``.  Returns ``(out, new_kv)``."""
+        """Attention sub-block.  ``cache`` for decode is ``(k_cache,
+        v_cache, cache_len)`` (dense), ``(k_pool, v_pool, cache_len,
+        block_tables)`` (paged) or ``(k_codes, k_scales, v_codes, v_scales,
+        cache_len, block_tables)`` (paged, quantized): the new token's K/V
+        are written in place at position ``cache_len - 1`` (in a paged pool
+        at row ``idx % bs`` of block ``table[b, idx // bs]``, quantized on
+        write under ``kv_quant``), then attended.  Returns ``(out,
+        new_kv)``."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self._linear(x, lp["q_proj"], get_adapter(la, "q_proj"),
@@ -157,17 +161,51 @@ class Transformer(nn.Module):
                 fast_softmax=cfg.fast_softmax, backend=cfg.attn_backend,
             )
             new_kv = (k, v)
-        else:
+        elif len(cache) == 3:
             k_cache, v_cache, cache_len = cache
             idx = (cache_len - 1).long()
             b_idx = torch.arange(b, device=x.device)
-            k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
-            v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
+            k_w, v_w = k[:, 0], v[:, 0]
+            if cfg.kv_quant is not None:
+                # the dense reference of the quantized pools stores the
+                # quantize-dequantize round trip
+                k_w = fake_quantize_kv(k_w, cfg.kv_quant,
+                                       block_size=cfg.quant_block_size)
+                v_w = fake_quantize_kv(v_w, cfg.kv_quant,
+                                       block_size=cfg.quant_block_size)
+            k_cache[b_idx, idx] = k_w.to(k_cache.dtype)
+            v_cache[b_idx, idx] = v_w.to(v_cache.dtype)
             out = decode_attention(
                 q, k_cache, v_cache, cache_len, window=window,
                 fast_softmax=cfg.fast_softmax, backend=cfg.attn_backend,
             )
             new_kv = (k_cache, v_cache)
+        else:
+            *pools, cache_len, bt = cache
+            bs = pools[0].shape[1]
+            idx = (cache_len - 1).long()
+            row = idx % bs
+            blk = bt[torch.arange(b, device=x.device), idx // bs].long()
+            if len(pools) == 2:
+                rows = (k[:, 0], v[:, 0])
+                quant = {}
+            else:
+                qb = cfg.quant_block_size
+                kc, ks = quantize_kv(k[:, 0], cfg.kv_quant, block_size=qb)
+                vc, vs = quantize_kv(v[:, 0], cfg.kv_quant, block_size=qb)
+                rows = (kc, ks, vc, vs)
+                quant = dict(kv_quant=cfg.kv_quant, k_scales=pools[1],
+                             v_scales=pools[3], quant_block=qb,
+                             value_dtype=cfg.param_dtype)
+            for pool, r in zip(pools, rows):
+                pool[blk, row] = r.to(pool.dtype)
+            k_pool, v_pool = (pools[0], pools[2]) if quant else pools
+            out = paged_decode_attention(
+                q, k_pool, v_pool, bt, cache_len,
+                window=window, fast_softmax=cfg.fast_softmax,
+                backend=cfg.attn_backend, **quant,
+            )
+            new_kv = tuple(pools)
         out = out.reshape(b, s, cfg.attn_dim)
         out = self._linear(out, lp["o_proj"], get_adapter(la, "o_proj"))
         return out, new_kv
@@ -211,27 +249,38 @@ class Transformer(nn.Module):
         return self._unembed(params, x), 0.0
 
     # ----------------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_len: int, dtype=None
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None
                    ) -> Dict[str, torch.Tensor]:
+        """The dense decode cache, on ``device`` (default: the model's;
+        ``"meta"`` gives its shapes and dtypes without memory)."""
         cfg = self.cfg
         dt = dtype or cfg.param_dtype
+        dev = self.device if device is None else device
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=self.device),
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
 
     def cache_spec(self) -> Dict[str, CacheLeafSpec]:
-        kv = CacheLeafSpec(slot_axis=1)
+        """Slot layout of the ``init_cache`` leaves; the KV leaves have a
+        token axis, so a paged cache may pool them."""
+        cfg = self.cfg
+        kv = PagedCacheLeafSpec(slot_axis=1, page_axis=2,
+                                kv_quant=cfg.kv_quant,
+                                quant_block=cfg.quant_block_size)
         return {"k": kv, "v": kv, "len": CacheLeafSpec(slot_axis=0)}
 
-    def insert_cache(self, cache, slot_ids, prefill_cache, lengths=None):
+    def insert_cache(self, cache, slot_ids, prefill_cache, lengths=None,
+                     block_tables=None):
         """Scatter a prefill wave's KV prefixes into the given slots (in
         place); rows past each request's length hold pad-token garbage
-        that decode masks and overwrites in order."""
+        that decode masks and overwrites in order.  With ``block_tables``
+        the KV prefixes scatter into the paged pools (pad blocks to the
+        null block)."""
         return insert_cache_slots(self.cache_spec(), cache, slot_ids,
-                                  prefill_cache, lengths)
+                                  prefill_cache, lengths, block_tables)
 
     @torch.no_grad()
     def prefill(self, params, peft, batch, lengths=None):
@@ -260,22 +309,29 @@ class Transformer(nn.Module):
         return logits, {"k": k_all, "v": v_all, "len": lens}
 
     @torch.no_grad()
-    def decode_step(self, params, peft, cache, batch):
+    def decode_step(self, params, peft, cache, batch, block_tables=None):
         """One decode step: writes each slot's new K/V at ``len`` in place
-        and attends over the first ``len + 1`` entries.  Returns
-        ``(logits, cache)`` with ``cache["len"]`` advanced by one."""
+        and attends over the first ``len + 1`` entries.  With
+        ``block_tables (B, max_blocks)`` the KV leaves are paged pools
+        (codes and ``*_qscale`` scales when the cache holds them).
+        Returns ``(logits, cache)`` with ``cache["len"]`` advanced by
+        one."""
         cfg = self.cfg
         x = self._embed(params, self._tokens(batch))            # (B, 1, d)
         new_len = cache["len"] + 1
         rope = make_rope((new_len - 1)[:, None], cfg.head_dim, cfg.rope_theta)
+        keys = (("k", "k_qscale", "v", "v_qscale") if "k_qscale" in cache
+                else ("k", "v"))
+        tail = (new_len,) if block_tables is None else (new_len,
+                                                        block_tables)
         for i, lp, la in self._layers(params, peft):
             x, _ = self._layer(
                 lp, la, x, rope=rope,
-                cache=(cache["k"][i], cache["v"][i], new_len),
+                cache=tuple(cache[key][i] for key in keys) + tail,
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._unembed(params, x)
-        new_cache = {"k": cache["k"], "v": cache["v"], "len": new_len}
+        new_cache = dict(cache, len=new_len)
         return _mask_vocab_pad(logits, cfg.vocab_size), new_cache
 
     def prefill_chunk(self, *args, **kwargs):

@@ -1,8 +1,13 @@
-"""Continuous-batching serving engine, dense cache and prefill admission
-(port of ``repro/serve/engine.py``).
+"""Continuous-batching serving engine with prefill admission, over a dense
+or a paged cache (port of ``repro/serve/engine.py``, single device).
 
 * A fixed ``n_slots`` decode batch; each slot owns a stripe of the dense
-  KV cache ``(L, n_slots, max_len, KV, hd)``.
+  KV cache ``(L, n_slots, max_len, KV, hd)``, or (``cache="paged"``) the
+  pool blocks its block table names (``serve/paging.py``): blocks are
+  reserved at admission, allocated on append, freed on eviction, and when
+  the pool runs dry mid-decode a slot is preempted (recompute: the
+  request goes back to the queue front and later re-prefills ``prompt +
+  output``).
 * Admission by prefill wave: queued prompts are right-padded to a length
   bucketed to a multiple of ``seq_bucket``, prefilled in one call over
   ``n_slots`` rows, and their cache stripes scattered into free slots
@@ -15,13 +20,19 @@
 
 Serving the adapter-attached model (``peft=``, an ``AdapterSet``) is
 numerically the merged model's (``core.peft.merge_all``);
-``cfg.peft_backend="pallas"`` routes QuanTA through the hand-written
-kernels and ``cfg.attn_backend="pallas"`` attention through the flash
-kernels.  The decode step updates the cache in place, so the stripes of
-inactive slots hold entries past their length that every reader masks.
-Paging, meshes, adapter banks and pools, chunked prefill, replay
-admission and quantization are not ported yet; PyTorch runs eagerly, so
-the JAX engine's compile guard has no counterpart.
+``cfg.peft_backend="pallas"`` routes QuanTA (and quantized projections)
+through the hand-written kernels and ``cfg.attn_backend="pallas"``
+attention through the flash kernels.  ``base_quant="nf4"|"int8"`` packs
+every projection into a blockwise ``QuantizedLinear`` at construction
+(the QLoRA pattern: adapters stay full precision on top);
+``kv_quant`` cross-checks ``cfg.kv_quant``, which makes the model store
+NF4/int8 codes in the paged pools (the fake-quantized round trip in a
+dense cache).  The decode step updates the cache in place: the stripes
+of inactive slots hold entries past their length that every reader
+masks, and their pool writes land in the null block.  Meshes, adapter
+banks and pools, chunked prefill and replay admission are not ported
+yet; PyTorch runs eagerly, so the JAX engine's compile guard has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -33,8 +44,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import quantize_params
 from repro_torch.kernels.dispatch import default_device
-from repro_torch.models.common import merge_cache_slots
+from repro_torch.models.common import insert_cache_slots, merge_cache_slots
+from repro_torch.serve.paging import PagedCacheView, addressable_nbytes
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -62,6 +75,8 @@ class ServingEngine:
         max_len: int = 256,
         seq_bucket: int = 16,
         cache: str = "dense",
+        block_size: int = 16,
+        n_blocks: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
         mesh=None,
         base_quant: Optional[str] = None,
@@ -69,15 +84,17 @@ class ServingEngine:
         device=None,
     ):
         for name, value, default in (
-            ("adapters", adapters, None), ("cache", cache, "dense"),
+            ("adapters", adapters, None),
             ("prefill_chunk", prefill_chunk, None), ("mesh", mesh, None),
-            ("base_quant", base_quant, None), ("kv_quant", kv_quant, None),
         ):
             if value != default:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: the port "
-                    "serves a dense cache with prefill admission"
+                    "serves one adapter set with prefill admission on one "
+                    "device"
                 )
+        if cache not in ("dense", "paged"):
+            raise ValueError(f"unknown cache mode {cache!r}")
         self.device = default_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -85,6 +102,27 @@ class ServingEngine:
             )
         self.model = model
         self.cfg = model.cfg
+        # frozen-base quantization: every projection packed once here;
+        # already quantized leaves are kept
+        self.base_quant = base_quant
+        if base_quant is not None:
+            params = quantize_params(params, base_quant,
+                                     block_size=self.cfg.quant_block_size)
+        # the model quantizes KV on write (cfg.kv_quant); the engine knob
+        # only cross-checks it
+        cfg_kv = self.cfg.kv_quant
+        if kv_quant is not None:
+            if kv_quant not in ("nf4", "int8"):
+                raise ValueError(f"unknown kv_quant format {kv_quant!r}")
+            if cfg_kv is None:
+                raise ValueError(
+                    "kv_quant= requires the model cfg to set kv_quant "
+                    "(the decode step quantizes KV on write)")
+            if kv_quant != cfg_kv:
+                raise ValueError(
+                    f"engine kv_quant={kv_quant!r} conflicts with model "
+                    f"cfg.kv_quant={cfg_kv!r}")
+        self.kv_quant = cfg_kv
         self.params = params
         self.peft = peft
         self.n_slots = n_slots
@@ -93,12 +131,25 @@ class ServingEngine:
         self.queue: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.spec = model.cache_spec()
-        self.cache = model.init_cache(n_slots, max_len)
+        self.pager = (PagedCacheView(model, n_slots, max_len, block_size,
+                                     n_blocks)
+                      if cache == "paged" else None)
+        self._paged = self.pager is not None and self.pager.paged
+        # spec of the serving cache: with quantized pools it has the
+        # ``*_qscale`` leaves that every cache surgery must see
+        self.serve_spec = self.pager.serve_spec if self._paged else self.spec
+        self.cache = (self.pager.init_cache() if self.pager is not None
+                      else model.init_cache(n_slots, max_len))
         self._lengths = np.zeros((n_slots,), np.int32)      # host-side
         self._last_token = np.zeros((n_slots,), np.int32)
         self.stats: Dict[str, Any] = {
             "prefill_calls": 0, "decode_calls": 0, "tokens": 0,
+            "preemptions": 0,
+            "param_bytes": _tree_nbytes(self.params),
+            "base_quant": base_quant or "none",
+            "kv_quant": self.kv_quant or "none",
         }
+        self._update_gauges()
 
     # ------------------------------------------------------------- frontend
     def submit(self, req: Request) -> None:
@@ -110,12 +161,38 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if len(req.prompt) >= self.max_len:
             raise ValueError("prompt longer than engine max_len")
+        if self._paged:
+            # a request that could never fit alone would livelock
+            # admission and preemption
+            worst = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+            need = self.pager.blocks_for(worst)
+            usable = self.pager.max_request_blocks
+            if need > usable:
+                raise ValueError(
+                    f"request needs up to {need} blocks but the pool only "
+                    f"has {usable}; it could never be admitted")
+
+    @staticmethod
+    def _tokens(req: Request) -> List[int]:
+        """Admission tokens: a preempted request re-admits with what it
+        generated as part of its prompt (recompute preemption)."""
+        return req.prompt + req.output if req.output else req.prompt
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
     def _bucket(self, n: int) -> int:
         return min(-(-n // self.seq_bucket) * self.seq_bucket, self.max_len)
+
+    def _update_gauges(self) -> None:
+        if self.pager is not None:
+            self.stats.update(self.pager.stats())
+            self.stats["kv_quant"] = self.stats.get("kv_quant") or "none"
+        elif "cache_bytes_allocated" not in self.stats:
+            self.stats.update(
+                blocks_in_use=0, blocks_total=0, peak_blocks_in_use=0,
+                cache_bytes_allocated=_tree_nbytes(self.cache),
+                peak_block_utilization=0.0)
 
     # ------------------------------------------------------------ admission
     def _admit(self) -> None:
@@ -124,13 +201,21 @@ class ServingEngine:
             return
         wave: List[Request] = []
         while self.queue and len(wave) < len(free):
+            n_tok = len(self._tokens(self.queue[0]))
+            if self._paged:
+                if not self.pager.can_admit(n_tok):
+                    break             # no room: wait for frees
+                # reserve now, so later wave members and alloc-on-append
+                # see the smaller pool
+                self.pager.ensure(free[len(wave)], n_tok)
             wave.append(self.queue.popleft())
-        self._admit_prefill(free, wave)
+        if wave:
+            self._admit_prefill(free, wave)
 
     def _admit_prefill(self, free: Sequence[int], wave: List[Request]) -> None:
         """One prefill over the right-padded wave, then scatter its cache
         stripes into the free slots."""
-        streams = [r.prompt for r in wave]
+        streams = [self._tokens(r) for r in wave]
         lengths = np.array([len(p) for p in streams], np.int32)
         s = self._bucket(int(lengths.max()))
         toks = np.zeros((self.n_slots, s), np.int64)
@@ -154,11 +239,50 @@ class ServingEngine:
             self._last_token[slot] = tok
             req.output.append(tok)
             self.stats["tokens"] += 1
+        self._update_gauges()
 
     def _insert_wave(self, slot_ids, wave_cache, lengths) -> None:
-        self.cache = self.model.insert_cache(
-            self.cache, slot_ids, wave_cache, lengths
-        )
+        """Land a prefill wave in the serving cache: by slot, or through
+        the block tables after allocating each row's blocks."""
+        if not self._paged:
+            self.cache = self.model.insert_cache(
+                self.cache, slot_ids, wave_cache, lengths)
+            return
+        for slot, n in zip(slot_ids, lengths):
+            self.pager.ensure(int(slot), int(n))
+        nb = -(-self.pager.wave_page_extent(wave_cache)
+               // self.pager.block_size)
+        tables = self.pager.wave_tables(slot_ids, nb)
+        self.cache = insert_cache_slots(self.serve_spec, self.cache,
+                                        slot_ids, wave_cache, lengths,
+                                        block_tables=tables)
+
+    def _preempt(self, slot: int) -> None:
+        """Recompute preemption: free the slot's blocks and put its request
+        back at the queue front; it re-admits with ``prompt + output`` as
+        its prefix, which continues its greedy stream."""
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self.pager.release(slot)
+        self.queue.appendleft(req)
+        self.stats["preemptions"] += 1
+
+    def _ensure_growth(self, active: np.ndarray) -> None:
+        """Alloc on append: every active slot must hold one more token
+        before the decode step.  When the pool is dry, preempt the highest
+        active slot (it frees at least one block, so the retry cannot
+        fail) and let the others decode; ``active`` is updated in place."""
+        for i in range(self.n_slots):
+            if not active[i]:
+                continue
+            try:
+                self.pager.ensure(i, int(self._lengths[i]) + 1)
+            except MemoryError:
+                victim = max(j for j in range(self.n_slots) if active[j])
+                self._preempt(victim)
+                active[victim] = False
+                if active[i]:
+                    self.pager.ensure(i, int(self._lengths[i]) + 1)
 
     # ----------------------------------------------------------------- tick
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -170,12 +294,15 @@ class ServingEngine:
     def dispatch_decode(self, toks: torch.Tensor, active: np.ndarray):
         """One fused decode step for the whole slot batch; returns the
         ``(B, 1, V)`` logits.  Only active slots advance their length."""
+        tables = self.pager.device_tables() if self._paged else None
         logits, new_cache = self.model.decode_step(
-            self.params, self.peft, self.cache, {"tokens": toks}
+            self.params, self.peft, self.cache, {"tokens": toks},
+            block_tables=tables,
         )
         self.stats["decode_calls"] += 1
-        self.cache = merge_cache_slots(self.spec, new_cache, self.cache,
-                                       active)
+        self.cache = merge_cache_slots(self.serve_spec, new_cache,
+                                       self.cache, active,
+                                       skip_paged=self._paged)
         return logits
 
     def _postprocess(self, nxt: np.ndarray, active: np.ndarray) -> None:
@@ -192,12 +319,20 @@ class ServingEngine:
                     self._lengths[i] >= self.max_len - 1:
                 req.done = True
                 self.slots[i] = None
+                if self._paged:
+                    self.pager.release(i)       # free on eviction
+        if self._paged:
+            self._update_gauges()
 
     def step(self) -> None:
         self._admit()
         active = np.array([r is not None for r in self.slots])
         if not active.any():
             return
+        if self._paged:
+            self._ensure_growth(active)
+            if not active.any():
+                return
         toks = torch.from_numpy(
             self._last_token.reshape(-1, 1).astype(np.int64)
         ).to(self.device)
@@ -210,3 +345,14 @@ class ServingEngine:
         while (self.queue or any(self.slots)) and ticks < max_ticks:
             self.step()
             ticks += 1
+
+
+def _tree_nbytes(tree) -> int:
+    """Device bytes of every tensor in a nested dict (quantized weights
+    count their packed codes, scales and norms)."""
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return addressable_nbytes(tree)
+    tensors = getattr(tree, "tensors", None)
+    return sum(addressable_nbytes(t) for t in tensors()) if tensors else 0

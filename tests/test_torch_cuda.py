@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (rectangular and odd-axis chains, row counts
-that no tile divides, GQA, windows, mixed cache lengths).
+that no tile divides, GQA, windows, mixed cache lengths, paged pools with
+shuffled tables and repeated tails, NF4 and int8 weights and KV codes).
 
 Every test here needs the card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so on a machine with the card and no
@@ -15,12 +16,16 @@ import torch
 
 from repro_torch.core.factorize import pair_schedule
 from repro_torch.core.quanta import QuantaAdapter, apply_sequential
+from repro_torch.core.quantize import (
+    QuantizedLinear, matmul_ref, quantize_kv, quantize_linear,
+)
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.quanta_apply import quanta_apply
 from repro_torch.kernels.quanta_linear import (
     quanta_linear, quanta_linear_plain,
 )
+from repro_torch.kernels.quantized_matmul import quantized_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +140,139 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         quanta_apply(x, [torch.zeros((4, 4, 4, 4), device=dev)], (4, 4, 4),
                      [(1, 2)])               # tensors not in x's dtype
+
+
+QMM = [
+    # (rows, d_in, d_out, block_size, normalize)
+    (1, 64, 24, 64, None),            # one row, one K step, narrow N
+    (37, 200, 72, 64, "rowcol"),      # odd rows, K tail, norms
+    (8, 4096, 4096, 64, None),        # a decode tick, split K
+    (130, 1024, 300, 32, "row"),      # wide tile, two row tiles, block 32
+    (5, 11008, 64, 64, "col"),        # llama2-7b's down_proj depth
+]
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d_in,d_out,bs,norm", QMM)
+def test_quantized_matmul_matches_plain(rows, d_in, d_out, bs, norm, dtype,
+                                        fmt, dev):
+    gen = torch.Generator(device=dev).manual_seed(d_in + rows)
+    w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
+    qw = quantize_linear(w.to(dtype), fmt, block_size=bs, normalize=norm)
+    x = torch.randn((rows, d_in), generator=gen, device=dev).to(dtype)
+    before = launch_counts()["quantized_matmul"]
+    got = quantized_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantized_matmul"] == before + 1
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               matmul_ref(x, qw).float().cpu().numpy(), **tol)
+
+
+def _pool(n_blocks, bs, kv, hd, dtype, gen, dev):
+    return (torch.randn((n_blocks, bs, kv, hd), generator=gen, device=dev)
+            .to(dtype))
+
+
+PAGED = [
+    # (b, h, kv, hd, bs, n_b, lens, window)
+    (3, 4, 2, 64, 16, 5, (1, 33, 80), None),    # GQA, tails
+    (2, 8, 8, 128, 16, 32, (512, 17), 50),      # llama2-7b heads, window
+    (4, 14, 2, 64, 5, 7, (35, 1, 6, 11), None),  # bs not dividing 64
+]
+
+
+def _tables(b, n_b, lens, bs, n_blocks, seed):
+    """Shuffled pool rows per slot; entries past a slot's block count
+    repeat its last row, as ``PagedCacheView.device_tables`` exports."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, n_blocks))
+    t = np.zeros((b, n_b), np.int32)
+    used = 0
+    for i, n in enumerate(lens):
+        c = -(-n // bs)
+        t[i, :c] = perm[used:used + c]
+        t[i, c:] = t[i, c - 1]
+        used += c
+    return t
+
+
+@pytest.mark.parametrize("quant", [None, "nf4", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,hd,bs,n_b,lens,window", PAGED)
+def test_paged_decode_kernels_match_plain(b, h, kv, hd, bs, n_b, lens,
+                                          window, dtype, quant, dev):
+    gen = torch.Generator(device=dev).manual_seed(hd + bs)
+    n_blocks = b * n_b + 1
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
+    kp = _pool(n_blocks, bs, kv, hd, dtype, gen, dev)
+    vp = _pool(n_blocks, bs, kv, hd, dtype, gen, dev)
+    tables = torch.from_numpy(_tables(b, n_b, lens, bs, n_blocks, bs)).to(dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(window=window)
+    if quant is not None:
+        (kp, ks), (vp, vs) = (quantize_kv(kp, quant), quantize_kv(vp, quant))
+        kw.update(kv_quant=quant, k_scales=ks, v_scales=vs)
+    name = ("paged_flash_decode_attention" if quant is None
+            else "paged_flash_decode_attention_quant")
+    before = launch_counts()[name]
+    got = FA.paged_flash_decode_attention(q, kp, vp, tables, cl, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    _close(got, FA.paged_decode_attention_plain(q, kp, vp, tables, cl, **kw),
+           dtype)
+
+
+def test_paged_decode_equals_dense_decode_bit_for_bit(dev):
+    """A pool read through its table gives what the dense kernel gives on
+    the gathered cache, bit for bit: the two share one block body."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, hd, bs, n_b = 3, 8, 128, 16, 8
+    kp = _pool(b * n_b + 1, bs, h, hd, torch.bfloat16, gen, dev)
+    vp = _pool(b * n_b + 1, bs, h, hd, torch.bfloat16, gen, dev)
+    lens = (128, 1, 77)
+    tables = torch.from_numpy(_tables(b, n_b, lens, bs, b * n_b + 1, 0)).to(
+        dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    paged = FA.paged_flash_decode_attention(q, kp, vp, tables, cl)
+    dense = FA.flash_decode_attention(q, FA.gather_pages(kp, tables),
+                                      FA.gather_pages(vp, tables), cl)
+    assert torch.equal(paged, dense)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 64), device=dev)
+    qw = quantize_linear(torch.zeros((64, 8), device=dev), "nf4")
+    with pytest.raises(ValueError):          # a CPU tensor mixed in
+        quantized_matmul(x.cpu(), qw)
+    odd = QuantizedLinear(torch.zeros((30, 8), dtype=torch.uint8,
+                                      device=dev),
+                          torch.ones((1, 8), device=dev), "nf4", 64,
+                          torch.float32)
+    with pytest.raises(ValueError):          # d_in 60: not a multiple of 8
+        quantized_matmul(torch.zeros((4, 60), device=dev), odd)
+    with pytest.raises(ValueError):          # x does not fit d_in
+        quantized_matmul(torch.zeros((4, 62), device=dev), odd)
+    q = torch.zeros((2, 1, 2, 64), device=dev)
+    pool = torch.zeros((5, 16, 2, 64), device=dev)
+    tables = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    lens = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):          # tables on the CPU
+        FA.paged_flash_decode_attention(q, pool, pool, tables.cpu(), lens)
+    with pytest.raises(ValueError):          # pools of another dtype
+        FA.paged_flash_decode_attention(q, pool.bfloat16(), pool.bfloat16(),
+                                        tables, lens)
+    codes, scales = quantize_kv(pool, "int8")
+    with pytest.raises(ValueError):          # int8 codes named nf4
+        FA.paged_flash_decode_attention(q, codes, codes, tables, lens,
+                                        kv_quant="nf4", k_scales=scales,
+                                        v_scales=scales)
+    with pytest.raises(ValueError):          # decode to another dtype
+        FA.paged_flash_decode_attention(q, codes, codes, tables, lens,
+                                        kv_quant="int8", k_scales=scales,
+                                        v_scales=scales,
+                                        value_dtype=torch.bfloat16)

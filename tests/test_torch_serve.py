@@ -100,8 +100,7 @@ def test_engine_frees_and_reuses_slots():
 
 
 @pytest.mark.parametrize("option", [
-    dict(cache="paged"), dict(prefill_chunk=16), dict(adapters=object()),
-    dict(mesh=object()), dict(base_quant="nf4"), dict(kv_quant="int8"),
+    dict(prefill_chunk=16), dict(adapters=object()), dict(mesh=object()),
 ])
 def test_unported_engine_options_raise(option):
     model = build_model(get_smoke("llama2-7b-proxy"), device="cpu")

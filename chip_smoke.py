@@ -24,7 +24,12 @@ Phases, one line or more each before the last:
    dtype's peak).  The quantized matmul runs NF4 and int8, with and
    without row/column norms, at 3072 and 8 rows of 4096->4096,
    4096->11008 and 11008->4096; the paged decodes at 8 slots of lengths
-   1-512 through shuffled tables, bf16 rows and NF4 and int8 codes;
+   1-512 through shuffled tables, bf16 rows and NF4 and int8 codes; the
+   banked-gather LoRA (kernel 8, with and without the base product) at 8
+   slots of 384 and of 1 row, 4096->4096 and 4096->4104, ranks 16 and 8,
+   f32 and bf16 factors, ids with repeats and zeros, with its neutral
+   row's exact zero, and two planted faults (the delta added into the
+   fp32 accumulator, every slot reading its neighbour's id);
 4. f32: llama2-7b-proxy widths cut to 2 layers, float32, perturbed QuanTA
    on q/v: the kernel engine and the plain engine must generate
    identical greedy tokens for 5 prompts x 16 new tokens, on the dense
@@ -51,14 +56,29 @@ Phases, one line or more each before the last:
    cache of the fake-quantized rows within the stated tolerance, while a
    planted fault (every slot reading its neighbour's block table) must
    exceed it;
+   then the multi-tenant path: the same model's base serves the 8
+   requests through an ``AdapterBank`` of two rank-16 LoRA tenants, a
+   rank-8 one and a folded-QuanTA one (mixed per request, one request on
+   the base); kernel 8 (both wrappers), kernels 2 and 4 must have
+   launched, each row's first-wave prefill logits must agree with its
+   tenant's single-tenant prefill within the stated tolerance, and a
+   planted fault (every slot given its neighbour's tenant) must exceed
+   it.  Before it, on the f32 2-layer cut, a bank of the same kinds of
+   tenant serves 6 prompts x 16 tokens with the kernels and with the plain
+   versions, on the dense cache, a paged pool that preempts, an NF4 base
+   (LoRA-only bank) and an ``AdapterPool`` of one row per group that
+   evicts and reloads: every kernel engine's tokens must equal the plain
+   engine's and each tenant's single-tenant engine's, and the pool's the
+   static bank's;
 6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
    prefill wave and over decode ticks, device time by kernel (where the
-   serving time goes), on the dense path and on the QLoRA path.
+   serving time goes), on the dense path, the QLoRA path and the bank.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
 quantized matmul of the QLoRA run, the paged bf16 decode of its bf16-KV
-twin; every count is set to 0 just before its run.
+twin, kernel 8 (``banked_lora_linear`` and ``banked_lora_delta``) of the
+bank run; every count is set to 0 just before its run.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -94,6 +114,9 @@ F32_TOL = {
     "paged_flash_decode_attention_quant": (3e-5, 3e-5),
     # up to 11008-term fp32 sums, split over K, in another order than cuBLAS
     "quantized_matmul": (1e-4, 1e-4),
+    # 4096-term fp32 sums (base and shrink) in another order than cuBLAS
+    "banked_lora_linear": (1e-4, 1e-4),
+    "banked_lora_delta": (1e-4, 1e-4),
 }
 # kernel vs plain in bfloat16, with errors in bf16 ulps of each element of
 # the plain output: (max ulps of any element or None, share of elements
@@ -120,6 +143,11 @@ BF16_TOL = {
     "paged_flash_decode_attention": (None, 1e-3, 2 ** -7),
     "paged_flash_decode_attention_quant": (None, 1e-3, 2 ** -7),
     "quantized_matmul": (None, 1e-3, 2 ** -7),
+    # kernel 8 takes the limits of quanta_linear, whose rounding points
+    # (a base product rounded to bf16, a delta rounded to bf16, their sum
+    # rounded) it shares; set before its first card reading
+    "banked_lora_linear": (None, 1e-3, 2 ** -7),
+    "banked_lora_delta": (None, 1e-3, 2 ** -7),
 }
 SOURCES = {
     "quanta_apply": ("src/repro_torch/csrc/quanta_apply.cu",
@@ -138,6 +166,10 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:616"),
     "quantized_matmul": ("src/repro_torch/csrc/quantized_matmul.cu",
                          "src/repro/kernels/quantized_matmul.py:86"),
+    "banked_lora_linear": ("src/repro_torch/csrc/banked_gather.cu",
+                           "src/repro/kernels/banked_gather.py:87"),
+    "banked_lora_delta": ("src/repro_torch/csrc/banked_gather.cu",
+                          "src/repro/kernels/banked_gather.py:87"),
 }
 # the kernels of the dense-cache serve run, which reports their launches
 DENSE_KERNELS = ("quanta_apply", "quanta_linear", "flash_attention",
@@ -155,6 +187,21 @@ SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
 # the top logit.  A planted fault (each slot reading its neighbour's block
 # table) must exceed it
 PAGED_LOGIT_TOL = 2 ** -7  # max |paged - dense| / max |dense|
+# kernel 8's check data: per-slot bank rows of 8 slots over a bank of 5
+# rows, with repeats and the neutral row 0
+BANK_IDS = (2, 0, 4, 2, 1, 3, 0, 1)
+# the 32-layer bf16 bank run: each row's first-wave prefill logits vs its
+# tenant's single-tenant prefill.  The base and QuanTA rows read 0 on the
+# H100 (kernel 8's base product equals cuBLAS's to the bit); the LoRA rows
+# differ by the order of the f32 delta's sums (kernel 8's against
+# torch.matmul's), rounded to bf16 and compounded over 32 layers, and read
+# 1.76e-2.  The limit is the adapted-vs-merged run's (0.0285 read there),
+# set before the first bank reading.  A planted fault (every slot given its
+# neighbour's tenant) must exceed it, and read 1.015
+BANK_LOGIT_TOL = 0.06  # max |bank - single| / max |single|
+# the bank runs' tenants, in bank order: name -> (method, rank, alpha)
+BANK_TENANTS = {"Q": ("quanta", None, None), "L16a": ("lora", 16, 32.0),
+                "L16b": ("lora", 16, 32.0), "L8": ("lora", 8, 16.0)}
 FAILURES = []
 
 
@@ -201,8 +248,17 @@ def timed(fn, iters=10, warmup=2):
 
 
 def bound(nbytes, flops, dtype):
+    """The least time for ``nbytes`` moved and ``flops`` operations in
+    ``dtype``, or for ``flops`` given as ``[(operations, dtype), ...]``,
+    and which of the two bounds it.  Operations of one type add up at its
+    peak; those of different types run on different units (bf16 on the
+    tensor cores, float32 on the CUDA cores), which may overlap, so the
+    slowest unit's time bounds them."""
+    per_type = {}
+    for f, dt in (flops if isinstance(flops, list) else [(flops, dtype)]):
+        per_type[str(dt)] = per_type.get(str(dt), 0) + f
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    t_ops = max(f / PEAK_FLOPS[dt] * 1e3 for dt, f in per_type.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -541,7 +597,103 @@ def check_kernels(card):
                                     matmul_ref(x, swapped), want)
                     del qw, wd
                 del w
+
+        # banked-gather LoRA (kernel 8), with and without the base product
+        check_banked(dtype, rnd, report, planted, dev)
     return records
+
+
+def check_banked(dtype, rnd, report, planted, dev):
+    """Kernel 8 against its plain version: 8 slots of 384 rows (a prefill
+    wave) and of 1 (a decode tick), 4096 -> 4096 and 4096 -> 4104 (no tile
+    divides it), LoRA ranks 16 and 8, f32 factors (the path's) and, with
+    bf16 activations, bf16 factors; ids ``BANK_IDS`` over a bank of 5 rows
+    whose row 0 is neutral.  Library: one composite, ``torch.matmul`` for
+    the base plus two ``torch.bmm`` over the gathered rows."""
+    import torch
+    from repro_torch.kernels.banked_gather import (
+        banked_lora_delta, banked_lora_linear,
+    )
+    from repro_torch.kernels.ref import (
+        banked_lora_delta_ref, banked_lora_linear_ref,
+    )
+
+    d, n, scale = 4096, len(BANK_IDS), 2.0
+    ids = torch.tensor(BANK_IDS, dtype=torch.int32, device=dev)
+    rows_read = len(set(BANK_IDS))        # bank rows this data reads
+    sz = torch.tensor([], dtype=dtype).element_size()
+    w = rnd(d, d + 8, dtype=dtype, scale=d ** -0.5)
+    factor_dtypes = ((torch.float32, torch.bfloat16)
+                     if dtype == torch.bfloat16 else (torch.float32,))
+    for a_dtype in factor_dtypes:
+        asz = torch.tensor([], dtype=a_dtype).element_size()
+        for rank, d_out, seqs in ((16, d, (384, 1)), (8, d, (384, 1)),
+                                  (16, d + 8, (384, 1))):
+            if (rank, d_out) != (16, d) and a_dtype != torch.float32:
+                continue
+            a = rnd(5, d, rank, dtype=a_dtype, scale=d ** -0.5)
+            b = rnd(5, rank, d_out, dtype=a_dtype, scale=0.1)
+            a[0], b[0] = 0, 0                # the neutral row
+            wd = w[:, :d_out].contiguous()
+            for seq in seqs:
+                m = n * seq
+                x = rnd(n, seq, d, dtype=dtype)
+                main = (seq == 384 and rank == 16 and d_out == d
+                        and a_dtype == torch.float32)
+                label = (f"rows={m} {'prefill' if seq > 1 else 'decode'} "
+                         f"{d}->{d_out} r={rank} factors "
+                         f"{str(a_dtype)[6:]}")
+                io = (m * (d + d_out) * sz + 4 * n
+                      + rows_read * rank * (d + d_out) * asz)
+                lora_ops = (2 * m * rank * (d + d_out), a_dtype)
+
+                def gathered():
+                    return (scale * torch.bmm(torch.bmm(
+                        x.to(a_dtype), a[ids.long()]), b[ids.long()])
+                            ).to(dtype)
+
+                got = banked_lora_delta(x, a, b, ids, scale=scale)
+                want = banked_lora_delta_ref(x, a, b, ids, scale)
+                report("banked_lora_delta", label, dtype, got, want,
+                       timed(lambda: banked_lora_delta(x, a, b, ids,
+                                                       scale=scale)),
+                       timed(lambda: banked_lora_delta_ref(x, a, b, ids,
+                                                           scale)),
+                       timed(gathered), io, [lora_ops], main)
+                neutral = bool((got[ids == 0] == 0).all())
+                got = banked_lora_linear(x, wd, a, b, ids, scale=scale)
+                want_l = banked_lora_linear_ref(x, wd, a, b, ids, scale)
+                report("banked_lora_linear", label, dtype, got, want_l,
+                       timed(lambda: banked_lora_linear(x, wd, a, b, ids,
+                                                        scale=scale)),
+                       timed(lambda: banked_lora_linear_ref(x, wd, a, b, ids,
+                                                            scale)),
+                       timed(lambda: torch.matmul(x, wd) + gathered()),
+                       io + d * d_out * sz,
+                       [(2 * m * d * d_out, dtype), lora_ops], main)
+                # the neutral row adds an exact zero: the fused rows of id
+                # 0 equal the fused kernel's over a bank of zeros
+                zero = banked_lora_linear(x, wd, torch.zeros_like(a),
+                                          torch.zeros_like(b), ids,
+                                          scale=scale)
+                neutral = neutral and torch.equal(got[ids == 0],
+                                                  zero[ids == 0])
+                print(f"check banked {label} {str(dtype)[6:]}: neutral "
+                      f"rows add an exact zero: {neutral}")
+                if not neutral:
+                    fail(f"kernel 8 {label}: a neutral row is not exact")
+                if main and dtype == torch.bfloat16:
+                    planted("banked_lora_linear",
+                            "delta added into the fp32 accumulator",
+                            (x.float() @ wd.float() + want.float()
+                             ).to(dtype), want_l)
+                    rolled = ids.roll(1)
+                    planted("banked_lora_linear", "neighbour's id",
+                            banked_lora_linear_ref(x, wd, a, b, rolled,
+                                                   scale), want_l)
+                    planted("banked_lora_delta", "neighbour's id",
+                            banked_lora_delta_ref(x, a, b, rolled, scale),
+                            want)
 
 
 def paged_tables(lens, bs, n_b, n_blocks, seed):
@@ -591,12 +743,13 @@ def _sync(dev):
 
 
 def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
-           **engine_kw):
-    """Serve ``prompts`` greedily; returns the outputs, the engine's stats
-    and the wall times of the first wave's prefill and of the rest of the
-    run.  The stats add ``readmit_s``, the wall time of the prefills after
-    the first wave (each timed to the device's end), and ``preempted``,
-    ``(request, tokens it had)`` for each preemption."""
+           tenants=None, **engine_kw):
+    """Serve ``prompts`` greedily (request i on bank tenant ``tenants[i]``
+    when given); returns the outputs, the engine's stats and the wall
+    times of the first wave's prefill and of the rest of the run.  The
+    stats add ``readmit_s``, the wall time of the prefills after the first
+    wave (each timed to the device's end), and ``preempted``, ``(request,
+    tokens it had)`` for each preemption."""
     from repro_torch.serve import Request, ServingEngine
 
     dev = model.device
@@ -604,8 +757,8 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
                         max_len=max_len, device=dev, **engine_kw)
     reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
-    for r in reqs:
-        eng.submit(r)
+    for i, r in enumerate(reqs):
+        eng.submit(r, adapter=tenants[i] if tenants else None)
     _sync(dev)
     t0 = time.monotonic()
     eng._admit()                      # the first wave's prefill
@@ -759,6 +912,148 @@ def f32_paged(dev, cfg):
         if outs.get("kernel, ample pool", outs["dense"]) != outs["dense"]:
             raise AssertionError(f"f32 paged {label}: ample pool differs "
                                  f"from the dense twin: {outs}")
+
+
+def _bank_setup(cfg, seed, dev, sigma):
+    """Random base params and the ``BANK_TENANTS`` over them: folded QuanTA
+    as the (params, adapter set) pair attach returns, its tensors moved
+    off S, and LoRA tenants whose B factors are moved off zero (Gaussian,
+    scale ``sigma``)."""
+    import torch
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device=dev)
+    params = model.init(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tenants = {}
+    for i, (name, (method, rank, alpha)) in enumerate(BANK_TENANTS.items()):
+        if method == "quanta":
+            qparams, aset = attach(seed + 2 + i, params, PeftConfig(
+                n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+            for a in aset.flat().values():
+                for t in a.tensors:
+                    t.add_(0.02 * torch.randn(t.shape, generator=gen,
+                                              device=dev, dtype=t.dtype))
+            tenants[name] = (qparams, aset)
+            continue
+        _, aset = attach(seed + 2 + i, params, PeftConfig(
+            method="lora", rank=rank, alpha=alpha), device=dev)
+        for a in aset.flat().values():
+            a.b.add_(sigma * torch.randn(a.b.shape, generator=gen,
+                                         device=dev, dtype=a.b.dtype))
+        tenants[name] = aset
+    return model, params, tenants
+
+
+def _tenant(tenants, params, name):
+    """``(params, adapter set)`` of one tenant's single-tenant engine
+    (``None``: the base model)."""
+    entry = tenants.get(name)
+    return entry if isinstance(entry, tuple) else (params, entry)
+
+
+# the f32 bank runs: 6 prompts over 4 slots with a tenant each, and a pool
+# of 16-token blocks too small for them (the batch preempts)
+F32_BANK_MIX = ("Q", "L16a", "L8", "L16b", None, "L16a")
+F32_BANK_POOL_BLOCKS = 32
+
+
+def f32_bank(dev, cfg):
+    """``cfg``: llama2-7b-proxy cut to 2 layers in float32.  A bank of
+    folded QuanTA, two rank-16 and one rank-8 LoRA tenants: the kernel
+    engine against the plain engine and each tenant's single-tenant kernel
+    engine, on the dense cache, a paged pool that preempts, an NF4 base
+    (LoRA-only bank: kernel 7, then kernel 8 without the base) and an
+    ``AdapterPool`` of one row per group (the two rank-16 tenants share
+    it, so it evicts and reloads), which must give the static bank's
+    tokens."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.bank import AdapterBank
+    from repro_torch.core.quantize import quantize_params
+    from repro_torch.serve import AdapterPool, AdapterStore
+
+    model, params, tenants = _bank_setup(cfg, 500, dev, sigma=0.05)
+    plain = type(model)(cfg.replace(attn_backend="reference",
+                                    peft_backend="reference"), device=dev)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64, 50)]
+    bank = AdapterBank.build(params, tenants)
+    qbase = quantize_params(params, "nf4", block_size=cfg.quant_block_size)
+    lora = {k: v for k, v in tenants.items() if not isinstance(v, tuple)}
+    lora_mix = [t if t in lora else None for t in F32_BANK_MIX]
+    paged = dict(cache="paged", block_size=16, n_blocks=F32_BANK_POOL_BLOCKS)
+    cases = (("dense", params, bank, F32_BANK_MIX, {}),
+             ("paged tight", params, bank, F32_BANK_MIX, paged),
+             ("NF4 base, LoRA bank", qbase, AdapterBank.build(qbase, lora),
+              lora_mix, dict(base_quant="nf4")))
+    static = None
+    for label, base, bnk, mix, kw in cases:
+        kernels.reset_launch_counts()
+        out_k, st_k, _, _ = _serve(model, base, None, prompts, 16, 4, 256,
+                                   tenants=mix, adapters=bnk, **kw)
+        run = kernels.launch_counts()
+        out_p, st_p, _, _ = _serve(plain, base, None, prompts, 16, 4, 256,
+                                   tenants=mix, adapters=bnk, **kw)
+        # each tenant on its own kernel engine over the dense cache; a
+        # request preempted one token short of its budget takes one more
+        # before it is retired (as in the JAX engine), so 16 are compared
+        single = {}
+        for name in set(mix):
+            p, a = _tenant(tenants, base, name)
+            idx = [i for i, t in enumerate(mix) if t == name]
+            outs, _, _, _ = _serve(model, p, a, [prompts[i] for i in idx],
+                                   16, 4, 256,
+                                   **{k: v for k, v in kw.items()
+                                      if k == "base_quant"})
+            single.update(zip(idx, outs))
+        same_p = sum(a == b for a, b in zip(out_k, out_p))
+        same_s = sum(out_k[i][:16] == single[i] for i in range(len(mix)))
+        print(f"f32 bank {label}: tenants {list(mix)}; preemptions kernel "
+              f"{st_k['preempted']} plain {st_p['preempted']}; identical "
+              f"greedy tokens kernel vs plain engine {same_p}/{len(mix)}, "
+              f"kernel vs single-tenant engines {same_s}/{len(mix)} "
+              f"requests x 16 tokens; kernel 8 launches "
+              f"{run['banked_lora_linear']} fused, "
+              f"{run['banked_lora_delta']} delta alone, kernel 7 "
+              f"{run['quantized_matmul']}")
+        if out_k != out_p or same_s != len(mix):
+            raise AssertionError(f"f32 bank {label}: tokens differ: kernel "
+                                 f"{out_k} plain {out_p} single {single}")
+        if st_k["preempted"] != st_p["preempted"] or (
+                bool(st_k["preempted"]) != (label == "paged tight")):
+            raise AssertionError(f"f32 bank {label}: preemptions "
+                                 f"{st_k['preempted']} {st_p['preempted']}")
+        need = (("quantized_matmul", "banked_lora_delta") if "NF4" in label
+                else ("banked_lora_linear", "banked_lora_delta",
+                      "quanta_linear"))
+        if any(run[k] == 0 for k in need):
+            raise AssertionError(f"f32 bank {label}: a kernel never "
+                                 f"launched: {run}")
+        if label == "dense":
+            static = out_k
+    # the pool: one resident row per group over the same registry
+    store = AdapterStore(max_tenants=8)
+    for name, entry in tenants.items():
+        store.register(name, entry)
+    pool = AdapterPool.build(params, store, capacity=1)
+    out_pool, st, _, _ = _serve(model, params, None, prompts, 16, 4, 256,
+                                tenants=F32_BANK_MIX, adapters=pool)
+    print(f"f32 bank pool (capacity 1 per group): loads "
+          f"{st['adapter_loads']}, evictions {st['adapter_evictions']}, "
+          f"deferrals {st['adapter_acquire_denied']}, resident "
+          f"{st['adapter_bytes_resident']} bytes of a registry of "
+          f"{st['adapter_bytes_registry']}; identical greedy tokens pool vs "
+          f"static bank {sum(a == b for a, b in zip(out_pool, static))}/"
+          f"{len(static)}")
+    if out_pool != static:
+        raise AssertionError(f"f32 bank pool differs from the static bank: "
+                             f"{out_pool} vs {static}")
+    if st["adapter_evictions"] < 1 or st["adapter_loads"] <= len(tenants):
+        raise AssertionError(f"f32 bank pool never evicted and reloaded: "
+                             f"{st}")
 
 
 def full_serve(card, dev, cfg):
@@ -966,6 +1261,89 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     return counts, (mq, qbase, peft, prompts)
 
 
+# the FULL-width bank run's tenants, one per request
+BANK_MIX = ("Q", "L16a", "L16b", "L8", None, "Q", "L16a", "L8")
+# the kernels the bank run must launch, of which it reports kernel 8's
+BANK_KERNELS = ("banked_lora_linear", "banked_lora_delta", "quanta_linear",
+                "flash_attention", "flash_decode_attention")
+
+
+def bank_serve(card, dev, cfg, prompts):
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).  One base serves
+    the 8 requests through an ``AdapterBank`` (``BANK_TENANTS``, mixed by
+    ``BANK_MIX``); then each row's first-wave prefill logits against its
+    tenant's single-tenant prefill, and the neighbour's-tenant fault.
+    Returns the launch counts of kernel 8 and the bank run's objects."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.bank import AdapterBank
+
+    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
+    t0 = time.monotonic()
+    model, params, tenants = _bank_setup(cfg, 400, dev, sigma=0.02)
+    bank = AdapterBank.build(params, tenants)
+    _sync(dev)
+    print(f"bank: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"tenants {BANK_TENANTS} on q/v, {bank.nbytes} bank bytes, set-up "
+          f"{time.monotonic() - t0:.1f} s")
+    kernels.reset_launch_counts()
+    outs, stats, t_pre, t_dec = _serve(model, params, None, prompts, 32, 8,
+                                       512, tenants=BANK_MIX, adapters=bank)
+    run = kernels.launch_counts()
+    print(f"bank serve: tenants {list(BANK_MIX)}; prefill {t_pre * 1e3:.1f} "
+          f"ms (wall, first wave), decode {t_dec * 1e3:.1f} ms (wall, "
+          f"{stats['decode_calls']} ticks, "
+          f"{t_dec / stats['decode_calls'] * 1e3:.2f} ms a tick); "
+          f"adapter_bytes_resident {stats['adapter_bytes_resident']}; "
+          f"launches {run} [{card}]")
+    missing = [k for k in BANK_KERNELS if run[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the bank path: "
+                             f"{missing}")
+    if any(len(r) != 32 for r in outs):
+        raise AssertionError("a request did not get its 32 tokens")
+
+    toks = torch.zeros((8, 384), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    batch = {"tokens": toks.to(dev)}
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    v = cfg.vocab_size
+    ids = torch.tensor([bank.id_of(t) for t in BANK_MIX], dtype=torch.int32)
+    # each row's reference: its tenant's single-tenant prefill
+    want = torch.empty((8, v), dtype=torch.float32, device=dev)
+    for name in set(BANK_MIX):
+        p, a = _tenant(tenants, params, name)
+        logits, _ = model.prefill(p, a, batch, lengths=lens)
+        rows = [i for i, t in enumerate(BANK_MIX) if t == name]
+        want[rows] = logits[rows, 0, :v].float()
+
+    def rel_err(adapter_ids):
+        got, _ = model.prefill(params, bank, batch, lengths=lens,
+                               adapter_ids=adapter_ids.to(dev))
+        got = got[:, 0, :v].float()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError("non-finite prefill logits")
+        err = (got - want).abs().amax(dim=-1) / want.abs().max()
+        return float(err.max()), [f"{e:.2e}" for e in err.tolist()]
+
+    rel, per_row = rel_err(ids)
+    print(f"bank: prefill logits vs each tenant's single-tenant prefill, "
+          f"max_rel {rel:.3e} (tolerance {BANK_LOGIT_TOL}); by row "
+          f"{per_row}")
+    if rel > BANK_LOGIT_TOL:
+        fail("bank and single-tenant prefill logits disagree")
+    rel_f, per_row = rel_err(ids.roll(1))
+    print(f"fault bank (every slot given its neighbour's tenant): max_rel "
+          f"{rel_f:.3e} by row {per_row} "
+          f"{'caught' if rel_f > BANK_LOGIT_TOL else 'passes: too loose'}")
+    if rel_f <= BANK_LOGIT_TOL:
+        fail("a slot on its neighbour's tenant passes the bank tolerance")
+    return ({k: run[k] for k in ("banked_lora_linear", "banked_lora_delta")},
+            (model, params, bank, prompts))
+
+
 def _device_ms(prof):
     """Device time by kernel name, in ms, from a finished profiler."""
     out = {}
@@ -979,9 +1357,10 @@ def _device_ms(prof):
 
 
 def profile_serve(card, model, base, peft, prompts, path="dense",
-                  **engine_kw):
+                  tenants=None, **engine_kw):
     """Device time of the adapted model's prefill wave and of 8 decode
-    ticks, by kernel, beside the wall time of the same window."""
+    ticks, by kernel, beside the wall time of the same window (request i
+    on bank tenant ``tenants[i]`` when given)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -991,13 +1370,17 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
     eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
                         device=dev, **engine_kw)
     for i, p in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32))
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32),
+                   adapter=tenants[i] if tenants else None)
     groups = (("quanta_apply", "quanta_chain_kernel"),
               ("quanta_linear", "gemm_bf16_kernel"),
               ("flash_attention", "flash_forward_kernel"),
               ("flash_decode_attention", "flash_decode_kernel"),
               ("paged_decode", "paged_decode_kernel"),
-              ("quantized_matmul", "qmm_"))
+              ("quantized_matmul", "qmm_"),
+              ("banked_gather", "fused_bf16_kernel"),
+              ("banked_shrink", "shrink_kernel"),
+              ("banked_delta", "delta_kernel"))
     for label, work, n in (("prefill", eng._admit, 1),
                            ("decode", eng.step, 8)):
         label = f"{path} {label}"
@@ -1077,13 +1460,23 @@ def main() -> int:
                        peft_backend="pallas")
     f32_exactness(dev, cut)
     f32_paged(dev, cut)
+    f32_bank(dev, cut)
     counts, served = full_serve(card, dev, full)
     qlora_counts, qlora = qlora_serve(card, dev, *served)
     counts.update(qlora_counts)
+    prompts = served[3]
     if "--profile" in sys.argv[1:]:
         profile_serve(card, *served)
         profile_serve(card, *qlora, path="qlora", cache="paged",
                       block_size=16, base_quant="nf4", kv_quant="nf4")
+    del served, qlora
+    bank_counts, banked = bank_serve(card, dev, full, prompts)
+    counts.update(bank_counts)
+    if "--profile" in sys.argv[1:]:
+        model, params, bank, _ = banked
+        profile_serve(card, model, params, None, prompts, path="bank",
+                      tenants=BANK_MIX, adapters=bank)
+    del banked
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",

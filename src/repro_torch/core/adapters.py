@@ -1,60 +1,204 @@
 """The uniform ``Adapter`` protocol every PEFT method implements (port of
 ``repro/core/adapters.py``).
 
-* ``apply(x, w, backend)`` -- the full adapted linear for weight ``w``.
-* ``delta(x)`` -- the additive update ``x @ dW`` in factored form.
+* ``apply(x, w, backend)`` -- the full adapted linear for weight ``w``;
+  the default is the delta form ``x @ w + delta(x)``, weight-coupled
+  methods (DoRA, DoTA) override it.
+* ``delta(x)`` -- the additive update ``x @ dW`` in factored form (only
+  meaningful when ``delta_form`` is True).
 * ``matrix()`` -- the materialized ``(d_in, d_out)`` update.
-* ``merge(w)`` -- deployment fold ``W = W0 + dW``.
+* ``merge(w)`` -- deployment fold ``W = W0 + dW``, from ``matrix()``.
+* ``neutral(w)`` -- a same-structure adapter whose ``apply(x, w)`` is
+  exactly ``x @ w``: the all-zeros adapter for delta-form methods.  It is
+  row 0 of a serving bank (``core/bank.py``).
+* ``banked_delta`` / ``banked_linear`` -- application of a bank-stacked
+  adapter (every tensor with a leading bank axis) with per-slot rows.
 * ``num_params`` -- trainable parameter count.
+* ``delta_form`` -- class flag: ``apply == x @ w + delta(x)``.
 
-Adapters are frozen dataclasses whose tensor fields may carry a leading
-layer axis (one adapter per stacked ``(L, d_in, d_out)`` weight);
-``layer(l)`` returns the view of one layer.  The frozen base ``w`` is a
+Adapters are frozen dataclasses.  Their tensor fields (and fields holding
+tuples of tensors or nested adapters) are the leaves that :func:`tree_map`
+walks; every other field is static.  Leaves may carry a leading layer
+axis (one adapter per stacked ``(L, d_in, d_out)`` weight, ``layer(l)``
+returns one layer's view) or a bank axis.  The frozen base ``w`` is a
 dense tensor or a ``core.quantize.QuantizedLinear``; :func:`base_matmul`
 takes both.
+
+``RebasedAdapter`` pins a delta-form adapter to the base weight it was
+trained against: QuanTA's attach folds the frozen copy into the base
+(``W0' = W0 - S``), so a QuanTA tenant of a shared-base bank computes
+``x @ W0'_tenant + delta(x)`` against its own stored base.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, ClassVar, List
 
 import torch
 
 from repro_torch.core.quantize import base_matmul
 
-__all__ = ["Adapter", "base_matmul"]
+__all__ = ["Adapter", "RebasedAdapter", "base_matmul", "tree_map",
+           "tree_leaves", "tree_nbytes", "structure"]
+
+
+def _is_node(v) -> bool:
+    """A leaf tensor, an adapter, or a tuple holding either."""
+    if isinstance(v, (torch.Tensor, Adapter)):
+        return True
+    return isinstance(v, tuple) and any(_is_node(e) for e in v)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of ``tree`` (zipped with the same-structure
+    ``rest``), rebuilding tuples and adapters; static fields are kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
+    if isinstance(tree, Adapter):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)
+            if _is_node(getattr(tree, f.name))
+        })
+    return tree
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of ``tree`` in field order."""
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a nested dict of tensors, adapters and
+    objects with a ``tensors()`` method (a quantized weight's codes,
+    scales and norms; a bank path's rows and id maps)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, Adapter):
+        return sum(tree_nbytes(t) for t in tree_leaves(tree))
+    if isinstance(tree, torch.Tensor):
+        return int(tree.numel() * tree.element_size())
+    tensors = getattr(tree, "tensors", None)
+    return sum(tree_nbytes(t) for t in tensors()) if tensors else 0
+
+
+def structure(tree) -> Any:
+    """Hashable structure of ``tree``: classes, static fields and the
+    positions of the tensors (which are left out)."""
+    if isinstance(tree, torch.Tensor):
+        return "*"
+    if isinstance(tree, tuple) and _is_node(tree):
+        return tuple(structure(t) for t in tree)
+    if isinstance(tree, Adapter):
+        return (type(tree).__name__, tuple(
+            (f.name, structure(getattr(tree, f.name)))
+            for f in dataclasses.fields(tree)))
+    return tree
 
 
 class Adapter:
     """Protocol base class (mixin; concrete adapters are dataclasses)."""
 
+    # True when apply(x, w) == x @ w + delta(x) with delta independent of w
+    delta_form: ClassVar[bool] = True
+
     def delta(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+        raise NotImplementedError(
+            f"{type(self).__name__} does not expose a weight-independent "
+            "delta; use apply(x, w)")
 
     def matrix(self) -> torch.Tensor:
-        raise NotImplementedError
+        raise NotImplementedError(
+            f"{type(self).__name__} has no weight-independent update "
+            "matrix; use merge(w)")
 
-    def apply(self, x: torch.Tensor, w: torch.Tensor,
+    def apply(self, x: torch.Tensor, w,
               backend: str = "reference") -> torch.Tensor:
-        raise NotImplementedError
+        """Adapted linear ``x @ w + delta(x)`` (delta-form default); a
+        quantized ``w`` goes through :func:`base_matmul`."""
+        return base_matmul(x, w, backend) + self.delta(x)
 
     def merge(self, w: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+        """Fold the trained update into the base weight (paper §6)."""
+        m = self.matrix()
+        return (w.to(m.dtype) + m).to(w.dtype)
+
+    def neutral(self, w) -> "Adapter":
+        """Same-structure adapter with ``apply(x, w) == x @ w`` exactly:
+        the all-zeros adapter for delta-form methods (every update here
+        is multilinear in its factors).  Weight-coupled methods
+        override."""
+        del w
+        return tree_map(torch.zeros_like, self)
+
+    # --- banked (multi-tenant) application ------------------------------
+    # ``self`` is bank-stacked here: every tensor has a leading bank axis
+    # of extent G+1 (row 0 neutral), and ``ids`` is a (B,) int32 tensor of
+    # per-slot local rows on the tensors' device.
+
+    def banked_delta(self, x: torch.Tensor, ids: torch.Tensor,
+                     backend: str = "reference") -> torch.Tensor:
+        """Per-slot gathered delta, the reference: gather each slot's
+        row, then ``delta`` slot by slot.  Delta-form methods only."""
+        del backend
+        sel = tree_map(lambda leaf: leaf.index_select(0, ids), self)
+        return torch.stack([
+            tree_map(lambda leaf, b=b: leaf[b], sel).delta(x[b])
+            for b in range(x.shape[0])
+        ])
+
+    def banked_linear(self, x: torch.Tensor, w, ids: torch.Tensor,
+                      backend: str = "reference"):
+        """``x @ w + banked_delta`` in one kernel, or ``None`` when the
+        method has no fused path for these operands (the bank then adds
+        ``banked_delta`` to a separate base product)."""
+        del x, w, ids, backend
+        return None
 
     @property
     def num_params(self) -> int:
-        raise NotImplementedError
+        return sum(t.numel() for t in tree_leaves(self))
 
     def layer(self, index: int) -> "Adapter":
-        """The adapter of one layer of a layer-stacked adapter."""
-        def pick(v):
-            if isinstance(v, torch.Tensor):
-                return v[index]
-            if isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
-                return tuple(t[index] for t in v)
-            return v
+        """The adapter of one layer of a layer-stacked adapter (views)."""
+        return tree_map(lambda t: t[index], self)
 
-        return dataclasses.replace(self, **{
-            f.name: pick(getattr(self, f.name))
-            for f in dataclasses.fields(self)
-        })
+
+@dataclasses.dataclass(frozen=True)
+class RebasedAdapter(Adapter):
+    """An adapter pinned to the base weight it was trained against.
+
+    ``apply(x, w)`` ignores the shared ``w`` and computes against the
+    stored ``base``: exactly the single-tenant computation.  The bank
+    wraps folded-QuanTA tenants in it (one dense ``(d_in, d_out)`` copy
+    per tenant per path).  ``num_params`` counts the inner adapter only.
+    """
+
+    delta_form = False
+
+    inner: Any
+    base: torch.Tensor
+
+    def apply(self, x: torch.Tensor, w,
+              backend: str = "reference") -> torch.Tensor:
+        del w
+        return self.inner.apply(x, self.base, backend)
+
+    def merge(self, w: torch.Tensor) -> torch.Tensor:
+        del w
+        return self.inner.merge(self.base)
+
+    def neutral(self, w) -> "RebasedAdapter":
+        """No-op inner adapter against the shared base ``w``."""
+        return RebasedAdapter(self.inner.neutral(w), w)
+
+    @property
+    def num_params(self) -> int:
+        return self.inner.num_params

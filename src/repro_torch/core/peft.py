@@ -1,14 +1,15 @@
-"""PEFT attachment layer, QuanTA only (port of ``repro/core/peft.py``).
+"""PEFT attachment layer (port of ``repro/core/peft.py``).
 
 Models store every adaptable linear as ``(d_in, d_out)`` or, stacked over
 layers, ``(L, d_in, d_out)``.  :func:`attach` builds an
 :class:`AdapterSet` whose ``tree`` mirrors the parameter paths (adapters
-stacked along the layer axis for stacked weights) and returns the base
-params with the frozen copy folded in (``W0' = W0 - S``).
-:func:`peft_linear` is the adapted linear every model calls;
-:func:`merge_all` merges trained adapters into the weights.  Fold-free
-QuanTA and the other methods of the JAX package (LoRA, DoRA, DoTA, KronA)
-are not ported yet.
+stacked along the layer axis for stacked weights) for QuanTA, LoRA, DoRA,
+DoTA or KronA; for QuanTA it also returns the base params with the frozen
+copy folded in (``W0' = W0 - S``).  :func:`peft_linear` is the adapted
+linear every model calls; :func:`merge_all` merges trained adapters into
+the weights; :func:`adapter_subtree` gives a model group's adapters from
+an ``AdapterSet`` or, with per-request ids, a serving bank
+(``core/bank.py``).  Fold-free QuanTA is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import quanta as Q
-from repro_torch.core.adapters import base_matmul
+from repro_torch.core.adapters import base_matmul, tree_map
+from repro_torch.core.baselines import (
+    DoraAdapter, DotaAdapter, KronaAdapter, LoraAdapter,
+)
 from repro_torch.core.factorize import factorize, pair_schedule, parse_scheme
 from repro_torch.kernels.dispatch import default_device
 
@@ -47,7 +51,7 @@ DEFAULT_TARGETS = (r".*/(q_proj|v_proj)$",)
 class PeftConfig:
     """Which method to attach, where, and with what hyperparameters."""
 
-    method: str = "quanta"
+    method: str = "quanta"  # quanta | lora | dora | dota | krona | ft | none
     targets: Tuple[str, ...] = DEFAULT_TARGETS
     n_axes: int = 4
     scheme: Optional[str] = None          # e.g. "16-8-8-4"
@@ -55,6 +59,11 @@ class PeftConfig:
     init: str = "identity_noise"
     noise_scale: float = 0.02
     fold: bool = True
+    # LoRA / DoRA (DoTA: the bond rank)
+    rank: int = 8
+    alpha: float = 16.0
+    # KronA
+    krona_a: int = 64
     dtype: Any = torch.float32
 
     def replace(self, **kw) -> "PeftConfig":
@@ -110,7 +119,11 @@ class AdapterSet:
     tree: Dict[str, Any]
     specs: Tuple[AdapterLeafSpec, ...] = ()
 
-    def subtree(self, key: str) -> Dict[str, Any]:
+    def subtree(self, key: str, adapter_ids=None) -> Dict[str, Any]:
+        """The adapters under ``key``; ``adapter_ids`` is taken for the
+        signature of ``AdapterBank.subtree`` and ignored (one set serves
+        every request)."""
+        del adapter_ids
         return self.tree.get(key, {})
 
     def __getitem__(self, key: str):
@@ -147,30 +160,56 @@ def choose_dims(
     return (p * base[0],) + base[1:], (q * base[0],) + base[1:]
 
 
+def _krona_dims(cfg: PeftConfig, d_in: int, d_out: int) -> Tuple[int, int]:
+    """KronA factor dims; a pick that collapses to 1 raises."""
+    a_in = math.gcd(cfg.krona_a, d_in)
+    a_out = math.gcd(a_in, d_out)
+    if a_in < 2 or a_out < 2:
+        raise ValueError(
+            f"krona_a={cfg.krona_a} is incompatible with a ({d_in}, {d_out}) "
+            f"weight: the usable factor collapses to (a_in={a_in}, "
+            f"a_out={a_out}), a near-empty adapter. Pick a krona_a sharing "
+            f"a common divisor >= 2 with both dims (e.g. a divisor of "
+            f"gcd={math.gcd(d_in, d_out)}).")
+    return a_in, a_out
+
+
 def _make_adapter(gen: torch.Generator, w: torch.Tensor, cfg: PeftConfig,
-                  device) -> Q.QuantaAdapter:
-    """One QuanTA adapter for weight ``w``; layer-stacked for 3-D ``w``."""
-    stacked = w.dim() == 3
+                  device):
+    """One adapter for weight ``w``; layer-stacked (one per layer, drawn in
+    layer order) for 3-D ``w``."""
     d_in, d_out = w.shape[-2], w.shape[-1]
-    dims_in, dims_out = choose_dims(d_in, d_out, cfg.n_axes, cfg.scheme)
-    pairs = pair_schedule(len(dims_in)) * cfg.rounds
+    kw = dict(dtype=cfg.dtype, device=device)
 
-    def make_one():
-        return Q.QuantaAdapter.create(
-            gen, d_in, d_out, n_axes=cfg.n_axes, dims_in=dims_in,
-            dims_out=dims_out, pairs=pairs, init=cfg.init,
-            noise_scale=cfg.noise_scale, dtype=cfg.dtype, device=device,
-        )
+    def make_one(w_layer):
+        if cfg.method == "quanta":
+            dims_in, dims_out = choose_dims(d_in, d_out, cfg.n_axes,
+                                            cfg.scheme)
+            return Q.QuantaAdapter.create(
+                gen, d_in, d_out, n_axes=cfg.n_axes, dims_in=dims_in,
+                dims_out=dims_out,
+                pairs=pair_schedule(len(dims_in)) * cfg.rounds,
+                init=cfg.init, noise_scale=cfg.noise_scale, **kw)
+        if cfg.method == "lora":
+            return LoraAdapter.create(gen, d_in, d_out, rank=cfg.rank,
+                                      alpha=cfg.alpha, **kw)
+        if cfg.method == "dora":
+            # per-layer magnitude: each layer starts at the base model
+            return DoraAdapter.create(gen, w_layer.to(cfg.dtype),
+                                      rank=cfg.rank, alpha=cfg.alpha, **kw)
+        if cfg.method == "dota":
+            return DotaAdapter.create(gen, w_layer.to(cfg.dtype),
+                                      rank=cfg.rank, n_axes=cfg.n_axes, **kw)
+        if cfg.method == "krona":
+            a_in, a_out = _krona_dims(cfg, d_in, d_out)
+            return KronaAdapter.create(gen, d_in, d_out, a_in=a_in,
+                                       a_out=a_out, **kw)
+        raise ValueError(f"unknown PEFT method {cfg.method!r}")
 
-    if not stacked:
-        return make_one()
-    layers = [make_one() for _ in range(w.shape[0])]
-    tensors = tuple(
-        torch.stack([a.tensors[i] for a in layers])
-        for i in range(len(layers[0].tensors))
-    )
-    return Q.QuantaAdapter(tensors, layers[0].dims_in, layers[0].dims_out,
-                           layers[0].pairs)
+    if w.dim() == 2:
+        return make_one(w)
+    layers = [make_one(w[i]) for i in range(w.shape[0])]
+    return tree_map(lambda *ts: torch.stack(ts), *layers)
 
 
 def _per_layer(fn, w: torch.Tensor, adapter) -> torch.Tensor:
@@ -188,18 +227,15 @@ def attach(
     """Create adapters for every parameter path matching ``cfg.targets``.
 
     ``seed`` is an int or a ``torch.Generator`` on ``device``.  Returns
-    ``(base_params, adapter_set)``; the adapted base weights are ``W0 - S``
-    (the model is exactly the base model at step 0).  Runs on the card
-    unless ``device`` says otherwise.
+    ``(base_params, adapter_set)``.  For QuanTA the adapted base weights
+    are ``W0 - S`` (the model is exactly the base model at step 0); the
+    other methods start at a zero update and leave the base as it is.
+    Runs on the card unless ``device`` says otherwise.
     """
     device = default_device(device)
     if cfg.method in ("ft", "none"):
         return params, {}
-    if cfg.method != "quanta":
-        raise NotImplementedError(
-            f"PEFT method {cfg.method!r} is not ported yet (QuanTA only)"
-        )
-    if not cfg.fold:
+    if cfg.method == "quanta" and not cfg.fold:
         raise NotImplementedError("fold-free QuanTA is not ported yet")
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -224,19 +260,22 @@ def attach(
         specs.append(AdapterLeafSpec(
             path, cfg.method, w.dim() == 3, w.shape[-2], w.shape[-1],
         ))
-        _set_path(new_params, path,
-                  _per_layer(Q.fold_frozen_copy, w, adapter))
+        if cfg.method == "quanta":
+            _set_path(new_params, path,
+                      _per_layer(Q.fold_frozen_copy, w, adapter))
     return new_params, AdapterSet(tree=peft, specs=tuple(specs))
 
 
-def adapter_subtree(peft, key: str) -> Dict[str, Any]:
-    """The nested adapter tree of one model group (``None``, a bare dict
-    or an :class:`AdapterSet`)."""
+def adapter_subtree(peft, key: str, adapter_ids=None) -> Dict[str, Any]:
+    """The nested adapter tree of one model group: ``peft`` is ``None``, a
+    bare dict, an :class:`AdapterSet` or an ``AdapterBank`` /
+    ``AdapterPool`` bank, for which ``adapter_ids`` (``(B,)`` global
+    tenant ids, 0 = the base model) select each request's adapter."""
     if peft is None:
         return {}
     sub = getattr(peft, "subtree", None)
     if sub is not None:
-        return sub(key)
+        return sub(key, adapter_ids)
     return peft.get(key, {})
 
 

@@ -6,11 +6,16 @@ The port keeps the JAX layouts (linears ``(d_in, d_out)``, layer-stacked
 conversion is a plain copy.  Nothing here imports ``jax`` or ``repro``:
 callers hand over nested dicts of arrays (anything ``numpy.asarray``
 takes) and, for adapters, objects or dicts that carry the JAX adapter's
-fields by name (``tensors``, ``dims_in``, ``dims_out``, ``pairs``;
-``tree`` and ``specs`` for an adapter set).  A quantized weight (an object
-with ``packed`` and ``scales``, as the JAX ``QuantizedLinear``) crosses as
-a plain copy of its codes, scales and norms.  Fold-free adapters (a
-``frozen`` copy S) are not ported yet and raise.
+fields by name (QuanTA ``tensors``, ``dims_in``, ``dims_out``, ``pairs``;
+LoRA ``a``, ``b``, ``alpha``; DoRA also ``m``; DoTA ``cores``, ``m``,
+``dims_in``, ``dims_out``; KronA ``a``, ``b``, ``scale``; ``tree`` and
+``specs`` for an adapter set, whose specs name each path's method).  A
+quantized weight (an object with ``packed`` and ``scales``, as the JAX
+``QuantizedLinear``) crosses as a plain copy of its codes, scales and
+norms.  Fold-free adapters (a ``frozen`` copy S) are not ported yet and
+raise.  A bank is not converted: the port builds its own
+(``core.bank.AdapterBank.build``) from tenants carried over with
+:func:`tenant_from_numpy`.
 """
 
 from __future__ import annotations
@@ -20,12 +25,18 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.core.peft import AdapterLeafSpec, AdapterSet
+from repro_torch.core.baselines import (
+    DoraAdapter, DotaAdapter, KronaAdapter, LoraAdapter,
+)
+from repro_torch.core.peft import (
+    AdapterLeafSpec, AdapterSet, _set_path,
+)
 from repro_torch.core.quanta import QuantaAdapter
 from repro_torch.core.quantize import QuantizedLinear
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "quanta_from_numpy",
-           "adapter_set_from_numpy", "quantized_linear_from_numpy"]
+           "adapter_from_numpy", "adapter_set_from_numpy",
+           "tenant_from_numpy", "quantized_linear_from_numpy"]
 
 
 def _field(obj, name, default=None):
@@ -89,16 +100,35 @@ def quanta_from_numpy(adapter, device) -> QuantaAdapter:
     )
 
 
-def _adapter_tree(tree, device):
-    return {
-        k: _adapter_tree(v, device) if isinstance(v, dict)
-        and "tensors" not in v else quanta_from_numpy(v, device)
-        for k, v in tree.items()
-    }
+def adapter_from_numpy(adapter, method: str, device):
+    """One adapter of ``method`` (quanta, lora, dora, dota, krona), flat
+    or layer-stacked."""
+    if method == "quanta":
+        return quanta_from_numpy(adapter, device)
+
+    def t(name):
+        return tensor_from_numpy(_field(adapter, name), device)
+
+    if method == "lora":
+        return LoraAdapter(t("a"), t("b"), float(_field(adapter, "alpha")))
+    if method == "dora":
+        return DoraAdapter(t("a"), t("b"), t("m"),
+                           float(_field(adapter, "alpha")))
+    if method == "dota":
+        return DotaAdapter(
+            tuple(tensor_from_numpy(c, device)
+                  for c in _field(adapter, "cores")), t("m"),
+            tuple(int(d) for d in _field(adapter, "dims_in")),
+            tuple(int(d) for d in _field(adapter, "dims_out")))
+    if method == "krona":
+        return KronaAdapter(t("a"), t("b"), float(_field(adapter, "scale")))
+    raise ValueError(f"unknown PEFT method {method!r}")
 
 
 def adapter_set_from_numpy(adapter_set, device) -> AdapterSet:
-    """An adapter set: its ``tree`` of QuanTA adapters and its ``specs``."""
+    """An adapter set: its ``tree`` of adapters, each converted by the
+    method its spec names (QuanTA where there are no specs), and its
+    ``specs``."""
     specs = tuple(
         AdapterLeafSpec(
             str(_field(s, "path")), str(_field(s, "method")),
@@ -107,5 +137,32 @@ def adapter_set_from_numpy(adapter_set, device) -> AdapterSet:
         )
         for s in (_field(adapter_set, "specs") or ())
     )
-    tree = _field(adapter_set, "tree")
-    return AdapterSet(tree=_adapter_tree(tree, device), specs=specs)
+    methods = {s.path: s.method for s in specs}
+    tree: Dict[str, Any] = {}
+    for path, a in _flat_adapters(_field(adapter_set, "tree")).items():
+        _set_path(tree, path, adapter_from_numpy(
+            a, methods.get(path, "quanta"), device))
+    return AdapterSet(tree=tree, specs=specs)
+
+
+def _flat_adapters(tree, prefix=""):
+    """``path -> adapter`` of a nested dict whose adapters may themselves
+    be dicts of fields."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) and not {"tensors", "a", "cores"} & set(v):
+            out.update(_flat_adapters(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def tenant_from_numpy(entry, device):
+    """One bank tenant: an adapter set, or the ``(params, adapter_set)``
+    pair of a folded QuanTA attach."""
+    if isinstance(entry, tuple):
+        params, aset = entry
+        return (params_from_numpy(params, device),
+                adapter_set_from_numpy(aset, device))
+    return adapter_set_from_numpy(entry, device)

@@ -8,6 +8,7 @@ kernel wrapper by the name its counter is reported under.
 
 from typing import Dict
 
+from repro_torch.kernels import banked_gather as _bg
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quanta_apply as _qa
 from repro_torch.kernels import quanta_linear as _ql
@@ -24,6 +25,8 @@ KERNELS = {
     "paged_flash_decode_attention_quant":
         _fa.paged_flash_decode_attention_quant,
     "quantized_matmul": _qm.quantized_matmul,
+    "banked_lora_linear": _bg.banked_lora_linear,
+    "banked_lora_delta": _bg.banked_lora_delta,
 }
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, for
 ``sm_90a``, with a plain C interface (no PyTorch headers, so one source
-builds in seconds).  ``<hash>`` covers the source and the flags, so an
-edited source rebuilds and an unchanged one is loaded as it is.  Nothing
+builds in seconds).  ``<hash>`` covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and
+an unchanged one is loaded as it is.  Nothing
 here runs at import: the CPU tests import every module on a machine with
 no ``nvcc``.
 """
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels (the package lives at <checkout>/src/repro_torch)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("quanta_apply", "quanta_linear", "flash_attention",
-           "quantized_matmul")
+           "quantized_matmul", "banked_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,6 +75,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers a source may include
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -3,9 +3,9 @@ it, read from the card.
 
 Takes the place of the JAX package's VMEM budget: the QuanTA chain
 kernel's row tile and the attention kernels' working set are sized here
-against the block's shared-memory limit, and the quantized matmul's K
-split against the SM count; both come from
-``torch.cuda.get_device_properties``, once per device.
+against the block's shared-memory limit, the quantized matmul's K split
+and the banked-gather kernel's column tile against the SM count; both
+come from ``torch.cuda.get_device_properties``, once per device.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ __all__ = [
     "attention_smem_bytes",
     "QmmPlan",
     "quantized_matmul_plan",
+    "BankedPlan",
+    "banked_gather_plan",
 ]
 
 
@@ -147,3 +149,64 @@ def quantized_matmul_plan(rows: int, d_in: int, d_out: int, bf16: bool,
     want = min(steps, max(1, -(-QMM_WAVES * sms // tiles)))
     per = -(-steps // want)
     return QmmPlan(variant, -(-steps // per))
+
+
+# ---------------------------------------------------------------------------
+# Banked-gather LoRA (csrc/banked_gather.cu)
+# ---------------------------------------------------------------------------
+
+BANKED_MAX_RANK = 64      # the shrink kernel stages (64, rank) fp32 A tiles
+# variant code -> (block rows, block cols): the output tiles of the fused
+# expand GEMM (``ExpandTile`` and the float32 tile in the CUDA source),
+# each with its K step in static shared memory under 48 KB
+BANKED_TILES = {
+    0: (128, 128),    # bf16, many rows: 4 x 2 warps of 32 x 64
+    1: (16, 32),      # bf16, few rows: 2 column warps x 4 K slices
+    2: (64, 64),      # float32, SIMT
+}
+BANKED_NARROW_ROWS = 64   # at most this many rows take a 16-row tile
+
+
+BANKED_SHRINK_ROWS = 16   # rows of one slot per shrink block
+BANKED_SHRINK_K = 64      # K rows of A per shrink step
+BANKED_WAVES = 2          # shrink blocks wanted per SM before K is split
+
+
+class BankedPlan(NamedTuple):
+    variant: int          # tile code of the fused product
+    tiles: int            # its output tiles, one block each
+    splits: int           # K splits of the shrink (1: no partials)
+    k_split: int          # K rows per split, a multiple of 64
+
+
+@functools.lru_cache(maxsize=None)
+def banked_gather_plan(n_slots: int, seq: int, d_in: int, d_out: int,
+                       rank: int, bf16: bool, sms: int) -> BankedPlan:
+    """Tiles of the banked-gather kernel for one problem shape.
+
+    The TPU kernel holds a slot's whole ``d_in`` in VMEM and its JAX
+    caller sends the shapes that overflow it (``banked_vmem_ok``) to the
+    reference gather; here K is tiled, so every shape runs.  The fused
+    product takes, in bf16, the 128 x 128 tile for many rows and the
+    16 x 32 tile for at most 64 (8 decode rows at d_out 4096: 128 blocks
+    on 132 SMs, each streaming its stripe of W); float32 takes the
+    64 x 64 SIMT tile.  The shrink runs a block per 16
+    rows of a slot and splits K until there are two blocks per SM (a
+    decode tick of 8 slots at d_in 4096: 33 splits of 128 rows).
+    """
+    if rank > BANKED_MAX_RANK:
+        raise ValueError(f"the banked-gather kernel takes rank <= "
+                         f"{BANKED_MAX_RANK}, got {rank}")
+    rows = n_slots * seq
+
+    def tiles(v):
+        bm, bn = BANKED_TILES[v]
+        return -(-rows // bm) * -(-d_out // bn)
+
+    variant = 2 if not bf16 else (0 if rows > BANKED_NARROW_ROWS else 1)
+    blocks = n_slots * -(-seq // BANKED_SHRINK_ROWS)
+    steps = -(-d_in // BANKED_SHRINK_K)
+    want = min(steps, max(1, -(-BANKED_WAVES * sms // blocks)))
+    per = -(-steps // want)
+    return BankedPlan(variant, tiles(variant), -(-steps // per),
+                      per * BANKED_SHRINK_K)

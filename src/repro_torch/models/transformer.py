@@ -4,12 +4,14 @@
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``params["layers"]`` leaves have leading dim L); the layer loop takes
 views ``w[l]`` where the JAX package scans.  PEFT adapters are stacked
-the same way and sliced in lockstep.  A projection may be a
-``QuantizedLinear`` (``core/quantize.py``), layer-stacked like the dense
-weight it replaces.  Serving updates the decode cache in place: a dense
-cache, or paged block pools addressed through per-slot block tables
-(of rows, or of NF4/int8 codes under ``cfg.kv_quant``).  The MoE branch
-and chunked prefill are not ported yet.
+the same way and sliced in lockstep; an adapter bank (``core/bank.py``)
+takes per-request ``adapter_ids`` in ``prefill`` and ``decode_step``.  A
+projection may be a ``QuantizedLinear`` (``core/quantize.py``),
+layer-stacked like the dense weight it replaces.  Serving updates the
+decode cache in place: a dense cache, or paged block pools addressed
+through per-slot block tables (of rows, or of NF4/int8 codes under
+``cfg.kv_quant``).  The MoE branch and chunked prefill are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -227,9 +229,10 @@ class Transformer(nn.Module):
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + self._mlp(lp["mlp"], la.get("mlp", {}), hn), new_kv
 
-    def _layers(self, params, peft):
-        """``(layer params, layer adapters)`` views, layer by layer."""
-        adapters = adapter_subtree(peft, "layers")
+    def _layers(self, params, peft, adapter_ids=None):
+        """``(layer params, layer adapters)`` views, layer by layer; a bank
+        selects each row's adapter by ``adapter_ids``."""
+        adapters = adapter_subtree(peft, "layers", adapter_ids)
         for i in range(self.cfg.n_layers):
             yield i, layer_tree(params["layers"], i), layer_tree(adapters, i)
 
@@ -283,10 +286,11 @@ class Transformer(nn.Module):
                                   prefill_cache, lengths, block_tables)
 
     @torch.no_grad()
-    def prefill(self, params, peft, batch, lengths=None):
+    def prefill(self, params, peft, batch, lengths=None, adapter_ids=None):
         """Batched prefill of right-padded rows: returns the logits of each
         row's last real position and the wave's cache.  Causality makes the
-        right padding exact."""
+        right padding exact.  ``adapter_ids`` ``(B,)`` name each row's
+        tenant when ``peft`` is an adapter bank (0 = the base model)."""
         cfg = self.cfg
         x = self._embed(params, self._tokens(batch))
         b, s, _ = x.shape
@@ -295,7 +299,7 @@ class Transformer(nn.Module):
         shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
         k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_all = torch.empty(shape, dtype=x.dtype, device=x.device)
-        for i, lp, la in self._layers(params, peft):
+        for i, lp, la in self._layers(params, peft, adapter_ids):
             x, (k, v) = self._layer(lp, la, x, rope=rope)
             k_all[i] = k
             v_all[i] = v
@@ -309,11 +313,13 @@ class Transformer(nn.Module):
         return logits, {"k": k_all, "v": v_all, "len": lens}
 
     @torch.no_grad()
-    def decode_step(self, params, peft, cache, batch, block_tables=None):
+    def decode_step(self, params, peft, cache, batch, block_tables=None,
+                    adapter_ids=None):
         """One decode step: writes each slot's new K/V at ``len`` in place
         and attends over the first ``len + 1`` entries.  With
         ``block_tables (B, max_blocks)`` the KV leaves are paged pools
-        (codes and ``*_qscale`` scales when the cache holds them).
+        (codes and ``*_qscale`` scales when the cache holds them);
+        ``adapter_ids`` ``(B,)`` select each slot's tenant of a bank.
         Returns ``(logits, cache)`` with ``cache["len"]`` advanced by
         one."""
         cfg = self.cfg
@@ -324,7 +330,7 @@ class Transformer(nn.Module):
                 else ("k", "v"))
         tail = (new_len,) if block_tables is None else (new_len,
                                                         block_tables)
-        for i, lp, la in self._layers(params, peft):
+        for i, lp, la in self._layers(params, peft, adapter_ids):
             x, _ = self._layer(
                 lp, la, x, rope=rope,
                 cache=tuple(cache[key][i] for key in keys) + tail,

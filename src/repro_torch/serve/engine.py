@@ -19,7 +19,15 @@ or a paged cache (port of ``repro/serve/engine.py``, single device).
   the next tick.
 
 Serving the adapter-attached model (``peft=``, an ``AdapterSet``) is
-numerically the merged model's (``core.peft.merge_all``);
+numerically the merged model's (``core.peft.merge_all``).
+``adapters=`` (a ``core.bank.AdapterBank`` or a
+``serve.adapter_pool.AdapterPool``) serves many tenants over one base:
+``submit(req, adapter="name")`` names each request's tenant (``None`` the
+base model), the engine keeps a per-slot global id (0 for pad rows and
+free slots) and hands the batch's ids to every model call, copied to the
+device once per call.  With a pool, admission pins the request's tenant
+(loading it, maybe evicting an idle one) as its last check and defers the
+request when no row can be freed; freeing or preempting a slot unpins.
 ``cfg.peft_backend="pallas"`` routes QuanTA (and quantized projections)
 through the hand-written kernels and ``cfg.attn_backend="pallas"``
 attention through the flash kernels.  ``base_quant="nf4"|"int8"`` packs
@@ -29,10 +37,9 @@ every projection into a blockwise ``QuantizedLinear`` at construction
 NF4/int8 codes in the paged pools (the fake-quantized round trip in a
 dense cache).  The decode step updates the cache in place: the stripes
 of inactive slots hold entries past their length that every reader
-masks, and their pool writes land in the null block.  Meshes, adapter
-banks and pools, chunked prefill and replay admission are not ported
-yet; PyTorch runs eagerly, so the JAX engine's compile guard has no
-counterpart.
+masks, and their pool writes land in the null block.  Meshes, chunked
+prefill and replay admission are not ported yet; PyTorch runs eagerly,
+so the JAX engine's compile guard has no counterpart.
 """
 
 from __future__ import annotations
@@ -44,10 +51,13 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.adapters import tree_nbytes
+from repro_torch.core.bank import AdapterBank
 from repro_torch.core.quantize import quantize_params
 from repro_torch.kernels.dispatch import default_device
 from repro_torch.models.common import insert_cache_slots, merge_cache_slots
-from repro_torch.serve.paging import PagedCacheView, addressable_nbytes
+from repro_torch.serve.adapter_pool import AdapterPool
+from repro_torch.serve.paging import PagedCacheView
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -58,6 +68,9 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
+    # the bank tenant to decode with (None = the base model; engines built
+    # with adapters= only)
+    adapter: Optional[str] = None
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -83,16 +96,22 @@ class ServingEngine:
         kv_quant: Optional[str] = None,
         device=None,
     ):
-        for name, value, default in (
-            ("adapters", adapters, None),
-            ("prefill_chunk", prefill_chunk, None), ("mesh", mesh, None),
-        ):
-            if value != default:
+        for name, value in (("prefill_chunk", prefill_chunk),
+                            ("mesh", mesh)):
+            if value is not None:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: the port "
-                    "serves one adapter set with prefill admission on one "
-                    "device"
-                )
+                    "serves with prefill admission on one device")
+        if adapters is not None:
+            if not isinstance(adapters, (AdapterBank, AdapterPool)):
+                raise TypeError(
+                    f"adapters= takes an AdapterBank or an AdapterPool, got "
+                    f"{type(adapters).__name__}")
+            if peft is not None:
+                raise ValueError(
+                    "pass either peft= (one adapter set for every request) "
+                    "or adapters= (an AdapterBank with per-request "
+                    "selection)")
         if cache not in ("dense", "paged"):
             raise ValueError(f"unknown cache mode {cache!r}")
         self.device = default_device(device)
@@ -124,7 +143,12 @@ class ServingEngine:
                     f"cfg.kv_quant={cfg_kv!r}")
         self.kv_quant = cfg_kv
         self.params = params
-        self.peft = peft
+        # bank mode: ``bank`` resolves tenant names, ``peft`` is what the
+        # model reads (a pool's resident bank, swapped in place)
+        self.bank = adapters
+        self.pool = adapters if isinstance(adapters, AdapterPool) else None
+        self.peft = (self.pool.device_bank() if self.pool is not None
+                     else adapters if adapters is not None else peft)
         self.n_slots = n_slots
         self.max_len = max_len
         self.seq_bucket = seq_bucket
@@ -142,21 +166,49 @@ class ServingEngine:
                       else model.init_cache(n_slots, max_len))
         self._lengths = np.zeros((n_slots,), np.int32)      # host-side
         self._last_token = np.zeros((n_slots,), np.int32)
+        # per-slot global tenant ids (0 = base model), bank mode only
+        self._adapter_ids = np.zeros((n_slots,), np.int32)
+        # adapter bytes: resident (what the ticks read: one set, a static
+        # bank or the pool's rows) and registry (a pool's tenants)
+        if self.pool is not None:
+            resident_b = self.pool.resident_nbytes()
+            registry_b = self.pool.store.nbytes
+        else:
+            resident_b = (self.bank.nbytes if self.bank is not None
+                          else tree_nbytes(getattr(peft, "tree", peft)
+                                            or {}))
+            registry_b = 0
         self.stats: Dict[str, Any] = {
             "prefill_calls": 0, "decode_calls": 0, "tokens": 0,
             "preemptions": 0,
-            "param_bytes": _tree_nbytes(self.params),
+            "adapter_bytes": resident_b,
+            "adapter_bytes_resident": resident_b,
+            "adapter_bytes_registry": registry_b,
+            "adapter_tenants": (self.bank.num_tenants
+                                if self.bank is not None else 0),
+            "param_bytes": tree_nbytes(self.params),
             "base_quant": base_quant or "none",
             "kv_quant": self.kv_quant or "none",
         }
         self._update_gauges()
 
     # ------------------------------------------------------------- frontend
-    def submit(self, req: Request) -> None:
-        self.validate(req)
+    def submit(self, req: Request, adapter: Optional[str] = None) -> None:
+        """Queue a request; ``adapter`` (or ``req.adapter``) names its bank
+        tenant, ``None`` the base model."""
+        self.validate(req, adapter)
         self.queue.append(req)
 
-    def validate(self, req: Request) -> None:
+    def validate(self, req: Request, adapter: Optional[str] = None) -> None:
+        """Check ``req`` against this engine and stamp its tenant, without
+        queueing it; an unknown tenant fails here."""
+        name = adapter if adapter is not None else req.adapter
+        if name is not None and self.bank is None:
+            raise ValueError(
+                f"request {req.uid} names adapter {name!r} but the engine "
+                "has no AdapterBank (pass adapters= at construction)")
+        if self.bank is not None:
+            self.bank.id_of(name)
         if not req.prompt:
             raise ValueError("empty prompt")
         if len(req.prompt) >= self.max_len:
@@ -171,6 +223,28 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs up to {need} blocks but the pool only "
                     f"has {usable}; it could never be admitted")
+        if adapter is not None:
+            req.adapter = adapter        # stamped once fully validated
+
+    def _req_adapter_id(self, req: Request) -> int:
+        return self.bank.id_of(req.adapter) if self.bank is not None else 0
+
+    def _device_ids(self, ids: np.ndarray) -> Optional[torch.Tensor]:
+        """The per-row tenant ids of one model call, on the device (bank
+        mode), else None."""
+        if self.bank is None:
+            return None
+        return torch.from_numpy(ids).to(self.device)
+
+    def _acquire_adapter(self, req: Request) -> bool:
+        """Pool mode: pin the request's tenant, loading it if needed;
+        False defers the request.  Static banks are always ready."""
+        return self.pool is None or self.pool.acquire(req.adapter)
+
+    def _release_adapter(self, req: Request) -> None:
+        """Pool mode: unpin when the request leaves its slot."""
+        if self.pool is not None:
+            self.pool.release(req.adapter)
 
     @staticmethod
     def _tokens(req: Request) -> List[int]:
@@ -185,13 +259,16 @@ class ServingEngine:
         return min(-(-n // self.seq_bucket) * self.seq_bucket, self.max_len)
 
     def _update_gauges(self) -> None:
+        if self.pool is not None:
+            self.stats.update(self.pool.stats())
+            self.stats["adapter_bytes"] = self.stats["adapter_bytes_resident"]
         if self.pager is not None:
             self.stats.update(self.pager.stats())
             self.stats["kv_quant"] = self.stats.get("kv_quant") or "none"
         elif "cache_bytes_allocated" not in self.stats:
             self.stats.update(
                 blocks_in_use=0, blocks_total=0, peak_blocks_in_use=0,
-                cache_bytes_allocated=_tree_nbytes(self.cache),
+                cache_bytes_allocated=tree_nbytes(self.cache),
                 peak_block_utilization=0.0)
 
     # ------------------------------------------------------------ admission
@@ -202,15 +279,19 @@ class ServingEngine:
         wave: List[Request] = []
         while self.queue and len(wave) < len(free):
             n_tok = len(self._tokens(self.queue[0]))
+            if self._paged and not self.pager.can_admit(n_tok):
+                break                 # no room: wait for frees
+            if not self._acquire_adapter(self.queue[0]):
+                break                 # tenant cannot be loaded: defer
             if self._paged:
-                if not self.pager.can_admit(n_tok):
-                    break             # no room: wait for frees
                 # reserve now, so later wave members and alloc-on-append
                 # see the smaller pool
                 self.pager.ensure(free[len(wave)], n_tok)
             wave.append(self.queue.popleft())
         if wave:
             self._admit_prefill(free, wave)
+        elif self.pool is not None:
+            self._update_gauges()     # a deferral moves the pool's gauges
 
     def _admit_prefill(self, free: Sequence[int], wave: List[Request]) -> None:
         """One prefill over the right-padded wave, then scatter its cache
@@ -220,13 +301,16 @@ class ServingEngine:
         s = self._bucket(int(lengths.max()))
         toks = np.zeros((self.n_slots, s), np.int64)
         lens = np.ones((self.n_slots,), np.int32)     # dummy rows: length 1
-        for row, p in enumerate(streams):
+        wave_ids = np.zeros((self.n_slots,), np.int32)  # dummy rows: base
+        for row, (p, req) in enumerate(zip(streams, wave)):
             toks[row, : len(p)] = p
             lens[row] = len(p)
+            wave_ids[row] = self._req_adapter_id(req)
         logits, wave_cache = self.model.prefill(
             self.params, self.peft,
             {"tokens": torch.from_numpy(toks).to(self.device)},
             lengths=torch.from_numpy(lens).to(self.device),
+            adapter_ids=self._device_ids(wave_ids),
         )
         self.stats["prefill_calls"] += 1
         slot_ids = np.asarray(free[: len(wave)], np.int64)
@@ -235,6 +319,7 @@ class ServingEngine:
         for row, (slot, req) in enumerate(zip(free, wave)):
             self.slots[slot] = req
             self._lengths[slot] = lengths[row]
+            self._adapter_ids[slot] = wave_ids[row]
             tok = int(first[row])
             self._last_token[slot] = tok
             req.output.append(tok)
@@ -263,7 +348,11 @@ class ServingEngine:
         its prefix, which continues its greedy stream."""
         req = self.slots[slot]
         self.slots[slot] = None
+        self._adapter_ids[slot] = 0
         self.pager.release(slot)
+        # unpin: the tenant may be evicted while the request waits, and
+        # re-admission acquires it again (the request keeps its tenant)
+        self._release_adapter(req)
         self.queue.appendleft(req)
         self.stats["preemptions"] += 1
 
@@ -298,6 +387,7 @@ class ServingEngine:
         logits, new_cache = self.model.decode_step(
             self.params, self.peft, self.cache, {"tokens": toks},
             block_tables=tables,
+            adapter_ids=self._device_ids(self._adapter_ids),
         )
         self.stats["decode_calls"] += 1
         self.cache = merge_cache_slots(self.serve_spec, new_cache,
@@ -319,6 +409,8 @@ class ServingEngine:
                     self._lengths[i] >= self.max_len - 1:
                 req.done = True
                 self.slots[i] = None
+                self._adapter_ids[i] = 0      # freed slots decode as base
+                self._release_adapter(req)
                 if self._paged:
                     self.pager.release(i)       # free on eviction
         if self._paged:
@@ -345,14 +437,3 @@ class ServingEngine:
         while (self.queue or any(self.slots)) and ticks < max_ticks:
             self.step()
             ticks += 1
-
-
-def _tree_nbytes(tree) -> int:
-    """Device bytes of every tensor in a nested dict (quantized weights
-    count their packed codes, scales and norms)."""
-    if isinstance(tree, dict):
-        return sum(_tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, torch.Tensor):
-        return addressable_nbytes(tree)
-    tensors = getattr(tree, "tensors", None)
-    return sum(addressable_nbytes(t) for t in tensors()) if tensors else 0

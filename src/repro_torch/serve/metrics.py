@@ -1,0 +1,53 @@
+"""Serving metrics of the port: a copy of the JAX package's
+``LatencyHistogram`` (``repro/serve/scheduler.py``), the part the adapter
+pool's swap gauge reads; the SLA scheduler that shares that module there
+is not ported yet."""
+
+from __future__ import annotations
+
+import bisect
+import math
+
+__all__ = ["LatencyHistogram"]
+
+
+class LatencyHistogram:
+    """Log2-bucketed latency histogram (seconds).
+
+    Bucket ``i`` covers ``[lo * 2**i, lo * 2**(i+1))``; with ``lo=1e-6``
+    and 28 buckets the range is 1 us .. ~134 s.  ``percentile`` answers at
+    the geometric midpoint of the bucket holding the requested rank (at
+    most 41% off per value), clamped to the largest value recorded.
+    """
+
+    def __init__(self, lo: float = 1e-6, n_buckets: int = 28):
+        self.lo = lo
+        self.counts = [0] * n_buckets
+        # upper edges as the same float products callers build edge values
+        # from, so an exact edge lo * 2**k lands in bucket k
+        self._edges = [lo * 2.0 ** (i + 1) for i in range(n_buckets - 1)]
+        self.count = 0
+        self.max = 0.0
+
+    def _bucket(self, seconds: float) -> int:
+        if seconds <= self.lo:
+            return 0
+        return bisect.bisect_right(self._edges, seconds)
+
+    def record(self, seconds: float) -> None:
+        self.counts[self._bucket(seconds)] += 1
+        self.count += 1
+        self.max = max(self.max, seconds)
+
+    def percentile(self, p: float) -> float:
+        """Approximate p-th percentile (p in [0, 100]); 0.0 when empty.
+        The rank is ``max(1, ceil(p/100 * count))``."""
+        if not self.count:
+            return 0.0
+        rank = max(1, math.ceil(p / 100.0 * self.count))
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= rank:
+                return min(self.lo * 2.0 ** (i + 0.5), self.max)
+        return self.max

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (rectangular and odd-axis chains, row counts
 that no tile divides, GQA, windows, mixed cache lengths, paged pools with
-shuffled tables and repeated tails, NF4 and int8 weights and KV codes).
+shuffled tables and repeated tails, NF4 and int8 weights and KV codes,
+banked LoRA over repeated and neutral ids with ragged columns).
 
 Every test here needs the card and skips without one.  The file imports
 neither ``jax`` nor the JAX package, so on a machine with the card and no
@@ -21,11 +22,17 @@ from repro_torch.core.quantize import (
 )
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.banked_gather import (
+    banked_lora_delta, banked_lora_linear,
+)
 from repro_torch.kernels.quanta_apply import quanta_apply
 from repro_torch.kernels.quanta_linear import (
     quanta_linear, quanta_linear_plain,
 )
 from repro_torch.kernels.quantized_matmul import quantized_matmul
+from repro_torch.kernels.ref import (
+    banked_lora_delta_ref, banked_lora_linear_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -276,3 +283,68 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                         kv_quant="int8", k_scales=scales,
                                         v_scales=scales,
                                         value_dtype=torch.bfloat16)
+
+
+BANKED = [
+    # (n_slots, seq, d_in, d_out, rank): decode and prefill rows, ragged
+    # columns (no tile divides 200 or 4104), 2-D x (seq None), rank 64
+    (8, 1, 4096, 4104, 16),
+    (3, 37, 64, 200, 8),
+    (4, None, 128, 96, 64),
+    (2, 130, 256, 264, 4),
+    (6, 1, 200, 96, 16),     # the shrink's K in 4 splits, the last of 8
+]
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,seq,d_in,d_out,rank", BANKED)
+def test_banked_gather_matches_plain(n, seq, d_in, d_out, rank, dtype,
+                                     a_dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(d_out)
+    shape = (n, d_in) if seq is None else (n, seq, d_in)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    a = (torch.randn((5, d_in, rank), generator=gen, device=dev)
+         * d_in ** -0.5).to(a_dtype)
+    b = (0.1 * torch.randn((5, rank, d_out), generator=gen, device=dev)
+         ).to(a_dtype)
+    a[0] = 0
+    b[0] = 0
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev)
+         * d_in ** -0.5).to(dtype)
+    ids = torch.tensor([2, 0, 4, 2, 1, 3, 0, 1][:n], dtype=torch.int32,
+                       device=dev)
+    x3 = x if seq is not None else x[:, None]
+    before = launch_counts()
+    got = banked_lora_delta(x, a, b, ids, scale=2.0)
+    torch.cuda.synchronize()
+    want = banked_lora_delta_ref(x3, a, b, ids, 2.0).reshape(got.shape)
+    _close(got, want, dtype)
+    assert not got[ids == 0].any()            # the neutral row adds 0
+    got = banked_lora_linear(x, w, a, b, ids, scale=2.0)
+    torch.cuda.synchronize()
+    want = banked_lora_linear_ref(x3, w, a, b, ids, 2.0).reshape(got.shape)
+    _close(got, want, dtype)
+    after = launch_counts()
+    assert after["banked_lora_delta"] == before["banked_lora_delta"] + 1
+    assert after["banked_lora_linear"] == before["banked_lora_linear"] + 1
+
+
+def test_banked_gather_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((2, 3, 64), device=dev)
+    a = torch.zeros((3, 64, 65), device=dev)
+    b = torch.zeros((3, 65, 32), device=dev)
+    ids = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        banked_lora_delta(x, a, b, ids, scale=1.0)
+    a, b = a[..., :4].contiguous(), b[:, :4].contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        banked_lora_delta(x, a, b, ids.long(), scale=1.0)
+    with pytest.raises(ValueError, match="several devices"):
+        banked_lora_delta(x, a, b, ids.cpu(), scale=1.0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        banked_lora_linear(x.bfloat16()[..., :60], torch.zeros(
+            (60, 32), dtype=torch.bfloat16, device=dev), a[:, :60], b, ids,
+            scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        banked_lora_delta(x.half(), a, b, ids, scale=1.0)

@@ -136,3 +136,44 @@ def test_chip_smoke_refuses_without_card_or_repo(alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.core.bank", "repro_torch.core.baselines",
+    "repro_torch.kernels.banked_gather", "repro_torch.serve.adapter_pool",
+    "repro_torch.serve.metrics",
+])
+def test_bank_modules_are_covered(name):
+    """The multi-tenant modules are among those imported with ``jax`` and
+    the JAX package blocked, and among the files whose imports are read."""
+    assert name in _modules()
+    path = PKG.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in set(PKG.rglob("*.py"))
+    assert not {n.split(".")[0] for n in _imports(path)} & {
+        "jax", "jaxlib", "repro"}
+
+
+def test_cpu_bank_path_launches_no_kernel():
+    """A bank engine on the CPU under the kernel backend takes the plain
+    versions: LoRA through the banked-gather wrappers, QuanTA through the
+    chain wrappers, and no counter moves."""
+    from repro_torch.core.bank import AdapterBank
+
+    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas",
+                                               peft_backend="pallas")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    _, lora = attach(2, params, PeftConfig(method="lora", rank=4),
+                     device="cpu")
+    bank = AdapterBank.build(params, {
+        "q": attach(1, params, PeftConfig(n_axes=4), device="cpu"),
+        "l": lora})
+    reset_launch_counts()
+    eng = ServingEngine(model, params, adapters=bank, n_slots=2, max_len=32,
+                        device="cpu")
+    for i, name in enumerate(("q", "l", None)):
+        eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4),
+                   adapter=name)
+    eng.run()
+    assert eng.stats["decode_calls"] > 0
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)

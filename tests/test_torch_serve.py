@@ -100,10 +100,19 @@ def test_engine_frees_and_reuses_slots():
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefill_chunk=16), dict(adapters=object()), dict(mesh=object()),
+    dict(prefill_chunk=16), dict(mesh=object()),
 ])
 def test_unported_engine_options_raise(option):
     model = build_model(get_smoke("llama2-7b-proxy"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(model, model.init(0), n_slots=2, max_len=32,
                       device="cpu", **option)
+
+
+@pytest.mark.parametrize("adapters", [object(), {"layers": {}}])
+def test_adapters_must_be_a_bank_or_pool(adapters):
+    """``adapters=`` takes an ``AdapterBank`` or an ``AdapterPool`` only."""
+    model = build_model(get_smoke("llama2-7b-proxy"), device="cpu")
+    with pytest.raises(TypeError, match="AdapterBank or an AdapterPool"):
+        ServingEngine(model, model.init(0), adapters=adapters, n_slots=2,
+                      max_len=32, device="cpu")

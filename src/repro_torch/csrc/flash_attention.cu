@@ -18,38 +18,45 @@
 //     and rounded to the value dtype as it enters shared memory, so no
 //     decoded copy of the cache exists in device memory.
 //
-// All share one block body (attend_block), templated on how a key and
-// value element is fetched: up to 64 query rows against a walk over
-// 64-key tiles, with the TPU kernels' softmax rules -- fp32 running max,
-// denominator and accumulator (online softmax), p cast to the value dtype
-// before the PV product, masking by MASK_VALUE = -1e30 (finite, so a fully
-// masked tile never makes inf - inf), and denom == 0 guarded.  A 64-key
-// tile of a paged pool gathers 64 / bs table entries (4 at the serving
-// block size of 16); the TPU kernel visits one pool block per grid step.
+// The rules every body keeps, as the TPU kernels do: fp32 running max,
+// denominator and accumulator (online softmax) over 64-key tiles, p cast
+// to the value dtype before the PV product, masking by MASK_VALUE = -1e30
+// (finite, so a fully masked tile never makes inf - inf), one division at
+// the end with denom == 0 guarded.  GQA reads KV head h / (H / KV); any S
+// is taken, keys and query rows past the end masked, with no padding copy.
 //
-// What bounds them on the H100: the prefill forward at llama2-7b widths
-// (hd = 128, S of a few hundred) does 4*hd FLOPs per visible (query, key)
-// pair against 2*hd bytes per key it reads: operations, not bytes.  Decode
-// reads each valid key and value row once for G = H/KV query rows: bytes
-// (2 B an element in bf16, 0.5 B plus a 4 B scale per 64 in NF4).
+// The bf16 prefill forward (fwd::flash_forward_bf16_kernel) is bound by
+// operations at llama2-7b widths (4 * hd FLOPs per visible (query, key)
+// pair against 2 * hd bytes per key) and by the bytes it must read at
+// short S.  It is built for Hopper's tensor cores: a block of 64 query
+// rows, a producer warpgroup that streams Q and each visible K/V tile by
+// 16-byte cp.async into a two-stage ring of 128-byte swizzled tiles
+// (mbarrier full/empty), and a consumer warpgroup that runs QK^T and PV
+// as wgmma with p fed from registers, the online softmax on the
+// accumulator registers, two blocks an SM (setmaxnreg gives the consumers
+// the producer's registers).  Only the visible tiles are visited
+// (_visible_j_range), and tiles wholly inside the causal window skip the
+// mask.  QK^T is summed in partial sums of 8 products (see the body).
 //
-// What the design does about it: only key tiles that the causal mask (and
-// the window) leave visible are visited -- [j_lo, j_hi] of
-// _visible_j_range for prefill, and for decode the tiles up to the slot's
-// length, which the block reads itself, so the blocks of short slots cost
-// nothing past their length; a paged block reads its table only for keys
+// The float32 forward and the decodes share attend_block, templated on how
+// a key and value element is fetched: up to 64 query rows against a walk
+// over 64-key tiles in SIMT fp32 (float32 must not round through TF32).
+// Decode reads each valid key and value row once for G = H/KV query rows:
+// bytes (2 B an element in bf16, 0.5 B plus a 4 B scale per 64 in NF4).
+// Only tiles up to the slot's length are visited (the block reads its
+// length itself); a 64-key tile of a paged pool gathers 64 / bs table
+// entries (4 at the serving block size of 16) and reads the table only
 // below the length, so entries past the slot's block count (which repeat
 // its last row) are never read.  K and V tiles sit in shared memory as
 // fp32 (rows padded by one word against bank conflicts), the score tile is
 // a 4x4 register micro-tile per thread, and each thread owns 8 rows x 4
-// head dims of the output accumulator in registers.  The arithmetic is
-// SIMT fp32 (no tensor cores, no TMA): simple and exact first; wgmma comes
-// in a later PR.  Any S is taken: query rows and keys past the end are
-// masked, with no padding copy.  GQA reads KV head h / (H / KV).
+// head dims of the output accumulator.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -408,6 +415,289 @@ int allow_smem(K kernel, size_t bytes, int smem_limit, int* granted) {
   return 0;
 }
 
+// ------------------------------------------------- bf16 forward (wgmma)
+//
+// grid (ceil(S/64), H, B), the query tiles with the most visible keys
+// first; 256 threads, two blocks an SM: a consumer warpgroup (threads
+// 0-127) owns the block's 64 query rows, a producer warpgroup (128-255)
+// streams Q once and then each visible 64-key K/V tile into a ring of
+// kFwdStages shared-memory stages by 16-byte cp.async (zero-filled past S
+// and past hd), each thread's copies arriving on the stage's `full`
+// mbarrier as they land; the consumers free a stage through its `empty`
+// mbarrier.  HDP is hd rounded up to 64 or 128: the zero columns add exact
+// zeros to QK^T and are never stored.
+//
+// QK^T is summed as the plain version sums it only up to the order: its
+// fp32 dot runs over hd in order, the tensor cores add many products at
+// once.  Each score is the fp32 sum, in order, of hd / 8 partial sums of 8
+// products, one wgmma each (the other half of its 16-deep A fragment set
+// to zero), which keeps the rounding of p close enough to the plain
+// version's for the bf16 limit (longer partials round p differently
+// more often; see PERF.md).
+namespace fwd {
+
+constexpr int kFwdRows = 64;      // query rows a block: one wgmma tile
+constexpr int kFwdStages = 2;
+constexpr int kFwdThreads = 256;
+// setmaxnreg moves the producer's registers to the consumers: two blocks
+// an SM start with 65536 / (2 * kFwdThreads) each and must not ask for
+// more in all, or the consumers' request never returns
+constexpr int kFwdProducerRegs = 40, kFwdConsumerRegs = 216;
+static_assert(128 * (kFwdProducerRegs + kFwdConsumerRegs) <=
+                  kFwdThreads * ((65536 / (2 * kFwdThreads)) & ~7),
+              "setmaxnreg asks for more registers than the block holds");
+
+template <int HDP>
+struct Plan {
+  static constexpr int NP = HDP / 64;              // 64-wide panels of hd
+  static constexpr int PANEL = 64 * 128;           // 64 rows of 128 B
+  static constexpr int Q = PANEL * NP;             // the Q tile
+  static constexpr int KV = PANEL * NP;            // one K or V tile
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int BYTES =
+      1024 + Q + kFwdStages * STAGE + 2 * kFwdStages * 8;
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    flash_forward_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ o, int S, int H,
+                              int KV, int hd, int window, float scale) {
+  using P = Plan<HDP>;
+  constexpr int CH = HDP / 8;  // 16-byte chunks of a row
+  extern __shared__ uint8_t fwd_smem_raw[];
+  uint8_t* smem = sm90::align1024(fwd_smem_raw);
+  const uint32_t q_s = sm90::smem_u32(smem);
+  const uint32_t kv_s = q_s + P::Q;
+  const uint32_t bars = kv_s + kFwdStages * P::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kFwdStages + s); };
+
+  const int n_q = gridDim.x;
+  const int q_lo = (n_q - 1 - blockIdx.x) * kFwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  // [j_lo, j_hi]: _visible_j_range of the block's rows
+  const int n_k = (S + kKeys - 1) / kKeys;
+  const int j_hi = min((q_lo + kFwdRows - 1) / kKeys, n_k - 1);
+  const int j_lo = window > 0 ? max(0, (q_lo - window + 1) / kKeys) : 0;
+  const int T = j_hi - j_lo + 1;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      sm90::mbar_init(full(s), 128);
+      sm90::mbar_init(empty(s), 128);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---------------------------------------------------------- producer
+    sm90::reg_dealloc<kFwdProducerRegs>();
+    const int pt = tid - 128;
+    const long long q_row = (long long)H * hd, kv_row = (long long)KV * hd;
+    const __nv_bfloat16* qb = q + ((long long)b * S * H + h) * hd;
+    const __nv_bfloat16* kb = k + ((long long)b * S * KV + kvh) * hd;
+    const __nv_bfloat16* vb = v + ((long long)b * S * KV + kvh) * hd;
+    for (int n = 0; n < T; ++n) {
+      const int s = n % kFwdStages;
+      if (n >= kFwdStages)
+        sm90::mbar_wait(empty(s), ((n / kFwdStages) - 1) & 1);
+      if (n == 0) {
+        for (int i = pt; i < kFwdRows * CH; i += 128) {
+          const int r = i / CH, c = i % CH;
+          const bool ok = q_lo + r < S && 8 * c < hd;
+          sm90::cp_async16(q_s + (c >> 3) * P::PANEL + sm90::swz(r, c & 7),
+                           ok ? qb + (q_lo + r) * q_row + 8 * c : q, ok);
+        }
+      }
+      const int kv0 = (j_lo + n) * kKeys;
+      const uint32_t ks = kv_s + s * P::STAGE, vs = ks + P::KV;
+      for (int i = pt; i < kKeys * CH; i += 128) {
+        const int r = i / CH, c = i % CH;
+        const bool ok = kv0 + r < S && 8 * c < hd;
+        const long long off = (kv0 + r) * kv_row + 8 * c;
+        const uint32_t dst = (c >> 3) * P::PANEL + sm90::swz(r, c & 7);
+        sm90::cp_async16(ks + dst, ok ? kb + off : k, ok);
+        sm90::cp_async16(vs + dst, ok ? vb + off : v, ok);
+      }
+      sm90::cp_async_arrive(full(s));
+    }
+    sm90::cp_async_wait<0>();
+  } else {
+    // --------------------------------------------------------- consumers
+    sm90::reg_alloc<kFwdConsumerRegs>();
+    const int lane = tid & 31, quad = lane & 3;
+    const int r0 = 16 * (tid >> 5) + (lane >> 2);   // rows r0, r0 + 8
+    const int pos[2] = {q_lo + r0, q_lo + r0 + 8};
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
+    constexpr int PARTS = HDP / 8;
+
+    // A fragment of partial p: hd 8p .. 8p + 7 of rows r0 and r0 + 8 in
+    // the half of the 16-deep fragment it belongs to, zeros in the other
+    auto frag = [&](int p, uint32_t (&a)[4]) {
+      const int c = p;          // the 16-byte chunk of hd 8p .. 8p + 7
+      const uint32_t lo = *reinterpret_cast<const uint32_t*>(
+          smem + (c >> 3) * P::PANEL + sm90::swz(r0, c & 7) + 4 * quad);
+      const uint32_t hi = *reinterpret_cast<const uint32_t*>(
+          smem + (c >> 3) * P::PANEL + sm90::swz(r0 + 8, c & 7) + 4 * quad);
+      a[0] = p & 1 ? 0u : lo;
+      a[1] = p & 1 ? 0u : hi;
+      a[2] = p & 1 ? lo : 0u;
+      a[3] = p & 1 ? hi : 0u;
+    };
+
+    for (int n = 0; n < T; ++n) {
+      const int s = n % kFwdStages;
+      const int j = j_lo + n;
+      sm90::mbar_wait(full(s), (n / kFwdStages) & 1);
+      const uint32_t ks = kv_s + s * P::STAGE, vs = ks + P::KV;
+      auto issue = [&](int p, float (&d)[32]) {
+        uint32_t a[4];
+        frag(p, a);
+        const int kk = p >> 1;   // the 16-deep slice of K it reads
+        const uint64_t db = sm90::desc(
+            ks + (kk >> 2) * P::PANEL + ((kk & 3) << 5), 16, 1024);
+        sm90::wgmma_fence();
+        sm90::wgmma_rs<64, 0>(d, a, db, 0);
+        sm90::wgmma_commit();
+      };
+      float sc[32], tp[2][32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tp[0][i] = tp[1][i] = 0.f;
+      issue(0, tp[0]);
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {
+        if (p + 1 < PARTS) {
+          issue(p + 1, tp[(p + 1) & 1]);
+          sm90::wgmma_wait<1>();
+        } else {
+          sm90::wgmma_wait<0>();
+        }
+        sm90::fence_regs(tp[p & 1]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] = p ? sc[i] + tp[p & 1][i] : tp[0][i];
+      }
+
+      // online softmax on the accumulators: element i is row r0 + 8 *
+      // ((i >> 1) & 1), key kv0 + 8 * (i >> 2) + 2 * quad + (i & 1)
+      const int kv0 = j * kKeys;
+      const bool clear = kv0 + kKeys - 1 <= q_lo && kv0 + kKeys <= S &&
+                         (window < 0 || q_lo + kFwdRows - 1 - kv0 < window);
+      float mx[2] = {kMask, kMask};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale;
+        if (!clear) {
+          const int kv = kv0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+          const int qp = pos[(i >> 1) & 1];
+          const bool ok =
+              kv <= qp && kv < S && (window < 0 || qp - kv < window);
+          x = ok ? x : kMask;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        const float m_new = fmaxf(m[e], mx[e]);
+        alpha[e] = expf(m[e] - m_new);
+        m[e] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = expf(sc[i] - m[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += p;
+        sc[i] = p;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l[e] = alpha[e] * l[e] + sum[e];
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: p rounded to bf16 as the A operand, in registers
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = sm90::pack_bf16(sc[8 * kk + 2 * e],
+                                      sc[8 * kk + 2 * e + 1]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs<HDP, 1>(
+            acc, pa[kk], sm90::desc(vs + kk * 2048, P::PANEL, 1024), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(empty(s));
+    }
+
+    // epilogue: one division per row, bf16 staged in the Q tile, then
+    // 16-byte stores
+    float den[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+      l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+      den[e] = l[e] == 0.f ? 1.f : l[e];
+    }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");   // Q fully read
+#pragma unroll
+    for (int jj = 0; jj < HDP / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t off = (jj >> 3) * P::PANEL +
+                             sm90::swz(r0 + 8 * e, jj & 7) + 4 * quad;
+        *reinterpret_cast<uint32_t*>(smem + off) =
+            sm90::pack_bf16(acc[4 * jj + 2 * e] / den[e],
+                            acc[4 * jj + 2 * e + 1] / den[e]);
+      }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    __nv_bfloat16* ob = o + ((long long)b * S * H + h) * hd;
+    for (int i = tid; i < kFwdRows * CH; i += 128) {
+      const int r = i / CH, c = i % CH;
+      const int row = q_lo + r;
+      if (row < S && 8 * c < hd)
+        *reinterpret_cast<uint4*>(ob + (long long)row * H * hd + 8 * c) =
+            *reinterpret_cast<const uint4*>(
+                smem + (c >> 3) * P::PANEL + sm90::swz(r, c & 7));
+    }
+  }
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KV, int hd, int window, float scale, int smem_limit,
+           cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const size_t smem = Plan<HDP>::BYTES;
+  int err = allow_smem(flash_forward_bf16_kernel<HDP>, smem, smem_limit,
+                       granted);
+  if (err) return err;
+  dim3 grid((S + kFwdRows - 1) / kFwdRows, H, B);
+  flash_forward_bf16_kernel<HDP><<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      S, H, KV, hd, window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd
+
 template <typename T>
 int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
             int H, int KV, int hd, int window, float scale, int smem_limit,
@@ -469,7 +759,8 @@ bool shapes_ok(int H, int KV, int hd) {
 }  // namespace
 
 // q, k, v, o contiguous (B, S, H|KV, hd) in one dtype (0 float32,
-// 1 bfloat16); window < 0 means full causal attention.  smem_limit: the
+// 1 bfloat16; bfloat16 needs hd % 8 == 0 and 16-byte aligned rows);
+// window < 0 means full causal attention.  smem_limit: the
 // shared memory a block of this device may opt in to.
 extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
@@ -482,9 +773,14 @@ extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return forward<float>(q, k, v, o, B, S, H, KV, hd, window, scale,
                           smem_limit, s);
-  if (dtype == 1)
-    return forward<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, window, scale,
-                                  smem_limit, s);
+  if (dtype == 1) {
+    if (hd % 8) return (int)cudaErrorInvalidValue;
+    if (hd <= 64)
+      return fwd::launch<64>(q, k, v, o, B, S, H, KV, hd, window, scale,
+                             smem_limit, s);
+    return fwd::launch<128>(q, k, v, o, B, S, H, KV, hd, window, scale,
+                            smem_limit, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

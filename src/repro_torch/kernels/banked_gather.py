@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.dispatch import aligned16, route
 from repro_torch.kernels.ref import (
     banked_lora_delta_ref, banked_lora_linear_ref,
 )
@@ -77,13 +77,6 @@ def _check(x, a, b, ids, w):
                          f"x/b")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the bf16 GEMM loads 16-byte
-    vectors)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(x, a, b, ids, w, scale: float) -> torch.Tensor:
     """Shrink then expand on the card; ``w`` None drops the base."""
     n_slots, seq, d_in = x.shape
@@ -96,9 +89,9 @@ def _launch(x, a, b, ids, w, scale: float) -> torch.Tensor:
                          "multiples of 8")
     plan = banked_gather_plan(n_slots, seq, d_in, d_out, rank,
                               x_code == 1, device_limits(x.device).sms)
-    x = _aligned(x)
+    x = aligned16(x)
     a, b, ids = a.contiguous(), b.contiguous(), ids.contiguous()
-    w = None if w is None else _aligned(w)
+    w = None if w is None else aligned16(w)
     za = torch.empty((n_slots * seq, rank), dtype=torch.float32,
                      device=x.device)
     zpart = (torch.empty((plan.splits, n_slots * seq, rank),

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MASK_VALUE", "masked_softmax", "route", "default_device"]
+__all__ = ["MASK_VALUE", "masked_softmax", "route", "default_device",
+           "aligned16"]
 
 # The additive mask for attention logits.  Finite (not -inf) so masked
 # rows exp() to exactly 0.0 without NaN-producing inf-inf in the online
@@ -62,3 +63,13 @@ def default_device(device=None) -> torch.device:
             "device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def aligned16(t):
+    """``t`` contiguous and 16-byte aligned, for kernels that copy 16-byte
+    vectors (and TMA boxes); copied only when it is not.  ``None`` passes
+    through."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

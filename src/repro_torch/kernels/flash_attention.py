@@ -32,8 +32,12 @@ import torch
 
 from repro_torch.core.quantize import codebook, kv_dequant_values
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import MASK_VALUE, masked_softmax, route
-from repro_torch.kernels.smem import attention_smem_bytes, device_limits
+from repro_torch.kernels.dispatch import (
+    MASK_VALUE, aligned16, masked_softmax, route,
+)
+from repro_torch.kernels.smem import (
+    attention_smem_bytes, device_limits, flash_forward_smem_bytes,
+)
 
 __all__ = [
     "flash_attention",
@@ -380,7 +384,9 @@ def flash_attention(
                          f"fit q {tuple(q.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k and v must share one dtype")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        flash_forward_smem_bytes(hd)   # raises for a head_dim it cannot take
+    q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     rc = _bind("flash_forward_launch", 4, 6)(
         _build.dtype_code(q.dtype), _ptr(q), _ptr(k), _ptr(v), _ptr(out),

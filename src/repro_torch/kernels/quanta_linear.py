@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.quanta import apply_sequential
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import route
+from repro_torch.kernels.dispatch import aligned16, route
 from repro_torch.kernels.quanta_apply import _check, _launch_chain
 
 __all__ = ["quanta_linear", "quanta_linear_plain"]
@@ -52,13 +52,6 @@ def _bind():
     return fn
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as the bf16 GEMM's vector loads
-    need."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def quanta_linear(
     x: torch.Tensor,                      # (rows, d_in)
     w: torch.Tensor,                      # (d_in, d_out)
@@ -82,8 +75,8 @@ def quanta_linear(
     if x.dtype == torch.bfloat16 and (d_in % 8 or d_out % 8):
         raise ValueError("the bf16 GEMM needs d_in and d_out multiples of 8")
     code = _build.dtype_code(x.dtype)
-    x = _aligned(x)
-    w = _aligned(w)
+    x = aligned16(x)
+    w = aligned16(w)
     delta = _launch_chain(x, tensors, tuple(dims_in), pairs)   # phase (a)
     if delta.shape[1] != d_out:
         raise ValueError(f"chain output {delta.shape[1]} != w cols {d_out}")

@@ -8,8 +8,10 @@ TPU kernel keeps the whole ``d_in`` per tile and its wrapper falls back to
 the reference when that tile overflows VMEM, which it does at llama2-7b
 widths.  The CUDA kernel tiles K instead (64 rows per step), so there is
 no gate and no fallback: a CUDA tensor takes the kernel or the wrapper
-raises.  The tile and the K split come from ``kernels/smem.py``
-(``quantized_matmul_plan``, cached per shape).
+raises.  bf16 runs one of two wgmma bodies, prefill (more than 64 rows)
+or decode (at most 64), float32 a SIMT tile; the body and the K split
+come from ``kernels/smem.py`` (``quantized_matmul_plan``, cached per
+shape).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch
 
 from repro_torch.core.quantize import QuantizedLinear, codebook, matmul_ref
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import route
-from repro_torch.kernels.smem import device_limits, quantized_matmul_plan
+from repro_torch.kernels.dispatch import aligned16, route
+from repro_torch.kernels.smem import (
+    device_limits, qmm_check_block, quantized_matmul_plan,
+)
 
 __all__ = ["quantized_matmul", "quantized_matmul_plain"]
 
@@ -36,7 +40,7 @@ def _bind():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return fn
 
 
@@ -65,27 +69,26 @@ def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
     if any(t.dtype != torch.float32 for t in qw.tensors()[1:]):
         raise ValueError("the kernel takes fp32 scales and norms")
     batch = x.shape[:-1]
-    xf = x.reshape(-1, d_in)
-    xf = xf.contiguous()
-    if xf.data_ptr() % 16:          # the kernel loads x as 16-byte vectors
-        xf = xf.clone()
+    xf = aligned16(x.reshape(-1, d_in))
     rows = xf.shape[0]
     dev = x.device
-    plan = quantized_matmul_plan(rows, d_in, d_out, code == 1,
-                                 device_limits(dev).sms)
+    bs = d_in if qw.block_size is None else int(qw.block_size)
+    qmm_check_block(bs, code == 1)
+    limits = device_limits(dev)
+    # the entry point refuses a block that needs more shared memory than
+    # ``limits.smem_block`` (``qmm_smem_bytes``), and the wrapper raises
+    plan = quantized_matmul_plan(rows, d_in, d_out, code == 1, limits.sms)
     out = torch.empty((rows, d_out), dtype=x.dtype, device=dev)
     partial = (torch.empty((plan.splits, rows, d_out), dtype=torch.float32,
                            device=dev) if plan.splits > 1 else None)
-    packed, scales = qw.packed.contiguous(), qw.scales.contiguous()
-    row = qw.row_norm.contiguous() if qw.row_norm is not None else None
-    col = qw.col_norm.contiguous() if qw.col_norm is not None else None
-    bs = d_in if qw.block_size is None else int(qw.block_size)
+    packed, scales = aligned16(qw.packed), aligned16(qw.scales)
+    row, col = aligned16(qw.row_norm), aligned16(qw.col_norm)
     rc = _bind()(
         code, _FMT_CODES[qw.fmt], plan.variant, _ptr(xf), _ptr(packed),
         _ptr(scales), _ptr(row), _ptr(col),
         _ptr(codebook(dev) if qw.fmt == "nf4" else None), _ptr(out),
         _ptr(partial), rows, d_out, d_in, bs, plan.splits,
-        _build.stream_ptr(),
+        limits.smem_block, _build.stream_ptr(),
     )
     _build.check(rc, "quantized_matmul")
     quantized_matmul.launches += 1

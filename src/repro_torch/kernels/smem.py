@@ -23,7 +23,11 @@ __all__ = [
     "chain_smem_bytes",
     "chain_rows_per_block",
     "attention_smem_bytes",
+    "flash_forward_smem_bytes",
     "QmmPlan",
+    "qmm_smem_bytes",
+    "qmm_decode_rows",
+    "qmm_check_block",
     "quantized_matmul_plan",
     "BankedPlan",
     "banked_gather_plan",
@@ -106,47 +110,135 @@ def attention_smem_bytes(hd: int) -> int:
                 + ATTN_ROWS * (ATTN_KEYS + 1) + 2 * ATTN_ROWS + 16)
 
 
+FWD_ROWS = 64     # query rows of a bf16 forward block (one wgmma tile),
+                  # as the plain version's query tiles
+FWD_STAGES = 2    # K/V ring depth of the bf16 forward (two blocks an SM)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_forward_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one bf16 flash-forward block
+    (``fwd::Plan::BYTES``): 1 KB of alignment slack, the Q tile and
+    ``FWD_STAGES`` K and V tiles of 64 keys, each with head_dim padded to
+    64 or 128 (rows of 128-byte swizzled panels), and the mbarriers."""
+    if hd % 8 or not 0 < hd <= 128:
+        raise ValueError(f"the bf16 flash forward takes head_dim a multiple "
+                         f"of 8 up to 128, got {hd}")
+    panels = 1 if hd <= 64 else 2
+    return (1024 + FWD_ROWS * 128 * panels
+            + FWD_STAGES * 2 * ATTN_KEYS * 128 * panels + 2 * FWD_STAGES * 8)
+
+
 # ---------------------------------------------------------------------------
 # Quantized matmul (csrc/quantized_matmul.cu)
 # ---------------------------------------------------------------------------
 
-QMM_BK = 64       # K rows per step: a multiple of the 64-element quant
-                  # block and of the two rows of an NF4 byte
-# variant code -> (block rows, block cols): the output tiles of ``Tile<V>``
-# in the CUDA source, whose shared memory is static and under 48 KB
+QMM_BK = 64       # K rows per step: a multiple of the two rows of an NF4
+                  # byte, and of the quant block where that divides 64
+QMM_PREFILL, QMM_DECODE, QMM_F32 = 0, 1, 2     # variant codes
+# variant code -> (block rows, block cols) of its output tile; the decode
+# body's rows are the problem's, rounded up to QMM_DECODE_ROWS
 QMM_TILES = {
-    0: (128, 128),    # bf16, many rows
-    1: (16, 64),      # bf16, few rows
-    2: (64, 64),      # float32
+    QMM_PREFILL: (128, 192),    # bf16, wgmma, three consumer warpgroups
+    QMM_DECODE: (64, 64),       # bf16, wgmma on out^T: 64 columns
+    QMM_F32: (64, 64),          # float32, SIMT
 }
-QMM_NARROW_ROWS = 64      # at most this many rows take the narrow tile
-QMM_WAVES = 2             # blocks wanted per SM before K is split
+# wgmma N of the decode body: 8 for a decode tick of at most 8 rows, 64
+# for 9-64 rows
+QMM_DECODE_ROWS = (8, 64)
+QMM_NARROW_ROWS = QMM_DECODE_ROWS[-1]  # at most this many take decode
+QMM_STAGES = {QMM_DECODE: 5}                   # load ring depths
+QMM_PREFILL_STAGES = {"nf4": 7, "int8": 6}
+QMM_MAX_SCALE_ROWS = 9    # scale rows a 64-row step touches, blocks >= 8
+QMM_MIN_BLOCK = 8         # the bf16 bodies stage at most 9 scale rows
+# blocks wanted per SM before K is split: the prefill body holds an SM
+# alone (512 threads), the decode body wants bytes in flight from several
+QMM_WAVES = {QMM_PREFILL: 1, QMM_DECODE: 4, QMM_F32: 2}
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def qmm_stage_bytes(tile_rows: int, tile_cols: int,
+                    code_rows: int = QMM_BK) -> int:
+    """One ring stage of the bf16 bodies (``Stage`` in the CUDA source):
+    the swizzled x tile (128 B a row), the code tile (``code_rows`` rows of
+    ``tile_cols`` bytes: 32 for NF4, 64 for int8), the scale rows and 64
+    row norms, rounded up to 1 KB."""
+    return _ceil_to(tile_rows * 128 + code_rows * tile_cols
+                    + QMM_MAX_SCALE_ROWS * tile_cols * 4 + QMM_BK * 4, 1024)
+
+
+def qmm_decode_rows(rows: int) -> int:
+    """The decode body's wgmma N for ``rows`` rows (at most 64)."""
+    for n in QMM_DECODE_ROWS:
+        if rows <= n:
+            return n
+    raise ValueError(f"the decode body takes at most {QMM_NARROW_ROWS} "
+                     f"rows, got {rows}")
+
+
+def qmm_smem_bytes(variant: int, rows: int, fmt: str = "nf4") -> int:
+    """Dynamic shared memory of one quantized-matmul block (``Pre::BYTES``
+    and ``DecPlan::BYTES``): 1 KB of alignment slack, the load ring of x,
+    codes, scales and row norms, and its mbarriers.  Both
+    bf16 bodies decode the weights into registers.  The float32 tile's
+    shared memory is static."""
+    if variant == QMM_F32:
+        return 0
+    bm, bn = QMM_TILES[variant]
+    if variant == QMM_PREFILL:
+        stages = QMM_PREFILL_STAGES[fmt]
+        code_rows = QMM_BK // 2 if fmt == "nf4" else QMM_BK
+        return 1024 + stages * qmm_stage_bytes(bm, bn, code_rows) \
+            + 2 * stages * 8
+    stages = QMM_STAGES[variant]
+    return 1024 + stages * qmm_stage_bytes(qmm_decode_rows(rows), bn) \
+        + 2 * stages * 8
+
+
+def qmm_check_block(block_size: int, bf16: bool) -> None:
+    """The bf16 bodies stage at most ``QMM_MAX_SCALE_ROWS`` scale rows a
+    step, so they take quant blocks of at least 8 rows; raises below."""
+    if bf16 and block_size < QMM_MIN_BLOCK:
+        raise ValueError(f"the bf16 quantized matmul takes block sizes >= "
+                         f"{QMM_MIN_BLOCK}, got {block_size}")
 
 
 class QmmPlan(NamedTuple):
-    variant: int          # tile code of the CUDA entry point
+    variant: int          # body code of the CUDA entry point
     splits: int           # K splits (1: no partials)
 
 
 @functools.lru_cache(maxsize=None)
 def quantized_matmul_plan(rows: int, d_in: int, d_out: int, bf16: bool,
                           sms: int) -> QmmPlan:
-    """Tile and K split of the quantized matmul for one problem shape.
+    """Body and K split of the quantized matmul for one problem shape.
 
-    bf16 takes the 128 x 128 tile for many rows and the 16 x 64 tile for
-    at most 64 rows; float32 the 64 x 64 SIMT tile.  When the output
-    tiles give fewer than two blocks per SM, K is split into as many
-    non-empty parts as it takes to reach that (decode at d_out 4096: 64
-    tiles, so 5 splits of 13 steps at d_in 4096).
+    bf16 takes the prefill body (tiles of 128 rows x 192 columns, one
+    block an SM) for more than 64 rows and the decode body (64 columns a
+    block) for at most 64; float32 the 64 x 64 SIMT tile.
+    When the output tiles give fewer blocks than ``QMM_WAVES`` per SM, K
+    is split into non-empty parts: for prefill and float32 until there are
+    that many, for decode into as many as the SMs hold at once
+    (``kDecBlocksPerSm``: four), so that no block waits for a second wave
+    (a decode tick at 4096 -> 4096: 64 tiles, 8 splits of 8 steps; 4096 ->
+    11008: 172 tiles, 3 splits; 11008 -> 4096: 8 splits of 22 steps).
     """
     if not bf16:
-        variant = 2
+        variant = QMM_F32
     else:
-        variant = 1 if rows <= QMM_NARROW_ROWS else 0
+        variant = QMM_DECODE if rows <= QMM_NARROW_ROWS else QMM_PREFILL
     bm, bn = QMM_TILES[variant]
-    tiles = -(-rows // bm) * -(-d_out // bn)
+    tiles = -(-d_out // bn) * (1 if variant == QMM_DECODE else -(-rows // bm))
     steps = -(-d_in // QMM_BK)
-    want = min(steps, max(1, -(-QMM_WAVES * sms // tiles)))
+    if variant == QMM_DECODE:
+        # as many blocks as the SMs hold at once, never a second wave
+        want = (QMM_WAVES[variant] * sms) // tiles
+    else:
+        want = -(-QMM_WAVES[variant] * sms // tiles)
+    want = min(steps, max(1, want))
     per = -(-steps // want)
     return QmmPlan(variant, -(-steps // per))
 

@@ -129,6 +129,47 @@ def test_flash_kernels_match_plain(b, s, h, kv, hd, window, dtype, dev):
                                                 window=window), dtype)
 
 
+FWD = (
+    # (b, s, h, kv, hd, window): every tail of a 64-key tile and of a
+    # 128-row query tile at hd 64 and 128
+    [(2, s, 4, 2, hd, None) for s in (1, 63, 64, 65, 127, 129, 300, 384)
+     for hd in (64, 128)]
+    + [
+        (2, 100, 4, 4, 16, None),     # hd 16
+        (1, 200, 8, 1, 64, None),     # MQA
+        (1, 384, 14, 2, 64, 100),     # qwen2-0.5b's H / KV = 7, window
+        (2, 300, 8, 2, 128, 1),       # self-only window
+        # window 30: rows 93-127 of each 128-row tile see none of the
+        # first key tile of their warpgroup's range
+        (1, 384, 4, 4, 128, 30),
+        (2, 257, 4, 1, 64, 30),
+        (1, 384, 32, 32, 128, 100),   # llama2-7b's heads, window 100
+    ]
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", FWD)
+def test_flash_forward_edges_match_plain(b, s, h, kv, hd, window, dtype,
+                                         dev):
+    gen = torch.Generator(device=dev).manual_seed(s * hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+    before = launch_counts()["flash_attention"]
+    got = FA.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    _close(got, FA.flash_attention_plain(q, k, v, window=window), dtype)
+
+
+def test_flash_forward_bf16_refuses_head_dims_off_16_bytes(dev):
+    q = torch.zeros((1, 8, 2, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q, q)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 2, 256), device=dev)
     with pytest.raises(ValueError):
@@ -176,6 +217,68 @@ def test_quantized_matmul_matches_plain(rows, d_in, d_out, bs, norm, dtype,
            else dict(rtol=2e-2, atol=2e-2))
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                matmul_ref(x, qw).float().cpu().numpy(), **tol)
+
+
+QMM_EDGES = [
+    # (rows, d_in, d_out, block_size, normalize): every row boundary of
+    # the two bf16 bodies (and of the decode body's wgmma widths), K
+    # tails, ragged columns (no tile and no 16-byte code row divides 24,
+    # 300 or 4104; code rows of 26 and 301 bytes are not even 4-byte
+    # aligned, so their codes take plain stores), each quant block and
+    # each norm
+    (1, 200, 24, 64, None),
+    (8, 4096, 4104, 64, "row"),
+    (16, 11008, 300, None, "col"),
+    (17, 200, 300, 32, "rowcol"),
+    (64, 4096, 24, 32, None),
+    (65, 200, 4104, None, "row"),
+    (128, 11008, 24, 64, "rowcol"),
+    (129, 4096, 300, 64, "col"),
+    (1001, 200, 4104, 32, None),
+    (3072, 4096, 4104, 64, "rowcol"),
+    (3072, 11008, 300, 32, "row"),
+    (8, 11008, 4104, None, "rowcol"),
+    (8, 200, 26, 32, "col"),
+    (8, 4096, 301, 64, "rowcol"),
+    (33, 200, 301, None, "row"),
+    (129, 200, 26, 64, "row"),
+    (65, 4096, 301, None, "col"),
+]
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d_in,d_out,bs,norm", QMM_EDGES)
+def test_quantized_matmul_edges_match_plain(rows, d_in, d_out, bs, norm,
+                                            dtype, fmt, dev):
+    test_quantized_matmul_matches_plain(rows, d_in, d_out, bs, norm, dtype,
+                                        fmt, dev)
+
+
+def test_quantized_matmul_launches_every_bf16_body(dev):
+    """Each bf16 body the plan names (decode at 1-64 rows in both of its
+    wgmma widths, 8 and 64, prefill above) launches, and the counter
+    moves."""
+    from repro_torch.kernels.smem import device_limits, quantized_matmul_plan
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn((256, 192), generator=gen, device=dev) * 256 ** -0.5
+    qw = quantize_linear(w.bfloat16(), "nf4", block_size=64)
+    seen = set()
+    for rows in (1, 8, 9, 33, 64, 65):
+        x = torch.randn((rows, 256), generator=gen, device=dev).bfloat16()
+        plan = quantized_matmul_plan(rows, 256, 192, True,
+                                     device_limits(dev).sms)
+        seen.add(plan.variant)
+        before = launch_counts()["quantized_matmul"]
+        got = quantized_matmul(x, qw)
+        torch.cuda.synchronize()
+        assert launch_counts()["quantized_matmul"] == before + 1
+        _close(got, matmul_ref(x, qw), torch.bfloat16)
+    assert seen == {0, 1}
+    with pytest.raises(ValueError):          # bf16 blocks below 8 rows
+        quantized_matmul(x, quantize_linear(w.bfloat16(), "nf4",
+                                            block_size=4))
 
 
 def _pool(n_blocks, bs, kv, hd, dtype, gen, dev):

@@ -1,0 +1,153 @@
+"""The tile and stage plans of ``repro_torch.kernels.smem`` for the bf16
+flash forward and the quantized matmul: their shared memory, the body each
+row count takes, the K splits, and their agreement with the constants of
+the CUDA sources they mirror.  CPU only: the plans are plain Python."""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from repro_torch.kernels import smem as S
+
+H100_SMS = 132
+H100_SMEM_BLOCK = 232448          # 227 KB, what a block may opt in to
+CSRC = Path(S.__file__).resolve().parent.parent / "csrc"
+
+ROWS = (1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 1001, 3072)
+SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (200, 24),
+          (200, 300), (4096, 4104), (11008, 300), (64, 64))
+
+
+def _constants(name):
+    """``constexpr int`` names and values of a CUDA source."""
+    text = (CSRC / name).read_text()
+    return {k: int(v) for k, v in re.findall(r"\b(k\w+) = (\d+)\b", text)}
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_flash_forward_plan_fits_two_blocks_an_sm(hd):
+    # 228 KB an SM, 1 KB of it kept for each block
+    assert 2 * (S.flash_forward_smem_bytes(hd) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("hd", [8, 24, 72, 120])
+def test_flash_forward_pads_head_dim_to_one_or_two_panels(hd):
+    # head_dim up to 64 takes one 64-wide panel, above it two
+    assert S.flash_forward_smem_bytes(hd) == S.flash_forward_smem_bytes(
+        64 if hd <= 64 else 128)
+
+
+@pytest.mark.parametrize("hd", [0, 12, 136, 256])
+def test_flash_forward_refuses_head_dims_it_cannot_take(hd):
+    with pytest.raises(ValueError):
+        S.flash_forward_smem_bytes(hd)
+
+
+def test_flash_forward_plan_mirrors_the_source():
+    c = _constants("flash_attention.cu")
+    assert (c["kFwdRows"], c["kFwdStages"]) == (S.FWD_ROWS, S.FWD_STAGES)
+    assert c["kKeys"] == S.ATTN_KEYS == 64
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("d_in,d_out", SHAPES)
+def test_qmm_plans_fit_a_block_and_split_into_non_empty_parts(rows, d_in,
+                                                              d_out):
+    for bf16 in (True, False):
+        plan = S.quantized_matmul_plan(rows, d_in, d_out, bf16, H100_SMS)
+        for fmt in ("nf4", "int8"):
+            assert S.qmm_smem_bytes(plan.variant, rows, fmt) \
+                <= H100_SMEM_BLOCK
+        steps = -(-d_in // S.QMM_BK)
+        per = -(-steps // plan.splits)
+        assert 1 <= plan.splits <= steps
+        # the entry point's split: every part holds at least one step
+        assert (plan.splits - 1) * per < steps
+        assert -(-steps // per) == plan.splits
+
+
+@pytest.mark.parametrize("d_in,d_out", [(4096, 4096), (4096, 11008),
+                                        (11008, 4096)])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_qmm_decode_plans_give_several_blocks_per_sm(rows, d_in, d_out):
+    plan = S.quantized_matmul_plan(rows, d_in, d_out, True, H100_SMS)
+    assert plan.variant == S.QMM_DECODE
+    blocks = -(-d_out // S.QMM_TILES[S.QMM_DECODE][1]) * plan.splits
+    assert 2 * H100_SMS <= blocks <= S.QMM_WAVES[S.QMM_DECODE] * H100_SMS
+    # and several of them fit an SM at once (228 KB, 1 KB kept per block)
+    per_sm = (H100_SMEM_BLOCK + 1024) // (S.qmm_smem_bytes(
+        plan.variant, rows) + 1024)
+    assert per_sm >= 2
+
+
+def test_qmm_main_path_plans():
+    """The plans of llama2-7b's projections at a prefill wave and a tick."""
+    plan = S.quantized_matmul_plan
+    assert plan(3072, 4096, 4096, True, H100_SMS) == (S.QMM_PREFILL, 1)
+    assert plan(3072, 4096, 11008, True, H100_SMS) == (S.QMM_PREFILL, 1)
+    assert plan(3072, 11008, 4096, True, H100_SMS) == (S.QMM_PREFILL, 1)
+    assert plan(8, 4096, 4096, True, H100_SMS) == (S.QMM_DECODE, 8)
+    assert plan(8, 4096, 11008, True, H100_SMS) == (S.QMM_DECODE, 3)
+    assert plan(8, 11008, 4096, True, H100_SMS) == (S.QMM_DECODE, 8)
+
+
+@pytest.mark.parametrize("rows,variant", [
+    (1, S.QMM_DECODE), (8, S.QMM_DECODE), (64, S.QMM_DECODE),
+    (65, S.QMM_PREFILL), (128, S.QMM_PREFILL), (3072, S.QMM_PREFILL)])
+def test_qmm_body_at_each_row_boundary(rows, variant):
+    assert S.quantized_matmul_plan(rows, 4096, 4096, True,
+                                   H100_SMS).variant == variant
+    assert S.quantized_matmul_plan(rows, 4096, 4096, False,
+                                   H100_SMS).variant == S.QMM_F32
+
+
+@pytest.mark.parametrize("rows,n", [(1, 8), (8, 8), (9, 64), (16, 64),
+                                    (17, 64), (32, 64), (33, 64), (64, 64)])
+def test_qmm_decode_rows_round_up_to_a_wgmma_width(rows, n):
+    assert S.qmm_decode_rows(rows) == n
+
+
+def test_qmm_decode_rows_refuses_more_than_64():
+    with pytest.raises(ValueError):
+        S.qmm_decode_rows(65)
+
+
+def test_qmm_block_size_rule():
+    for bs in (8, 32, 64, 4096):
+        S.qmm_check_block(bs, bf16=True)
+    S.qmm_check_block(4, bf16=False)      # the float32 tile takes any
+    with pytest.raises(ValueError):
+        S.qmm_check_block(4, bf16=True)
+
+
+def test_qmm_plan_mirrors_the_source():
+    c = _constants("quantized_matmul.cu")
+    bm, bn = S.QMM_TILES[S.QMM_PREFILL]
+    assert (c["kPreBM"], 64 * c["kPreWGs"]) == (bm, bn)
+    assert c["kDecBlocksPerSm"] == S.QMM_WAVES[S.QMM_DECODE]
+    assert (c["kPreStagesNf4"], c["kPreStagesInt8"]) == (
+        S.QMM_PREFILL_STAGES["nf4"], S.QMM_PREFILL_STAGES["int8"])
+    assert c["kDecBN"] == S.QMM_TILES[S.QMM_DECODE][1]
+    assert c["kDecStages"] == S.QMM_STAGES[S.QMM_DECODE]
+    assert c["kMaxScaleRows"] == S.QMM_MAX_SCALE_ROWS
+    assert c["kMinBlock"] == S.QMM_MIN_BLOCK
+    assert (c["kPrefill"], c["kDecode"], c["kF32"]) == (
+        S.QMM_PREFILL, S.QMM_DECODE, S.QMM_F32)
+    # a 64-row step touches at most kMaxScaleRows blocks of >= kMinBlock
+    for bs in range(S.QMM_MIN_BLOCK, 200):
+        for k0 in range(0, 64 * 12, 64):
+            rows = (k0 + 63) // bs - k0 // bs + 1
+            assert rows <= S.QMM_MAX_SCALE_ROWS
+
+
+def test_qmm_stage_sizes():
+    # x 16 KB + codes 6 KB (NF4) or 12 KB (int8) + scales 6.75 KB + row
+    # norms: prefill holds 7 or 6 such stages, decode 5 of 8 KB at 8 rows
+    assert S.qmm_stage_bytes(128, 192, 32) == 29696
+    assert S.qmm_stage_bytes(128, 192) == 35840
+    assert S.qmm_smem_bytes(S.QMM_PREFILL, 3072, "nf4") == (
+        1024 + 7 * 29696 + 112)
+    assert S.qmm_smem_bytes(S.QMM_PREFILL, 3072, "int8") == (
+        1024 + 6 * 35840 + 96)
+    assert S.qmm_smem_bytes(S.QMM_DECODE, 8) == 1024 + 5 * 8192 + 80

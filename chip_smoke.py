@@ -17,11 +17,12 @@ Phases, one line or more each before the last:
    masked tail and a windowed case; errors (absolute, relative, in ulps)
    against the stated limits, and for each kernel a planted fault that
    must fail them (a bf16 rounding fault; for the paged decode the table
-   ignored, for its quantized twin a scale block off by one, for the
-   quantized matmul the nibbles swapped); kernel / plain / library times
-   from CUDA events with the L2 flushed before each call, and the least
-   time the card could take (bytes over 3.35 TB/s, operations over the
-   dtype's peak).  The quantized matmul runs NF4 and int8, with and
+   ignored, for both decodes over bf16 rows each slot's last chunk of keys
+   dropped, for the quantized paged decode a scale block off by one, for
+   the quantized matmul the nibbles swapped); kernel / plain / library
+   times from CUDA events with the L2 flushed before each call, and the
+   least time the card could take (bytes over 3.35 TB/s, operations over
+   the dtype's peak).  The quantized matmul runs NF4 and int8, with and
    without row/column norms, at 3072 and 8 rows of 4096->4096,
    4096->11008 and 11008->4096; the paged decodes at 8 slots of lengths
    1-512 through shuffled tables, bf16 rows and NF4 and int8 codes; the
@@ -72,13 +73,17 @@ Phases, one line or more each before the last:
    static bank's;
 6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
    prefill wave and over decode ticks, device time by kernel (where the
-   serving time goes), on the dense path, the QLoRA path and the bank.
+   serving time goes), on the dense path, the QLoRA path (NF4 KV, then
+   bf16 KV rows) and the bank.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
 quantized matmul of the QLoRA run, the paged bf16 decode of its bf16-KV
 twin, kernel 8 (``banked_lora_linear`` and ``banked_lora_delta``) of the
-bank run; every count is set to 0 just before its run.
+bank run; every count is set to 0 just before its run.  In bf16,
+kernels 4 and 5 launch only the split decode (their ``attend_block``
+launchers refuse bf16 rows), so their counts in the bf16 runs are split
+decode launches; the card tests hold the route by kernel name.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -186,10 +191,15 @@ DENSE_KERNELS = ("quanta_apply", "quanta_linear", "flash_attention",
 SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
 # one decode step of the 32-layer bf16 model over an NF4 base: paged NF4 KV
 # pool vs dense cache of the fake-quantized rows.  Both hold the same
-# values and the paged and dense decode kernels share one block body, so
-# the two should agree to the bit; the limit allows one bf16 rounding of
-# the top logit.  A planted fault (each slot reading its neighbour's block
-# table) must exceed it
+# values.  The paged NF4 decode (kernel 6) walks each slot in one
+# attend_block block; the dense bf16 decode (kernel 4) splits the work into
+# a score pass and a value pass, but keeps attend_block's arithmetic (each
+# score an fp32 FMA chain over hd in order, p rounded against the running
+# max of the tiles so far, PV in key order), so the two should still agree
+# to the bit.  Any other order of those sums moves a bf16 rounding now and
+# then, which 32 layers compound to about 1.4e-2 (PERF.md).  The limit
+# allows one bf16 rounding of the top logit.  A planted fault (each slot
+# reading its neighbour's block table) must exceed it
 PAGED_LOGIT_TOL = 2 ** -7  # max |paged - dense| / max |dense|
 # kernel 8's check data: per-slot bank rows of 8 slots over a bank of 5
 # rows, with repeats and the neutral row 0
@@ -335,6 +345,7 @@ def check_kernels(card):
     from repro_torch.kernels.quanta_linear import (
         quanta_linear, quanta_linear_plain,
     )
+    from repro_torch.kernels.smem import decode_plan
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -365,6 +376,8 @@ def check_kernels(card):
             records[name] = dict(max_abs_err=st["max_abs_err"], ms=t_k,
                                  plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=t_lib)
+
+    split_fault = "each slot's last score chunk dropped"
 
     def planted(name, what, faulty, want):
         """A fault made from the plain version must fail the bf16 limits
@@ -450,8 +463,10 @@ def check_kernels(card):
                                                  window=window).to(dtype),
                         want)
 
-        # decode attention: 8 slots over a 512-entry cache, mixed lengths
+        # decode attention: 8 slots over a 512-entry cache, mixed lengths;
+        # in bf16 the split decode (score chunks of 64 keys)
         s_max = 512
+        chunk = decode_plan(s_max, 128, 1).chunk
         lens = torch.tensor([33, 100, 385, 512, 1, 64, 65, 200],
                             dtype=torch.int32, device=dev)
         kc = rnd(b, s_max, h, hd, dtype=dtype)
@@ -481,6 +496,10 @@ def check_kernels(card):
                 planted("flash_decode_attention", "p not cast before PV",
                         FA.flash_decode_attention_plain(
                             q, kc, vc.float(), lens, window=window).to(dtype),
+                        want)
+                planted("flash_decode_attention", split_fault,
+                        FA.flash_decode_attention_plain(
+                            q, kc, vc, without_last_chunk(lens, chunk)),
                         want)
 
         # paged decode: the same 8 slots in a pool of 16-token blocks,
@@ -558,6 +577,10 @@ def check_kernels(card):
                     planted(name, "table ignored",
                             FA.paged_decode_attention_plain(
                                 q, kp, vp, ignored, lens), want)
+                    planted(name, split_fault,
+                            FA.paged_decode_attention_plain(
+                                q, kp, vp, tables,
+                                without_last_chunk(lens, chunk)), want)
                 else:
                     off = dict(kw, k_scales=ks.roll(1, dims=-1),
                                v_scales=vs.roll(1, dims=-1))
@@ -698,6 +721,17 @@ def check_banked(dtype, rnd, report, planted, dev):
                     planted("banked_lora_delta", "neighbour's id",
                             banked_lora_delta_ref(x, a, b, rolled, scale),
                             want)
+
+
+def without_last_chunk(lens, chunk):
+    """Slot lengths cut back to the start of their last chunk of the split
+    decode's score pass, where they have more than one: the plain version
+    on them drops the keys of each slot's last chunk, as if its score
+    block had not run."""
+    import torch
+
+    cut = (lens - 1) // chunk * chunk
+    return torch.where(cut > 0, cut, lens)
 
 
 def paged_tables(lens, bs, n_b, n_blocks, seed):
@@ -1244,9 +1278,10 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     lp = _decode_once(ep, toks)
     ld = _decode_once(ed, toks)
     rel = rel_err(lp, ld)
-    print(f"qlora: one decode step, paged NF4 pool vs dense fake-quantized "
-          f"cache, logits max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); "
-          f"logits shape {tuple(ld.shape)}")
+    print(f"qlora: one decode step, paged NF4 pool (kernel 6, attend_block) "
+          f"vs dense fake-quantized cache (kernel 4, split decode), logits "
+          f"max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); logits shape "
+          f"{tuple(ld.shape)}")
     if rel > PAGED_LOGIT_TOL:
         fail("paged and dense decode logits disagree")
     # planted fault: every slot reads its neighbour's block table
@@ -1379,8 +1414,11 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
     groups = (("quanta_apply", "quanta_chain_kernel"),
               ("quanta_linear", "gemm_bf16_kernel"),
               ("flash_attention", "flash_forward"),
-              ("flash_decode_attention", "flash_decode_kernel"),
-              ("paged_decode", "paged_decode_kernel"),
+              ("decode_scores", "dense_score_pass"),
+              ("decode_values", "dense_value_pass"),
+              ("paged_scores", "paged_score_pass"),
+              ("paged_values", "paged_value_pass"),
+              ("paged_decode_quant", "paged_decode_kernel"),
               ("quantized_matmul", "qmm_"),
               ("banked_gather", "fused_bf16_kernel"),
               ("banked_shrink", "shrink_kernel"),
@@ -1473,6 +1511,9 @@ def main() -> int:
         profile_serve(card, *served)
         profile_serve(card, *qlora, path="qlora", cache="paged",
                       block_size=16, base_quant="nf4", kv_quant="nf4")
+        # the bf16-KV twin: the model of the dense runs over the NF4 base
+        profile_serve(card, served[0], *qlora[1:], path="qlora bf16 KV",
+                      cache="paged", block_size=16, base_quant="nf4")
     del served, qlora
     bank_counts, banked = bank_serve(card, dev, full, prompts)
     counts.update(bank_counts)

@@ -38,11 +38,15 @@
 // (_visible_j_range), and tiles wholly inside the causal window skip the
 // mask.  QK^T is summed in partial sums of 8 products (see the body).
 //
-// The float32 forward and the decodes share attend_block, templated on how
-// a key and value element is fetched: up to 64 query rows against a walk
-// over 64-key tiles in SIMT fp32 (float32 must not round through TF32).
-// Decode reads each valid key and value row once for G = H/KV query rows:
-// bytes (2 B an element in bf16, 0.5 B plus a 4 B scale per 64 in NF4).
+// The bf16 decodes over rows (dense cache and pool) split each step over
+// the card in two passes that keep attend_block's bits (dec::, below the
+// forward).  The float32 forward, the float32
+// decodes and the decodes over NF4/int8 codes share attend_block,
+// templated on how a key and value element is fetched: up to 64 query rows
+// against a walk over 64-key tiles in SIMT fp32 (float32 must not round
+// through TF32).  Decode reads each valid key and value row once for G =
+// H/KV query rows: bytes (4 B an element in float32, 0.5 B plus a 4 B
+// scale per 64 in NF4).
 // Only tiles up to the slot's length are visited (the block reads its
 // length itself); a 64-key tile of a paged pool gathers 64 / bs table
 // entries (4 at the serving block size of 16) and reads the table only
@@ -269,7 +273,9 @@ __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
       __syncwarp();
       if (lane == 0) {
         row_m[r] = m_new;
-        row_l[r] = alpha * row_l[r] + sum;
+        // the FMA nvcc makes of alpha * l + sum, spelled out: the split
+        // decode's value pass computes it alike, to the bit
+        row_l[r] = fmaf(alpha, row_l[r], sum);
       }
 #pragma unroll
       for (int jd = 0; jd < 4; ++jd) acc[i][jd] *= alpha;
@@ -698,6 +704,434 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace fwd
 
+// ----------------------------------------- bf16 split decode (4, 5)
+//
+// The bf16 bodies of _decode_kernel and _paged_decode_kernel.  A decode
+// step reads each visible key and value row once (2 * hd bytes each) for
+// 4 * G * hd FLOPs, G = H / KV query rows: 1 FLOP a byte at G = 1, bound
+// by bytes.  The one-block walk of attend_block reads a slot's keys tile
+// after tile in one block; here the work is split over the card in two
+// passes, and each output keeps the one-block walk's bits:
+//
+// * the score pass, grid (splits, KV, B), splits the keys: a block takes a
+//   chunk of chunk_tiles 64-key tiles of one slot and KV head (the plan of
+//   kernels/smem.py decode_plan, from the static extent, never from the
+//   lengths; a chunk with no visible key exits at once), streams its K
+//   rows and writes scale * q.k of each visible key (MASK where the window
+//   hides it) to fp32 scratch: one thread per (query row, key), an fp32
+//   FMA chain over hd in order, as attend_block sums it;
+// * the value pass, grid (slices, KV, B), splits the head dims: a block
+//   takes kDecSlice dims of one slot and KV head and walks the slot's
+//   visible tiles in order with attend_block's online softmax (fp32
+//   running max, denominator and accumulator, p rounded to bf16 before PV,
+//   PV over the tile's keys in order), reading the tile's scores and its
+//   slice of V.
+//
+// Splitting the keys of PV instead (flash-decoding: chunks walked apart,
+// then a combine rescaling each by exp(m_c - m)) rounds p and sums the
+// accumulator in another order; a 32-layer model compounds that into
+// logits about 1.4e-2 (relative to the largest) away from the one-block
+// walk's, where the same values must give the same bits (PERF.md).
+// Nothing here uses atomics: two calls give equal bits.
+//
+// K rows (2 * hd contiguous bytes per token and head, in the dense cache as
+// in a pool row) come by 16-byte cp.async into a ring of bf16 tiles, rows
+// padded to HDP = 64 or 128 elements, 16-byte chunk c of row r at chunk
+// c ^ (r % 8), so that the 8 threads of a quarter warp, one key each, read
+// 8 different bank groups; a value block's ring holds a tile's V slices
+// (64 bytes a row, by 16-byte cp.async) and its scores (4-byte cp.async).
+// A pool row's address comes from the table entry of its position, read
+// only below the slot's length.  bf16 stays in shared memory and is
+// converted in registers; the arithmetic runs on the CUDA cores (the
+// tensor cores' long sums move the bf16 rounding of p; PERF.md).  Head
+// dims that are not a multiple of 8 (or rows not 16-byte aligned) are
+// copied element by element into the same layouts.
+namespace dec {
+
+constexpr int kDecThreads = 128;
+constexpr int kDecMaxSplits = 16;
+constexpr int kDecStages = 2;       // K tiles in flight in a score block
+constexpr int kDecSlice = 32;       // head dims of a value block
+constexpr int kDecValueStages = 4;  // tiles in a value block's ring
+constexpr int kDecBlocksPerSm = 8;  // 64 registers a thread at most
+
+// a score block: a ring of stages bf16 K tiles and the fp32 query
+size_t score_smem(int hd, int G, int stages) {
+  const size_t hdp = hd <= 64 ? 64 : 128;
+  return (size_t)stages * kKeys * hdp * 2 + 4 * (size_t)G * hdp;
+}
+
+// a value block: a ring of (V slice tile, fp32 scores of the G rows), then
+// the accumulator slice and m, l of the G rows, and each stage's alpha
+size_t value_smem(int G) {
+  return (size_t)kDecValueStages * (kKeys * kDecSlice * 2 + 4 * G * kKeys) +
+         4 * (size_t)G * (kDecSlice + 2 + kDecValueStages);
+}
+
+struct Args {
+  const __nv_bfloat16* q;  // (B, H, hd)
+  const __nv_bfloat16* k;  // (B, extent, KV, hd), or a pool (n, bs, KV, hd)
+  const __nv_bfloat16* v;
+  const int* tables;       // (B, n_b) pool rows; null for a dense cache
+  const int* lens;         // (B,)
+  __nv_bfloat16* o;        // (B, H, hd)
+  float* scores;           // (B, H, extent): scale * q.k, MASK if hidden
+  int extent, n_b, bs, H, KV, hd, window;
+  int chunk_tiles, stages, vec;
+  float scale;
+};
+
+// the 64-key tiles [j_lo, j_hi] a slot of length len visits
+__device__ __forceinline__ void visible_tiles(const Args& a, int len,
+                                              int* j_lo, int* j_hi) {
+  const int s_kv = min(len, a.extent);
+  *j_hi = s_kv > 0 ? (s_kv - 1) / kKeys : -1;
+  *j_lo = a.window > 0 ? max(0, len - a.window) / kKeys : 0;
+}
+
+// the (token, head) row of position pos of one slot and KV head
+template <bool PAGED>
+struct Rows {
+  const int* table;  // the slot's table row (pools)
+  long long base;    // b * extent (dense)
+  int bs, KV, kvh;
+  __device__ __forceinline__ long long row(int pos) const {
+    if constexpr (PAGED) {
+      const long long blk = __ldg(table + pos / bs);
+      return (blk * bs + pos % bs) * KV + kvh;
+    } else {
+      return (base + pos) * KV + kvh;
+    }
+  }
+};
+
+// What both passes read of a block's slot and KV head.
+template <bool PAGED>
+struct Slot {
+  int G, len, s_kv, j_lo, j_hi;
+  long long row0;  // (b, first head of the group) as a row of (B * H)
+  Rows<PAGED> rows;
+  __device__ explicit Slot(const Args& a) {
+    const int kvh = blockIdx.y, b = blockIdx.z;
+    G = a.H / a.KV;
+    len = a.lens[b];
+    s_kv = min(len, a.extent);
+    visible_tiles(a, len, &j_lo, &j_hi);
+    row0 = (long long)b * a.H + (long long)kvh * G;
+    rows = Rows<PAGED>{PAGED ? a.tables + (long long)b * a.n_b : nullptr,
+                       (long long)b * a.extent, a.bs, a.KV, kvh};
+  }
+};
+
+// the 64 K rows from position kv0 into a tile; rows at or past s_kv are
+// zero, their table entries and rows never read
+template <int HDP, bool PAGED>
+__device__ __forceinline__ void load_keys(const Args& a,
+                                          const Rows<PAGED>& rows,
+                                          uint8_t* tile, int kv0, int s_kv) {
+  constexpr int CHP = HDP / 8, ROWB = HDP * 2;
+  if (a.vec) {
+    const uint32_t t = sm90::smem_u32(tile);
+    for (int i = threadIdx.x; i < kKeys * CHP; i += kDecThreads) {
+      const int r = i / CHP, c = i % CHP;
+      if (8 * c >= a.hd) continue;
+      const int pos = kv0 + r;
+      const bool ok = pos < s_kv;
+      sm90::cp_async16(t + r * ROWB + ((c ^ (r & 7)) << 4),
+                       a.k + (ok ? rows.row(pos) * a.hd + 8 * c : 0), ok);
+    }
+    return;
+  }
+  const int width = (a.hd + 7) & ~7;  // whole chunks, zeros past hd
+  for (int i = threadIdx.x; i < kKeys * HDP; i += kDecThreads) {
+    const int r = i / HDP, e = i % HDP;
+    if (e >= width) continue;
+    const int pos = kv0 + r;
+    *reinterpret_cast<__nv_bfloat16*>(
+        tile + r * ROWB + (((e >> 3) ^ (r & 7)) << 4) + 2 * (e & 7)) =
+        pos < s_kv && e < a.hd ? a.k[rows.row(pos) * a.hd + e]
+                               : __float2bfloat16(0.f);
+  }
+}
+
+__device__ __forceinline__ float2 bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// The score pass: scale * q.k of every key of the block's chunk below the
+// slot's length, MASK where the window hides it.
+template <int HDP, bool PAGED>
+__device__ __forceinline__ void score_body(const Args& a) {
+  constexpr int CHP = HDP / 8, ROWB = HDP * 2, TILE = kKeys * ROWB;
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const Slot<PAGED> sl(a);
+  const int t0 = max(sl.j_lo, (int)blockIdx.x * a.chunk_tiles);
+  const int t1 = min(sl.j_hi, ((int)blockIdx.x + 1) * a.chunk_tiles - 1);
+  if (t0 > t1) return;  // no visible key in this chunk
+  const int G = sl.G, hd = a.hd, nt = t1 - t0 + 1, tid = threadIdx.x;
+  uint8_t* ring = dec_smem;
+  float* Qs = reinterpret_cast<float*>(ring + a.stages * TILE);
+
+  // the ring: tile n in stage n % 2, two in flight
+  load_keys<HDP, PAGED>(a, sl.rows, ring, t0 * kKeys, sl.s_kv);
+  sm90::cp_async_commit();
+  if (nt > 1)
+    load_keys<HDP, PAGED>(a, sl.rows, ring + TILE, (t0 + 1) * kKeys,
+                          sl.s_kv);
+  sm90::cp_async_commit();
+  for (int i = tid; i < G * HDP; i += kDecThreads) {
+    const int r = i / HDP, d = i % HDP;
+    Qs[i] = d < hd ? __bfloat162float(a.q[(sl.row0 + r) * hd + d]) : 0.f;
+  }
+
+  for (int n = 0; n < nt; ++n) {
+    const int kv0 = (t0 + n) * kKeys;
+    const uint8_t* kt = ring + (n & 1) * TILE;
+    sm90::cp_async_wait<1>();  // tile n has landed (tile n + 1 may not)
+    __syncthreads();
+    // one (row, key) pair a thread, the dot over hd in order
+    for (int i = tid; i < G * kKeys; i += kDecThreads) {
+      const int r = i / kKeys, kk = i % kKeys, pos = kv0 + kk;
+      if (pos >= sl.s_kv) continue;
+      const uint8_t* krow = kt + kk * ROWB;
+      const float* qr = Qs + r * HDP;
+      float s = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CHP; ++cc) {
+        if (8 * cc < hd) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              krow + ((cc ^ (kk & 7)) << 4));
+          const float4 qa = *reinterpret_cast<const float4*>(qr + 8 * cc);
+          const float4 qb = *reinterpret_cast<const float4*>(qr + 8 * cc + 4);
+          const float2 k0 = bf2(raw.x), k1 = bf2(raw.y), k2 = bf2(raw.z),
+                       k3 = bf2(raw.w);
+          s = fmaf(qa.x, k0.x, s);
+          s = fmaf(qa.y, k0.y, s);
+          s = fmaf(qa.z, k1.x, s);
+          s = fmaf(qa.w, k1.y, s);
+          s = fmaf(qb.x, k2.x, s);
+          s = fmaf(qb.y, k2.y, s);
+          s = fmaf(qb.z, k3.x, s);
+          s = fmaf(qb.w, k3.y, s);
+        }
+      }
+      const bool ok = a.window < 0 || sl.len - 1 - pos < a.window;
+      a.scores[(sl.row0 + r) * a.extent + pos] = ok ? s * a.scale : kMask;
+    }
+    __syncthreads();  // stage n % 2 is free again
+    if (n + 2 < nt)
+      load_keys<HDP, PAGED>(a, sl.rows, ring + (n & 1) * TILE,
+                            kv0 + 2 * kKeys, sl.s_kv);
+    sm90::cp_async_commit();
+  }
+}
+
+// a value block's stage for the tile from kv0: the slice [d0, d0 + sd) of
+// its 64 V rows (thread t copies half of row t / 2's slice), then the
+// scores of the G rows (zero at or past s_kv)
+template <bool PAGED>
+__device__ __forceinline__ void load_values(const Args& a,
+                                            const Slot<PAGED>& sl,
+                                            uint8_t* stage, int d0, int sd,
+                                            int kv0) {
+  constexpr int SLB = kDecSlice * 2, CH = kDecSlice / 8;
+  const uint32_t st = sm90::smem_u32(stage);
+  if (a.vec) {  // sd is a multiple of 8
+    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (CH / 2);
+    const int pos = kv0 + r;
+    const bool ok = pos < sl.s_kv;
+    const __nv_bfloat16* src =
+        a.v + (ok ? sl.rows.row(pos) * a.hd + d0 : 0);
+#pragma unroll
+    for (int c = c0; c < c0 + CH / 2; ++c)
+      if (8 * c < sd)
+        sm90::cp_async16(st + r * SLB + 16 * c, src + (ok ? 8 * c : 0), ok);
+  } else {
+    for (int i = threadIdx.x; i < kKeys * kDecSlice; i += kDecThreads) {
+      const int r = i / kDecSlice, e = i % kDecSlice;
+      if (e >= sd) continue;
+      const int pos = kv0 + r;
+      *reinterpret_cast<__nv_bfloat16*>(stage + r * SLB + 2 * e) =
+          pos < sl.s_kv ? a.v[sl.rows.row(pos) * a.hd + d0 + e]
+                        : __float2bfloat16(0.f);
+    }
+  }
+  const uint32_t sc = st + kKeys * SLB;
+  for (int i = threadIdx.x; i < sl.G * kKeys; i += kDecThreads) {
+    const int r = i / kKeys, pos = kv0 + i % kKeys;
+    const bool ok = pos < sl.s_kv;
+    sm90::cp_async4(sc + 4 * i,
+                    a.scores + (ok ? (sl.row0 + r) * a.extent + pos : 0), ok);
+  }
+}
+
+// The value pass: the block's slice of the output, by attend_block's walk
+// over the slot's visible tiles.  The softmax of tile n + 1 needs only the
+// running max and denominator, so it runs beside the PV of tile n, on the
+// last warps (rows r on warp 3 - r % 4) while PV starts from the first:
+// one barrier a tile.  Stage n % VS holds tile n: while PV reads stage n
+// and the softmax stage n + 1, tiles n + 2 .. n + VS - 2 are in flight and
+// tile n + VS - 1 is issued into the stage PV freed last.
+template <bool PAGED>
+__device__ __forceinline__ void value_body(const Args& a) {
+  constexpr int SLB = kDecSlice * 2, VS = kDecValueStages;
+  constexpr int WARPS = kDecThreads / 32;
+  static_assert(VS >= 3, "PV, softmax and the issued tile take a stage each");
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const Slot<PAGED> sl(a);
+  const int G = sl.G, hd = a.hd, nt = sl.j_hi - sl.j_lo + 1;
+  const int d0 = blockIdx.x * kDecSlice, sd = min(kDecSlice, hd - d0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int stage_bytes = kKeys * SLB + 4 * G * kKeys;
+  uint8_t* ring = dec_smem;
+  float* Acc = reinterpret_cast<float*>(ring + VS * stage_bytes);
+  float* Ms = Acc + G * kDecSlice;
+  float* Ls = Ms + G;
+  float* Al = Ls + G;  // (VS, G): alpha of the tile in each stage
+  auto stage = [&](int n) { return ring + (n % VS) * stage_bytes; };
+  auto scores = [&](int n) {
+    return reinterpret_cast<float*>(stage(n) + kKeys * SLB);
+  };
+
+  // online softmax of tile n, as attend_block: p in bf16 in place
+  auto softmax = [&](int n) {
+    const int kv0 = (sl.j_lo + n) * kKeys;
+    for (int r = WARPS - 1 - warp; r < G; r += WARPS) {
+      float* pr = scores(n) + r * kKeys;
+      const float s0 = kv0 + lane < sl.s_kv ? pr[lane] : kMask;
+      const float s1 = kv0 + lane + 32 < sl.s_kv ? pr[lane + 32] : kMask;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = Ms[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float alpha = expf(m_prev - m_new);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      pr[lane] = __bfloat162float(__float2bfloat16(p0));
+      pr[lane + 32] = __bfloat162float(__float2bfloat16(p1));
+      __syncwarp();
+      if (lane == 0) {
+        Ms[r] = m_new;
+        Ls[r] = fmaf(alpha, Ls[r], sum);
+        Al[(n % VS) * G + r] = alpha;
+      }
+    }
+  };
+
+  for (int n = 0; n < VS - 1; ++n) {
+    if (n < nt)
+      load_values<PAGED>(a, sl, stage(n), d0, sd, (sl.j_lo + n) * kKeys);
+    sm90::cp_async_commit();
+  }
+  for (int i = tid; i < G * kDecSlice; i += kDecThreads) Acc[i] = 0.f;
+  for (int r = tid; r < G; r += kDecThreads) {
+    Ms[r] = kMask;
+    Ls[r] = 0.f;
+  }
+  sm90::cp_async_wait<VS - 2>();  // tile 0 has landed
+  __syncthreads();
+  if (nt > 0) softmax(0);
+
+  for (int n = 0; n < nt; ++n) {
+    sm90::cp_async_wait<VS - 3>();  // tiles up to n + 1 have landed
+    __syncthreads();  // softmax(n) and PV(n - 1) are done
+    if (n + VS - 1 < nt)
+      load_values<PAGED>(a, sl, stage(n + VS - 1), d0, sd,
+                         (sl.j_lo + n + VS - 1) * kKeys);
+    sm90::cp_async_commit();
+
+    // PV: one (row, dim) a thread, the accumulator rescaled, then the
+    // tile's keys added in order
+    const __nv_bfloat16* vt =
+        reinterpret_cast<const __nv_bfloat16*>(stage(n));
+    const float* P = scores(n);
+    for (int i = tid; i < G * sd; i += kDecThreads) {
+      const int r = i / sd, d = i - r * sd;
+      const float* pr = P + r * kKeys;
+      float acc = Acc[r * kDecSlice + d] * Al[(n % VS) * G + r];
+#pragma unroll 16
+      for (int kk = 0; kk < kKeys; ++kk)
+        acc = fmaf(pr[kk], __bfloat162float(vt[kk * kDecSlice + d]), acc);
+      Acc[r * kDecSlice + d] = acc;
+    }
+    if (n + 1 < nt) softmax(n + 1);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * sd; i += kDecThreads) {
+    const int r = i / sd, d = i - r * sd;
+    const float l = Ls[r];
+    a.o[(sl.row0 + r) * hd + d0 + d] =
+        __float2bfloat16(Acc[r * kDecSlice + d] / (l == 0.f ? 1.f : l));
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    dense_score_pass(Args a) {
+  score_body<HDP, false>(a);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    paged_score_pass(Args a) {
+  score_body<HDP, true>(a);
+}
+
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    dense_value_pass(Args a) {
+  value_body<false>(a);
+}
+
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    paged_value_pass(Args a) {
+  value_body<true>(a);
+}
+
+// the shared memory granted to one pass kernel, per device: a table for
+// each kernel (the value pass serves both head-dim paddings, so it keeps
+// one table for the two)
+template <int KERNEL>
+int* granted() {
+  static int table[kMaxDevices] = {};
+  return table;
+}
+
+template <typename S, typename V>
+int run(S scores, int* s_granted, V values, int* v_granted, const Args& a,
+        int B, int splits, int smem_limit, cudaStream_t s) {
+  const int G = a.H / a.KV;
+  const size_t s_smem = score_smem(a.hd, G, a.stages);
+  const size_t v_smem = value_smem(G);
+  int err = allow_smem(scores, s_smem, smem_limit, s_granted);
+  if (!err) err = allow_smem(values, v_smem, smem_limit, v_granted);
+  if (err) return err;
+  scores<<<dim3(splits, a.KV, B), kDecThreads, s_smem, s>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  values<<<dim3((a.hd + kDecSlice - 1) / kDecSlice, a.KV, B), kDecThreads,
+           v_smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HDP, bool PAGED>
+int launch(const Args& a, int B, int splits, int smem_limit,
+           cudaStream_t s) {
+  constexpr int score = 2 + 2 * PAGED + (HDP == 128);
+  if constexpr (PAGED)
+    return run(paged_score_pass<HDP>, granted<score>(), paged_value_pass,
+               granted<1>(), a, B, splits, smem_limit, s);
+  else
+    return run(dense_score_pass<HDP>, granted<score>(), dense_value_pass,
+               granted<0>(), a, B, splits, smem_limit, s);
+}
+
+}  // namespace dec
+
 template <typename T>
 int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
             int H, int KV, int hd, int window, float scale, int smem_limit,
@@ -742,10 +1176,10 @@ int paged(const PagedArgs& a, int B, int smem_limit, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the code pools (kernel 6)
 template <typename T>
 int paged_fmt(int fmt, const PagedArgs& a, int B, int smem_limit,
               cudaStream_t s) {
-  if (fmt == -1) return paged<T, -1>(a, B, smem_limit, s);
   if (fmt == 0) return paged<T, 0>(a, B, smem_limit, s);
   if (fmt == 1) return paged<T, 1>(a, B, smem_limit, s);
   return (int)cudaErrorInvalidValue;
@@ -784,8 +1218,8 @@ extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// q, o contiguous (B, 1, H, hd); caches contiguous (B, S_max, KV, hd);
-// lens (B,) int32 valid entries per slot, the new token included.
+// float32: q, o contiguous (B, 1, H, hd); caches contiguous (B, S_max, KV,
+// hd); lens (B,) int32 valid entries per slot, the new token included.
 extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
                                    const void* vc, const void* lens, void* o,
                                    int B, int S_max, int H, int KV, int hd,
@@ -798,14 +1232,11 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
   if (dtype == 0)
     return decode<float>(q, kc, vc, l, o, B, S_max, H, KV, hd, window, scale,
                          smem_limit, s);
-  if (dtype == 1)
-    return decode<__nv_bfloat16>(q, kc, vc, l, o, B, S_max, H, KV, hd, window,
-                                 scale, smem_limit, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16 takes split_decode_launch
 }
 
-// q, o contiguous (B, 1, H, hd) in dtype (0 float32, 1 bfloat16).  fmt -1:
-// k/v pools contiguous (n_blocks, bs, KV, hd) in q's dtype; fmt 0 (NF4):
+// q, o contiguous (B, 1, H, hd) in dtype (0 float32, 1 bfloat16).  fmt -1
+// (float32 only): k/v pools contiguous (n_blocks, bs, KV, hd); fmt 0 (NF4):
 // uint8 code pools (n_blocks, bs, KV, hd/2) and the 16-entry fp32
 // codebook; fmt 1 (int8): int8 code pools (n_blocks, bs, KV, hd); for both,
 // fp32 scale pools (n_blocks, bs, KV, ceil(hd/qb)).  tables (B, n_b) int32
@@ -832,7 +1263,56 @@ extern "C" int paged_decode_launch(int dtype, int fmt, const void* q,
               static_cast<const int*>(tables), static_cast<const int*>(lens),
               n_b, bs, H, KV, hd, qb, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && fmt == -1) return paged<float, -1>(a, B, smem_limit, s);
   if (dtype == 0) return paged_fmt<float>(fmt, a, B, smem_limit, s);
+  // bf16 rows take split_decode_launch
   if (dtype == 1) return paged_fmt<__nv_bfloat16>(fmt, a, B, smem_limit, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 split decode.  q, o contiguous (B, 1, H, hd) bfloat16; k, v a
+// dense cache (B, extent, KV, hd) when tables is null, else pools (n, bs,
+// KV, hd) read through tables (B, n_b) int32, extent = n_b * bs; lens (B,)
+// int32 valid entries per slot, the new token included.  The plan
+// (kernels/smem.py decode_plan): the score pass in splits chunks of
+// chunk_tiles 64-key tiles covering the extent, a ring of stages =
+// min(2, chunk_tiles) tiles.  scores: fp32 scratch of B * H * extent
+// elements.  window < 0: full causal attention.
+extern "C" int split_decode_launch(const void* q, const void* k,
+                                   const void* v, const void* tables,
+                                   const void* lens, void* o, void* scores,
+                                   int B, int extent, int n_b, int bs, int H,
+                                   int KV, int hd, int window,
+                                   int chunk_tiles, int splits, int stages,
+                                   float scale, int smem_limit,
+                                   void* stream) {
+  const long long keys = (long long)chunk_tiles * kKeys;
+  const int ring = chunk_tiles < dec::kDecStages ? chunk_tiles
+                                                 : dec::kDecStages;
+  if (!shapes_ok(H, KV, hd) || extent < 0 || chunk_tiles < 1 ||
+      splits < 1 || splits > dec::kDecMaxSplits || stages != ring ||
+      splits * keys < extent || (splits - 1) * keys >= (extent ? extent : 1) ||
+      scores == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (tables != nullptr && (bs < 1 || n_b < 1 || extent != n_b * bs))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  dec::Args a{static_cast<const __nv_bfloat16*>(q),
+              static_cast<const __nv_bfloat16*>(k),
+              static_cast<const __nv_bfloat16*>(v),
+              static_cast<const int*>(tables),
+              static_cast<const int*>(lens),
+              static_cast<__nv_bfloat16*>(o),
+              static_cast<float*>(scores),
+              extent, n_b, bs, H, KV, hd, window,
+              chunk_tiles, stages,
+              hd % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0,
+              scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables != nullptr)
+    return hd <= 64 ? dec::launch<64, true>(a, B, splits, smem_limit, s)
+                    : dec::launch<128, true>(a, B, splits, smem_limit, s);
+  return hd <= 64 ? dec::launch<64, false>(a, B, splits, smem_limit, s)
+                  : dec::launch<128, false>(a, B, splits, smem_limit, s);
 }

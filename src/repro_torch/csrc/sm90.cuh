@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu's bf16 forward, quantized_matmul.cu's bf16 bodies):
-// cp.async with zero fill and its mbarrier arrival, mbarriers, TMA 2-D
+// (flash_attention.cu's bf16 forward and split decode,
+// quantized_matmul.cu's bf16 bodies): cp.async with zero fill, its commit
+// groups and its mbarrier arrival, mbarriers, TMA 2-D
 // loads, setmaxnreg, shared-memory matrix descriptors of the 128-byte
 // swizzle, and the warpgroup matrix multiplies (wgmma, A from registers)
 // the kernels issue, as inline PTX.
@@ -54,6 +55,12 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// close this thread's cp.async issued so far into one group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");

@@ -14,7 +14,8 @@ hd)`` (codes ``(.., hd // 2)`` uint8 for NF4, ``(.., hd)`` int8, scales
 :func:`paged_decode_attention_plain`), which walk the same 64-key tiles as
 the kernels with the same online softmax and the same rounding points
 (the paged one gathers the pool through the table, decoded and rounded
-to the value dtype, first); CUDA tensors launch the kernels.
+to the value dtype, first); CUDA tensors launch the kernels, whose split
+decode over bf16 rows keeps the one-block walk's bits.
 :func:`blockwise_reference_attention` and
 :func:`decode_reference_attention` are the reference backend's
 attention, with the softmax normalised before ``p`` is cast.  Forward
@@ -36,7 +37,8 @@ from repro_torch.kernels.dispatch import (
     MASK_VALUE, aligned16, masked_softmax, route,
 )
 from repro_torch.kernels.smem import (
-    attention_smem_bytes, device_limits, flash_forward_smem_bytes,
+    attention_smem_bytes, decode_plan, device_limits,
+    flash_forward_smem_bytes,
 )
 
 __all__ = [
@@ -431,19 +433,52 @@ def flash_decode_attention(
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     lens = cache_len.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    rc = _bind("flash_decode_launch", 5, 6)(
-        _build.dtype_code(q.dtype), _ptr(q), _ptr(k_cache), _ptr(v_cache),
-        _ptr(lens), _ptr(out), b, s_max, h, kv, hd,
-        -1 if window is None else int(window), scale,
-        device_limits(q.device).smem_block, _build.stream_ptr(),
-    )
+    if q.dtype == torch.bfloat16:
+        rc, out = _split_launch(q, k_cache, v_cache, None, lens, s_max, 0,
+                                window, scale)
+    else:
+        out = torch.empty_like(q)
+        rc = _bind("flash_decode_launch", 5, 6)(
+            _build.dtype_code(q.dtype), _ptr(q), _ptr(k_cache),
+            _ptr(v_cache), _ptr(lens), _ptr(out), b, s_max, h, kv, hd,
+            -1 if window is None else int(window), scale,
+            device_limits(q.device).smem_block, _build.stream_ptr(),
+        )
     _build.check(rc, "flash_decode_attention")
     flash_decode_attention.launches += 1
     return out
 
 
 _FMT_CODES = {"nf4": 0, "int8": 1}
+
+
+def _split_launch(q, k, v, tables, lens, extent: int, bs: int, window,
+                  scale):
+    """The bf16 split decode over a dense cache (``tables`` None) or a pool
+    of ``bs``-token blocks: a score pass of one block per (chunk of keys,
+    KV head, slot), then a value pass of one block per (slice of head_dim,
+    KV head, slot)."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    _check_heads(h, kvh, hd)
+    plan = decode_plan(extent, hd, h // kvh)
+    limit = device_limits(q.device).smem_block
+    if plan.smem > limit:
+        raise ValueError(f"the split decode block needs {plan.smem} bytes "
+                         f"of shared memory; a block may use {limit}")
+    out = torch.empty_like(q)
+    # the score pass's output: (slot, head, position)
+    scores = torch.empty(max(1, b * h * extent), dtype=torch.float32,
+                         device=q.device)
+    null = ctypes.c_void_p(0)
+    rc = _bind("split_decode_launch", 7, 11, n_lead=0)(
+        _ptr(q), _ptr(k), _ptr(v), null if tables is None else _ptr(tables),
+        _ptr(lens), _ptr(out), _ptr(scores), b,
+        extent, 0 if tables is None else tables.shape[1], bs, h, kvh, hd,
+        -1 if window is None else int(window), plan.chunk // KERNEL_BLOCK,
+        plan.splits, plan.stages, scale, limit, _build.stream_ptr(),
+    )
+    return rc, out
 
 
 def _paged_launch(fmt: int, q, k, v, ks, vs, tables, lens, window, scale,
@@ -523,8 +558,15 @@ def paged_flash_decode_attention(
     if not (q.dtype == k_pool.dtype == v_pool.dtype):
         raise ValueError("q and the pools must share one dtype")
     tables, lens = _tables_and_lens(block_tables, cache_len, b)
-    rc, out = _paged_launch(-1, q, k_pool.contiguous(), v_pool.contiguous(),
-                            None, None, tables, lens, window, scale, 0)
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    bs = k_pool.shape[1]
+    extent = tables.shape[1] * bs
+    if q.dtype == torch.bfloat16:
+        rc, out = _split_launch(q.contiguous(), k_pool, v_pool, tables, lens,
+                                extent, bs, window, scale)
+    else:
+        rc, out = _paged_launch(-1, q, k_pool, v_pool, None, None, tables,
+                                lens, window, scale, 0)
     _build.check(rc, "paged_flash_decode_attention")
     paged_flash_decode_attention.launches += 1
     return out

@@ -23,6 +23,10 @@ __all__ = [
     "chain_smem_bytes",
     "chain_rows_per_block",
     "attention_smem_bytes",
+    "DecodePlan",
+    "decode_plan",
+    "decode_score_smem_bytes",
+    "decode_value_smem_bytes",
     "flash_forward_smem_bytes",
     "QmmPlan",
     "qmm_smem_bytes",
@@ -108,6 +112,61 @@ def attention_smem_bytes(hd: int) -> int:
     statistics, plus the 16-entry NF4 codebook of the quantized decode."""
     return 4 * (ATTN_ROWS * (hd + 1) + ATTN_KEYS * (hd + 1) + ATTN_KEYS * hd
                 + ATTN_ROWS * (ATTN_KEYS + 1) + 2 * ATTN_ROWS + 16)
+
+
+DEC_MAX_SPLITS = 16  # chunks of the score pass over a slot's extent
+DEC_STAGES = 2      # K tiles in flight in a score block
+DEC_SLICE = 32      # head dims of a value block
+DEC_VALUE_STAGES = 4  # tiles in a value block's ring
+DEC_BLOCKS_PER_SM = 8  # the passes' register budget: 64 a thread
+
+
+def decode_score_smem_bytes(hd: int, g: int, stages: int) -> int:
+    """Dynamic shared memory of a score block of the split decode
+    (``dec::score_smem`` in ``csrc/flash_attention.cu``): a ring of
+    ``stages`` bf16 K tiles of 64 keys (rows of head_dim padded to 64 or
+    128) and the fp32 query of the ``g`` query rows of the group."""
+    hdp = 64 if hd <= 64 else 128
+    return stages * ATTN_KEYS * hdp * 2 + 4 * g * hdp
+
+
+def decode_value_smem_bytes(g: int) -> int:
+    """Dynamic shared memory of a value block of the split decode
+    (``dec::value_smem``): a ring of ``DEC_VALUE_STAGES`` tiles, each the
+    bf16 ``DEC_SLICE``-dim slice of 64 V rows and the fp32 scores of the
+    ``g`` query rows, then their accumulator slice, running max and
+    denominator, and the rescale factor of each stage's tile."""
+    return (DEC_VALUE_STAGES * (ATTN_KEYS * DEC_SLICE * 2 + 4 * g * ATTN_KEYS)
+            + 4 * g * (DEC_SLICE + 2 + DEC_VALUE_STAGES))
+
+
+class DecodePlan(NamedTuple):
+    chunk: int        # keys of one score block, a multiple of 64
+    splits: int       # score blocks over the extent
+    stages: int       # K tiles in flight in a score block
+    smem: int         # dynamic shared memory of a block, in bytes (the
+                      # larger pass's)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(extent: int, hd: int, g: int) -> DecodePlan:
+    """How the bf16 split decode (kernels 4 and 5 over bf16 rows) walks a
+    cache of ``extent`` positions (``S_max``, or ``n_b * bs`` for a pool)
+    for ``g`` query heads per KV head of ``hd``: a score pass whose blocks
+    take the extent's 64-key tiles in at most ``DEC_MAX_SPLITS`` chunks of
+    equal size (at llama2-7b's 512 positions: 8 chunks of one tile), then
+    a value pass whose blocks take ``DEC_SLICE`` head dims each and walk
+    the slot's tiles.  The plan reads the static extent only (never the
+    lengths, which live on the card, nor the pool's block size), so a pool
+    and the dense cache gathered from it split alike.  float32 rows and
+    NF4 or int8 codes (kernel 6) take no plan: one attend_block block walks
+    each slot."""
+    tiles = max(1, -(-extent // ATTN_KEYS))
+    per = -(-tiles // DEC_MAX_SPLITS)
+    stages = min(DEC_STAGES, per)
+    return DecodePlan(per * ATTN_KEYS, -(-tiles // per), stages,
+                      max(decode_score_smem_bytes(hd, g, stages),
+                          decode_value_smem_bytes(g)))
 
 
 FWD_ROWS = 64     # query rows of a bf16 forward block (one wgmma tile),

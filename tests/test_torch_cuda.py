@@ -337,7 +337,8 @@ def test_paged_decode_kernels_match_plain(b, h, kv, hd, bs, n_b, lens,
 
 def test_paged_decode_equals_dense_decode_bit_for_bit(dev):
     """A pool read through its table gives what the dense kernel gives on
-    the gathered cache, bit for bit: the two share one block body."""
+    the gathered cache, bit for bit: the two share one block body and,
+    the extent being the same, one split plan."""
     gen = torch.Generator(device=dev).manual_seed(3)
     b, h, hd, bs, n_b = 3, 8, 128, 16, 8
     kp = _pool(b * n_b + 1, bs, h, hd, torch.bfloat16, gen, dev)
@@ -352,6 +353,147 @@ def test_paged_decode_equals_dense_decode_bit_for_bit(dev):
     dense = FA.flash_decode_attention(q, FA.gather_pages(kp, tables),
                                       FA.gather_pages(vp, tables), cl)
     assert torch.equal(paged, dense)
+
+
+SPLIT = [
+    # (b, h, kv, hd, extent, bs, lens, window): the bf16 split decode at
+    # G 1, 7, 8 and 64, hd 64 and 128, lengths at the chunk edges; score
+    # chunks of two tiles (extent 1100: the two-stage ring); head dims off
+    # 16 bytes (copied element by element) and off the 32-dim value slices;
+    # a slot of length 0
+    (4, 8, 8, 128, 512, 16, (1, 64, 65, 512), None),
+    (3, 7, 1, 64, 200, 8, (128, 129, 200), 70),
+    (2, 16, 2, 128, 1100, 4, (1100, 257), None),
+    (2, 16, 2, 64, 1100, 5, (1024, 1025), 300),
+    (2, 64, 1, 64, 300, 12, (300, 1), 1),
+    (2, 64, 1, 128, 1024, 16, (1024, 640), None),
+    (3, 4, 2, 12, 150, 5, (150, 66, 0), None),
+    (2, 4, 4, 100, 130, 13, (130, 64), 20),
+    (2, 2, 2, 1, 64, 16, (64, 5), None),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,hd,extent,bs,lens,window", SPLIT)
+def test_split_decode_matches_plain(b, h, kv, hd, extent, bs, lens, window,
+                                    dev):
+    """The bf16 split decode over a dense cache and over a pool holding
+    the same rows: each against its plain version, the pool equal to the
+    dense cache bit for bit, two calls equal bit for bit, and one launch
+    counted per call."""
+    gen = torch.Generator(device=dev).manual_seed(extent + h + hd)
+    bf = torch.bfloat16
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(bf)
+    kc = torch.randn((b, extent, kv, hd), generator=gen, device=dev).to(bf)
+    vc = torch.randn((b, extent, kv, hd), generator=gen, device=dev).to(bf)
+    n_b = extent // bs
+    n_blocks = b * n_b + 1
+    tables = torch.from_numpy(_tables(b, n_b, [max(n, 1) for n in lens], bs,
+                                      n_blocks, hd)).to(dev)
+    kp = torch.zeros((n_blocks, bs, kv, hd), dtype=bf, device=dev)
+    vp = torch.zeros_like(kp)
+    for i, n in enumerate(lens):
+        for j in range(max(1, -(-n // bs))):
+            kp[tables[i, j]] = kc[i, j * bs:(j + 1) * bs]
+            vp[tables[i, j]] = vc[i, j * bs:(j + 1) * bs]
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = launch_counts()
+    dense = FA.flash_decode_attention(q, kc, vc, cl, window=window)
+    again = FA.flash_decode_attention(q, kc, vc, cl, window=window)
+    paged = FA.paged_flash_decode_attention(q, kp, vp, tables, cl,
+                                            window=window)
+    torch.cuda.synchronize()
+    _close(dense, FA.flash_decode_attention_plain(q, kc, vc, cl,
+                                                  window=window), bf)
+    _close(paged, FA.paged_decode_attention_plain(q, kp, vp, tables, cl,
+                                                  window=window), bf)
+    assert torch.equal(dense, again) and torch.equal(paged, dense)
+    assert not dense[torch.tensor(lens, device=dev) == 0].any()
+    after = launch_counts()
+    grew = {k: after[k] - before[k] for k in after}
+    assert grew["flash_decode_attention"] == 2
+    assert grew["paged_flash_decode_attention"] == 1
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_split_decode_keeps_the_one_block_walks_bits(window, dev):
+    """The bf16 split decode over a dense cache of NF4-decoded rows equals,
+    bit for bit, the NF4 paged decode (kernel 6, one attend_block walk a
+    slot) over the codes: the two passes keep that walk's arithmetic."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, h, hd, bs, n_b = 8, 8, 128, 16, 32
+    lens = (33, 100, 385, 512, 1, 64, 65, 200)
+    n_blocks = b * n_b + 1
+    pool = [_pool(n_blocks, bs, h, hd, torch.bfloat16, gen, dev)
+            for _ in range(2)]
+    (kc, ks), (vc, vs) = (quantize_kv(t, "nf4") for t in pool)
+    tables = torch.from_numpy(_tables(b, n_b, lens, bs, n_blocks, 2)).to(dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).bfloat16()
+    quant = FA.paged_flash_decode_attention(
+        q, kc, vc, tables, cl, window=window, kv_quant="nf4", k_scales=ks,
+        v_scales=vs)
+    k, v = FA.gather_kv(q, kc, vc, tables, kv_quant="nf4", k_scales=ks,
+                        v_scales=vs)
+    split = FA.flash_decode_attention(q, k, v, cl, window=window)
+    assert torch.equal(split, quant)
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels that ``fn`` launches, as
+    ``torch.profiler`` reads them off the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+SPLIT_PASSES = ("score_pass", "value_pass")
+
+
+def _decode_route_case(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((2, 1, 4, 64), generator=gen, device=dev)
+    pool = torch.randn((9, 16, 2, 64), generator=gen, device=dev)
+    tables = torch.from_numpy(_tables(2, 4, (64, 20), 16, 9, 0)).to(dev)
+    cl = torch.tensor((64, 20), dtype=torch.int32, device=dev)
+    return q, pool, tables, cl
+
+
+def test_f32_and_code_decodes_keep_attend_block(dev):
+    """float32 rows and NF4 codes launch attend_block's kernels and no
+    pass of the split decode."""
+    q, pool, tables, cl = _decode_route_case(dev)
+    codes, scales = quantize_kv(pool.bfloat16(), "nf4")
+    for want, call in (
+            ("flash_decode_kernel", lambda: FA.flash_decode_attention(
+                q, FA.gather_pages(pool, tables),
+                FA.gather_pages(pool, tables), cl)),
+            ("paged_decode_kernel", lambda: FA.paged_flash_decode_attention(
+                q, pool, pool, tables, cl)),
+            ("paged_decode_kernel", lambda: FA.paged_flash_decode_attention(
+                q.bfloat16(), codes, codes, tables, cl, kv_quant="nf4",
+                k_scales=scales, v_scales=scales))):
+        names = _kernel_names(call)
+        assert want in names, names
+        assert not any(p in names for p in SPLIT_PASSES), names
+
+
+def test_bf16_row_decodes_launch_the_split_passes(dev):
+    """bf16 rows, dense and paged, launch the split decode's score and
+    value passes and none of attend_block's decode kernels."""
+    q, pool, tables, cl = _decode_route_case(dev)
+    q, pool = q.bfloat16(), pool.bfloat16()
+    k = FA.gather_pages(pool, tables)
+    for prefix, call in (
+            ("dense_", lambda: FA.flash_decode_attention(q, k, k, cl)),
+            ("paged_", lambda: FA.paged_flash_decode_attention(
+                q, pool, pool, tables, cl))):
+        names = _kernel_names(call)
+        assert all(prefix + p in names for p in SPLIT_PASSES), names
+        assert "flash_decode_kernel" not in names, names
+        assert "paged_decode_kernel" not in names, names
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -2,7 +2,9 @@
 allocator and ``PagedCacheView`` give the same blocks, tables, clamps,
 null rows, stats and atomic out-of-blocks behaviour; the paged decode
 kernels' plain versions match the JAX Pallas kernel in interpret mode
-(bf16 rows and NF4/int8 codes, f32 at 3e-5); and the port's engine over a
+(bf16 rows and NF4/int8 codes, f32 at 3e-5, also over long extents,
+blocks that do not divide 64 and windows down to 1); and the port's engine
+over a
 paged cache (rows, NF4/int8 KV codes, a pool small enough to preempt)
 generates the JAX engine's greedy tokens exactly, on the llama2-7b-proxy
 and qwen2-0.5b SMOKE configs."""
@@ -280,6 +282,76 @@ def test_paged_plain_ignores_table_tails_and_other_slots_blocks():
     got = FA.paged_decode_attention_plain(
         args[0], torch.from_numpy(k2), torch.from_numpy(v2), *args[3:])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------- paged decode at more shapes, f32 vs JAX
+def _pool_case(bs, n_b, lens, h, kv, hd, seed):
+    """A pool of ``bs``-token blocks holding ``lens`` tokens per slot,
+    through shuffled tables whose tails repeat each slot's last row."""
+    rs = np.random.RandomState(seed)
+    b = len(lens)
+    n_blocks = b * n_b + 1
+    perm = rs.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((b, n_b), np.int32)
+    used = 0
+    for i, n in enumerate(lens):
+        c = max(1, -(-n // bs))
+        tables[i, :c] = perm[used:used + c]
+        tables[i, c:] = tables[i, c - 1]
+        used += c
+    q = rs.standard_normal((b, 1, h, hd)).astype(np.float32)
+    k = rs.standard_normal((n_blocks, bs, kv, hd)).astype(np.float32)
+    v = rs.standard_normal((n_blocks, bs, kv, hd)).astype(np.float32)
+    return q, k, v, tables, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("bs,n_b,lens,h,kv,window", [
+    (8, 40, [1, 64, 65, 320], 2, 2, None),     # G 1, 5 tiles
+    (5, 30, [150, 66, 1], 7, 1, 70),           # bs not dividing 64, G 7
+    (16, 12, [192, 129, 64], 16, 2, 1),        # G 8, window 1
+    (16, 70, [1120, 300, 1], 2, 2, 200),       # 18 tiles, the last ragged
+])
+def test_paged_decode_at_split_plan_shapes_matches_jax_kernel(bs, n_b, lens,
+                                                              h, kv,
+                                                              window):
+    """The paged decode's plain version in float32 against the JAX kernel
+    in interpret mode, over extents of 150 to 1120 positions (those at
+    which the bf16 kernel's score pass takes several chunks; the plain
+    version has no split, so this is shape coverage)."""
+    hd = 16
+    q, k, v, tables, ln = _pool_case(bs, n_b, lens, h, kv, hd, bs + n_b)
+    want = np.asarray(j_fa.paged_flash_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(ln), window=window, interpret=True))
+    got = FA.paged_flash_decode_attention(
+        *(torch.from_numpy(x) for x in (q, k, v, tables, ln)), window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+
+
+def test_paged_plain_ignores_the_block_size():
+    """One logical cache stored in pools of 4-, 16- and 64-token blocks
+    gives the bf16 plain paged decode the same bits, and those of the
+    dense decode on that cache."""
+    lens, hd = [256, 65, 1, 200], 16
+    rs = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rs.standard_normal(shape).astype(
+        np.float32)).bfloat16() for shape in ((4, 1, 4, hd),
+                                              (4, 256, 2, hd),
+                                              (4, 256, 2, hd)))
+    ln = torch.tensor(lens, dtype=torch.int32)
+    dense = FA.flash_decode_attention_plain(q, k, v, ln)
+    for bs in (4, 16, 64):
+        _, pool, _, tables, _ = _pool_case(bs, 256 // bs, lens, 4, 2, hd, bs)
+        # the slots' blocks of the dense cache, into this pool's rows
+        kp = torch.zeros(pool.shape, dtype=torch.bfloat16)
+        vp = torch.zeros_like(kp)
+        t = torch.from_numpy(tables).long()
+        for i, n in enumerate(lens):
+            for j in range(max(1, -(-n // bs))):
+                kp[t[i, j]] = k[i, j * bs:(j + 1) * bs]
+                vp[t[i, j]] = v[i, j * bs:(j + 1) * bs]
+        got = FA.paged_decode_attention_plain(q, kp, vp, t.int(), ln)
+        assert torch.equal(got, dense), bs
 
 
 # ------------------------------------------------------------ engine parity

@@ -1,8 +1,10 @@
 """The tile and stage plans of ``repro_torch.kernels.smem`` for the bf16
-flash forward and the quantized matmul: their shared memory, the body each
-row count takes, the K splits, and their agreement with the constants of
-the CUDA sources they mirror.  CPU only: the plans are plain Python."""
+flash forward, the quantized matmul and the split decode: their shared
+memory, the body each row count takes, the K and key splits, and their
+agreement with the constants of the CUDA sources they mirror.  CPU only:
+the plans are plain Python."""
 
+import inspect
 import re
 from pathlib import Path
 
@@ -151,3 +153,76 @@ def test_qmm_stage_sizes():
     assert S.qmm_smem_bytes(S.QMM_PREFILL, 3072, "int8") == (
         1024 + 6 * 35840 + 96)
     assert S.qmm_smem_bytes(S.QMM_DECODE, 8) == 1024 + 5 * 8192 + 80
+
+
+# ------------------------------------------------ split decode plan
+EXTENTS = (0, 1, 63, 64, 65, 200, 512, 1000, 1024, 1025, 4096, 32768)
+
+
+@pytest.mark.parametrize("extent", EXTENTS)
+def test_decode_plan_fits_a_block_and_covers_the_extent(extent):
+    for hd in (1, 8, 12, 64, 72, 100, 128):
+        for g in (1, 7, 8, 64):
+            plan = S.decode_plan(extent, hd, g)
+            assert plan.smem <= H100_SMEM_BLOCK
+            assert plan.smem == max(
+                S.decode_score_smem_bytes(hd, g, plan.stages),
+                S.decode_value_smem_bytes(g))
+            assert plan.chunk % S.ATTN_KEYS == 0
+            assert 1 <= plan.splits <= S.DEC_MAX_SPLITS
+            # every score block holds at least one key of the extent, and
+            # all of them cover it
+            assert plan.splits * plan.chunk >= extent
+            assert (plan.splits - 1) * plan.chunk < max(extent, 1)
+            assert plan.stages == min(S.DEC_STAGES,
+                                      plan.chunk // S.ATTN_KEYS)
+
+
+@pytest.mark.parametrize("n_b,bs", [(512, 1), (128, 4), (103, 5), (32, 16),
+                                    (8, 64), (4, 128)])
+def test_decode_plan_reads_the_extent_and_not_the_block_size(n_b, bs):
+    """A pool's plan is the plan of its extent ``n_b * bs``, whatever the
+    block size, so the pool and the dense cache gathered from it split
+    alike (their kernels agree bit for bit on the card)."""
+    assert list(inspect.signature(S.decode_plan).parameters) == [
+        "extent", "hd", "g"]
+    extent = n_b * bs
+    plan = S.decode_plan(extent, 128, 1)
+    assert plan.splits == min(S.DEC_MAX_SPLITS, -(-extent // 64))
+
+
+def test_decode_plan_main_path():
+    """llama2-7b's tick: 8 slots over 512 positions, 32 heads of 128, no
+    GQA: 8 score chunks of one 64-key tile (the serving lengths give 832
+    working score blocks of 2048), 17560 bytes a block (the value pass's
+    four-stage ring): the register budget's eight an SM fit."""
+    plan = S.decode_plan(512, 128, 1)
+    assert plan == S.DecodePlan(64, 8, 1, 17560)
+    lens = (33, 100, 385, 512, 1, 64, 65, 200)
+    assert 32 * sum(-(-n // plan.chunk) for n in lens) == 832
+    assert (H100_SMEM_BLOCK + 1024) // (plan.smem + 1024) \
+        >= S.DEC_BLOCKS_PER_SM
+    # a longer cache takes longer chunks, never more than 16 of them
+    assert S.decode_plan(4096, 128, 1)[:2] == (256, 16)
+    assert S.decode_plan(1100, 128, 1)[:2] == (128, 9)
+
+
+def test_decode_plan_mirrors_the_source():
+    c = _constants("flash_attention.cu")
+    assert c["kDecMaxSplits"] == S.DEC_MAX_SPLITS
+    assert c["kDecStages"] == S.DEC_STAGES
+    assert c["kDecSlice"] == S.DEC_SLICE
+    assert c["kDecValueStages"] == S.DEC_VALUE_STAGES
+    assert c["kDecBlocksPerSm"] == S.DEC_BLOCKS_PER_SM
+    assert (c["kRows"], c["kKeys"]) == (S.ATTN_ROWS, S.ATTN_KEYS)
+    # the source's shared-memory sums, term by term
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert ("return (size_t)stages * kKeys * hdp * 2 + "
+            "4 * (size_t)G * hdp;") in text
+    assert ("return (size_t)kDecValueStages * (kKeys * kDecSlice * 2 + "
+            "4 * G * kKeys) +\n         4 * (size_t)G * (kDecSlice + 2 + "
+            "kDecValueStages);") in text
+    # the source routes on the dtype as the wrappers do: its attend_block
+    # launchers refuse bf16 rows, which split_decode_launch takes
+    assert "return (int)cudaErrorInvalidValue;  // bf16 takes " \
+        "split_decode_launch" in text

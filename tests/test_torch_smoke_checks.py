@@ -11,6 +11,7 @@ import torch
 from repro_torch.core.factorize import pair_schedule
 from repro_torch.core.quanta import QuantaAdapter, apply_sequential
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.smem import decode_plan
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -66,3 +67,33 @@ def test_bound_takes_the_larger_time(smoke):
     assert (ms, by) == (1e3, "bytes")
     ms, by = smoke.bound(1.0, 989e12, torch.bfloat16)
     assert (ms, by) == (1e3, "operations")
+
+
+def test_split_fault_fails_the_decode_limits(smoke):
+    """Each slot's last chunk of the split decode's score pass dropped
+    fails the bf16 limits of both decodes over rows, which the sound plain
+    versions meet; slots of one chunk keep their length."""
+    gen = torch.Generator().manual_seed(1)
+    bf = torch.bfloat16
+    b, h, hd, s_max, bs = 4, 4, 32, 256, 16
+    q = torch.randn((b, 1, h, hd), generator=gen).to(bf)
+    lens = torch.tensor([256, 100, 65, 1], dtype=torch.int32)
+    chunk = decode_plan(s_max, hd, 1).chunk
+    assert chunk == 64
+    assert smoke.without_last_chunk(lens, chunk).tolist() == [192, 64, 64, 1]
+    n_blocks = b * (s_max // bs) + 1
+    tables = smoke.paged_tables(lens.tolist(), bs, s_max // bs, n_blocks, 0)
+    kp, vp = (torch.randn((n_blocks, bs, h, hd), generator=gen).to(bf)
+              for _ in range(2))
+    k, v = FA.gather_kv(q, kp, vp, tables)
+    for name, plain, args in (
+            ("flash_decode_attention", FA.flash_decode_attention_plain,
+             (q, k, v)),
+            ("paged_flash_decode_attention", FA.paged_decode_attention_plain,
+             (q, kp, vp, tables))):
+        want = plain(*args, lens)
+        _, ok, _ = smoke.judge(name, want, want, bf)
+        assert ok
+        faulty = plain(*args, smoke.without_last_chunk(lens, chunk))
+        _, ok, _ = smoke.judge(name, faulty, want, bf)
+        assert not ok

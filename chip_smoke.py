@@ -29,8 +29,13 @@ Phases, one line or more each before the last:
    banked-gather LoRA (kernel 8, with and without the base product) at 8
    slots of 384 and of 1 row, 4096->4096 and 4096->4104, ranks 16 and 8,
    f32 and bf16 factors, ids with repeats and zeros, with its neutral
-   row's exact zero, and two planted faults (the delta added into the
-   fp32 accumulator, every slot reading its neighbour's id);
+   row's exact zero, and planted faults (the delta added into the fp32
+   accumulator, every slot reading its neighbour's id, at the 8-slot
+   decode every row on the first row's id); the chain's second planted
+   fault stores one stage's pair axes swapped; ``study`` lines read the
+   chain summed on the tensor cores against its limits (why the bf16
+   chain runs fp32 FMAs), and ``split`` lines time each launch of kernel
+   8's calls under ``torch.profiler``;
 4. f32: llama2-7b-proxy widths cut to 2 layers, float32, perturbed QuanTA
    on q/v: the kernel engine and the plain engine must generate
    identical greedy tokens for 5 prompts x 16 new tokens, on the dense
@@ -326,6 +331,95 @@ def fail(msg):
     FAILURES.append(msg)
 
 
+def launch_split(fn, iters=10):
+    """Device ms per call of each kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls with the L2 flushed before
+    each (the flush's own kernel left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(flush_bytes() // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as warm:
+        flush.zero_()
+        torch.cuda.synchronize()
+    flush_names = set(_device_ms(warm))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {k: v / iters for k, v in _device_ms(prof).items()
+            if k not in flush_names}
+
+
+def kernel_label(name):
+    """A profiler kernel name without its return type, template arguments
+    and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name.split(" ")[-1].split("::")[-1]
+
+
+def split_text(split):
+    return ", ".join(f"{kernel_label(k)} {v:.4f} ms"
+                     for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def chain_with_product(x, tensors, dims, pairs, product):
+    """The chain of ``apply_sequential`` with each stage's 2-D product
+    ``(rows*cols, K) @ (K, O)`` computed by ``product(h2d, t2d)``, which
+    returns it in x's dtype."""
+    import torch
+
+    nb = x.dim() - 1
+    h = x.reshape(*x.shape[:-1], *dims)
+    for t, (m, n) in zip(tensors, pairs):
+        om, on, im, i_n = t.shape
+        h = torch.movedim(h, (nb + m, nb + n), (-2, -1))
+        lead = h.shape[:-2]
+        y = product(h.reshape(-1, im * i_n), t.reshape(om * on, im * i_n))
+        h = torch.movedim(y.reshape(*lead, om, on), (-2, -1), (nb + m, nb + n))
+    return h.reshape(*x.shape[:-1], -1)
+
+
+def chain_tensor_core_study(x, tensors, dims, pairs, card):
+    """How bf16 chains summed on the tensor cores meet the chain's limits
+    (max 1 ulp, off 0) against its plain version: each stage one bf16
+    ``torch.matmul`` (cuBLAS on the tensor cores, fp32 accumulation, one
+    rounding), and each stage summed from exactly rounded partials of 16
+    and of 8 products (fp64 products of bf16 values, rounded once to fp32)
+    added in fp32 in order: the best any k16 or k8 tensor-core body whose
+    partials meet in fp32 registers could do.  Readings only: they decide
+    which body the bf16 chain takes (PERF.md)."""
+    import torch
+    from repro_torch.core.quanta import apply_sequential
+
+    def partials(g):
+        def product(h, t):
+            acc = None
+            for k0 in range(0, h.shape[1], g):
+                p = (h[:, k0:k0 + g].double() @ t[:, k0:k0 + g].double().T
+                     ).float()
+                acc = p if acc is None else acc + p
+            return acc.to(h.dtype)
+        return product
+
+    want = apply_sequential(x, tensors, dims, pairs)
+    for label, product in (
+            ("each stage one bf16 torch.matmul", lambda h, t: h @ t.T),
+            ("exact k16 partials added in fp32", partials(16)),
+            ("exact k8 partials added in fp32", partials(8))):
+        got = chain_with_product(x, tensors, dims, pairs, product)
+        st, ok, limits = judge("quanta_apply", got, want, torch.bfloat16)
+        print(f"study quanta_apply rows={x.shape[0]} {label}: "
+              f"{stats_text(st)} ({limits}) "
+              f"{'meets' if ok else 'fails'} the chain's limits [{card}]")
+
+
 # --------------------------------------------------------------- phase 3
 def check_kernels(card):
     """Every kernel against its plain version at llama2-7b-proxy serving
@@ -430,9 +524,13 @@ def check_kernels(card):
                         apply_sequential(x.float(),
                                          [t.float() for t in tensors],
                                          dims, pairs).to(dtype), chain)
+                planted("quanta_apply", "one stage's pair axes swapped",
+                        apply_sequential(x, swapped_stage(
+                            tensors, len(tensors) // 2), dims, pairs), chain)
                 planted("quanta_linear", "x @ W rounded before the delta",
                         ((x.float() @ w.float()).to(dtype).float()
                          + chain.float()).to(dtype), want)
+                chain_tensor_core_study(x, tensors, dims, pairs, card)
         assert chain_widths(dims, shapes, pairs) == (d, d)
 
         # prefill attention: B=8 slots, S=384, 32 heads of 128
@@ -626,11 +724,11 @@ def check_kernels(card):
                 del w
 
         # banked-gather LoRA (kernel 8), with and without the base product
-        check_banked(dtype, rnd, report, planted, dev)
+        check_banked(dtype, rnd, report, planted, dev, card)
     return records
 
 
-def check_banked(dtype, rnd, report, planted, dev):
+def check_banked(dtype, rnd, report, planted, dev, card):
     """Kernel 8 against its plain version: 8 slots of 384 rows (a prefill
     wave) and of 1 (a decode tick), 4096 -> 4096 and 4096 -> 4104 (no tile
     divides it), LoRA ranks 16 and 8, f32 factors (the path's) and, with
@@ -709,6 +807,23 @@ def check_banked(dtype, rnd, report, planted, dev):
                       f"rows add an exact zero: {neutral}")
                 if not neutral:
                     fail(f"kernel 8 {label}: a neutral row is not exact")
+                if (rank, d_out, a_dtype) == (16, d, torch.float32) and (
+                        dtype == torch.bfloat16):
+                    for name, fn in (
+                            ("banked_lora_linear", lambda: banked_lora_linear(
+                                x, wd, a, b, ids, scale=scale)),
+                            ("banked_lora_delta", lambda: banked_lora_delta(
+                                x, a, b, ids, scale=scale))):
+                        print(f"split {name} {label}: "
+                              f"{split_text(launch_split(fn))} [{card}]")
+                if (dtype == torch.bfloat16 and seq == 1 and rank == 16
+                        and d_out == d and a_dtype == torch.float32):
+                    # the decode body holds all 8 slots in one tile
+                    planted("banked_lora_linear",
+                            "every row on its tile's first row's id",
+                            banked_lora_linear_ref(x, wd, a, b,
+                                                   ids[:1].expand(n), scale),
+                            want_l)
                 if main and dtype == torch.bfloat16:
                     planted("banked_lora_linear",
                             "delta added into the fp32 accumulator",
@@ -721,6 +836,16 @@ def check_banked(dtype, rnd, report, planted, dev):
                     planted("banked_lora_delta", "neighbour's id",
                             banked_lora_delta_ref(x, a, b, rolled, scale),
                             want)
+
+
+def swapped_stage(tensors, s):
+    """The stage tensors with stage ``s``'s outputs permuted as a chain
+    that stores that stage's (om, on) outputs in (on, om) order would leave
+    them: output (i_m, i_n) where (i_n, i_m) belongs."""
+    t = tensors[s]
+    om, on, im, i_n = t.shape
+    swapped = t.reshape(om, on, im * i_n).transpose(0, 1).reshape(t.shape)
+    return [*tensors[:s], swapped, *tensors[s + 1:]]
 
 
 def without_last_chunk(lens, chunk):
@@ -1383,8 +1508,9 @@ def bank_serve(card, dev, cfg, prompts):
             (model, params, bank, prompts))
 
 
-def _device_ms(prof):
-    """Device time by kernel name, in ms, from a finished profiler."""
+def _device_ms(prof, counts=None):
+    """Device time by kernel name, in ms, from a finished profiler; with
+    ``counts`` (a dict) also each kernel's number of launches."""
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
@@ -1392,6 +1518,8 @@ def _device_ms(prof):
             t = getattr(e, "self_cuda_time_total", 0)
         if t > 0 and e.device_type.name == "CUDA":
             out[e.key] = out.get(e.key, 0.0) + t / 1e3
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     return out
 
 
@@ -1411,18 +1539,20 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32),
                    adapter=tenants[i] if tenants else None)
-    groups = (("quanta_apply", "quanta_chain_kernel"),
-              ("quanta_linear", "gemm_bf16_kernel"),
-              ("flash_attention", "flash_forward"),
-              ("decode_scores", "dense_score_pass"),
-              ("decode_values", "dense_value_pass"),
-              ("paged_scores", "paged_score_pass"),
-              ("paged_values", "paged_value_pass"),
-              ("paged_decode_quant", "paged_decode_kernel"),
-              ("quantized_matmul", "qmm_"),
-              ("banked_gather", "fused_bf16_kernel"),
-              ("banked_shrink", "shrink_kernel"),
-              ("banked_delta", "delta_kernel"))
+    groups = (("quanta_apply", ("chain_bf16_kernel",)),
+              ("quanta_linear", ("gemm_bf16_kernel",)),
+              ("flash_attention", ("flash_forward",)),
+              ("decode_scores", ("dense_score_pass",)),
+              ("decode_values", ("dense_value_pass",)),
+              ("paged_scores", ("paged_score_pass",)),
+              ("paged_values", ("paged_value_pass",)),
+              ("paged_decode_quant", ("paged_decode_kernel",)),
+              ("quantized_matmul", ("qmm_",)),
+              ("banked_gather", ("fused_wgmma_kernel", "decode_gemm_kernel",
+                                 "combine_kernel")),
+              ("banked_shrink", ("shrink_kernel",)),
+              ("banked_reduce", ("reduce_kernel",)),
+              ("banked_delta", ("delta_kernel",)))
     for label, work, n in (("prefill", eng._admit, 1),
                            ("decode", eng.step, 8)):
         label = f"{path} {label}"
@@ -1434,16 +1564,24 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
                 work()
             _sync(dev)
             wall = (time.monotonic() - t0) * 1e3
-        by_name = _device_ms(prof)
+        launches = {}
+        by_name = _device_ms(prof, launches)
         busy = sum(by_name.values())
-        parts = {g: sum(v for k, v in by_name.items() if sub in k)
-                 for g, sub in groups}
-        parts["other"] = busy - sum(parts.values())
+        # the port's kernels live in anonymous namespaces, PyTorch's (its
+        # own reduce_kernel among them) do not
+        ours = {g: [k for k in by_name if "(anonymous namespace)" in k
+                    and any(sub in k for sub in subs)]
+                for g, subs in groups}
+        parts = {g: (sum(by_name[k] for k in ks),
+                     sum(launches[k] for k in ks))
+                 for g, ks in ours.items()}
+        other = busy - sum(v for v, _ in parts.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile {label} ({n} call{'s' * (n > 1)}): device busy "
               f"{busy:.2f} ms of {wall:.2f} ms wall under the profiler; by "
-              f"kernel " + ", ".join(f"{g} {v:.2f}" for g, v in parts.items())
-              + f" ms [{card}]")
+              f"kernel, ms (launches): "
+              + ", ".join(f"{g} {v:.2f} ({c})" for g, (v, c) in parts.items())
+              + f", other {other:.2f} [{card}]")
         for name, v in top:
             print(f"profile {label} top: {v:.3f} ms {name[:90]}")
 

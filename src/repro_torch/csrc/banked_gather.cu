@@ -18,15 +18,23 @@
 //       adapter dtype.  With few rows (a decode tick: one block per slot)
 //       K is split over blocks too, and a second pass adds the fp32
 //       partial sums in a fixed order before rounding;
-//   (b) expand: the base product x @ W as a tiled GEMM with fp32
-//       accumulators (tiled_gemm.cuh, shared with quanta_linear.cu; bf16:
-//       nvcuda::wmma on the tensor cores, 128 x 128 tiles for many rows
-//       and 16 x 32 tiles with the K step split over warps for a few;
-//       float32: a SIMT 64 x 64 tile), whose epilogue adds each
-//       output row's delta, reading B[ids[row / S]] per
-//       row because a tile may hold rows of several slots (at decode, 8
-//       slots give 8 rows).  Without the base, a plain elementwise pass
-//       computes the delta alone.
+//   (b) expand: the base product x @ W with fp32 accumulators, rounded
+//       to x's dtype, plus each output row's delta.  bf16, many rows (the
+//       prefill body): wgmma with a TMA ring (wgmma_gemm.cuh, 128 x 256
+//       tiles, two consumer warpgroups and a producer); its epilogue
+//       stages the tile's za rows and, once per slot the tile holds (a
+//       tile may straddle slots), that slot's B[g] column tile in shared
+//       memory, so each thread sums its rows' deltas from shared memory.
+//       bf16, at most 64 rows (the decode body): W streamed by TMA over
+//       every SM, as wgmma's A operand (W^T, 64 columns a block, MN-major)
+//       against the x tile, K split so that every SM holds four blocks;
+//       the fp32 partial sums go to a scratch and a combine pass adds
+//       them in split order, rounds the base and adds the row's delta
+//       (each B element read once per row that uses it).  Both fold the
+//       shrink's split sum into their reading of za.  float32: a SIMT
+//       64 x 64 tile (tiled_gemm.cuh) whose epilogue reads B[ids[row / S]]
+//       per element.  Without the base, a plain elementwise pass computes
+//       the delta alone.
 // Rounding follows LoraAdapter.delta and the TPU kernel body: x is cast to
 // the adapter dtype, za and za @ B are in the adapter dtype, scale
 // multiplies the product in the adapter dtype, the delta is cast to x's
@@ -35,16 +43,14 @@
 //
 // What bounds it on the H100: at prefill (3072 rows of 4096 -> 4096) the
 // tensor cores, 2 * 3072 * 4096 * 4096 operations of the base product; at
-// decode (8 rows) reading W, 32 MiB of bf16, at 3.35 TB/s.  The narrow
-// tile gives d_out / 32 blocks at d_out 4096 (128, about one per SM) so
-// that every SM streams a stripe of W.  No cp.async, TMA or wgmma yet:
-// those are for the PRs that make it fast.
+// decode (8 rows) reading W, 32 MiB of bf16, at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tiled_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -159,8 +165,14 @@ __global__ void __launch_bounds__(256)
   za[e] = round_to<AT>(s);
 }
 
-// The delta of one output element, in x's precision:
-// round_x(round_a(scale * round_a(za[row] . B[g][:, col])))
+// The delta of one output element from its fp32 dot product za . B[:, col],
+// in x's precision: round_x(round_a(scale * round_a(dot)))
+template <typename XT, typename AT>
+__device__ __forceinline__ float delta_of(float dot, float scale) {
+  return round_to<XT>(round_to<AT>(scale * round_to<AT>(dot)));
+}
+
+// The delta of one output element, B[ids[row / S]] read from device memory
 template <typename XT, typename AT>
 __device__ __forceinline__ float lora_delta(const float* __restrict__ za,
                                             const AT* __restrict__ b,
@@ -171,7 +183,21 @@ __device__ __forceinline__ float lora_delta(const float* __restrict__ za,
   const float* z = za + (size_t)row * r;
   float dot = 0.f;
   for (int k = 0; k < r; ++k) dot = fmaf(z[k], to_f(B[(size_t)k * N]), dot);
-  return round_to<XT>(round_to<AT>(scale * round_to<AT>(dot)));
+  return delta_of<XT, AT>(dot, scale);
+}
+
+// za[row, k] rounded to the adapter dtype: the shrink's value, or the sum
+// of its zsplits fp32 partials in split order (as reduce_kernel adds them)
+template <typename AT>
+__device__ __forceinline__ float za_at(const float* __restrict__ za,
+                                       const float* __restrict__ zpart,
+                                       int zsplits, int M, int r, int row,
+                                       int k) {
+  const size_t at = (size_t)row * r + k;
+  if (zsplits == 1) return za[at];
+  float s = 0.f;
+  for (int z = 0; z < zsplits; ++z) s += zpart[(size_t)z * M * r + at];
+  return round_to<AT>(s);
 }
 
 // ------------------------------------------------- (b) expand, no base
@@ -187,25 +213,195 @@ __global__ void __launch_bounds__(256)
 }
 
 // ------------------------------------------ (b) expand, fused base
-// The tiled GEMMs of tiled_gemm.cuh; the epilogue rounds the base to x's
-// dtype on its own and adds the row's delta.
-template <typename T, typename AT>
-__global__ void __launch_bounds__(256)
-    fused_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const float* __restrict__ za, const AT* __restrict__ b,
-                      const int* __restrict__ ids, bf16* __restrict__ out,
-                      int M, int N, int K, int S, int r, int n_bank,
-                      float scale) {
-  tiled::wmma_gemm<T>(x, w, M, N, K, [=](int row, int col, float v) {
-    out[(size_t)row * N + col] = __float2bfloat16(
-        round_to<bf16>(v) + lora_delta<bf16, AT>(za, b, ids, row, col, S, r,
-                                                 N, n_bank, scale));
+// bf16 prefill body: the wgmma mainloop of wgmma_gemm.cuh, then the
+// epilogue.  za (with the shrink's split sum folded in) is staged for the
+// tile's 128 rows, and for each slot the tile holds, in row order, that
+// slot's B[g] columns n0..n0+BN-1 (fp32); a thread adds the delta of each
+// of its two rows in its slot's turn, 64 columns at a time, k ascending,
+// and stores bf16 pairs.
+template <int BN, typename AT>
+__global__ void __launch_bounds__(wg::kGemmThreads, 1)
+    fused_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmw,
+                       const float* __restrict__ za,
+                       const float* __restrict__ zpart, int zsplits,
+                       const AT* __restrict__ b, const int* __restrict__ ids,
+                       bf16* __restrict__ out, int M, int N, int K, int S,
+                       int r, int n_bank, float scale) {
+  extern __shared__ uint8_t fused_smem[];
+  wg::gemm_tile<BN>(&tmx, &tmw, K, fused_smem, [&](float (&acc)[BN / 128][64],
+                                                   uint8_t* ring, int m0,
+                                                   int n0) {
+    constexpr int BM = wg::kGemmBM, JB = 8;   // column groups a pass
+    float* zs = reinterpret_cast<float*>(ring);   // [BM][r]
+    float* bs = zs + BM * r;                       // [r][BN]
+    const int t = threadIdx.x, lane = t & 31, quad = lane & 3;
+    const int ra = 64 * (t >> 7) + 16 * ((t >> 5) & 3) + (lane >> 2);
+    for (int e = t; e < BM * r; e += 256) {
+      const int row = m0 + e / r;
+      zs[e] = row < M ? za_at<AT>(za, zpart, zsplits, M, r, row, e % r)
+                      : 0.f;
+    }
+    const int q_end = (min(m0 + BM, M) - 1) / S;
+    for (int q = m0 / S; q <= q_end; ++q) {
+      sm90::named_sync(1, 256);   // za staged; the last slot's B consumed
+      const AT* B = b + (size_t)bank_row(ids, q, n_bank) * r * N;
+      for (int e = t; e < r * BN; e += 256) {
+        const int col = n0 + e % BN;
+        bs[e] = col < N ? to_f(B[(size_t)(e / BN) * N + col]) : 0.f;
+      }
+      sm90::named_sync(1, 256);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = ra + 8 * h, row = m0 + rl;
+        if (row >= M || row / S != q) continue;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; jb += JB) {
+          float dot[2 * JB];
+#pragma unroll
+          for (int i = 0; i < 2 * JB; ++i) dot[i] = 0.f;
+          for (int k = 0; k < r; ++k) {
+            const float z = zs[rl * r + k];
+#pragma unroll
+            for (int jj = 0; jj < JB; ++jj) {
+              const float2 bv = *reinterpret_cast<const float2*>(
+                  bs + k * BN + 8 * (jb + jj) + 2 * quad);
+              dot[2 * jj] = fmaf(z, bv.x, dot[2 * jj]);
+              dot[2 * jj + 1] = fmaf(z, bv.y, dot[2 * jj + 1]);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj) {
+            const int j = jb + jj, col = n0 + 8 * j + 2 * quad;
+            if (col >= N) continue;   // N % 8 == 0: col + 1 < N too
+            float o[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              o[c] = round_to<bf16>(acc[j / 16][4 * (j % 16) + 2 * h + c]) +
+                     delta_of<bf16, AT>(dot[2 * jj + c], scale);
+            *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
+                sm90::pack_bf16(o[0], o[1]);
+          }
+        }
+      }
+    }
   });
 }
 
-// the two bf16 tiles (variant codes of kernels/smem.py BANKED_TILES)
-using WideTile = tiled::WmmaTile<4, 2, 2, 4, 1>;    // 128 x 128, BK 32
-using NarrowTile = tiled::WmmaTile<1, 2, 1, 1, 4>;  // 16 x 32, BK 128
+// bf16 decode body: block (column tile, split) computes the fp32 partial
+// out^T = W[k range, 64 columns]^T x[:, k range]^T for every row (RN: the
+// rows rounded up to 8 or 64, wgmma's N), W by TMA through a kDecStages
+// ring fed by the fifth warp's first thread.
+constexpr int kDecBN = 64, kDecStages = 4, kDecThreads = 160;
+constexpr int kDecBlocksPerSm = 4;   // the plan splits K to fill this many
+
+template <int RN>
+struct DecPlan {
+  static constexpr int W = 64 * 128;                       // one panel
+  static constexpr int X = (RN * 128 + 1023) / 1024 * 1024;
+  static constexpr int STAGE = W + X;
+  static constexpr int BYTES = 1024 + kDecStages * STAGE + 2 * kDecStages * 8;
+};
+
+template <int RN>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    decode_gemm_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmw,
+                       float* __restrict__ part, int M, int N, int K,
+                       int steps_per_split) {
+  using P = DecPlan<RN>;
+  constexpr int ST = kDecStages;
+  extern __shared__ uint8_t dec_smem[];
+  uint8_t* smem = sm90::align1024(dec_smem);
+  const uint32_t base = sm90::smem_u32(smem);
+  const uint32_t bars = base + ST * P::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  const int tid = threadIdx.x, n0 = blockIdx.x * kDecBN;
+  const int steps = (K + 63) / 64;
+  const int s0 = blockIdx.y * steps_per_split;
+  const int T = min(steps, s0 + steps_per_split) - s0;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 128);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= 128) {
+    if (tid != 128) return;
+    for (int n = 0; n < T; ++n) {
+      const int s = n % ST;
+      if (n >= ST) sm90::mbar_wait(empty(s), ((n / ST) - 1) & 1);
+      const uint32_t st = base + s * P::STAGE;
+      sm90::mbar_arrive_expect(full(s), P::W + RN * 128);
+      sm90::tma_load_2d(st, &tmw, n0, (s0 + n) * 64, full(s));
+      sm90::tma_load_2d(st + P::W, &tmx, (s0 + n) * 64, 0, full(s));
+    }
+    return;
+  }
+  float acc[RN / 2];
+#pragma unroll
+  for (int i = 0; i < RN / 2; ++i) acc[i] = 0.f;
+  for (int n = 0; n < T; ++n) {
+    const int s = n % ST;
+    sm90::mbar_wait(full(s), (n / ST) & 1);
+    const uint32_t ws = base + s * P::STAGE, xs = ws + P::W;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss<RN, 1, 0>(acc, sm90::desc(ws + kk * 2048, P::W, 1024),
+                               sm90::desc(xs + 32 * kk, 16, 1024), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (n > 0) sm90::mbar_arrive(empty((n - 1) % ST));
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  // acc[4j + 2h + c]: W column n0 + 16 * warp + lane / 4 + 8h, x row
+  // 8j + 2 * (lane % 4) + c
+  const int lane = tid & 31;
+  const int col = n0 + 16 * (tid >> 5) + (lane >> 2);
+  float* pz = part + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int j = 0; j < RN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int row = 8 * j + 2 * (lane & 3) + c;
+        if (row < M && col + 8 * h < N)
+          pz[(size_t)row * N + col + 8 * h] = acc[4 * j + 2 * h + c];
+      }
+}
+
+// The decode body's second pass: out[row, col] = the splits' partials
+// added in order and rounded, plus the row's delta (za with the shrink's
+// split sum folded in, staged once a block).
+template <typename AT>
+__global__ void __launch_bounds__(256)
+    combine_kernel(const float* __restrict__ part, int gsplits,
+                   const float* __restrict__ za,
+                   const float* __restrict__ zpart, int zsplits,
+                   const AT* __restrict__ b, const int* __restrict__ ids,
+                   bf16* __restrict__ out, int M, int N, int S, int r,
+                   int n_bank, float scale) {
+  __shared__ float zs[MAX_RANK];
+  const int row = blockIdx.y, col = blockIdx.x * 256 + threadIdx.x;
+  if (threadIdx.x < r)
+    zs[threadIdx.x] = za_at<AT>(za, zpart, zsplits, M, r, row, threadIdx.x);
+  __syncthreads();
+  if (col >= N) return;
+  float v = 0.f;
+  for (int z = 0; z < gsplits; ++z)
+    v += part[((size_t)z * M + row) * N + col];
+  const AT* B = b + (size_t)bank_row(ids, row / S, n_bank) * r * N + col;
+  float dot = 0.f;
+  for (int k = 0; k < r; ++k) dot = fmaf(zs[k], to_f(B[(size_t)k * N]), dot);
+  out[(size_t)row * N + col] =
+      __float2bfloat16(round_to<bf16>(v) + delta_of<bf16, AT>(dot, scale));
+}
 
 template <typename AT>
 __global__ void __launch_bounds__(256)
@@ -221,56 +417,125 @@ __global__ void __launch_bounds__(256)
   });
 }
 
-template <typename T, typename AT>
-void launch_bf16(const bf16* x, const bf16* w, const float* za, const AT* b,
-                 const int* ids, bf16* out, int M, int N, int K, int S, int r,
-                 int n_bank, float scale, cudaStream_t s) {
-  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-  fused_bf16_kernel<T, AT><<<grid, 256, 0, s>>>(x, w, za, b, ids, out, M, N,
-                                                K, S, r, n_bank, scale);
+constexpr int kMaxDevices = 64;
+
+// Raise the kernel's dynamic shared-memory cap to `bytes` on the current
+// device, once per device; refuse what the device cannot give.
+template <typename K>
+int allow_smem(K kernel, int bytes, int smem_limit, int* granted) {
+  if (bytes > smem_limit) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (bytes <= granted[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  granted[dev] = bytes;
+  return 0;
+}
+
+// What the launches take, as the entry point received it.
+struct Args {
+  int variant;
+  const void *x, *a, *b, *w;
+  const int* ids;
+  float *za, *zpart, *gpart;
+  void* out;
+  int n_slots, S, d_in, d_out, r, n_bank;
+  float scale;
+  int splits, k_split, gsplits, smem_limit;
+};
+
+template <int BN, typename AT>
+int launch_prefill(const Args& g, cudaStream_t s) {
+  static int granted[kMaxDevices] = {};
+  const int M = g.n_slots * g.S;
+  constexpr int smem = wg::GemmPlan<BN>::BYTES;
+  int err =
+      allow_smem(fused_wgmma_kernel<BN, AT>, smem, g.smem_limit, granted);
+  if (err) return err;
+  CUtensorMap tmx, tmw;
+  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, wg::kGemmBM, 64)) ||
+      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
+    return err;
+  dim3 grid((g.d_out + BN - 1) / BN, (M + wg::kGemmBM - 1) / wg::kGemmBM);
+  fused_wgmma_kernel<BN, AT><<<grid, wg::kGemmThreads, smem, s>>>(
+      tmx, tmw, g.za, g.zpart, g.splits, static_cast<const AT*>(g.b), g.ids,
+      static_cast<bf16*>(g.out), M, g.d_out, g.d_in, g.S, g.r, g.n_bank,
+      g.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int RN, typename AT>
+int launch_decode_rn(const Args& g, cudaStream_t s) {
+  static int granted[kMaxDevices] = {};
+  const int M = g.n_slots * g.S;
+  constexpr int smem = DecPlan<RN>::BYTES;
+  int err = allow_smem(decode_gemm_kernel<RN>, smem, g.smem_limit, granted);
+  if (err) return err;
+  const int steps = (g.d_in + 63) / 64;
+  const int per = (steps + g.gsplits - 1) / g.gsplits;
+  if (g.gpart == nullptr || (steps + per - 1) / per != g.gsplits)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tmx, tmw;
+  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, RN, 64)) ||
+      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
+    return err;
+  decode_gemm_kernel<RN>
+      <<<dim3((g.d_out + kDecBN - 1) / kDecBN, g.gsplits), kDecThreads, smem,
+         s>>>(tmx, tmw, g.gpart, M, g.d_out, g.d_in, per);
+  if ((err = (int)cudaGetLastError())) return err;
+  combine_kernel<AT><<<dim3((g.d_out + 255) / 256, M), 256, 0, s>>>(
+      g.gpart, g.gsplits, g.za, g.zpart, g.splits,
+      static_cast<const AT*>(g.b), g.ids, static_cast<bf16*>(g.out), M,
+      g.d_out, g.S, g.r, g.n_bank, g.scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename XT, typename AT>
-int launch(int variant, const void* xv, const void* av, const void* bv,
-           const int* ids, const void* wv, float* za, float* zpart,
-           void* outv, int n_slots, int S, int d_in, int d_out, int r,
-           int n_bank, float scale, int splits, int k_split,
-           cudaStream_t s) {
-  const XT* x = static_cast<const XT*>(xv);
-  const AT* a = static_cast<const AT*>(av);
-  const AT* b = static_cast<const AT*>(bv);
-  const XT* w = static_cast<const XT*>(wv);
-  XT* out = static_cast<XT*>(outv);
-  const int M = n_slots * S;
-  if (splits < 1 || k_split % SK || (splits > 1 && zpart == nullptr) ||
-      (size_t)(splits - 1) * k_split >= (size_t)d_in)
+int launch(const Args& g, cudaStream_t s) {
+  const XT* x = static_cast<const XT*>(g.x);
+  const AT* a = static_cast<const AT*>(g.a);
+  const AT* b = static_cast<const AT*>(g.b);
+  XT* out = static_cast<XT*>(g.out);
+  const int M = g.n_slots * g.S, S = g.S, r = g.r, d_in = g.d_in,
+            d_out = g.d_out;
+  const bool bf16_base = g.w != nullptr && sizeof(XT) == 2;
+  if (g.splits < 1 || g.k_split % SK ||
+      (g.splits > 1 && g.zpart == nullptr) ||
+      (size_t)(g.splits - 1) * g.k_split >= (size_t)d_in)
+    return (int)cudaErrorInvalidValue;
+  if (bf16_base &&
+      (d_in % 8 || d_out % 8 || reinterpret_cast<uintptr_t>(g.x) % 16 ||
+       reinterpret_cast<uintptr_t>(g.w) % 16 || g.variant > 1 ||
+       (g.variant == 1 && M > 64)))
+    return (int)cudaErrorInvalidValue;
+  if (g.w != nullptr && !bf16_base && g.variant != 2)
     return (int)cudaErrorInvalidValue;
   shrink_kernel<XT, AT>
-      <<<dim3((S + SR - 1) / SR, n_slots, splits), 256, 0, s>>>(
-          x, a, ids, za, zpart, S, d_in, r, n_bank, k_split);
-  if (splits > 1)
-    reduce_kernel<AT><<<(M * r + 255) / 256, 256, 0, s>>>(zpart, za, M * r,
-                                                         splits);
-  if (w == nullptr) {
+      <<<dim3((S + SR - 1) / SR, g.n_slots, g.splits), 256, 0, s>>>(
+          x, a, g.ids, g.za, g.zpart, S, d_in, r, g.n_bank, g.k_split);
+  // the bf16 fused bodies add the split sums as they read za
+  if (g.splits > 1 && !bf16_base)
+    reduce_kernel<AT><<<(M * r + 255) / 256, 256, 0, s>>>(g.zpart, g.za,
+                                                         M * r, g.splits);
+  if (g.w == nullptr) {
     delta_kernel<XT, AT><<<dim3(M, (d_out + 255) / 256), 256, 0, s>>>(
-        za, b, ids, out, d_out, S, r, n_bank, scale);
+        g.za, b, g.ids, out, d_out, S, r, g.n_bank, g.scale);
   } else if constexpr (sizeof(XT) == 4) {
-    if (variant != 2) return (int)cudaErrorInvalidValue;
     dim3 grid((d_out + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
               (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM);
-    fused_f32_kernel<AT><<<grid, 256, 0, s>>>(x, w, za, b, ids, out, M,
-                                              d_out, d_in, S, r, n_bank,
-                                              scale);
+    fused_f32_kernel<AT><<<grid, 256, 0, s>>>(
+        x, static_cast<const float*>(g.w), g.za, b, g.ids, out, M, d_out,
+        d_in, S, r, g.n_bank, g.scale);
   } else {
-    if (d_in % 8 || d_out % 8) return (int)cudaErrorInvalidValue;
-    if (variant == 0)
-      launch_bf16<WideTile, AT>(x, w, za, b, ids, out, M, d_out, d_in, S, r,
-                                n_bank, scale, s);
-    else if (variant == 1)
-      launch_bf16<NarrowTile, AT>(x, w, za, b, ids, out, M, d_out, d_in, S, r,
-                                  n_bank, scale, s);
-    else
-      return (int)cudaErrorInvalidValue;
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    if (g.variant == 0) return launch_prefill<256, AT>(g, s);
+    return M <= 8 ? launch_decode_rn<8, AT>(g, s)
+                  : launch_decode_rn<64, AT>(g, s);
   }
   return (int)cudaGetLastError();
 }
@@ -281,40 +546,35 @@ int launch(int variant, const void* xv, const void* av, const void* bv,
 // d_out) in a_dtype; ids (n_slots,) int32; w (d_in, d_out) in x_dtype, or
 // null for the delta alone; za an fp32 (n_slots * S, r) scratch, zpart an
 // fp32 (splits, n_slots * S, r) one when splits > 1 (the shrink's K split
-// in parts of k_split rows, a multiple of 64); out (n_slots, S, d_out) in
+// in parts of k_split rows, a multiple of 64); gpart an fp32 (gsplits,
+// n_slots * S, d_out) scratch for the bf16 decode body (its K split into
+// gsplits non-empty parts of 64-row steps); out (n_slots, S, d_out) in
 // x_dtype.  All row-major and contiguous; dtypes 0 float32, 1 bfloat16.
-// The bf16 base product needs d_in % 8 == 0, d_out % 8 == 0 and 16-byte
-// aligned x and w.  variant: the output tile of the fused product
-// (kernels/smem.py).  Returns the cudaError_t of the launches.
+// variant (kernels/smem.py): 0 the bf16 prefill body, 1 the bf16 decode
+// body (at most 64 rows), 2 the float32 tile.  The bf16 bodies need
+// d_in % 8 == 0, d_out % 8 == 0 and 16-byte aligned x and w.  smem_limit:
+// the shared memory a block of this device may opt in to.  Returns the
+// cudaError_t of the launches.
 extern "C" int banked_lora_launch(int x_dtype, int a_dtype, int variant,
                                   const void* x, const void* a,
                                   const void* b, const void* ids,
                                   const void* w, void* za, void* zpart,
-                                  void* out, int n_slots, int S, int d_in,
-                                  int d_out, int r, int n_bank, float scale,
-                                  int splits, int k_split, void* stream) {
+                                  void* gpart, void* out, int n_slots, int S,
+                                  int d_in, int d_out, int r, int n_bank,
+                                  float scale, int splits, int k_split,
+                                  int gsplits, int smem_limit,
+                                  void* stream) {
   if (n_slots <= 0 || S <= 0 || d_out <= 0) return 0;
   if (r < 1 || r > MAX_RANK || n_bank < 1 || d_in < 1)
     return (int)cudaErrorInvalidValue;
+  const Args g{variant, x, a, b, w, static_cast<const int*>(ids),
+               static_cast<float*>(za), static_cast<float*>(zpart),
+               static_cast<float*>(gpart), out, n_slots, S, d_in, d_out, r,
+               n_bank, scale, splits, k_split, gsplits, smem_limit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* id = static_cast<const int*>(ids);
-  float* z = static_cast<float*>(za);
-  float* zp = static_cast<float*>(zpart);
-  if (x_dtype == 0 && a_dtype == 0)
-    return launch<float, float>(variant, x, a, b, id, w, z, zp, out, n_slots,
-                                S, d_in, d_out, r, n_bank, scale, splits,
-                                k_split, s);
-  if (x_dtype == 0 && a_dtype == 1)
-    return launch<float, bf16>(variant, x, a, b, id, w, z, zp, out, n_slots,
-                               S, d_in, d_out, r, n_bank, scale, splits,
-                               k_split, s);
-  if (x_dtype == 1 && a_dtype == 0)
-    return launch<bf16, float>(variant, x, a, b, id, w, z, zp, out, n_slots,
-                               S, d_in, d_out, r, n_bank, scale, splits,
-                               k_split, s);
-  if (x_dtype == 1 && a_dtype == 1)
-    return launch<bf16, bf16>(variant, x, a, b, id, w, z, zp, out, n_slots,
-                              S, d_in, d_out, r, n_bank, scale, splits,
-                              k_split, s);
+  if (x_dtype == 0 && a_dtype == 0) return launch<float, float>(g, s);
+  if (x_dtype == 0 && a_dtype == 1) return launch<float, bf16>(g, s);
+  if (x_dtype == 1 && a_dtype == 0) return launch<bf16, float>(g, s);
+  if (x_dtype == 1 && a_dtype == 1) return launch<bf16, bf16>(g, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,36 +9,52 @@
 //     h'[..., i_m, .., i_n, ...] = sum_{a<im, b<in} T[i_m, i_n, a, b] *
 //                                  h[..., a at m, .., b at n, ...]
 // with fp32 accumulation and a cast back to the activation dtype after
-// every stage (the rounding of _chain_block).
+// every stage (the rounding of _chain_block).  Each stage is one 2-D
+// product (rows * cols, K = im * in) @ (K, O = om * on), a column being
+// one index of every axis outside the pair.
 //
-// What bounds it on the H100: on paper, memory.  Staged through device
-// memory every stage would read and write the whole activation; fused, the
-// kernel reads x once and writes the result once, and the stage tensors
-// (43,008 elements for llama2-7b's 16-8-8-4 scheme) stay in L2.  Its
-// arithmetic is d * sum_a(im*in) MACs per row: about 3.7 MFLOP per
-// 4096-wide row against 16 KB moved in bf16, ~224 FLOP/byte, just under the
-// card's bf16 ridge (~295).  This SIMT kernel does not reach that bound:
-// shared-memory bandwidth bounds it, one activation load and one tensor
-// load per fused multiply-add.
+// What bounds it on the H100: on paper, memory.  Fused, the kernel reads
+// x once and writes the result once, and the stage tensors (43,008
+// elements for llama2-7b's 16-8-8-4 scheme) stay in L2.  Its arithmetic
+// is d * sum(K) MACs per row: 1.84 M for a 4096-wide row against 16 KB
+// moved in bf16, ~224 FLOP/byte, under the bf16 ridge (~295) but far over
+// the fp32 one (~20).  The bf16 body keeps the plain version's bits: every
+// output is the fp32 FMA chain over k = a * in + b ascending from 0, which
+// the plain version's fp32 product sums in the same order.  Sums on the
+// tensor cores round otherwise and a flipped bf16 rounding is carried
+// through the later stages (PERF.md), so the bf16 body runs on the CUDA
+// cores and is bound by their fp32 FMA rate (67 TFLOP/s: 0.17 ms for a
+// 3072-row prefill wave).
 //
-// What the design does about it: one block per row tile; the tile's rows
-// live in shared memory for the whole chain, ping-ponged between two
-// buffers in the activation dtype, so no stage touches device memory.  The
-// row tile is sized by kernels/smem.py (8 rows at d=4096 in bf16: 2 x 8 x
-// 4096 x 2 B = 128 KB, plus the largest stage tensor).  Each stage tensor
-// is staged in shared memory in fp32, transposed to [in-index][out-index]
-// with its rows padded by one word, beside a table of each column's offset
-// (the column: one index of every axis outside the pair).  A thread
-// computes one output index (i_m, i_n) for four (row, column) pairs, so it
-// runs four independent sums that share every tensor load; the output
-// index varies fastest across the threads of a warp, so at each step of
-// the sum the warp reads consecutive tensor words and broadcast activation
-// values: no bank conflicts, whatever the axis pair.  The axis permutes of
-// the TPU version are index arithmetic here: no permute copies.  Rows past
-// the end of x are masked, with no padding copy.
+// What the bf16 body does about it (chain_bf16_kernel): one block per row
+// tile, 256 threads; the tile's rows live in shared memory for the whole
+// chain, ping-ponged between two bf16 buffers, and every stage tensor is
+// fetched into shared memory in bf16 by cp.async at the block's start
+// (stage 0's with the rows, the others while stage 0 runs), so no stage
+// waits on device memory.  Each stage stores its outputs in the layout
+// the next stage reads: that stage's pair axes minor, so every (row,
+// column) input is K contiguous values (padded to a multiple of 8), and
+// the last stage stores the canonical order.  The layouts are planned on
+// the host (kernels/smem.py chain_plan) and the kernel does index
+// arithmetic only: no permute copies.  A thread computes a TM x TO
+// micro-tile of (row, column) pairs x outputs as an outer product in
+// registers: per 8 values of k, TM + TO 16-byte loads of activations and
+// tensor rows, converted to fp32 once and used TO or TM times, instead of
+// two shared-memory words per FMA.  Tensor rows are stored with their
+// 16-byte chunks XOR-swizzled by row, so the rows a warp reads at once
+// fall in different banks.  8 x 8 micro-tiles for row tiles of 4 or more,
+// 4 x 4 below (a decode tick: one row a block, its 4096 outputs on all
+// 256 threads).  Rows past the end of x are masked, with no padding copy.
+//
+// The float32 body (quanta_chain_kernel) is the first SIMT kernel: the
+// stage tensor staged per stage in fp32, transposed, one output index for
+// four (row, column) pairs per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -79,31 +95,15 @@ struct ChainParams {
 };
 static_assert(sizeof(ChainParams) <= 4096, "kernel parameters exceed 4 KB");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    quanta_chain_kernel(const T* __restrict__ x, T* __restrict__ out,
+    quanta_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
                         const __grid_constant__ ChainParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* tens = reinterpret_cast<float*>(smem_raw);
   int* off_in = reinterpret_cast<int*>(tens + p.t_floats);
   int* off_out = off_in + p.max_cols;
-  T* src = reinterpret_cast<T*>(off_out + p.max_cols);
-  T* dst = src + (size_t)p.rows_per_block * p.d_max;
+  float* src = reinterpret_cast<float*>(off_out + p.max_cols);
+  float* dst = src + (size_t)p.rows_per_block * p.d_max;
 
   const long long row0 = (long long)blockIdx.x * p.rows_per_block;
   const long long left = p.rows - row0;
@@ -124,11 +124,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // rows loaded / previous stage done with the tables
     // tens[k * ldt + o] = T[o, k] in fp32 (consecutive threads walk k, so
     // the padded stride ldt spreads their stores over the banks)
-    const T* tg = static_cast<const T*>(st.t);
+    const float* tg = static_cast<const float*>(st.t);
     for (int i = threadIdx.x; i < oo * kk; i += kThreads) {
       const int o = i / kk;
       const int k = i - o * kk;
-      tens[k * ldt + o] = to_f(tg[i]);
+      tens[k * ldt + o] = tg[i];
     }
     // column offsets in both registers, once per stage
     for (int c = threadIdx.x; c < st.ncols; c += kThreads) {
@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
       const int rc0 = (j / oo) * kCols;
       const int i_m = o / on;
       const int i_n = o - i_m * on;
-      const T* h[kCols];
+      const float* h[kCols];
       int out_at[kCols];
 #pragma unroll
       for (int u = 0; u < kCols; ++u) {
@@ -181,14 +181,14 @@ __global__ void __launch_bounds__(kThreads)
           const int off = ha + b * st.sn;
 #pragma unroll
           for (int u = 0; u < kCols; ++u)
-            acc[u] = fmaf(t, to_f(h[u][off]), acc[u]);
+            acc[u] = fmaf(t, h[u][off], acc[u]);
         }
       }
 #pragma unroll
       for (int u = 0; u < kCols; ++u)
-        if (out_at[u] >= 0) dst[out_at[u]] = from_f<T>(acc[u]);
+        if (out_at[u] >= 0) dst[out_at[u]] = acc[u];
     }
-    T* tmp = src;
+    float* tmp = src;
     src = dst;
     dst = tmp;
   }
@@ -216,20 +216,398 @@ int allow_smem(K kernel, size_t bytes, int* granted) {
   return 0;
 }
 
-template <typename T>
-int launch(const void* x, void* out, const ChainParams& p, int smem_limit,
-           cudaStream_t stream) {
+int launch_f32(const void* x, void* out, const ChainParams& p,
+               int smem_limit, cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
   const size_t smem = ((size_t)p.t_floats + 2 * (size_t)p.max_cols) * 4 +
-                      2 * (size_t)p.rows_per_block * p.d_max * sizeof(T);
+                      2 * (size_t)p.rows_per_block * p.d_max * 4;
   if (smem > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(quanta_chain_kernel<T>, smem, granted);
+  const int err = allow_smem(quanta_chain_kernel, smem, granted);
   if (err) return err;
   const long long blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
-  quanta_chain_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), p);
+  quanta_chain_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), p);
   return (int)cudaGetLastError();
 }
+
+
+// ------------------------------------------------------------ bf16 body
+namespace bfc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+// the plan's wire format (kernels/smem.py chain_plan_ints): a header, the
+// canonical dims of x and their strides in the first stage's layout, then
+// kStageInts per stage
+constexpr int kHeaderInts = 11;
+constexpr int kStageInts = 15 + 2 * kMaxCols;
+
+// One stage as the host planned it: K = im * in (padded to kp in the
+// layout it reads), O = om * on, the columns (ncols of them, column axes
+// slowest first with their sizes and their strides in the layout the
+// stage writes), the strides dm, dn of its pair axes there, the tensor's
+// element offset in the tensor area, its column and output tables'
+// offsets, the XOR mask of its tensor rows' 16-byte chunks, log2(ncols)
+// (-1: not a power of two), and the lane mapping of its micro-tiles
+// (kernels/smem.py chain_tile: lo_shift, rc_blocked).
+struct BStage {
+  int k, kp, o, on, ncols, n_col, dm, dn, t_off, tab_off, t_swz, otab_off,
+      ncols_shift, lo_shift, rc_blocked;
+  int col_dim[kMaxCols];
+  int col_out[kMaxCols];
+  const bf16* t;
+};
+
+struct BParams {
+  int n_axes, n_stages, d_in, d_out, ld, rows_per_block, resident,
+      in_identity, t_elems, tab_ints, variant;
+  int dims_in[kMaxAxes];
+  int in_strides[kMaxAxes];
+  long long rows;
+  BStage st[kMaxStages];
+};
+static_assert(sizeof(BParams) <= 4096, "kernel parameters exceed 4 KB");
+
+__host__ __device__ constexpr int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// shared memory of a block: the column tables, the tensor area, two row
+// buffers of rows_per_block x ld
+__host__ __device__ inline size_t smem_bytes(const BParams& p) {
+  return (size_t)align16(4 * p.tab_ints) + (size_t)align16(2 * p.t_elems) +
+         4 * (size_t)p.rows_per_block * p.ld;
+}
+
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
+  f[0] = lo_f(v.x); f[1] = hi_f(v.x); f[2] = lo_f(v.y); f[3] = hi_f(v.y);
+  f[4] = lo_f(v.z); f[5] = hi_f(v.z); f[6] = lo_f(v.w); f[7] = hi_f(v.w);
+}
+
+// Stage tensor T (O, K) from device memory into shared memory as O rows of
+// kp, the 16-byte chunk c of row o at c ^ (o & t_swz): by cp.async when K
+// is a multiple of 8 (then t_swz may be non-zero), else element by element
+// (t_swz is 0).
+__device__ __forceinline__ void load_tensor(const BStage& st, bf16* dst) {
+  const bool vec = st.k % 8 == 0 && (reinterpret_cast<uintptr_t>(st.t) & 15) == 0;
+  if (vec) {
+    const int per = st.k / 8;
+    for (int i = threadIdx.x; i < st.o * per; i += kThreads) {
+      const int o = i / per, c = i - o * per;
+      sm90::cp_async16(sm90::smem_u32(dst + o * st.kp + 8 * (c ^ (o & st.t_swz))),
+                       st.t + (size_t)o * st.k + 8 * c, true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < st.o * st.k; i += kThreads) {
+      const int o = i / st.k, k = i - o * st.k;
+      dst[o * st.kp + k] = st.t[i];
+    }
+  }
+}
+
+// One stage over the tile's nrows rows: item j is the micro-tile of
+// (row, column) pairs and outputs that kernels/smem.py chain_tile gives
+// it; every sum runs over k ascending, the next 8 values of k loaded
+// while the current 8 are summed.
+template <int TM, int TO>
+__device__ __forceinline__ void stage(const BStage& st,
+                                      const bf16* __restrict__ src,
+                                      bf16* __restrict__ dst,
+                                      const bf16* __restrict__ tens,
+                                      const int* __restrict__ tab,
+                                      const int* __restrict__ otab,
+                                      int nrows, int ld) {
+  const int K = st.k, kp = st.kp, O = st.o;
+  const int M = nrows * st.ncols;
+  const int n_mt = (M + TM - 1) / TM, n_ot = (O + TO - 1) / TO;
+  const int kc_end = K / 8, lo = 1 << st.lo_shift;
+  // (row, column) of pair rc
+  auto split = [&](int rc, int* r, int* c) {
+    if (st.ncols_shift >= 0) {
+      *r = rc >> st.ncols_shift;
+      *c = rc & (st.ncols - 1);
+    } else {
+      *r = rc / st.ncols;
+      *c = rc - *r * st.ncols;
+    }
+  };
+  for (int j = threadIdx.x; j < n_mt * n_ot; j += kThreads) {
+    const int rest = j >> st.lo_shift;
+    const int mt = rest % n_mt;
+    const int ot = (rest / n_mt) * lo + (j & (lo - 1));
+    auto rc_of = [&](int i) {
+      return st.rc_blocked ? mt * TM + i : mt + i * n_mt;
+    };
+    const bf16* hp[TM];
+    const bf16* tp[TO];
+    int sw[TO];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      int r, c;
+      split(min(rc_of(i), M - 1), &r, &c);   // past the end: unused
+      hp[i] = src + r * ld + c * kp;
+    }
+#pragma unroll
+    for (int jj = 0; jj < TO; ++jj) {
+      const int o = min(ot + jj * n_ot, O - 1);
+      tp[jj] = tens + o * kp;
+      sw[jj] = o & st.t_swz;
+    }
+    float acc[TM][TO];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TO; ++jj) acc[i][jj] = 0.f;
+    uint4 hv[TM];
+    if (kc_end > 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        hv[i] = *reinterpret_cast<const uint4*>(hp[i]);
+    }
+    for (int kc = 0; kc < kc_end; ++kc) {
+      float h[TM][8];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) unpack8(hv[i], h[i]);
+      if (kc + 1 < kc_end) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          hv[i] = *reinterpret_cast<const uint4*>(hp[i] + 8 * (kc + 1));
+      }
+#pragma unroll
+      for (int jj = 0; jj < TO; ++jj) {
+        float t[8];
+        unpack8(*reinterpret_cast<const uint4*>(tp[jj] + 8 * (kc ^ sw[jj])),
+                t);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            acc[i][jj] = fmaf(t[kk], h[i][kk], acc[i][jj]);
+      }
+    }
+    for (int k = 8 * kc_end; k < K; ++k) {   // K % 8 != 0: t_swz is 0
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float hv1 = __bfloat162float(hp[i][k]);
+#pragma unroll
+        for (int jj = 0; jj < TO; ++jj)
+          acc[i][jj] = fmaf(__bfloat162float(tp[jj][k]), hv1, acc[i][jj]);
+      }
+    }
+    int oat[TO];
+#pragma unroll
+    for (int jj = 0; jj < TO; ++jj) {
+      const int o = ot + jj * n_ot;
+      oat[jj] = o < O ? otab[o] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int rc = rc_of(i);
+      if (rc >= M) continue;
+      int r, c;
+      split(rc, &r, &c);
+      const int base = r * ld + tab[c];
+#pragma unroll
+      for (int jj = 0; jj < TO; ++jj)
+        if (oat[jj] >= 0)
+          dst[base + oat[jj]] = __float2bfloat16(acc[i][jj]);
+    }
+  }
+}
+
+template <int TM, int TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    chain_bf16_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                      const __grid_constant__ BParams p) {
+  extern __shared__ __align__(16) unsigned char bfc_smem[];
+  int* tab = reinterpret_cast<int*>(bfc_smem);
+  bf16* tens = reinterpret_cast<bf16*>(bfc_smem + align16(4 * p.tab_ints));
+  bf16* src = reinterpret_cast<bf16*>(bfc_smem + align16(4 * p.tab_ints) +
+                                      align16(2 * p.t_elems));
+  bf16* dst = src + (size_t)p.rows_per_block * p.ld;
+
+  const long long row0 = (long long)blockIdx.x * p.rows_per_block;
+  const long long left = p.rows - row0;
+  const int nrows = left < p.rows_per_block ? (int)left : p.rows_per_block;
+
+  // group 0: the tile's rows in the first stage's layout, stage 0's tensor
+  const bf16* xr = x + row0 * p.d_in;
+  if (p.in_identity && p.d_in % 8 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int per = p.d_in / 8;
+    for (int i = threadIdx.x; i < nrows * per; i += kThreads) {
+      const int r = i / per, c = i - r * per;
+      sm90::cp_async16(sm90::smem_u32(src + r * p.ld + 8 * c),
+                       xr + (size_t)r * p.d_in + 8 * c, true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * p.d_in; i += kThreads) {
+      const int r = i / p.d_in;
+      int f = i - r * p.d_in, at = 0;
+      for (int a = p.n_axes - 1; a >= 0; --a) {
+        const int q = f / p.dims_in[a];
+        at += (f - q * p.dims_in[a]) * p.in_strides[a];
+        f = q;
+      }
+      src[r * p.ld + at] = xr[i];
+    }
+  }
+  load_tensor(p.st[0], tens + p.st[0].t_off);
+  sm90::cp_async_commit();
+  // group 1: the other stages' tensors, when they all fit
+  if (p.resident)
+    for (int s = 1; s < p.n_stages; ++s)
+      load_tensor(p.st[s], tens + p.st[s].t_off);
+  sm90::cp_async_commit();
+  // every stage's tables: where column c's outputs start in the next
+  // layout, and where output o goes from there
+  for (int s = 0; s < p.n_stages; ++s) {
+    const BStage& st = p.st[s];
+    for (int c = threadIdx.x; c < st.ncols; c += kThreads) {
+      int rem = c, off = 0;
+      for (int a = st.n_col - 1; a >= 0; --a) {
+        const int q = rem / st.col_dim[a];
+        off += (rem - q * st.col_dim[a]) * st.col_out[a];
+        rem = q;
+      }
+      tab[st.tab_off + c] = off;
+    }
+    for (int o = threadIdx.x; o < st.o; o += kThreads)
+      tab[st.otab_off + o] = (o / st.on) * st.dm + (o % st.on) * st.dn;
+  }
+  sm90::cp_async_wait<1>();
+  __syncthreads();   // rows, tensor 0 and the tables in place
+
+  for (int s = 0;;) {
+    const BStage& st = p.st[s];
+    stage<TM, TO>(st, src, dst, tens + st.t_off, tab + st.tab_off,
+                  tab + st.otab_off, nrows, p.ld);
+    bf16* tmp = src;
+    src = dst;
+    dst = tmp;
+    if (++s == p.n_stages) break;
+    if (p.resident) {
+      if (s == 1) sm90::cp_async_wait<0>();
+      __syncthreads();   // stage s - 1 done; at s == 1 every tensor landed
+    } else {
+      __syncthreads();   // stage s - 1 done with the tensor area
+      load_tensor(p.st[s], tens);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  // the last stage stored the canonical order
+  bf16* orow = out + row0 * p.d_out;
+  if (p.d_out % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    const int per = p.d_out / 8;
+    for (int i = threadIdx.x; i < nrows * per; i += kThreads) {
+      const int r = i / per, c = i - r * per;
+      *reinterpret_cast<uint4*>(orow + (size_t)r * p.d_out + 8 * c) =
+          *reinterpret_cast<const uint4*>(src + r * p.ld + 8 * c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * p.d_out; i += kThreads) {
+      const int r = i / p.d_out;
+      orow[i] = src[r * p.ld + (i - r * p.d_out)];
+    }
+  }
+}
+
+template <int TM, int TO>
+int launch(const bf16* x, bf16* out, const BParams& p, int smem_limit,
+           cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const size_t smem = smem_bytes(p);
+  if (smem > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
+  const int err = allow_smem(chain_bf16_kernel<TM, TO>, smem, granted);
+  if (err) return err;
+  const long long blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
+  chain_bf16_kernel<TM, TO><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      x, out, p);
+  return (int)cudaGetLastError();
+}
+
+// The plan ints (kernels/smem.py chain_plan_ints) into the kernel's
+// parameters; refuses a plan the kernel cannot run.
+int unpack(const int* w, int n, BParams* p) {
+  if (n < kHeaderInts) return 1;
+  p->n_axes = w[0];
+  p->n_stages = w[1];
+  p->d_in = w[2];
+  p->d_out = w[3];
+  p->ld = w[4];
+  p->rows_per_block = w[5];
+  p->resident = w[6];
+  p->in_identity = w[7];
+  p->t_elems = w[8];
+  p->tab_ints = w[9];
+  p->variant = w[10];
+  if (p->n_axes < 1 || p->n_axes > kMaxAxes || p->n_stages < 1 ||
+      p->n_stages > kMaxStages || p->rows_per_block < 1 || p->ld % 8 ||
+      p->d_in > p->ld || p->d_out > p->ld || p->t_elems < 0 ||
+      p->tab_ints < 0 ||
+      n != kHeaderInts + 2 * p->n_axes + kStageInts * p->n_stages)
+    return 1;
+  const int* a = w + kHeaderInts;
+  int d = 1;
+  for (int i = 0; i < p->n_axes; ++i) {
+    p->dims_in[i] = a[i];
+    p->in_strides[i] = a[p->n_axes + i];
+    d *= a[i];
+  }
+  if (d != p->d_in) return 1;
+  const int* sp = a + 2 * p->n_axes;
+  const int to = p->variant == 0 ? 8 : 4;   // the micro-tile's outputs
+  for (int s = 0; s < p->n_stages; ++s, sp += kStageInts) {
+    BStage& st = p->st[s];
+    st.k = sp[0];
+    st.kp = sp[1];
+    st.o = sp[2];
+    st.on = sp[3];
+    st.ncols = sp[4];
+    st.n_col = sp[5];
+    st.dm = sp[6];
+    st.dn = sp[7];
+    st.t_off = sp[8];
+    st.tab_off = sp[9];
+    st.t_swz = sp[10];
+    st.otab_off = sp[11];
+    st.ncols_shift = sp[12];
+    st.lo_shift = sp[13];
+    st.rc_blocked = sp[14];
+    if (st.k < 1 || st.kp % 8 || st.kp < st.k || st.o < 1 || st.on < 1 ||
+        st.o % st.on || st.ncols < 1 || st.n_col < 0 || st.n_col > kMaxCols ||
+        (long long)st.ncols * st.kp > p->ld || st.t_off % 8 ||
+        st.t_off + st.o * st.kp > p->t_elems ||
+        st.tab_off + st.ncols > p->tab_ints ||
+        st.otab_off + st.o > p->tab_ints ||
+        (st.t_swz && (st.k % 8 || (st.t_swz + 1) * 8 > st.kp)) ||
+        (st.ncols_shift >= 0 && st.ncols != 1 << st.ncols_shift) ||
+        st.lo_shift < 0 || st.lo_shift > 5 ||
+        ((st.o + to - 1) / to) % (1 << st.lo_shift) ||
+        (st.rc_blocked != 0 && st.rc_blocked != 1))
+      return 1;
+    int cols = 1;
+    for (int c = 0; c < st.n_col; ++c) {
+      st.col_dim[c] = sp[15 + c];
+      st.col_out[c] = sp[15 + kMaxCols + c];
+      cols *= st.col_dim[c];
+    }
+    if (cols != st.ncols) return 1;
+  }
+  return 0;
+}
+
+}  // namespace bfc
 
 // Row-major strides of a register with dims d[0..n).
 void strides(const int* d, int n, int* s) {
@@ -244,9 +622,10 @@ void strides(const int* d, int n, int* s) {
 
 // meta: n_axes, n_stages, dims_in[n_axes], then per stage m, n, om, on, im,
 // in.  tensors: host array of n_stages device pointers, contiguous
-// (om, on, im, in) tensors in the activation dtype.  dtype: 0 float32,
-// 1 bfloat16.  smem_limit: the shared memory a block of this device may
-// opt in to.  Returns the cudaError_t of the launch.
+// (om, on, im, in) tensors in the activation dtype.  dtype: 0 float32 (1,
+// bfloat16, takes quanta_chain_bf16_launch).  smem_limit: the shared
+// memory a block of this device may opt in to.  Returns the cudaError_t of
+// the launch.
 extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
                                    long long rows, const int* meta,
                                    const void* const* tensors,
@@ -312,7 +691,34 @@ extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
   p.rows_per_block = rows_per_block;
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, out, p, smem_limit, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, out, p, smem_limit, s);
+  if (dtype == 0) return launch_f32(x, out, p, smem_limit, s);
+  return (int)cudaErrorInvalidValue;  // bf16 takes quanta_chain_bf16_launch
+}
+
+// The bf16 chain (chain_bf16_kernel) of x (rows, d_in) into out (rows,
+// d_out), both contiguous.  plan: the n_plan ints of kernels/smem.py
+// chain_plan_ints; tensors: host array of the stages' device pointers,
+// contiguous (om, on, im, in) bf16 tensors; smem_bytes: the plan's shared
+// memory (checked against the kernel's own sum); smem_limit: what a block
+// of this device may opt in to.  Returns the cudaError_t of the launch.
+extern "C" int quanta_chain_bf16_launch(const void* x, void* out,
+                                        long long rows, const int* plan,
+                                        int n_plan,
+                                        const void* const* tensors,
+                                        int smem_bytes, int smem_limit,
+                                        void* stream) {
+  bfc::BParams p{};
+  if (bfc::unpack(plan, n_plan, &p)) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < p.n_stages; ++s)
+    p.st[s].t = static_cast<const __nv_bfloat16*>(tensors[s]);
+  p.rows = rows;
+  if (bfc::smem_bytes(p) != (size_t)smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return 0;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.variant == 0) return bfc::launch<8, 8>(xb, ob, p, smem_limit, s);
+  if (p.variant == 1) return bfc::launch<4, 4>(xb, ob, p, smem_limit, s);
   return (int)cudaErrorInvalidValue;
 }

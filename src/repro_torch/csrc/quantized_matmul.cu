@@ -59,6 +59,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -770,26 +771,6 @@ int allow_smem(K kernel, size_t bytes, int smem_limit, int* granted) {
   return 0;
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (the
-// library links no driver stub)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 template <int FMT>
 int launch_prefill(const Args& a, int splits, int smem_limit,
                    cudaStream_t st) {
@@ -799,19 +780,9 @@ int launch_prefill(const Args& a, int splits, int smem_limit,
   if (err) return err;
   // x (M, K) bf16 as 128-row x 64-column boxes, 128-byte swizzled, zero
   // past the matrix
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tmx;
-  const cuuint64_t dims[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
-  const cuuint64_t strides[1] = {(cuuint64_t)a.K * sizeof(bf16)};
-  const cuuint32_t box[2] = {BK, kPreBM};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(a.x), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  err = wg::tensor_map(&tmx, a.x, a.M, a.K, kPreBM, BK);
+  if (err) return err;
   dim3 grid((a.N + kPreBN - 1) / kPreBN, (a.M + kPreBM - 1) / kPreBM,
             splits);
   qmm_prefill_kernel<FMT><<<grid, kPreThreads, smem, st>>>(a, tmx);

@@ -14,7 +14,9 @@ kernel keeps the whole ``d_in`` of a slot in VMEM and its JAX caller
 are the prefill shapes at llama2-7b widths, to the reference gather.  The
 CUDA kernel tiles K (``kernels/smem.py``, ``banked_gather_plan``), so it
 runs at every shape, prefill and decode alike: a CUDA tensor takes the
-kernel or the wrapper raises.  ``ids`` stays a device int32 tensor; the
+kernel or the wrapper raises.  In bf16 the base product runs on ``wgmma``:
+a TMA-fed 128 x 128 tile body for more than 64 rows, a body that streams
+W over every SM (K split, an ordered combine) for a decode tick.  ``ids`` stays a device int32 tensor; the
 wrappers never read it on the host.
 """
 
@@ -29,7 +31,9 @@ from repro_torch.kernels.dispatch import aligned16, route
 from repro_torch.kernels.ref import (
     banked_lora_delta_ref, banked_lora_linear_ref,
 )
-from repro_torch.kernels.smem import banked_gather_plan, device_limits
+from repro_torch.kernels.smem import (
+    BANKED_DECODE, banked_gather_plan, device_limits,
+)
 
 __all__ = ["banked_lora_delta", "banked_lora_linear"]
 
@@ -40,9 +44,9 @@ def _bind():
     fn = _build.load("banked_gather").banked_lora_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
 
@@ -87,8 +91,9 @@ def _launch(x, a, b, ids, w, scale: float) -> torch.Tensor:
     if w is not None and x_code == 1 and (d_in % 8 or d_out % 8):
         raise ValueError("the bf16 base product needs d_in and d_out "
                          "multiples of 8")
+    limits = device_limits(x.device)
     plan = banked_gather_plan(n_slots, seq, d_in, d_out, rank,
-                              x_code == 1, device_limits(x.device).sms)
+                              x_code == 1, limits.sms)
     x = aligned16(x)
     a, b, ids = a.contiguous(), b.contiguous(), ids.contiguous()
     w = None if w is None else aligned16(w)
@@ -97,12 +102,15 @@ def _launch(x, a, b, ids, w, scale: float) -> torch.Tensor:
     zpart = (torch.empty((plan.splits, n_slots * seq, rank),
                          dtype=torch.float32, device=x.device)
              if plan.splits > 1 else None)
+    gpart = (torch.empty((plan.gsplits, n_slots * seq, d_out),
+                         dtype=torch.float32, device=x.device)
+             if w is not None and plan.variant == BANKED_DECODE else None)
     out = torch.empty((n_slots, seq, d_out), dtype=x.dtype, device=x.device)
     rc = _bind()(
         x_code, a_code, plan.variant, _ptr(x), _ptr(a), _ptr(b), _ptr(ids),
-        _ptr(w), _ptr(za), _ptr(zpart), _ptr(out), n_slots, seq, d_in,
-        d_out, rank, n_bank, float(scale), plan.splits, plan.k_split,
-        _build.stream_ptr(),
+        _ptr(w), _ptr(za), _ptr(zpart), _ptr(gpart), _ptr(out), n_slots, seq,
+        d_in, d_out, rank, n_bank, float(scale), plan.splits, plan.k_split,
+        plan.gsplits, limits.smem_block, _build.stream_ptr(),
     )
     _build.check(rc, "banked_gather")
     return out

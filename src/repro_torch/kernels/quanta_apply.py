@@ -8,7 +8,9 @@ the plain version, ``core/quanta.py``'s :func:`apply_sequential`, which
 rounds each stage to x's dtype as the kernel does; CUDA tensors launch
 the kernel.  The kernel keeps a row tile in shared memory for the whole
 chain (sized by ``kernels/smem.py``), so rows need no padding to a block
-multiple.
+multiple.  bf16 takes the register-tiled body, whose stage layouts
+``kernels/smem.py`` ``chain_plan`` lays out on the host; float32 keeps the
+first SIMT body.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from repro_torch.core.quanta import apply_sequential
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import route
 from repro_torch.kernels.smem import (
-    chain_rows_per_block, chain_stage_words, device_limits,
+    chain_plan, chain_plan_ints, chain_rows_per_block, chain_stage_words,
+    device_limits,
 )
 
 __all__ = ["quanta_apply", "chain_widths"]
@@ -65,29 +68,37 @@ def _row_cap(rows: int, sms: int) -> int:
 def _launch_chain(x: torch.Tensor, tensors: List[torch.Tensor],
                   dims_in: Tuple[int, ...],
                   pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """Launch ``quanta_apply_launch`` on the current stream; counts one
+    """Launch the chain on the current stream (bf16: the register-tiled
+    body on its host plan; float32: the first SIMT body); counts one
     launch of the chain kernel (also when ``quanta_linear`` calls it)."""
     code = _build.dtype_code(x.dtype)
     x = x.contiguous()
     tensors = [t.contiguous() for t in tensors]
-    shapes = [tuple(t.shape) for t in tensors]
+    shapes = tuple(tuple(t.shape) for t in tensors)
     d_out, d_max = chain_widths(dims_in, shapes, pairs)
     limits = device_limits(x.device)
-    rows_per_block = chain_rows_per_block(
-        d_max, chain_stage_words(dims_in, shapes, pairs), x.element_size(),
-        limits.smem_block, cap=_row_cap(x.shape[0], limits.sms))
+    cap = _row_cap(x.shape[0], limits.sms)
     out = torch.empty((x.shape[0], d_out), dtype=x.dtype, device=x.device)
-    meta = [len(dims_in), len(pairs), *dims_in]
-    for s, (m, n) in zip(shapes, pairs):
-        meta += [m, n, *s]
-    fn = _bind()
-    rc = fn(
-        code, ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_longlong(x.shape[0]), (ctypes.c_int * len(meta))(*meta),
-        (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors]),
-        ctypes.c_int(rows_per_block), ctypes.c_int(limits.smem_block),
-        _build.stream_ptr(),
-    )
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    x_p, out_p = ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr())
+    rows = ctypes.c_longlong(x.shape[0])
+    if code == 1:
+        plan = chain_plan(dims_in, shapes, tuple(map(tuple, pairs)),
+                          limits.smem_block, cap)
+        ints = chain_plan_ints(plan)
+        rc = _bind_bf16()(
+            x_p, out_p, rows, (ctypes.c_int * len(ints))(*ints), len(ints),
+            ptrs, plan.smem, limits.smem_block, _build.stream_ptr())
+    else:
+        rows_per_block = chain_rows_per_block(
+            d_max, chain_stage_words(dims_in, shapes, pairs),
+            x.element_size(), limits.smem_block, cap=cap)
+        meta = [len(dims_in), len(pairs), *dims_in]
+        for s, (m, n) in zip(shapes, pairs):
+            meta += [m, n, *s]
+        rc = _bind()(
+            code, x_p, out_p, rows, (ctypes.c_int * len(meta))(*meta), ptrs,
+            rows_per_block, limits.smem_block, _build.stream_ptr())
     _build.check(rc, "quanta_apply")
     quanta_apply.launches += 1
     return out
@@ -100,6 +111,19 @@ def _bind():
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+    return fn
+
+
+def _bind_bf16():
+    fn = _build.load("quanta_apply").quanta_chain_bf16_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]

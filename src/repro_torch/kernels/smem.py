@@ -2,7 +2,8 @@
 it, read from the card.
 
 Takes the place of the JAX package's VMEM budget: the QuanTA chain
-kernel's row tile and the attention kernels' working set are sized here
+kernel's row tile (and the bf16 body's stage layouts and lane mappings)
+and the attention kernels' working set are sized here
 against the block's shared-memory limit, the quantized matmul's K split
 and the banked-gather kernel's column tile against the SM count; both
 come from ``torch.cuda.get_device_properties``, once per device.
@@ -22,6 +23,17 @@ __all__ = [
     "chain_stage_words",
     "chain_smem_bytes",
     "chain_rows_per_block",
+    "ChainStage",
+    "ChainLayout",
+    "ChainPlan",
+    "chain_layout",
+    "chain_column_table",
+    "chain_output_table",
+    "chain_tile",
+    "chain_lane_cost",
+    "chain_bf16_smem_bytes",
+    "chain_plan",
+    "chain_plan_ints",
     "attention_smem_bytes",
     "DecodePlan",
     "decode_plan",
@@ -35,6 +47,7 @@ __all__ = [
     "quantized_matmul_plan",
     "BankedPlan",
     "banked_gather_plan",
+    "banked_smem_bytes",
 ]
 
 
@@ -95,6 +108,287 @@ def chain_rows_per_block(d_max: int, stage_words: int, itemsize: int,
             f"does not fit a block's {smem_limit} bytes of shared memory"
         )
     return rows
+
+
+# The bf16 chain body (``chain_bf16_kernel``): every stage reads its
+# input with its pair axes minor, K contiguous values padded to a multiple
+# of 8 per (row, column), and writes its output in the layout the next
+# stage reads (the last stage: the canonical order).  The host plans the
+# layouts; the kernel does the index arithmetic they give.
+CHAIN_THREADS = 256
+CHAIN_MAX_AXES = 8
+CHAIN_MAX_COLS = CHAIN_MAX_AXES - 2
+CHAIN_MAX_STAGES = 28
+CHAIN_HEADER_INTS = 11        # the wire format of chain_plan_ints
+CHAIN_STAGE_INTS = 15 + 2 * CHAIN_MAX_COLS
+CHAIN_TILES = {0: (8, 8), 1: (4, 4)}   # variant -> (TM, TO) micro-tile
+
+
+class ChainStage(NamedTuple):
+    k: int                    # im * in, the contraction
+    kp: int                   # k padded to a multiple of 8 in the layout
+    o: int                    # om * on, the outputs of a column
+    on: int
+    ncols: int                # columns: one index of every other axis
+    col_dims: Tuple[int, ...]  # the column axes, slowest first
+    col_out: Tuple[int, ...]  # their strides in the layout written
+    dm: int                   # the pair axes' strides there
+    dn: int
+    t_off: int                # the tensor's element offset, resident area
+    tab_off: int              # the column table's offset, in ints
+    t_swz: int                # XOR mask of the tensor rows' 16-B chunks
+    otab_off: int             # the output table's offset, in ints
+    ncols_shift: int          # log2(ncols) when a power of two, else -1
+
+
+class ChainLayout(NamedTuple):
+    dims_in: Tuple[int, ...]  # x's canonical register
+    d_out: int
+    ld: int                   # row-buffer stride, in elements
+    in_strides: Tuple[int, ...]   # x's axes' strides in stage 0's layout
+    in_identity: bool         # stage 0's layout is x's canonical order
+    t_elems: int              # every tensor, rows padded to kp
+    t_max: int                # the largest tensor (the streamed area)
+    tab_ints: int             # every stage's column table
+    stages: Tuple[ChainStage, ...]
+
+
+class ChainPlan(NamedTuple):
+    rows: int                 # row tile
+    resident: bool            # every tensor in shared memory at once
+    variant: int              # micro-tile code (CHAIN_TILES)
+    smem: int                 # bytes of a block
+    layout: ChainLayout
+    lanes: Tuple[Tuple[int, int], ...]  # per stage (lo_shift, rc_blocked)
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _pair_minor(dims: Sequence[int], m: int, n: int,
+                kp: int) -> Tuple[int, ...]:
+    """Strides of a register with dims ``dims`` whose pair (m, n) is minor
+    (``b`` fastest, then ``a``: k = a * in + b), padded to ``kp`` per
+    column, the other axes slowest first in axis order."""
+    st = [0] * len(dims)
+    st[n], st[m] = 1, dims[n]
+    acc = kp
+    for ax in reversed(range(len(dims))):
+        if ax not in (m, n):
+            st[ax] = acc
+            acc *= dims[ax]
+    return tuple(st)
+
+
+def _canonical(dims: Sequence[int]) -> Tuple[int, ...]:
+    st, acc = [0] * len(dims), 1
+    for ax in reversed(range(len(dims))):
+        st[ax] = acc
+        acc *= dims[ax]
+    return tuple(st)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_layout(dims_in: Tuple[int, ...],
+                 shapes: Tuple[Tuple[int, int, int, int], ...],
+                 pairs: Tuple[Tuple[int, int], ...]) -> ChainLayout:
+    """The layouts of the bf16 chain body for stage tensors of ``shapes``
+    ``(om, on, im, in)`` on ``pairs``: what each stage reads and where it
+    writes each output, the tensor area and the column tables."""
+    n_ax = len(dims_in)
+    if not 1 <= n_ax <= CHAIN_MAX_AXES or not 1 <= len(pairs) <= \
+            CHAIN_MAX_STAGES:
+        raise ValueError(f"the chain kernel takes 1-{CHAIN_MAX_AXES} axes "
+                         f"and 1-{CHAIN_MAX_STAGES} stages")
+    cur = list(dims_in)
+    kps = [_ceil8(im * i_n) for _, _, im, i_n in shapes]
+    reads = _pair_minor(cur, *pairs[0], kps[0])
+    in_strides = reads
+    ld = math.prod(dims_in)
+    stages, t_off, tab_off, t_max = [], 0, 0, 0
+    for s, ((om, on, im, i_n), (m, n)) in enumerate(zip(shapes, pairs)):
+        if (im, i_n) != (cur[m], cur[n]):
+            raise ValueError(f"stage {s} tensor {(om, on, im, i_n)} does not "
+                             f"fit axes {(m, n)} of {tuple(cur)}")
+        k, kp = im * i_n, kps[s]
+        cols = [ax for ax in range(n_ax) if ax not in (m, n)]
+        ncols = math.prod(cur[ax] for ax in cols)
+        ld = max(ld, ncols * kp)
+        cur[m], cur[n] = om, on
+        writes = (_pair_minor(cur, *pairs[s + 1], kps[s + 1])
+                  if s + 1 < len(pairs) else _canonical(cur))
+        chunks = kp // 8
+        swz = chunks - 1 if k % 8 == 0 and chunks & (chunks - 1) == 0 else 0
+        stages.append(ChainStage(
+            k, kp, om * on, on, ncols, tuple(cur[ax] for ax in cols),
+            tuple(writes[ax] for ax in cols), writes[m], writes[n], t_off,
+            tab_off, swz, tab_off + ncols,
+            ncols.bit_length() - 1 if ncols & (ncols - 1) == 0 else -1))
+        t_off += om * on * kp
+        t_max = max(t_max, om * on * kp)
+        tab_off += ncols + om * on
+    ld = _ceil8(max(ld, math.prod(cur)))
+    return ChainLayout(tuple(dims_in), math.prod(cur), ld, in_strides,
+                       in_strides == _canonical(dims_in),
+                       t_off, t_max, tab_off, tuple(stages))
+
+
+def chain_column_table(st: ChainStage) -> Tuple[int, ...]:
+    """Where each column's outputs start in the layout the stage writes
+    (the kernel's column table: the column index split over the column
+    axes, the last fastest)."""
+    out = []
+    for c in range(st.ncols):
+        off = 0
+        for dim, stride in zip(reversed(st.col_dims), reversed(st.col_out)):
+            off += (c % dim) * stride
+            c //= dim
+        out.append(off)
+    return tuple(out)
+
+
+def chain_output_table(st: ChainStage) -> Tuple[int, ...]:
+    """Where output o = (i_m, i_n) of a column goes, from its column's
+    start (the kernel's output table)."""
+    return tuple((o // st.on) * st.dm + (o % st.on) * st.dn
+                 for o in range(st.o))
+
+
+def chain_tile(j: int, i: int, jj: int, n_mt: int, n_ot: int, tm: int,
+               lo_shift: int, rc_blocked: int) -> Tuple[int, int]:
+    """(row-column pair, output) of element (i, jj) of micro-tile item j:
+    the low ``lo_shift`` bits of j pick the output tile, then the pair
+    tile, then the output tile's high part; a tile's pairs are
+    consecutive (``rc_blocked``) or ``n_mt`` apart, its outputs ``n_ot``
+    apart."""
+    lo = 1 << lo_shift
+    rest = j >> lo_shift
+    mt, ot = rest % n_mt, (rest // n_mt) * lo + (j & (lo - 1))
+    return (mt * tm + i if rc_blocked else mt + i * n_mt), ot + jj * n_ot
+
+
+def _wavefronts(words) -> int:
+    """Shared-memory wavefronts of one warp access: the most distinct
+    32-bit words in any of the 32 banks."""
+    banks = {}
+    for w in words:
+        banks.setdefault(w % 32, set()).add(w)
+    return max(len(v) for v in banks.values())
+
+
+def chain_lane_cost(st: ChainStage, rows: int, ld: int, tm: int, to: int,
+                    lo_shift: int, rc_blocked: int) -> int:
+    """Shared-memory wavefronts of warp 0's first micro-tile under a lane
+    mapping: its tm * to bf16 stores, plus one chunk of 16-byte loads
+    (activations and tensor rows, taken as four phases of eight lanes)
+    times the k / 8 chunks.  The banking model, not a measurement."""
+    m = rows * st.ncols
+    n_mt, n_ot = -(-m // tm), -(-st.o // to)
+    tab, otab = chain_column_table(st), chain_output_table(st)
+    cost = 0
+    for i in range(tm):
+        for jj in range(to):
+            words = []
+            for j in range(32):
+                rc, o = chain_tile(j, i, jj, n_mt, n_ot, tm, lo_shift,
+                                   rc_blocked)
+                rc, o = min(rc, m - 1), min(o, st.o - 1)
+                words.append((rc // st.ncols * ld + tab[rc % st.ncols]
+                              + otab[o]) // 2)
+            cost += _wavefronts(words)
+    loads = 0
+    for idx in range(tm + to):
+        chunks = []
+        for j in range(32):
+            rc, o = chain_tile(j, min(idx, tm - 1), max(idx - tm, 0), n_mt,
+                               n_ot, tm, lo_shift, rc_blocked)
+            if idx < tm:
+                rc = min(rc, m - 1)
+                chunks.append((rc // st.ncols * ld
+                               + rc % st.ncols * st.kp) // 8)
+            else:
+                o = min(o, st.o - 1)
+                chunks.append(o * st.kp // 8 + (o & st.t_swz))
+        for p in range(4):
+            groups = {}
+            for c in set(chunks[8 * p:8 * p + 8]):
+                groups.setdefault(c % 8, set()).add(c)
+            loads += max(len(v) for v in groups.values())
+    return cost + loads * -(-st.k // 8)
+
+
+def _chain_lanes(st: ChainStage, rows: int, ld: int, tm: int,
+                 to: int) -> Tuple[int, int]:
+    """The lane mapping of a stage with the fewest modelled wavefronts
+    (ties: the output tiles fastest, pairs n_mt apart)."""
+    n_ot = -(-st.o // to)
+    best = None
+    for rc_blocked in (0, 1):
+        for lo_shift in range(n_ot.bit_length()):
+            if n_ot % (1 << lo_shift) == 0:
+                cost = chain_lane_cost(st, rows, ld, tm, to, lo_shift,
+                                       rc_blocked)
+                key = (cost, rc_blocked, -lo_shift)
+                if best is None or key < best[0]:
+                    best = (key, (lo_shift, rc_blocked))
+    return best[1]
+
+
+def chain_bf16_smem_bytes(rows: int, layout: ChainLayout,
+                          resident: bool) -> int:
+    """Shared memory of a bf16 chain block (``bfc::smem_bytes``): the
+    column tables, the tensor area (every tensor, or the largest when they
+    stream stage by stage), two bf16 row buffers of ``rows`` x ``ld``."""
+    t = layout.t_elems if resident else layout.t_max
+    return (-(-4 * layout.tab_ints // 16) * 16 + -(-2 * t // 16) * 16
+            + 4 * rows * layout.ld)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(dims_in: Tuple[int, ...],
+               shapes: Tuple[Tuple[int, int, int, int], ...],
+               pairs: Tuple[Tuple[int, int], ...], smem_limit: int,
+               cap: int = 8) -> ChainPlan:
+    """The bf16 chain body's plan: the largest power-of-two row tile (at
+    most ``cap``) whose block fits ``smem_limit`` with every stage tensor
+    resident (llama2-7b's 16-8-8-4 scheme: 8 rows, 128 KB of row buffers,
+    84 KB of tensors, 1.75 KB of tables); failing that, with the tensors
+    streamed one stage at a time; 8 x 8 micro-tiles from 4 rows up."""
+    layout = chain_layout(dims_in, shapes, pairs)
+    for resident in (True, False):
+        rows = cap
+        while rows >= 1:
+            smem = chain_bf16_smem_bytes(rows, layout, resident)
+            if smem <= smem_limit:
+                variant = 0 if rows >= 4 else 1
+                tm, to = CHAIN_TILES[variant]
+                lanes = tuple(_chain_lanes(st, rows, layout.ld, tm, to)
+                              for st in layout.stages)
+                return ChainPlan(rows, resident, variant, smem, layout,
+                                 lanes)
+            rows //= 2
+    raise ValueError(f"one row of width {layout.ld} and a stage tensor of "
+                     f"{layout.t_max} elements do not fit a block's "
+                     f"{smem_limit} bytes of shared memory")
+
+
+def chain_plan_ints(plan: ChainPlan) -> Tuple[int, ...]:
+    """The plan as the kernel's entry point takes it (``bfc::unpack``): a
+    header, x's dims and their strides in stage 0's layout, then each
+    stage's fields with its column axes padded to ``CHAIN_MAX_COLS``."""
+    lay = plan.layout
+    out = [len(lay.dims_in), len(lay.stages), math.prod(lay.dims_in),
+           lay.d_out, lay.ld, plan.rows, int(plan.resident),
+           int(lay.in_identity), lay.t_elems if plan.resident else lay.t_max,
+           lay.tab_ints, plan.variant, *lay.dims_in, *lay.in_strides]
+    for st, (lo_shift, rc_blocked) in zip(lay.stages, plan.lanes):
+        pad = [0] * (CHAIN_MAX_COLS - len(st.col_dims))
+        out += [st.k, st.kp, st.o, st.on, st.ncols, len(st.col_dims), st.dm,
+                st.dn, st.t_off if plan.resident else 0, st.tab_off, st.t_swz,
+                st.otab_off, st.ncols_shift, lo_shift, rc_blocked,
+                *st.col_dims, *pad, *st.col_out, *pad]
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -307,15 +601,19 @@ def quantized_matmul_plan(rows: int, d_in: int, d_out: int, bf16: bool,
 # ---------------------------------------------------------------------------
 
 BANKED_MAX_RANK = 64      # the shrink kernel stages (64, rank) fp32 A tiles
+BANKED_PREFILL, BANKED_DECODE, BANKED_F32 = 0, 1, 2   # variant codes
 # variant code -> (block rows, block cols): the output tiles of the fused
-# expand GEMM (``ExpandTile`` and the float32 tile in the CUDA source),
-# each with its K step in static shared memory under 48 KB
+# product
 BANKED_TILES = {
-    0: (128, 128),    # bf16, many rows: 4 x 2 warps of 32 x 64
-    1: (16, 32),      # bf16, few rows: 2 column warps x 4 K slices
-    2: (64, 64),      # float32, SIMT
+    BANKED_PREFILL: (128, 256),   # bf16: wgmma, TMA ring (wgmma_gemm.cuh)
+    BANKED_DECODE: (64, 64),      # bf16, <= 64 rows: 64 columns of W^T a
+                                  # block, every row (wgmma's N: 8 or 64)
+    BANKED_F32: (64, 64),         # float32, SIMT
 }
-BANKED_NARROW_ROWS = 64   # at most this many rows take a 16-row tile
+BANKED_NARROW_ROWS = 64   # at most this many rows take the decode body
+BANKED_GEMM_STAGES = 4    # TMA ring depth of both bf16 bodies
+BANKED_DEC_BLOCKS_PER_SM = 4  # decode blocks an SM holds; K splits fill them
+BANKED_STEP = 64          # K rows of a TMA step
 
 
 BANKED_SHRINK_ROWS = 16   # rows of one slot per shrink block
@@ -323,11 +621,28 @@ BANKED_SHRINK_K = 64      # K rows of A per shrink step
 BANKED_WAVES = 2          # shrink blocks wanted per SM before K is split
 
 
+def banked_smem_bytes(variant: int, rows: int) -> int:
+    """Dynamic shared memory of a fused bf16 block (``wg::GemmPlan::BYTES``
+    and ``DecPlan<RN>::BYTES``): 1 KB of alignment slack, the ring of x and
+    W tiles (prefill: 128 x 64 and 64 x 128; decode: a 64 x 64 W panel and
+    the rows, 8 or 64, of 64 K each, 1 KB aligned), and the mbarriers.  The
+    prefill epilogue reuses the ring for za and B[g]."""
+    st = BANKED_GEMM_STAGES
+    if variant == BANKED_PREFILL:
+        bm, bn = BANKED_TILES[BANKED_PREFILL]
+        return 1024 + st * (bm * 128 + 64 * 2 * bn) + 16 * st
+    if variant == BANKED_DECODE:
+        rn = 8 if rows <= 8 else 64
+        return 1024 + st * (64 * 128 + _ceil_to(rn * 128, 1024)) + 16 * st
+    return 0
+
+
 class BankedPlan(NamedTuple):
-    variant: int          # tile code of the fused product
-    tiles: int            # its output tiles, one block each
+    variant: int          # body code of the fused product
+    tiles: int            # its output tiles (decode: per K split)
     splits: int           # K splits of the shrink (1: no partials)
     k_split: int          # K rows per split, a multiple of 64
+    gsplits: int          # K splits of the decode body's product
 
 
 @functools.lru_cache(maxsize=None)
@@ -338,26 +653,36 @@ def banked_gather_plan(n_slots: int, seq: int, d_in: int, d_out: int,
     The TPU kernel holds a slot's whole ``d_in`` in VMEM and its JAX
     caller sends the shapes that overflow it (``banked_vmem_ok``) to the
     reference gather; here K is tiled, so every shape runs.  The fused
-    product takes, in bf16, the 128 x 128 tile for many rows and the
-    16 x 32 tile for at most 64 (8 decode rows at d_out 4096: 128 blocks
-    on 132 SMs, each streaming its stripe of W); float32 takes the
-    64 x 64 SIMT tile.  The shrink runs a block per 16
-    rows of a slot and splits K until there are two blocks per SM (a
-    decode tick of 8 slots at d_in 4096: 33 splits of 128 rows).
+    product takes, in bf16, the ``wgmma`` prefill body (128 x 256 tiles,
+    one block an SM) for more than 64 rows and the decode body for at most
+    64, whose 64-column blocks split K until the SMs hold
+    ``BANKED_DEC_BLOCKS_PER_SM`` each and no more (8 decode rows at 4096 ->
+    4096: 64 tiles, 8 splits of 8 steps); float32 takes the 64 x 64 SIMT
+    tile.  The shrink runs a block per 16 rows of a slot and splits K
+    until there are two blocks per SM (a decode tick of 8 slots at d_in
+    4096: 32 splits of 128 rows).
     """
     if rank > BANKED_MAX_RANK:
         raise ValueError(f"the banked-gather kernel takes rank <= "
                          f"{BANKED_MAX_RANK}, got {rank}")
     rows = n_slots * seq
-
-    def tiles(v):
-        bm, bn = BANKED_TILES[v]
-        return -(-rows // bm) * -(-d_out // bn)
-
-    variant = 2 if not bf16 else (0 if rows > BANKED_NARROW_ROWS else 1)
+    if not bf16:
+        variant = BANKED_F32
+    else:
+        variant = (BANKED_DECODE if rows <= BANKED_NARROW_ROWS
+                   else BANKED_PREFILL)
+    bm, bn = BANKED_TILES[variant]
+    col_tiles = -(-d_out // bn)
+    tiles = col_tiles * (1 if variant == BANKED_DECODE else -(-rows // bm))
+    gsplits = 1
+    if variant == BANKED_DECODE:
+        steps = -(-d_in // BANKED_STEP)
+        want = min(steps, max(1, BANKED_DEC_BLOCKS_PER_SM * sms // tiles))
+        per = -(-steps // want)
+        gsplits = -(-steps // per)
     blocks = n_slots * -(-seq // BANKED_SHRINK_ROWS)
     steps = -(-d_in // BANKED_SHRINK_K)
     want = min(steps, max(1, -(-BANKED_WAVES * sms // blocks)))
     per = -(-steps // want)
-    return BankedPlan(variant, tiles(variant), -(-steps // per),
-                      per * BANKED_SHRINK_K)
+    return BankedPlan(variant, tiles, -(-steps // per),
+                      per * BANKED_SHRINK_K, gsplits)

@@ -154,27 +154,33 @@ def test_bad_shapes_raise():
 def test_tile_plan_runs_every_shape():
     """No VMEM gate: the TPU's full-K tile overflows at prefill (8 slots
     of 384 rows of 4096) and the JAX caller falls back; the CUDA plan
-    tiles K and takes it.  At decode the narrow tile spreads W over the
-    SMs and the shrink splits K until every SM has two blocks."""
+    tiles K and takes it.  At decode the wgmma decode body's 64-column
+    blocks split K until the SMs hold four each, and the shrink splits K
+    until every SM has two blocks."""
     assert not j_bg.banked_vmem_ok(384, 4096, 4096, 16, 512,
                                    fuse_base=True)
     prefill = banked_gather_plan(8, 384, 4096, 4096, 16, True, 132)
-    assert prefill == (0, 768, 2, 2048)
+    assert prefill == (0, 384, 2, 2048, 1)
     decode = banked_gather_plan(8, 1, 4096, 4096, 16, True, 132)
-    assert decode == (1, 128, 32, 128)
-    # at most 64 rows take the narrow tile at any width
+    assert decode == (1, 64, 32, 128, 8)
+    # at most 64 rows take the decode body at any width; its K split
+    # never leaves a part empty
     assert banked_gather_plan(8, 1, 4096, 11008, 16, True, 132)[:2] == (
-        1, 344)
+        1, 172)
+    assert banked_gather_plan(8, 1, 4096, 11008, 16, True, 132).gsplits == 3
     assert banked_gather_plan(4, 16, 4096, 4096, 16, True, 132).variant == 1
     assert banked_gather_plan(5, 13, 4096, 4096, 16, True, 132).variant == 0
     assert banked_gather_plan(8, 1, 4096, 4096, 16, False, 132).variant == 2
     # small K: one split of the whole of it
-    assert banked_gather_plan(3, 37, 64, 200, 8, True, 132)[2:] == (1, 64)
+    assert banked_gather_plan(3, 37, 64, 200, 8, True, 132)[2:4] == (1, 64)
     for n, seq, d_in in ((8, 1, 4096), (8, 384, 4096), (2, 5, 200)):
         plan = banked_gather_plan(n, seq, d_in, 64, 4, True, 132)
         assert plan.k_split % 64 == 0
         assert (plan.splits - 1) * plan.k_split < d_in <= (
             plan.splits * plan.k_split)
+        steps = -(-d_in // 64)
+        per = -(-steps // plan.gsplits)
+        assert -(-steps // per) == plan.gsplits
     assert set(BANKED_TILES) == {0, 1, 2}
 
 

@@ -11,6 +11,10 @@ JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +42,18 @@ pytestmark = pytest.mark.cuda
 
 F32 = dict(rtol=3e-5, atol=3e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _kernels_built():
+    """Every kernel built before the first test runs on the card: with
+    ``nvcc`` started from the test process after the card is in use, the
+    profiler sessions of the route tests lost their kernel records (the
+    route tests then fail though the kernels launched)."""
+    if torch.cuda.is_available():
+        from repro_torch.kernels import _build
+
+        _build.build_all()
 
 
 @pytest.fixture
@@ -99,6 +115,74 @@ def test_chain_two_rounds_and_empty_rows(dev):
     _close(quanta_apply(x, ad.tensors, dims, ad.pairs),
            apply_sequential(x, ad.tensors, dims, ad.pairs), torch.float32)
     assert quanta_apply(x[:0], ad.tensors, dims, ad.pairs).shape == (0, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    """``chip_smoke.py`` as a module (its ``chain_with_product``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _fma_chain(x, tensors, dims, pairs):
+    """The chain with each stage's sums taken as the bf16 kernel takes
+    them: fp32 FMAs over k ascending from 0 (a product of two bf16 values
+    is exact in fp32, so each step is one rounded add), rounded to bf16
+    per stage.  cuBLAS's fp32 product, which the plain version calls,
+    sums in this order at the serving shapes but splits K at some small
+    ones."""
+    def product(h, t):
+        hf, tf = h.float(), t.float()
+        acc = torch.zeros((h.shape[0], t.shape[0]), device=h.device)
+        for k in range(h.shape[1]):
+            acc = acc + hf[:, k:k + 1] * tf[None, :, k]
+        return acc.to(h.dtype)
+
+    return _smoke().chain_with_product(x, tensors, dims, pairs, product)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9, 37, 301])
+@pytest.mark.parametrize("d_in,d_out,dims,pairs", [
+    (d_in, d_out, dims, None) for d_in, d_out, dims, _ in CHAINS]
+    + [(64, 64, (4, 4, 2, 2), pair_schedule(4) * 2),
+       # 24 stages at llama2-7b's widths: too many tensors to keep in
+       # shared memory, so they stream a stage at a time
+       (4096, 4096, (16, 8, 8, 4), pair_schedule(4) * 4)])
+def test_bf16_chain_equals_plain_bit_for_bit(d_in, d_out, dims, pairs, rows,
+                                             dev):
+    """The bf16 body keeps the FMA order of the plain version's sums, so
+    its output is that chain's to the bit: K not a multiple of 16 (16-8-7:
+    56, 112; (4, 3, 2): 6, 8, 12), rectangular and 12-stage chains, row
+    counts no tile divides, tensors streamed a stage at a time.  (The
+    plain version's own sums leave that order where cuBLAS splits K, and
+    over 24 stages its flips compound past any bf16 tolerance; the chains
+    of ``test_chain_kernels_match_plain`` hold the kernel to it.)"""
+    gen = torch.Generator(device=dev).manual_seed(rows + d_in)
+    ad = QuantaAdapter.create(gen, d_in, d_out, dims_in=dims, pairs=pairs,
+                              noise_scale=0.05, device=dev)
+    tensors = [t.bfloat16() for t in ad.tensors]
+    x = torch.randn((rows, d_in), generator=gen, device=dev).bfloat16()
+    got = quanta_apply(x, tensors, ad.dims_in, ad.pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _fma_chain(x, tensors, ad.dims_in, ad.pairs))
+
+
+def test_chain_routes_on_the_dtype(dev):
+    """bf16 launches the register-tiled body, float32 the first SIMT one,
+    one kernel a call."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ad = QuantaAdapter.create(gen, 256, dims_in=(8, 4, 4, 2), device=dev)
+    x = torch.randn((20, 256), generator=gen, device=dev)
+    names = _kernel_names(lambda: quanta_apply(x, ad.tensors, ad.dims_in,
+                                               ad.pairs))
+    assert "quanta_chain_kernel" in names and "chain_bf16" not in names
+    tb = [t.bfloat16() for t in ad.tensors]
+    names = _kernel_names(lambda: quanta_apply(x.bfloat16(), tb, ad.dims_in,
+                                               ad.pairs))
+    assert "chain_bf16_kernel" in names and "quanta_chain" not in names
 
 
 ATTN = [
@@ -438,15 +522,24 @@ def test_split_decode_keeps_the_one_block_walks_bits(window, dev):
     assert torch.equal(split, quant)
 
 
-def _kernel_names(fn):
+def _kernel_names(fn, sessions=3):
     """The names of the CUDA kernels that ``fn`` launches, as
-    ``torch.profiler`` reads them off the card."""
+    ``torch.profiler`` reads them off the card, joined over a few profiler
+    sessions of one call each.  Sessions that trace the card alone now
+    and then lost some or all of their kernel records; these trace the
+    host too, as ``chip_smoke.py``'s do, and a launch the code path makes
+    shows up in the other sessions if one still loses it (one it does not
+    make shows up in none)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages())
+    names = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names += [e.key for e in prof.key_averages()]
+    return " ".join(names)
 
 
 SPLIT_PASSES = ("score_pass", "value_pass")
@@ -573,6 +666,76 @@ def test_banked_gather_matches_plain(n, seq, d_in, d_out, rank, dtype,
     after = launch_counts()
     assert after["banked_lora_delta"] == before["banked_lora_delta"] + 1
     assert after["banked_lora_linear"] == before["banked_lora_linear"] + 1
+
+
+# (n_slots, seq, d_out): prefill tiles of 128 rows straddling slots of 97
+# and of 300 rows, 97 one-row slots in one prefill body (a slot per row of
+# a tile), the 8-slot decode tick, ragged columns (4104, 200: no 128- or
+# 64-column tile divides them)
+BANKED_BF16 = [(3, 97, 4104), (2, 300, 264), (97, 1, 200), (8, 1, 4104),
+               (8, 1, 4096), (5, 12, 4096)]
+
+
+def _bf16_bank(n, seq, d_out, dev, d_in=512, rank=16):
+    gen = torch.Generator(device=dev).manual_seed(n * seq + d_out)
+    x = torch.randn((n, seq, d_in), generator=gen, device=dev).bfloat16()
+    a = torch.randn((5, d_in, rank), generator=gen, device=dev) * d_in ** -0.5
+    b = 0.1 * torch.randn((5, rank, d_out), generator=gen, device=dev)
+    a[0] = 0
+    b[0] = 0
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev)
+         * d_in ** -0.5).bfloat16()
+    ids = torch.tensor(([2, 0, 4, 2, 1, 3, 0, 1] * 13)[:n], dtype=torch.int32,
+                       device=dev)
+    return x, w, a, b, ids
+
+
+def _ulps_off(got, want):
+    """Share of bf16 elements more than one ulp of ``want`` off."""
+    _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
+    ulps = (got.float() - want.float()).abs() / torch.ldexp(
+        torch.ones_like(want.float()), e - 8)
+    return float((ulps > 1).float().mean())
+
+
+@pytest.mark.parametrize("n,seq,d_out", BANKED_BF16)
+def test_banked_bf16_bodies_straddle_slots(n, seq, d_out, dev):
+    """The wgmma bodies (prefill and decode) against the plain version:
+    each row takes its own slot's bank row wherever its tile starts, the
+    bf16 limits of the card run (off <= 1e-3), and rows of the neutral id
+    add an exact zero through the new epilogue."""
+    x, w, a, b, ids = _bf16_bank(n, seq, d_out, dev)
+    got = banked_lora_linear(x, w, a, b, ids, scale=2.0)
+    want = banked_lora_linear_ref(x, w, a, b, ids, 2.0)
+    torch.cuda.synchronize()
+    assert _ulps_off(got, want) <= 1e-3
+    _close(got, want, torch.bfloat16)
+    base = banked_lora_linear(x, w, torch.zeros_like(a), torch.zeros_like(b),
+                              ids, scale=2.0)
+    assert torch.equal(got[ids == 0], base[ids == 0])
+    # a row on another slot's bank row would read its delta
+    wrong = banked_lora_linear_ref(x, w, a, b, ids.roll(1), 2.0)
+    assert _ulps_off(wrong, want) > 1e-2
+
+
+def test_banked_routes_on_rows_and_dtype(dev):
+    """bf16 with more than 64 rows launches the prefill body, with at most
+    64 the decode body and its combine, float32 the SIMT tile; the
+    prefill body folds the shrink's split sum into its epilogue."""
+    routes = (((8, 64, 4096), torch.bfloat16, ("fused_wgmma_kernel",),
+               ("decode_gemm_kernel", "reduce_kernel")),
+              ((8, 1, 4096), torch.bfloat16,
+               ("decode_gemm_kernel", "combine_kernel"),
+               ("fused_wgmma_kernel", "reduce_kernel")),
+              ((8, 64, 256), torch.float32, ("fused_f32_kernel",),
+               ("fused_wgmma_kernel", "decode_gemm_kernel")))
+    for (n, seq, d_out), dtype, have, lack in routes:
+        x, w, a, b, ids = _bf16_bank(n, seq, d_out, dev, d_in=4096)
+        x, w = x.to(dtype), w.to(dtype)
+        names = _kernel_names(lambda: banked_lora_linear(x, w, a, b, ids,
+                                                         scale=1.0))
+        assert all(k in names for k in have), names
+        assert not any(f"::{k}<" in names for k in lack), names
 
 
 def test_banked_gather_refuses_what_the_kernel_does_not_take(dev):

@@ -239,13 +239,24 @@ def test_kernel_wrappers_route_cpu_to_plain():
     (torch.bfloat16, 101_376, 2),      # a card with 99 KB per block
 ])
 def test_chain_row_tile_fits_a_block(dtype, limit, rows):
-    """The chain kernel's row tile at llama2-7b's 16-8-8-4 scheme: two row
-    buffers plus the staged fp32 tensor and offset tables fit the
-    device's limit, and twice the tile would not."""
+    """The chain kernel's row tile at llama2-7b's 16-8-8-4 scheme fits the
+    device's limit, and twice the tile would not.  float32 (the first
+    SIMT body): two row buffers plus the staged fp32 tensor and offset
+    tables.  bf16 (the register-tiled body, ``smem.chain_plan``): two row
+    buffers, the column tables and every stage tensor in bf16, or, on the
+    99 KB card, the largest one streamed a stage at a time."""
     from repro_torch.kernels import smem
 
     dims, pairs = (16, 8, 8, 4), tfact.pair_schedule(4)
     shapes = TQ.tensor_shapes(dims, pairs)
+    if dtype == torch.bfloat16:
+        plan = smem.chain_plan(dims, shapes, pairs, limit)
+        assert plan.rows == rows and plan.resident == (limit > 200_000)
+        assert plan.smem <= limit < smem.chain_bf16_smem_bytes(
+            2 * rows, plan.layout, plan.resident)
+        with pytest.raises(ValueError):
+            smem.chain_plan(dims, shapes, pairs, 48 * 1024)
+        return
     words = smem.chain_stage_words(dims, shapes, pairs)
     assert words == 128 * 129 + 2 * 128
     size = torch.tensor([], dtype=dtype).element_size()

@@ -226,3 +226,80 @@ def test_decode_plan_mirrors_the_source():
     # launchers refuse bf16 rows, which split_decode_launch takes
     assert "return (int)cudaErrorInvalidValue;  // bf16 takes " \
         "split_decode_launch" in text
+
+
+# ------------------------------------------------ chain and banked LoRA
+def _chain(dims, pairs=None):
+    from repro_torch.core.factorize import pair_schedule
+    from repro_torch.core.quanta import tensor_shapes
+
+    pairs = tuple(pairs or pair_schedule(len(dims)))
+    return dims, tensor_shapes(dims, pairs), pairs
+
+
+# the QuanTA schemes the port serves (llama2-7b-proxy's 16-8-8-4 on q/v,
+# qwen2-0.5b's 16-8-7) and a 12-stage schedule
+SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
+                 _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2)]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
+@pytest.mark.parametrize("chain", range(len(SERVED_CHAINS)))
+def test_chain_plans_fit_a_block(chain, rows):
+    """The bf16 chain body's plan at every row tile the wrapper asks for
+    (``_row_cap``) fits an H100 block, and so does the float32 body's."""
+    from repro_torch.kernels.quanta_apply import _row_cap, chain_widths
+
+    dims, shapes, pairs = SERVED_CHAINS[chain]
+    cap = _row_cap(rows, H100_SMS)
+    plan = S.chain_plan(dims, shapes, pairs, H100_SMEM_BLOCK, cap)
+    assert plan.smem <= H100_SMEM_BLOCK and 1 <= plan.rows <= cap
+    _, d_max = chain_widths(dims, shapes, pairs)
+    words = S.chain_stage_words(dims, shapes, pairs)
+    f32 = S.chain_rows_per_block(d_max, words, 4, H100_SMEM_BLOCK, cap)
+    assert S.chain_smem_bytes(f32, d_max, words, 4) <= H100_SMEM_BLOCK
+
+
+@pytest.mark.parametrize("n,seq", [(8, 384), (8, 1), (4, 16), (5, 13),
+                                   (97, 1), (3, 97)])
+@pytest.mark.parametrize("d_in,d_out", [(4096, 4096), (4096, 4104),
+                                        (896, 896), (4096, 11008)])
+def test_banked_plans_fit_a_block(n, seq, d_in, d_out):
+    """Kernel 8's fused bf16 bodies fit an H100 block at every serving
+    shape, several decode blocks an SM at once; the decode body's K split
+    fills at most the blocks the SMs hold."""
+    plan = S.banked_gather_plan(n, seq, d_in, d_out, 16, True, H100_SMS)
+    smem = S.banked_smem_bytes(plan.variant, n * seq)
+    assert smem <= H100_SMEM_BLOCK
+    if plan.variant == S.BANKED_DECODE:
+        assert (H100_SMEM_BLOCK + 1024) // (smem + 1024) \
+            >= S.BANKED_DEC_BLOCKS_PER_SM or n * seq > 8
+        assert plan.tiles * plan.gsplits <= max(
+            plan.tiles, S.BANKED_DEC_BLOCKS_PER_SM * H100_SMS)
+
+
+def test_banked_plan_mirrors_the_source():
+    """``banked_smem_bytes`` against ``wg::GemmPlan<BN>::BYTES`` and
+    ``DecPlan<RN>::BYTES``, and the plan's constants against the CUDA
+    sources'."""
+    gemm = _constants("wgmma_gemm.cuh")
+    bank = _constants("banked_gather.cu")
+    assert gemm["kGemmBM"] == S.BANKED_TILES[S.BANKED_PREFILL][0] == 128
+    assert gemm["kGemmStages"] == S.BANKED_GEMM_STAGES
+    assert bank["kDecStages"] == S.BANKED_GEMM_STAGES
+    assert bank["kDecBN"] == S.BANKED_TILES[S.BANKED_DECODE][1]
+    assert bank["kDecBlocksPerSm"] == S.BANKED_DEC_BLOCKS_PER_SM
+    text = (CSRC / "banked_gather.cu").read_text()
+    assert "launch_prefill<%d, AT>(g, s)" % S.BANKED_TILES[
+        S.BANKED_PREFILL][1] in text
+    bn = S.BANKED_TILES[S.BANKED_PREFILL][1]
+    # GemmPlan<BN>: 1 KB slack, stages of the x tile (128 rows of 128 B)
+    # and the w tile (BN / 64 panels of 64 rows of 128 B), two mbarriers
+    # a stage
+    assert S.banked_smem_bytes(S.BANKED_PREFILL, 3072) == (
+        1024 + 4 * (128 * 128 + (bn // 64) * 64 * 128) + 2 * 4 * 8)
+    # DecPlan<RN>: a 64 x 64 W panel and RN rows of x, 1 KB aligned
+    assert S.banked_smem_bytes(S.BANKED_DECODE, 8) == (
+        1024 + 4 * (64 * 128 + 1024) + 2 * 4 * 8)
+    assert S.banked_smem_bytes(S.BANKED_DECODE, 64) == (
+        1024 + 4 * (64 * 128 + 64 * 128) + 2 * 4 * 8)

@@ -97,3 +97,36 @@ def test_split_fault_fails_the_decode_limits(smoke):
         faulty = plain(*args, smoke.without_last_chunk(lens, chunk))
         _, ok, _ = smoke.judge(name, faulty, want, bf)
         assert not ok
+
+
+def test_new_planted_faults_fail_the_bf16_limits(smoke):
+    """A chain stage storing its pair axes swapped fails the chain's
+    limits; every row of the 8-slot decode tile on its first row's bank id
+    fails kernel 8's."""
+    from repro_torch.kernels.ref import banked_lora_linear_ref
+
+    gen = torch.Generator().manual_seed(2)
+    bf = torch.bfloat16
+    dims, pairs = (8, 4, 4, 2), pair_schedule(4)
+    ad = QuantaAdapter.create(gen, 256, dims_in=dims, dtype=bf,
+                              noise_scale=0.05)
+    x = torch.randn((64, 256), generator=gen).to(bf)
+    chain = apply_sequential(x, ad.tensors, dims, pairs)
+    faulty = apply_sequential(x, smoke.swapped_stage(list(ad.tensors), 3),
+                              dims, pairs)
+    _, ok, _ = smoke.judge("quanta_apply", faulty, chain, bf)
+    assert not ok
+
+    d, n = 256, len(smoke.BANK_IDS)
+    ids = torch.tensor(smoke.BANK_IDS, dtype=torch.int32)
+    x = torch.randn((n, 1, d), generator=gen).to(bf)
+    w = (torch.randn((d, d), generator=gen) * d ** -0.5).to(bf)
+    a = torch.randn((5, d, 16), generator=gen) * d ** -0.5
+    b = 0.1 * torch.randn((5, 16, d), generator=gen)
+    a[0], b[0] = 0, 0
+    want = banked_lora_linear_ref(x, w, a, b, ids, 2.0)
+    _, ok, _ = smoke.judge("banked_lora_linear", want, want, bf)
+    assert ok
+    faulty = banked_lora_linear_ref(x, w, a, b, ids[:1].expand(n), 2.0)
+    _, ok, _ = smoke.judge("banked_lora_linear", faulty, want, bf)
+    assert not ok

@@ -16,10 +16,13 @@ Phases, one line or more each before the last:
    (TF32 and cuBLAS's reduced-precision bf16 reduction off), with a
    masked tail and a windowed case; errors (absolute, relative, in ulps)
    against the stated limits, and for each kernel a planted fault that
-   must fail them (a bf16 rounding fault; for the paged decode the table
-   ignored, for both decodes over bf16 rows each slot's last chunk of keys
-   dropped, for the quantized paged decode a scale block off by one, for
-   the quantized matmul the nibbles swapped); kernel / plain / library
+   must fail them (a bf16 rounding fault; for the adapted linear's decode
+   body the last K split dropped; for the paged decode the table ignored,
+   for both decodes over bf16 rows each slot's last chunk of keys dropped,
+   for the quantized paged decode a scale block off by one and the odd and
+   even nibbles swapped, for the quantized matmul the nibbles swapped);
+   the paged decode over NF4 and int8 codes must equal the bf16 split
+   decode over the decoded cache bit for bit; kernel / plain / library
    times from CUDA events with the L2 flushed before each call, and the
    least time the card could take (bytes over 3.35 TB/s, operations over
    the dtype's peak).  The quantized matmul runs NF4 and int8, with and
@@ -35,7 +38,7 @@ Phases, one line or more each before the last:
    fault stores one stage's pair axes swapped; ``study`` lines read the
    chain summed on the tensor cores against its limits (why the bf16
    chain runs fp32 FMAs), and ``split`` lines time each launch of kernel
-   8's calls under ``torch.profiler``;
+   2's and kernel 8's calls under ``torch.profiler``;
 4. f32: llama2-7b-proxy widths cut to 2 layers, float32, perturbed QuanTA
    on q/v: the kernel engine and the plain engine must generate
    identical greedy tokens for 5 prompts x 16 new tokens, on the dense
@@ -86,8 +89,8 @@ kernels 1-4 of the dense adapted run, the NF4-KV decode and the
 quantized matmul of the QLoRA run, the paged bf16 decode of its bf16-KV
 twin, kernel 8 (``banked_lora_linear`` and ``banked_lora_delta``) of the
 bank run; every count is set to 0 just before its run.  In bf16,
-kernels 4 and 5 launch only the split decode (their ``attend_block``
-launchers refuse bf16 rows), so their counts in the bf16 runs are split
+kernels 4, 5 and 6 launch only the split decode (their ``attend_block``
+launchers refuse bf16), so their counts in the bf16 runs are split
 decode launches; the card tests hold the route by kernel name.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
@@ -196,12 +199,12 @@ DENSE_KERNELS = ("quanta_apply", "quanta_linear", "flash_attention",
 SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
 # one decode step of the 32-layer bf16 model over an NF4 base: paged NF4 KV
 # pool vs dense cache of the fake-quantized rows.  Both hold the same
-# values.  The paged NF4 decode (kernel 6) walks each slot in one
-# attend_block block; the dense bf16 decode (kernel 4) splits the work into
-# a score pass and a value pass, but keeps attend_block's arithmetic (each
-# score an fp32 FMA chain over hd in order, p rounded against the running
-# max of the tiles so far, PV in key order), so the two should still agree
-# to the bit.  Any other order of those sums moves a bf16 rounding now and
+# values.  The paged NF4 decode (kernel 6) and the dense bf16 decode
+# (kernel 4) both split the work into a score pass and a value pass that
+# keep attend_block's arithmetic (each score an fp32 FMA chain over hd in
+# order, p rounded against the running max of the tiles so far, PV in key
+# order); kernel 6 decodes the codes into the same bf16 tiles, so the two
+# should agree to the bit.  Any other order of those sums moves a bf16 rounding now and
 # then, which 32 layers compound to about 1.4e-2 (PERF.md).  The limit
 # allows one bf16 rounding of the top logit.  A planted fault (each slot
 # reading its neighbour's block table) must exceed it
@@ -221,6 +224,27 @@ BANK_LOGIT_TOL = 0.06  # max |bank - single| / max |single|
 # the bank runs' tenants, in bank order: name -> (method, rank, alpha)
 BANK_TENANTS = {"Q": ("quanta", None, None), "L16a": ("lora", 16, 32.0),
                 "L16b": ("lora", 16, 32.0), "L8": ("lora", 8, 16.0)}
+# the port's bf16 kernels by the wrapper (or pass) whose device time they
+# are booked under in the ``--profile`` lines: substrings of the CUDA
+# kernel names, each kernel in exactly one group
+# (tests/test_torch_smoke_checks.py parses the sources)
+PROFILE_GROUPS = (
+    ("quanta_apply", ("chain_bf16_kernel",)),
+    ("quanta_linear", ("ql_wgmma_kernel", "ql_partials_kernel",
+                       "ql_sum_kernel")),
+    ("flash_attention", ("flash_forward",)),
+    ("decode_scores", ("dense_score_pass",)),
+    ("decode_values", ("dense_value_pass",)),
+    ("paged_scores", ("paged_score_pass",)),
+    ("paged_values", ("paged_value_pass",)),
+    ("quant_scores", ("quant_score_pass",)),
+    ("quant_values", ("quant_value_pass",)),
+    ("quantized_matmul", ("qmm_", "reduce_splits_kernel")),
+    ("banked_gather", ("fused_wgmma_kernel", "decode_gemm_kernel",
+                       "combine_kernel")),
+    ("banked_shrink", ("shrink_kernel",)),
+    ("banked_reduce", ("reduce_kernel",)),
+    ("banked_delta", ("delta_kernel",)))
 FAILURES = []
 
 
@@ -439,7 +463,7 @@ def check_kernels(card):
     from repro_torch.kernels.quanta_linear import (
         quanta_linear, quanta_linear_plain,
     )
-    from repro_torch.kernels.smem import decode_plan
+    from repro_torch.kernels.smem import decode_plan, device_limits
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -507,17 +531,29 @@ def check_kernels(card):
                    2 * rows * d * sz + t_bytes, 2 * rows * chain_macs, main)
             got = quanta_linear(x, w, tensors, dims, pairs)
             want = quanta_linear_plain(x, w, tensors, dims, pairs)
+            # library: one torch.matmul for the base, one torch.einsum for
+            # the chain
             report("quanta_linear", f"rows={rows} {label}", dtype, got, want,
                    timed(lambda: quanta_linear(x, w, tensors, dims, pairs)),
                    timed(lambda: quanta_linear_plain(x, w, tensors, dims,
                                                      pairs)),
-                   timed(lambda: torch.matmul(x, w) + apply_sequential(
+                   timed(lambda: torch.matmul(x, w) + apply_einsum(
                        x, tensors, dims, pairs)),
                    (2 * rows * d + d * d) * sz + t_bytes,
                    2 * rows * (d * d + chain_macs), main)
             print(f"check quanta_linear rows={rows} {label} "
                   f"{str(dtype)[6:]}: torch.matmul alone (x @ W, no chain) "
                   f"{timed(lambda: torch.matmul(x, w)):.4f} ms [{card}]")
+            if dtype == torch.bfloat16:
+                split = launch_split(
+                    lambda: quanta_linear(x, w, tensors, dims, pairs))
+                print(f"split quanta_linear rows={rows} {label}: "
+                      f"{split_text(split)} [{card}]")
+            if dtype == torch.bfloat16 and label == "decode":
+                planted("quanta_linear", "the last K split dropped",
+                        last_split_dropped(
+                            x, w, apply_sequential(x, tensors, dims, pairs),
+                            device_limits(dev).sms), want)
             if main and dtype == torch.bfloat16:
                 chain = apply_sequential(x, tensors, dims, pairs)
                 planted("quanta_apply", "stages not rounded to bf16",
@@ -653,7 +689,20 @@ def check_kernels(card):
                           f"bit for bit: {same}")
                     if not same:
                         fail(f"{name} differs from the dense decode kernel")
-                elif window is None:
+                if quant is not None:
+                    # the code path is the split decode of the bf16 rows
+                    # with a code loader: bit for bit the same on the
+                    # decoded cache
+                    kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
+                    dense = FA.flash_decode_attention(q, kg, vg, lens,
+                                                      window=window)
+                    same = torch.equal(got, dense)
+                    print(f"check {name} {label} {str(dtype)[6:]}: equals "
+                          f"the dense decode kernel on the decoded cache bit "
+                          f"for bit: {same}")
+                    if dtype == torch.bfloat16 and not same:
+                        fail(f"{name} {label} differs from the split decode")
+                if window is None and quant is not None:
                     def library():      # dequantize + SDPA, one timed call
                         kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
                         return F.scaled_dot_product_attention(
@@ -669,6 +718,12 @@ def check_kernels(card):
                            **kw)),
                        lib, io + sum(used) * per_key,
                        4 * hd * h * sum(used), main)
+                if window is None and dtype == torch.bfloat16:
+                    split = launch_split(
+                        lambda: FA.paged_flash_decode_attention(
+                            q, k_src, v_src, tables, lens, **kw))
+                    print(f"split {name} {label}: {split_text(split)} "
+                          f"[{card}]")
                 if not (main and dtype == torch.bfloat16):
                     continue
                 if quant is None:
@@ -685,6 +740,12 @@ def check_kernels(card):
                     planted(name, "scale block off by one",
                             FA.paged_decode_attention_plain(
                                 q, k_src, v_src, tables, lens, **off), want)
+                    if quant == "nf4":
+                        planted(name, "odd and even nibbles swapped",
+                                FA.paged_decode_attention_plain(
+                                    q, nibbles_swapped(k_src),
+                                    nibbles_swapped(v_src), tables, lens,
+                                    **kw), want)
 
         # quantized matmul (kernel 7): NF4 and int8 weights with fp32
         # scales per 64 rows of d_in, the projections of llama2-7b at a
@@ -836,6 +897,26 @@ def check_banked(dtype, rnd, report, planted, dev, card):
                     planted("banked_lora_delta", "neighbour's id",
                             banked_lora_delta_ref(x, a, b, rolled, scale),
                             want)
+
+
+def last_split_dropped(x, w, chain, sms):
+    """``x @ w + chain`` as kernel 2's decode body would give it without
+    its last K split (``quanta_linear_plan`` on ``sms`` SMs): the K rows of
+    that split left out of the product."""
+    from repro_torch.kernels.smem import BANKED_STEP, quanta_linear_plan
+
+    rows, d_in = x.shape
+    plan = quanta_linear_plan(rows, d_in, w.shape[1], True, sms)
+    per = -(-(-(-d_in // BANKED_STEP)) // plan.gsplits) * BANKED_STEP
+    keep = (plan.gsplits - 1) * per
+    return (x[:, :keep].float() @ w[:keep].float()
+            + chain.float()).to(x.dtype)
+
+
+def nibbles_swapped(codes):
+    """NF4 codes with the two nibbles of each byte swapped: each odd
+    element decoded where its even neighbour belongs."""
+    return (codes << 4) | (codes >> 4)
 
 
 def swapped_stage(tensors, s):
@@ -1403,8 +1484,9 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     lp = _decode_once(ep, toks)
     ld = _decode_once(ed, toks)
     rel = rel_err(lp, ld)
-    print(f"qlora: one decode step, paged NF4 pool (kernel 6, attend_block) "
-          f"vs dense fake-quantized cache (kernel 4, split decode), logits "
+    print(f"qlora: one decode step, paged NF4 pool (kernel 6, split decode "
+          f"with a code loader) vs dense fake-quantized cache (kernel 4, "
+          f"split decode), logits "
           f"max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); logits shape "
           f"{tuple(ld.shape)}")
     if rel > PAGED_LOGIT_TOL:
@@ -1539,20 +1621,6 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32),
                    adapter=tenants[i] if tenants else None)
-    groups = (("quanta_apply", ("chain_bf16_kernel",)),
-              ("quanta_linear", ("gemm_bf16_kernel",)),
-              ("flash_attention", ("flash_forward",)),
-              ("decode_scores", ("dense_score_pass",)),
-              ("decode_values", ("dense_value_pass",)),
-              ("paged_scores", ("paged_score_pass",)),
-              ("paged_values", ("paged_value_pass",)),
-              ("paged_decode_quant", ("paged_decode_kernel",)),
-              ("quantized_matmul", ("qmm_",)),
-              ("banked_gather", ("fused_wgmma_kernel", "decode_gemm_kernel",
-                                 "combine_kernel")),
-              ("banked_shrink", ("shrink_kernel",)),
-              ("banked_reduce", ("reduce_kernel",)),
-              ("banked_delta", ("delta_kernel",)))
     for label, work, n in (("prefill", eng._admit, 1),
                            ("decode", eng.step, 8)):
         label = f"{path} {label}"
@@ -1571,7 +1639,7 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
         # own reduce_kernel among them) do not
         ours = {g: [k for k in by_name if "(anonymous namespace)" in k
                     and any(sub in k for sub in subs)]
-                for g, subs in groups}
+                for g, subs in PROFILE_GROUPS}
         parts = {g: (sum(by_name[k] for k in ks),
                      sum(launches[k] for k in ks))
                  for g, ks in ours.items()}

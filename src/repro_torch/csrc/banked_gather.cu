@@ -288,92 +288,17 @@ __global__ void __launch_bounds__(wg::kGemmThreads, 1)
   });
 }
 
-// bf16 decode body: block (column tile, split) computes the fp32 partial
-// out^T = W[k range, 64 columns]^T x[:, k range]^T for every row (RN: the
-// rows rounded up to 8 or 64, wgmma's N), W by TMA through a kDecStages
-// ring fed by the fifth warp's first thread.
-constexpr int kDecBN = 64, kDecStages = 4, kDecThreads = 160;
-constexpr int kDecBlocksPerSm = 4;   // the plan splits K to fill this many
-
+// bf16 decode body: the partial products of wg::decode_partials (W
+// streamed over every SM, K split), one split a blockIdx.y.
 template <int RN>
-struct DecPlan {
-  static constexpr int W = 64 * 128;                       // one panel
-  static constexpr int X = (RN * 128 + 1023) / 1024 * 1024;
-  static constexpr int STAGE = W + X;
-  static constexpr int BYTES = 1024 + kDecStages * STAGE + 2 * kDecStages * 8;
-};
-
-template <int RN>
-__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+__global__ void __launch_bounds__(wg::kDecThreads, wg::kDecBlocksPerSm)
     decode_gemm_kernel(const __grid_constant__ CUtensorMap tmx,
                        const __grid_constant__ CUtensorMap tmw,
                        float* __restrict__ part, int M, int N, int K,
                        int steps_per_split) {
-  using P = DecPlan<RN>;
-  constexpr int ST = kDecStages;
   extern __shared__ uint8_t dec_smem[];
-  uint8_t* smem = sm90::align1024(dec_smem);
-  const uint32_t base = sm90::smem_u32(smem);
-  const uint32_t bars = base + ST * P::STAGE;
-  auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (ST + s); };
-  const int tid = threadIdx.x, n0 = blockIdx.x * kDecBN;
-  const int steps = (K + 63) / 64;
-  const int s0 = blockIdx.y * steps_per_split;
-  const int T = min(steps, s0 + steps_per_split) - s0;
-  if (tid == 0) {
-    for (int s = 0; s < ST; ++s) {
-      sm90::mbar_init(full(s), 1);
-      sm90::mbar_init(empty(s), 128);
-    }
-    sm90::mbar_init_fence();
-  }
-  __syncthreads();
-  if (tid >= 128) {
-    if (tid != 128) return;
-    for (int n = 0; n < T; ++n) {
-      const int s = n % ST;
-      if (n >= ST) sm90::mbar_wait(empty(s), ((n / ST) - 1) & 1);
-      const uint32_t st = base + s * P::STAGE;
-      sm90::mbar_arrive_expect(full(s), P::W + RN * 128);
-      sm90::tma_load_2d(st, &tmw, n0, (s0 + n) * 64, full(s));
-      sm90::tma_load_2d(st + P::W, &tmx, (s0 + n) * 64, 0, full(s));
-    }
-    return;
-  }
-  float acc[RN / 2];
-#pragma unroll
-  for (int i = 0; i < RN / 2; ++i) acc[i] = 0.f;
-  for (int n = 0; n < T; ++n) {
-    const int s = n % ST;
-    sm90::mbar_wait(full(s), (n / ST) & 1);
-    const uint32_t ws = base + s * P::STAGE, xs = ws + P::W;
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_ss<RN, 1, 0>(acc, sm90::desc(ws + kk * 2048, P::W, 1024),
-                               sm90::desc(xs + 32 * kk, 16, 1024), 1);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();
-    if (n > 0) sm90::mbar_arrive(empty((n - 1) % ST));
-  }
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-  // acc[4j + 2h + c]: W column n0 + 16 * warp + lane / 4 + 8h, x row
-  // 8j + 2 * (lane % 4) + c
-  const int lane = tid & 31;
-  const int col = n0 + 16 * (tid >> 5) + (lane >> 2);
-  float* pz = part + (size_t)blockIdx.y * M * N;
-#pragma unroll
-  for (int j = 0; j < RN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int row = 8 * j + 2 * (lane & 3) + c;
-        if (row < M && col + 8 * h < N)
-          pz[(size_t)row * N + col + 8 * h] = acc[4 * j + 2 * h + c];
-      }
+  wg::decode_partials<RN>(&tmx, &tmw, part, M, N, K, steps_per_split,
+                          dec_smem);
 }
 
 // The decode body's second pass: out[row, col] = the splits' partials
@@ -417,25 +342,6 @@ __global__ void __launch_bounds__(256)
   });
 }
 
-constexpr int kMaxDevices = 64;
-
-// Raise the kernel's dynamic shared-memory cap to `bytes` on the current
-// device, once per device; refuse what the device cannot give.
-template <typename K>
-int allow_smem(K kernel, int bytes, int smem_limit, int* granted) {
-  if (bytes > smem_limit) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (bytes <= granted[dev]) return 0;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  granted[dev] = bytes;
-  return 0;
-}
-
 // What the launches take, as the entry point received it.
 struct Args {
   int variant;
@@ -450,11 +356,11 @@ struct Args {
 
 template <int BN, typename AT>
 int launch_prefill(const Args& g, cudaStream_t s) {
-  static int granted[kMaxDevices] = {};
+  static int granted[wg::kMaxDevices] = {};
   const int M = g.n_slots * g.S;
   constexpr int smem = wg::GemmPlan<BN>::BYTES;
-  int err =
-      allow_smem(fused_wgmma_kernel<BN, AT>, smem, g.smem_limit, granted);
+  int err = wg::allow_smem(fused_wgmma_kernel<BN, AT>, smem, g.smem_limit,
+                           granted);
   if (err) return err;
   CUtensorMap tmx, tmw;
   if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, wg::kGemmBM, 64)) ||
@@ -470,10 +376,11 @@ int launch_prefill(const Args& g, cudaStream_t s) {
 
 template <int RN, typename AT>
 int launch_decode_rn(const Args& g, cudaStream_t s) {
-  static int granted[kMaxDevices] = {};
+  static int granted[wg::kMaxDevices] = {};
   const int M = g.n_slots * g.S;
-  constexpr int smem = DecPlan<RN>::BYTES;
-  int err = allow_smem(decode_gemm_kernel<RN>, smem, g.smem_limit, granted);
+  constexpr int smem = wg::DecPlan<RN>::BYTES;
+  int err =
+      wg::allow_smem(decode_gemm_kernel<RN>, smem, g.smem_limit, granted);
   if (err) return err;
   const int steps = (g.d_in + 63) / 64;
   const int per = (steps + g.gsplits - 1) / g.gsplits;
@@ -484,8 +391,9 @@ int launch_decode_rn(const Args& g, cudaStream_t s) {
       (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
     return err;
   decode_gemm_kernel<RN>
-      <<<dim3((g.d_out + kDecBN - 1) / kDecBN, g.gsplits), kDecThreads, smem,
-         s>>>(tmx, tmw, g.gpart, M, g.d_out, g.d_in, per);
+      <<<dim3((g.d_out + wg::kDecBN - 1) / wg::kDecBN, g.gsplits),
+         wg::kDecThreads, smem, s>>>(tmx, tmw, g.gpart, M, g.d_out, g.d_in,
+                                     per);
   if ((err = (int)cudaGetLastError())) return err;
   combine_kernel<AT><<<dim3((g.d_out + 255) / 256, M), 256, 0, s>>>(
       g.gpart, g.gsplits, g.za, g.zpart, g.splits,

@@ -38,10 +38,10 @@
 // (_visible_j_range), and tiles wholly inside the causal window skip the
 // mask.  QK^T is summed in partial sums of 8 products (see the body).
 //
-// The bf16 decodes over rows (dense cache and pool) split each step over
-// the card in two passes that keep attend_block's bits (dec::, below the
-// forward).  The float32 forward, the float32
-// decodes and the decodes over NF4/int8 codes share attend_block,
+// The bf16 decodes (over a dense cache, a pool of rows or a pool of
+// NF4/int8 codes) split each step over the card in two passes that keep
+// attend_block's bits (dec::, below the forward).  The float32 forward
+// and the float32 decodes (over rows or codes) share attend_block,
 // templated on how a key and value element is fetched: up to 64 query rows
 // against a walk over 64-key tiles in SIMT fp32 (float32 must not round
 // through TF32).  Decode reads each valid key and value row once for G =
@@ -71,19 +71,14 @@ constexpr int kMaxHd = 128;
 constexpr float kMask = -1e30f;
 constexpr int kMaxDevices = 64;
 
+// attend_block's conversions to and from the value dtype T: float32 only
+// (the bf16 bodies convert with the intrinsics)
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 size_t smem_bytes(int hd) {
@@ -136,8 +131,9 @@ struct PagedKV {
 };
 
 // A paged pool of NF4 (FMT 0) or int8 (FMT 1) codes with fp32 scales per
-// qb elements; cb is the 16-entry NF4 codebook in shared memory.
-template <typename T, int FMT>
+// qb elements, read for float32 queries (bf16 ones take the split decode's
+// code path); cb is the 16-entry NF4 codebook in shared memory.
+template <int FMT>
 struct PagedQuantKV {
   const uint8_t* k;
   const uint8_t* v;
@@ -158,8 +154,8 @@ struct PagedQuantKV {
                                        float* vval) const {
     const long long row = rows.row(pos);
     const long long si = row * nsb + d / qb;
-    *kval = to_f(from_f<T>(code(k, row, d) * ks[si]));
-    *vval = to_f(from_f<T>(code(v, row, d) * vs[si]));
+    *kval = code(k, row, d) * ks[si];
+    *vval = code(v, row, d) * vs[si];
   }
 };
 
@@ -396,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
     attend_block<T>(q, o, kv, (long long)a.hd, G, a.hd, q_pos, 0, s_kv, j_lo,
                     j_hi, a.window, a.scale);
   } else {
-    const PagedQuantKV<T, FMT> kv{
+    const PagedQuantKV<FMT> kv{
         static_cast<const uint8_t*>(a.k), static_cast<const uint8_t*>(a.v),
         a.ks, a.vs, cb, rows, a.hd, a.qb, (a.hd + a.qb - 1) / a.qb};
     attend_block<T>(q, o, kv, (long long)a.hd, G, a.hd, q_pos, 0, s_kv, j_lo,
@@ -704,9 +700,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace fwd
 
-// ----------------------------------------- bf16 split decode (4, 5)
+// -------------------------------------- bf16 split decode (4, 5, 6)
 //
-// The bf16 bodies of _decode_kernel and _paged_decode_kernel.  A decode
+// The bf16 bodies of _decode_kernel, _paged_decode_kernel and
+// _paged_decode_quant_kernel (the code path, below).  A decode
 // step reads each visible key and value row once (2 * hd bytes each) for
 // 4 * G * hd FLOPs, G = H / KV query rows: 1 FLOP a byte at G = 1, bound
 // by bytes.  The one-block walk of attend_block reads a slot's keys tile
@@ -754,6 +751,7 @@ constexpr int kDecStages = 2;       // K tiles in flight in a score block
 constexpr int kDecSlice = 32;       // head dims of a value block
 constexpr int kDecValueStages = 4;  // tiles in a value block's ring
 constexpr int kDecBlocksPerSm = 8;  // 64 registers a thread at most
+constexpr int kQuantScales = 4;     // scales of a K row a code stage holds
 
 // a score block: a ring of stages bf16 K tiles and the fp32 query
 size_t score_smem(int hd, int G, int stages) {
@@ -768,16 +766,42 @@ size_t value_smem(int G) {
          4 * (size_t)G * (kDecSlice + 2 + kDecValueStages);
 }
 
+// the code path (kernel 6, FMT 0 NF4 or 1 int8): a score block holds one
+// bf16 K tile, the fp32 query, a ring of stages code stages (64 rows of
+// codes, padded to HDP elements, and kQuantScales fp32 scales a row) and
+// the codebook
+size_t quant_score_smem(int hd, int G, int stages, int fmt) {
+  const size_t hdp = hd <= 64 ? 64 : 128;
+  const size_t crow = fmt == 0 ? hdp / 2 : hdp;
+  return kKeys * hdp * 2 + 4 * (size_t)G * hdp +
+         (size_t)stages * kKeys * (crow + 4 * kQuantScales) + 64;
+}
+
+// a value block of the code path: value_smem's ring with the codes of
+// each stage's V slice and the scale of each of its 8-dim chunks, then the
+// codebook
+size_t quant_value_smem(int G, int fmt) {
+  const size_t crow = fmt == 0 ? kDecSlice / 2 : kDecSlice;
+  return value_smem(G) +
+         (size_t)kDecValueStages * kKeys * (crow + 4 * (kDecSlice / 8)) + 64;
+}
+
 struct Args {
   const __nv_bfloat16* q;  // (B, H, hd)
   const __nv_bfloat16* k;  // (B, extent, KV, hd), or a pool (n, bs, KV, hd)
   const __nv_bfloat16* v;
+  const uint8_t* kq;       // code pools (n, bs, KV, hd / 2 | hd), kernel 6
+  const uint8_t* vq;
+  const float* ks;         // their fp32 scales (n, bs, KV, nsb)
+  const float* vs;
+  const float* cb;         // the 16-entry NF4 codebook
   const int* tables;       // (B, n_b) pool rows; null for a dense cache
   const int* lens;         // (B,)
   __nv_bfloat16* o;        // (B, H, hd)
   float* scores;           // (B, H, extent): scale * q.k, MASK if hidden
   int extent, n_b, bs, H, KV, hd, window;
-  int chunk_tiles, stages, vec;
+  int chunk_tiles, stages, vec;  // vec: rows, or code rows, by 16 bytes
+  int qb, nsb;                   // codes: scale block, scales a row
   float scale;
 };
 
@@ -858,17 +882,67 @@ __device__ __forceinline__ float2 bf2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
+// scale * q.k of the G rows against the keys of one bf16 tile (rows in
+// the ring layout) from kv0 below the slot's length, MASK where the window
+// hides them: one (row, key) pair a thread, the dot over hd in order
+template <int HDP, bool PAGED>
+__device__ __forceinline__ void tile_scores(const Args& a,
+                                            const Slot<PAGED>& sl,
+                                            const float* Qs,
+                                            const uint8_t* kt, int kv0) {
+  constexpr int CHP = HDP / 8, ROWB = HDP * 2;
+  const int hd = a.hd;
+  for (int i = threadIdx.x; i < sl.G * kKeys; i += kDecThreads) {
+    const int r = i / kKeys, kk = i % kKeys, pos = kv0 + kk;
+    if (pos >= sl.s_kv) continue;
+    const uint8_t* krow = kt + kk * ROWB;
+    const float* qr = Qs + r * HDP;
+    float s = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CHP; ++cc) {
+      if (8 * cc < hd) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            krow + ((cc ^ (kk & 7)) << 4));
+        const float4 qa = *reinterpret_cast<const float4*>(qr + 8 * cc);
+        const float4 qb = *reinterpret_cast<const float4*>(qr + 8 * cc + 4);
+        const float2 k0 = bf2(raw.x), k1 = bf2(raw.y), k2 = bf2(raw.z),
+                     k3 = bf2(raw.w);
+        s = fmaf(qa.x, k0.x, s);
+        s = fmaf(qa.y, k0.y, s);
+        s = fmaf(qa.z, k1.x, s);
+        s = fmaf(qa.w, k1.y, s);
+        s = fmaf(qb.x, k2.x, s);
+        s = fmaf(qb.y, k2.y, s);
+        s = fmaf(qb.z, k3.x, s);
+        s = fmaf(qb.w, k3.y, s);
+      }
+    }
+    const bool ok = a.window < 0 || sl.len - 1 - pos < a.window;
+    a.scores[(sl.row0 + r) * a.extent + pos] = ok ? s * a.scale : kMask;
+  }
+}
+
+// the fp32 query of the G rows of the block's group, zero past hd
+template <int HDP, bool PAGED>
+__device__ __forceinline__ void load_query(const Args& a,
+                                           const Slot<PAGED>& sl, float* Qs) {
+  for (int i = threadIdx.x; i < sl.G * HDP; i += kDecThreads) {
+    const int r = i / HDP, d = i % HDP;
+    Qs[i] = d < a.hd ? __bfloat162float(a.q[(sl.row0 + r) * a.hd + d]) : 0.f;
+  }
+}
+
 // The score pass: scale * q.k of every key of the block's chunk below the
 // slot's length, MASK where the window hides it.
 template <int HDP, bool PAGED>
 __device__ __forceinline__ void score_body(const Args& a) {
-  constexpr int CHP = HDP / 8, ROWB = HDP * 2, TILE = kKeys * ROWB;
+  constexpr int TILE = kKeys * HDP * 2;
   extern __shared__ __align__(16) uint8_t dec_smem[];
   const Slot<PAGED> sl(a);
   const int t0 = max(sl.j_lo, (int)blockIdx.x * a.chunk_tiles);
   const int t1 = min(sl.j_hi, ((int)blockIdx.x + 1) * a.chunk_tiles - 1);
   if (t0 > t1) return;  // no visible key in this chunk
-  const int G = sl.G, hd = a.hd, nt = t1 - t0 + 1, tid = threadIdx.x;
+  const int nt = t1 - t0 + 1;
   uint8_t* ring = dec_smem;
   float* Qs = reinterpret_cast<float*>(ring + a.stages * TILE);
 
@@ -879,50 +953,33 @@ __device__ __forceinline__ void score_body(const Args& a) {
     load_keys<HDP, PAGED>(a, sl.rows, ring + TILE, (t0 + 1) * kKeys,
                           sl.s_kv);
   sm90::cp_async_commit();
-  for (int i = tid; i < G * HDP; i += kDecThreads) {
-    const int r = i / HDP, d = i % HDP;
-    Qs[i] = d < hd ? __bfloat162float(a.q[(sl.row0 + r) * hd + d]) : 0.f;
-  }
+  load_query<HDP, PAGED>(a, sl, Qs);
 
   for (int n = 0; n < nt; ++n) {
     const int kv0 = (t0 + n) * kKeys;
-    const uint8_t* kt = ring + (n & 1) * TILE;
     sm90::cp_async_wait<1>();  // tile n has landed (tile n + 1 may not)
     __syncthreads();
-    // one (row, key) pair a thread, the dot over hd in order
-    for (int i = tid; i < G * kKeys; i += kDecThreads) {
-      const int r = i / kKeys, kk = i % kKeys, pos = kv0 + kk;
-      if (pos >= sl.s_kv) continue;
-      const uint8_t* krow = kt + kk * ROWB;
-      const float* qr = Qs + r * HDP;
-      float s = 0.f;
-#pragma unroll
-      for (int cc = 0; cc < CHP; ++cc) {
-        if (8 * cc < hd) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              krow + ((cc ^ (kk & 7)) << 4));
-          const float4 qa = *reinterpret_cast<const float4*>(qr + 8 * cc);
-          const float4 qb = *reinterpret_cast<const float4*>(qr + 8 * cc + 4);
-          const float2 k0 = bf2(raw.x), k1 = bf2(raw.y), k2 = bf2(raw.z),
-                       k3 = bf2(raw.w);
-          s = fmaf(qa.x, k0.x, s);
-          s = fmaf(qa.y, k0.y, s);
-          s = fmaf(qa.z, k1.x, s);
-          s = fmaf(qa.w, k1.y, s);
-          s = fmaf(qb.x, k2.x, s);
-          s = fmaf(qb.y, k2.y, s);
-          s = fmaf(qb.z, k3.x, s);
-          s = fmaf(qb.w, k3.y, s);
-        }
-      }
-      const bool ok = a.window < 0 || sl.len - 1 - pos < a.window;
-      a.scores[(sl.row0 + r) * a.extent + pos] = ok ? s * a.scale : kMask;
-    }
+    tile_scores<HDP, PAGED>(a, sl, Qs, ring + (n & 1) * TILE, kv0);
     __syncthreads();  // stage n % 2 is free again
     if (n + 2 < nt)
       load_keys<HDP, PAGED>(a, sl.rows, ring + (n & 1) * TILE,
                             kv0 + 2 * kKeys, sl.s_kv);
     sm90::cp_async_commit();
+  }
+}
+
+// a value block's stage for the tile from kv0: the scores of the G rows
+// (zero at or past s_kv), after the tile's V slice
+template <bool PAGED>
+__device__ __forceinline__ void load_scores(const Args& a,
+                                            const Slot<PAGED>& sl,
+                                            uint8_t* stage, int kv0) {
+  const uint32_t sc = sm90::smem_u32(stage) + kKeys * kDecSlice * 2;
+  for (int i = threadIdx.x; i < sl.G * kKeys; i += kDecThreads) {
+    const int r = i / kKeys, pos = kv0 + i % kKeys;
+    const bool ok = pos < sl.s_kv;
+    sm90::cp_async4(sc + 4 * i,
+                    a.scores + (ok ? (sl.row0 + r) * a.extent + pos : 0), ok);
   }
 }
 
@@ -956,13 +1013,259 @@ __device__ __forceinline__ void load_values(const Args& a,
                         : __float2bfloat16(0.f);
     }
   }
-  const uint32_t sc = st + kKeys * SLB;
-  for (int i = threadIdx.x; i < sl.G * kKeys; i += kDecThreads) {
-    const int r = i / kKeys, pos = kv0 + i % kKeys;
-    const bool ok = pos < sl.s_kv;
-    sm90::cp_async4(sc + 4 * i,
-                    a.scores + (ok ? (sl.row0 + r) * a.extent + pos : 0), ok);
+  load_scores<PAGED>(a, sl, stage, kv0);
+}
+
+// ------------------------------------------- the code path (kernel 6)
+//
+// NF4 (FMT 0: uint8, two codes a byte, high nibble = even element) or
+// int8 (FMT 1) code pools with fp32 scales per qb elements of a row.  A
+// code loader fills the same bf16 tiles that load_keys and load_values
+// fill from rows, each element decoded as the plain version decodes a
+// pool (kv_dequant_values): __float2bfloat16(code value * scale) with the
+// product in fp32, so everything after the fill is the rows' arithmetic
+// and keeps its bits.  With vec (code rows 16-byte
+// aligned, qb a multiple of 8 and at most kQuantScales scales a row) the
+// codes and scales of a tile come by cp.async into a staging stage and
+// are decoded once they have landed, 8 elements (one scale) at a time;
+// otherwise each element is read and decoded from device memory into the
+// same layouts.
+
+// the value of element d of a code row, as PagedQuantKV::code reads it,
+// times its scale
+template <int FMT>
+__device__ __forceinline__ float code_value(const Args& a, const uint8_t* c,
+                                            const float* sc, long long row,
+                                            int d, const float* cb) {
+  float v;
+  if constexpr (FMT == 0) {
+    const uint8_t b = c[row * (a.hd >> 1) + (d >> 1)];
+    v = cb[(d & 1) ? (b & 15) : (b >> 4)];
+  } else {
+    v = (float)reinterpret_cast<const int8_t*>(c)[row * a.hd + d];
   }
+  return v * sc[row * a.nsb + d / a.qb];
+}
+
+// 8 consecutive elements from their codes (4 bytes NF4, 8 bytes int8) and
+// their one scale, rounded to bf16: 16 bytes of a tile row
+template <int FMT>
+__device__ __forceinline__ uint4 decode8(const uint8_t* c, float s,
+                                         const float* cb) {
+  float f[8];
+  if constexpr (FMT == 0) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t b = (w >> (8 * j)) & 255u;
+      f[2 * j] = cb[b >> 4] * s;
+      f[2 * j + 1] = cb[b & 15u] * s;
+    }
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      f[j] = (float)(int8_t)(((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 255u) *
+             s;
+  }
+  return make_uint4(sm90::pack_bf16(f[0], f[1]), sm90::pack_bf16(f[2], f[3]),
+                    sm90::pack_bf16(f[4], f[5]), sm90::pack_bf16(f[6], f[7]));
+}
+
+// code bytes of n elements
+template <int FMT>
+__host__ __device__ constexpr int code_bytes(int n) {
+  return FMT == 0 ? n / 2 : n;
+}
+
+// the scale block of element d of a row with at most kQuantScales of
+// them (the staged path), without a division
+__device__ __forceinline__ int scale_block(int d, int qb) {
+  return (d >= qb) + (d >= 2 * qb) + (d >= 3 * qb);
+}
+
+// A code stage is filled two threads a row (kKeys rows, kDecThreads
+// threads): thread t takes row t / 2 and finds its pool row once.
+static_assert(kDecThreads == 2 * kKeys, "two threads a staged row");
+
+// a score block's code stage for the 64 K rows from kv0: each row's codes
+// (16-byte pieces) and its nsb scales, the row's two threads taking every
+// other one; zero at or past s_kv
+template <int HDP, int FMT>
+__device__ __forceinline__ void stage_key_codes(const Args& a,
+                                                const Rows<true>& rows,
+                                                uint8_t* stg, int kv0,
+                                                int s_kv) {
+  constexpr int CROW = code_bytes<FMT>(HDP);
+  const int rowb = code_bytes<FMT>(a.hd);
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, pos = kv0 + r;
+  const bool ok = pos < s_kv;
+  const long long row = ok ? rows.row(pos) : 0;
+  const uint32_t cs = sm90::smem_u32(stg) + r * CROW;
+  const uint32_t ss = sm90::smem_u32(stg) + kKeys * CROW +
+                      4 * r * kQuantScales;
+  for (int c = h; 16 * c < rowb; c += 2)
+    sm90::cp_async16(cs + 16 * c, a.kq + row * rowb + 16 * c, ok);
+  for (int c = h; c < a.nsb; c += 2)
+    sm90::cp_async4(ss + 4 * c, a.ks + row * a.nsb + c, ok);
+}
+
+// the 64 K rows from kv0 decoded into a bf16 tile of the ring layout: from
+// a landed code stage (vec), else element by element from device memory;
+// rows at or past s_kv are zero
+template <int HDP, int FMT>
+__device__ __forceinline__ void fill_key_tile(const Args& a,
+                                              const Rows<true>& rows,
+                                              const uint8_t* stg,
+                                              uint8_t* tile, int kv0,
+                                              int s_kv, const float* cb) {
+  constexpr int CHP = HDP / 8, ROWB = HDP * 2, CROW = code_bytes<FMT>(HDP);
+  if (a.vec) {
+    const float* ss = reinterpret_cast<const float*>(stg + kKeys * CROW);
+    for (int i = threadIdx.x; i < kKeys * CHP; i += kDecThreads) {
+      const int r = i / CHP, c = i % CHP;
+      if (8 * c >= a.hd) continue;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < s_kv)
+        val = decode8<FMT>(stg + r * CROW + code_bytes<FMT>(8 * c),
+                           ss[r * kQuantScales + scale_block(8 * c, a.qb)],
+                           cb);
+      *reinterpret_cast<uint4*>(tile + r * ROWB + ((c ^ (r & 7)) << 4)) =
+          val;
+    }
+    return;
+  }
+  const int width = (a.hd + 7) & ~7;  // whole chunks, zeros past hd
+  for (int i = threadIdx.x; i < kKeys * HDP; i += kDecThreads) {
+    const int r = i / HDP, e = i % HDP;
+    if (e >= width) continue;
+    const int pos = kv0 + r;
+    const float val = pos < s_kv && e < a.hd
+                          ? code_value<FMT>(a, a.kq, a.ks, rows.row(pos), e,
+                                            cb)
+                          : 0.f;
+    *reinterpret_cast<__nv_bfloat16*>(
+        tile + r * ROWB + (((e >> 3) ^ (r & 7)) << 4) + 2 * (e & 7)) =
+        __float2bfloat16(val);
+  }
+}
+
+// the score pass over code pools: the rows' dots (tile_scores) over one
+// bf16 tile that each visited tile is decoded into, while the codes of the
+// next tiles are in flight in a ring of stages code stages
+template <int HDP, int FMT>
+__device__ __forceinline__ void quant_score_body(const Args& a) {
+  constexpr int TILE = kKeys * HDP * 2;
+  constexpr int STG = kKeys * (code_bytes<FMT>(HDP) + 4 * kQuantScales);
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const Slot<true> sl(a);
+  const int t0 = max(sl.j_lo, (int)blockIdx.x * a.chunk_tiles);
+  const int t1 = min(sl.j_hi, ((int)blockIdx.x + 1) * a.chunk_tiles - 1);
+  if (t0 > t1) return;  // no visible key in this chunk
+  const int nt = t1 - t0 + 1;
+  uint8_t* tile = dec_smem;
+  float* Qs = reinterpret_cast<float*>(dec_smem + TILE);
+  uint8_t* stg = dec_smem + TILE + 4 * sl.G * HDP;
+  float* cb = reinterpret_cast<float*>(stg + a.stages * STG);
+  if (FMT == 0 && threadIdx.x < 16) cb[threadIdx.x] = a.cb[threadIdx.x];
+
+  // code stage n % 2 holds tile n, two in flight
+  for (int n = 0; n < 2; ++n) {
+    if (a.vec && n < nt)
+      stage_key_codes<HDP, FMT>(a, sl.rows, stg + n * STG,
+                                (t0 + n) * kKeys, sl.s_kv);
+    sm90::cp_async_commit();
+  }
+  load_query<HDP, true>(a, sl, Qs);
+
+  for (int n = 0; n < nt; ++n) {
+    const int kv0 = (t0 + n) * kKeys;
+    sm90::cp_async_wait<1>();  // tile n's codes have landed
+    __syncthreads();           // and the last tile's dots are done
+    fill_key_tile<HDP, FMT>(a, sl.rows, stg + (n & 1) * STG, tile, kv0,
+                            sl.s_kv, cb);
+    __syncthreads();  // the tile is whole; code stage n % 2 is free
+    if (a.vec && n + 2 < nt)
+      stage_key_codes<HDP, FMT>(a, sl.rows, stg + (n & 1) * STG,
+                                kv0 + 2 * kKeys, sl.s_kv);
+    sm90::cp_async_commit();
+    tile_scores<HDP, true>(a, sl, Qs, tile, kv0);
+  }
+}
+
+// a value block's code stage for the tile from kv0: the codes of the
+// slice [d0, d0 + sd) of its 64 V rows (16-byte pieces) and the scale of
+// each 8-dim chunk of it, the row's two threads taking half of each; zero
+// at or past s_kv
+template <int FMT>
+__device__ __forceinline__ void stage_value_codes(const Args& a,
+                                                  const Slot<true>& sl,
+                                                  uint8_t* codes, int d0,
+                                                  int sd, int kv0) {
+  constexpr int CROW = code_bytes<FMT>(kDecSlice), NCH = kDecSlice / 8;
+  const int rowb = code_bytes<FMT>(a.hd);
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, pos = kv0 + r;
+  const bool ok = pos < sl.s_kv;
+  const long long row = ok ? sl.rows.row(pos) : 0;
+  const uint32_t cs = sm90::smem_u32(codes) + r * CROW;
+  const uint32_t ss = sm90::smem_u32(codes) + kKeys * CROW + 4 * r * NCH;
+  const uint8_t* src = a.vq + row * rowb + code_bytes<FMT>(d0);
+  for (int c = h; 16 * c < code_bytes<FMT>(sd); c += 2)
+    sm90::cp_async16(cs + 16 * c, src + 16 * c, ok);
+  for (int c = 2 * h; c < 2 * h + 2 && 8 * c < sd; ++c)
+    sm90::cp_async4(ss + 4 * c,
+                    a.vs + row * a.nsb + scale_block(d0 + 8 * c, a.qb), ok);
+}
+
+// a value stage's bf16 V slice (64 B a row) decoded from its landed code
+// stage by warps 1 and 2, a row a thread: with one query row a group, PV
+// runs on warp 0 and the softmax on warp 3, and the decode of the next
+// tile beside them.  Rows at or past s_kv are zero.
+template <int FMT>
+__device__ __forceinline__ void decode_value_codes(uint8_t* vt,
+                                                   const uint8_t* codes,
+                                                   int sd, int kv0, int s_kv,
+                                                   const float* cb) {
+  constexpr int CROW = code_bytes<FMT>(kDecSlice), NCH = kDecSlice / 8;
+  static_assert(kDecThreads >= 32 + kKeys, "warps 1 and 2 hold the rows");
+  const float* ss = reinterpret_cast<const float*>(codes + kKeys * CROW);
+  const int r = (int)threadIdx.x - 32;
+  if (r < 0 || r >= kKeys) return;
+  const bool ok = kv0 + r < s_kv;
+  for (int c = 0; c < NCH && 8 * c < sd; ++c) {
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (ok)
+      val = decode8<FMT>(codes + r * CROW + code_bytes<FMT>(8 * c),
+                         ss[r * NCH + c], cb);
+    *reinterpret_cast<uint4*>(vt + r * kDecSlice * 2 + 16 * c) = val;
+  }
+}
+
+// a value stage of the code path: the codes staged (vec), else the slice
+// decoded element by element into the bf16 V slice; then the scores
+template <int FMT>
+__device__ __forceinline__ void load_value_codes(const Args& a,
+                                                 const Slot<true>& sl,
+                                                 uint8_t* stage,
+                                                 uint8_t* codes, int d0,
+                                                 int sd, int kv0,
+                                                 const float* cb) {
+  if (a.vec) {
+    stage_value_codes<FMT>(a, sl, codes, d0, sd, kv0);
+  } else {
+    for (int i = threadIdx.x; i < kKeys * kDecSlice; i += kDecThreads) {
+      const int r = i / kDecSlice, e = i % kDecSlice;
+      if (e >= sd) continue;
+      const int pos = kv0 + r;
+      const float val = pos < sl.s_kv
+                            ? code_value<FMT>(a, a.vq, a.vs,
+                                              sl.rows.row(pos), d0 + e, cb)
+                            : 0.f;
+      *reinterpret_cast<__nv_bfloat16*>(stage + r * kDecSlice * 2 + 2 * e) =
+          __float2bfloat16(val);
+    }
+  }
+  load_scores<true>(a, sl, stage, kv0);
 }
 
 // The value pass: the block's slice of the output, by attend_block's walk
@@ -971,8 +1274,10 @@ __device__ __forceinline__ void load_values(const Args& a,
 // last warps (rows r on warp 3 - r % 4) while PV starts from the first:
 // one barrier a tile.  Stage n % VS holds tile n: while PV reads stage n
 // and the softmax stage n + 1, tiles n + 2 .. n + VS - 2 are in flight and
-// tile n + VS - 1 is issued into the stage PV freed last.
-template <bool PAGED>
+// tile n + VS - 1 is issued into the stage PV freed last.  Over code
+// pools (FMT 0 NF4, 1 int8) a stage also holds the codes of its V slice,
+// decoded into its bf16 slice while PV runs on the tile before.
+template <bool PAGED, int FMT = -1>
 __device__ __forceinline__ void value_body(const Args& a) {
   constexpr int SLB = kDecSlice * 2, VS = kDecValueStages;
   constexpr int WARPS = kDecThreads / 32;
@@ -982,16 +1287,39 @@ __device__ __forceinline__ void value_body(const Args& a) {
   const int G = sl.G, hd = a.hd, nt = sl.j_hi - sl.j_lo + 1;
   const int d0 = blockIdx.x * kDecSlice, sd = min(kDecSlice, hd - d0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int stage_bytes = kKeys * SLB + 4 * G * kKeys;
+  // a stage: the bf16 V slice, the scores, then (codes) the code stage
+  const int code_stage =
+      FMT < 0 ? 0 : kKeys * (code_bytes<FMT>(kDecSlice) + 4 * (kDecSlice / 8));
+  const int stage_bytes = kKeys * SLB + 4 * G * kKeys + code_stage;
   uint8_t* ring = dec_smem;
   float* Acc = reinterpret_cast<float*>(ring + VS * stage_bytes);
   float* Ms = Acc + G * kDecSlice;
   float* Ls = Ms + G;
   float* Al = Ls + G;  // (VS, G): alpha of the tile in each stage
+  float* cb = Al + VS * G;  // codes: the NF4 codebook
   auto stage = [&](int n) { return ring + (n % VS) * stage_bytes; };
   auto scores = [&](int n) {
     return reinterpret_cast<float*>(stage(n) + kKeys * SLB);
   };
+  auto codes = [&](int n) { return stage(n) + kKeys * SLB + 4 * G * kKeys; };
+  auto load = [&](int n) {
+    const int kv0 = (sl.j_lo + n) * kKeys;
+    if constexpr (FMT < 0)
+      load_values<PAGED>(a, sl, stage(n), d0, sd, kv0);
+    else
+      load_value_codes<FMT>(a, sl, stage(n), codes(n), d0, sd, kv0, cb);
+  };
+  // the bf16 V slice of tile n from its landed code stage
+  auto decode = [&](int n) {
+    if constexpr (FMT >= 0)
+      if (a.vec)
+        decode_value_codes<FMT>(stage(n), codes(n), sd,
+                                (sl.j_lo + n) * kKeys, sl.s_kv, cb);
+  };
+  if constexpr (FMT == 0) {
+    if (tid < 16) cb[tid] = a.cb[tid];
+    __syncthreads();
+  }
 
   // online softmax of tile n, as attend_block: p in bf16 in place
   auto softmax = [&](int n) {
@@ -1024,8 +1352,7 @@ __device__ __forceinline__ void value_body(const Args& a) {
   };
 
   for (int n = 0; n < VS - 1; ++n) {
-    if (n < nt)
-      load_values<PAGED>(a, sl, stage(n), d0, sd, (sl.j_lo + n) * kKeys);
+    if (n < nt) load(n);
     sm90::cp_async_commit();
   }
   for (int i = tid; i < G * kDecSlice; i += kDecThreads) Acc[i] = 0.f;
@@ -1035,15 +1362,17 @@ __device__ __forceinline__ void value_body(const Args& a) {
   }
   sm90::cp_async_wait<VS - 2>();  // tile 0 has landed
   __syncthreads();
-  if (nt > 0) softmax(0);
+  if (nt > 0) {
+    softmax(0);
+    decode(0);
+  }
 
   for (int n = 0; n < nt; ++n) {
     sm90::cp_async_wait<VS - 3>();  // tiles up to n + 1 have landed
     __syncthreads();  // softmax(n) and PV(n - 1) are done
-    if (n + VS - 1 < nt)
-      load_values<PAGED>(a, sl, stage(n + VS - 1), d0, sd,
-                         (sl.j_lo + n + VS - 1) * kKeys);
+    if (n + VS - 1 < nt) load(n + VS - 1);
     sm90::cp_async_commit();
+    if (n + 1 < nt) decode(n + 1);
 
     // PV: one (row, dim) a thread, the accumulator rescaled, then the
     // tile's keys added in order
@@ -1092,9 +1421,22 @@ __global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
   value_body<true>(a);
 }
 
+template <int HDP, int FMT>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    quant_score_pass(Args a) {
+  quant_score_body<HDP, FMT>(a);
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(kDecThreads, kDecBlocksPerSm)
+    quant_value_pass(Args a) {
+  value_body<true, FMT>(a);
+}
+
 // the shared memory granted to one pass kernel, per device: a table for
-// each kernel (the value pass serves both head-dim paddings, so it keeps
-// one table for the two)
+// each kernel (a value pass serves both head-dim paddings, so it keeps one
+// table for the two): 0, 1 the rows' value passes, 2-5 their score
+// passes, 6-9 the code path's score passes, 10, 11 its value passes
 template <int KERNEL>
 int* granted() {
   static int table[kMaxDevices] = {};
@@ -1102,11 +1444,9 @@ int* granted() {
 }
 
 template <typename S, typename V>
-int run(S scores, int* s_granted, V values, int* v_granted, const Args& a,
-        int B, int splits, int smem_limit, cudaStream_t s) {
-  const int G = a.H / a.KV;
-  const size_t s_smem = score_smem(a.hd, G, a.stages);
-  const size_t v_smem = value_smem(G);
+int run(S scores, size_t s_smem, int* s_granted, V values, size_t v_smem,
+        int* v_granted, const Args& a, int B, int splits, int smem_limit,
+        cudaStream_t s) {
   int err = allow_smem(scores, s_smem, smem_limit, s_granted);
   if (!err) err = allow_smem(values, v_smem, smem_limit, v_granted);
   if (err) return err;
@@ -1122,12 +1462,28 @@ template <int HDP, bool PAGED>
 int launch(const Args& a, int B, int splits, int smem_limit,
            cudaStream_t s) {
   constexpr int score = 2 + 2 * PAGED + (HDP == 128);
+  const int G = a.H / a.KV;
+  const size_t s_smem = score_smem(a.hd, G, a.stages), v_smem = value_smem(G);
   if constexpr (PAGED)
-    return run(paged_score_pass<HDP>, granted<score>(), paged_value_pass,
-               granted<1>(), a, B, splits, smem_limit, s);
+    return run(paged_score_pass<HDP>, s_smem, granted<score>(),
+               paged_value_pass, v_smem, granted<1>(), a, B, splits,
+               smem_limit, s);
   else
-    return run(dense_score_pass<HDP>, granted<score>(), dense_value_pass,
-               granted<0>(), a, B, splits, smem_limit, s);
+    return run(dense_score_pass<HDP>, s_smem, granted<score>(),
+               dense_value_pass, v_smem, granted<0>(), a, B, splits,
+               smem_limit, s);
+}
+
+// the code path over NF4 (FMT 0) or int8 (FMT 1) pools
+template <int HDP, int FMT>
+int launch_quant(const Args& a, int B, int splits, int smem_limit,
+                 cudaStream_t s) {
+  const int G = a.H / a.KV;
+  return run(quant_score_pass<HDP, FMT>,
+             quant_score_smem(a.hd, G, a.stages, FMT),
+             granted<6 + 2 * FMT + (HDP == 128)>(), quant_value_pass<FMT>,
+             quant_value_smem(G, FMT), granted<10 + FMT>(), a, B, splits,
+             smem_limit, s);
 }
 
 }  // namespace dec
@@ -1176,18 +1532,22 @@ int paged(const PagedArgs& a, int B, int smem_limit, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the code pools (kernel 6)
-template <typename T>
-int paged_fmt(int fmt, const PagedArgs& a, int B, int smem_limit,
-              cudaStream_t s) {
-  if (fmt == 0) return paged<T, 0>(a, B, smem_limit, s);
-  if (fmt == 1) return paged<T, 1>(a, B, smem_limit, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 bool shapes_ok(int H, int KV, int hd) {
   return hd >= 1 && hd <= kMaxHd && KV >= 1 && H % KV == 0 &&
          H / KV <= kRows;
+}
+
+// the plan of kernels/smem.py decode_plan for a static extent: splits
+// chunks of chunk_tiles 64-key tiles, each holding a key of the extent and
+// all of them covering it, a ring of min(2, chunk_tiles) tiles
+bool plan_ok(int extent, int chunk_tiles, int splits, int stages) {
+  const long long keys = (long long)chunk_tiles * kKeys;
+  const int ring = chunk_tiles < dec::kDecStages ? chunk_tiles
+                                                 : dec::kDecStages;
+  return extent >= 0 && chunk_tiles >= 1 && splits >= 1 &&
+         splits <= dec::kDecMaxSplits && stages == ring &&
+         splits * keys >= extent &&
+         (splits - 1) * keys < (extent ? extent : 1);
 }
 
 }  // namespace
@@ -1235,8 +1595,8 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
   return (int)cudaErrorInvalidValue;  // bf16 takes split_decode_launch
 }
 
-// q, o contiguous (B, 1, H, hd) in dtype (0 float32, 1 bfloat16).  fmt -1
-// (float32 only): k/v pools contiguous (n_blocks, bs, KV, hd); fmt 0 (NF4):
+// float32: q, o contiguous (B, 1, H, hd).  fmt -1: k/v pools contiguous
+// (n_blocks, bs, KV, hd); fmt 0 (NF4):
 // uint8 code pools (n_blocks, bs, KV, hd/2) and the 16-entry fp32
 // codebook; fmt 1 (int8): int8 code pools (n_blocks, bs, KV, hd); for both,
 // fp32 scale pools (n_blocks, bs, KV, ceil(hd/qb)).  tables (B, n_b) int32
@@ -1263,10 +1623,12 @@ extern "C" int paged_decode_launch(int dtype, int fmt, const void* q,
               static_cast<const int*>(tables), static_cast<const int*>(lens),
               n_b, bs, H, KV, hd, qb, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && fmt == -1) return paged<float, -1>(a, B, smem_limit, s);
-  if (dtype == 0) return paged_fmt<float>(fmt, a, B, smem_limit, s);
-  // bf16 rows take split_decode_launch
-  if (dtype == 1) return paged_fmt<__nv_bfloat16>(fmt, a, B, smem_limit, s);
+  // bf16 takes split_decode_launch (rows) or quant_split_decode_launch
+  // (codes)
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (fmt == -1) return paged<float, -1>(a, B, smem_limit, s);
+  if (fmt == 0) return paged<float, 0>(a, B, smem_limit, s);
+  if (fmt == 1) return paged<float, 1>(a, B, smem_limit, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1286,33 +1648,93 @@ extern "C" int split_decode_launch(const void* q, const void* k,
                                    int chunk_tiles, int splits, int stages,
                                    float scale, int smem_limit,
                                    void* stream) {
-  const long long keys = (long long)chunk_tiles * kKeys;
-  const int ring = chunk_tiles < dec::kDecStages ? chunk_tiles
-                                                 : dec::kDecStages;
-  if (!shapes_ok(H, KV, hd) || extent < 0 || chunk_tiles < 1 ||
-      splits < 1 || splits > dec::kDecMaxSplits || stages != ring ||
-      splits * keys < extent || (splits - 1) * keys >= (extent ? extent : 1) ||
+  if (!shapes_ok(H, KV, hd) || !plan_ok(extent, chunk_tiles, splits, stages) ||
       scores == nullptr)
     return (int)cudaErrorInvalidValue;
   if (tables != nullptr && (bs < 1 || n_b < 1 || extent != n_b * bs))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  dec::Args a{static_cast<const __nv_bfloat16*>(q),
-              static_cast<const __nv_bfloat16*>(k),
-              static_cast<const __nv_bfloat16*>(v),
-              static_cast<const int*>(tables),
-              static_cast<const int*>(lens),
-              static_cast<__nv_bfloat16*>(o),
-              static_cast<float*>(scores),
-              extent, n_b, bs, H, KV, hd, window,
-              chunk_tiles, stages,
-              hd % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(v) % 16 == 0,
-              scale};
+  dec::Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.tables = static_cast<const int*>(tables);
+  a.lens = static_cast<const int*>(lens);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.scores = static_cast<float*>(scores);
+  a.extent = extent;
+  a.n_b = n_b;
+  a.bs = bs;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.window = window;
+  a.chunk_tiles = chunk_tiles;
+  a.stages = stages;
+  a.vec = hd % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables != nullptr)
     return hd <= 64 ? dec::launch<64, true>(a, B, splits, smem_limit, s)
                     : dec::launch<128, true>(a, B, splits, smem_limit, s);
   return hd <= 64 ? dec::launch<64, false>(a, B, splits, smem_limit, s)
                   : dec::launch<128, false>(a, B, splits, smem_limit, s);
+}
+
+// The bf16 split decode over code pools (kernel 6).  q, o contiguous (B, 1,
+// H, hd) bfloat16; fmt 0 (NF4): uint8 code pools (n_blocks, bs, KV, hd/2)
+// and the 16-entry fp32 codebook; fmt 1 (int8): int8 code pools (n_blocks,
+// bs, KV, hd); for both, fp32 scale pools (n_blocks, bs, KV, ceil(hd/qb)),
+// read through tables (B, n_b) int32 (extent n_b * bs); lens, the plan,
+// scores and window as for split_decode_launch.
+extern "C" int quant_split_decode_launch(
+    int fmt, const void* q, const void* kq, const void* vq, const void* ks,
+    const void* vs, const void* codebook, const void* tables,
+    const void* lens, void* o, void* scores, int B, int n_b, int bs, int H,
+    int KV, int hd, int qb, int window, int chunk_tiles, int splits,
+    int stages, float scale, int smem_limit, void* stream) {
+  const int extent = n_b * bs;
+  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1 || qb < 1 ||
+      !plan_ok(extent, chunk_tiles, splits, stages) || scores == nullptr ||
+      tables == nullptr || ks == nullptr || vs == nullptr ||
+      (fmt != 0 && fmt != 1) ||
+      (fmt == 0 && (codebook == nullptr || hd % 2)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  dec::Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kq = static_cast<const uint8_t*>(kq);
+  a.vq = static_cast<const uint8_t*>(vq);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.cb = static_cast<const float*>(codebook);
+  a.tables = static_cast<const int*>(tables);
+  a.lens = static_cast<const int*>(lens);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.scores = static_cast<float*>(scores);
+  a.extent = extent;
+  a.n_b = n_b;
+  a.bs = bs;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.window = window;
+  a.chunk_tiles = chunk_tiles;
+  a.stages = stages;
+  a.qb = qb;
+  a.nsb = (hd + qb - 1) / qb;
+  // code rows by 16-byte cp.async, 8 elements to a scale, the scales of a
+  // K row in a code stage
+  a.vec = (fmt == 0 ? hd % 32 : hd % 16) == 0 && qb % 8 == 0 &&
+          a.nsb <= dec::kQuantScales &&
+          reinterpret_cast<uintptr_t>(kq) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(vq) % 16 == 0;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fmt == 0)
+    return hd <= 64 ? dec::launch_quant<64, 0>(a, B, splits, smem_limit, s)
+                    : dec::launch_quant<128, 0>(a, B, splits, smem_limit, s);
+  return hd <= 64 ? dec::launch_quant<64, 1>(a, B, splits, smem_limit, s)
+                  : dec::launch_quant<128, 1>(a, B, splits, smem_limit, s);
 }

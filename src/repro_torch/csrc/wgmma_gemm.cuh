@@ -1,12 +1,12 @@
-// A bf16 GEMM mainloop for Hopper (sm_90a) on wgmma with a TMA ring,
+// Bf16 GEMM mainloops for Hopper (sm_90a) on wgmma with a TMA ring,
 // shared by the port's kernels that end in a product with a dense weight
-// and want their own epilogue: each block computes its 128 x BN tile (BN
-// 128 or 256) of x (M, K) @ w (K, N), both row-major bf16, with fp32
-// accumulators, and hands the accumulators to an epilogue functor.  banked_gather.cu adds
-// each row's LoRA delta there; tiled_gemm.cuh is the older wmma loop of
-// quanta_linear.cu, which can move onto this one.
+// and want their own epilogue: quanta_linear.cu adds the QuanTA delta
+// there, banked_gather.cu each row's LoRA delta.  Both operands are
+// row-major bf16, x (M, K) and w (K, N); the sums are fp32.
 //
-// The block: two consumer warpgroups (64 rows each) and a producer
+// gemm_tile, the body for many rows: each block computes its 128 x BN
+// tile (BN 128 or 256) and hands the accumulators to an epilogue functor.
+// Two consumer warpgroups (64 rows each) and a producer
 // warpgroup whose first thread keeps kStages K steps of 64 in flight by
 // TMA: the x tile (128 rows of 64 K, one 128-byte swizzled panel) and the
 // w tile (64 K rows of BN columns: 64-column panels, MN-major), each step
@@ -19,6 +19,14 @@
 // it is L2: a 128 x 128 tile reads 32 KB a K step for 2.1 MFLOP, more
 // than the SMs together can draw from L2 at the tensor cores' rate; a
 // 128 x 256 tile reads 48 KB for twice the work (PERF.md).
+//
+// decode_partials, the body for at most 64 rows (a decode tick), which
+// is bound by reading w: each block streams a 64-column strip of one K
+// range of w over every SM (K split until the SMs hold kDecBlocksPerSm
+// blocks each, kernels/smem.py) and writes the fp32 partial product of
+// its range for every row; the caller's second pass adds the splits in
+// split order.  w is wgmma's A operand (w^T, MN-major) and x its B, so
+// the rows (8 or 64) are wgmma's N.
 
 #pragma once
 
@@ -136,6 +144,119 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tmx,
   for (int q = 0; q < NQ; ++q) sm90::fence_regs(acc[q]);
   sm90::named_sync(1, 256);   // every consumer is done with the ring
   epi(acc, smem, m0, n0);
+}
+
+// The decode body: block (column tile, split) of kDecThreads threads
+// computes the fp32 partial out^T = w[k range, 64 columns]^T x[:, k
+// range]^T for every row (RN: the rows rounded up to 8 or 64, wgmma's N)
+// and stores it to part[split] (M, N), masked past M and N.  w comes by
+// TMA through a kDecStages ring fed by the fifth warp's first thread
+// (tensor maps: w boxes of 64 x 64, x boxes of RN x 64, both swizzled);
+// the split takes K steps [split * steps_per_split, ...) of 64.  Dynamic
+// shared memory: DecPlan<RN>::BYTES.
+constexpr int kDecBN = 64, kDecStages = 4, kDecThreads = 160;
+constexpr int kDecBlocksPerSm = 4;   // the plan splits K to fill this many
+
+template <int RN>
+struct DecPlan {
+  static_assert(RN == 8 || RN == 64, "wgmma's N: 8 or 64 rows");
+  static constexpr int W = 64 * 128;                       // one panel
+  static constexpr int X = (RN * 128 + 1023) / 1024 * 1024;
+  static constexpr int STAGE = W + X;
+  static constexpr int BYTES = 1024 + kDecStages * STAGE + 2 * kDecStages * 8;
+};
+
+template <int RN>
+__device__ __forceinline__ void decode_partials(const CUtensorMap* tmx,
+                                                const CUtensorMap* tmw,
+                                                float* __restrict__ part,
+                                                int M, int N, int K,
+                                                int steps_per_split,
+                                                uint8_t* smem_raw) {
+  using P = DecPlan<RN>;
+  constexpr int ST = kDecStages;
+  uint8_t* smem = sm90::align1024(smem_raw);
+  const uint32_t base = sm90::smem_u32(smem);
+  const uint32_t bars = base + ST * P::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ST + s); };
+  const int tid = threadIdx.x, n0 = blockIdx.x * kDecBN;
+  const int steps = (K + 63) / 64;
+  const int s0 = blockIdx.y * steps_per_split;
+  const int T = min(steps, s0 + steps_per_split) - s0;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 128);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= 128) {
+    if (tid != 128) return;
+    for (int n = 0; n < T; ++n) {
+      const int s = n % ST;
+      if (n >= ST) sm90::mbar_wait(empty(s), ((n / ST) - 1) & 1);
+      const uint32_t st = base + s * P::STAGE;
+      sm90::mbar_arrive_expect(full(s), P::W + RN * 128);
+      sm90::tma_load_2d(st, tmw, n0, (s0 + n) * 64, full(s));
+      sm90::tma_load_2d(st + P::W, tmx, (s0 + n) * 64, 0, full(s));
+    }
+    return;
+  }
+  float acc[RN / 2];
+#pragma unroll
+  for (int i = 0; i < RN / 2; ++i) acc[i] = 0.f;
+  for (int n = 0; n < T; ++n) {
+    const int s = n % ST;
+    sm90::mbar_wait(full(s), (n / ST) & 1);
+    const uint32_t ws = base + s * P::STAGE, xs = ws + P::W;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss<RN, 1, 0>(acc, sm90::desc(ws + kk * 2048, P::W, 1024),
+                               sm90::desc(xs + 32 * kk, 16, 1024), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (n > 0) sm90::mbar_arrive(empty((n - 1) % ST));
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  // acc[4j + 2h + c]: w column n0 + 16 * warp + lane / 4 + 8h, x row
+  // 8j + 2 * (lane % 4) + c
+  const int lane = tid & 31;
+  const int col = n0 + 16 * (tid >> 5) + (lane >> 2);
+  float* pz = part + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int j = 0; j < RN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int row = 8 * j + 2 * (lane & 3) + c;
+        if (row < M && col + 8 * h < N)
+          pz[(size_t)row * N + col + 8 * h] = acc[4 * j + 2 * h + c];
+      }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise the kernel's dynamic shared-memory cap to `bytes` on the current
+// device, once per device (granted: the cap given so far, per device);
+// refuse what the device cannot give.  Returns a cudaError_t.
+template <typename Kern>
+int allow_smem(Kern kernel, int bytes, int smem_limit, int* granted) {
+  if (bytes > smem_limit) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (bytes <= granted[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  granted[dev] = bytes;
+  return 0;
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime (the

@@ -15,7 +15,7 @@ hd)`` (codes ``(.., hd // 2)`` uint8 for NF4, ``(.., hd)`` int8, scales
 the kernels with the same online softmax and the same rounding points
 (the paged one gathers the pool through the table, decoded and rounded
 to the value dtype, first); CUDA tensors launch the kernels, whose split
-decode over bf16 rows keeps the one-block walk's bits.
+decode over bf16 rows or codes keeps the one-block walk's bits.
 :func:`blockwise_reference_attention` and
 :func:`decode_reference_attention` are the reference backend's
 attention, with the softmax normalised before ``p`` is cast.  Forward
@@ -453,31 +453,42 @@ _FMT_CODES = {"nf4": 0, "int8": 1}
 
 
 def _split_launch(q, k, v, tables, lens, extent: int, bs: int, window,
-                  scale):
+                  scale, codes=None):
     """The bf16 split decode over a dense cache (``tables`` None) or a pool
-    of ``bs``-token blocks: a score pass of one block per (chunk of keys,
-    KV head, slot), then a value pass of one block per (slice of head_dim,
-    KV head, slot)."""
+    of ``bs``-token blocks, of rows or, with ``codes = (fmt, k_scales,
+    v_scales, quant_block)``, of NF4/int8 codes: a score pass of one block
+    per (chunk of keys, KV head, slot), then a value pass of one block per
+    (slice of head_dim, KV head, slot)."""
     b, _, h, hd = q.shape
     kvh = k.shape[2]
     _check_heads(h, kvh, hd)
     plan = decode_plan(extent, hd, h // kvh)
     limit = device_limits(q.device).smem_block
-    if plan.smem > limit:
-        raise ValueError(f"the split decode block needs {plan.smem} bytes "
+    smem = plan.smem if codes is None else plan.quant_smem
+    if smem > limit:
+        raise ValueError(f"the split decode block needs {smem} bytes "
                          f"of shared memory; a block may use {limit}")
     out = torch.empty_like(q)
     # the score pass's output: (slot, head, position)
     scores = torch.empty(max(1, b * h * extent), dtype=torch.float32,
                          device=q.device)
+    window = -1 if window is None else int(window)
+    tail = (window, plan.chunk // KERNEL_BLOCK, plan.splits, plan.stages,
+            scale, limit, _build.stream_ptr())
     null = ctypes.c_void_p(0)
+    if codes is not None:
+        fmt, ks, vs, quant_block = codes
+        rc = _bind("quant_split_decode_launch", 10, 11)(
+            fmt, _ptr(q), _ptr(k), _ptr(v), _ptr(ks), _ptr(vs),
+            _ptr(codebook(q.device)) if fmt == 0 else null, _ptr(tables),
+            _ptr(lens), _ptr(out), _ptr(scores), b, tables.shape[1], bs, h,
+            kvh, hd, quant_block, *tail)
+        return rc, out
     rc = _bind("split_decode_launch", 7, 11, n_lead=0)(
         _ptr(q), _ptr(k), _ptr(v), null if tables is None else _ptr(tables),
         _ptr(lens), _ptr(out), _ptr(scores), b,
         extent, 0 if tables is None else tables.shape[1], bs, h, kvh, hd,
-        -1 if window is None else int(window), plan.chunk // KERNEL_BLOCK,
-        plan.splits, plan.stages, scale, limit, _build.stream_ptr(),
-    )
+        *tail)
     return rc, out
 
 
@@ -590,8 +601,9 @@ def paged_flash_decode_attention_quant(
     """Single-step flash attention over paged NF4/int8 code pools: each
     key and value element is decoded (codebook entry or int8 code, times
     the fp32 scale of its ``quant_block`` slice of head_dim) and rounded
-    to ``value_dtype`` (default q's) in shared memory.  Returns ``(B, 1,
-    H, hd)``."""
+    to ``value_dtype`` (default q's) in shared memory.  bf16 takes the
+    split decode of the bf16 rows with a code loader, which keeps the bits
+    of the one-block walk that float32 runs.  Returns ``(B, 1, H, hd)``."""
     b, q_len, h, hd = q.shape
     if q_len != 1:
         raise ValueError(f"decode kernel expects q_len == 1, got {q_len}")
@@ -626,10 +638,17 @@ def paged_flash_decode_attention_quant(
             raise ValueError(f"scale pool {tuple(s.shape)} {s.dtype} is not "
                              f"fp32 {(*lead, nsb)}")
     tables, lens = _tables_and_lens(block_tables, cache_len, b)
-    rc, out = _paged_launch(
-        _FMT_CODES[kv_quant], q, k_codes.contiguous(), v_codes.contiguous(),
-        k_scales.contiguous(), v_scales.contiguous(), tables, lens, window,
-        scale, int(quant_block))
+    fmt = _FMT_CODES[kv_quant]
+    k_codes, v_codes = k_codes.contiguous(), v_codes.contiguous()
+    k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
+    if q.dtype == torch.bfloat16:
+        rc, out = _split_launch(
+            q.contiguous(), k_codes, v_codes, tables, lens,
+            tables.shape[1] * k_codes.shape[1], k_codes.shape[1], window,
+            scale, codes=(fmt, k_scales, v_scales, int(quant_block)))
+    else:
+        rc, out = _paged_launch(fmt, q, k_codes, v_codes, k_scales, v_scales,
+                                tables, lens, window, scale, int(quant_block))
     _build.check(rc, "paged_flash_decode_attention_quant")
     paged_flash_decode_attention_quant.launches += 1
     return out

@@ -6,10 +6,14 @@ Replaces the TPU kernel ``repro/kernels/quanta_linear.py``
 (``quanta_linear_kernel_call``).  Hopper blocks run in no fixed order, so
 the TPU kernel's per-row-block fp32 chain scratch cannot be carried across
 column tiles.  Instead: (a) the chain kernel writes the chain of every row
-once to a ``(rows, d_out)`` buffer in x's dtype; (b) a hand-written tiled
-GEMM computes ``x @ W`` with fp32 accumulators and adds the delta tile in
-its epilogue.  There is no full-width scratch, so the JAX wrapper's VMEM
-gate (``fused_vmem_ok``) has no counterpart: every shape takes the kernel.
+once to a ``(rows, d_out)`` buffer in x's dtype; (b) a hand-written GEMM
+computes ``x @ W`` with fp32 accumulators and adds the delta before one
+rounding.  In bf16, (b) runs on ``wgmma``: a TMA-fed 128 x 256 tile body
+for more than 64 rows, and for a decode tick a body that streams W over
+every SM (K split, then an ordered sum of the splits plus the delta;
+``kernels/smem.py`` ``quanta_linear_plan``).  There is no full-width
+scratch, so the JAX wrapper's VMEM gate (``fused_vmem_ok``) has no
+counterpart: every shape takes the kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from repro_torch.core.quanta import apply_sequential
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import aligned16, route
 from repro_torch.kernels.quanta_apply import _check, _launch_chain
+from repro_torch.kernels.smem import (
+    LINEAR_DECODE, device_limits, quanta_linear_plan,
+)
 
 __all__ = ["quanta_linear", "quanta_linear_plain"]
 
@@ -44,11 +51,8 @@ def _bind():
     fn = _build.load("quanta_linear").quanta_linear_gemm_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     return fn
 
 
@@ -75,16 +79,24 @@ def quanta_linear(
     if x.dtype == torch.bfloat16 and (d_in % 8 or d_out % 8):
         raise ValueError("the bf16 GEMM needs d_in and d_out multiples of 8")
     code = _build.dtype_code(x.dtype)
+    limits = device_limits(x.device)
+    plan = quanta_linear_plan(rows, d_in, d_out, code == 1, limits.sms)
     x = aligned16(x)
     w = aligned16(w)
     delta = _launch_chain(x, tensors, tuple(dims_in), pairs)   # phase (a)
     if delta.shape[1] != d_out:
         raise ValueError(f"chain output {delta.shape[1]} != w cols {d_out}")
     out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
+    # the decode body's fp32 partial products, one (rows, d_out) per split
+    part = (torch.empty((plan.gsplits, rows, d_out), dtype=torch.float32,
+                        device=x.device)
+            if plan.variant == LINEAR_DECODE else None)
     rc = _bind()(
-        code, ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-        ctypes.c_void_p(delta.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        rows, d_out, d_in, _build.stream_ptr(),
+        code, plan.variant, ctypes.c_void_p(x.data_ptr()),
+        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(delta.data_ptr()),
+        ctypes.c_void_p(0 if part is None else part.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), rows, d_out, d_in, plan.gsplits,
+        limits.smem_block, _build.stream_ptr(),
     )                                                          # phase (b)
     _build.check(rc, "quanta_linear")
     quanta_linear.launches += 1

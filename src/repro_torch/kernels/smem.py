@@ -39,6 +39,8 @@ __all__ = [
     "decode_plan",
     "decode_score_smem_bytes",
     "decode_value_smem_bytes",
+    "decode_quant_score_smem_bytes",
+    "decode_quant_value_smem_bytes",
     "flash_forward_smem_bytes",
     "QmmPlan",
     "qmm_smem_bytes",
@@ -48,6 +50,9 @@ __all__ = [
     "BankedPlan",
     "banked_gather_plan",
     "banked_smem_bytes",
+    "decode_k_splits",
+    "LinearPlan",
+    "quanta_linear_plan",
 ]
 
 
@@ -413,6 +418,7 @@ DEC_STAGES = 2      # K tiles in flight in a score block
 DEC_SLICE = 32      # head dims of a value block
 DEC_VALUE_STAGES = 4  # tiles in a value block's ring
 DEC_BLOCKS_PER_SM = 8  # the passes' register budget: 64 a thread
+DEC_CODE_SCALES = 4    # scales of a K row a code stage holds (kQuantScales)
 
 
 def decode_score_smem_bytes(hd: int, g: int, stages: int) -> int:
@@ -434,33 +440,61 @@ def decode_value_smem_bytes(g: int) -> int:
             + 4 * g * (DEC_SLICE + 2 + DEC_VALUE_STAGES))
 
 
+def decode_quant_score_smem_bytes(hd: int, g: int, stages: int,
+                                  fmt: str) -> int:
+    """Dynamic shared memory of a score block over NF4 or int8 code pools
+    (``dec::quant_score_smem``): one bf16 K tile, the fp32 query, a ring of
+    ``stages`` code stages (64 rows of codes, head_dim padded to 64 or
+    128, and ``DEC_CODE_SCALES`` fp32 scales a row) and the codebook."""
+    hdp = 64 if hd <= 64 else 128
+    crow = hdp // 2 if fmt == "nf4" else hdp
+    return (ATTN_KEYS * hdp * 2 + 4 * g * hdp
+            + stages * ATTN_KEYS * (crow + 4 * DEC_CODE_SCALES) + 64)
+
+
+def decode_quant_value_smem_bytes(g: int, fmt: str) -> int:
+    """Dynamic shared memory of a value block over code pools
+    (``dec::quant_value_smem``): the rows' value block plus, in each of its
+    ``DEC_VALUE_STAGES`` stages, the codes of a ``DEC_SLICE``-dim V slice
+    of 64 rows and the scale of each of its 8-dim chunks, and the
+    codebook."""
+    crow = DEC_SLICE // 2 if fmt == "nf4" else DEC_SLICE
+    return (decode_value_smem_bytes(g)
+            + DEC_VALUE_STAGES * ATTN_KEYS * (crow + 4 * (DEC_SLICE // 8))
+            + 64)
+
+
 class DecodePlan(NamedTuple):
     chunk: int        # keys of one score block, a multiple of 64
     splits: int       # score blocks over the extent
     stages: int       # K tiles in flight in a score block
-    smem: int         # dynamic shared memory of a block, in bytes (the
-                      # larger pass's)
+    smem: int         # dynamic shared memory of a block over bf16 rows, in
+                      # bytes (the larger pass's)
+    quant_smem: int   # the same over NF4 or int8 codes (the larger format's)
 
 
 @functools.lru_cache(maxsize=None)
 def decode_plan(extent: int, hd: int, g: int) -> DecodePlan:
-    """How the bf16 split decode (kernels 4 and 5 over bf16 rows) walks a
-    cache of ``extent`` positions (``S_max``, or ``n_b * bs`` for a pool)
-    for ``g`` query heads per KV head of ``hd``: a score pass whose blocks
-    take the extent's 64-key tiles in at most ``DEC_MAX_SPLITS`` chunks of
-    equal size (at llama2-7b's 512 positions: 8 chunks of one tile), then
-    a value pass whose blocks take ``DEC_SLICE`` head dims each and walk
-    the slot's tiles.  The plan reads the static extent only (never the
-    lengths, which live on the card, nor the pool's block size), so a pool
-    and the dense cache gathered from it split alike.  float32 rows and
-    NF4 or int8 codes (kernel 6) take no plan: one attend_block block walks
-    each slot."""
+    """How the bf16 split decode (kernels 4 and 5 over bf16 rows, kernel 6
+    over NF4 or int8 codes) walks a cache of ``extent`` positions
+    (``S_max``, or ``n_b * bs`` for a pool) for ``g`` query heads per KV
+    head of ``hd``: a score pass whose blocks take the extent's 64-key
+    tiles in at most ``DEC_MAX_SPLITS`` chunks of equal size (at
+    llama2-7b's 512 positions: 8 chunks of one tile), then a value pass
+    whose blocks take ``DEC_SLICE`` head dims each and walk the slot's
+    tiles.  The plan reads the static extent only (never the lengths,
+    which live on the card, nor the pool's block size), so a pool and the
+    dense cache gathered from it split alike, and codes split as rows do.
+    float32 takes no plan: one attend_block block walks each slot."""
     tiles = max(1, -(-extent // ATTN_KEYS))
     per = -(-tiles // DEC_MAX_SPLITS)
     stages = min(DEC_STAGES, per)
+    quant = max(max(decode_quant_score_smem_bytes(hd, g, stages, fmt),
+                    decode_quant_value_smem_bytes(g, fmt))
+                for fmt in ("nf4", "int8"))
     return DecodePlan(per * ATTN_KEYS, -(-tiles // per), stages,
                       max(decode_score_smem_bytes(hd, g, stages),
-                          decode_value_smem_bytes(g)))
+                          decode_value_smem_bytes(g)), quant)
 
 
 FWD_ROWS = 64     # query rows of a bf16 forward block (one wgmma tile),
@@ -621,6 +655,18 @@ BANKED_SHRINK_K = 64      # K rows of A per shrink step
 BANKED_WAVES = 2          # shrink blocks wanted per SM before K is split
 
 
+def decode_k_splits(d_in: int, tiles: int, sms: int) -> int:
+    """K splits of the bf16 decode body of ``wg::decode_partials``
+    (``csrc/wgmma_gemm.cuh``), which kernels 2 and 8 share: ``d_in`` in
+    steps of ``BANKED_STEP`` split into non-empty parts until the ``tiles``
+    column tiles times the splits fill ``BANKED_DEC_BLOCKS_PER_SM`` blocks
+    on each SM and no more (4096 -> 4096: 64 tiles, 8 splits of 8 steps)."""
+    steps = -(-d_in // BANKED_STEP)
+    want = min(steps, max(1, BANKED_DEC_BLOCKS_PER_SM * sms // tiles))
+    per = -(-steps // want)
+    return -(-steps // per)
+
+
 def banked_smem_bytes(variant: int, rows: int) -> int:
     """Dynamic shared memory of a fused bf16 block (``wg::GemmPlan::BYTES``
     and ``DecPlan<RN>::BYTES``): 1 KB of alignment slack, the ring of x and
@@ -676,13 +722,44 @@ def banked_gather_plan(n_slots: int, seq: int, d_in: int, d_out: int,
     tiles = col_tiles * (1 if variant == BANKED_DECODE else -(-rows // bm))
     gsplits = 1
     if variant == BANKED_DECODE:
-        steps = -(-d_in // BANKED_STEP)
-        want = min(steps, max(1, BANKED_DEC_BLOCKS_PER_SM * sms // tiles))
-        per = -(-steps // want)
-        gsplits = -(-steps // per)
+        gsplits = decode_k_splits(d_in, tiles, sms)
     blocks = n_slots * -(-seq // BANKED_SHRINK_ROWS)
     steps = -(-d_in // BANKED_SHRINK_K)
     want = min(steps, max(1, -(-BANKED_WAVES * sms // blocks)))
     per = -(-steps // want)
     return BankedPlan(variant, tiles, -(-steps // per),
                       per * BANKED_SHRINK_K, gsplits)
+
+
+# ---------------------------------------------------------------------------
+# The adapted linear's base product (csrc/quanta_linear.cu)
+# ---------------------------------------------------------------------------
+
+LINEAR_PREFILL, LINEAR_DECODE, LINEAR_F32 = 0, 1, 2     # variant codes
+LINEAR_PREFILL_BN = 256   # columns of a prefill tile (``kPrefillBN``)
+
+
+class LinearPlan(NamedTuple):
+    variant: int          # body code of the CUDA entry point
+    gsplits: int          # K splits of the decode body (1 otherwise)
+
+
+@functools.lru_cache(maxsize=None)
+def quanta_linear_plan(rows: int, d_in: int, d_out: int, bf16: bool,
+                       sms: int) -> LinearPlan:
+    """Body and K split of kernel 2's base product for one problem shape.
+
+    bf16 takes the ``wgmma`` prefill body (``wg::gemm_tile<256>``: 128 x
+    256 tiles, one block an SM) for more than ``BANKED_NARROW_ROWS`` rows
+    and the decode body (``wg::decode_partials``: 64 columns of W a block,
+    every row, K split by :func:`decode_k_splits`, then an ordered sum of
+    the splits) for at most that many, as kernel 8's fused product does;
+    float32 takes the 64 x 64 SIMT tile.  At the main path's tick (8 rows
+    of 4096 -> 4096): 64 column tiles, 8 splits of 8 steps.
+    """
+    if not bf16:
+        return LinearPlan(LINEAR_F32, 1)
+    if rows > BANKED_NARROW_ROWS:
+        return LinearPlan(LINEAR_PREFILL, 1)
+    tiles = -(-d_out // BANKED_TILES[BANKED_DECODE][1])
+    return LinearPlan(LINEAR_DECODE, decode_k_splits(d_in, tiles, sms))

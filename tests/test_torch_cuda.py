@@ -105,6 +105,69 @@ def test_chain_kernels_match_plain(d_in, d_out, dims, rows, dtype, dev):
     assert after["quanta_apply"] > before["quanta_apply"]
 
 
+# kernel 2's bf16 bodies: (d_in, d_out, dims_in) x rows on both sides of
+# the 64-row edge (8: the tick's wgmma N of 8; 9-64: N of 64; 65 and up:
+# the wgmma tile body), and d_out other than d_in
+LINEAR_SHAPES = [(4096, 4096, (16, 8, 8, 4)), (512, 1024, (8, 8, 8)),
+                 (1024, 512, (8, 8, 4, 4))]
+LINEAR_ROWS = [1, 8, 9, 64, 65, 1001, 3072]
+
+
+@pytest.mark.parametrize("rows", LINEAR_ROWS)
+@pytest.mark.parametrize("d_in,d_out,dims", LINEAR_SHAPES)
+def test_linear_bf16_bodies_match_plain(d_in, d_out, dims, rows, dev):
+    """x @ W + chain(x) in bf16 against ``quanta_linear_plain``, and the
+    base product with its epilogue held to ``chip_smoke.py``'s bf16 limits
+    (off <= 1e-3, max_rel <= 2^-7) against fp32 x @ W plus the kernel's own
+    chain, rounded once: the plain chain's fp32 products may split K
+    differently at some row counts (PERF.md), which moves a delta's
+    rounding, not the GEMM's."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d_out)
+    bf = torch.bfloat16
+    ad = QuantaAdapter.create(gen, d_in, d_out, dims_in=dims, dtype=bf,
+                              noise_scale=0.05, device=dev)
+    x = torch.randn((rows, d_in), generator=gen, device=dev).to(bf)
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev)
+         * d_in ** -0.5).to(bf)
+    before = launch_counts()["quanta_linear"]
+    got = quanta_linear(x, w, ad.tensors, ad.dims_in, ad.pairs)
+    torch.cuda.synchronize()
+    assert launch_counts()["quanta_linear"] == before + 1
+    _close(got, quanta_linear_plain(x, w, ad.tensors, ad.dims_in, ad.pairs),
+           bf)
+    chain = quanta_apply(x, ad.tensors, ad.dims_in, ad.pairs)
+    want = (x.float() @ w.float() + chain.float()).to(bf)
+    st, ok, limits = _smoke().judge("quanta_linear", got, want, bf)
+    assert ok, (st, limits)
+    # a second call gives the same bits (no atomics)
+    assert torch.equal(got, quanta_linear(x, w, ad.tensors, ad.dims_in,
+                                          ad.pairs))
+
+
+def test_linear_routes_on_rows_and_dtype(dev):
+    """bf16 with at most 64 rows launches the decode body (partials, then
+    the ordered sum), with more the wgmma tile body, float32 the SIMT
+    tile; no wmma kernel remains."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ad = QuantaAdapter.create(gen, 4096, dtype=torch.bfloat16, device=dev)
+    w = torch.randn((4096, 4096), generator=gen, device=dev).bfloat16()
+    bodies = ("ql_wgmma_kernel", "ql_partials_kernel", "ql_sum_kernel",
+              "gemm_f32_kernel")
+    for rows, dtype, have in ((8, torch.bfloat16, bodies[1:3]),
+                              (64, torch.bfloat16, bodies[1:3]),
+                              (65, torch.bfloat16, bodies[:1]),
+                              (3072, torch.bfloat16, bodies[:1]),
+                              (8, torch.float32, bodies[3:])):
+        x = torch.randn((rows, 4096), generator=gen, device=dev).to(dtype)
+        tensors = [t.to(dtype) for t in ad.tensors]
+        names = _kernel_names(lambda: quanta_linear(
+            x, w.to(dtype), tensors, ad.dims_in, ad.pairs))
+        assert all(k in names for k in have), names
+        assert not any(k in names for k in bodies if k not in have), names
+        assert "wmma" not in names and "gemm_bf16_kernel" not in names, \
+            names
+
+
 def test_chain_two_rounds_and_empty_rows(dev):
     """Two rounds of the pair schedule (12 stages), and zero rows."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -522,6 +585,65 @@ def test_split_decode_keeps_the_one_block_walks_bits(window, dev):
     assert torch.equal(split, quant)
 
 
+@pytest.mark.parametrize("window", [None, 50])
+def test_split_decode_keeps_the_one_block_walks_bits_int8(window, dev):
+    """The int8 twin of the NF4 case above: the code path over int8 pools
+    equals the bf16 split decode over the dense cache of the decoded rows,
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h, hd, bs, n_b = 8, 8, 128, 16, 32
+    lens = (33, 100, 385, 512, 1, 64, 65, 200)
+    n_blocks = b * n_b + 1
+    pool = [_pool(n_blocks, bs, h, hd, torch.bfloat16, gen, dev)
+            for _ in range(2)]
+    (kc, ks), (vc, vs) = (quantize_kv(t, "int8") for t in pool)
+    tables = torch.from_numpy(_tables(b, n_b, lens, bs, n_blocks, 3)).to(dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).bfloat16()
+    quant = FA.paged_flash_decode_attention(
+        q, kc, vc, tables, cl, window=window, kv_quant="int8", k_scales=ks,
+        v_scales=vs)
+    k, v = FA.gather_kv(q, kc, vc, tables, kv_quant="int8", k_scales=ks,
+                        v_scales=vs)
+    split = FA.flash_decode_attention(q, k, v, cl, window=window)
+    assert torch.equal(split, quant)
+
+
+# (hd, quant_block, window): code rows and scales staged by cp.async (hd
+# 128 / qb 64, hd 64 / qb 16, int8 at hd 48) and decoded element by element
+# (NF4 rows off 16 bytes at hd 72 and 48, more scales a row than a code
+# stage holds at qb 8, a quant block off 8 elements at qb 4); GQA of 4
+CODE_PATHS = [(128, 64, None), (64, 16, 30), (72, 8, None), (128, 4, None),
+              (48, 48, 7)]
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "int8"])
+@pytest.mark.parametrize("hd,qb,window", CODE_PATHS)
+def test_code_loader_paths_keep_the_bits(hd, qb, window, fmt, dev):
+    """Both fills of the code loader give the bf16 tiles the rows would:
+    the code path equals the split decode over the decoded cache bit for
+    bit, and its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(hd + qb)
+    b, h, kv, bs, n_b = 4, 8, 2, 16, 20
+    lens = (1, 64, 300, 320)
+    n_blocks = b * n_b + 1
+    pool = [_pool(n_blocks, bs, kv, hd, torch.bfloat16, gen, dev)
+            for _ in range(2)]
+    (kc, ks), (vc, vs) = (quantize_kv(t, fmt, block_size=qb) for t in pool)
+    tables = torch.from_numpy(_tables(b, n_b, lens, bs, n_blocks, 1)).to(dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).bfloat16()
+    kw = dict(window=window, kv_quant=fmt, k_scales=ks, v_scales=vs,
+              quant_block=qb)
+    got = FA.paged_flash_decode_attention(q, kc, vc, tables, cl, **kw)
+    k, v = FA.gather_kv(q, kc, vc, tables, kv_quant=fmt, k_scales=ks,
+                        v_scales=vs, quant_block=qb)
+    assert torch.equal(got, FA.flash_decode_attention(q, k, v, cl,
+                                                      window=window))
+    _close(got, FA.paged_decode_attention_plain(q, kc, vc, tables, cl, **kw),
+           torch.bfloat16)
+
+
 def _kernel_names(fn, sessions=3):
     """The names of the CUDA kernels that ``fn`` launches, as
     ``torch.profiler`` reads them off the card, joined over a few profiler
@@ -555,22 +677,34 @@ def _decode_route_case(dev):
 
 
 def test_f32_and_code_decodes_keep_attend_block(dev):
-    """float32 rows and NF4 codes launch attend_block's kernels and no
-    pass of the split decode."""
+    """float32 rows, and float32 queries over NF4 or int8 codes, launch
+    attend_block's kernels and no pass of the split decode; bf16 queries
+    over NF4 or int8 codes launch the code path's two passes and no
+    attend_block kernel."""
     q, pool, tables, cl = _decode_route_case(dev)
-    codes, scales = quantize_kv(pool.bfloat16(), "nf4")
-    for want, call in (
-            ("flash_decode_kernel", lambda: FA.flash_decode_attention(
-                q, FA.gather_pages(pool, tables),
-                FA.gather_pages(pool, tables), cl)),
-            ("paged_decode_kernel", lambda: FA.paged_flash_decode_attention(
-                q, pool, pool, tables, cl)),
-            ("paged_decode_kernel", lambda: FA.paged_flash_decode_attention(
-                q.bfloat16(), codes, codes, tables, cl, kv_quant="nf4",
-                k_scales=scales, v_scales=scales))):
-        names = _kernel_names(call)
-        assert want in names, names
-        assert not any(p in names for p in SPLIT_PASSES), names
+    calls = [
+        (q, "flash_decode_kernel", lambda q: FA.flash_decode_attention(
+            q, FA.gather_pages(pool, tables),
+            FA.gather_pages(pool, tables), cl)),
+        (q, "paged_decode_kernel", lambda q: FA.paged_flash_decode_attention(
+            q, pool, pool, tables, cl))]
+    for fmt in ("nf4", "int8"):
+        codes, scales = quantize_kv(pool, fmt)
+        kw = dict(kv_quant=fmt, k_scales=scales, v_scales=scales)
+        for qq in (q, q.bfloat16()):
+            calls.append((qq, "paged_decode_kernel"
+                          if qq.dtype == torch.float32 else "quant_",
+                          lambda qq, codes=codes, kw=kw:
+                          FA.paged_flash_decode_attention(
+                              qq, codes, codes, tables, cl, **kw)))
+    for qq, want, call in calls:
+        names = _kernel_names(lambda: call(qq))
+        if want == "quant_":
+            assert all(want + p in names for p in SPLIT_PASSES), names
+            assert "paged_decode_kernel" not in names, names
+        else:
+            assert want in names, names
+            assert not any(p in names for p in SPLIT_PASSES), names
 
 
 def test_bf16_row_decodes_launch_the_split_passes(dev):

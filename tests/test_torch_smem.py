@@ -194,10 +194,12 @@ def test_decode_plan_reads_the_extent_and_not_the_block_size(n_b, bs):
 def test_decode_plan_main_path():
     """llama2-7b's tick: 8 slots over 512 positions, 32 heads of 128, no
     GQA: 8 score chunks of one 64-key tile (the serving lengths give 832
-    working score blocks of 2048), 17560 bytes a block (the value pass's
-    four-stage ring): the register budget's eight an SM fit."""
+    working score blocks of 2048), 17560 bytes a block over rows (the value
+    pass's four-stage ring): the register budget's eight an SM fit; 29912
+    over codes (the int8 value pass, its stages holding the codes and chunk
+    scales too)."""
     plan = S.decode_plan(512, 128, 1)
-    assert plan == S.DecodePlan(64, 8, 1, 17560)
+    assert plan == S.DecodePlan(64, 8, 1, 17560, 29912)
     lens = (33, 100, 385, 512, 1, 64, 65, 200)
     assert 32 * sum(-(-n // plan.chunk) for n in lens) == 832
     assert (H100_SMEM_BLOCK + 1024) // (plan.smem + 1024) \
@@ -283,12 +285,12 @@ def test_banked_plan_mirrors_the_source():
     ``DecPlan<RN>::BYTES``, and the plan's constants against the CUDA
     sources'."""
     gemm = _constants("wgmma_gemm.cuh")
-    bank = _constants("banked_gather.cu")
     assert gemm["kGemmBM"] == S.BANKED_TILES[S.BANKED_PREFILL][0] == 128
     assert gemm["kGemmStages"] == S.BANKED_GEMM_STAGES
-    assert bank["kDecStages"] == S.BANKED_GEMM_STAGES
-    assert bank["kDecBN"] == S.BANKED_TILES[S.BANKED_DECODE][1]
-    assert bank["kDecBlocksPerSm"] == S.BANKED_DEC_BLOCKS_PER_SM
+    # the decode body of wg::decode_partials, which kernels 2 and 8 share
+    assert gemm["kDecStages"] == S.BANKED_GEMM_STAGES
+    assert gemm["kDecBN"] == S.BANKED_TILES[S.BANKED_DECODE][1]
+    assert gemm["kDecBlocksPerSm"] == S.BANKED_DEC_BLOCKS_PER_SM
     text = (CSRC / "banked_gather.cu").read_text()
     assert "launch_prefill<%d, AT>(g, s)" % S.BANKED_TILES[
         S.BANKED_PREFILL][1] in text
@@ -303,3 +305,131 @@ def test_banked_plan_mirrors_the_source():
         1024 + 4 * (64 * 128 + 1024) + 2 * 4 * 8)
     assert S.banked_smem_bytes(S.BANKED_DECODE, 64) == (
         1024 + 4 * (64 * 128 + 64 * 128) + 2 * 4 * 8)
+
+
+# ------------------------------------------------ the split helper, kernel 2
+# banked_gather_plan's answers before its K split moved into
+# decode_k_splits: (n_slots, seq, d_in, d_out, rank, bf16) -> plan
+BANKED_BEFORE = {
+    (8, 1, 4096, 4096, 16, True): (1, 64, 32, 128, 8),
+    (8, 1, 4096, 4104, 16, True): (1, 65, 32, 128, 8),
+    (4, 16, 896, 896, 8, True): (1, 14, 14, 64, 14),
+    (97, 1, 4096, 11008, 16, True): (0, 43, 3, 1408, 1),
+    (8, 1, 11008, 4096, 64, True): (1, 64, 29, 384, 8),
+    (6, 1, 200, 96, 16, True): (1, 2, 4, 64, 4),
+    (8, 384, 4096, 4096, 16, True): (0, 384, 2, 2048, 1),
+    (3, 97, 4096, 4104, 16, True): (0, 51, 13, 320, 1),
+    (8, 1, 4096, 4096, 16, False): (2, 64, 32, 128, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BANKED_BEFORE))
+def test_split_helper_keeps_the_banked_plans(case):
+    plan = S.banked_gather_plan(*case, H100_SMS)
+    assert tuple(plan) == BANKED_BEFORE[case]
+    if plan.variant == S.BANKED_DECODE:
+        assert plan.gsplits == S.decode_k_splits(case[2], plan.tiles,
+                                                 H100_SMS)
+
+
+@pytest.mark.parametrize("rows,variant", [
+    (1, S.LINEAR_DECODE), (8, S.LINEAR_DECODE), (63, S.LINEAR_DECODE),
+    (64, S.LINEAR_DECODE), (65, S.LINEAR_PREFILL), (1001, S.LINEAR_PREFILL),
+    (3072, S.LINEAR_PREFILL)])
+def test_linear_plan_picks_the_body_at_the_64_row_edge(rows, variant):
+    assert S.quanta_linear_plan(rows, 4096, 4096, True, H100_SMS).variant \
+        == variant
+    assert S.quanta_linear_plan(rows, 4096, 4096, False, H100_SMS) == \
+        S.LinearPlan(S.LINEAR_F32, 1)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("d_in,d_out", SHAPES)
+def test_linear_decode_splits_cover_k_once(rows, d_in, d_out):
+    """The decode body's splits as ``launch_decode`` cuts K: ``per``
+    64-row steps each, every split non-empty, every step in exactly one
+    split; and at most the blocks the SMs hold at once."""
+    plan = S.quanta_linear_plan(rows, d_in, d_out, True, H100_SMS)
+    assert plan.variant == S.LINEAR_DECODE
+    steps = -(-d_in // S.BANKED_STEP)
+    per = -(-steps // plan.gsplits)
+    owned = [z for k in range(steps) for z in range(plan.gsplits)
+             if z * per <= k < (z + 1) * per]
+    assert len(owned) == steps
+    assert sorted(set(owned)) == list(range(plan.gsplits))
+    tiles = -(-d_out // S.BANKED_TILES[S.BANKED_DECODE][1])
+    assert tiles * plan.gsplits <= max(
+        tiles, S.BANKED_DEC_BLOCKS_PER_SM * H100_SMS)
+
+
+def test_linear_plan_main_path():
+    """The tick of llama2-7b-proxy's q/v projections (8 rows of 4096 ->
+    4096): 64 column tiles in 8 splits of 8 steps, 512 blocks, the four an
+    SM that the decode body's registers allow on 132 SMs (528); the
+    partial scratch is 8 x 8 x 4096 fp32, 1 MiB.  A prefill wave takes
+    the wgmma tile body, as kernel 8's fused product does."""
+    plan = S.quanta_linear_plan(8, 4096, 4096, True, H100_SMS)
+    assert plan == S.LinearPlan(S.LINEAR_DECODE, 8)
+    assert plan.gsplits * 8 * 4096 * 4 == 1 << 20
+    assert S.quanta_linear_plan(3072, 4096, 4096, True, H100_SMS) == \
+        S.LinearPlan(S.LINEAR_PREFILL, 1)
+
+
+def test_linear_plan_mirrors_the_source():
+    """The variant codes and the prefill tile of ``csrc/quanta_linear.cu``,
+    and its bodies on the shared mainloops of ``wgmma_gemm.cuh``."""
+    c = _constants("quanta_linear.cu")
+    assert c["kPrefillBN"] == S.LINEAR_PREFILL_BN == \
+        S.BANKED_TILES[S.BANKED_PREFILL][1]
+    text = (CSRC / "quanta_linear.cu").read_text()
+    assert "wg::gemm_tile<kPrefillBN>" in text
+    assert "wg::decode_partials<RN>" in text
+    assert "if (dtype == 0 && variant == %d)" % S.LINEAR_F32 in text
+    assert "if (variant == %d)\n    return launch_prefill" % \
+        S.LINEAR_PREFILL in text
+    assert "if (variant != %d || M > %d)" % (
+        S.LINEAR_DECODE, S.BANKED_NARROW_ROWS) in text
+    # the wmma loop is gone: every bf16 product runs on wgmma
+    for name in ("tiled_gemm.cuh", "quanta_linear.cu", "banked_gather.cu"):
+        assert "wmma" not in (CSRC / name).read_text().replace("wgmma", "")
+
+
+# ------------------------------------------------ split decode over codes
+@pytest.mark.parametrize("extent", EXTENTS)
+def test_decode_plan_code_path_fits_a_block(extent):
+    """The code path's blocks (kernel 6) fit an H100 block for every
+    format at every head_dim and group the rows' plan takes, and the plan
+    holds the larger of them."""
+    for hd in (2, 8, 48, 64, 72, 100, 128):
+        for g in (1, 7, 8, 64):
+            plan = S.decode_plan(extent, hd, g)
+            sizes = [f(fmt) for fmt in ("nf4", "int8") for f in (
+                lambda fmt: S.decode_quant_score_smem_bytes(
+                    hd, g, plan.stages, fmt),
+                lambda fmt: S.decode_quant_value_smem_bytes(g, fmt))]
+            assert plan.quant_smem == max(sizes) <= H100_SMEM_BLOCK
+            assert plan.quant_smem > plan.smem
+
+
+def test_decode_plan_code_path_mirrors_the_source():
+    """``decode_quant_*_smem_bytes`` against ``dec::quant_score_smem`` and
+    ``dec::quant_value_smem``, term by term, and the code stage's scale
+    count against the source's."""
+    c = _constants("flash_attention.cu")
+    assert c["kQuantScales"] == S.DEC_CODE_SCALES
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert ("const size_t crow = fmt == 0 ? hdp / 2 : hdp;\n"
+            "  return kKeys * hdp * 2 + 4 * (size_t)G * hdp +\n"
+            "         (size_t)stages * kKeys * (crow + 4 * kQuantScales) + "
+            "64;") in text
+    assert ("const size_t crow = fmt == 0 ? kDecSlice / 2 : kDecSlice;\n"
+            "  return value_smem(G) +\n"
+            "         (size_t)kDecValueStages * kKeys * (crow + 4 * "
+            "(kDecSlice / 8)) + 64;") in text
+    # the main path's blocks over NF4 and int8 codes
+    assert S.decode_quant_score_smem_bytes(128, 1, 1, "nf4") == (
+        64 * 128 * 2 + 4 * 128 + 64 * (64 + 16) + 64)
+    assert S.decode_quant_value_smem_bytes(1, "int8") == (
+        S.decode_value_smem_bytes(1) + 4 * 64 * (32 + 16) + 64)
+    # bf16 codes take the split passes; the attend_block launcher is float32
+    assert "if (dtype != 0) return (int)cudaErrorInvalidValue;" in text

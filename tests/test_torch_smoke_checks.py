@@ -130,3 +130,95 @@ def test_new_planted_faults_fail_the_bf16_limits(smoke):
     faulty = banked_lora_linear_ref(x, w, a, b, ids[:1].expand(n), 2.0)
     _, ok, _ = smoke.judge("banked_lora_linear", faulty, want, bf)
     assert not ok
+
+
+def test_kernel2_and_kernel6_faults_fail_the_bf16_limits(smoke):
+    """The adapted linear's decode body without its last K split fails
+    kernel 2's bf16 limits, and NF4 codes read with their two nibbles
+    swapped fail kernel 6's, where the sound plain versions meet them."""
+    from repro_torch.core.quantize import quantize_kv
+    from repro_torch.kernels.quanta_linear import quanta_linear_plain
+    from repro_torch.kernels.smem import quanta_linear_plan
+
+    gen = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    d, dims, pairs = 256, (8, 4, 4, 2), pair_schedule(4)
+    ad = QuantaAdapter.create(gen, d, dims_in=dims, dtype=bf,
+                              noise_scale=0.05)
+    x = torch.randn((8, d), generator=gen).to(bf)
+    w = (torch.randn((d, d), generator=gen) * d ** -0.5).to(bf)
+    want = quanta_linear_plain(x, w, ad.tensors, dims, pairs)
+    _, ok, _ = smoke.judge("quanta_linear", want, want, bf)
+    assert ok
+    # 4 splits of one 64-row step at this width on 132 SMs
+    assert quanta_linear_plan(8, d, d, True, 132).gsplits == 4
+    chain = apply_sequential(x, ad.tensors, dims, pairs)
+    faulty = smoke.last_split_dropped(x, w, chain, 132)
+    assert torch.equal(faulty, (x[:, :192].float() @ w[:192].float()
+                                + chain.float()).to(bf))
+    _, ok, _ = smoke.judge("quanta_linear", faulty, want, bf)
+    assert not ok
+
+    b, h, hd, s_max, bs = 4, 4, 64, 256, 16
+    q = torch.randn((b, 1, h, hd), generator=gen).to(bf)
+    lens = torch.tensor([256, 100, 65, 1], dtype=torch.int32)
+    n_blocks = b * (s_max // bs) + 1
+    tables = smoke.paged_tables(lens.tolist(), bs, s_max // bs, n_blocks, 0)
+    (kc, ks), (vc, vs) = (quantize_kv(torch.randn(
+        (n_blocks, bs, h, hd), generator=gen).to(bf), "nf4")
+        for _ in range(2))
+    kw = dict(kv_quant="nf4", k_scales=ks, v_scales=vs)
+    name = "paged_flash_decode_attention_quant"
+    want = FA.paged_decode_attention_plain(q, kc, vc, tables, lens, **kw)
+    _, ok, _ = smoke.judge(name, want, want, bf)
+    assert ok
+    swapped = smoke.nibbles_swapped(kc)
+    assert torch.equal(smoke.nibbles_swapped(swapped), kc)
+    assert int(swapped[0, 0, 0, 0]) == (int(kc[0, 0, 0, 0]) % 16) * 16 + (
+        int(kc[0, 0, 0, 0]) // 16)
+    faulty = FA.paged_decode_attention_plain(
+        q, swapped, smoke.nibbles_swapped(vc), tables, lens, **kw)
+    _, ok, _ = smoke.judge(name, faulty, want, bf)
+    assert not ok
+
+
+# kernels that run only in float32 (TF32 would change the numbers): the
+# profile groups, which book the bf16 serving paths, need not name them
+FLOAT32_KERNELS = {"flash_forward_kernel", "flash_decode_kernel",
+                   "paged_decode_kernel", "quanta_chain_kernel",
+                   "gemm_f32_kernel", "fused_f32_kernel", "qmm_f32_kernel"}
+
+
+def _global_kernels():
+    """Every ``__global__`` function name in the port's CUDA sources."""
+    import re
+
+    names = set()
+    for src in sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            src.read_text()))
+    return names
+
+
+def test_profile_groups_book_each_bf16_kernel_once(smoke):
+    """``chip_smoke.py``'s ``PROFILE_GROUPS`` name every bf16 kernel of the
+    sources in exactly one group (a kernel in two would be booked twice,
+    one in none under "other"), and every float32 kernel in at most one."""
+    names = _global_kernels()
+    assert {"ql_wgmma_kernel", "ql_partials_kernel", "ql_sum_kernel",
+            "quant_score_pass", "quant_value_pass", "decode_gemm_kernel",
+            "combine_kernel", "paged_decode_kernel"} <= names
+    assert "gemm_bf16_kernel" not in names
+    assert FLOAT32_KERNELS <= names
+    for name in sorted(names):
+        groups = [g for g, subs in smoke.PROFILE_GROUPS
+                  if any(sub in name for sub in subs)]
+        if name in FLOAT32_KERNELS:
+            assert len(groups) <= 1, (name, groups)
+        else:
+            assert len(groups) == 1, (name, groups)
+    # and every substring names a kernel that exists
+    for _, subs in smoke.PROFILE_GROUPS:
+        for sub in subs:
+            assert any(sub in name for name in names), sub

@@ -82,7 +82,32 @@ Phases, one line or more each before the last:
 6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
    prefill wave and over decode ticks, device time by kernel (where the
    serving time goes), on the dense path, the QLoRA path (NF4 KV, then
-   bf16 KV rows) and the bank.
+   bf16 KV rows) and the bank;
+7. train: kernel 3 under autograd at the training shape (B 8, S 512, 32
+   heads of 128; bf16 and f32, and a window): the Function's output
+   equals the kernel's and its dq, dk, dv equal autograd of the plain
+   banded recompute bit for bit and match autograd of the reference
+   attention within the stated limits, also on more inputs, where
+   controls fed fewer significant bits than bf16 must exceed them; the
+   kernel's output meets the check phase's limits against its plain
+   version at this shape; planted faults (``p`` not cast before PV, dk
+   and dv swapped, the output detached) must be caught.  Then the f32
+   2-layer cut trains 5 steps through kernel 3, each step's state also
+   through the reference attention (loss and grad norm within the
+   stated limit), a ``full_ft`` step and a ``microbatches=2`` step (its
+   loss that of one batch), and a
+   fold-free adapter serves with kernel 1 twice per adapted linear,
+   token for token with its folded twin.  Then llama2-7b-proxy FULL
+   (bf16, folded QuanTA 16-8-8-4 on q/v, ``attn_backend="pallas"``,
+   ``peft_backend="reference"``) trains 10 AdamW steps on
+   ``SyntheticSeq2Task``: each step's loss, grad norm, wall time and
+   kernel 3 launches (64: forward plus remat), the median step,
+   tokens/s, peak memory against the weights; the adapters must change,
+   the base keep its bits and hold no ``.grad``; an 11th step runs under
+   ``torch.profiler`` (kernel 3's device ms; by kernel with
+   ``--profile``); the merged model's prefill logits must match the
+   trained adapted model's, and the merged engine serves 8 requests.
+   Last, a forward-only kernel called under autograd must raise.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -91,7 +116,13 @@ twin, kernel 8 (``banked_lora_linear`` and ``banked_lora_delta``) of the
 bank run; every count is set to 0 just before its run.  In bf16,
 kernels 4, 5 and 6 launch only the split decode (their ``attend_block``
 launchers refuse bf16), so their counts in the bf16 runs are split
-decode launches; the card tests hold the route by kernel name.
+decode launches; the card tests hold the route by kernel name.  Kernel
+3's row also carries ``train_launches`` (its launches over the FULL
+training steps), ``train_ms`` (its device ms in one training step) and
+the Function's, the plain version's and SDPA's forward plus backward ms
+at the training shape, and its bf16 forward against its plain version
+there (``train_max_abs_err``, ``train_off``) beside the planted fault's
+``train_fault_off``.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -1590,6 +1621,602 @@ def bank_serve(card, dev, cfg, prompts):
             (model, params, bank, prompts))
 
 
+# --------------------------------------------------------------- phase 7
+# kernel 3 under autograd: dq, dk, dv of the Function (the VJP of the
+# plain banded recompute over query blocks of S rows) against autograd of
+# the reference attention over blocks of 128 rows, max |err| / max |want|.
+# The two are the same arithmetic over other matmul shapes (excluded keys
+# add exact zeros), so only the order of sums differs: float32 is held at
+# the forward's F32_TOL scale, bfloat16 at two bf16 roundings of the top
+# gradient (each side rounds its result once, after bf16 roundings of
+# p and dS that other orders move too).  On the H100 nine sound bf16
+# readings lie at 1.7e-3 to 6.5e-3 (one bf16 rounding, 2^-7, left 1.2x of
+# room); the same Function fed q, k, v and g with 5 significant bits
+# reads at least 2.7e-2, with 4 bits 4.7e-2, and with 6 or 7 bits
+# 1.0e-2 to 2.3e-2, which a limit this loose cannot always tell (PERF.md)
+FLASH_GRAD_TOL = {"torch.float32": 3e-5, "torch.bfloat16": 2 ** -6}
+# the f32 2-layer cut trained with kernel 3, and the same state's loss and
+# grad norm through the reference attention at every step, relative.
+# Kernel 3's f32 output differs from the reference attention by about
+# 1e-6 of an element (its online softmax against one softmax), which the
+# loss and the norm average down.  Two runs left to train apart are not
+# held to it: AdamW's first update is lr * sign(g) for every element, so
+# gradient entries near zero whose sign the 1e-6 differences flip move by
+# 2 lr (``tools/train_probe.py`` reads how far such runs part)
+TRAIN_CUT_RTOL = 1e-5
+# the FULL training run: 10 AdamW steps at lr 5e-3 (clip 1.0) on
+# SyntheticSeq2Task(vocab 32000, seq_len 512, global_batch 8, task_rank 8)
+TRAIN_STEPS = 10
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+# kernel 3's training shape there: (B, S, heads, head_dim)
+TRAIN_FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 32, 128)
+# more inputs read against the bf16 gradient limit at that shape, for
+# each of causal and window 100; the significant bits (bf16 keeps 8) of
+# the controls read beside them, and the most bits of a control that must
+# exceed the limit
+GRAD_SEEDS = 4
+GRAD_CONTROL_BITS = (7, 6, 5, 4)
+GRAD_CONTROL_CAUGHT = 5
+
+
+def _checksum(t):
+    """Int64 checksums of ``t``'s bits (element sum and a position-weighted
+    sum), slice by slice along a leading layer axis: equal bits give equal
+    checksums."""
+    import torch
+
+    out = []
+    for part in (t if t.dim() == 3 else [t]):
+        bits = part.contiguous().view(-1).view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                part.element_size()]).long()
+        pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * pos).sum())))
+    return out
+
+
+def _flash_grads(fn, q, k, v, g):
+    """dq, dk, dv of ``fn(q, k, v)`` for the upstream gradient ``g``; a
+    forward with no ``grad_fn`` gives None."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    if out.grad_fn is None:
+        return None
+    return torch.autograd.grad(out, leaves, g)
+
+
+def _grad_rel(grads, ref):
+    """The largest of max |err| / max |ref| over dq, dk, dv."""
+    return max(float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max()) for x, y in zip(grads, ref))
+
+
+def round_bits(t, bits):
+    """``t`` rounded to ``bits`` significant bits (bf16 keeps 8), in its
+    own dtype."""
+    import torch
+
+    m, e = torch.frexp(t.float())
+    return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e).to(t.dtype)
+
+
+def train_flash(card, dev):
+    """Kernel 3 under autograd at the training shape (B = 8, S = 512, 32
+    heads of 128), bf16 and f32, causal and windowed: the Function's
+    output equals the kernel's, which meets the check phase's limits
+    against its plain version there; its gradients equal autograd of the
+    plain banded recompute bit for bit and match autograd of the
+    reference attention; planted faults must be caught.  Returns the bf16
+    causal readings of the forward at this shape and the times (ms): the
+    Function's forward, its forward plus backward, the plain forward plus
+    backward and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, s, h, hd = TRAIN_FLASH_SHAPE
+    scale = hd ** -0.5
+    times, reading = {}, {}
+
+    class SwappedKV(FA._FlashAttention):
+        @staticmethod
+        def backward(ctx, g):
+            dq, dk, dv, *rest = FA._FlashAttention.backward(ctx, g)
+            return (dq, dv, dk, *rest)
+
+    def rnd(dtype):
+        return tuple(torch.randn((b, s, h, hd), generator=gen, device=dev
+                                 ).to(dtype) for _ in range(4))
+
+    def function(window):
+        return lambda a, c, d: FA.flash_attention(a, c, d, window=window,
+                                                  block_q=s)
+
+    def reference(window):
+        return lambda a, c, d: FA.blockwise_reference_attention(
+            a, c, d, q_block=128, window=window)
+
+    for dtype, window in ((torch.bfloat16, None), (torch.float32, None),
+                          (torch.bfloat16, 100)):
+        q, k, v, g = rnd(dtype)
+        fn = function(window)
+        label = f"{str(dtype)[6:]} window {window}"
+        got = _flash_grads(fn, q, k, v, g)
+        with torch.no_grad():
+            fwd = FA.flash_attention(q, k, v, window=window)
+        plain = FA.flash_attention_plain(q, k, v, window=window)
+        st, ok, limits = judge("flash_attention", fwd, plain, dtype)
+        print(f"train flash {label} forward vs its plain version: "
+              f"{stats_text(st)} ({limits}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"kernel 3 at the training shape ({label}) disagrees with "
+                 f"its plain version")
+        out = fn(*(t.detach().requires_grad_(True) for t in (q, k, v)))
+        same_fwd = torch.equal(out.detach(), fwd)
+        rec = _flash_grads(lambda a, c, d: FA.banded_recompute(
+            a, c, d, block_q=s, window=window, scale=scale), q, k, v, g)
+        same = all(torch.equal(x, y) for x, y in zip(got, rec))
+        ref = _flash_grads(reference(window), q, k, v, g)
+        tol = FLASH_GRAD_TOL[str(dtype)]
+        err = _grad_rel(got, ref)
+        print(f"train flash {label}: forward equals the kernel's "
+              f"{same_fwd}; dq/dk/dv equal autograd of the banded "
+              f"recompute bit for bit {same}; vs autograd of the reference "
+              f"attention max_rel {err:.3e} (limit {tol:g}) "
+              f"{'ok' if err <= tol else 'FAIL'}")
+        if not (same_fwd and same and err <= tol):
+            fail(f"kernel 3 under autograd ({label}) disagrees")
+        if window is None and dtype == torch.bfloat16:
+            reading.update(train_max_abs_err=st["max_abs_err"],
+                           train_off=st["off"])
+            fst, fok, _ = judge("flash_attention", FA.flash_attention_plain(
+                q, k, v.float(), window=window).to(dtype), plain, dtype)
+            reading["train_fault_off"] = fst["off"]
+            print(f"fault train flash (p not cast before PV): "
+                  f"{stats_text(fst)} "
+                  f"{'passes: limits too loose' if fok else 'caught'}")
+            if fok:
+                fail("flash_attention: the planted fault (p not cast "
+                     "before PV) passes the bf16 limits at the training "
+                     "shape")
+            # planted faults: dk and dv swapped; the output detached
+            bad = _flash_grads(lambda a, c, d: SwappedKV.apply(
+                a, c, d, window, scale, s), q, k, v, g)
+            caught = not all(torch.equal(x, y) for x, y in zip(bad, rec)) \
+                and _grad_rel(bad, ref) > tol
+            print(f"fault train flash (dk and dv swapped): max_rel "
+                  f"{_grad_rel(bad, ref):.3e} "
+                  f"{'caught' if caught else 'passes'}")
+            if not caught:
+                fail("swapped dk/dv pass the flash gradient checks")
+            # (a wrapper writing into a fresh tensor autograd never saw)
+            bad = _flash_grads(lambda a, c, d: FA._flash_forward(
+                a.detach(), c.detach(), d.detach(), window, scale),
+                q, k, v, g)
+            print(f"fault train flash (forward output detached): "
+                  f"{'caught: no grad_fn' if bad is None else 'passes'}")
+            if bad is not None:
+                fail("a detached flash output passes")
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def fwd_bwd(f):
+                return lambda: torch.autograd.grad(f(qg, kg, vg),
+                                                   (qg, kg, vg), g)
+
+            sdpa = lambda a, c, d: F.scaled_dot_product_attention(  # noqa
+                a.transpose(1, 2), c.transpose(1, 2), d.transpose(1, 2),
+                is_causal=True).transpose(1, 2)
+            with torch.no_grad():
+                times["forward"] = timed(lambda: FA.flash_attention(
+                    q, k, v))
+            times["function"] = timed(fwd_bwd(fn))
+            times["plain"] = timed(fwd_bwd(
+                lambda a, c, d: FA.blockwise_reference_attention(
+                    a, c, d, q_block=s)))
+            times["sdpa"] = timed(fwd_bwd(sdpa))
+            # bounds: q, k, v read and out written (forward); q, k, v, g
+            # read and dq, dk, dv written (forward plus backward); the
+            # causal pairs' two products forward, four more backward
+            elem, pairs = b * s * h * hd, b * h * s * (s + 1) // 2
+            fwd_ops = 2 * 2 * pairs * hd
+            bf = bound(4 * elem * 2, fwd_ops, dtype)
+            bb = bound(7 * elem * 2, 3 * fwd_ops, dtype)
+            print(f"train flash bf16 times: kernel 3 forward "
+                  f"{times['forward']:.4f} ms (bound {bf[0]:.4g} ms, "
+                  f"{bf[1]}), Function forward + backward "
+                  f"{times['function']:.4f} ms (bound {bb[0]:.4g} ms, "
+                  f"{bb[1]}), plain forward + backward "
+                  f"{times['plain']:.4f} ms, SDPA forward + backward "
+                  f"{times['sdpa']:.4f} ms [{card}]")
+
+    # the bf16 gradient limit's room: sound readings on more data, causal
+    # and windowed, below it; the same Function fed q, k, v and g with
+    # fewer significant bits than bf16 (a backward of lower precision)
+    # above it from GRAD_CONTROL_CAUGHT bits down
+    tol = FLASH_GRAD_TOL["torch.bfloat16"]
+    sound, control = [], {bits: [] for bits in GRAD_CONTROL_BITS}
+    for window in (None, 100):
+        for _ in range(GRAD_SEEDS):
+            q, k, v, g = rnd(torch.bfloat16)
+            ref = _flash_grads(reference(window), q, k, v, g)
+            sound.append(_grad_rel(_flash_grads(function(window), q, k, v,
+                                                g), ref))
+            for bits in GRAD_CONTROL_BITS:
+                control[bits].append(_grad_rel(_flash_grads(
+                    function(window), *(round_bits(t, bits)
+                                        for t in (q, k, v, g))), ref))
+    low = min(min(c) for bits, c in control.items()
+              if bits <= GRAD_CONTROL_CAUGHT)
+    print(f"train flash bf16 gradient limit {tol:g}: sound max_rel on "
+          f"{GRAD_SEEDS} more inputs each, causal then window 100: "
+          f"{[f'{x:.3e}' for x in sound]} (max {max(sound):.3e}); q, k, v "
+          f"and g rounded to fewer significant bits: " + "; ".join(
+              f"{bits} bits {[f'{x:.3e}' for x in c]}"
+              for bits, c in control.items())
+          + f" (min at {GRAD_CONTROL_CAUGHT} bits or fewer {low:.3e}) "
+          f"{'ok' if max(sound) <= tol < low else 'FAIL'}")
+    if max(sound) > tol:
+        fail("kernel 3's bf16 gradients exceed their limit on more data")
+    if low <= tol:
+        fail("a backward of lower precision passes the flash gradient "
+             "limit")
+    return reading, times
+
+
+def _train_models(cfg, dev, seed):
+    """A random base with folded QuanTA on q/v, and the training model
+    (``peft_backend="reference"``: the QuanTA kernels have no backward)."""
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.replace(peft_backend="reference"), device=dev)
+    base, peft = attach(seed + 1, model.init(seed), PeftConfig(
+        method="quanta", n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+    return model, base, peft
+
+
+def _run_steps(model, base, peft, steps, seq, batch, **kw):
+    """``steps`` AdamW steps (lr 5e-3, clip 1.0) on ``SyntheticSeq2Task``;
+    returns the metrics of each step, the final state, each step's wall
+    time (to the device's end) and kernel 3's launches in each step."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    opt = AdamW(lr=5e-3, max_grad_norm=1.0)
+    full_ft = kw.get("full_ft", False)
+    state = TrainState.create(base, peft, opt, full_ft=full_ft)
+    step = make_train_step(model, opt, **kw)
+    data = SyntheticSeq2Task(vocab_size=model.cfg.vocab_size, seq_len=seq,
+                             global_batch=batch, task_rank=8, seed=0)
+    flash = kernels.KERNELS["flash_attention"]
+    out, walls, launches = [], [], []
+    for i in range(steps):
+        tokens = data.batch(i)
+        torch.cuda.synchronize()
+        before = flash.launches
+        t0 = time.monotonic()
+        state, m = step(state, tokens)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        walls.append(time.monotonic() - t0)
+        launches.append(flash.launches - before)
+        out.append((loss, norm))
+    return out, state, walls, launches
+
+
+def train_cut(dev, cut):
+    """``cut``: llama2-7b-proxy widths cut to 2 layers in float32.  Five
+    steps with kernel 3 against five with the reference attention, a
+    ``full_ft`` step, a ``microbatches=2`` step against one batch, and
+    fold-free QuanTA served with two chain-kernel launches per adapted
+    linear against its folded twin."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    model, base, peft = _train_models(cut, dev, 600)
+    plain = type(model)(model.cfg.replace(attn_backend="reference"),
+                        device=dev)
+    opt = AdamW(lr=5e-3, max_grad_norm=1.0)
+    state = TrainState.create(base, peft, opt)
+    k_step, p_step = make_train_step(model, opt), make_train_step(plain, opt)
+    data = SyntheticSeq2Task(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, task_rank=8, seed=0)
+    flash = kernels.KERNELS["flash_attention"]
+    got, want, launches = [], [], []
+    for i in range(5):
+        batch = data.batch(i)
+        _, mp = p_step(state, batch)          # the same state, plain route
+        before = flash.launches
+        state, mk = k_step(state, batch)
+        launches.append(flash.launches - before)
+        got.append((float(mk["loss"]), float(mk["grad_norm"])))
+        want.append((float(mp["loss"]), float(mp["grad_norm"])))
+    err = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+              for a, b in zip(g, w))
+    print(f"train f32 cut: {cut.n_layers} layers, d_model {cut.d_model}, "
+          f"float32, 5 steps (loss, grad norm) through kernel 3 {got}, the "
+          f"same states through the reference attention {want}: max rel "
+          f"{err:.3e} (limit {TRAIN_CUT_RTOL:g}); kernel 3 launches "
+          f"{launches}")
+    if err > TRAIN_CUT_RTOL or launches != [2 * cut.n_layers] * 5:
+        fail("the f32 cut trains differently through kernel 3")
+    ft, ft_state, _, _ = _run_steps(model, base, peft, 1, TRAIN_SEQ,
+                                    TRAIN_BATCH, full_ft=True)
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        _leaves(ft_state.params), _leaves(base)))
+    one, _, _, _ = _run_steps(model, base, peft, 1, TRAIN_SEQ, TRAIN_BATCH)
+    two, _, _, _ = _run_steps(model, base, peft, 1, TRAIN_SEQ, TRAIN_BATCH,
+                              microbatches=2)
+    mb_err = abs(two[0][0] - one[0][0]) / abs(one[0][0])
+    print(f"train f32 cut: full_ft step {ft[0]}, {moved}/{len(_leaves(base))}"
+          f" param tensors moved; microbatches=2 loss {two[0][0]} vs 1 "
+          f"{one[0][0]}: rel {mb_err:.3e} (limit {TRAIN_CUT_RTOL:g})")
+    if not (math.isfinite(ft[0][0]) and moved == len(_leaves(base))) or \
+            mb_err > TRAIN_CUT_RTOL:
+        fail("the f32 cut's full_ft or microbatch step is wrong")
+    del ft_state
+    foldfree_serve(dev, cut)
+
+
+def _leaves(tree):
+    from repro_torch.core.adapters import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def foldfree_serve(dev, cut):
+    """Fold-free QuanTA (``PeftConfig(fold=False)``) on the f32 cut served
+    with ``peft_backend="pallas"``: the base product plus kernel 1 twice
+    per adapted linear (T and S); greedy tokens must equal those of the
+    folded twin (base ``W0 - S``, adapter T) built from the same tensors."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import peft as P
+    from repro_torch.core.quanta import fold_frozen_copy
+    from repro_torch.models import build_model
+
+    cfg = cut.replace(peft_backend="pallas")
+    model = build_model(cfg, device=dev)
+    params = model.init(700)
+    base, peft = P.attach(701, params, P.PeftConfig(
+        method="quanta", n_axes=4, scheme=cfg.quanta_scheme, fold=False),
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(702)
+    for a in peft.flat().values():
+        for t in a.tensors:
+            t.add_(0.02 * torch.randn(t.shape, generator=gen, device=dev))
+    flat = P.flatten_paths(base)
+    twin_base, twin_tree = P._copy_tree(base), {}
+    for path, a in peft.flat().items():
+        P._set_path(twin_base, path, P._per_layer(
+            fold_frozen_copy, flat[path], a.unfrozen(a.frozen)))
+        P._set_path(twin_tree, path, a.unfrozen())
+    twin = P.AdapterSet(twin_tree, peft.specs)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64)]
+    kernels.reset_launch_counts()
+    out_f, st, _, _ = _serve(model, base, peft, prompts, 16, 4, 256)
+    chain = kernels.launch_counts()["quanta_apply"]
+    calls = st["prefill_calls"] + st["decode_calls"]
+    expect = 2 * len(peft.flat()) * cfg.n_layers * calls
+    out_t, _, _, _ = _serve(model, twin_base, twin, prompts, 16, 4, 256)
+    same = sum(a == b for a, b in zip(out_f, out_t))
+    print(f"train f32 cut fold-free serve: kernel 1 launches {chain} over "
+          f"{calls} model calls (2 per adapted linear: {expect}); identical "
+          f"greedy tokens fold-free vs folded twin {same}/{len(prompts)} "
+          f"requests x 16 tokens")
+    if chain != expect or out_f != out_t:
+        fail("fold-free serving differs from its folded twin")
+
+
+def full_train(card, dev, cfg, profile):
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16) with folded QuanTA
+    16-8-8-4 on q/v, ``attn_backend="pallas"``: 10 AdamW steps, then the
+    merged model against the trained adapted one, and 8 prompts served
+    through the merged engine.  Returns kernel 3's training launches and
+    its device ms in one step."""
+    import torch
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.core.peft import merge_all
+
+    import gc
+
+    cfg = cfg.replace(attn_backend="pallas")
+    gc.collect()                     # earlier phases' cycles off the card
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model, base, peft = _train_models(cfg, dev, 800)
+    param_bytes = tree_nbytes(base)
+    sums = [_checksum(t) for t in _leaves(base)]
+    start = [t.clone() for t in _leaves(peft)]
+    torch.cuda.synchronize()
+    print(f"train: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} trainable "
+          f"params, float32), remat {cfg.remat}, set-up "
+          f"{time.monotonic() - t0:.1f} s ({held / 2 ** 30:.2f} GiB held "
+          f"on the card before it); {TRAIN_STEPS} AdamW steps (lr "
+          f"5e-3, clip 1.0) on SyntheticSeq2Task(vocab {cfg.vocab_size}, "
+          f"seq_len {TRAIN_SEQ}, global_batch {TRAIN_BATCH}, task_rank 8)")
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    metrics, state, walls, per_step = _run_steps(
+        model, base, peft, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH)
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls[2:])[len(walls[2:]) // 2]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for i, ((loss, norm), w) in enumerate(zip(metrics, walls)):
+        print(f"train step {i + 1}: loss {loss:.6f} grad_norm {norm:.6f} "
+              f"wall {w * 1e3:.1f} ms, kernel 3 launches {per_step[i]}")
+    print(f"train: median step (steps 3-{TRAIN_STEPS}) {med * 1e3:.1f} ms "
+          f"wall, {tokens / med:.0f} tokens/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) against "
+          f"param_bytes {param_bytes / 2 ** 30:.2f} GiB, "
+          f"{(peak - param_bytes) / 2 ** 30:.2f} GiB above the weights; "
+          f"allocated before the steps {base_alloc / 2 ** 30:.2f} GiB, so "
+          f"{(peak - base_alloc) / 2 ** 30:.2f} GiB for the steps [{card}]")
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(_leaves(state.peft), start))
+    same_base = [_checksum(t) for t in _leaves(state.params)] == sums
+    no_grad = all(not t.requires_grad and t.grad is None
+                  for t in _leaves(state.params))
+    ok = (all(math.isfinite(x) and x > 0 for m in metrics for x in m)
+          and changed == len(start) and same_base and no_grad
+          and per_step == [2 * cfg.n_layers] * TRAIN_STEPS)
+    print(f"train: {changed}/{len(start)} adapter tensors changed; base "
+          f"weights unchanged bit for bit {same_base}, none requires grad "
+          f"or holds .grad {no_grad}; kernel 3 launches per step "
+          f"{per_step} (expected {2 * cfg.n_layers}: forward plus remat) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the FULL training run is wrong")
+    step_ms = profile_train_step(card, model, state, profile)
+
+    serve_model = type(model)(cfg.replace(peft_backend="pallas"), device=dev)
+    merged = merge_all(state.params, state.peft)
+    gen = torch.Generator().manual_seed(9)
+    lengths = [32, 82, 132, 182, 232, 282, 332, 384]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lengths]
+    toks = torch.zeros((8, 384), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    la, _ = serve_model.prefill(state.params, state.peft,
+                                {"tokens": toks.to(dev)}, lengths=lens)
+    lm, _ = serve_model.prefill(merged, None, {"tokens": toks.to(dev)},
+                                lengths=lens)
+    la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
+    rel = float((la - lm).abs().max() / lm.abs().max())
+    finite = bool(torch.isfinite(la).all() and torch.isfinite(lm).all())
+    print(f"train: trained adapted vs merged prefill logits max_rel "
+          f"{rel:.3e} (tolerance {SERVE_LOGIT_TOL}), finite {finite}")
+    if rel > SERVE_LOGIT_TOL or not finite:
+        fail("the trained adapted and merged models disagree")
+    del state
+    out, _, t_pre, t_dec = _serve(serve_model, merged, None, prompts, 32,
+                                  8, 512)
+    print(f"train: merged engine served {len(out)} requests x "
+          f"{len(out[0])} tokens: prefill {t_pre * 1e3:.1f} ms, decode "
+          f"{t_dec * 1e3:.1f} ms (wall) [{card}]")
+    if any(len(r) != 32 for r in out):
+        fail("the merged engine did not serve every request")
+    return sum(per_step), step_ms
+
+
+def profile_train_step(card, model, state, profile):
+    """One more training step under ``torch.profiler``: kernel 3's device
+    ms in it (for the kernel line) and the busy share of its wall time;
+    with ``profile`` the step by kernel (kernel 3's forward, the plain
+    backward recompute, the QuanTA chain's forward einsums, cuBLAS) and by
+    aten op (``tools/train_probe.py`` splits them by input shape)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    from repro_torch.core import quanta as Q
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    ranges = {"train: flash backward recompute": (FA, "banded_recompute"),
+              "train: chain forward": (Q.QuantaAdapter, "delta")}
+    saved = {}
+    for label, (owner, name) in ranges.items():
+        fn = getattr(owner, name)
+        saved[label] = fn
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+
+        setattr(owner, name, wrapped)
+    opt = AdamW(lr=5e-3, max_grad_norm=1.0)
+    step = make_train_step(model, opt)
+    batch = SyntheticSeq2Task(vocab_size=model.cfg.vocab_size,
+                              seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                              task_rank=8, seed=0).batch(TRAIN_STEPS)
+    try:
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+    finally:
+        for label, (owner, name) in ranges.items():
+            setattr(owner, name, saved[label])
+    kernels, in_range, ops = {}, {}, {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CPU" and e.key.startswith("aten::"):
+            ops[e.key] = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if e.key in ranges:
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0)
+            in_range[e.key] = max(in_range.get(e.key, 0.0), t / 1e3)
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.device_type.name == "CUDA":
+            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3
+    busy = sum(kernels.values())
+    k3 = sum(v for k, v in kernels.items() if "flash_forward" in k)
+    gemm = sum(v for k, v in kernels.items() if any(
+        s in k.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")))
+    print(f"train profile (one step): wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%); kernel 3 forward "
+          f"{k3:.2f} ms [{card}]")
+    if profile:
+        parts = ", ".join(f"{k[7:]} {v:.2f} ms" for k, v in in_range.items())
+        print(f"train profile split: kernel 3 forward {k3:.2f} ms, {parts} "
+              f"(ranges: all the device time they launched), cuBLAS GEMMs "
+              f"{gemm:.2f} ms (all, inside the ranges too), other "
+              f"{busy - k3 - gemm:.2f} ms, of {busy:.2f} ms busy [{card}]")
+        for name, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"train profile top: {v:.3f} ms {name[:90]}")
+        print("train profile by op (the device time of the kernels each "
+              "aten op launched itself): " + ", ".join(
+                  f"{k[6:]} {v:.2f} ms" for k, v in sorted(
+                      ops.items(), key=lambda kv: -kv[1])[:12]))
+    return k3
+
+
+def train_guard(dev):
+    """A forward-only kernel (the chain) on a CUDA tensor that requires
+    grad, with grad on, must raise."""
+    import torch
+    from repro_torch.core.quanta import QuantaAdapter
+    from repro_torch.kernels.quanta_apply import quanta_apply
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ad = QuantaAdapter.create(gen, 4096, n_axes=4, dims_in=(16, 8, 8, 4),
+                              device=dev)
+    t = [x.clone().requires_grad_(True) for x in ad.tensors]
+    x = torch.randn((8, 4096), generator=gen, device=dev)
+    try:
+        quanta_apply(x, t, ad.dims_in, ad.pairs)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    print(f"train guard: quanta_apply with a tensor requiring grad, grad on: "
+          f"{'raises (' + raised[:60] + '...)' if raised else 'FAIL: ran'}")
+    if "no backward" not in raised:
+        fail("a forward-only kernel ran under autograd")
+
+
 def _device_ms(prof, counts=None):
     """Device time by kernel name, in ms, from a finished profiler; with
     ``counts`` (a dict) also each kernel's number of launches."""
@@ -1727,12 +2354,24 @@ def main() -> int:
         model, params, bank, _ = banked
         profile_serve(card, model, params, None, prompts, path="bank",
                       tenants=BANK_MIX, adapters=bank)
+        del model, params, bank
     del banked
+
+    flash_reading, flash_train = train_flash(card, dev)
+    train_cut(dev, cut)
+    train_launches, train_ms = full_train(card, dev, full,
+                                          "--profile" in sys.argv[1:])
+    train_guard(dev)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)
         return 1
+    records["flash_attention"].update(
+        train_launches=train_launches, train_ms=train_ms, **flash_reading,
+        train_fwd_bwd_ms=flash_train["function"],
+        train_plain_fwd_bwd_ms=flash_train["plain"],
+        train_library_fwd_bwd_ms=flash_train["sdpa"])
     rows = []
     for name, (src, replaces) in SOURCES.items():
         rows.append(dict(name=name, route="cuda", source=src,

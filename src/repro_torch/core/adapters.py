@@ -40,25 +40,35 @@ import torch
 from repro_torch.core.quantize import base_matmul
 
 __all__ = ["Adapter", "RebasedAdapter", "base_matmul", "tree_map",
-           "tree_leaves", "tree_nbytes", "structure"]
+           "tree_leaves", "tree_unflatten", "tree_nbytes", "structure"]
+
+
+def _is_container(v) -> bool:
+    """An adapter, or a dataclass that marks itself a tree node (an
+    ``AdapterSet``): its tensor-holding fields are walked."""
+    return isinstance(v, Adapter) or getattr(v, "tree_node", False)
 
 
 def _is_node(v) -> bool:
-    """A leaf tensor, an adapter, or a tuple holding either."""
-    if isinstance(v, (torch.Tensor, Adapter)):
+    """A leaf tensor, an adapter, a dict, or a tuple holding any of them."""
+    if isinstance(v, (torch.Tensor, dict)) or _is_container(v):
         return True
     return isinstance(v, tuple) and any(_is_node(e) for e in v)
 
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the tensors of ``tree`` (zipped with the same-structure
-    ``rest``), rebuilding tuples and adapters; static fields are kept."""
+    ``rest``), rebuilding dicts, tuples and adapters; static fields are
+    kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(tree_map(fn, t, *(r[i] for r in rest))
                      for i, t in enumerate(tree))
-    if isinstance(tree, Adapter):
+    if _is_container(tree):
         return dataclasses.replace(tree, **{
             f.name: tree_map(fn, getattr(tree, f.name),
                              *(getattr(r, f.name) for r in rest))
@@ -73,6 +83,13 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """``tree`` with its tensors replaced by ``leaves``, in the order of
+    :func:`tree_leaves`."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def tree_nbytes(tree) -> int:

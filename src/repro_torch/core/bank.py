@@ -200,6 +200,10 @@ def tenant_path_adapters(
     for path, adapter in aset.flat().items():
         spec = specs[path]
         if spec.method == "quanta":
+            if getattr(adapter, "frozen", None) is not None:
+                raise NotImplementedError(
+                    f"tenant {name!r} is fold-free QuanTA: fold-free bank "
+                    "tenants are not ported yet")
             if flat_t is None:
                 raise ValueError(
                     f"tenant {name!r} is folded QuanTA: attach folds the "

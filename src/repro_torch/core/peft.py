@@ -9,7 +9,10 @@ copy folded in (``W0' = W0 - S``).  :func:`peft_linear` is the adapted
 linear every model calls; :func:`merge_all` merges trained adapters into
 the weights; :func:`adapter_subtree` gives a model group's adapters from
 an ``AdapterSet`` or, with per-request ids, a serving bank
-(``core/bank.py``).  Fold-free QuanTA is not ported yet.
+(``core/bank.py``).  ``PeftConfig(fold=False)`` attaches fold-free
+QuanTA: the base is left as it is and each adapter carries its frozen
+copy S (``core/quanta.py``).  :func:`trainable_fraction` is the paper's
+"# Params (%)".
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, ClassVar, Dict, Optional, Tuple
 
 import torch
 
@@ -41,6 +44,7 @@ __all__ = [
     "get_adapter",
     "layer_tree",
     "count_params",
+    "trainable_fraction",
     "flatten_paths",
 ]
 
@@ -109,12 +113,17 @@ class AdapterLeafSpec:
     stacked: bool
     d_in: int
     d_out: int
+    fold: bool = True   # quanta only: False = fold-free (Eq. 8) attach
 
 
 @dataclasses.dataclass(frozen=True)
 class AdapterSet:
     """Adapters of one model: ``tree`` mirrors the parameter paths,
-    ``specs`` records method and layout per adapted path."""
+    ``specs`` records method and layout per adapted path.  It is a node of
+    ``core.adapters.tree_map`` (the tensors of ``tree`` are its leaves), so
+    the train step and the optimizer walk it like the JAX pytree."""
+
+    tree_node: ClassVar[bool] = True
 
     tree: Dict[str, Any]
     specs: Tuple[AdapterLeafSpec, ...] = ()
@@ -227,16 +236,16 @@ def attach(
     """Create adapters for every parameter path matching ``cfg.targets``.
 
     ``seed`` is an int or a ``torch.Generator`` on ``device``.  Returns
-    ``(base_params, adapter_set)``.  For QuanTA the adapted base weights
-    are ``W0 - S`` (the model is exactly the base model at step 0); the
+    ``(base_params, adapter_set)``.  For QuanTA with ``cfg.fold`` the
+    adapted base weights are ``W0 - S`` (the model is exactly the base
+    model at step 0); with ``fold=False`` the base is returned as it is
+    and each adapter carries a copy of its initial tensors as S.  The
     other methods start at a zero update and leave the base as it is.
     Runs on the card unless ``device`` says otherwise.
     """
     device = default_device(device)
     if cfg.method in ("ft", "none"):
         return params, {}
-    if cfg.method == "quanta" and not cfg.fold:
-        raise NotImplementedError("fold-free QuanTA is not ported yet")
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
@@ -256,11 +265,16 @@ def attach(
         if w.dim() not in (2, 3):
             raise ValueError(f"target {path} has ndim={w.dim()}; expected 2 or 3")
         adapter = _make_adapter(gen, w, cfg, device)
+        if cfg.method == "quanta" and not cfg.fold:
+            # S is a copy: training or perturbing T in place leaves it
+            adapter = dataclasses.replace(
+                adapter, frozen=tuple(t.clone() for t in adapter.tensors))
         _set_path(peft, path, adapter)
         specs.append(AdapterLeafSpec(
             path, cfg.method, w.dim() == 3, w.shape[-2], w.shape[-1],
+            fold=cfg.fold,
         ))
-        if cfg.method == "quanta":
+        if cfg.method == "quanta" and cfg.fold:
             _set_path(new_params, path,
                       _per_layer(Q.fold_frozen_copy, w, adapter))
     return new_params, AdapterSet(tree=peft, specs=tuple(specs))
@@ -333,9 +347,17 @@ def merge_all(params: Dict[str, Any], peft) -> Dict[str, Any]:
 
 
 def count_params(tree: Any) -> int:
+    """Parameters of a param tree or adapter set; an adapter counts its
+    trainable tensors (``num_params``: a fold-free QuanTA adapter leaves
+    out S, where the JAX package's ``count_params`` counts every leaf)."""
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
     if isinstance(tree, torch.Tensor):
         return tree.numel()
     return tree.num_params
+
+
+def trainable_fraction(base_params: Any, peft: Any) -> float:
+    """Paper-style ``# Params (%)``: trainable over base totals."""
+    return 100.0 * count_params(peft) / max(count_params(base_params), 1)
 

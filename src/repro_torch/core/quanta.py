@@ -7,9 +7,15 @@ are the JAX package's: ``y = x @ W`` with ``W (d_in, d_out)``; each tensor
 is ``(out_m, out_n, in_m, in_n)`` for its axis pair ``(m, n)``; the list
 order is the application order; only axis 0 may be rectangular (App. B).
 
-Zero initialization (Eq. 8/9): the frozen copy S is subtracted from the
-base weight at attach time (``fold_frozen_copy``: ``W0' = W0 - S``).  The
-JAX package's fold-free mode (S kept as factor tensors) is not ported yet.
+Zero initialization (Eq. 8/9), in one of two forms:
+
+* folded (the paper's deployment form): the frozen copy S is subtracted
+  from the base weight at attach time (``fold_frozen_copy``: ``W0' = W0 -
+  S``), and the adapted layer is ``x @ W0' + T x``;
+* fold-free (``PeftConfig(fold=False)``): the base stays untouched and the
+  adapter carries S as factor tensors (:attr:`QuantaAdapter.frozen`), so
+  the layer is ``x @ W0 + (T x - S x)`` with S detached: the chain is
+  linear in x, so gradients still reach x through S's chain.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import string
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -204,13 +210,20 @@ def materialize(
 @dataclasses.dataclass(frozen=True)
 class QuantaAdapter(Adapter):
     """QuanTA state of one linear layer (or of a stack of layers, when
-    every tensor carries a leading layer axis; see ``layer``).  The
-    adapted layer is ``y = x @ w0_folded + delta(x)`` (Eq. 9)."""
+    every tensor carries a leading layer axis; see ``layer``).
+
+    Folded (``frozen is None``): ``y = x @ w0_folded + delta(x)`` (Eq. 9).
+    Fold-free (``frozen`` holds S, the initialization copy of the chain):
+    ``y = x @ w0 + (T x - S x)`` (Eq. 8), exactly the base model while T
+    equals S.  S rides along with the trainable tensors but never gets a
+    gradient (it is detached wherever it is applied) and is not counted by
+    ``num_params``; train with ``weight_decay=0`` so that it stays put."""
 
     tensors: Tuple[torch.Tensor, ...]
     dims_in: Tuple[int, ...]
     dims_out: Tuple[int, ...]
     pairs: Tuple[Tuple[int, int], ...]
+    frozen: Optional[Tuple[torch.Tensor, ...]] = None
 
     @staticmethod
     def create(
@@ -263,20 +276,46 @@ class QuantaAdapter(Adapter):
 
     @property
     def num_params(self) -> int:
+        """Trainable parameters: the chain T (S is not counted)."""
         per_layer = param_count(self.dims_in, self.pairs, self.dims_out)
         stacked = self.tensors[0].dim() == 5
         return per_layer * (self.tensors[0].shape[0] if stacked else 1)
 
+    @property
+    def fold_free(self) -> bool:
+        """True when the adapter carries the frozen copy S (Eq. 8)."""
+        return self.frozen is not None
+
+    def frozen_detached(self) -> Tuple[torch.Tensor, ...]:
+        """S, cut from autograd."""
+        return tuple(s.detach() for s in self.frozen)
+
+    def unfrozen(self, tensors: Optional[Tuple[torch.Tensor, ...]] = None
+                 ) -> "QuantaAdapter":
+        """A folded-form view over ``tensors`` (default: the chain T), to
+        run each chain of the fold-free pair through the chain kernel."""
+        t = self.tensors if tensors is None else tensors
+        return QuantaAdapter(t, self.dims_in, self.dims_out, self.pairs)
+
     def delta(self, x: torch.Tensor) -> torch.Tensor:
-        """``T x`` in the tensors' dtype, cast back to x's."""
+        """``T x`` (folded) or ``T x - S x`` (fold-free) in the tensors'
+        dtype, cast back to x's."""
         h = x.to(self.tensors[0].dtype)
-        return apply_sequential(h, self.tensors, self.dims_in, self.pairs,
-                                self.dims_out).to(x.dtype)
+        y = apply_sequential(h, self.tensors, self.dims_in, self.pairs,
+                             self.dims_out)
+        if self.frozen is not None:
+            y = y - apply_sequential(h, self.frozen_detached(), self.dims_in,
+                                     self.pairs, self.dims_out)
+        return y.to(x.dtype)
 
     def matrix(self) -> torch.Tensor:
-        """Full ``(d_in, d_out)`` update matrix."""
-        return materialize(self.tensors, self.dims_in, self.pairs,
-                           self.dims_out)
+        """Full ``(d_in, d_out)`` update matrix (fold-free: minus S's)."""
+        m = materialize(self.tensors, self.dims_in, self.pairs,
+                        self.dims_out)
+        if self.frozen is not None:
+            m = m - materialize(self.frozen_detached(), self.dims_in,
+                                self.pairs, self.dims_out)
+        return m
 
     def apply(self, x: torch.Tensor, w: torch.Tensor,
               backend: str = "reference") -> torch.Tensor:
@@ -286,13 +325,20 @@ class QuantaAdapter(Adapter):
         kernels) goes through the two-phase ``quanta_linear`` kernel for a
         dense ``w``, which raises for a weight that is not 2-D; for a
         quantized ``w`` through the dequant-matmul kernel plus the chain
-        kernel, cast to x's dtype.  ``"reference"`` is plain PyTorch.
+        kernel, cast to x's dtype.  A fold-free adapter takes the base
+        product and two chain-kernel launches, one for T and one for S.
+        ``"reference"`` is plain PyTorch.
         """
         if backend == "pallas":
             from repro_torch.kernels.ops import (
                 quanta_apply_fused, quanta_linear_fused,
             )
 
+            if self.frozen is not None:
+                s_view = self.unfrozen(self.frozen_detached())
+                return base_matmul(x, w, backend) + (
+                    quanta_apply_fused(x, self.unfrozen())
+                    - quanta_apply_fused(x, s_view)).to(x.dtype)
             if isinstance(w, QuantizedLinear):
                 return base_matmul(x, w, backend) + quanta_apply_fused(
                     x, self).to(x.dtype)
@@ -302,7 +348,8 @@ class QuantaAdapter(Adapter):
         return base_matmul(x, w, backend) + self.delta(x)
 
     def merge(self, w: torch.Tensor) -> torch.Tensor:
-        """``W = W0' + T_theta`` (paper §6, no inference overhead)."""
+        """``W = W0' + T_theta`` (paper §6, no inference overhead); for a
+        fold-free adapter ``W = W0 + T_theta - S``."""
         return merge(w, self)
 
 

@@ -12,10 +12,13 @@ LoRA ``a``, ``b``, ``alpha``; DoRA also ``m``; DoTA ``cores``, ``m``,
 ``specs`` for an adapter set, whose specs name each path's method).  A
 quantized weight (an object with ``packed`` and ``scales``, as the JAX
 ``QuantizedLinear``) crosses as a plain copy of its codes, scales and
-norms.  Fold-free adapters (a ``frozen`` copy S) are not ported yet and
-raise.  A bank is not converted: the port builds its own
+norms.  A fold-free QuanTA adapter carries its ``frozen`` copy S
+across.  A bank is not converted: the port builds its own
 (``core.bank.AdapterBank.build``) from tenants carried over with
-:func:`tenant_from_numpy`.
+:func:`tenant_from_numpy`.  :func:`train_state_from_numpy` carries a JAX
+``TrainState`` (params, adapters, AdamW moments and step, error-feedback
+residuals) into the port's, so that a run started in JAX goes on in the
+port.
 """
 
 from __future__ import annotations
@@ -33,10 +36,14 @@ from repro_torch.core.peft import (
 )
 from repro_torch.core.quanta import QuantaAdapter
 from repro_torch.core.quantize import QuantizedLinear
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compress import ErrorFeedbackState
+from repro_torch.train.loop import TrainState
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "quanta_from_numpy",
            "adapter_from_numpy", "adapter_set_from_numpy",
-           "tenant_from_numpy", "quantized_linear_from_numpy"]
+           "tenant_from_numpy", "quantized_linear_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _field(obj, name, default=None):
@@ -88,15 +95,17 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def quanta_from_numpy(adapter, device) -> QuantaAdapter:
-    """A folded QuanTA adapter (flat or layer-stacked)."""
-    if _field(adapter, "frozen") is not None:
-        raise NotImplementedError("fold-free QuanTA is not ported yet")
+    """A QuanTA adapter (flat or layer-stacked), folded or fold-free (a
+    ``frozen`` copy S)."""
+    frozen = _field(adapter, "frozen")
     return QuantaAdapter(
         tuple(tensor_from_numpy(t, device)
               for t in _field(adapter, "tensors")),
         tuple(int(d) for d in _field(adapter, "dims_in")),
         tuple(int(d) for d in _field(adapter, "dims_out")),
         tuple((int(m), int(n)) for m, n in _field(adapter, "pairs")),
+        frozen=None if frozen is None else tuple(
+            tensor_from_numpy(t, device) for t in frozen),
     )
 
 
@@ -133,7 +142,7 @@ def adapter_set_from_numpy(adapter_set, device) -> AdapterSet:
         AdapterLeafSpec(
             str(_field(s, "path")), str(_field(s, "method")),
             bool(_field(s, "stacked")), int(_field(s, "d_in")),
-            int(_field(s, "d_out")),
+            int(_field(s, "d_out")), fold=bool(_field(s, "fold", True)),
         )
         for s in (_field(adapter_set, "specs") or ())
     )
@@ -166,3 +175,28 @@ def tenant_from_numpy(entry, device):
         return (params_from_numpy(params, device),
                 adapter_set_from_numpy(aset, device))
     return adapter_set_from_numpy(entry, device)
+
+
+def train_state_from_numpy(state, device, *, full_ft: bool = False):
+    """A JAX ``TrainState`` (``params``, ``peft``, ``opt_state`` with
+    ``step``/``mu``/``nu``, ``ef_state`` or None, ``step``) as the port's
+    ``train.loop.TrainState``.  The moments mirror the trainable tree: an
+    adapter set for PEFT runs, the param dict under ``full_ft``."""
+    def trainable(tree):
+        if full_ft:
+            return params_from_numpy(tree, device)
+        return adapter_set_from_numpy(tree, device) if tree else {}
+
+    opt = _field(state, "opt_state")
+    ef = _field(state, "ef_state")
+    peft = _field(state, "peft")
+    return TrainState(
+        params=params_from_numpy(_field(state, "params"), device),
+        peft=adapter_set_from_numpy(peft, device) if peft else {},
+        opt_state=AdamWState(step=int(np.asarray(_field(opt, "step"))),
+                             mu=trainable(_field(opt, "mu")),
+                             nu=trainable(_field(opt, "nu"))),
+        ef_state=None if ef is None else ErrorFeedbackState(
+            error=trainable(_field(ef, "error"))),
+        step=int(np.asarray(_field(state, "step"))),
+    )

@@ -4,14 +4,23 @@ A wrapper runs its plain PyTorch version when its tensors lie on the CPU
 and launches its hand-written CUDA kernel when they lie on the card; any
 other device raises.  There is no fallback from a CUDA tensor to the
 plain version.
+
+The CUDA kernels compute forward values only: a kernel writes into a
+fresh tensor that autograd knows nothing of.  So :func:`route` refuses
+the kernel route when autograd would need a gradient through it (grad
+mode on and an operand that requires grad), instead of handing back an
+output with no ``grad_fn`` (which would drop the gradient silently).  The
+flash forward (kernel 3) is the one kernel with a backward: its wrapper
+launches it inside a ``torch.autograd.Function``, where grad mode is off.
+The plain versions are PyTorch and differentiate as they are.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["MASK_VALUE", "masked_softmax", "route", "default_device",
-           "aligned16"]
+__all__ = ["MASK_VALUE", "masked_softmax", "route", "device_route",
+           "default_device", "aligned16"]
 
 # The additive mask for attention logits.  Finite (not -inf) so masked
 # rows exp() to exactly 0.0 without NaN-producing inf-inf in the online
@@ -34,7 +43,21 @@ def masked_softmax(scores: torch.Tensor, value_dtype,
 
 def route(*tensors: torch.Tensor) -> str:
     """``"plain"`` when every tensor lies on the CPU, ``"cuda"`` when every
-    tensor lies on one CUDA device; raises otherwise."""
+    tensor lies on one CUDA device; raises otherwise, and raises for the
+    CUDA route when autograd would need a gradient through the kernel."""
+    way = device_route(*tensors)
+    if (way == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        raise RuntimeError(
+            "this CUDA kernel has no backward: an operand requires grad "
+            "with grad mode on, and the kernel's output would carry no "
+            "gradient; run it under torch.no_grad() (serving), or train "
+            "through the reference backend (cfg.peft_backend='reference')")
+    return way
+
+
+def device_route(*tensors: torch.Tensor) -> str:
+    """The route by device alone (see :func:`route`)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"kernel operands on several devices: {devs}")

@@ -18,9 +18,16 @@ to the value dtype, first); CUDA tensors launch the kernels, whose split
 decode over bf16 rows or codes keeps the one-block walk's bits.
 :func:`blockwise_reference_attention` and
 :func:`decode_reference_attention` are the reference backend's
-attention, with the softmax normalised before ``p`` is cast.  Forward
-only: prefill needs no gradient, and the recompute backward comes with
-the training slice.
+attention, with the softmax normalised before ``p`` is cast.
+
+Training: :func:`flash_attention` runs the forward inside a
+``torch.autograd.Function`` whenever autograd needs a gradient through
+it.  The Function saves only q, k and v; its backward is the VJP of
+:func:`banded_recompute`, a plain-PyTorch blockwise recompute over each
+query block's visible KV band (the JAX package's ``_flash_bwd``, itself
+pure JAX).  So its gradient is that of the reference attention, which
+normalises before it casts, and not of the kernel's own forward, which
+casts ``p`` before it normalises.  The decode kernels stay forward only.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from repro_torch.kernels.smem import (
 
 __all__ = [
     "flash_attention",
+    "banded_recompute",
     "flash_decode_attention",
     "flash_attention_plain",
     "flash_decode_attention_plain",
@@ -362,6 +370,62 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def banded_recompute(
+    q: torch.Tensor,               # (B, S, H, hd)
+    k: torch.Tensor,               # (B, S, KV, hd)
+    v: torch.Tensor,               # (B, S, KV, hd)
+    *,
+    block_q: int,
+    window: Optional[int],
+    scale: float,
+) -> torch.Tensor:
+    """The flash backward's recompute target (the JAX package's
+    ``_banded_recompute``): reference attention over query blocks of
+    ``block_q`` rows, each block over its visible KV band ``[q_lo - window
+    + 1, q_hi]`` only.  Excluded columns have exactly zero probability,
+    so the values are those of :func:`blockwise_reference_attention`;
+    its VJP is the flash backward.  Returns ``(B, S, H, hd)``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    bq, s_pad = pad_to_q_block(s, block_q)
+    pos = torch.arange(s, device=q.device)
+    outs = []
+    for q_lo in range(0, s_pad, bq):
+        q_hi = min(q_lo + bq, s)
+        kv_lo = 0 if window is None else max(0, q_lo - window + 1)
+        outs.append(_block_attend(
+            qg[:, q_lo:q_hi], k[:, kv_lo:q_hi], v[:, kv_lo:q_hi],
+            pos[q_lo:q_hi], pos[kv_lo:q_hi], window, scale, False,
+        ))
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 3 under autograd: the forward launches the kernel (the plain
+    version on the CPU) and saves q, k and v only; the backward is the VJP
+    of :func:`banded_recompute`.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass, with nothing kept outside
+    ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale, block_q):
+        ctx.save_for_backward(q, k, v)
+        ctx.spec = (window, scale, block_q)
+        return _flash_forward(q, k, v, window, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        window, scale, block_q = ctx.spec
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+            out = banded_recompute(q, k, v, block_q=block_q, window=window,
+                                   scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,               # (B, S, H, hd)
     k: torch.Tensor,               # (B, S, KV, hd)
@@ -369,14 +433,30 @@ def flash_attention(
     *,
     window: Optional[int] = None,
     softmax_scale: Optional[float] = None,
+    block_q: int = 512,
 ) -> torch.Tensor:
-    """Causal (optionally sliding-window) flash attention, forward only.
-    Returns ``(B, S, H, hd)``."""
+    """Causal (optionally sliding-window) flash attention.  Returns ``(B,
+    S, H, hd)``.  When autograd needs a gradient through it (grad mode on
+    and q, k or v requiring grad) it runs as :class:`_FlashAttention`,
+    whose backward recomputes over query blocks of ``block_q`` rows (the
+    model's ``q_block``); otherwise the forward alone."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     if h % kv:
         raise ValueError(f"n_heads {h} must be a multiple of n_kv_heads {kv}")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, window, scale, block_q)
+    return _flash_forward(q, k, v, window, scale)
+
+
+def _flash_forward(q, k, v, window: Optional[int], scale: float
+                   ) -> torch.Tensor:
+    """Kernel 3's forward on the card (its plain version on the CPU);
+    counts a launch on ``flash_attention.launches``."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
     if route(q, k, v) == "plain":
         return flash_attention_plain(q, k, v, window=window,
                                      softmax_scale=scale)

@@ -6,7 +6,9 @@
 * ``backend="pallas"`` -- the hand-written CUDA flash kernels
   (``kernels/flash_attention.py``; the name is the JAX package's, kept so
   that configs carry over).  On CPU tensors their wrappers run the plain
-  versions.
+  versions.  With grad on, the flash forward runs inside its
+  ``autograd.Function``, whose backward recomputes over query blocks of
+  ``q_block`` rows; the decode kernels are forward only.
 
 GQA layout: ``q (B, S, H, hd)``, ``k/v (B, S, KV, hd)``, ``H % KV == 0``.
 ``q_block`` and ``fast_softmax`` are knobs of the reference path: the
@@ -68,7 +70,7 @@ def blockwise_causal_attention(
             f"{k.shape[2]}"
         )
     if backend == "pallas":
-        return flash_attention(q, k, v, window=window)
+        return flash_attention(q, k, v, window=window, block_q=q_block)
     return blockwise_reference_attention(
         q, k, v, q_block=q_block, window=window, fast_softmax=fast_softmax,
     )

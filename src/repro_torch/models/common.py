@@ -1,6 +1,7 @@
 """Shared model-building blocks, dense subset (port of
 ``repro/models/common.py``): config, cache slot layout and surgery (dense
-stripes and paged block pools), norms, RoPE, init helpers.
+stripes and paged block pools), norms, RoPE, the chunked LM-head cross
+entropy of training, init helpers.
 
 Parameters are nested dicts of tensors with the JAX package's layouts
 (linears ``(d_in, d_out)``, stacked ``(L, d_in, d_out)`` over layers), so
@@ -19,6 +20,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 
@@ -33,6 +35,7 @@ __all__ = [
     "rms_norm",
     "make_rope",
     "apply_rope",
+    "fused_cross_entropy",
     "dense_init",
     "embed_init",
 ]
@@ -82,6 +85,9 @@ class ModelConfig:
     quant_block_size: int = 64
     kv_quant: Optional[str] = None
     quanta_scheme: Optional[str] = None
+    # training: recompute each layer's activations in the backward
+    # (torch.utils.checkpoint per layer) instead of keeping them
+    remat: bool = True
 
     @property
     def attn_dim(self) -> int:
@@ -300,6 +306,56 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., None, :].to(x1.dtype)
     s = sin[..., None, :].to(x1.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _chunk_nll(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+               vocab_size: int) -> torch.Tensor:
+    """Summed NLL of one sequence chunk: its logits ``x @ w_head`` in the
+    compute dtype, padded columns set to the dtype's minimum, then fp32
+    logsumexp minus the gold logit, over the labels that are not -100."""
+    logits = x @ w_head
+    col = torch.arange(w_head.shape[-1], device=x.device)
+    logits = torch.where(col < vocab_size, logits,
+                         torch.finfo(logits.dtype).min).float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return torch.where(valid, logz - gold, 0.0).sum()
+
+
+def fused_cross_entropy(
+    x: torch.Tensor,            # (B, S, d) final hidden states
+    w_head: torch.Tensor,       # (d, V_padded)
+    labels: torch.Tensor,       # (B, S); -100 = ignored
+    vocab_size: int,            # true vocab (padded columns are masked)
+    n_chunks: int = 8,
+) -> torch.Tensor:
+    """Sequence-chunked LM head plus cross entropy, the mean over valid
+    labels in fp32.  The ``(B, S, V)`` logits are never held whole: each
+    chunk of ``S / n_chunks`` positions (one chunk when S does not divide)
+    runs under ``torch.utils.checkpoint`` when grad is on, so the forward
+    keeps no logits and the backward recomputes one chunk's at a time.
+    Chunk sums add in order, as the JAX package's scan does."""
+    b, s, _ = x.shape
+    if s % n_chunks:
+        n_chunks = 1
+    c = s // n_chunks
+    labels = labels.to(x.device)
+    remat = torch.is_grad_enabled() and (x.requires_grad
+                                         or w_head.requires_grad)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        args = (x[:, i * c:(i + 1) * c], w_head, labels[:, i * c:(i + 1) * c],
+                vocab_size)
+        if remat:
+            nll = torch.utils.checkpoint.checkpoint(_chunk_nll, *args,
+                                                    use_reentrant=False)
+        else:
+            nll = _chunk_nll(*args)
+        nll_sum = nll_sum + nll
+    n_valid = (labels >= 0).sum()
+    return nll_sum / torch.clamp(n_valid, min=1)
 
 
 # ---------------------------------------------------------------------------

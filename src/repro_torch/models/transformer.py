@@ -10,7 +10,11 @@ projection may be a ``QuantizedLinear`` (``core/quantize.py``),
 layer-stacked like the dense weight it replaces.  Serving updates the
 decode cache in place: a dense cache, or paged block pools addressed
 through per-slot block tables (of rows, or of NF4/int8 codes under
-``cfg.kv_quant``).  The MoE branch and chunked prefill are not ported
+``cfg.kv_quant``).  Training takes :meth:`Transformer.loss`: the
+backbone with one ``torch.utils.checkpoint`` per layer under
+``cfg.remat``, then the chunked LM-head cross entropy; it runs with grad,
+while ``forward``, ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``.  The MoE branch and chunked prefill are not ported
 yet.
 """
 
@@ -20,6 +24,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.peft import (
@@ -37,6 +42,7 @@ from repro_torch.models.common import (
     apply_rope,
     dense_init,
     embed_init,
+    fused_cross_entropy,
     insert_cache_slots,
     make_rope,
     rms_norm,
@@ -250,6 +256,45 @@ class Transformer(nn.Module):
             x, _ = self._layer(lp, la, x, rope=rope)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x), 0.0
+
+    # ----------------------------------------------------------------- train
+    def _hidden(self, params, batch, peft=None) -> torch.Tensor:
+        """Backbone only: the final-norm hidden states ``(B, S, d)``.
+        Under ``cfg.remat`` (with grad on) each layer runs under
+        ``torch.utils.checkpoint``: only its input is kept, and its
+        activations are recomputed in the backward."""
+        cfg = self.cfg
+        x = self._embed(params, self._tokens(batch))
+        rope = make_rope(torch.arange(x.shape[1], device=x.device)[None, :],
+                         cfg.head_dim, cfg.rope_theta)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for _, lp, la in self._layers(params, peft):
+            def body(h, lp=lp, la=la):
+                return self._layer(lp, la, h, rope=rope)[0]
+
+            x = (torch.utils.checkpoint.checkpoint(body, x,
+                                                   use_reentrant=False)
+                 if remat else body(x))
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def head_weight(self, params) -> torch.Tensor:
+        """The LM head ``(d, V_padded)`` in the compute dtype."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return params["embed"]["tokens"].to(cfg.compute_dtype).T
+        return params["lm_head"].to(cfg.compute_dtype)
+
+    def loss(self, params, peft, batch) -> torch.Tensor:
+        """Training loss: the mean cross entropy of ``batch["labels"]``
+        (-100 ignored) through the chunked LM head
+        (``common.fused_cross_entropy``), which never holds the whole
+        ``(B, S, V)`` logits.  Differentiable in whatever leaves of
+        ``params`` and ``peft`` require grad."""
+        labels = torch.as_tensor(batch["labels"], dtype=torch.long,
+                                 device=self.device)
+        x = self._hidden(params, batch, peft)
+        return fused_cross_entropy(x, self.head_weight(params), labels,
+                                   self.cfg.vocab_size)
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None

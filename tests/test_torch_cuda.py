@@ -890,3 +890,55 @@ def test_banked_gather_refuses_what_the_kernel_does_not_take(dev):
             scale=1.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         banked_lora_delta(x.half(), a, b, ids, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window,bq", [
+    (2, 100, 4, 2, 64, None, 64),     # GQA, S not a multiple of the block
+    (1, 200, 4, 4, 128, 30, 128),     # window
+])
+def test_flash_function_trains_through_the_kernel(b, s, h, kv, hd, window,
+                                                  bq, dtype, dev):
+    """With grad on, kernel 3 launches inside its autograd.Function: the
+    output is the kernel's bit for bit, and dq, dk, dv are autograd of the
+    plain banded recompute bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev
+                           ).to(dtype).requires_grad_(True)
+               for n in (h, kv, kv))
+    g = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    before = launch_counts()["flash_attention"]
+    out = FA.flash_attention(q, k, v, window=window, block_q=bq)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    with torch.no_grad():
+        assert torch.equal(out, FA.flash_attention(q, k, v, window=window))
+    rq, rk, rv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    rec = FA.banded_recompute(rq, rk, rv, block_q=bq, window=window,
+                              scale=hd ** -0.5)
+    want = torch.autograd.grad(rec, (rq, rk, rv), g)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_forward_only_kernels_refuse_autograd_on_the_card(dev):
+    """A CUDA wrapper with no backward raises, and does not detach, when
+    grad is on and an operand requires grad; under no_grad it launches."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ad = QuantaAdapter.create(gen, 256, n_axes=4, device=dev)
+    tensors = [t.clone().requires_grad_(True) for t in ad.tensors]
+    x = torch.randn((8, 256), generator=gen, device=dev)
+    before = launch_counts()["quanta_apply"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        quanta_apply(x, tensors, ad.dims_in, ad.pairs)
+    with pytest.raises(RuntimeError, match="no backward"):
+        quanta_linear(x, torch.zeros((256, 256), device=dev), tensors,
+                      ad.dims_in, ad.pairs)
+    assert launch_counts()["quanta_apply"] == before
+    with torch.no_grad():
+        out = quanta_apply(x, tensors, ad.dims_in, ad.pairs)
+    torch.cuda.synchronize()
+    assert launch_counts()["quanta_apply"] == before + 1
+    _close(out, apply_sequential(x, ad.tensors, ad.dims_in, ad.pairs),
+           torch.float32)

@@ -46,6 +46,10 @@ def test_every_module_imports_without_jax():
     code = _BLOCK + (
         f"for name in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('qs', "
+        f"{str(ROOT / 'examples' / 'torch_quickstart.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
@@ -76,7 +80,9 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py",
-                          ROOT / "tools" / "kernel_split.py"],
+                          ROOT / "tools" / "kernel_split.py",
+                          ROOT / "tools" / "train_probe.py",
+                          ROOT / "examples" / "torch_quickstart.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     for name in _imports(path):
@@ -143,15 +149,38 @@ def test_chip_smoke_refuses_without_card_or_repo(alone, tmp_path):
     "repro_torch.core.bank", "repro_torch.core.baselines",
     "repro_torch.kernels.banked_gather", "repro_torch.serve.adapter_pool",
     "repro_torch.serve.metrics",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+    "repro_torch.optim.compress", "repro_torch.data.pipeline",
+    "repro_torch.data.tokenizer", "repro_torch.train.loop",
 ])
 def test_bank_modules_are_covered(name):
-    """The multi-tenant modules are among those imported with ``jax`` and
-    the JAX package blocked, and among the files whose imports are read."""
+    """The multi-tenant and training modules are among those imported with
+    ``jax`` and the JAX package blocked, and among the files whose imports
+    are read."""
     assert name in _modules()
     path = PKG.joinpath(*name.split(".")[1:]).with_suffix(".py")
     assert path in set(PKG.rglob("*.py"))
     assert not {n.split(".")[0] for n in _imports(path)} & {
         "jax", "jaxlib", "repro"}
+
+
+def test_cpu_train_step_launches_no_kernel():
+    """A train step on the CPU under the flash backend runs kernel 3's
+    Function on its plain version, and no counter moves."""
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas")
+    model = build_model(cfg, device="cpu")
+    base, peft = attach(1, model.init(0), PeftConfig(n_axes=4), device="cpu")
+    opt = AdamW(lr=5e-3)
+    reset_launch_counts()
+    step = make_train_step(model, opt)
+    state, metrics = step(TrainState.create(base, peft, opt),
+                          SyntheticSeq2Task(256, 16, 4, 4).batch(0))
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 def test_cpu_bank_path_launches_no_kernel():

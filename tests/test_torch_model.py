@@ -196,13 +196,17 @@ def test_param_counts_vs_jax():
 def test_unported_options_raise(what):
     """What the port does not run yet raises instead of running something
     else."""
+    from repro_torch.core.bank import AdapterBank
     from repro_torch.core.peft import PeftConfig, attach
 
     cfg = get_smoke("llama2-7b-proxy")
     with pytest.raises(NotImplementedError):
         if what == "fold_free":
+            # fold-free QuanTA attaches and trains; as a bank tenant it is
+            # not ported yet
             m = build_model(cfg, device="cpu")
-            attach(1, m.init(0), PeftConfig(n_axes=4, fold=False),
-                   device="cpu")
+            params = m.init(0)
+            AdapterBank.build(params, {"ff": attach(
+                1, params, PeftConfig(n_axes=4, fold=False), device="cpu")})
         else:
             build_model(cfg.replace(family="moe"), device="cpu")

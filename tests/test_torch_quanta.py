@@ -205,13 +205,23 @@ def test_adapter_apply_matches_jax(d_in, d_out, dims, backend):
 
 
 def test_fold_free_adapters_are_refused():
-    """Fold-free QuanTA (S kept as factors) waits for a later slice: the
-    port raises instead of serving it as folded."""
+    """Fold-free QuanTA (S kept as factors) crosses over with its S, and is
+    not served as folded: its delta subtracts S's chain.  As a bank tenant
+    it waits for a later slice, and the bank refuses it."""
+    from repro_torch.core.bank import tenant_path_adapters
+    from repro_torch.core.peft import AdapterLeafSpec, AdapterSet
+
     ja = _jax_adapter(64, 64, (4, 4, 4))
     ff = JQ.QuantaAdapter(ja.tensors, ja.dims_in, ja.dims_out, ja.pairs,
                           frozen=ja.tensors)
+    ta = interop.quanta_from_numpy(ff, "cpu")
+    assert ta.fold_free and len(ta.frozen) == len(ta.tensors)
+    x = _x((5, 64))
+    assert np.abs(_np(ta.delta(torch.from_numpy(x)))).max() == 0.0
+    aset = AdapterSet({"p": ta}, (AdapterLeafSpec("p", "quanta", False, 64,
+                                                  64, fold=False),))
     with pytest.raises(NotImplementedError, match="fold-free"):
-        interop.quanta_from_numpy(ff, "cpu")
+        tenant_path_adapters("ff", aset)
     gen = torch.Generator().manual_seed(0)
     ad = TQ.QuantaAdapter.create(gen, 64, 64, n_axes=3)
     assert ad.num_params == tfact.param_count(ad.dims_in, ad.pairs)

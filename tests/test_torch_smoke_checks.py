@@ -222,3 +222,33 @@ def test_profile_groups_book_each_bf16_kernel_once(smoke):
     for _, subs in smoke.PROFILE_GROUPS:
         for sub in subs:
             assert any(sub in name for name in names), sub
+
+
+def test_round_bits_keeps_the_bits_asked_for(smoke):
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(3)
+                    ).to(torch.bfloat16)
+    assert torch.equal(smoke.round_bits(x, 8), x)
+    m, _ = torch.frexp(smoke.round_bits(x, 5).float())
+    assert torch.equal(m * 32, torch.round(m * 32))
+    assert not torch.equal(smoke.round_bits(x, 5), x)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_grad_limit_lies_between_sound_and_coarse(smoke, window):
+    """Kernel 3's Function (its plain forward here) meets the bf16
+    gradient limit against the reference attention, and the same Function
+    fed inputs of ``GRAD_CONTROL_CAUGHT`` significant bits exceeds it."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, g = (torch.randn((2, 130, 4, 32), generator=gen
+                              ).to(torch.bfloat16) for _ in range(4))
+
+    def fn(a, c, d):
+        return FA.flash_attention(a, c, d, window=window, block_q=130)
+
+    ref = smoke._flash_grads(lambda a, c, d: FA.blockwise_reference_attention(
+        a, c, d, q_block=128, window=window), q, k, v, g)
+    tol = smoke.FLASH_GRAD_TOL["torch.bfloat16"]
+    assert smoke._grad_rel(smoke._flash_grads(fn, q, k, v, g), ref) <= tol
+    coarse = (smoke.round_bits(t, smoke.GRAD_CONTROL_CAUGHT)
+              for t in (q, k, v, g))
+    assert smoke._grad_rel(smoke._flash_grads(fn, *coarse), ref) > tol

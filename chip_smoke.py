@@ -79,10 +79,37 @@ Phases, one line or more each before the last:
    evicts and reloads: every kernel engine's tokens must equal the plain
    engine's and each tenant's single-tenant engine's, and the pool's the
    static bank's;
+   Every CUDA engine decodes through its captured graph: each tick after
+   the first replays one ``torch.cuda.CUDAGraph``; each engine's capture
+   guard must count one decode graph.  On the paged NF4-KV engine (after
+   its planted fault) and on a FULL bank engine, one tick replayed from
+   the graph must equal the same tick run eagerly bit for bit, and 8
+   graph ticks and 8 eager ticks of the engine are timed in turns;
+5b. serve B: on the f32 2-layer cut, chunked prefill (chunks of 32;
+   prompts of 37-200 tokens) on the dense cache and on a paged pool that
+   preempts must give the wave-prefill engine's and the plain chunked
+   engine's tokens; replay admission (prompts stepped through the graph)
+   the prefill admission's; ``ServeFrontend`` with ``DEFAULT_CLASSES`` on
+   a ``VirtualClock`` (Poisson arrivals, seed 0, mixed classes, chunked
+   prefill, a pool that preempts through the SLA victim hook) must stream
+   the closed loop's tokens, with chained ticks; an ``AdapterPool`` that
+   evicts and reloads under the graph the eager static bank's tokens;
+   planted faults (each chunk's K/V written at position 0; chained
+   dispatches that ignore ``fresh``) must be caught.  At FULL width the
+   dense adapted engine's graph tick must equal its eager tick bit for
+   bit (then 8 graph and 8 eager ticks timed), and
+   ``ServeFrontend(ServingEngine(n_slots=8, max_len=512,
+   prefill_chunk=128))`` serves 16 requests (the phase-5 prompts twice, 32
+   new tokens, classes alternating, Poisson arrivals at 8/s on the wall
+   clock), drained by a worker thread while the main thread consumes the
+   streams: every stream must hold its request's 32 tokens, the guard one
+   decode graph, kernels 1, 2 and 4 must launch and kernel 4 count one
+   launch per layer per tick through the replays; tick wall and TTFT
+   percentiles per class, chained and host dispatches are printed;
 6. with ``--profile`` only: ``torch.profiler`` over the adapted model's
-   prefill wave and over decode ticks, device time by kernel (where the
-   serving time goes), on the dense path, the QLoRA path (NF4 KV, then
-   bf16 KV rows) and the bank;
+   prefill wave, over 8 graph ticks (the profiler names the kernels a
+   replay launches) and over one eager tick, by kernel, on the dense
+   path, the QLoRA path (NF4 KV, then bf16 KV rows) and the bank;
 7. train: kernel 3 under autograd at the training shape (B 8, S 512, 32
    heads of 128; bf16 and f32, and a window): the Function's output
    equals the kernel's and its dq, dk, dv equal autograd of the plain
@@ -1017,19 +1044,38 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+def _guard_ok(eng, label, eager=False):
+    """The capture guard of a CUDA engine: one decode graph (none when
+    its ticks ran eagerly), within its bound.  (A CPU engine, in a
+    rehearsal, captures nothing and registers nothing.)"""
+    counts = eng.compile_guard.counts()
+    eng.compile_guard.assert_ok()
+    want = ({} if eng.device.type != "cuda"
+            else {"decode": 0} if eager else {"decode": 1})
+    if counts != want:
+        raise AssertionError(f"{label}: capture guard counts {counts}, "
+                             f"want {want}")
+    return counts
+
+
 def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
-           tenants=None, **engine_kw):
+           tenants=None, eager=False, **engine_kw):
     """Serve ``prompts`` greedily (request i on bank tenant ``tenants[i]``
-    when given); returns the outputs, the engine's stats and the wall
-    times of the first wave's prefill and of the rest of the run.  The
-    stats add ``readmit_s``, the wall time of the prefills after the first
-    wave (each timed to the device's end), and ``preempted``, ``(request,
-    tokens it had)`` for each preemption."""
+    when given; every decode tick eager with ``eager``); returns the
+    outputs, the engine's stats and the wall times of the first wave's
+    prefill and of the rest of the run.  The stats add ``readmit_s``, the
+    wall time of the prefills after the first wave (each timed to the
+    device's end), ``preempted``, ``(request, tokens it had)`` for each
+    preemption, and ``guard``, the capture guard's counts, which must be
+    one decode graph (none with ``eager``)."""
     from repro_torch.serve import Request, ServingEngine
 
     dev = model.device
     eng = ServingEngine(model, params, peft, n_slots=n_slots,
                         max_len=max_len, device=dev, **engine_kw)
+    # the twin the graph engines are held against: every decode tick's
+    # body run eagerly over the same buffers (the engine's internal seam)
+    eng._decode.eager = eager
     reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for i, r in enumerate(reqs):
@@ -1060,8 +1106,9 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     eng.run()
     _sync(dev)
     t2 = time.monotonic()
+    guard = _guard_ok(eng, "serve", eager)
     stats = dict(eng.stats, cache_bytes_first_wave=first_wave_bytes,
-                 readmit_s=readmit[0], preempted=preempted)
+                 readmit_s=readmit[0], preempted=preempted, guard=guard)
     return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
@@ -1438,8 +1485,10 @@ def _decode_once(eng, toks):
 def qlora_serve(card, dev, model, base, peft, prompts):
     """The NF4-base, NF4-KV paged serving path at FULL width, its bf16-KV
     twin, and one decode step of the paged NF4 pool against a dense cache
-    of the fake-quantized rows.  Returns the launch counts of kernels 5,
-    6 and 7, each from the run that drives it."""
+    of the fake-quantized rows, then that paged engine's graph tick
+    against its eager tick.  Returns the launch counts of kernels 5, 6
+    and 7, each from the run that drives it, the run's objects and the
+    tick readings."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1526,16 +1575,18 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     toks = ld[:, :, :v].argmax(-1)
     active = np.array([r is not None for r in ep.slots])
     ep._ensure_growth(active)
-    ep.pager._device_tables = ep.pager.device_tables().roll(1, dims=0)
+    tables = ep.pager.device_tables()       # the buffer the graph reads
+    tables.copy_(tables.roll(1, dims=0))
     rel_f = rel_err(_decode_once(ep, toks), _decode_once(ed, toks))
-    ep.pager._device_tables = None
+    ep.pager._dirty = True                  # the next tick refreshes it
     print(f"fault qlora (neighbour's block table): logits max_rel "
           f"{rel_f:.3e} "
           f"{'caught' if rel_f > PAGED_LOGIT_TOL else 'passes: too loose'}")
     if rel_f <= PAGED_LOGIT_TOL:
         fail("a slot reading another's blocks passes the paged tolerance")
+    ticks = graph_vs_eager(ep, "paged NF4 KV, NF4 base", card)
     del engines, ep, ed
-    return counts, (mq, qbase, peft, prompts)
+    return counts, (mq, qbase, peft, prompts), ticks
 
 
 # the FULL-width bank run's tenants, one per request
@@ -1549,11 +1600,13 @@ def bank_serve(card, dev, cfg, prompts):
     """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).  One base serves
     the 8 requests through an ``AdapterBank`` (``BANK_TENANTS``, mixed by
     ``BANK_MIX``); then each row's first-wave prefill logits against its
-    tenant's single-tenant prefill, and the neighbour's-tenant fault.
-    Returns the launch counts of kernel 8 and the bank run's objects."""
+    tenant's single-tenant prefill, the neighbour's-tenant fault, and a
+    bank engine's graph tick against its eager tick.  Returns the launch
+    counts of kernel 8, the bank run's objects and the tick readings."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.bank import AdapterBank
+    from repro_torch.serve import Request, ServingEngine
 
     cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
     t0 = time.monotonic()
@@ -1617,8 +1670,437 @@ def bank_serve(card, dev, cfg, prompts):
           f"{'caught' if rel_f > BANK_LOGIT_TOL else 'passes: too loose'}")
     if rel_f <= BANK_LOGIT_TOL:
         fail("a slot on its neighbour's tenant passes the bank tolerance")
+    eng = ServingEngine(model, params, adapters=bank, n_slots=8, max_len=512,
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64),
+                   adapter=BANK_MIX[i])
+    eng.step()
+    ticks = graph_vs_eager(eng, "bank", card)
+    del eng
     return ({k: run[k] for k in ("banked_lora_linear", "banked_lora_delta")},
-            (model, params, bank, prompts))
+            (model, params, bank, prompts), ticks)
+
+
+# ------------------------------------------------------------ serve B
+# the chunk of the f32 cut's chunked engines, and of the FULL front end
+SERVE_B_CHUNK = 32
+FULL_FE_CHUNK = 128
+# the FULL front end's load: requests a second, arrival seed
+FULL_FE_RATE = 8.0
+# the f32 cut's front end: virtual seconds a tick, arrivals a second
+FE_TICK_S = 0.01
+FE_RATE = 20.0
+# its pool: 23 blocks of 16 tokens, so the 8 requests (4 slots) preempt
+FE_POOL_BLOCKS = 24
+
+
+def graph_vs_eager(eng, label, card, ticks=8):
+    """One decode tick of ``eng`` (its graph captured already) run eagerly
+    and then replayed from the same state (``len`` put back; the replay
+    rewrites the same K/V rows): the logits must be equal bit for bit.
+    Then the wall time of ``ticks`` graph ticks and of ``ticks`` eager
+    ticks over the same engine, each tick to its tokens on the host, in
+    the order graph, eager, eager, graph.  Returns the per-tick ms of the
+    two modes."""
+    import numpy as np
+    import torch
+
+    if eng.compile_guard.counts() != {"decode": 1}:
+        raise AssertionError(f"{label}: no decode graph to hold")
+    active = np.array([r is not None for r in eng.slots])
+
+    def tick(eager):
+        if eng.pager is not None:
+            eng._ensure_growth(active)
+        eng._decode.eager = eager
+        logits = eng.dispatch_decode(eng._last_token, active)
+        eng._decode.eager = False
+        eng._landing.tokens()
+        eng._lengths[active] += 1
+        return logits
+
+    if eng.pager is not None:
+        eng._ensure_growth(active)
+    before = eng.cache["len"].clone()
+    eng._decode.eager = True
+    le = eng.dispatch_decode(eng._last_token, active).clone()
+    eng._decode.eager = False
+    eng.cache["len"].copy_(before)
+    lg = eng.dispatch_decode(eng._last_token, active).clone()
+    eng._lengths[active] += 1
+    same = torch.equal(le, lg)
+    diff = float((le.float() - lg.float()).abs().max())
+    ms = {False: [], True: []}
+    for eager in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(ticks):
+            tick(eager)
+        torch.cuda.synchronize()
+        ms[eager].append((time.monotonic() - t0) * 1e3 / ticks)
+    graph_ms, eager_ms = min(ms[False]), min(ms[True])
+    # ``ticks`` dispatches, one in flight at a time, each with two pairs of
+    # CUDA events: around the whole dispatch (the stream also waits there
+    # while the host checks the buffers and queues the input copies) and
+    # around the graph's replay alone (the tick's device time)
+    graph = eng._decode.graph
+    replays = []
+
+    class TimedGraph:
+        def replay(self):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+            pair[0].record()
+            graph.replay()
+            pair[1].record()
+            replays.append(pair)
+
+    eng._decode.graph = TimedGraph()
+    dispatch = []
+    try:
+        for _ in range(ticks):
+            if eng.pager is not None:
+                eng._ensure_growth(active)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            eng.dispatch_decode(eng._last_token, active)
+            end.record()
+            eng._landing.tokens()
+            eng._lengths[active] += 1
+            dispatch.append(start.elapsed_time(end))
+    finally:
+        eng._decode.graph = graph
+    dispatch_ms = sum(dispatch) / ticks
+    device_ms = sum(a.elapsed_time(b) for a, b in replays) / ticks
+    print(f"serve B graph vs eager, {label}: one tick's logits "
+          f"{'equal bit for bit' if same else f'FAIL: differ by {diff:.3e}'}"
+          f" {tuple(lg.shape)}; {ticks} ticks to the host, best of two: "
+          f"graph {graph_ms:.2f} ms a tick, eager {eager_ms:.2f} ms a tick; "
+          f"a graph tick's replay {device_ms:.2f} ms on the device (CUDA "
+          f"events), so busy {device_ms / graph_ms:.1%} of its wall; stream "
+          f"elapsed a dispatch (input checks, copies and replay) "
+          f"{dispatch_ms:.2f} ms; warm-up and capture "
+          f"{eng._decode.capture_s * 1e3:.1f} ms wall; guard "
+          f"{_guard_ok(eng, label)} [{card}]")
+    if not same:
+        fail(f"{label}: the graph's tick differs from the eager tick")
+    return graph_ms, eager_ms, device_ms
+
+
+def _chunk_at_zero(model):
+    """Planted fault: every chunk's K/V written at staging rows 0..C-1
+    (its queries keep their positions).  Returns the undo."""
+    attn = model._attn
+
+    def faulty(lp, la, x, *, chunk=None, **kw):
+        if chunk is not None:
+            k, v, rows, q_pos = chunk
+            chunk = (k, v, rows - rows[0], q_pos)
+        return attn(lp, la, x, chunk=chunk, **kw)
+
+    model._attn = faulty
+    return lambda: delattr(model, "_attn")
+
+
+def _frontend_run(model, base, peft, prompts, max_new, arrivals, classes,
+                  fault=False, **engine_kw):
+    """Serve ``prompts`` through ``ServeFrontend`` on a ``VirtualClock``
+    that moves ``FE_TICK_S`` a tick (request i arriving at
+    ``arrivals[i]`` in class ``classes[i]``); with ``fault`` the chained
+    dispatches ignore ``fresh``.  Returns the streams, the front end and
+    the number of chained dispatches that had fresh slots."""
+    import numpy as np
+    from repro_torch.serve import (
+        Request, ServeFrontend, ServingEngine, VirtualClock,
+    )
+
+    eng = ServingEngine(model, base, peft, device=model.device, **engine_kw)
+    eng.clock = clock = VirtualClock()
+    tick = eng.dispatch_decode
+    fresh_chains = [0]
+
+    def dispatch(toks, active, fresh=None):
+        if fresh is not None and fresh.any():
+            fresh_chains[0] += 1
+            if fault:
+                fresh = np.zeros_like(fresh)
+        return tick(toks, active, fresh)
+
+    eng.dispatch_decode = dispatch
+    fe = ServeFrontend(eng)
+    streams = [fe.submit(Request(uid=i, prompt=list(p),
+                                 max_new_tokens=max_new,
+                                 arrival_time=float(arrivals[i]),
+                                 latency_class=classes[i]))
+               for i, p in enumerate(prompts)]
+    while fe.pending():
+        if not fe.tick():
+            fe._idle()
+        clock.advance(FE_TICK_S)
+    fe.drain()                       # lands the last tick
+    return streams, fe, fresh_chains[0]
+
+
+def serve_b_cut(dev, cfg):
+    """``cfg``: llama2-7b-proxy cut to 2 layers in float32.  Chunked
+    prefill (dense and a paged pool that preempts) against wave prefill,
+    replay admission against prefill admission, the SLA front end on a
+    virtual clock against the closed loop, an evicting ``AdapterPool``
+    against the eager static bank; one decode graph per engine; the two
+    planted faults."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bank import AdapterBank
+    from repro_torch.serve import (
+        AdapterPool, AdapterStore, DEFAULT_CLASSES, poisson_arrivals,
+    )
+
+    model, base, peft = _adapted(cfg, 100, dev)
+    plain = type(model)(cfg.replace(attn_backend="reference",
+                                    peft_backend="reference"), device=dev)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64)]
+    paged = dict(cache="paged", block_size=16, n_blocks=F32_POOL_BLOCKS)
+    chunk = dict(prefill_chunk=SERVE_B_CHUNK)
+    for label, kw in (("dense", {}), ("paged tight", paged)):
+        wave, st_w, _, _ = _serve(model, base, peft, prompts, 16, 4, 256,
+                                  **kw)
+        out_k, st_k, _, _ = _serve(model, base, peft, prompts, 16, 4, 256,
+                                   **kw, **chunk)
+        out_p, st_p, _, _ = _serve(plain, base, peft, prompts, 16, 4, 256,
+                                   **kw, **chunk)
+        print(f"serve B chunked prefill ({label}, chunks of "
+              f"{SERVE_B_CHUNK}): {st_k['chunk_calls']} chunk steps, "
+              f"preemptions kernel {st_k['preempted']} wave "
+              f"{st_w['preempted']}; identical greedy tokens chunked vs wave "
+              f"{sum(a == b for a, b in zip(out_k, wave))}/{len(prompts)}, "
+              f"kernel vs plain {sum(a == b for a, b in zip(out_k, out_p))}/"
+              f"{len(prompts)}; guard {st_k['guard']}")
+        if out_k != wave or out_k != out_p or not st_k["chunk_calls"]:
+            raise AssertionError(f"serve B chunked {label}: {out_k} wave "
+                                 f"{wave} plain {out_p}")
+        if label == "paged tight" and not st_k["preempted"]:
+            raise AssertionError("serve B chunked paged: no preemption")
+    undo = _chunk_at_zero(model)
+    try:
+        out_f, _, _, _ = _serve(model, base, peft, prompts, 16, 4, 256,
+                                **chunk)
+    finally:
+        undo()
+    same_f = sum(a == b for a, b in zip(out_f, wave))
+    print(f"fault serve B (each chunk's K/V written at position 0): chunked "
+          f"vs wave {same_f}/{len(prompts)} requests identical "
+          f"{'caught' if out_f != wave else 'passes: not caught'}")
+    if out_f == wave:
+        fail("chunk K/V written at position 0 passes the token check")
+
+    dense, _, _, _ = _serve(model, base, peft, prompts, 16, 4, 256)
+    out_r, st_r, _, _ = _serve(model, base, peft, prompts, 16, 4, 256,
+                               admission="replay")
+    print(f"serve B replay admission: {st_r['decode_calls']} decode ticks "
+          f"(prompts replayed through the graph); identical greedy tokens "
+          f"replay vs prefill {sum(a == b for a, b in zip(out_r, dense))}/"
+          f"{len(prompts)}; guard {st_r['guard']}")
+    if out_r != dense:
+        raise AssertionError(f"serve B replay: {out_r} vs {dense}")
+
+    # the SLA front end on a virtual clock: Poisson arrivals (seed 0),
+    # mixed classes, chunked prefill, a pool that preempts through the
+    # scheduler's victim hook; each stream must equal the closed loop
+    fe_prompts = prompts + [torch.randint(0, cfg.vocab_size, (n,),
+                                          generator=gen).tolist()
+                            for n in (50, 150, 90)]
+    fe_pool = dict(paged, n_blocks=FE_POOL_BLOCKS)
+    fe_kw = dict(n_slots=4, max_len=256, **fe_pool, **chunk)
+    closed, _, _, _ = _serve(model, base, peft, fe_prompts, 16, 4, 256,
+                             **fe_pool, **chunk)
+    arrivals = poisson_arrivals(np.random.default_rng(0), FE_RATE,
+                                len(fe_prompts))
+    classes = [DEFAULT_CLASSES[i % 2].name for i in range(len(fe_prompts))]
+    for fault in (False, True):
+        streams, fe, fresh_chains = _frontend_run(
+            model, base, peft, fe_prompts, 16, arrivals, classes,
+            fault=fault, **fe_kw)
+        got = [s.tokens for s in streams]
+        same = sum(a == b for a, b in zip(got, closed))
+        eng = fe.engine
+        if fault:
+            print(f"fault serve B (chained dispatch ignores fresh: an "
+                  f"admitted slot decodes the device's stale token): "
+                  f"{fresh_chains} chained ticks with fresh slots, streams "
+                  f"vs closed loop {same}/{len(got)} identical "
+                  f"{'caught' if got != closed else 'passes: not caught'}")
+            if got == closed:
+                fail("a chained dispatch ignoring fresh passes")
+            continue
+        ttft = {c: round(h.percentile(50), 6)
+                for c, h in eng.ttft_hists.items()}
+        print(f"serve B front end (virtual clock, {FE_TICK_S:g} s a tick, "
+              f"Poisson {FE_RATE:g}/s seed 0, "
+              f"classes {classes}): streams vs closed loop {same}/"
+              f"{len(got)} identical; {fe.stats}; preemptions "
+              f"{eng.stats['preemptions']}, chunk steps "
+              f"{eng.stats['chunk_calls']}, chained ticks with fresh slots "
+              f"{fresh_chains}; TTFT p50 (virtual s) {ttft}; guard "
+              f"{_guard_ok(eng, 'front end')}")
+        if got != closed or not all(s.done for s in streams):
+            raise AssertionError(f"serve B front end: {got} vs {closed}")
+        if not fe.stats["chained"] or not eng.stats["preemptions"]:
+            raise AssertionError(f"serve B front end: no chained tick or no "
+                                 f"preemption: {fe.stats} {eng.stats}")
+
+    # an AdapterPool of one row per group, which evicts and reloads under
+    # the graph, against the static bank run eagerly
+    bmodel, params, tenants = _bank_setup(cfg, 500, dev, sigma=0.05)
+    bprompts = prompts + [fe_prompts[5]]
+    static, _, _, _ = _serve(bmodel, params, None, bprompts, 16, 4, 256,
+                             tenants=F32_BANK_MIX, eager=True,
+                             adapters=AdapterBank.build(params, tenants))
+    store = AdapterStore(max_tenants=8)
+    for name, entry in tenants.items():
+        store.register(name, entry)
+    pool = AdapterPool.build(params, store, capacity=1)
+    out_pool, st, _, _ = _serve(bmodel, params, None, bprompts, 16, 4, 256,
+                                tenants=F32_BANK_MIX, adapters=pool)
+    print(f"serve B pool under the graph: loads {st['adapter_loads']}, "
+          f"evictions {st['adapter_evictions']}; identical greedy tokens "
+          f"pool (graph) vs static bank (eager) "
+          f"{sum(a == b for a, b in zip(out_pool, static))}/{len(static)}; "
+          f"guard {st['guard']}")
+    if out_pool != static or st["adapter_evictions"] < 1:
+        raise AssertionError(f"serve B pool: {out_pool} vs {static}, {st}")
+
+
+def serve_b_full(card, dev, cfg):
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).  The dense
+    adapted engine's graph tick against its eager tick, then
+    ``ServeFrontend(ServingEngine(n_slots=8, max_len=512,
+    prefill_chunk=128))`` serves 16 requests (the phase-5 prompts twice,
+    32 new tokens, classes alternating) arriving as a Poisson process at 8
+    a second on the wall clock, drained by a worker thread while this
+    thread consumes the streams; each stream must equal the same requests'
+    greedy tokens from a closed-loop engine of the same shape.  Returns
+    the graph and eager tick times."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve import (
+        DEFAULT_CLASSES, Request, ServeFrontend, ServingEngine,
+        poisson_arrivals,
+    )
+
+    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
+    model, base, peft = _adapted(cfg, 200, dev)
+    gen = torch.Generator().manual_seed(9)
+    lengths = [32, 82, 132, 182, 232, 282, 332, 384]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lengths]
+    eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
+    eng.step()
+    ticks = graph_vs_eager(eng, "dense adapted", card)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the closed loop the streams are held against: the same engine shape
+    # fed every request at once (each decode row is computed on its own at
+    # the graph's fixed 8-row shape, so the greedy tokens must not depend
+    # on when a request arrived or which slot it took)
+    closed, _, _, _ = _serve(model, base, peft, prompts + prompts, 32, 8,
+                             512, prefill_chunk=FULL_FE_CHUNK)
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
+                        prefill_chunk=FULL_FE_CHUNK, device=dev)
+    fe = ServeFrontend(eng)
+    classes = [DEFAULT_CLASSES[i % 2].name for i in range(16)]
+    kernels.reset_launch_counts()
+    now = eng.clock()
+    arrivals = poisson_arrivals(np.random.default_rng(0), FULL_FE_RATE, 16,
+                                start=now)
+    streams = [fe.submit(Request(uid=i, prompt=list(p), max_new_tokens=32,
+                                 arrival_time=float(arrivals[i]),
+                                 latency_class=classes[i]))
+               for i, p in enumerate(prompts + prompts)]
+    errors = []
+
+    def drain():
+        try:
+            fe.drain()
+        except BaseException as e:          # surfaced on the main thread
+            errors.append(e)
+            for s in streams:
+                if not s.closed:
+                    s._close()
+
+    tick_ms = []
+    tick = fe.tick
+
+    def timed_tick():
+        t = time.monotonic()
+        did = tick()
+        if did:
+            tick_ms.append((time.monotonic() - t) * 1e3)
+        return did
+
+    fe.tick = timed_tick
+    worker = threading.Thread(target=drain)
+    t0 = time.monotonic()
+    worker.start()
+    got = [list(s) for s in streams]        # consumed as the ticks land
+    worker.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    run = kernels.launch_counts()
+    reqs = [s.request for s in streams]
+    ttft = {}
+    for c in sorted({r.latency_class for r in reqs}):
+        ms = [(r.first_token_time - r.arrival_time) * 1e3 for r in reqs
+              if r.latency_class == c]
+        ttft[c] = (round(float(np.percentile(ms, 50)), 2),
+                   round(float(np.percentile(ms, 99)), 2), len(ms))
+    th = eng.tick_hist
+    print(f"serve B front end, {cfg.name} FULL: 16 requests (prompts "
+          f"{lengths} twice, 32 new tokens, classes alternating), Poisson "
+          f"{FULL_FE_RATE:g}/s (rng 0) over {arrivals[-1] - now:.3f} s, "
+          f"chunks of {FULL_FE_CHUNK}; served in {wall:.3f} s wall; "
+          f"{fe.stats}; decode ticks {eng.stats['decode_calls']}, chunk "
+          f"steps {eng.stats['chunk_calls']}, prefill waves "
+          f"{eng.stats['prefill_calls']}; front-end tick wall p50 "
+          f"{np.percentile(tick_ms, 50):.2f} ms p99 "
+          f"{np.percentile(tick_ms, 99):.2f} ms over {len(tick_ms)} ticks "
+          f"with work (the engine's gauge, log2 bucket midpoints: p50 "
+          f"{th.percentile(50) * 1e3:.2f} p99 {th.percentile(99) * 1e3:.2f}); "
+          f"TTFT ms (p50, p99, n) {ttft}; warm-up and capture "
+          f"{eng._decode.capture_s * 1e3:.1f} ms; captures "
+          f"{eng._decode.captures}; launches {run}; streams vs the closed "
+          f"loop {sum(a == b for a, b in zip(got, closed))}/{len(got)} "
+          f"identical [{card}]")
+    if errors or any(len(g) != 32 or g != r.output
+                     for g, r in zip(got, reqs)):
+        raise AssertionError("serve B front end: a stream is short or "
+                             "differs from its request's output")
+    if got != closed:
+        raise AssertionError(
+            "serve B front end: streams differ from the closed loop's "
+            f"greedy tokens in requests "
+            f"{[i for i, (a, b) in enumerate(zip(got, closed)) if a != b]}")
+    _guard_ok(eng, "FULL front end")
+    layers = cfg.n_layers
+    if run["flash_decode_attention"] != layers * eng.stats["decode_calls"]:
+        raise AssertionError(f"kernel 4 launches {run} != {layers} x "
+                             f"{eng.stats['decode_calls']} ticks")
+    missing = [k for k in ("quanta_apply", "quanta_linear",
+                           "flash_decode_attention") if run[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the front-end "
+                             f"run: {missing}")
+    return ticks
 
 
 # --------------------------------------------------------------- phase 7
@@ -2234,9 +2716,12 @@ def _device_ms(prof, counts=None):
 
 def profile_serve(card, model, base, peft, prompts, path="dense",
                   tenants=None, **engine_kw):
-    """Device time of the adapted model's prefill wave and of 8 decode
-    ticks, by kernel, beside the wall time of the same window (request i
-    on bank tenant ``tenants[i]`` when given)."""
+    """Device time of the adapted model's prefill wave, of 8 decode ticks
+    (graph replays: the first tick, which captures, runs before the
+    window) and of one eager tick, by kernel, beside the wall time of the
+    same window (request i on bank tenant ``tenants[i]`` when given).
+    The profiler names the kernels a replay launches; the eager tick
+    shows what the graph removed (the host's launches between them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2248,9 +2733,17 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=32),
                    adapter=tenants[i] if tenants else None)
+    def eager_step():
+        eng._decode.eager = True
+        eng.step()
+        eng._decode.eager = False
+
     for label, work, n in (("prefill", eng._admit, 1),
-                           ("decode", eng.step, 8)):
+                           ("decode graph", eng.step, 8),
+                           ("decode eager", eager_step, 1)):
         label = f"{path} {label}"
+        if label.endswith("graph"):
+            eng.step()               # the capture tick, outside the window
         _sync(dev)
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
@@ -2337,7 +2830,7 @@ def main() -> int:
     f32_paged(dev, cut)
     f32_bank(dev, cut)
     counts, served = full_serve(card, dev, full)
-    qlora_counts, qlora = qlora_serve(card, dev, *served)
+    qlora_counts, qlora, qlora_ticks = qlora_serve(card, dev, *served)
     counts.update(qlora_counts)
     prompts = served[3]
     if "--profile" in sys.argv[1:]:
@@ -2348,7 +2841,7 @@ def main() -> int:
         profile_serve(card, served[0], *qlora[1:], path="qlora bf16 KV",
                       cache="paged", block_size=16, base_quant="nf4")
     del served, qlora
-    bank_counts, banked = bank_serve(card, dev, full, prompts)
+    bank_counts, banked, bank_ticks = bank_serve(card, dev, full, prompts)
     counts.update(bank_counts)
     if "--profile" in sys.argv[1:]:
         model, params, bank, _ = banked
@@ -2356,6 +2849,18 @@ def main() -> int:
                       tenants=BANK_MIX, adapters=bank)
         del model, params, bank
     del banked
+    torch.cuda.empty_cache()
+
+    serve_b_cut(dev, cut)
+    dense_ticks = serve_b_full(card, dev, full)
+    ticks = {"dense adapted": dense_ticks,
+             "paged NF4 KV, NF4 base": qlora_ticks,
+             "bank": bank_ticks}
+    print("serve B ticks, ms a tick (graph wall, eager wall, graph "
+          "replay on the device), 8 ticks each: "
+          + ", ".join(f"{k} ({g:.2f}, {e:.2f}, {d:.2f})"
+                      for k, (g, e, d) in ticks.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
 
     flash_reading, flash_train = train_flash(card, dev)
     train_cut(dev, cut)

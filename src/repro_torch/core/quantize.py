@@ -88,7 +88,10 @@ def codebook(device) -> torch.Tensor:
     return torch.from_numpy(NF4_CODEBOOK).to(device)
 
 
+@functools.lru_cache(maxsize=None)
 def _bounds(device) -> torch.Tensor:
+    """The NF4 decision bounds on ``device``, one tensor per device, so a
+    decode tick captured in a CUDA graph copies nothing from the host."""
     return torch.from_numpy(_NF4_BOUNDS).to(device)
 
 

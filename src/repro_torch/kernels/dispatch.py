@@ -17,10 +17,11 @@ The plain versions are PyTorch and differentiate as they are.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["MASK_VALUE", "masked_softmax", "route", "device_route",
-           "default_device", "aligned16"]
+           "default_device", "upload", "aligned16"]
 
 # The additive mask for attention logits.  Finite (not -inf) so masked
 # rows exp() to exactly 0.0 without NaN-producing inf-inf in the online
@@ -86,6 +87,19 @@ def default_device(device=None) -> torch.device:
             "device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def upload(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy ``src`` (a numpy array or a tensor) into ``dst`` in place.  A
+    host array bound for the card goes through pinned memory with
+    ``non_blocking=True``: the copy is queued on the current stream and
+    PyTorch's pinned-memory cache keeps the staging block until it has
+    run, so ``dst`` keeps its storage and the host never waits."""
+    if isinstance(src, np.ndarray):
+        src = torch.from_numpy(np.ascontiguousarray(src))
+        if dst.is_cuda:
+            src = src.pin_memory()
+    return dst.copy_(src.reshape(dst.shape), non_blocking=True)
 
 
 def aligned16(t):

@@ -15,18 +15,21 @@ GQA layout: ``q (B, S, H, hd)``, ``k/v (B, S, KV, hd)``, ``H % KV == 0``.
 kernels take their own 64-row tiles and always keep fp32 softmax
 statistics with ``p`` cast to v's dtype, so they refuse ``fast_softmax``.
 Paged decode (:func:`paged_decode_attention`) reads a block pool through
-per-slot tables, optionally of NF4/int8 codes.  Chunked-prefill attention
-and the sharded (``shard_map``) paged branch are not ported yet.
+per-slot tables, optionally of NF4/int8 codes.  Chunked-prefill
+attention (:func:`chunk_attention`) is plain PyTorch, as in the JAX
+package.  The sharded (``shard_map``) paged branch is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.dispatch import MASK_VALUE
 from repro_torch.kernels.flash_attention import (
+    _block_attend,
     blockwise_reference_attention,
     decode_reference_attention,
     flash_attention,
@@ -35,8 +38,8 @@ from repro_torch.kernels.flash_attention import (
     paged_flash_decode_attention,
 )
 
-__all__ = ["MASK_VALUE", "blockwise_causal_attention", "decode_attention",
-           "paged_decode_attention"]
+__all__ = ["MASK_VALUE", "blockwise_causal_attention", "chunk_attention",
+           "decode_attention", "paged_decode_attention"]
 
 _BACKENDS = ("reference", "pallas")
 
@@ -74,6 +77,29 @@ def blockwise_causal_attention(
     return blockwise_reference_attention(
         q, k, v, q_block=q_block, window=window, fast_softmax=fast_softmax,
     )
+
+
+def chunk_attention(
+    q: torch.Tensor,           # (B, C, H, hd), one prefill chunk
+    k: torch.Tensor,           # (B, S_stage, KV, hd), the staging cache
+    v: torch.Tensor,
+    q_pos: torch.Tensor,       # (C,) absolute positions of the chunk
+    *,
+    window: Optional[int] = None,
+    fast_softmax: bool = False,
+) -> torch.Tensor:
+    """Causal attention of one chunked-prefill piece: the chunk's queries
+    at absolute positions ``q_pos`` attend over the whole staging buffer
+    (keys at positions ``0..S_stage``), causally masked, so rows the chunk
+    has not reached add nothing.  Returns ``(B, C, H, hd)``."""
+    b, c, h, hd = q.shape
+    kv = k.shape[2]
+    out = _block_attend(
+        q.reshape(b, c, kv, h // kv, hd), k, v, q_pos,
+        torch.arange(k.shape[1], device=q.device), window,
+        1.0 / math.sqrt(hd), fast_softmax,
+    )
+    return out.reshape(b, c, h, hd)
 
 
 def decode_attention(

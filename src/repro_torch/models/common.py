@@ -160,10 +160,16 @@ def reset_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
 
 def merge_cache_slots(spec: Dict[str, CacheLeafSpec], new_cache, old_cache,
                       active, skip_paged: bool = False):
-    """Keep ``new_cache`` stripes only where ``active`` (bool per slot).
+    """Keep ``new_cache`` stripes only where ``active`` (bool per slot, a
+    host array or a tensor on the cache's device).
 
-    A leaf that the decode step updated in place (``new is old``) is kept
-    as it is: the stripes of inactive slots then hold entries past their
+    The result is written in place into ``new_cache``'s leaves, which the
+    returned dict holds, so a caller that keeps those leaves (the decode
+    step updates the cache in place, ``len`` included) keeps their
+    storage; ``old_cache`` then only needs the leaves to restore, such as
+    a copy of ``len`` from before the step.  A leaf that is the same
+    tensor in both (updated in place, nothing to restore) is kept as it
+    is: the stripes of inactive slots then hold entries past their
     length, which every reader masks and the next admission overwrites.
     ``skip_paged`` takes paged pools from ``new_cache`` as they are: the
     writes of inactive slots landed in the null block.
@@ -171,16 +177,14 @@ def merge_cache_slots(spec: Dict[str, CacheLeafSpec], new_cache, old_cache,
     out = dict(old_cache)
     for key, ls in spec.items():
         new, old = new_cache[key], old_cache[key]
-        if new is old:
-            continue
-        if skip_paged and isinstance(ls, PagedCacheLeafSpec):
-            out[key] = new
+        out[key] = new
+        if new is old or (skip_paged and isinstance(ls, PagedCacheLeafSpec)):
             continue
         act = torch.as_tensor(active, dtype=torch.bool, device=new.device)
         sel = act.reshape(
             (1,) * ls.slot_axis + (-1,) + (1,) * (new.dim() - ls.slot_axis - 1)
         )
-        out[key] = torch.where(sel, new, old)
+        new.copy_(torch.where(sel, new, old))
     return out
 
 
@@ -291,8 +295,9 @@ def make_rope(positions: torch.Tensor, head_dim: int, theta: float
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a Python scalar base: no host-to-device copy (a decode tick may run
+    # inside a captured CUDA graph), the same float32 powers
+    freqs = torch.pow(float(theta), exps)
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -14,8 +14,9 @@ through per-slot block tables (of rows, or of NF4/int8 codes under
 backbone with one ``torch.utils.checkpoint`` per layer under
 ``cfg.remat``, then the chunked LM-head cross entropy; it runs with grad,
 while ``forward``, ``prefill`` and ``decode_step`` run under
-``torch.no_grad()``.  The MoE branch and chunked prefill are not ported
-yet.
+``torch.no_grad()``.  Chunked prefill (:meth:`Transformer.prefill_chunk`)
+stages one prompt a fixed-size chunk at a time in a dense staging cache.
+The MoE branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from repro_torch.core.peft import (
 from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 from repro_torch.kernels.dispatch import default_device
 from repro_torch.models.attention import (
-    blockwise_causal_attention, decode_attention, paged_decode_attention,
+    blockwise_causal_attention, chunk_attention, decode_attention,
+    paged_decode_attention,
 )
 from repro_torch.models.common import (
     CacheLeafSpec,
@@ -140,15 +142,18 @@ class Transformer(nn.Module):
         return x @ params["lm_head"].to(cfg.compute_dtype)
 
     # ------------------------------------------------------------ layer body
-    def _attn(self, lp, la, x, *, rope, window, cache=None):
+    def _attn(self, lp, la, x, *, rope, window, cache=None, chunk=None):
         """Attention sub-block.  ``cache`` for decode is ``(k_cache,
         v_cache, cache_len)`` (dense), ``(k_pool, v_pool, cache_len,
         block_tables)`` (paged) or ``(k_codes, k_scales, v_codes, v_scales,
         cache_len, block_tables)`` (paged, quantized): the new token's K/V
         are written in place at position ``cache_len - 1`` (in a paged pool
         at row ``idx % bs`` of block ``table[b, idx // bs]``, quantized on
-        write under ``kv_quant``), then attended.  Returns ``(out,
-        new_kv)``."""
+        write under ``kv_quant``), then attended.  ``chunk=(k_stage,
+        v_stage, rows, q_pos)`` is one chunked-prefill piece: its K/V are
+        written in place at staging rows ``rows`` and its queries (at
+        absolute positions ``q_pos``, which ``rope`` carries) attend over
+        the whole staging buffer.  Returns ``(out, new_kv)``."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self._linear(x, lp["q_proj"], get_adapter(la, "q_proj"),
@@ -163,7 +168,14 @@ class Transformer(nn.Module):
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if cache is None:
+        if chunk is not None:
+            k_stage, v_stage, rows, q_pos = chunk
+            k_stage.index_copy_(1, rows, k.to(k_stage.dtype))
+            v_stage.index_copy_(1, rows, v.to(v_stage.dtype))
+            out = chunk_attention(q, k_stage, v_stage, q_pos, window=window,
+                                  fast_softmax=cfg.fast_softmax)
+            new_kv = (k_stage, v_stage)
+        elif cache is None:
             out = blockwise_causal_attention(
                 q, k, v, q_block=cfg.q_block, window=window,
                 fast_softmax=cfg.fast_softmax, backend=cfg.attn_backend,
@@ -224,12 +236,12 @@ class Transformer(nn.Module):
         return self._linear(F.silu(g) * u, lp["down_proj"],
                             get_adapter(la, "down_proj"))
 
-    def _layer(self, lp, la, x, *, rope, cache=None):
+    def _layer(self, lp, la, x, *, rope, cache=None, chunk=None):
         cfg = self.cfg
         h, new_kv = self._attn(
             lp["attn"], la.get("attn", {}),
             rms_norm(x, lp["ln1"], cfg.norm_eps),
-            rope=rope, window=cfg.sliding_window, cache=cache,
+            rope=rope, window=cfg.sliding_window, cache=cache, chunk=chunk,
         )
         x = x + h
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -365,11 +377,13 @@ class Transformer(nn.Module):
         ``block_tables (B, max_blocks)`` the KV leaves are paged pools
         (codes and ``*_qscale`` scales when the cache holds them);
         ``adapter_ids`` ``(B,)`` select each slot's tenant of a bank.
-        Returns ``(logits, cache)`` with ``cache["len"]`` advanced by
-        one."""
+        Returns ``(logits, cache)`` with ``cache["len"]`` advanced by one
+        in place (every leaf keeps its storage, so a captured CUDA graph
+        of the step reads and writes the same cache at every replay)."""
         cfg = self.cfg
         x = self._embed(params, self._tokens(batch))            # (B, 1, d)
-        new_len = cache["len"] + 1
+        new_len = cache["len"]
+        new_len += 1
         rope = make_rope((new_len - 1)[:, None], cfg.head_dim, cfg.rope_theta)
         keys = (("k", "k_qscale", "v", "v_qscale") if "k_qscale" in cache
                 else ("k", "v"))
@@ -382,11 +396,49 @@ class Transformer(nn.Module):
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._unembed(params, x)
-        new_cache = dict(cache, len=new_len)
-        return _mask_vocab_pad(logits, cfg.vocab_size), new_cache
+        return _mask_vocab_pad(logits, cfg.vocab_size), dict(cache)
 
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError("chunked prefill is not ported yet")
+    @torch.no_grad()
+    def prefill_chunk(self, params, peft, batch, cache, pos, n_valid,
+                      adapter_ids=None):
+        """One fixed-size chunk of a chunked prefill.
+
+        ``batch["tokens"]`` ``(B, C)`` is the chunk, right-padded on the
+        last (maybe partial) chunk; ``cache`` a dense staging cache
+        (``init_cache(B, s_stage)``) holding the ``pos`` tokens staged so
+        far; ``pos`` and ``n_valid`` (tokens staged so far, real tokens in
+        this chunk) are ints or tensors on the model's device, and the step
+        never reads them back to the host.  The chunk's K/V are written in
+        place at ``[pos, pos + C)`` (the start clamped so that the slab
+        fits, as ``dynamic_update_slice`` does) and its queries attend over
+        the whole staging buffer, causally (``chunk_attention``): the exact
+        continuation of a full prefill.  Returns ``(logits, cache)``:
+        ``logits (B, 1, V)`` at the chunk's last real position, and the
+        staging cache with ``len = pos + n_valid``.  The finished staging
+        cache lands in the serving cache through the same
+        ``insert_cache`` scatter as a wave."""
+        cfg = self.cfg
+        x = self._embed(params, self._tokens(batch))            # (B, C, d)
+        b, c, _ = x.shape
+        dev = x.device
+        s_stage = cache["k"].shape[2]
+        pos = torch.as_tensor(pos, dtype=torch.long, device=dev)
+        n_valid = torch.as_tensor(n_valid, dtype=torch.long, device=dev)
+        offs = torch.arange(c, device=dev)
+        q_pos = pos + offs
+        rows = torch.clamp(pos, 0, s_stage - c) + offs
+        rope = make_rope(q_pos[None, :], cfg.head_dim, cfg.rope_theta)
+        for i, lp, la in self._layers(params, peft, adapter_ids):
+            x, _ = self._layer(
+                lp, la, x, rope=rope,
+                chunk=(cache["k"][i], cache["v"][i], rows, q_pos),
+            )
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = x[torch.arange(b, device=dev), n_valid - 1][:, None]  # (B, 1, d)
+        logits = self._unembed(params, x)
+        new_len = (pos + n_valid).to(torch.int32).expand(b).clone()
+        return (_mask_vocab_pad(logits, cfg.vocab_size),
+                dict(cache, len=new_len))
 
 
 def _mask_vocab_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:

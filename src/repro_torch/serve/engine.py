@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine with prefill admission, over a dense
-or a paged cache (port of ``repro/serve/engine.py``, single device).
+"""Continuous-batching serving engine over a dense or a paged cache (port
+of ``repro/serve/engine.py``, single device).
 
 * A fixed ``n_slots`` decode batch; each slot owns a stripe of the dense
   KV cache ``(L, n_slots, max_len, KV, hd)``, or (``cache="paged"``) the
@@ -8,15 +8,46 @@ or a paged cache (port of ``repro/serve/engine.py``, single device).
   the pool runs dry mid-decode a slot is preempted (recompute: the
   request goes back to the queue front and later re-prefills ``prompt +
   output``).
-* Admission by prefill wave: queued prompts are right-padded to a length
-  bucketed to a multiple of ``seq_bucket``, prefilled in one call over
-  ``n_slots`` rows, and their cache stripes scattered into free slots
-  (``_admit`` -> ``_admit_prefill`` -> ``_insert_wave``).
-* One fused decode step per tick for every slot (``dispatch_decode``),
-  greedy sampling on the device (``_sample``), and one device-to-host
-  copy of the sampled tokens per tick (``_postprocess``).
+* Admission by prefill wave (``admission="prefill"``, the default): queued
+  prompts are right-padded to a length bucketed to a multiple of
+  ``seq_bucket``, prefilled in one call over ``n_slots`` rows, and their
+  cache stripes scattered into free slots (``_admit`` ->
+  ``_admit_prefill`` -> ``_insert_wave``).
+* Chunked prefill (``prefill_chunk=N``): a prompt longer than ``N``
+  tokens is prefilled one ``N``-token chunk a tick into a dense staging
+  cache (``_start_chunked`` / ``_step_chunked``), decode ticks running in
+  between; the finished staging cache lands through the same
+  ``insert_cache`` scatter as a wave.  One chunked admission at a time.
+* Replay admission (``admission="replay"``): prompts step token by token
+  through the decode tick itself, batched across the wave, each step
+  with the wave's own active mask.  Dense caches only.
+* One fused decode tick for every slot (``dispatch_decode``): the decode
+  step, the active-slot merge of the ``len`` leaf, the greedy sample and
+  the token merge ``where(fresh, host, chain)`` (``chain``: the previous
+  tick's sampled tokens, which stay on the device).  Its inputs live in
+  static device buffers -- tokens ``(B, 1)``, the active and fresh masks,
+  the tenant ids ``(B,)`` and (paged) the block tables -- refreshed from
+  pinned host memory with ``non_blocking=True`` copies.  On a CUDA engine
+  the first tick runs eagerly on a side stream (the warm-up PyTorch's
+  graph recipe asks for) and then one ``torch.cuda.CUDAGraph`` is
+  captured over those buffers; every later tick copies its inputs in and
+  replays it.  On the CPU nothing is captured: the same step runs eagerly
+  over the same buffers.  A capture that fails raises; nothing carries on
+  eagerly on the card.  Each tick's sampled tokens land through one
+  device-to-host copy into a pinned buffer with its own event, queued
+  right after the tick.
 * Slots free on EOS, token budget or ``max_len``; the queue backfills on
   the next tick.
+
+The capture guard (``repro_torch.analysis.sanitize.CompileGuard``,
+``engine.compile_guard``): the decode tick is registered with the bound
+of ``compilation_bounds()`` (one graph per engine) and ``step()`` asserts
+it every tick under ``REPRO_SANITIZE=1``.  Before each replay the engine
+checks on the host that every buffer the graph captured -- cache leaves,
+static inputs, the table buffer -- keeps its storage, and raises when one
+has moved.  A replay calls no kernel wrapper, so the launches each
+wrapper counted while the graph was captured are added to its counter at
+every replay (``kernels.launch_counts()`` stays true).
 
 Serving the adapter-attached model (``peft=``, an ``AdapterSet``) is
 numerically the merged model's (``core.peft.merge_all``).
@@ -24,39 +55,55 @@ numerically the merged model's (``core.peft.merge_all``).
 ``serve.adapter_pool.AdapterPool``) serves many tenants over one base:
 ``submit(req, adapter="name")`` names each request's tenant (``None`` the
 base model), the engine keeps a per-slot global id (0 for pad rows and
-free slots) and hands the batch's ids to every model call, copied to the
-device once per call.  With a pool, admission pins the request's tenant
-(loading it, maybe evicting an idle one) as its last check and defers the
-request when no row can be freed; freeing or preempting a slot unpins.
-``cfg.peft_backend="pallas"`` routes QuanTA (and quantized projections)
-through the hand-written kernels and ``cfg.attn_backend="pallas"``
-attention through the flash kernels.  ``base_quant="nf4"|"int8"`` packs
-every projection into a blockwise ``QuantizedLinear`` at construction
-(the QLoRA pattern: adapters stay full precision on top);
-``kv_quant`` cross-checks ``cfg.kv_quant``, which makes the model store
-NF4/int8 codes in the paged pools (the fake-quantized round trip in a
-dense cache).  The decode step updates the cache in place: the stripes
-of inactive slots hold entries past their length that every reader
-masks, and their pool writes land in the null block.  Meshes, chunked
-prefill and replay admission are not ported yet; PyTorch runs eagerly,
-so the JAX engine's compile guard has no counterpart.
+free slots) and hands the batch's ids to every model call.  With a pool,
+admission pins the request's tenant (loading it, maybe evicting an idle
+one) as its last check and defers the request when no row can be freed;
+freeing or preempting a slot unpins.  A pool swaps rows and id maps in
+place, so the captured graph sees them.  ``cfg.peft_backend="pallas"``
+routes QuanTA (and quantized projections) through the hand-written
+kernels and ``cfg.attn_backend="pallas"`` attention through the flash
+kernels.  ``base_quant="nf4"|"int8"`` packs every projection into a
+blockwise ``QuantizedLinear`` at construction (the QLoRA pattern:
+adapters stay full precision on top); ``kv_quant`` cross-checks
+``cfg.kv_quant``, which makes the model store NF4/int8 codes in the
+paged pools (the fake-quantized round trip in a dense cache).  The
+decode step updates the cache in place: the stripes of inactive slots
+hold entries past their length that every reader masks, and their pool
+writes land in the null block.
+
+Front-end seams (``serve/frontend.py``): ``validate()`` and
+``_admit(queue=, chunk=)`` (admission from the SLA scheduler's ready
+view, the chunk cadence left to its interleave policy), ``requeue_hook``
+and ``victim_hook`` (preemption into the class queues, SLA-aware
+victims), ``_fresh`` (slots whose next token admission wrote on the
+host), ``clock``, ``tick_hist``, the per-class TTFT histograms
+(``ttft_hists``, ``ttft_all()``) and ``queue_depths()``.  Meshes are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
+import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
+from repro_torch.analysis import sanitize
 from repro_torch.core.adapters import tree_nbytes
 from repro_torch.core.bank import AdapterBank
 from repro_torch.core.quantize import quantize_params
-from repro_torch.kernels.dispatch import default_device
-from repro_torch.models.common import insert_cache_slots, merge_cache_slots
+from repro_torch.kernels.dispatch import default_device, upload
+from repro_torch.models.common import (
+    insert_cache_slots, merge_cache_slots, reset_cache_slots,
+)
 from repro_torch.serve.adapter_pool import AdapterPool
+from repro_torch.serve.metrics import LatencyHistogram
 from repro_torch.serve.paging import PagedCacheView
 
 __all__ = ["Request", "ServingEngine"]
@@ -71,9 +118,138 @@ class Request:
     # the bank tenant to decode with (None = the base model; engines built
     # with adapters= only)
     adapter: Optional[str] = None
+    # SLA scheduling (serve/scheduler.py): the arrival stamp (the engine's
+    # clock at submit when None; an open-loop harness sets future
+    # arrivals) and the latency class.  Both survive preemption: the
+    # requeue reuses this very object.
+    arrival_time: Optional[float] = None
+    latency_class: str = "interactive"
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    first_token_time: Optional[float] = None
+
+
+class _Landing:
+    """One tick's sampled tokens on their way to the host: a pinned
+    buffer and the event recorded after its copy (CPU: the tokens)."""
+
+    def __init__(self, sampled: torch.Tensor):
+        if sampled.is_cuda:
+            self._host = torch.empty(sampled.shape, dtype=sampled.dtype,
+                                     pin_memory=True)
+            self._host.copy_(sampled, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = sampled.clone(), None
+
+    def tokens(self) -> np.ndarray:
+        """The ``(B,)`` tokens, waiting for the copy when it has not run."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream per device for every engine's warm-up tick: cuBLAS
+    keeps a workspace for each stream it has run on, for the life of the
+    process, so a new stream per engine would hold one more each time."""
+    return torch.cuda.Stream(device)
+
+
+class _DecodeGraph:
+    """The decode tick as a captured CUDA graph over static buffers.
+
+    ``body()`` runs one tick on the engine's static buffers and returns its
+    outputs.  On a CUDA device the first call runs it eagerly on a side
+    stream, then captures one graph of it (in the graph's own memory
+    pool); every later call replays the graph.  On the CPU every call runs
+    the body.  ``_cache_size()`` is the number of graphs captured, which
+    the capture guard holds to its bound.  ``buffers()`` lists the tensors
+    the graph reads and writes: their storage is recorded at the first
+    call and checked before every later one.  Setting ``eager`` runs
+    every later call's body without the graph, over the same buffers (the
+    twin a graph tick is held against).
+    """
+
+    def __init__(self, body: Callable[[], Any],
+                 buffers: Callable[[], Dict[str, torch.Tensor]],
+                 device: torch.device):
+        self.body = body
+        self.buffers = buffers
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Any = None
+        self.eager = False
+        self.captures = 0
+        self.capture_s = 0.0          # wall time of the warm-up and capture
+        self._ptrs: Optional[Dict[str, int]] = None
+        self._launches: Dict[str, int] = {}
+
+    def _cache_size(self) -> int:
+        return self.captures
+
+    def _check_buffers(self) -> None:
+        ptrs = {k: t.data_ptr() for k, t in self.buffers().items()}
+        if self._ptrs is None:
+            self._ptrs = ptrs
+            return
+        moved = sorted(k for k in ptrs if ptrs[k] != self._ptrs.get(k))
+        if moved:
+            raise RuntimeError(
+                f"decode tick buffers {moved} moved since the graph was "
+                "captured: the replay would read and write their old "
+                "storage; update them in place")
+
+    def __call__(self):
+        self._check_buffers()
+        if self.device.type != "cuda" or self.eager:
+            return self.body()
+        if self.graph is not None:
+            self.graph.replay()
+            for name, n in self._launches.items():
+                kernels.KERNELS[name].launches += n
+            return self.out
+        # warm-up on a side stream (cuBLAS handles, shared-memory grants,
+        # TMA encoders and cached constants are all set up here, outside
+        # the capture), then capture
+        t0 = time.monotonic()
+        main = torch.cuda.current_stream(self.device)
+        side = _warmup_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.body()
+        main.wait_stream(side)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # a collection during the capture could free another engine's
+        # graph, whose destruction the capturing stream refuses (the
+        # capture is then lost): collect first, and not during it
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self.body()
+        except Exception as e:
+            raise RuntimeError(
+                "capturing the decode tick as a CUDA graph failed; the "
+                "engine does not fall back to eager ticks on the card"
+            ) from e
+        finally:
+            if collecting:
+                gc.enable()
+            during = kernels.launch_counts()
+            for name, n in before.items():
+                kernels.KERNELS[name].launches = n
+        self._launches = {k: during[k] - before[k] for k in before
+                          if during[k] != before[k]}
+        self.graph = graph
+        self.captures += 1
+        self.capture_s = time.monotonic() - t0
+        return out
 
 
 class ServingEngine:
@@ -86,6 +262,7 @@ class ServingEngine:
         adapters=None,
         n_slots: int = 4,
         max_len: int = 256,
+        admission: str = "auto",
         seq_bucket: int = 16,
         cache: str = "dense",
         block_size: int = 16,
@@ -96,12 +273,10 @@ class ServingEngine:
         kv_quant: Optional[str] = None,
         device=None,
     ):
-        for name, value in (("prefill_chunk", prefill_chunk),
-                            ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: the port "
-                    "serves with prefill admission on one device")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine(mesh=...) is not ported yet: the port "
+                "serves on one device")
         if adapters is not None:
             if not isinstance(adapters, (AdapterBank, AdapterPool)):
                 raise TypeError(
@@ -168,6 +343,21 @@ class ServingEngine:
         self._last_token = np.zeros((n_slots,), np.int32)
         # per-slot global tenant ids (0 = base model), bank mode only
         self._adapter_ids = np.zeros((n_slots,), np.int32)
+        # True where admission wrote ``_last_token`` after the last decode
+        # dispatch: a chained dispatch takes those slots' tokens from the
+        # host, the others from the device.  The closed loop never reads it.
+        self._fresh = np.zeros((n_slots,), bool)
+        # the clock of arrival stamps, TTFT and tick latency (a front end
+        # or a test may swap in a virtual clock)
+        self.clock: Callable[[], float] = time.monotonic
+        # front-end hooks: where a preempted request requeues (default: the
+        # engine's own queue front) and which slot a dry pool preempts
+        # (default: the highest active slot)
+        self.requeue_hook: Optional[Callable[[Request], None]] = None
+        self.victim_hook: Optional[
+            Callable[[List[int], List[Optional[Request]]], int]] = None
+        self.tick_hist = LatencyHistogram()
+        self.ttft_hists: Dict[str, LatencyHistogram] = {}
         # adapter bytes: resident (what the ticks read: one set, a static
         # bank or the pool's rows) and registry (a pool's tenants)
         if self.pool is not None:
@@ -179,8 +369,8 @@ class ServingEngine:
                                             or {}))
             registry_b = 0
         self.stats: Dict[str, Any] = {
-            "prefill_calls": 0, "decode_calls": 0, "tokens": 0,
-            "preemptions": 0,
+            "prefill_calls": 0, "decode_calls": 0, "chunk_calls": 0,
+            "tokens": 0, "preemptions": 0,
             "adapter_bytes": resident_b,
             "adapter_bytes_resident": resident_b,
             "adapter_bytes_registry": registry_b,
@@ -190,7 +380,64 @@ class ServingEngine:
             "base_quant": base_quant or "none",
             "kv_quant": self.kv_quant or "none",
         }
+
+        if admission == "auto":
+            admission = "prefill"
+        if admission not in ("prefill", "replay"):
+            raise ValueError(f"unknown admission mode {admission!r}")
+        if admission == "replay" and self._paged:
+            raise ValueError(
+                "replay admission writes through dense slot stripes; "
+                "use admission='prefill' with the paged cache")
+        self.admission = admission
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be positive")
+        self.prefill_chunk = prefill_chunk
+        self._can_chunk = prefill_chunk is not None and admission == "prefill"
+        # the one chunked admission in flight: req, slot, tokens, staging
+        # cache, pos, tenant id
+        self._chunking: Optional[Dict[str, Any]] = None
+
+        # the decode tick's static buffers, and its graph
+        dev = self.device
+        self._io: Dict[str, torch.Tensor] = {
+            "tokens": torch.zeros((n_slots, 1), dtype=torch.long, device=dev),
+            "fresh": torch.ones((n_slots,), dtype=torch.bool, device=dev),
+            "active": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
+            "len_before": torch.zeros((n_slots,), dtype=torch.int32,
+                                      device=dev),
+            "sampled": torch.zeros((n_slots, 1), dtype=torch.long,
+                                   device=dev),
+        }
+        if self.bank is not None:
+            self._io["ids"] = torch.zeros((n_slots,), dtype=torch.int32,
+                                          device=dev)
+        self._all_fresh = np.ones((n_slots,), bool)
+        self._decode = _DecodeGraph(self._tick_body, self._tick_buffers, dev)
+        self._landing: Optional[_Landing] = None
+        self.compile_guard = sanitize.CompileGuard("ServingEngine")
+        if dev.type == "cuda":
+            self.compile_guard.register("decode", self._decode,
+                                        self.compilation_bounds()["decode"])
         self._update_gauges()
+
+    # ------------------------------------------------------ capture bounds
+    def compilation_bounds(self) -> Dict[str, int]:
+        """Documented capture bound per captured entry point.
+
+        * ``decode`` -- 1: every tick decodes the whole fixed-shape slot
+          batch over the same static buffers (tokens, masks, tenant ids,
+          block tables), so one graph is captured per engine, at the first
+          tick, and replayed ever after.
+
+        Prefill waves, chunk steps and the insert scatter run eagerly
+        (their shapes vary with the wave and the prompt, and they are
+        bound by the device), so they have no graph and no bound; the
+        greedy sample and the token merge are part of the decode graph.
+        ``compile_guard`` asserts these every tick under
+        ``REPRO_SANITIZE=1`` (``repro_torch.analysis.sanitize``).
+        """
+        return {"decode": 1}
 
     # ------------------------------------------------------------- frontend
     def submit(self, req: Request, adapter: Optional[str] = None) -> None:
@@ -200,8 +447,9 @@ class ServingEngine:
         self.queue.append(req)
 
     def validate(self, req: Request, adapter: Optional[str] = None) -> None:
-        """Check ``req`` against this engine and stamp its tenant, without
-        queueing it; an unknown tenant fails here."""
+        """Check ``req`` against this engine and stamp it (its tenant, and
+        ``arrival_time`` when unset), without queueing it; an unknown
+        tenant fails here."""
         name = adapter if adapter is not None else req.adapter
         if name is not None and self.bank is None:
             raise ValueError(
@@ -225,13 +473,15 @@ class ServingEngine:
                     f"has {usable}; it could never be admitted")
         if adapter is not None:
             req.adapter = adapter        # stamped once fully validated
+        if req.arrival_time is None:
+            req.arrival_time = self.clock()
 
     def _req_adapter_id(self, req: Request) -> int:
         return self.bank.id_of(req.adapter) if self.bank is not None else 0
 
     def _device_ids(self, ids: np.ndarray) -> Optional[torch.Tensor]:
-        """The per-row tenant ids of one model call, on the device (bank
-        mode), else None."""
+        """The per-row tenant ids of one eager model call, on the device
+        (bank mode), else None."""
         if self.bank is None:
             return None
         return torch.from_numpy(ids).to(self.device)
@@ -253,12 +503,51 @@ class ServingEngine:
         return req.prompt + req.output if req.output else req.prompt
 
     def _free_slots(self) -> List[int]:
-        return [i for i, r in enumerate(self.slots) if r is None]
+        reserved = (self._chunking["slot"] if self._chunking is not None
+                    else None)
+        return [i for i, r in enumerate(self.slots)
+                if r is None and i != reserved]
 
     def _bucket(self, n: int) -> int:
         return min(-(-n // self.seq_bucket) * self.seq_bucket, self.max_len)
 
+    def _note_first_token(self, req: Request) -> None:
+        """Stamp a request's time to first token at its first token ever
+        (a preempted request keeps its stamp) and record it in its class's
+        TTFT histogram."""
+        if req.first_token_time is not None:
+            return
+        now = self.clock()
+        req.first_token_time = now
+        if req.arrival_time is not None:
+            hist = self.ttft_hists.get(req.latency_class)
+            if hist is None:
+                hist = self.ttft_hists[req.latency_class] = LatencyHistogram()
+            hist.record(max(now - req.arrival_time, 0.0))
+
+    def ttft_all(self) -> LatencyHistogram:
+        """TTFT across every latency class (merged counts)."""
+        merged = LatencyHistogram()
+        for hist in self.ttft_hists.values():
+            merged.merge(hist)
+        return merged
+
+    def queue_depths(self) -> Dict[str, int]:
+        """Queued requests per latency class, of the engine's own queue
+        (the SLA front end overwrites the gauge from its class queues)."""
+        depths: Dict[str, int] = {}
+        for req in self.queue:
+            depths[req.latency_class] = depths.get(req.latency_class, 0) + 1
+        return depths
+
     def _update_gauges(self) -> None:
+        ttft = self.ttft_all()
+        self.stats.update(
+            ttft_p50=ttft.percentile(50), ttft_p99=ttft.percentile(99),
+            tick_p50=self.tick_hist.percentile(50),
+            tick_p99=self.tick_hist.percentile(99),
+            queue_depth=self.queue_depths(),
+        )
         if self.pool is not None:
             self.stats.update(self.pool.stats())
             self.stats["adapter_bytes"] = self.stats["adapter_bytes_resident"]
@@ -272,26 +561,49 @@ class ServingEngine:
                 peak_block_utilization=0.0)
 
     # ------------------------------------------------------------ admission
-    def _admit(self) -> None:
+    def _admit(self, queue=None, chunk: bool = True) -> None:
+        """One admission pass.  ``queue`` stands in for the engine's queue
+        (anything with truthiness, ``[0]`` and ``popleft``: the SLA front
+        end passes its ready view); ``chunk=False`` skips the one chunk a
+        tick of an in-flight chunked admission, whose cadence the front
+        end's interleave policy then drives."""
+        if chunk:
+            self._step_chunked()
+        q = self.queue if queue is None else queue
         free = self._free_slots()
-        if not free or not self.queue:
+        if not free or not q:
             return
         wave: List[Request] = []
-        while self.queue and len(wave) < len(free):
-            n_tok = len(self._tokens(self.queue[0]))
+        while q and len(wave) < len(free):
+            nxt = q[0]
+            n_tok = len(self._tokens(nxt))
             if self._paged and not self.pager.can_admit(n_tok):
                 break                 # no room: wait for frees
-            if not self._acquire_adapter(self.queue[0]):
+            if self._can_chunk and n_tok > self.prefill_chunk:
+                # a long prompt goes through the chunked pipeline (one at
+                # a time); shorter ones behind it may still join the wave
+                if self._chunking is not None:
+                    break
+                if not self._acquire_adapter(nxt):
+                    break             # tenant cannot be loaded: defer
+                self._start_chunked(q.popleft(), free[len(wave)])
+                free = [s for s in free if s != self._chunking["slot"]]
+                continue
+            if not self._acquire_adapter(nxt):
                 break                 # tenant cannot be loaded: defer
             if self._paged:
                 # reserve now, so later wave members and alloc-on-append
                 # see the smaller pool
                 self.pager.ensure(free[len(wave)], n_tok)
-            wave.append(self.queue.popleft())
-        if wave:
+            wave.append(q.popleft())
+        if not wave:
+            if self.pool is not None:
+                self._update_gauges()  # a deferral moves the pool's gauges
+            return
+        if self.admission == "prefill":
             self._admit_prefill(free, wave)
-        elif self.pool is not None:
-            self._update_gauges()     # a deferral moves the pool's gauges
+        else:
+            self._admit_replay(free, wave)
 
     def _admit_prefill(self, free: Sequence[int], wave: List[Request]) -> None:
         """One prefill over the right-padded wave, then scatter its cache
@@ -317,18 +629,26 @@ class ServingEngine:
         self._insert_wave(slot_ids, wave_cache, lengths)
         first = self._sample(logits).cpu().numpy()[:, 0]
         for row, (slot, req) in enumerate(zip(free, wave)):
-            self.slots[slot] = req
-            self._lengths[slot] = lengths[row]
-            self._adapter_ids[slot] = wave_ids[row]
-            tok = int(first[row])
-            self._last_token[slot] = tok
-            req.output.append(tok)
-            self.stats["tokens"] += 1
+            self._land_admitted(slot, req, int(lengths[row]),
+                                int(wave_ids[row]), int(first[row]))
         self._update_gauges()
 
+    def _land_admitted(self, slot: int, req: Request, length: int, aid: int,
+                       tok: int) -> None:
+        """A request admitted into ``slot`` with its first token."""
+        self.slots[slot] = req
+        self._lengths[slot] = length
+        self._adapter_ids[slot] = aid
+        self._last_token[slot] = tok
+        self._fresh[slot] = True
+        req.output.append(tok)
+        self.stats["tokens"] += 1
+        self._note_first_token(req)
+
     def _insert_wave(self, slot_ids, wave_cache, lengths) -> None:
-        """Land a prefill wave in the serving cache: by slot, or through
-        the block tables after allocating each row's blocks."""
+        """Land a prefill wave (or a finished staging cache) in the serving
+        cache: by slot, or through the block tables after allocating each
+        row's blocks."""
         if not self._paged:
             self.cache = self.model.insert_cache(
                 self.cache, slot_ids, wave_cache, lengths)
@@ -342,10 +662,98 @@ class ServingEngine:
                                         slot_ids, wave_cache, lengths,
                                         block_tables=tables)
 
+    # --------------------------------------------------- chunked admission
+    def _start_chunked(self, req: Request, slot: int) -> None:
+        # The staging cache must be chunk-aligned, not just bucketed: every
+        # chunk writes a full (1, C) K/V slab at pos, and a shorter buffer
+        # would clamp the last slab's start over earlier rows.  It may
+        # exceed max_len by < C + seq_bucket; the insert scatter slices
+        # oversized staging axes back to the cache extent.
+        c = self.prefill_chunk
+        tokens = self._tokens(req)
+        need = -(-len(tokens) // c) * c
+        s_stage = -(-need // self.seq_bucket) * self.seq_bucket
+        if self._paged:
+            # reserve the whole prompt's blocks now (the admission loop
+            # checked can_admit), so a concurrent wave or append cannot
+            # take them before the staging cache lands
+            self.pager.ensure(slot, len(tokens))
+        self._chunking = {
+            "req": req,
+            "slot": slot,
+            "tokens": tokens,
+            "staged": self.model.init_cache(1, s_stage),
+            "pos": 0,
+            "aid": self._req_adapter_id(req),
+        }
+
+    def _step_chunked(self) -> None:
+        """Advance the in-flight chunked admission by one chunk (the
+        closed loop calls it once a tick, so decode ticks interleave)."""
+        if self._chunking is None:
+            return
+        st = self._chunking
+        req, c = st["req"], self.prefill_chunk
+        tokens, pos = st["tokens"], st["pos"]
+        n_valid = min(c, len(tokens) - pos)
+        toks = np.zeros((1, c), np.int64)
+        toks[0, :n_valid] = tokens[pos: pos + n_valid]
+        logits, st["staged"] = self.model.prefill_chunk(
+            self.params, self.peft,
+            {"tokens": torch.from_numpy(toks).to(self.device)},
+            st["staged"], pos, n_valid,
+            adapter_ids=self._device_ids(np.asarray([st["aid"]], np.int32)),
+        )
+        self.stats["chunk_calls"] += 1
+        st["pos"] = pos + n_valid
+        if st["pos"] < len(tokens):
+            return
+        # the last chunk: its first token, and the same insert scatter as
+        # a wave
+        slot = st["slot"]
+        self._insert_wave(np.asarray([slot], np.int64), st["staged"],
+                          np.asarray([len(tokens)], np.int32))
+        tok = int(self._sample(logits).cpu()[0, 0])
+        self._chunking = None
+        self._land_admitted(slot, req, len(tokens), st["aid"], tok)
+        self._update_gauges()
+
+    # ---------------------------------------------------- replay admission
+    def _admit_replay(self, free: Sequence[int], wave: List[Request]) -> None:
+        """Prompts step token by token through the decode tick into their
+        slots' stripes, the whole wave together, each step with the wave's
+        own active mask (on the card: the captured graph)."""
+        streams = [self._tokens(r) for r in wave]
+        max_p = max(len(p) for p in streams)
+        slot_ids = np.asarray(free[: len(wave)], np.int64)
+        self.cache = reset_cache_slots(self.spec, self.cache, slot_ids)
+        for slot, req in zip(free, wave):
+            self._adapter_ids[slot] = self._req_adapter_id(req)
+        for t in range(max_p):
+            toks = np.zeros((self.n_slots, 1), np.int64)
+            active = np.zeros((self.n_slots,), bool)
+            for slot, p in zip(free, streams):
+                if t < len(p):
+                    toks[slot, 0] = p[t]
+                    active[slot] = True
+            self.dispatch_decode(toks, active)
+            ends = [(slot, req, p) for slot, req, p in zip(free, wave, streams)
+                    if t == len(p) - 1]
+            if ends:
+                nxt = self._landing.tokens()
+                for slot, req, p in ends:
+                    self._land_admitted(slot, req, len(p),
+                                        int(self._adapter_ids[slot]),
+                                        int(nxt[slot]))
+        self._update_gauges()
+
+    # ----------------------------------------------------------- preemption
     def _preempt(self, slot: int) -> None:
-        """Recompute preemption: free the slot's blocks and put its request
-        back at the queue front; it re-admits with ``prompt + output`` as
-        its prefix, which continues its greedy stream."""
+        """Recompute preemption: free the slot's blocks and requeue its
+        request (``requeue_hook``, else the queue front); it re-admits with
+        ``prompt + output`` as its prefix, which continues its greedy
+        stream.  The same ``Request`` object is requeued, so its arrival,
+        class and output survive."""
         req = self.slots[slot]
         self.slots[slot] = None
         self._adapter_ids[slot] = 0
@@ -353,21 +761,24 @@ class ServingEngine:
         # unpin: the tenant may be evicted while the request waits, and
         # re-admission acquires it again (the request keeps its tenant)
         self._release_adapter(req)
-        self.queue.appendleft(req)
+        (self.requeue_hook or self.queue.appendleft)(req)
         self.stats["preemptions"] += 1
 
     def _ensure_growth(self, active: np.ndarray) -> None:
         """Alloc on append: every active slot must hold one more token
-        before the decode step.  When the pool is dry, preempt the highest
-        active slot (it frees at least one block, so the retry cannot
-        fail) and let the others decode; ``active`` is updated in place."""
+        before the decode tick.  When the pool is dry, preempt a victim
+        among the active slots (``victim_hook``, else the highest; it
+        frees at least one block, so the retry cannot fail) and let the
+        others decode; ``active`` is updated in place."""
         for i in range(self.n_slots):
             if not active[i]:
                 continue
             try:
                 self.pager.ensure(i, int(self._lengths[i]) + 1)
             except MemoryError:
-                victim = max(j for j in range(self.n_slots) if active[j])
+                cands = [j for j in range(self.n_slots) if active[j]]
+                victim = (self.victim_hook(cands, self.slots)
+                          if self.victim_hook is not None else max(cands))
                 self._preempt(victim)
                 active[victim] = False
                 if active[i]:
@@ -375,27 +786,77 @@ class ServingEngine:
 
     # ----------------------------------------------------------------- tick
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy tokens ``(B, 1)`` int32 from ``(B, 1, V)`` logits, on the
+        """Greedy tokens ``(B, 1)`` from ``(B, 1, V)`` logits, on the
         device."""
-        return torch.argmax(logits[:, :, : self.cfg.vocab_size], dim=-1
-                            ).to(torch.int32)
+        return torch.argmax(logits[:, :, : self.cfg.vocab_size], dim=-1)
 
-    def dispatch_decode(self, toks: torch.Tensor, active: np.ndarray):
-        """One fused decode step for the whole slot batch; returns the
-        ``(B, 1, V)`` logits.  Only active slots advance their length."""
-        tables = self.pager.device_tables() if self._paged else None
+    def _tick_buffers(self) -> Dict[str, torch.Tensor]:
+        """Every tensor the decode graph reads or writes by address."""
+        out = {f"cache.{k}": v for k, v in self.cache.items()}
+        out.update((f"io.{k}", v) for k, v in self._io.items())
+        if self._paged:
+            out["tables"] = self.pager.device_tables()
+        return out
+
+    def _tick_body(self):
+        """One decode tick over the static buffers: the token merge, the
+        decode step (the cache updated in place), the active-slot merge
+        of ``len``, the greedy sample into ``io["sampled"]``.  Returns the
+        ``(B, 1, V)`` logits and the sampled tokens."""
+        io = self._io
+        toks = torch.where(io["fresh"][:, None], io["tokens"], io["sampled"])
+        io["len_before"].copy_(self.cache["len"])
         logits, new_cache = self.model.decode_step(
             self.params, self.peft, self.cache, {"tokens": toks},
-            block_tables=tables,
-            adapter_ids=self._device_ids(self._adapter_ids),
+            block_tables=(self.pager.device_tables() if self._paged
+                          else None),
+            adapter_ids=io.get("ids"),
         )
+        merge_cache_slots(self.serve_spec, new_cache,
+                          dict(new_cache, len=io["len_before"]),
+                          io["active"], skip_paged=self._paged)
+        io["sampled"].copy_(self._sample(logits))
+        return logits, io["sampled"]
+
+    def _upload_tick(self, toks, active: np.ndarray,
+                     fresh: Optional[np.ndarray]) -> None:
+        """The tick's inputs into the static buffers.  ``toks``: ``(B, 1)``
+        or ``(B,)`` host tokens, or a ``(B, 1)`` device tensor."""
+        io = self._io
+        if isinstance(toks, torch.Tensor):
+            io["tokens"].copy_(toks.reshape(self.n_slots, 1))
+        else:
+            upload(io["tokens"], np.asarray(toks, np.int64).reshape(-1, 1))
+        upload(io["active"], np.asarray(active, bool))
+        upload(io["fresh"], self._all_fresh if fresh is None
+               else np.asarray(fresh, bool))
+        if "ids" in io:
+            upload(io["ids"], self._adapter_ids)
+        if self._paged:
+            self.pager.device_tables()          # refreshed after edits
+
+    def dispatch_decode(self, toks, active: np.ndarray,
+                        fresh: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One fused decode tick for the whole slot batch; returns its
+        ``(B, 1, V)`` logits (the graph's output buffer on the card: valid
+        until the next tick).  Only ``active`` slots advance their length.
+        ``fresh`` (default: every slot) marks the slots whose token comes
+        from ``toks``; the others take the previous tick's sampled token
+        on the device (a chained dispatch).  The tick's sampled tokens
+        start their copy to the host at once (``_landing``)."""
+        self._upload_tick(toks, active, fresh)
+        logits, sampled = self._decode()
+        self._landing = _Landing(sampled)
         self.stats["decode_calls"] += 1
-        self.cache = merge_cache_slots(self.serve_spec, new_cache,
-                                       self.cache, active,
-                                       skip_paged=self._paged)
+        # what admission stamped before this dispatch is now on the device
+        self._fresh[:] = False
         return logits
 
     def _postprocess(self, nxt: np.ndarray, active: np.ndarray) -> None:
+        """Land one tick's sampled tokens: outputs, lengths, and slots
+        freed on EOS, token budget or ``max_len``.  ``active`` is the
+        tick's dispatch-time mask (a front end lands a tick one dispatch
+        late, after newer admissions)."""
         for i, req in enumerate(self.slots):
             if req is None or not active[i]:
                 continue
@@ -417,6 +878,7 @@ class ServingEngine:
             self._update_gauges()
 
     def step(self) -> None:
+        t0 = self.clock()
         self._admit()
         active = np.array([r is not None for r in self.slots])
         if not active.any():
@@ -425,15 +887,15 @@ class ServingEngine:
             self._ensure_growth(active)
             if not active.any():
                 return
-        toks = torch.from_numpy(
-            self._last_token.reshape(-1, 1).astype(np.int64)
-        ).to(self.device)
-        logits = self.dispatch_decode(toks, active)
-        nxt = self._sample(logits).cpu().numpy()[:, 0]
-        self._postprocess(nxt, active)
+        self.dispatch_decode(self._last_token, active)
+        self._postprocess(self._landing.tokens(), active)
+        self.tick_hist.record(max(self.clock() - t0, 0.0))
+        if sanitize.enabled():
+            self.compile_guard.assert_ok()
 
     def run(self, max_ticks: int = 10_000) -> None:
         ticks = 0
-        while (self.queue or any(self.slots)) and ticks < max_ticks:
+        while (self.queue or any(self.slots)
+               or self._chunking is not None) and ticks < max_ticks:
             self.step()
             ticks += 1

@@ -1,12 +1,13 @@
-"""Serving metrics of the port: a copy of the JAX package's
-``LatencyHistogram`` (``repro/serve/scheduler.py``), the part the adapter
-pool's swap gauge reads; the SLA scheduler that shares that module there
-is not ported yet."""
+"""Serving metrics of the port: the JAX package's ``LatencyHistogram``
+(``repro/serve/scheduler.py``), behind the engine's tick and TTFT gauges
+and the adapter pool's swap gauge.  ``serve/scheduler.py`` re-exports it
+(the port keeps one copy)."""
 
 from __future__ import annotations
 
 import bisect
 import math
+from typing import Dict
 
 __all__ = ["LatencyHistogram"]
 
@@ -27,6 +28,7 @@ class LatencyHistogram:
         # from, so an exact edge lo * 2**k lands in bucket k
         self._edges = [lo * 2.0 ** (i + 1) for i in range(n_buckets - 1)]
         self.count = 0
+        self.total = 0.0
         self.max = 0.0
 
     def _bucket(self, seconds: float) -> int:
@@ -37,7 +39,23 @@ class LatencyHistogram:
     def record(self, seconds: float) -> None:
         self.counts[self._bucket(seconds)] += 1
         self.count += 1
+        self.total += seconds
         self.max = max(self.max, seconds)
+
+    def merge(self, other: "LatencyHistogram") -> None:
+        """Add ``other``'s records (same ``lo`` and bucket count) to this
+        histogram."""
+        if (other.lo, len(other.counts)) != (self.lo, len(self.counts)):
+            raise ValueError("histograms with other buckets cannot merge")
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        self.max = max(self.max, other.max)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
 
     def percentile(self, p: float) -> float:
         """Approximate p-th percentile (p in [0, 100]); 0.0 when empty.
@@ -51,3 +69,12 @@ class LatencyHistogram:
             if seen >= rank:
                 return min(self.lo * 2.0 ** (i + 0.5), self.max)
         return self.max
+
+    def to_dict(self) -> Dict[str, float]:
+        return {
+            "count": self.count,
+            "mean_s": self.mean,
+            "max_s": self.max,
+            "p50_s": self.percentile(50),
+            "p99_s": self.percentile(99),
+        }

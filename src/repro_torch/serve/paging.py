@@ -9,9 +9,11 @@
   ``cache_spec()`` and dense ``init_cache`` shapes), the per-slot block
   tables (allocate on admission, extend on append, free on eviction) and
   the device table that ``decode_step`` and ``insert_cache`` read.  Entries
-  past a slot's block count repeat its last row; the table is uploaded
-  again only after an edit.  Under ``kv_quant`` the float pools hold NF4 or
-  int8 codes plus ``<key>_qscale`` fp32 scale pools.
+  past a slot's block count repeat its last row; the table is one device
+  buffer, refreshed in place (``copy_`` from pinned host memory) only after
+  an edit, so a captured decode graph reads it at every replay.  Under
+  ``kv_quant`` the float pools hold NF4 or int8 codes plus
+  ``<key>_qscale`` fp32 scale pools.
 * Accounting: blocks in use, bytes allocated and peak utilization, which
   ``ServingEngine.stats`` reports.
 
@@ -27,6 +29,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.dispatch import upload
 from repro_torch.models.common import PagedCacheLeafSpec
 
 __all__ = ["BlockAllocator", "PagedCacheView", "NULL_BLOCK",
@@ -127,7 +130,11 @@ class PagedCacheView:
         self._tables = np.full(
             (n_slots, max(self.max_blocks_per_slot, 1)), NULL_BLOCK, np.int32)
         self._counts = np.zeros((n_slots,), np.int32)
-        self._device_tables: Optional[torch.Tensor] = None
+        self._device_tables = torch.empty(self._tables.shape,
+                                          dtype=torch.int32,
+                                          device=self.device)
+        self._dirty = True           # the device table misses an edit
+        self.uploads = 0
         self._bytes_per_block = 0.0   # filled by init_cache
         self._dense_bytes = 0         # filled by init_cache
         self.kv_quant = None          # resolved per leaf below
@@ -228,7 +235,7 @@ class PagedCacheView:
             return
         self._tables[slot, have:need] = self.allocator.alloc(need - have)
         self._counts[slot] = need
-        self._device_tables = None
+        self._dirty = True
 
     def release(self, slot: int) -> None:
         if not self.paged:
@@ -238,7 +245,7 @@ class PagedCacheView:
             self.allocator.free(self._tables[slot, :c])
         self._tables[slot, :] = NULL_BLOCK
         self._counts[slot] = 0
-        self._device_tables = None
+        self._dirty = True
 
     def host_tables(self) -> np.ndarray:
         """``(n_slots, max_blocks_per_slot)`` int32: entries past a slot's
@@ -252,11 +259,13 @@ class PagedCacheView:
         return t
 
     def device_tables(self) -> torch.Tensor:
-        """:meth:`host_tables` on the device, uploaded again only after a
-        table edit."""
-        if self._device_tables is None:
-            self._device_tables = torch.from_numpy(self.host_tables()).to(
-                self.device)
+        """:meth:`host_tables` on the device: always the same buffer,
+        refreshed in place only after a table edit (``uploads`` counts the
+        refreshes)."""
+        if self._dirty:
+            upload(self._device_tables, self.host_tables())
+            self._dirty = False
+            self.uploads += 1
         return self._device_tables
 
     def wave_page_extent(self, wave_cache) -> int:

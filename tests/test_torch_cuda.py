@@ -942,3 +942,179 @@ def test_forward_only_kernels_refuse_autograd_on_the_card(dev):
     assert launch_counts()["quanta_apply"] == before + 1
     _close(out, apply_sequential(x, ad.tensors, ad.dims_in, ad.pairs),
            torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The kernels inside a captured CUDA graph (the engine's decode tick)
+# ---------------------------------------------------------------------------
+
+def _capture(fn):
+    """Warm ``fn`` up on a side stream, then capture it in a CUDA graph;
+    returns the graph and the outputs it writes at every replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _graph_cases(dtype, dev):
+    """(counter name, call, inputs refreshed in place between replays) of
+    every kernel wrapper at a decode tick's shapes (8 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype)
+
+    ad = QuantaAdapter.create(gen, 512, 512, dims_in=(8, 8, 8), dtype=dtype,
+                              noise_scale=0.05, device=dev)
+    x, w = rnd(8, 512), rnd(512, 512, scale=512 ** -0.5)
+    q = rnd(8, 1, 4, 64)
+    kc, vc = rnd(8, 96, 2, 64), rnd(8, 96, 2, 64)
+    lens = torch.tensor([1, 5, 17, 33, 64, 65, 90, 96], dtype=torch.int32,
+                        device=dev)
+    n_b, bs = 6, 16
+    tables = torch.from_numpy(_tables(8, n_b, lens.tolist(), bs, 8 * n_b + 1,
+                                      3)).to(dev)
+    kp, vp = _pool(8 * n_b + 1, bs, 2, 64, dtype, gen, dev), _pool(
+        8 * n_b + 1, bs, 2, 64, dtype, gen, dev)
+    (kq, ks), (vq, vs) = quantize_kv(kp, "nf4"), quantize_kv(vp, "nf4")
+    qw = quantize_linear(w, "nf4", block_size=64)
+    a, b = rnd(5, 512, 16, scale=512 ** -0.5), rnd(5, 16, 520, scale=0.1)
+    wb = rnd(512, 520, scale=512 ** -0.5)
+    ids = torch.tensor([2, 0, 4, 2, 1, 3, 0, 1], dtype=torch.int32,
+                       device=dev)
+    s, xq, xs = rnd(2, 128, 4, 64), rnd(2, 128, 2, 64), rnd(2, 128, 2, 64)
+    return [
+        ("quanta_apply",
+         lambda: quanta_apply(x, ad.tensors, ad.dims_in, ad.pairs), [x]),
+        ("quanta_linear",
+         lambda: quanta_linear(x, w, ad.tensors, ad.dims_in, ad.pairs), [x]),
+        ("flash_attention", lambda: FA.flash_attention(s, xq, xs), [s]),
+        ("flash_decode_attention",
+         lambda: FA.flash_decode_attention(q, kc, vc, lens), [q, kc]),
+        ("paged_flash_decode_attention",
+         lambda: FA.paged_flash_decode_attention(q, kp, vp, tables, lens),
+         [q, kp]),
+        ("paged_flash_decode_attention_quant",
+         lambda: FA.paged_flash_decode_attention(
+             q, kq, vq, tables, lens, kv_quant="nf4", k_scales=ks,
+             v_scales=vs), [q]),
+        ("quantized_matmul", lambda: quantized_matmul(x, qw), [x]),
+        ("banked_lora_linear",
+         lambda: banked_lora_linear(x, wb, a, b, ids, scale=2.0), [x]),
+        ("banked_lora_delta",
+         lambda: banked_lora_delta(x, a, b, ids, scale=2.0), [x]),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", range(9))
+def test_wrappers_replay_bit_for_bit_in_a_graph(index, dtype, dev):
+    """Each kernel wrapper captured in a CUDA graph: its replay equals
+    the eager call bit for bit, also after its inputs are refreshed in
+    place; the capture and the replays count no launch (the engine adds a
+    graph's launches at each replay)."""
+    name, call, inputs = _graph_cases(dtype, dev)[index]
+    want = call().clone()
+    before = launch_counts()[name]
+    graph, out = _capture(call)
+    assert launch_counts()[name] == before + 2      # warm-up and capture
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), name
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for t in inputs:
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev).to(t.dtype))
+    want = call().clone()
+    count = launch_counts()[name]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), name
+    assert launch_counts()[name] == count
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_engine_replays_count_launches(cache, dev):
+    """A CUDA engine captures its decode tick once and replays it; each
+    replay adds the graph's launches to the wrappers' counters, so kernel
+    4 (or 5) counts one launch per layer per tick, and the tokens equal
+    those of the same engine run eagerly."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas",
+                                               peft_backend="pallas")
+    model = build_model(cfg, device=dev)
+    base, peft = attach(1, model.init(0), PeftConfig(n_axes=4), device=dev)
+    outs = {}
+    for eager in (False, True):
+        eng = ServingEngine(model, base, peft, n_slots=3, max_len=64,
+                            cache=cache, block_size=8, device=dev)
+        eng._decode.eager = eager
+        reqs = [Request(uid=i, prompt=[5 + i, 9, 3 * i + 1],
+                        max_new_tokens=6) for i in range(5)]
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        eng.run()
+        outs[eager] = [r.output for r in reqs]
+        counts = launch_counts()
+        name = ("flash_decode_attention" if cache == "dense"
+                else "paged_flash_decode_attention")
+        assert counts[name] == cfg.n_layers * eng.stats["decode_calls"]
+        assert counts["quanta_linear"] == (2 * cfg.n_layers
+                                           * (eng.stats["decode_calls"]
+                                              + eng.stats["prefill_calls"]))
+        assert eng.compile_guard.counts() == {"decode": 0 if eager else 1}
+    assert outs[False] == outs[True]
+
+
+def test_engines_leave_no_memory_behind(dev):
+    """Engines that captured their graph, once deleted, hold no device
+    memory: the warm-up reuses one side stream (a new stream per engine
+    would keep one more cuBLAS workspace each time)."""
+    import gc
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+
+    model = build_model(get_smoke("llama2-7b-proxy"), device=dev)
+    params = model.init(0)
+    held = []
+    for _ in range(3):
+        eng = ServingEngine(model, params, n_slots=2, max_len=32, device=dev)
+        eng.submit(Request(uid=0, prompt=[3, 4, 5], max_new_tokens=4))
+        eng.run()
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated(dev))
+    assert held[2] == held[1], held
+
+
+def test_engine_raises_when_a_captured_leaf_moves(dev):
+    """Rebinding a cache leaf after the capture raises before the replay
+    could read the old storage."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+
+    model = build_model(get_smoke("llama2-7b-proxy"), device=dev)
+    eng = ServingEngine(model, model.init(0), n_slots=2, max_len=32,
+                        device=dev)
+    eng.submit(Request(uid=0, prompt=[3, 4, 5], max_new_tokens=8))
+    eng.step()
+    eng.step()
+    eng.cache["len"] = eng.cache["len"].clone()
+    with pytest.raises(RuntimeError, match="moved since the graph"):
+        eng.step()

@@ -21,6 +21,10 @@ from repro_torch.serve import Request, ServingEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
+# the port's examples, imported (not run) with jax blocked
+EXAMPLES = [ROOT / "examples" / name for name in (
+    "torch_quickstart.py", "torch_serve_batched.py",
+    "torch_serve_streaming.py")]
 
 
 def _modules():
@@ -47,9 +51,9 @@ def test_every_module_imports_without_jax():
         f"for name in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "import importlib.util\n"
-        f"spec = importlib.util.spec_from_file_location('qs', "
-        f"{str(ROOT / 'examples' / 'torch_quickstart.py')!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
@@ -81,8 +85,7 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py",
                           ROOT / "tools" / "kernel_split.py",
-                          ROOT / "tools" / "train_probe.py",
-                          ROOT / "examples" / "torch_quickstart.py"],
+                          ROOT / "tools" / "train_probe.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     for name in _imports(path):
@@ -157,8 +160,36 @@ def test_bank_modules_are_covered(name):
     """The multi-tenant and training modules are among those imported with
     ``jax`` and the JAX package blocked, and among the files whose imports
     are read."""
+    _covered(name)
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.analysis", "repro_torch.analysis.sanitize",
+    "repro_torch.serve.scheduler", "repro_torch.serve.frontend",
+    "repro_torch.serve.engine", "repro_torch.models.attention",
+])
+def test_serving_modules_are_covered(name):
+    """The capture guard, the scheduler, the front end and the modules
+    the graph tick runs through are among those imported with ``jax``
+    and the JAX package blocked, and among the files whose imports are
+    read."""
+    _covered(name)
+
+
+def test_examples_are_covered():
+    """The torch serving examples exist, are read for imports and are
+    imported with ``jax`` blocked."""
+    for path in EXAMPLES:
+        assert path.is_file()
+        assert not {n.split(".")[0] for n in _imports(path)} & {
+            "jax", "jaxlib", "repro"}
+
+
+def _covered(name):
     assert name in _modules()
-    path = PKG.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    path = PKG.joinpath(*name.split(".")[1:])
+    path = (path / "__init__.py" if path.is_dir()
+            else path.with_suffix(".py"))
     assert path in set(PKG.rglob("*.py"))
     assert not {n.split(".")[0] for n in _imports(path)} & {
         "jax", "jaxlib", "repro"}

@@ -135,14 +135,20 @@ def test_view_tables_and_clamp_match_jax():
 
 
 def test_device_tables_upload_only_after_an_edit():
+    """One device buffer, refreshed in place only after a table edit (a
+    captured decode graph reads that buffer at every replay)."""
     _, tv = _views(n_slots=2, max_len=64, block_size=8)
     tv.ensure(0, 9)
     first = tv.device_tables()
+    ptr, uploads = first.data_ptr(), tv.uploads
     assert tv.device_tables() is first
     tv.ensure(0, 10)                 # same block count: no edit
-    assert tv.device_tables() is first
+    assert tv.device_tables() is first and tv.uploads == uploads
     tv.ensure(0, 17)
-    assert tv.device_tables() is not first
+    again = tv.device_tables()
+    assert again is first and again.data_ptr() == ptr
+    assert tv.uploads == uploads + 1
+    np.testing.assert_array_equal(again.numpy(), tv.host_tables())
 
 
 def test_ensure_out_of_blocks_is_atomic():

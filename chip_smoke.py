@@ -12,7 +12,8 @@ Phases, one line or more each before the last:
    tests, ``pytest --noconftest tests/test_torch_cuda.py``, in a child
    process;
 3. check: every kernel against its plain PyTorch version on the card at
-   the shapes llama2-7b-proxy's serving path gives it, bf16 and float32
+   the shapes llama2-7b-proxy's serving path gives it (q_proj and v_proj
+   share one shape there), bf16 and float32
    (TF32 and cuBLAS's reduced-precision bf16 reduction off), with a
    masked tail and a windowed case; errors (absolute, relative, in ulps)
    against the stated limits, and for each kernel a planted fault that
@@ -55,7 +56,8 @@ Phases, one line or more each before the last:
    serves them too; the launch counts of kernels 1-4 must have moved in
    the adapted run, adapted vs merged prefill logits must agree within the
    stated bf16 tolerance, and a planted fault (one chain stage skipped)
-   must exceed it;
+   must exceed it; the dense adapted engine's graph tick must equal its
+   eager tick bit for bit (then 8 graph and 8 eager ticks timed);
    then the QLoRA path: the same model with an NF4 base serves the same
    requests from a paged pool of NF4 KV codes (``ServingEngine(
    cache="paged", block_size=16, base_quant="nf4", kv_quant="nf4")``,
@@ -78,13 +80,26 @@ Phases, one line or more each before the last:
    (LoRA-only bank) and an ``AdapterPool`` of one row per group that
    evicts and reloads: every kernel engine's tokens must equal the plain
    engine's and each tenant's single-tenant engine's, and the pool's the
-   static bank's;
+   static bank's; the same again with two fold-free QuanTA tenants (one
+   structure group, banked bare over the shared base, their delta through
+   kernel 1 slot by slot) beside rank-16 and rank-8 LoRA, the NF4-base
+   bank holding the fold-free tenants too;
    Every CUDA engine decodes through its captured graph: each tick after
    the first replays one ``torch.cuda.CUDAGraph``; each engine's capture
    guard must count one decode graph.  On the paged NF4-KV engine (after
-   its planted fault) and on a FULL bank engine, one tick replayed from
-   the graph must equal the same tick run eagerly bit for bit, and 8
-   graph ticks and 8 eager ticks of the engine are timed in turns;
+   its planted fault), on its bf16-KV twin and on a FULL bank engine, one
+   tick replayed from the graph must equal the same tick run eagerly bit
+   for bit, and 8 graph ticks and 8 eager ticks of the engine are timed
+   in turns;
+   then the fold-free pool: an ``AdapterPool`` of 4 rows over 16
+   fold-free QuanTA tenants serves 16 requests, one tenant each (loads,
+   evictions, deferrals); four resident tenants at a time, each row's
+   prefill logits must agree with its tenant's single-tenant fold-free
+   prefill within the bank's tolerance, a planted fault (every slot
+   reading its neighbour's S) must exceed it, a pool engine's graph tick
+   must equal its eager tick bit for bit; one fold-free tenant's resident
+   bytes are printed beside one folded tenant's ``RebasedAdapter``
+   bytes;
 5b. serve B: on the f32 2-layer cut, chunked prefill (chunks of 32;
    prompts of 37-200 tokens) on the dense cache and on a paged pool that
    preempts must give the wave-prefill engine's and the plain chunked
@@ -95,9 +110,7 @@ Phases, one line or more each before the last:
    the closed loop's tokens, with chained ticks; an ``AdapterPool`` that
    evicts and reloads under the graph the eager static bank's tokens;
    planted faults (each chunk's K/V written at position 0; chained
-   dispatches that ignore ``fresh``) must be caught.  At FULL width the
-   dense adapted engine's graph tick must equal its eager tick bit for
-   bit (then 8 graph and 8 eager ticks timed), and
+   dispatches that ignore ``fresh``) must be caught.  At FULL width
    ``ServeFrontend(ServingEngine(n_slots=8, max_len=512,
    prefill_chunk=128))`` serves 16 requests (the phase-5 prompts twice, 32
    new tokens, classes alternating, Poisson arrivals at 8/s on the wall
@@ -128,13 +141,31 @@ Phases, one line or more each before the last:
    (bf16, folded QuanTA 16-8-8-4 on q/v, ``attn_backend="pallas"``,
    ``peft_backend="reference"``) trains 10 AdamW steps on
    ``SyntheticSeq2Task``: each step's loss, grad norm, wall time and
-   kernel 3 launches (64: forward plus remat), the median step,
+   kernel 3 launches (64: forward plus remat), the median of steps 2-10,
    tokens/s, peak memory against the weights; the adapters must change,
    the base keep its bits and hold no ``.grad``; an 11th step runs under
    ``torch.profiler`` (kernel 3's device ms; by kernel with
    ``--profile``); the merged model's prefill logits must match the
    trained adapted model's, and the merged engine serves 8 requests.
    Last, a forward-only kernel called under autograd must raise.
+8. the dense family: for each of yi-6b (GQA 32 over 4 heads, QuanTA
+   16-16-16), phi3-medium-14b (40 layers, 5120 wide, 40 over 10 heads,
+   16-8-8-5) and minicpm-2b (36 heads of 64, tied embeddings, vocab
+   122753, 16-12-12), the functions of phases 3, 5 and 7 at its config:
+   (a) the check phase's kernel checks at its shapes (kernels 1 and 2 on
+   its q_proj and v_proj chains, kernel 7 NF4 on each of its
+   projections, kernels 3-6 at its heads), without the tail, window,
+   int8, planted-fault and kernel-8 cases; (b) its 2-layer f32 cut at
+   full width: kernel vs plain engines' greedy tokens identical on the
+   dense cache, a paged pool of rows and an NF4 base; on a paged NF4-KV
+   pool each engine gives its dense fake-quantized twin's tokens, and
+   the kernel engine, stepped in lockstep with the plain one over the
+   same codes, its logits within the paged tolerance at every step; (c)
+   phase 5's dense and QLoRA serving at FULL width; (d) phase 7's FULL
+   training, 3 AdamW steps at the config's ``train_microbatches``
+   (phi3-medium-14b: 16 microbatches of one 512-token sequence), without
+   the profiled step and the merged engine after it; the seconds of each
+   part.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -149,7 +180,9 @@ training steps), ``train_ms`` (its device ms in one training step) and
 the Function's, the plain version's and SDPA's forward plus backward ms
 at the training shape, and its bf16 forward against its plain version
 there (``train_max_abs_err``, ``train_off``) beside the planted fault's
-``train_fault_off``.
+``train_fault_off``.  Each row also carries ``dense_family``: per config
+of phase 8 the kernel's launches in that config's serve runs and its
+readings at that config's shapes.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -503,14 +536,34 @@ def chain_tensor_core_study(x, tensors, dims, pairs, card):
 
 
 # --------------------------------------------------------------- phase 3
-def check_kernels(card):
-    """Every kernel against its plain version at llama2-7b-proxy serving
-    shapes.  Returns the bf16 main-path record of each kernel."""
+def _chain_macs(dims_in, shapes, pairs):
+    """Multiply-adds of the chain for one row: each stage maps every
+    column's K = im * in inputs to its om * on outputs."""
+    cur, macs = list(dims_in), 0
+    for (om, on, im, i_n), (m, n) in zip(shapes, pairs):
+        macs += math.prod(cur) * om * on
+        cur[m], cur[n] = om, on
+    return macs
+
+
+def check_kernels(card, cfg, n_axes, dev, extras=False):
+    """Every kernel against its plain version at ``cfg``'s serving shapes,
+    in bf16 and in float32: the chain (kernel 1) and the adapted linear
+    (kernel 2) on q_proj and v_proj (QuanTA at the config's scheme) at a
+    prefill wave (3072 rows) and a decode tick (8), the flash forward (3)
+    at 8 x 384 tokens, the dense (4), paged (5) and paged NF4 (6) decodes
+    at 8 slots of a 512-entry cache, all at the config's heads, and the
+    quantized matmul (kernel 7, NF4) on every projection.  With
+    ``extras`` (llama2-7b-proxy) also a masked tail of rows, sliding
+    windows, int8 codes, a row-col normalized NF4 weight, the launch
+    splits, a planted fault of each kernel and kernel 8.  Returns the bf16
+    record of each kernel at the main shapes and every bf16 reading by
+    kernel and label."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.factorize import pair_schedule
+    from repro_torch.core.peft import choose_dims
     from repro_torch.core.quanta import (
-        apply_einsum, apply_sequential, tensor_shapes,
+        QuantaAdapter, apply_einsum, apply_sequential,
     )
     from repro_torch.core.quantize import (
         dequantize, matmul_ref, quantize_kv, quantize_linear,
@@ -523,15 +576,12 @@ def check_kernels(card):
     )
     from repro_torch.kernels.smem import decode_plan, device_limits
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    dims = (16, 8, 8, 4)
-    pairs = pair_schedule(4)
-    shapes = tensor_shapes(dims, pairs)
-    d = math.prod(dims)
-    chain_macs = sum(om * on * im * i_n * (d // (im * i_n))
-                     for om, on, im, i_n in shapes)
-    records = {}
+    records, readings = {}, {}
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    gqa = dict(enable_gqa=True) if kv != h else {}
+    heads = f"{h} heads over {kv} of {hd}"
 
     def rnd(*shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale
@@ -541,17 +591,21 @@ def check_kernels(card):
                flops, main):
         st, ok, limits = judge(name, got, want, dtype)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        print(f"check {name} {label} {str(dtype)[6:]}: {stats_text(st)} "
-              f"({limits}) {'ok' if ok else 'FAIL'} | kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, library "
+        print(f"check {cfg.name} {name} {label} {str(dtype)[6:]}: "
+              f"{stats_text(st)} ({limits}) {'ok' if ok else 'FAIL'} | "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
               f"{'-' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
               f"{b_ms:.4g} ms ({b_by}) [{card}]")
         if not ok:
-            fail(f"{name} {label} {dtype} disagrees with its plain version")
-        if main and dtype == torch.bfloat16:
-            records[name] = dict(max_abs_err=st["max_abs_err"], ms=t_k,
-                                 plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=t_lib)
+            fail(f"{cfg.name}: {name} {label} {dtype} disagrees with its "
+                 f"plain version")
+        if dtype != torch.bfloat16:
+            return
+        reading = dict(max_abs_err=st["max_abs_err"], ms=t_k, plain_ms=t_p,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+        readings.setdefault(name, {})[label] = reading
+        if main:
+            records[name] = reading
 
     split_fault = "each slot's last score chunk dropped"
 
@@ -564,127 +618,149 @@ def check_kernels(card):
         if ok:
             fail(f"{name}: the planted fault ({what}) passes the bf16 limits")
 
+    # rows: a prefill wave of 8 x 384, one decode tick of 8, and with
+    # ``extras`` a masked tail of 1001 (not a multiple of any row tile)
+    chain_rows = ((3072, "prefill", True), (8, "decode", False)) + (
+        ((1001, "tail", False),) if extras else ())
+    projs = {}
+    for proj, d_out in (("q_proj", h * hd), ("v_proj", kv * hd)):
+        projs.setdefault((d, d_out), proj)
     for dtype in (torch.bfloat16, torch.float32):
         sz = torch.tensor([], dtype=dtype).element_size()
-        tensors = [
-            (torch.eye(om * on, im * i_n, device=dev).reshape(om, on, im, i_n)
-             + 0.05 * torch.randn((om, on, im, i_n), generator=gen,
-                                  device=dev)).to(dtype)
-            for om, on, im, i_n in shapes
-        ]
-        t_bytes = sum(t.numel() for t in tensors) * sz
-        w = rnd(d, d, dtype=dtype, scale=d ** -0.5)
-        # rows: a prefill wave of 8 x 384, one decode tick of 8, a masked
-        # tail of 1001 (not a multiple of any row tile)
-        for rows, label, main in ((3072, "prefill", True),
-                                  (8, "decode", False),
-                                  (1001, "tail", False)):
-            x = rnd(rows, d, dtype=dtype)
-            got = quanta_apply(x, tensors, dims, pairs)
-            want = apply_sequential(x, tensors, dims, pairs)
-            report("quanta_apply", f"rows={rows} {label}", dtype, got, want,
-                   timed(lambda: quanta_apply(x, tensors, dims, pairs)),
-                   timed(lambda: apply_sequential(x, tensors, dims, pairs)),
-                   timed(lambda: apply_einsum(x, tensors, dims, pairs)),
-                   2 * rows * d * sz + t_bytes, 2 * rows * chain_macs, main)
-            got = quanta_linear(x, w, tensors, dims, pairs)
-            want = quanta_linear_plain(x, w, tensors, dims, pairs)
-            # library: one torch.matmul for the base, one torch.einsum for
-            # the chain
-            report("quanta_linear", f"rows={rows} {label}", dtype, got, want,
-                   timed(lambda: quanta_linear(x, w, tensors, dims, pairs)),
-                   timed(lambda: quanta_linear_plain(x, w, tensors, dims,
-                                                     pairs)),
-                   timed(lambda: torch.matmul(x, w) + apply_einsum(
-                       x, tensors, dims, pairs)),
-                   (2 * rows * d + d * d) * sz + t_bytes,
-                   2 * rows * (d * d + chain_macs), main)
-            print(f"check quanta_linear rows={rows} {label} "
-                  f"{str(dtype)[6:]}: torch.matmul alone (x @ W, no chain) "
-                  f"{timed(lambda: torch.matmul(x, w)):.4f} ms [{card}]")
-            if dtype == torch.bfloat16:
+        for (d_in, d_out), proj in projs.items():
+            dims, dims_out = choose_dims(d_in, d_out, n_axes,
+                                         cfg.quanta_scheme)
+            ad = QuantaAdapter.create(gen, d_in, d_out, dims_in=dims,
+                                      dims_out=dims_out, noise_scale=0.05,
+                                      device=dev)
+            tensors, pairs = [t.to(dtype) for t in ad.tensors], ad.pairs
+            shapes = [t.shape for t in tensors]
+            assert chain_widths(dims, shapes, pairs)[0] == d_out
+            t_bytes = sum(t.numel() for t in tensors) * sz
+            macs = _chain_macs(dims, shapes, pairs)
+            w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
+            for rows, phase, main in chain_rows:
+                main = main and proj == "q_proj"
+                label = (f"{proj} {d_in}->{d_out} {dims}->{dims_out} "
+                         f"rows={rows} {phase}")
+                x = rnd(rows, d_in, dtype=dtype)
+                want = apply_sequential(x, tensors, dims, pairs)
+                report("quanta_apply", label, dtype,
+                       quanta_apply(x, tensors, dims, pairs), want,
+                       timed(lambda: quanta_apply(x, tensors, dims, pairs)),
+                       timed(lambda: apply_sequential(x, tensors, dims,
+                                                      pairs)),
+                       timed(lambda: apply_einsum(x, tensors, dims, pairs)),
+                       rows * (d_in + d_out) * sz + t_bytes, 2 * rows * macs,
+                       main)
+                chain = want
+                want = quanta_linear_plain(x, w, tensors, dims, pairs)
+                # library: one torch.matmul for the base, one torch.einsum
+                # for the chain
+                report("quanta_linear", label, dtype,
+                       quanta_linear(x, w, tensors, dims, pairs), want,
+                       timed(lambda: quanta_linear(x, w, tensors, dims,
+                                                   pairs)),
+                       timed(lambda: quanta_linear_plain(x, w, tensors, dims,
+                                                         pairs)),
+                       timed(lambda: torch.matmul(x, w) + apply_einsum(
+                           x, tensors, dims, pairs)),
+                       (rows * (d_in + d_out) + d_in * d_out) * sz + t_bytes,
+                       2 * rows * (d_in * d_out + macs), main)
+                if not (extras and dtype == torch.bfloat16):
+                    continue
+                print(f"check {cfg.name} quanta_linear {label}: "
+                      f"torch.matmul alone (x @ W, no chain) "
+                      f"{timed(lambda: torch.matmul(x, w)):.4f} ms [{card}]")
                 split = launch_split(
                     lambda: quanta_linear(x, w, tensors, dims, pairs))
-                print(f"split quanta_linear rows={rows} {label}: "
-                      f"{split_text(split)} [{card}]")
-            if dtype == torch.bfloat16 and label == "decode":
-                planted("quanta_linear", "the last K split dropped",
-                        last_split_dropped(
-                            x, w, apply_sequential(x, tensors, dims, pairs),
-                            device_limits(dev).sms), want)
-            if main and dtype == torch.bfloat16:
-                chain = apply_sequential(x, tensors, dims, pairs)
-                planted("quanta_apply", "stages not rounded to bf16",
-                        apply_sequential(x.float(),
-                                         [t.float() for t in tensors],
-                                         dims, pairs).to(dtype), chain)
-                planted("quanta_apply", "one stage's pair axes swapped",
-                        apply_sequential(x, swapped_stage(
-                            tensors, len(tensors) // 2), dims, pairs), chain)
-                planted("quanta_linear", "x @ W rounded before the delta",
-                        ((x.float() @ w.float()).to(dtype).float()
-                         + chain.float()).to(dtype), want)
-                chain_tensor_core_study(x, tensors, dims, pairs, card)
-        assert chain_widths(dims, shapes, pairs) == (d, d)
+                print(f"split quanta_linear {label}: {split_text(split)} "
+                      f"[{card}]")
+                if phase == "decode":
+                    planted("quanta_linear", "the last K split dropped",
+                            last_split_dropped(x, w, chain,
+                                               device_limits(dev).sms), want)
+                if main:
+                    planted("quanta_apply", "stages not rounded to bf16",
+                            apply_sequential(x.float(),
+                                             [t.float() for t in tensors],
+                                             dims, pairs).to(dtype), chain)
+                    planted("quanta_apply", "one stage's pair axes swapped",
+                            apply_sequential(x, swapped_stage(
+                                tensors, len(tensors) // 2), dims, pairs),
+                            chain)
+                    planted("quanta_linear", "x @ W rounded before the delta",
+                            ((x.float() @ w.float()).to(dtype).float()
+                             + chain.float()).to(dtype), want)
+                    chain_tensor_core_study(x, tensors, dims, pairs, card)
+            del w
 
-        # prefill attention: B=8 slots, S=384, 32 heads of 128
-        b, h, hd = 8, 32, 128
-        for s, window, label, main in ((384, None, "S=384", True),
-                                       (300, None, "S=300 tail", False),
-                                       (384, 100, "S=384 window=100", False)):
+        # prefill attention: B=8 slots, S=384 at the config's heads
+        b = 8
+        attn = ((384, None, "S=384", True),) + (
+            ((300, None, "S=300 tail", False),
+             (384, 100, "S=384 window=100", False)) if extras else ())
+        for s, window, label, main in attn:
+            label = f"(8, {s}) {heads} {label}"
             q = rnd(b, s, h, hd, dtype=dtype)
-            k = rnd(b, s, h, hd, dtype=dtype)
-            v = rnd(b, s, h, hd, dtype=dtype)
-            got = FA.flash_attention(q, k, v, window=window)
+            k = rnd(b, s, kv, hd, dtype=dtype)
+            v = rnd(b, s, kv, hd, dtype=dtype)
             want = FA.flash_attention_plain(q, k, v, window=window)
             pairs_vis = sum(min(i + 1, window or i + 1) for i in range(s))
             lib = None
             if window is None:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 lib = timed(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
-            report("flash_attention", label, dtype, got, want,
+                    qt, kt, vt, is_causal=True, **gqa))
+            report("flash_attention", label, dtype,
+                   FA.flash_attention(q, k, v, window=window), want,
                    timed(lambda: FA.flash_attention(q, k, v, window=window)),
                    timed(lambda: FA.flash_attention_plain(
                        q, k, v, window=window)),
-                   lib, 4 * b * s * h * hd * sz, 4 * hd * pairs_vis * h * b,
-                   main)
-            if main and dtype == torch.bfloat16:
+                   lib, 2 * b * s * (h + kv) * hd * sz,
+                   4 * hd * pairs_vis * h * b, main)
+            if extras and main and dtype == torch.bfloat16:
                 planted("flash_attention", "p not cast before PV",
                         FA.flash_attention_plain(q, k, v.float(),
                                                  window=window).to(dtype),
                         want)
+            del q, k, v
 
         # decode attention: 8 slots over a 512-entry cache, mixed lengths;
         # in bf16 the split decode (score chunks of 64 keys)
         s_max = 512
-        chunk = decode_plan(s_max, 128, 1).chunk
+        chunk = decode_plan(s_max, hd, h // kv).chunk
         lens = torch.tensor([33, 100, 385, 512, 1, 64, 65, 200],
                             dtype=torch.int32, device=dev)
-        kc = rnd(b, s_max, h, hd, dtype=dtype)
-        vc = rnd(b, s_max, h, hd, dtype=dtype)
+        mask = (torch.arange(s_max, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
         q = rnd(b, 1, h, hd, dtype=dtype)
-        for window, label, main in ((None, "S_max=512", True),
-                                    (50, "S_max=512 window=50", False)):
-            got = FA.flash_decode_attention(q, kc, vc, lens, window=window)
+
+        def sdpa(kt, vt):            # over a dense (B, S, KV, hd) cache
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                attn_mask=mask, **gqa)
+
+        kc = rnd(b, s_max, kv, hd, dtype=dtype)
+        vc = rnd(b, s_max, kv, hd, dtype=dtype)
+        windows = ((None, "S_max=512", True),) + (
+            ((50, "S_max=512 window=50", False),) if extras else ())
+        for window, label, main in windows:
+            label = f"{label} {heads}"
             want = FA.flash_decode_attention_plain(q, kc, vc, lens,
                                                    window=window)
             used = [min(int(n), window or int(n)) for n in lens.tolist()]
-            lib = None
-            if window is None:
-                mask = (torch.arange(s_max, device=dev)[None, :]
-                        < lens[:, None])[:, None, None, :]
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
-                lib = timed(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask))
-            report("flash_decode_attention", label, dtype, got, want,
+            report("flash_decode_attention", label, dtype,
+                   FA.flash_decode_attention(q, kc, vc, lens, window=window),
+                   want,
                    timed(lambda: FA.flash_decode_attention(
                        q, kc, vc, lens, window=window)),
                    timed(lambda: FA.flash_decode_attention_plain(
                        q, kc, vc, lens, window=window)),
-                   lib, (2 * b * h * hd + 2 * sum(used) * h * hd) * sz
-                   + 4 * b, 4 * hd * h * sum(used), main)
-            if main and dtype == torch.bfloat16:
+                   timed(lambda: sdpa(kc, vc)) if window is None else None,
+                   (2 * b * h * hd + 2 * sum(used) * kv * hd) * sz + 4 * b,
+                   4 * hd * h * sum(used), main)
+            if extras and main and dtype == torch.bfloat16:
                 planted("flash_decode_attention", "p not cast before PV",
                         FA.flash_decode_attention_plain(
                             q, kc, vc.float(), lens, window=window).to(dtype),
@@ -693,11 +769,12 @@ def check_kernels(card):
                         FA.flash_decode_attention_plain(
                             q, kc, vc, without_last_chunk(lens, chunk)),
                         want)
+        del kc, vc
 
         # paged decode: the same 8 slots in a pool of 16-token blocks,
         # read through shuffled tables whose entries past a slot's block
-        # count repeat its last row; bf16 rows (kernel 5), NF4 and int8
-        # codes with fp32 scales per 64 elements (kernel 6)
+        # count repeat its last row; bf16 rows (kernel 5), NF4 (and with
+        # ``extras`` int8) codes with fp32 scales per 64 elements (kernel 6)
         bs, n_b = 16, s_max // 16
         n_blocks = b * n_b + 1
         tables = paged_tables(lens.tolist(), bs, n_b, n_blocks, seed=5)
@@ -706,67 +783,50 @@ def check_kernels(card):
         # in pool order
         ignored = (torch.arange(b * n_b, dtype=torch.int32, device=dev)
                    .reshape(b, n_b) + 1)
-        kp = rnd(n_blocks, bs, h, hd, dtype=dtype)
-        vp = rnd(n_blocks, bs, h, hd, dtype=dtype)
-        mask = (torch.arange(s_max, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
+        kp = rnd(n_blocks, bs, kv, hd, dtype=dtype)
+        vp = rnd(n_blocks, bs, kv, hd, dtype=dtype)
         io = 2 * b * h * hd * sz + 4 * b * (n_b + 1)
-        for quant in (None, "nf4", "int8"):
+        for quant in (None, "nf4") + (("int8",) if extras else ()):
             name = ("paged_flash_decode_attention" if quant is None
                     else "paged_flash_decode_attention_quant")
             kw, k_src, v_src = {}, kp, vp
-            per_key = 2 * h * hd * sz
+            per_key = 2 * kv * hd * sz
             if quant is not None:
                 (k_src, ks), (v_src, vs) = (quantize_kv(kp, quant),
                                             quantize_kv(vp, quant))
                 kw = dict(kv_quant=quant, k_scales=ks, v_scales=vs)
-                per_key = 2 * h * (k_src.shape[-1] * k_src.element_size()
-                                   + 4 * ks.shape[-1])
-            for window, label, main in ((None, "S_max=512", quant != "int8"),
-                                        (50, "S_max=512 window=50", False)):
+                per_key = 2 * kv * (k_src.shape[-1] * k_src.element_size()
+                                    + 4 * ks.shape[-1])
+            for window, label, main in windows:
+                main = main and quant != "int8"
                 label = f"{quant or 'rows'} {label}"
                 used = [min(int(n), window or int(n)) for n in lens.tolist()]
                 got = FA.paged_flash_decode_attention(
                     q, k_src, v_src, tables, lens, window=window, **kw)
                 want = FA.paged_decode_attention_plain(
                     q, k_src, v_src, tables, lens, window=window, **kw)
+                # the paged kernel is the dense kernel reading through the
+                # table (for codes: with a code loader), so bit for bit the
+                # same on the gathered (decoded) cache
+                kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
+                same = torch.equal(got, FA.flash_decode_attention(
+                    q, kg, vg, lens, window=window))
+                print(f"check {cfg.name} {name} {label} {str(dtype)[6:]}: "
+                      f"equals the dense decode kernel on the "
+                      f"{'decoded' if quant else 'gathered'} cache bit for "
+                      f"bit: {same}")
+                if (dtype == torch.bfloat16 or quant is None) and not same:
+                    fail(f"{cfg.name}: {name} {label} differs from the dense "
+                         f"decode kernel")
                 lib = None
                 if window is None and quant is None:
                     # SDPA over the cache gathered beforehand
-                    kg, vg = (t.transpose(1, 2) for t in FA.gather_kv(
-                        q, kp, vp, tables))
-                    lib = timed(lambda: F.scaled_dot_product_attention(
-                        q.transpose(1, 2), kg, vg, attn_mask=mask))
-                    # the paged kernel is the dense kernel reading through
-                    # the table: bit for bit the same on the gathered cache
-                    dense = FA.flash_decode_attention(
-                        q, kg.transpose(1, 2), vg.transpose(1, 2), lens)
-                    same = torch.equal(got, dense)
-                    print(f"check {name} {label} {str(dtype)[6:]}: equals "
-                          f"the dense decode kernel on the gathered cache "
-                          f"bit for bit: {same}")
-                    if not same:
-                        fail(f"{name} differs from the dense decode kernel")
-                if quant is not None:
-                    # the code path is the split decode of the bf16 rows
-                    # with a code loader: bit for bit the same on the
-                    # decoded cache
-                    kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
-                    dense = FA.flash_decode_attention(q, kg, vg, lens,
-                                                      window=window)
-                    same = torch.equal(got, dense)
-                    print(f"check {name} {label} {str(dtype)[6:]}: equals "
-                          f"the dense decode kernel on the decoded cache bit "
-                          f"for bit: {same}")
-                    if dtype == torch.bfloat16 and not same:
-                        fail(f"{name} {label} differs from the split decode")
-                if window is None and quant is not None:
-                    def library():      # dequantize + SDPA, one timed call
-                        kg, vg = FA.gather_kv(q, k_src, v_src, tables, **kw)
-                        return F.scaled_dot_product_attention(
-                            q.transpose(1, 2), kg.transpose(1, 2),
-                            vg.transpose(1, 2), attn_mask=mask)
-                    lib = timed(library)
+                    lib = timed(lambda: sdpa(kg, vg))
+                elif window is None:
+                    # decode the codes, then SDPA: one timed call
+                    lib = timed(lambda: sdpa(*FA.gather_kv(
+                        q, k_src, v_src, tables, **kw)))
+                del kg, vg
                 report(name, label, dtype, got, want,
                        timed(lambda: FA.paged_flash_decode_attention(
                            q, k_src, v_src, tables, lens, window=window,
@@ -776,13 +836,15 @@ def check_kernels(card):
                            **kw)),
                        lib, io + sum(used) * per_key,
                        4 * hd * h * sum(used), main)
-                if window is None and dtype == torch.bfloat16:
+                if not (extras and dtype == torch.bfloat16):
+                    continue
+                if window is None:
                     split = launch_split(
                         lambda: FA.paged_flash_decode_attention(
                             q, k_src, v_src, tables, lens, **kw))
                     print(f"split {name} {label}: {split_text(split)} "
                           f"[{card}]")
-                if not (main and dtype == torch.bfloat16):
+                if not main:
                     continue
                 if quant is None:
                     planted(name, "table ignored",
@@ -804,16 +866,22 @@ def check_kernels(card):
                                     q, nibbles_swapped(k_src),
                                     nibbles_swapped(v_src), tables, lens,
                                     **kw), want)
+        del kp, vp
 
-        # quantized matmul (kernel 7): NF4 and int8 weights with fp32
-        # scales per 64 rows of d_in, the projections of llama2-7b at a
-        # prefill wave and a decode tick; library: torch.matmul on the
-        # dense dequantized weight
-        for fmt in ("nf4", "int8"):
-            for d_in, d_out in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        # quantized matmul (kernel 7): NF4 (and with ``extras`` int8)
+        # weights with fp32 scales per ``quant_block_size`` rows of d_in,
+        # every projection of the config at a prefill wave and a decode
+        # tick; library: torch.matmul on the dense dequantized weight
+        hq, hk, ff = h * hd, kv * hd, cfg.d_ff
+        for fmt in ("nf4",) + (("int8",) if extras else ()):
+            for d_in, d_out in sorted({(d, hq), (d, hk), (hq, d), (d, ff),
+                                       (ff, d)}):
                 w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
-                for norm in ((None, "rowcol") if d_in == d_out else (None,)):
-                    qw = quantize_linear(w, fmt, block_size=64,
+                norms = ((None, "rowcol") if extras and d_in == d_out
+                         else (None,))
+                for norm in norms:
+                    qw = quantize_linear(w, fmt,
+                                         block_size=cfg.quant_block_size,
                                          normalize=norm)
                     wd = dequantize(qw, torch.float32).to(dtype)
                     w_bytes = sum(t.numel() * t.element_size()
@@ -822,18 +890,18 @@ def check_kernels(card):
                         x = rnd(rows, d_in, dtype=dtype)
                         main = (fmt == "nf4" and d_in == d_out
                                 and norm is None and rows == 3072)
-                        got = quantized_matmul(x, qw)
                         want = matmul_ref(x, qw)
                         label = (f"{fmt} {d_in}->{d_out}"
                                  f"{' ' + norm if norm else ''} rows={rows} "
                                  f"{phase}")
-                        report("quantized_matmul", label, dtype, got, want,
+                        report("quantized_matmul", label, dtype,
+                               quantized_matmul(x, qw), want,
                                timed(lambda: quantized_matmul(x, qw)),
                                timed(lambda: matmul_ref(x, qw)),
                                timed(lambda: torch.matmul(x, wd)),
                                rows * (d_in + d_out) * sz + w_bytes,
                                2 * rows * d_in * d_out, main)
-                        if main and dtype == torch.bfloat16:
+                        if extras and main and dtype == torch.bfloat16:
                             p = qw.packed
                             swapped = dataclasses.replace(
                                 qw, packed=(p << 4) | (p >> 4))
@@ -842,9 +910,10 @@ def check_kernels(card):
                     del qw, wd
                 del w
 
-        # banked-gather LoRA (kernel 8), with and without the base product
-        check_banked(dtype, rnd, report, planted, dev, card)
-    return records
+        if extras:
+            # banked-gather LoRA (kernel 8), with and without the base
+            check_banked(dtype, rnd, report, planted, dev, card)
+    return records, readings
 
 
 def check_banked(dtype, rnd, report, planted, dev, card):
@@ -1112,9 +1181,10 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
-def _adapted(cfg, seed, dev):
-    """Random base + folded QuanTA on q/v with tensors perturbed away from
-    S, so the adapter's delta is not zero."""
+def _adapted(cfg, seed, dev, n_axes=4):
+    """Random base + folded QuanTA on q/v (``n_axes``, the config's
+    scheme) with tensors perturbed away from S, so the adapter's delta is
+    not zero."""
     import torch
     from repro_torch.core.peft import PeftConfig, attach
     from repro_torch.models import build_model
@@ -1122,7 +1192,8 @@ def _adapted(cfg, seed, dev):
     model = build_model(cfg, device=dev)
     params = model.init(seed)
     base, peft = attach(seed + 1, params, PeftConfig(
-        method="quanta", n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+        method="quanta", n_axes=n_axes, scheme=cfg.quanta_scheme),
+        device=dev)
     del params
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     for a in peft.flat().values():
@@ -1236,11 +1307,12 @@ def f32_paged(dev, cfg):
                                  f"from the dense twin: {outs}")
 
 
-def _bank_setup(cfg, seed, dev, sigma):
-    """Random base params and the ``BANK_TENANTS`` over them: folded QuanTA
-    as the (params, adapter set) pair attach returns, its tensors moved
-    off S, and LoRA tenants whose B factors are moved off zero (Gaussian,
-    scale ``sigma``)."""
+def _bank_setup(cfg, seed, dev, sigma, kinds=None):
+    """Random base params and the tenants of ``kinds`` (default
+    ``BANK_TENANTS``) over them: folded QuanTA as the (params, adapter
+    set) pair attach returns, fold-free QuanTA (``"quanta_ff"``) as its
+    adapter set, their tensors T moved off S, and LoRA tenants whose B
+    factors are moved off zero (Gaussian, scale ``sigma``)."""
     import torch
     from repro_torch.core.peft import PeftConfig, attach
     from repro_torch.models import build_model
@@ -1249,15 +1321,17 @@ def _bank_setup(cfg, seed, dev, sigma):
     params = model.init(seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     tenants = {}
-    for i, (name, (method, rank, alpha)) in enumerate(BANK_TENANTS.items()):
-        if method == "quanta":
+    for i, (name, (method, rank, alpha)) in enumerate(
+            (kinds or BANK_TENANTS).items()):
+        if method.startswith("quanta"):
             qparams, aset = attach(seed + 2 + i, params, PeftConfig(
-                n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+                n_axes=4, scheme=cfg.quanta_scheme,
+                fold=method == "quanta"), device=dev)
             for a in aset.flat().values():
                 for t in a.tensors:
                     t.add_(0.02 * torch.randn(t.shape, generator=gen,
                                               device=dev, dtype=t.dtype))
-            tenants[name] = (qparams, aset)
+            tenants[name] = (qparams, aset) if method == "quanta" else aset
             continue
         _, aset = attach(seed + 2 + i, params, PeftConfig(
             method="lora", rank=rank, alpha=alpha), device=dev)
@@ -1278,25 +1352,38 @@ def _tenant(tenants, params, name):
 # the f32 bank runs: 6 prompts over 4 slots with a tenant each, and a pool
 # of 16-token blocks too small for them (the batch preempts)
 F32_BANK_MIX = ("Q", "L16a", "L8", "L16b", None, "L16a")
+# the fold-free bank runs' tenants (in bank order) and mix: two fold-free
+# QuanTA tenants (one structure group) beside LoRA of two ranks
+FOLDFREE_BANK_TENANTS = {"F1": ("quanta_ff", None, None),
+                         "L16a": ("lora", 16, 32.0),
+                         "F2": ("quanta_ff", None, None),
+                         "L8": ("lora", 8, 16.0)}
+F32_FF_BANK_MIX = ("F1", "L16a", "F2", "L8", None, "F1")
 F32_BANK_POOL_BLOCKS = 32
 
 
-def f32_bank(dev, cfg):
+def f32_bank(dev, cfg, foldfree=False):
     """``cfg``: llama2-7b-proxy cut to 2 layers in float32.  A bank of
-    folded QuanTA, two rank-16 and one rank-8 LoRA tenants: the kernel
-    engine against the plain engine and each tenant's single-tenant kernel
-    engine, on the dense cache, a paged pool that preempts, an NF4 base
-    (LoRA-only bank: kernel 7, then kernel 8 without the base) and an
-    ``AdapterPool`` of one row per group (the two rank-16 tenants share
-    it, so it evicts and reloads), which must give the static bank's
-    tokens."""
+    folded QuanTA, two rank-16 and one rank-8 LoRA tenants (with
+    ``foldfree``: two fold-free QuanTA tenants, one rank-16 and one
+    rank-8 LoRA tenant): the kernel engine against the plain engine and
+    each tenant's single-tenant kernel engine, on the dense cache, a paged
+    pool that preempts, an NF4 base (a bank of the tenants that need no
+    dense base of their own: kernel 7, then kernel 8 without the base,
+    and kernel 1 for fold-free tenants) and an ``AdapterPool`` of one row
+    per group (the two rank-16 or the two fold-free tenants share it, so
+    it evicts and reloads), which must give the static bank's tokens."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.bank import AdapterBank
     from repro_torch.core.quantize import quantize_params
     from repro_torch.serve import AdapterPool, AdapterStore
 
-    model, params, tenants = _bank_setup(cfg, 500, dev, sigma=0.05)
+    mix = F32_FF_BANK_MIX if foldfree else F32_BANK_MIX
+    label0 = "f32 fold-free bank" if foldfree else "f32 bank"
+    model, params, tenants = _bank_setup(
+        cfg, 500, dev, sigma=0.05,
+        kinds=FOLDFREE_BANK_TENANTS if foldfree else None)
     plain = type(model)(cfg.replace(attn_backend="reference",
                                     peft_backend="reference"), device=dev)
     gen = torch.Generator().manual_seed(7)
@@ -1305,54 +1392,57 @@ def f32_bank(dev, cfg):
     bank = AdapterBank.build(params, tenants)
     qbase = quantize_params(params, "nf4", block_size=cfg.quant_block_size)
     lora = {k: v for k, v in tenants.items() if not isinstance(v, tuple)}
-    lora_mix = [t if t in lora else None for t in F32_BANK_MIX]
+    lora_mix = [t if t in lora else None for t in mix]
     paged = dict(cache="paged", block_size=16, n_blocks=F32_BANK_POOL_BLOCKS)
-    cases = (("dense", params, bank, F32_BANK_MIX, {}),
-             ("paged tight", params, bank, F32_BANK_MIX, paged),
-             ("NF4 base, LoRA bank", qbase, AdapterBank.build(qbase, lora),
-              lora_mix, dict(base_quant="nf4")))
+    cases = (("dense", params, bank, mix, {}),
+             ("paged tight", params, bank, mix, paged),
+             ("NF4 base, " + ("fold-free and LoRA bank" if foldfree
+                              else "LoRA bank"), qbase,
+              AdapterBank.build(qbase, lora), lora_mix,
+              dict(base_quant="nf4")))
     static = None
-    for label, base, bnk, mix, kw in cases:
+    for label, base, bnk, cmix, kw in cases:
         kernels.reset_launch_counts()
         out_k, st_k, _, _ = _serve(model, base, None, prompts, 16, 4, 256,
-                                   tenants=mix, adapters=bnk, **kw)
+                                   tenants=cmix, adapters=bnk, **kw)
         run = kernels.launch_counts()
         out_p, st_p, _, _ = _serve(plain, base, None, prompts, 16, 4, 256,
-                                   tenants=mix, adapters=bnk, **kw)
+                                   tenants=cmix, adapters=bnk, **kw)
         # each tenant on its own kernel engine over the dense cache; a
         # request preempted one token short of its budget takes one more
         # before it is retired (as in the JAX engine), so 16 are compared
         single = {}
-        for name in set(mix):
+        for name in set(cmix):
             p, a = _tenant(tenants, base, name)
-            idx = [i for i, t in enumerate(mix) if t == name]
+            idx = [i for i, t in enumerate(cmix) if t == name]
             outs, _, _, _ = _serve(model, p, a, [prompts[i] for i in idx],
                                    16, 4, 256,
                                    **{k: v for k, v in kw.items()
                                       if k == "base_quant"})
             single.update(zip(idx, outs))
         same_p = sum(a == b for a, b in zip(out_k, out_p))
-        same_s = sum(out_k[i][:16] == single[i] for i in range(len(mix)))
-        print(f"f32 bank {label}: tenants {list(mix)}; preemptions kernel "
+        same_s = sum(out_k[i][:16] == single[i] for i in range(len(cmix)))
+        print(f"{label0} {label}: tenants {list(cmix)}; preemptions kernel "
               f"{st_k['preempted']} plain {st_p['preempted']}; identical "
-              f"greedy tokens kernel vs plain engine {same_p}/{len(mix)}, "
-              f"kernel vs single-tenant engines {same_s}/{len(mix)} "
+              f"greedy tokens kernel vs plain engine {same_p}/{len(cmix)}, "
+              f"kernel vs single-tenant engines {same_s}/{len(cmix)} "
               f"requests x 16 tokens; kernel 8 launches "
               f"{run['banked_lora_linear']} fused, "
               f"{run['banked_lora_delta']} delta alone, kernel 7 "
-              f"{run['quantized_matmul']}")
-        if out_k != out_p or same_s != len(mix):
-            raise AssertionError(f"f32 bank {label}: tokens differ: kernel "
+              f"{run['quantized_matmul']}, kernel 1 {run['quanta_apply']}")
+        if out_k != out_p or same_s != len(cmix):
+            raise AssertionError(f"{label0} {label}: tokens differ: kernel "
                                  f"{out_k} plain {out_p} single {single}")
         if st_k["preempted"] != st_p["preempted"] or (
                 bool(st_k["preempted"]) != (label == "paged tight")):
-            raise AssertionError(f"f32 bank {label}: preemptions "
+            raise AssertionError(f"{label0} {label}: preemptions "
                                  f"{st_k['preempted']} {st_p['preempted']}")
         need = (("quantized_matmul", "banked_lora_delta") if "NF4" in label
-                else ("banked_lora_linear", "banked_lora_delta",
-                      "quanta_linear"))
+                else ("banked_lora_linear", "banked_lora_delta"))
+        need += ("quanta_apply",) if foldfree else (
+            () if "NF4" in label else ("quanta_linear",))
         if any(run[k] == 0 for k in need):
-            raise AssertionError(f"f32 bank {label}: a kernel never "
+            raise AssertionError(f"{label0} {label}: a kernel never "
                                  f"launched: {run}")
         if label == "dense":
             static = out_k
@@ -1362,8 +1452,8 @@ def f32_bank(dev, cfg):
         store.register(name, entry)
     pool = AdapterPool.build(params, store, capacity=1)
     out_pool, st, _, _ = _serve(model, params, None, prompts, 16, 4, 256,
-                                tenants=F32_BANK_MIX, adapters=pool)
-    print(f"f32 bank pool (capacity 1 per group): loads "
+                                tenants=mix, adapters=pool)
+    print(f"{label0} pool (capacity 1 per group): loads "
           f"{st['adapter_loads']}, evictions {st['adapter_evictions']}, "
           f"deferrals {st['adapter_acquire_denied']}, resident "
           f"{st['adapter_bytes_resident']} bytes of a registry of "
@@ -1371,27 +1461,36 @@ def f32_bank(dev, cfg):
           f"static bank {sum(a == b for a, b in zip(out_pool, static))}/"
           f"{len(static)}")
     if out_pool != static:
-        raise AssertionError(f"f32 bank pool differs from the static bank: "
+        raise AssertionError(f"{label0} pool differs from the static bank: "
                              f"{out_pool} vs {static}")
     if st["adapter_evictions"] < 1 or st["adapter_loads"] <= len(tenants):
-        raise AssertionError(f"f32 bank pool never evicted and reloaded: "
+        raise AssertionError(f"{label0} pool never evicted and reloaded: "
                              f"{st}")
 
 
-def full_serve(card, dev, cfg):
-    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16)."""
+def full_serve(card, dev, cfg, n_axes):
+    """``cfg``: a FULL config (bf16) with folded, perturbed QuanTA on q/v
+    at its scheme.  8 requests (prompts of 32-384 tokens, 32 new tokens)
+    through the adapted engine (its launches counted) and the merged one;
+    adapted vs merged prefill logits; a planted fault; the dense adapted
+    engine's graph tick against its eager tick.  Returns the launches, the
+    run's objects and the readings."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.peft import merge_all
+    from repro_torch.serve import Request, ServingEngine
 
     cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
     t0 = time.monotonic()
-    model, base, peft = _adapted(cfg, 200, dev)
+    model, base, peft = _adapted(cfg, 200, dev, n_axes)
     merged = merge_all(base, peft)
     _sync(dev)
-    print(f"serve: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
-          f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} params), "
-          f"set-up {time.monotonic() - t0:.1f} s")
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}, QuanTA {cfg.quanta_scheme} on q/v "
+          f"({peft.num_params} params), set-up "
+          f"{time.monotonic() - t0:.1f} s")
     gen = torch.Generator().manual_seed(9)
     lengths = [32, 82, 132, 182, 232, 282, 332, 384]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -1401,25 +1500,29 @@ def full_serve(card, dev, cfg):
     out_a, stats, t_pre, t_dec = _serve(model, base, peft, prompts, 32, 8,
                                         512)
     counts = kernels.launch_counts()
-    print(f"serve adapted: prefill {t_pre * 1e3:.1f} ms (wall, 8 prompts, "
-          f"{sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms (wall, "
-          f"{stats['decode_calls']} ticks), stats {stats}, launches "
+    print(f"serve {cfg.name} adapted: prefill {t_pre * 1e3:.1f} ms (wall, 8 "
+          f"prompts, {sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms "
+          f"(wall, {stats['decode_calls']} ticks), stats {stats}, launches "
           f"{counts} [{card}]")
     counts = {k: counts[k] for k in DENSE_KERNELS}
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"{cfg.name}: kernels never launched on the "
+                             f"main path: {missing}")
+    read = dict(prefill_ms=t_pre * 1e3, param_bytes=stats["param_bytes"],
+                closed_loop_tick_ms=t_dec * 1e3 / stats["decode_calls"])
     out_m, stats_m, t_pre_m, t_dec_m = _serve(model, merged, None, prompts,
                                               32, 8, 512)
-    print(f"serve merged: prefill {t_pre_m * 1e3:.1f} ms, decode "
+    print(f"serve {cfg.name} merged: prefill {t_pre_m * 1e3:.1f} ms, decode "
           f"{t_dec_m * 1e3:.1f} ms (wall) [{card}]")
     agree = sum(a == b for ra, rb in zip(out_a, out_m) for a, b in zip(ra, rb))
     total = sum(len(r) for r in out_a)
-    print(f"serve: adapted vs merged token agreement {agree}/{total}; "
-          f"first request adapted {out_a[0][:8]} merged {out_m[0][:8]}")
+    print(f"serve {cfg.name}: adapted vs merged token agreement "
+          f"{agree}/{total}; first request adapted {out_a[0][:8]} merged "
+          f"{out_m[0][:8]}")
     if any(len(r) != 32 for r in out_a + out_m):
-        raise AssertionError("a request did not get its 32 tokens")
+        raise AssertionError(f"{cfg.name}: a request did not get its 32 "
+                             f"tokens")
     toks = torch.zeros((8, 384), dtype=torch.long)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = torch.tensor(p)
@@ -1427,14 +1530,18 @@ def full_serve(card, dev, cfg):
     la, _ = model.prefill(base, peft, {"tokens": toks.to(dev)}, lengths=lens)
     lm, _ = model.prefill(merged, None, {"tokens": toks.to(dev)},
                           lengths=lens)
+    del merged
     la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
     if not (torch.isfinite(la).all() and torch.isfinite(lm).all()):
-        raise AssertionError("non-finite prefill logits")
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
     rel = float((la - lm).abs().max() / lm.abs().max())
-    print(f"serve: adapted vs merged prefill logits max_rel {rel:.3e} "
-          f"(tolerance {SERVE_LOGIT_TOL}); logits shape {tuple(la.shape)}")
+    read["adapted_vs_merged_max_rel"] = rel
+    print(f"serve {cfg.name}: adapted vs merged prefill logits max_rel "
+          f"{rel:.3e} (tolerance {SERVE_LOGIT_TOL}); logits shape "
+          f"{tuple(la.shape)}")
     if rel > SERVE_LOGIT_TOL:
-        fail("adapted and merged prefill logits disagree")
+        fail(f"{cfg.name}: adapted and merged prefill logits disagree")
+    del la
     # planted fault: the first chain stage of every adapter skipped (its
     # tensor made the identity), then put back
     firsts = [a.tensors[0] for a in peft.flat().values()]
@@ -1448,12 +1555,21 @@ def full_serve(card, dev, cfg):
         t.copy_(old)
     lf = lf[..., :cfg.vocab_size].float()
     rel_f = float((lf - lm).abs().max() / lm.abs().max())
-    print(f"fault serve (first chain stage skipped): adapted vs merged "
-          f"prefill logits max_rel {rel_f:.3e} "
+    del lf, lm
+    print(f"fault serve {cfg.name} (first chain stage skipped): adapted vs "
+          f"merged prefill logits max_rel {rel_f:.3e} "
           f"{'caught' if rel_f > SERVE_LOGIT_TOL else 'passes: too loose'}")
     if rel_f <= SERVE_LOGIT_TOL:
-        fail("a skipped chain stage passes the serve logit tolerance")
-    return counts, (model, base, peft, prompts)
+        fail(f"{cfg.name}: a skipped chain stage passes the serve logit "
+             f"tolerance")
+    eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
+    eng.step()
+    read["dense"] = graph_vs_eager(eng, f"{cfg.name} dense adapted", card)
+    del eng
+    return counts, (model, base, peft, prompts), read
 
 
 # the FULL-width QLoRA runs: a pool for 119 blocks of 16 tokens, while the
@@ -1486,9 +1602,9 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     """The NF4-base, NF4-KV paged serving path at FULL width, its bf16-KV
     twin, and one decode step of the paged NF4 pool against a dense cache
     of the fake-quantized rows, then that paged engine's graph tick
-    against its eager tick.  Returns the launch counts of kernels 5, 6
-    and 7, each from the run that drives it, the run's objects and the
-    tick readings."""
+    against its eager tick, and the bf16-KV engine's likewise.  Returns
+    the launch counts of kernels 5, 6 and 7, each from the run that
+    drives it, the run's objects, the tick readings and the readings."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1500,7 +1616,7 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     qbase = quantize_params(base, "nf4", block_size=cfg.quant_block_size)
     _sync(dev)
     mq = type(model)(cfg.replace(kv_quant="nf4"), device=dev)
-    print(f"qlora: {cfg.name} base packed to NF4 (blocks of "
+    print(f"qlora {cfg.name}: base packed to NF4 (blocks of "
           f"{cfg.quant_block_size}) in {time.monotonic() - t0:.1f} s")
     outs, counts = {}, {}
     for label, m in (("nf4 KV", mq), ("bf16 KV", model)):
@@ -1513,7 +1629,7 @@ def qlora_serve(card, dev, model, base, peft, prompts):
                                                   32, 8, 512, **kw)
         run = kernels.launch_counts()
         t_tick = (t_dec - stats["readmit_s"]) / stats["decode_calls"]
-        print(f"qlora {label}: prefill {t_pre * 1e3:.1f} ms (wall, first "
+        print(f"qlora {cfg.name} {label}: prefill {t_pre * 1e3:.1f} ms (wall, first "
               f"wave), then {t_dec * 1e3:.1f} ms (wall) of "
               f"{stats['decode_calls']} ticks and "
               f"{stats['prefill_calls'] - 1} more prefills taking "
@@ -1527,15 +1643,16 @@ def qlora_serve(card, dev, model, base, peft, prompts):
               f"{stats['preempted']}, launches {run} [{card}]")
         missing = [k for k in QLORA_KERNELS[label] if run[k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the {label} "
-                                 f"path: {missing}")
+            raise AssertionError(f"{cfg.name}: kernels never launched on "
+                                 f"the {label} path: {missing}")
         if any(len(r) != 32 for r in outs[label]):
-            raise AssertionError("a request did not get its 32 tokens")
+            raise AssertionError(f"{cfg.name}: a request did not get its "
+                                 f"32 tokens")
         counts.update({k: run[k] for k in QLORA_KERNELS[label]
                        if k.startswith(("paged", "quantized"))})
     agree = sum(a == b for ra, rb in zip(outs["nf4 KV"], outs["bf16 KV"])
                 for a, b in zip(ra, rb))
-    print(f"qlora: nf4 KV vs bf16 KV token agreement {agree}/"
+    print(f"qlora {cfg.name}: nf4 KV vs bf16 KV token agreement {agree}/"
           f"{sum(len(r) for r in outs['nf4 KV'])}")
 
     # one decode step: paged NF4 pool vs dense cache of the same values
@@ -1550,7 +1667,8 @@ def qlora_serve(card, dev, model, base, peft, prompts):
         engines.append(eng)
     ep, ed = engines
     if not np.array_equal(ep._last_token, ed._last_token):
-        fail("paged and dense prefill gave other first tokens")
+        fail(f"{cfg.name}: paged and dense prefill gave other first "
+             f"tokens")
     toks = torch.from_numpy(ed._last_token.reshape(-1, 1).astype(np.int64)
                             ).to(dev)
     v = cfg.vocab_size
@@ -1558,19 +1676,19 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     def rel_err(a, b):
         a, b = a[..., :v].float(), b[..., :v].float()
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise AssertionError("non-finite decode logits")
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
         return float((a - b).abs().max() / b.abs().max())
 
     lp = _decode_once(ep, toks)
     ld = _decode_once(ed, toks)
     rel = rel_err(lp, ld)
-    print(f"qlora: one decode step, paged NF4 pool (kernel 6, split decode "
+    print(f"qlora {cfg.name}: one decode step, paged NF4 pool (kernel 6, split decode "
           f"with a code loader) vs dense fake-quantized cache (kernel 4, "
           f"split decode), logits "
           f"max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); logits shape "
           f"{tuple(ld.shape)}")
     if rel > PAGED_LOGIT_TOL:
-        fail("paged and dense decode logits disagree")
+        fail(f"{cfg.name}: paged and dense decode logits disagree")
     # planted fault: every slot reads its neighbour's block table
     toks = ld[:, :, :v].argmax(-1)
     active = np.array([r is not None for r in ep.slots])
@@ -1579,14 +1697,28 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     tables.copy_(tables.roll(1, dims=0))
     rel_f = rel_err(_decode_once(ep, toks), _decode_once(ed, toks))
     ep.pager._dirty = True                  # the next tick refreshes it
-    print(f"fault qlora (neighbour's block table): logits max_rel "
+    print(f"fault qlora {cfg.name} (neighbour's block table): logits max_rel "
           f"{rel_f:.3e} "
           f"{'caught' if rel_f > PAGED_LOGIT_TOL else 'passes: too loose'}")
     if rel_f <= PAGED_LOGIT_TOL:
-        fail("a slot reading another's blocks passes the paged tolerance")
-    ticks = graph_vs_eager(ep, "paged NF4 KV, NF4 base", card)
+        fail(f"{cfg.name}: a slot reading another's blocks passes the "
+             f"paged tolerance")
+    read = dict(qlora_param_bytes=ep.stats["param_bytes"], qlora_max_rel=rel)
+    ticks = {"paged NF4 KV, NF4 base": graph_vs_eager(
+        ep, f"{cfg.name} paged NF4 KV, NF4 base", card)}
     del engines, ep, ed
-    return counts, (mq, qbase, peft, prompts), ticks
+    # the bf16-KV twin's graph tick against its eager tick: the model of
+    # the dense runs over the NF4 base, a paged pool of bf16 rows
+    eng = ServingEngine(model, qbase, peft, n_slots=8, max_len=512,
+                        cache="paged", block_size=16, base_quant="nf4",
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
+    eng.step()
+    ticks["paged bf16 KV, NF4 base"] = graph_vs_eager(
+        eng, f"{cfg.name} paged bf16 KV, NF4 base", card)
+    del eng
+    return counts, (mq, qbase, peft, prompts), ticks, read
 
 
 # the FULL-width bank run's tenants, one per request
@@ -1680,6 +1812,156 @@ def bank_serve(card, dev, cfg, prompts):
     del eng
     return ({k: run[k] for k in ("banked_lora_linear", "banked_lora_delta")},
             (model, params, bank, prompts), ticks)
+
+
+# the FULL fold-free pool: tenants registered, resident rows per group
+FF_POOL_TENANTS = 16
+FF_POOL_CAPACITY = 4
+
+
+def foldfree_pool_serve(card, dev, cfg, prompts):
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).  An
+    ``AdapterPool`` of ``FF_POOL_CAPACITY`` rows over a registry of
+    ``FF_POOL_TENANTS`` fold-free QuanTA tenants serves 16 requests, each
+    on its own tenant (the pool loads, evicts and defers); then, four
+    resident tenants at a time, each row's prefill logits against its
+    tenant's single-tenant fold-free prefill, the planted fault (every
+    slot reading its neighbour's S), a pool engine's graph tick against
+    its eager tick, and one fold-free tenant's resident bytes beside one
+    folded tenant's (its ``RebasedAdapter`` carries a dense base).
+    Returns the launches of kernel 1 in the pool run and the tick
+    readings."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.core.bank import tenant_path_adapters
+    from repro_torch.core.peft import PeftConfig, attach, flatten_paths
+    from repro_torch.models import build_model
+    from repro_torch.serve import (
+        AdapterPool, AdapterStore, Request, ServingEngine,
+    )
+
+    cfg = cfg.replace(attn_backend="pallas", peft_backend="pallas")
+    t0 = time.monotonic()
+    model = build_model(cfg, device=dev)
+    params = model.init(450)
+    gen = torch.Generator(device=dev).manual_seed(451)
+    store = AdapterStore(max_tenants=FF_POOL_TENANTS)
+    sets = {}
+    for i in range(FF_POOL_TENANTS):
+        _, aset = attach(460 + i, params, PeftConfig(
+            n_axes=4, scheme=cfg.quanta_scheme, fold=False), device=dev)
+        for a in aset.flat().values():
+            for t in a.tensors:
+                t.add_(0.02 * torch.randn(t.shape, generator=gen, device=dev,
+                                          dtype=t.dtype))
+        sets[f"t{i}"] = aset
+        store.register(f"t{i}", aset)
+    pool = AdapterPool.build(params, store, capacity=FF_POOL_CAPACITY)
+    one_ff = sum(tree_nbytes(a) for a, _ in store.get("t0").values())
+    folded = attach(459, params, PeftConfig(n_axes=4,
+                                            scheme=cfg.quanta_scheme),
+                    device=dev)
+    one_folded = sum(tree_nbytes(a) for a, _ in tenant_path_adapters(
+        "folded", folded).values())
+    del folded
+    _sync(dev)
+    print(f"fold-free pool: {cfg.name}, {cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, {FF_POOL_TENANTS} fold-free QuanTA "
+          f"{cfg.quanta_scheme} tenants on q/v, capacity "
+          f"{FF_POOL_CAPACITY}: resident bank {pool.resident_nbytes()} "
+          f"bytes, registry {store.nbytes} bytes; one fold-free tenant "
+          f"{one_ff} bytes (T and S, float32) against one folded tenant's "
+          f"RebasedAdapter {one_folded} bytes (its dense bf16 q/v bases and "
+          f"T), {one_folded / one_ff:.1f}x; set-up "
+          f"{time.monotonic() - t0:.1f} s [{card}]")
+
+    names = [f"t{i}" for i in range(FF_POOL_TENANTS)]
+    reqs16 = list(prompts) + list(prompts)
+    kernels.reset_launch_counts()
+    mix = [names[i % len(names)] for i in range(len(reqs16))]
+    outs, stats, t_pre, t_dec = _serve(model, params, None, reqs16, 32, 8,
+                                       512, tenants=mix, adapters=pool)
+    run = kernels.launch_counts()
+    print(f"fold-free pool serve: 16 requests, one tenant each; first wave "
+          f"prefill {t_pre * 1e3:.1f} ms (wall), then {t_dec * 1e3:.1f} ms "
+          f"(wall) of {stats['decode_calls']} ticks and "
+          f"{stats['prefill_calls'] - 1} more prefills; loads "
+          f"{stats['adapter_loads']}, evictions "
+          f"{stats['adapter_evictions']}, deferrals "
+          f"{stats['adapter_acquire_denied']}; kernel 1 launches "
+          f"{run['quanta_apply']}; guard {stats['guard']} [{card}]")
+    if any(len(r) != 32 for r in outs):
+        fail("fold-free pool: a request did not get its 32 tokens")
+    if run["quanta_apply"] == 0 or stats["adapter_evictions"] < 1:
+        fail(f"fold-free pool: kernel 1 launches {run['quanta_apply']}, "
+             f"evictions {stats['adapter_evictions']}")
+
+    toks = torch.zeros((8, 384), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    batch = {"tokens": toks.to(dev)}
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    v = cfg.vocab_size
+    bank = pool.device_bank()
+
+    def rel_err(ids, want):
+        got, _ = model.prefill(params, bank, batch, lengths=lens,
+                               adapter_ids=ids.to(dev))
+        got = got[:, 0, :v].float()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError("non-finite prefill logits")
+        return ((got - want).abs().amax(dim=-1) / want.abs().max()).tolist()
+
+    errs, faults = [], []
+    for g in range(0, FF_POOL_TENANTS, FF_POOL_CAPACITY):
+        group = names[g:g + FF_POOL_CAPACITY]
+        for name in group:
+            if not pool.load(name):
+                raise AssertionError(f"fold-free pool: {name} not loaded")
+        mix = [group[i % len(group)] for i in range(8)]
+        want = torch.empty((8, v), dtype=torch.float32, device=dev)
+        for name in group:
+            logits, _ = model.prefill(params, sets[name], batch,
+                                      lengths=lens)
+            rows = [i for i, t in enumerate(mix) if t == name]
+            want[rows] = logits[rows, 0, :v].float()
+        ids = torch.tensor([pool.id_of(t) for t in mix], dtype=torch.int32)
+        errs += rel_err(ids, want)
+        # planted fault: each resident row's S rolled onto the next row,
+        # so every slot reads its neighbour's S
+        frozen = [leaf for node in flatten_paths(pool.tree).values()
+                  for grp in node.groups for leaf in grp.frozen]
+        for leaf in frozen:
+            leaf[:, 1:].copy_(leaf[:, 1:].roll(1, dims=1))
+        faults += rel_err(ids, want)
+        for leaf in frozen:
+            leaf[:, 1:].copy_(leaf[:, 1:].roll(-1, dims=1))
+    rel, rel_f = max(errs), max(faults)
+    print(f"fold-free pool: prefill logits vs each tenant's single-tenant "
+          f"fold-free prefill, {FF_POOL_CAPACITY} tenants resident at a "
+          f"time, max_rel {rel:.3e} over {len(errs)} rows (tolerance "
+          f"{BANK_LOGIT_TOL}), equal bit for bit {errs.count(0.0)}/"
+          f"{len(errs)}")
+    if rel > BANK_LOGIT_TOL:
+        fail("fold-free pool and single-tenant prefill logits disagree")
+    print(f"fault fold-free pool (every slot reads its neighbour's S): "
+          f"max_rel {rel_f:.3e} (rows {min(faults):.3e} to {rel_f:.3e}) "
+          f"{'caught' if rel_f > BANK_LOGIT_TOL else 'passes: too loose'}")
+    if rel_f <= BANK_LOGIT_TOL:
+        fail("a slot reading its neighbour's S passes the bank tolerance")
+
+    group = names[-FF_POOL_CAPACITY:]
+    eng = ServingEngine(model, params, adapters=pool, n_slots=8, max_len=512,
+                        device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64),
+                   adapter=group[i % len(group)])
+    eng.step()
+    ticks = graph_vs_eager(eng, "fold-free pool", card)
+    del eng
+    return run["quanta_apply"], ticks
 
 
 # ------------------------------------------------------------ serve B
@@ -1973,15 +2255,13 @@ def serve_b_cut(dev, cfg):
 
 
 def serve_b_full(card, dev, cfg):
-    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).  The dense
-    adapted engine's graph tick against its eager tick, then
+    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16).
     ``ServeFrontend(ServingEngine(n_slots=8, max_len=512,
     prefill_chunk=128))`` serves 16 requests (the phase-5 prompts twice,
     32 new tokens, classes alternating) arriving as a Poisson process at 8
     a second on the wall clock, drained by a worker thread while this
     thread consumes the streams; each stream must equal the same requests'
-    greedy tokens from a closed-loop engine of the same shape.  Returns
-    the graph and eager tick times."""
+    greedy tokens from a closed-loop engine of the same shape."""
     import threading
 
     import numpy as np
@@ -1998,15 +2278,6 @@ def serve_b_full(card, dev, cfg):
     lengths = [32, 82, 132, 182, 232, 282, 332, 384]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in lengths]
-    eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
-                        device=dev)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
-    eng.step()
-    ticks = graph_vs_eager(eng, "dense adapted", card)
-    del eng
-    torch.cuda.empty_cache()
-
     # the closed loop the streams are held against: the same engine shape
     # fed every request at once (each decode row is computed on its own at
     # the graph's fixed 8-row shape, so the greedy tokens must not depend
@@ -2100,7 +2371,6 @@ def serve_b_full(card, dev, cfg):
     if missing:
         raise AssertionError(f"kernels never launched in the front-end "
                              f"run: {missing}")
-    return ticks
 
 
 # --------------------------------------------------------------- phase 7
@@ -2348,7 +2618,7 @@ def train_flash(card, dev):
     return reading, times
 
 
-def _train_models(cfg, dev, seed):
+def _train_models(cfg, dev, seed, n_axes=4):
     """A random base with folded QuanTA on q/v, and the training model
     (``peft_backend="reference"``: the QuanTA kernels have no backward)."""
     from repro_torch.core.peft import PeftConfig, attach
@@ -2356,7 +2626,8 @@ def _train_models(cfg, dev, seed):
 
     model = build_model(cfg.replace(peft_backend="reference"), device=dev)
     base, peft = attach(seed + 1, model.init(seed), PeftConfig(
-        method="quanta", n_axes=4, scheme=cfg.quanta_scheme), device=dev)
+        method="quanta", n_axes=n_axes, scheme=cfg.quanta_scheme),
+        device=dev)
     return model, base, peft
 
 
@@ -2501,48 +2772,58 @@ def foldfree_serve(dev, cut):
         fail("fold-free serving differs from its folded twin")
 
 
-def full_train(card, dev, cfg, profile):
-    """``cfg``: llama2-7b-proxy FULL (32 layers, bf16) with folded QuanTA
-    16-8-8-4 on q/v, ``attn_backend="pallas"``: 10 AdamW steps, then the
+def full_train(card, dev, cfg, n_axes, steps, profile=False, extras=False):
+    """``cfg``: a FULL config (bf16) with folded QuanTA on q/v at its
+    scheme, ``attn_backend="pallas"``: ``steps`` AdamW steps at the
+    config's ``train_microbatches`` (at least 1), on ``TRAIN_SEQ``-token
+    sequences in a batch of ``TRAIN_BATCH`` or one sequence a microbatch,
+    whichever is more; every loss finite, the adapters changed, the base's
+    bits kept, kernel 3 launched twice a layer a microbatch.  With
+    ``extras`` (llama2-7b-proxy) then one step under the profiler, the
     merged model against the trained adapted one, and 8 prompts served
-    through the merged engine.  Returns kernel 3's training launches and
-    its device ms in one step."""
+    through the merged engine.  Returns kernel 3's training launches, its
+    device ms in one step (``None`` without ``extras``) and the
+    readings."""
+    import gc
+
     import torch
     from repro_torch.core.adapters import tree_nbytes
     from repro_torch.core.peft import merge_all
-
-    import gc
 
     cfg = cfg.replace(attn_backend="pallas")
     gc.collect()                     # earlier phases' cycles off the card
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     t0 = time.monotonic()
-    model, base, peft = _train_models(cfg, dev, 800)
+    model, base, peft = _train_models(cfg, dev, 800, n_axes)
     param_bytes = tree_nbytes(base)
     sums = [_checksum(t) for t in _leaves(base)]
     start = [t.clone() for t in _leaves(peft)]
+    micro = max(1, cfg.train_microbatches)
+    batch = max(TRAIN_BATCH, micro)
     torch.cuda.synchronize()
     print(f"train: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
           f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} trainable "
           f"params, float32), remat {cfg.remat}, set-up "
           f"{time.monotonic() - t0:.1f} s ({held / 2 ** 30:.2f} GiB held "
-          f"on the card before it); {TRAIN_STEPS} AdamW steps (lr "
-          f"5e-3, clip 1.0) on SyntheticSeq2Task(vocab {cfg.vocab_size}, "
-          f"seq_len {TRAIN_SEQ}, global_batch {TRAIN_BATCH}, task_rank 8)")
+          f"on the card before it); {steps} AdamW steps (lr 5e-3, clip 1.0) "
+          f"on SyntheticSeq2Task(vocab {cfg.vocab_size}, seq_len "
+          f"{TRAIN_SEQ}, global_batch {batch}, task_rank 8) in {micro} "
+          f"microbatch{'es' * (micro > 1)}")
     torch.cuda.reset_peak_memory_stats()
     base_alloc = torch.cuda.memory_allocated()
     metrics, state, walls, per_step = _run_steps(
-        model, base, peft, TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH)
+        model, base, peft, steps, TRAIN_SEQ, batch, microbatches=micro)
     peak = torch.cuda.max_memory_allocated()
-    med = sorted(walls[2:])[len(walls[2:]) // 2]
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+    med = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_SEQ * batch
     for i, ((loss, norm), w) in enumerate(zip(metrics, walls)):
-        print(f"train step {i + 1}: loss {loss:.6f} grad_norm {norm:.6f} "
-              f"wall {w * 1e3:.1f} ms, kernel 3 launches {per_step[i]}")
-    print(f"train: median step (steps 3-{TRAIN_STEPS}) {med * 1e3:.1f} ms "
-          f"wall, {tokens / med:.0f} tokens/s; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) against "
+        print(f"train {cfg.name} step {i + 1}: loss {loss:.6f} grad_norm "
+              f"{norm:.6f} wall {w * 1e3:.1f} ms, kernel 3 launches "
+              f"{per_step[i]}")
+    print(f"train {cfg.name}: median step (steps 2-{steps}) "
+          f"{med * 1e3:.1f} ms wall, {tokens / med:.0f} tokens/s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated) against "
           f"param_bytes {param_bytes / 2 ** 30:.2f} GiB, "
           f"{(peak - param_bytes) / 2 ** 30:.2f} GiB above the weights; "
           f"allocated before the steps {base_alloc / 2 ** 30:.2f} GiB, so "
@@ -2554,15 +2835,21 @@ def full_train(card, dev, cfg, profile):
                   for t in _leaves(state.params))
     ok = (all(math.isfinite(x) and x > 0 for m in metrics for x in m)
           and changed == len(start) and same_base and no_grad
-          and per_step == [2 * cfg.n_layers] * TRAIN_STEPS)
-    print(f"train: {changed}/{len(start)} adapter tensors changed; base "
-          f"weights unchanged bit for bit {same_base}, none requires grad "
-          f"or holds .grad {no_grad}; kernel 3 launches per step "
-          f"{per_step} (expected {2 * cfg.n_layers}: forward plus remat) "
-          f"{'ok' if ok else 'FAIL'}")
+          and per_step == [2 * cfg.n_layers * micro] * steps)
+    print(f"train {cfg.name}: {changed}/{len(start)} adapter tensors "
+          f"changed; base weights unchanged bit for bit {same_base}, none "
+          f"requires grad or holds .grad {no_grad}; kernel 3 launches per "
+          f"step {per_step} (expected {2 * cfg.n_layers * micro}: forward "
+          f"plus remat, each microbatch) {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the FULL training run is wrong")
-    step_ms = profile_train_step(card, model, state, profile)
+        fail(f"{cfg.name}: the FULL training run is wrong")
+    read = dict(step_ms=med * 1e3, tokens_per_s=tokens / med,
+                peak_gib=peak / 2 ** 30, train_param_bytes=param_bytes,
+                losses=[m[0] for m in metrics])
+    if not extras:
+        return sum(per_step), None, read
+    step_ms = profile_train_step(card, model, state, profile, micro, batch,
+                                 steps)
 
     serve_model = type(model)(cfg.replace(peft_backend="pallas"), device=dev)
     merged = merge_all(state.params, state.peft)
@@ -2581,24 +2868,26 @@ def full_train(card, dev, cfg, profile):
     la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
     rel = float((la - lm).abs().max() / lm.abs().max())
     finite = bool(torch.isfinite(la).all() and torch.isfinite(lm).all())
-    print(f"train: trained adapted vs merged prefill logits max_rel "
-          f"{rel:.3e} (tolerance {SERVE_LOGIT_TOL}), finite {finite}")
+    del la, lm
+    print(f"train {cfg.name}: trained adapted vs merged prefill logits "
+          f"max_rel {rel:.3e} (tolerance {SERVE_LOGIT_TOL}), finite {finite}")
     if rel > SERVE_LOGIT_TOL or not finite:
-        fail("the trained adapted and merged models disagree")
+        fail(f"{cfg.name}: the trained adapted and merged models disagree")
     del state
     out, _, t_pre, t_dec = _serve(serve_model, merged, None, prompts, 32,
                                   8, 512)
-    print(f"train: merged engine served {len(out)} requests x "
+    print(f"train {cfg.name}: merged engine served {len(out)} requests x "
           f"{len(out[0])} tokens: prefill {t_pre * 1e3:.1f} ms, decode "
           f"{t_dec * 1e3:.1f} ms (wall) [{card}]")
     if any(len(r) != 32 for r in out):
-        fail("the merged engine did not serve every request")
-    return sum(per_step), step_ms
+        fail(f"{cfg.name}: the merged engine did not serve every request")
+    return sum(per_step), step_ms, read
 
 
-def profile_train_step(card, model, state, profile):
-    """One more training step under ``torch.profiler``: kernel 3's device
-    ms in it (for the kernel line) and the busy share of its wall time;
+def profile_train_step(card, model, state, profile, micro, batch, index):
+    """One more training step (data batch ``index`` of ``batch``
+    sequences in ``micro`` microbatches) under ``torch.profiler``: kernel
+    3's device ms in it (for the kernel line) and the busy share of its wall time;
     with ``profile`` the step by kernel (kernel 3's forward, the plain
     backward recompute, the QuanTA chain's forward einsums, cuBLAS) and by
     aten op (``tools/train_probe.py`` splits them by input shape)."""
@@ -2623,10 +2912,10 @@ def profile_train_step(card, model, state, profile):
 
         setattr(owner, name, wrapped)
     opt = AdamW(lr=5e-3, max_grad_norm=1.0)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, microbatches=micro)
     batch = SyntheticSeq2Task(vocab_size=model.cfg.vocab_size,
-                              seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                              task_rank=8, seed=0).batch(TRAIN_STEPS)
+                              seq_len=TRAIN_SEQ, global_batch=batch,
+                              task_rank=8, seed=0).batch(index)
     try:
         torch.cuda.synchronize()
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -2658,7 +2947,7 @@ def profile_train_step(card, model, state, profile):
     k3 = sum(v for k, v in kernels.items() if "flash_forward" in k)
     gemm = sum(v for k, v in kernels.items() if any(
         s in k.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")))
-    print(f"train profile (one step): wall {wall:.1f} ms, device busy "
+    print(f"train profile {model.cfg.name} (one step): wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms ({100 * busy / wall:.1f}%); kernel 3 forward "
           f"{k3:.2f} ms [{card}]")
     if profile:
@@ -2697,6 +2986,216 @@ def train_guard(dev):
           f"{'raises (' + raised[:60] + '...)' if raised else 'FAIL: ran'}")
     if "no backward" not in raised:
         fail("a forward-only kernel ran under autograd")
+
+
+# ------------------------------------------------------------ phase 8
+# the rest of the dense family, each config in turn through the phases
+# llama2-7b-proxy runs: its kernels at its shapes, its f32 2-layer cut,
+# FULL serving (dense and QLoRA) and FULL training
+DENSE_FAMILY = ("yi-6b", "phi3-medium-14b", "minicpm-2b")
+FAMILY_TRAIN_STEPS = 3
+
+
+def family_cut(dev, cut, n_axes):
+    """(b) ``cut``: a config at full width cut to 2 layers in float32.
+    The kernel engine and the plain engine must generate identical greedy
+    tokens for 5 prompts x 16 new tokens on the dense cache, on a paged
+    pool of rows and under an NF4 base.  On a paged pool of NF4 KV codes
+    each engine must give the tokens of its dense twin, a cache of the
+    quantize-dequantize round trip (kernel 6 against kernel 4, and the
+    plain versions, over the same values); each engine quantizes its own
+    fp32 K/V there, and two sum orders that agree to 1e-6 can round a
+    value to neighbouring codes, so the kernel engine is held against the
+    plain one over the same codes (:func:`_shared_codes`)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.quantize import quantize_params
+
+    model, base, peft = _adapted(cut, 100, dev, n_axes)
+    qbase = quantize_params(base, "nf4", block_size=cut.quant_block_size)
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cut.vocab_size, (n,), generator=gen).tolist()
+               for n in (37, 80, 129, 200, 64)]
+    nf4 = dict(kv_quant="nf4")
+    cases = (("dense cache", {}, base, {},
+              ("quanta_linear", "flash_attention", "flash_decode_attention")),
+             ("paged rows", {}, base, dict(cache="paged", block_size=16),
+              ("paged_flash_decode_attention",)),
+             ("paged NF4 KV", nf4, base,
+              dict(cache="paged", block_size=16, **nf4),
+              ("paged_flash_decode_attention_quant",)),
+             ("NF4 base", {}, qbase, dict(base_quant="nf4"),
+              ("quantized_matmul", "quanta_apply")))
+    for label, cfg_kw, params, kw, need in cases:
+        outs, twins = {}, {}
+        for backend in ("pallas", "reference"):
+            m = type(model)(cut.replace(attn_backend=backend,
+                                        peft_backend=backend, **cfg_kw),
+                            device=dev)
+            kernels.reset_launch_counts()
+            outs[backend], _, _, _ = _serve(m, params, peft, prompts, 16, 4,
+                                            256, **kw)
+            if backend == "pallas":
+                run = kernels.launch_counts()
+            if cfg_kw:
+                twins[backend], _, _, _ = _serve(
+                    m, params, peft, prompts, 16, 4, 256,
+                    **dict(kw, cache="dense"))
+        same = sum(a == b for a, b in zip(outs["pallas"], outs["reference"]))
+        first = [next((i for i, (a, b) in enumerate(zip(ra, rb)) if a != b),
+                      None)
+                 for ra, rb in zip(outs["pallas"], outs["reference"])]
+        text = (f"family {cut.name} f32 cut {label}: {cut.n_layers} layers, "
+                f"d_model {cut.d_model}, float32: identical greedy tokens "
+                f"kernel vs plain engine {same}/{len(prompts)} requests x "
+                f"16 tokens (first differing token per request {first})")
+        for backend, twin in twins.items():
+            n = sum(a == b for a, b in zip(outs[backend], twin))
+            text += (f", {'kernel' if backend == 'pallas' else 'plain'} "
+                     f"engine vs its dense fake-quantized twin "
+                     f"{n}/{len(prompts)}")
+            if outs[backend] != twin:
+                fail(f"{cut.name} f32 cut {label}: the {backend} engine "
+                     f"differs from its dense twin")
+        print(text + "; launches " + ", ".join(f"{k} {run[k]}"
+                                               for k in need))
+        if any(run[k] == 0 for k in need):
+            fail(f"{cut.name} f32 cut {label}: a kernel never launched")
+        if cfg_kw:
+            _shared_codes(model, cut, cfg_kw, params, peft, prompts, kw)
+        elif outs["pallas"] != outs["reference"]:
+            fail(f"{cut.name} f32 cut {label}: kernel and plain tokens "
+                 f"differ")
+
+
+def _shared_codes(model, cut, cfg_kw, params, peft, prompts, kw, steps=16):
+    """The kernel engine and the plain engine over the same NF4 KV codes:
+    both admit the first wave (their first tokens must be equal: the
+    prefill attends to its fp32 rows), then decode ``steps`` steps in
+    lockstep on the kernel engine's tokens; before each step the kernel
+    engine's cache (codes, scales) is copied into the plain engine's, so
+    the two read the same codes and differ only in the step's own new
+    row.  Each step's logits must agree within ``PAGED_LOGIT_TOL``; the
+    codes and scales at the slots' valid positions that differ after the
+    prefill and that each step wrote differently are printed beside
+    them."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Request, ServingEngine
+
+    engines = []
+    for backend in ("pallas", "reference"):
+        m = type(model)(cut.replace(attn_backend=backend,
+                                    peft_backend=backend, **cfg_kw),
+                        device=model.device)
+        eng = ServingEngine(m, params, peft, n_slots=4, max_len=256,
+                            device=model.device, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=steps))
+        eng._admit()
+        engines.append(eng)
+    ek, ep = engines
+    if not np.array_equal(ek.pager.host_tables(), ep.pager.host_tables()):
+        raise AssertionError(f"{cut.name}: the engines' block tables differ")
+    active = np.array([r is not None for r in ek.slots])
+
+    def unequal():       # (codes, fp32 scales) that differ, all layers,
+        tables = ek.pager.host_tables()     # at the slots' valid positions
+        pool = ek.cache["k"]                # (L, n_blocks, bs, KV, w)
+        bs, valid = pool.shape[2], torch.zeros(
+            pool.shape[1:3], dtype=torch.bool, device=pool.device)
+        for slot in np.flatnonzero(active):
+            pos = np.arange(int(ek._lengths[slot]))
+            valid[torch.as_tensor(tables[slot, pos // bs]),
+                  torch.as_tensor(pos % bs)] = True
+        n = [0, 0]
+        for k, t in ek.cache.items():
+            if k != "len":
+                n[t.is_floating_point()] += int(
+                    (t != ep.cache[k])[:, valid].sum())
+        return tuple(n)
+
+    def share():
+        for k, t in ek.cache.items():
+            ep.cache[k].copy_(t)
+
+    same_first = bool(np.array_equal(ek._last_token, ep._last_token))
+    at_prefill = unequal()
+    share()
+    toks = torch.from_numpy(ek._last_token.reshape(-1, 1).astype(
+        np.int64)).to(model.device)
+    v, rels, wrote, same = cut.vocab_size, [], [], 0
+    for _ in range(steps):
+        la, lb = (_decode_once(e, toks) for e in engines)
+        a, b = la[active, -1, :v].float(), lb[active, -1, :v].float()
+        rels.append(float((a - b).abs().max() / b.abs().max()))
+        same += bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        wrote.append(unequal())
+        share()
+        toks = la[:, -1, :v].argmax(-1, keepdim=True)
+    ok = same_first and max(rels) <= PAGED_LOGIT_TOL
+    print(f"family {cut.name} f32 cut paged NF4 KV, kernel vs plain engine "
+          f"over shared codes: first tokens equal {same_first}; (codes, "
+          f"scales) unequal after the prefill {at_prefill}, written unequal "
+          f"by each step {wrote}; {steps} lockstep steps, logits max_rel per step "
+          f"max {max(rels):.3e} (tolerance {PAGED_LOGIT_TOL:g}), greedy "
+          f"tokens equal in {same}/{steps} steps "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cut.name} f32 cut paged NF4 KV: kernel and plain engines "
+             f"disagree over the same codes")
+
+
+def dense_family(card, dev, arch):
+    """Phase 8 for one config: (a) its kernels (``check_kernels``), (b)
+    its f32 cut, (c) FULL serving (``full_serve``, ``qlora_serve``), (d)
+    FULL training (``full_train``), each phase's seconds printed.
+    Returns the kernel readings, the launches of the serve runs and the
+    readings."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, get_peft
+
+    full, n_axes = get_config(arch), get_peft(arch).n_axes
+    secs, t0 = {}, time.monotonic()
+    _, checks = check_kernels(card, full, n_axes, dev)
+    secs["kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    family_cut(dev, full.replace(
+        n_layers=2, param_dtype=torch.float32, compute_dtype=torch.float32,
+        attn_backend="pallas", peft_backend="pallas"), n_axes)
+    secs["f32 cut"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    counts, served, read = full_serve(card, dev, full, n_axes)
+    qlora_counts, qlora, ticks, qread = qlora_serve(card, dev, *served)
+    del served, qlora
+    counts.update(qlora_counts)
+    read.update(qread, qlora=ticks["paged NF4 KV, NF4 base"],
+                qlora_bf16_kv=ticks["paged bf16 KV, NF4 base"])
+    secs["serve"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _, _, tread = full_train(card, dev, full, n_axes, FAMILY_TRAIN_STEPS)
+    read.update(tread)
+    secs["train"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"family {arch} summary: prefill wave {read['prefill_ms']:.1f} ms; "
+          f"graph / eager tick, replay: dense "
+          f"{'/'.join(f'{t:.2f}' for t in read['dense'])} ms, QLoRA "
+          f"{'/'.join(f'{t:.2f}' for t in read['qlora'])} ms, QLoRA bf16 KV "
+          f"{'/'.join(f'{t:.2f}' for t in read['qlora_bf16_kv'])} ms; "
+          f"param_bytes {read['param_bytes']} (NF4 base "
+          f"{read['qlora_param_bytes']}); train step {read['step_ms']:.1f} "
+          f"ms, {read['tokens_per_s']:.0f} tokens/s, peak "
+          f"{read['peak_gib']:.2f} GiB; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f" [{card}]")
+    return checks, counts, dict(read, seconds=secs)
 
 
 def _device_ms(prof, counts=None):
@@ -2818,22 +3317,31 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
     card_tests()
 
-    records = check_kernels(card)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_peft
 
     dev = torch.device("cuda", torch.cuda.current_device())
     full = get_config("llama2-7b-proxy")
+    n_axes = get_peft(full.name).n_axes
+    profile = "--profile" in sys.argv[1:]
+    records, _ = check_kernels(card, full, n_axes, dev, extras=True)
     cut = full.replace(n_layers=2, param_dtype=torch.float32,
                        compute_dtype=torch.float32, attn_backend="pallas",
                        peft_backend="pallas")
+    phase_s = {}
+    t0 = time.monotonic()
     f32_exactness(dev, cut)
     f32_paged(dev, cut)
     f32_bank(dev, cut)
-    counts, served = full_serve(card, dev, full)
-    qlora_counts, qlora, qlora_ticks = qlora_serve(card, dev, *served)
+    phase_s["f32 cut"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    f32_bank(dev, cut, foldfree=True)
+    phase_s["f32 fold-free bank"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    counts, served, read = full_serve(card, dev, full, n_axes)
+    qlora_counts, qlora, qlora_ticks, _ = qlora_serve(card, dev, *served)
     counts.update(qlora_counts)
     prompts = served[3]
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_serve(card, *served)
         profile_serve(card, *qlora, path="qlora", cache="paged",
                       block_size=16, base_quant="nf4", kv_quant="nf4")
@@ -2843,30 +3351,46 @@ def main() -> int:
     del served, qlora
     bank_counts, banked, bank_ticks = bank_serve(card, dev, full, prompts)
     counts.update(bank_counts)
-    if "--profile" in sys.argv[1:]:
+    if profile:
         model, params, bank, _ = banked
         profile_serve(card, model, params, None, prompts, path="bank",
                       tenants=BANK_MIX, adapters=bank)
         del model, params, bank
     del banked
     torch.cuda.empty_cache()
+    phase_s["serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    ff_launches, ff_ticks = foldfree_pool_serve(card, dev, full, prompts)
+    torch.cuda.empty_cache()
+    phase_s["fold-free pool"] = time.monotonic() - t0
 
+    t0 = time.monotonic()
     serve_b_cut(dev, cut)
-    dense_ticks = serve_b_full(card, dev, full)
-    ticks = {"dense adapted": dense_ticks,
-             "paged NF4 KV, NF4 base": qlora_ticks,
-             "bank": bank_ticks}
+    serve_b_full(card, dev, full)
+    ticks = {"dense adapted": read["dense"], **qlora_ticks, "bank": bank_ticks,
+             "fold-free pool": ff_ticks}
     print("serve B ticks, ms a tick (graph wall, eager wall, graph "
           "replay on the device), 8 ticks each: "
           + ", ".join(f"{k} ({g:.2f}, {e:.2f}, {d:.2f})"
                       for k, (g, e, d) in ticks.items()) + f" [{card}]")
     torch.cuda.empty_cache()
+    phase_s["serve B"] = time.monotonic() - t0
 
+    t0 = time.monotonic()
     flash_reading, flash_train = train_flash(card, dev)
     train_cut(dev, cut)
-    train_launches, train_ms = full_train(card, dev, full,
-                                          "--profile" in sys.argv[1:])
+    train_launches, train_ms, _ = full_train(card, dev, full, n_axes,
+                                             TRAIN_STEPS, profile, extras=True)
     train_guard(dev)
+    phase_s["train"] = time.monotonic() - t0
+
+    family = {}
+    for arch in DENSE_FAMILY:
+        t0 = time.monotonic()
+        family[arch] = dense_family(card, dev, arch)
+        phase_s[arch] = time.monotonic() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phase_s.items()))
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
@@ -2877,11 +3401,17 @@ def main() -> int:
         train_fwd_bwd_ms=flash_train["function"],
         train_plain_fwd_bwd_ms=flash_train["plain"],
         train_library_fwd_bwd_ms=flash_train["sdpa"])
+    records["quanta_apply"]["foldfree_pool_launches"] = ff_launches
     rows = []
     for name, (src, replaces) in SOURCES.items():
+        # the rest of the dense family: each config's launches on its
+        # serve runs and its readings at its shapes
+        at = {arch: dict(launches=cnt.get(name, 0),
+                         checks=checks.get(name, {}))
+              for arch, (checks, cnt, _) in family.items()}
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=counts[name],
-                         **records[name]))
+                         **records[name], dense_family=at))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

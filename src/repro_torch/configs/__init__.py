@@ -1,15 +1,22 @@
-"""Config registry of the port: the two dense configs it runs so far."""
+"""Config registry of the port: the dense family of the JAX package's
+registry (``repro/configs``), each arch with its FULL and SMOKE model
+configs, its PEFT config and its notes.  ``get_shapes`` and
+``list_cells`` (the JAX registry's shape grid) are not ported."""
 
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.core.peft import PeftConfig
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["get_config", "get_smoke"]
+__all__ = ["get_config", "get_smoke", "get_peft", "get_notes"]
 
 _MODULES = {
+    "phi3-medium-14b": "phi3_medium_14b",
+    "minicpm-2b": "minicpm_2b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "yi-6b": "yi_6b",
     "llama2-7b-proxy": "llama2_7b_proxy",
 }
 
@@ -26,3 +33,11 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def get_peft(arch: str) -> PeftConfig:
+    return _module(arch).PEFT
+
+
+def get_notes(arch: str) -> str:
+    return getattr(_module(arch), "NOTES", "")

@@ -28,15 +28,21 @@ capacity and swaps rows in place.
 
 Exactness
 ---------
-Delta-form groups (LoRA, KronA) add their gathered ``delta(x)`` to the
-shared base product, neutral rows adding exact zeros.  Non-delta groups
-(DoRA, DoTA, folded QuanTA wrapped in ``RebasedAdapter``) compute each
-bank row's full ``apply`` and ``torch.where``-select it over the base
-result for the slots on that row, so no base product is added and taken
-away.  Folded-QuanTA tenants come as the ``(params, adapter_set)`` pair
-``attach`` returned: their trained delta holds only against their own
-folded base ``W0 - S``, one dense ``(d_in, d_out)`` copy per tenant per
-path.
+Delta-form groups (LoRA, KronA, fold-free QuanTA) add their gathered
+``delta(x)`` to the shared base product, neutral rows adding exact
+zeros.  Non-delta groups (DoRA, DoTA, folded QuanTA wrapped in
+``RebasedAdapter``) compute each bank row's full ``apply`` and
+``torch.where``-select it over the base result for the slots on that
+row, so no base product is added and taken away.
+
+QuanTA tenants come in two forms.  Folded tenants come as the
+``(params, adapter_set)`` pair ``attach`` returned: their trained delta
+holds only against their own folded base ``W0 - S``, one dense ``(d_in,
+d_out)`` copy per tenant per path.  Fold-free tenants
+(``PeftConfig(fold=False)``) carry S as factor tensors and bank bare: a
+tenant's resident cost is its factor tensors.  Under the kernel backend
+their group's delta runs each slot's T and S chains through the chain
+kernel (``QuantaAdapter.banked_delta``).
 """
 
 from __future__ import annotations
@@ -183,7 +189,9 @@ def tenant_path_adapters(
 
     Folded-QuanTA members are wrapped in :class:`RebasedAdapter` against
     the tenant's own folded base weight, which needs the ``(params,
-    adapter_set)`` pair ``attach`` returned.  Shared by
+    adapter_set)`` pair ``attach`` returned; fold-free members (the leaf
+    spec's ``fold`` False) stay bare, delta-form over the shared base
+    (given as a pair, the tenant's params are not read).  Shared by
     :meth:`AdapterBank.build` and ``serve.adapter_pool.AdapterStore``.
     """
     if isinstance(entry, tuple):
@@ -199,17 +207,14 @@ def tenant_path_adapters(
     out: Dict[str, Tuple[Adapter, Any]] = {}
     for path, adapter in aset.flat().items():
         spec = specs[path]
-        if spec.method == "quanta":
-            if getattr(adapter, "frozen", None) is not None:
-                raise NotImplementedError(
-                    f"tenant {name!r} is fold-free QuanTA: fold-free bank "
-                    "tenants are not ported yet")
+        if spec.method == "quanta" and getattr(spec, "fold", True):
             if flat_t is None:
                 raise ValueError(
                     f"tenant {name!r} is folded QuanTA: attach folds the "
                     "frozen copy into the base weights, so the bank needs "
                     "the (params, adapter_set) pair attach returned to "
-                    "rebase it onto the shared params")
+                    "rebase it onto the shared params (or retrain with "
+                    "PeftConfig(fold=False) for factor-only residency)")
             adapter = RebasedAdapter(adapter, flat_t[path])
         out[path] = (adapter, spec)
     return out

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.adapters import Adapter, base_matmul
+from repro_torch.core.adapters import Adapter, base_matmul, tree_map
 from repro_torch.core.factorize import factorize, pair_schedule, param_count
 from repro_torch.core.quantize import QuantizedLinear
 
@@ -149,6 +149,26 @@ def init_tensors(
     return tuple(tensors)
 
 
+def _stage_product(h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``h (M, K) @ t (O, K)^T`` in fp32 (or wider), rounded to h's dtype.
+
+    For 16-bit operands each product of two elements is exact in fp32, so
+    adding them into an fp32 sum over k ascending from 0, one rounded add
+    a term, gives the fp32 FMA chain the chain kernel runs, to the bit and
+    whatever the device: a library product may split K where the problem
+    is small (cuBLAS does at yi-6b's 16-16-16 decode stage, K = 256 over
+    M = 128 rows), which moves a bf16 rounding now and then.  Wider
+    operands take the library product."""
+    acc = torch.promote_types(h.dtype, torch.float32)
+    if max(h.element_size(), t.element_size()) > 2:
+        return (h.to(acc) @ t.to(acc).T).to(h.dtype)
+    hf, tf = h.to(acc), t.to(acc).T
+    out = torch.zeros((h.shape[0], t.shape[0]), dtype=acc, device=h.device)
+    for k in range(h.shape[1]):
+        out.addcmul_(hf[:, k:k + 1], tf[k:k + 1])
+    return out.to(h.dtype)
+
+
 def apply_sequential(
     x: torch.Tensor,
     tensors: Sequence[torch.Tensor],
@@ -159,21 +179,21 @@ def apply_sequential(
     """The chain as a sequence of batched matmuls: the pair axes move to
     the minor positions and contract with ``(om*on, im*in)``.  Each stage
     accumulates in fp32 (or wider) and is rounded to x's dtype before the
-    next, as the chain kernel does (``_chain_block``); this is the
-    kernel's plain version."""
+    next, as the chain kernel does (``_chain_block``); in a 16-bit dtype
+    the sums run over k ascending as the kernel's do
+    (:func:`_stage_product`).  This is the kernel's plain version."""
     dims_in = tuple(dims_in)
     batch_shape = x.shape[:-1]
     if x.shape[-1] != math.prod(dims_in):
         raise ValueError(f"x last dim {x.shape[-1]} != prod{dims_in}")
-    acc = torch.promote_types(x.dtype, torch.float32)
     nb = len(batch_shape)
     h = x.reshape(*batch_shape, *dims_in)
     for t, (m, n) in zip(tensors, pairs):
         om, on, im, in_ = t.shape
         h = torch.movedim(h, (nb + m, nb + n), (-2, -1))
         lead = h.shape[:-2]
-        y2 = (h.reshape(-1, im * in_).to(acc)
-              @ t.reshape(om * on, im * in_).to(acc).T).to(x.dtype)
+        y2 = _stage_product(h.reshape(-1, im * in_),
+                            t.reshape(om * on, im * in_))
         h = y2.reshape(*lead, om, on)
         h = torch.movedim(h, (-2, -1), (nb + m, nb + n))
     return h.reshape(*batch_shape, -1)
@@ -351,6 +371,35 @@ class QuantaAdapter(Adapter):
         """``W = W0' + T_theta`` (paper §6, no inference overhead); for a
         fold-free adapter ``W = W0 + T_theta - S``."""
         return merge(w, self)
+
+    def banked_delta(self, x: torch.Tensor, ids: torch.Tensor,
+                     backend: str = "reference") -> torch.Tensor:
+        """Per-slot delta of a bank-stacked group (every tensor has a
+        leading bank axis).
+
+        ``"reference"``: the gather-then-``delta`` of
+        :meth:`Adapter.banked_delta`.  ``"pallas"``: every slot's tensors
+        are gathered from the bank with one ``index_select`` a tensor on
+        the device ids and cast to x's dtype (no host sync, a fixed number
+        of launches, so a decode graph captures it); then, slot by slot,
+        each chain runs through the chain kernel on the slot's rows, as
+        the single-tenant :meth:`apply` does: ``chain_T(x)``, one launch a
+        slot, and for a fold-free group ``chain_T(x) - chain_S(x)``, two.
+        """
+        if backend != "pallas":
+            return super().banked_delta(x, ids, backend)
+        from repro_torch.kernels.ops import quanta_apply_fused
+
+        sel = tree_map(lambda leaf: leaf.detach().index_select(0, ids).to(
+            x.dtype), self)
+        out = []
+        for b in range(x.shape[0]):
+            row = tree_map(lambda leaf, b=b: leaf[b], sel)
+            y = quanta_apply_fused(x[b], row.unfrozen())
+            if row.frozen is not None:
+                y = y - quanta_apply_fused(x[b], row.unfrozen(row.frozen))
+            out.append(y.to(x.dtype))
+        return torch.stack(out)
 
 
 def fold_frozen_copy(w0: torch.Tensor, adapter: QuantaAdapter) -> torch.Tensor:

@@ -48,7 +48,11 @@
 //
 // The float32 body (quanta_chain_kernel) is the first SIMT kernel: the
 // stage tensor staged per stage in fp32, transposed, one output index for
-// four (row, column) pairs per thread.
+// four (row, column) pairs per thread.  A stage tensor larger than the
+// host's staging area (t_floats; yi-6b's 16-16-16 stages hold 256 x 257
+// floats) is staged in chunks of whole rows a of T[o, a, b]: each output
+// keeps its partial fp32 sum in its row buffer between chunks, so the FMA
+// chain still runs over k = a * in + b ascending from 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,15 +125,11 @@ __global__ void __launch_bounds__(kThreads)
     const int oo = st.om * on;  // outputs of one column
     const int kk = im * inn;    // contraction length
     const int ldt = oo + 1;     // padded row of the transposed tensor
+    // rows a of T staged at once: all, or as many as t_floats holds
+    const int a_per = im * inn * ldt <= p.t_floats
+                          ? im
+                          : p.t_floats / (inn * ldt);
     __syncthreads();  // rows loaded / previous stage done with the tables
-    // tens[k * ldt + o] = T[o, k] in fp32 (consecutive threads walk k, so
-    // the padded stride ldt spreads their stores over the banks)
-    const float* tg = static_cast<const float*>(st.t);
-    for (int i = threadIdx.x; i < oo * kk; i += kThreads) {
-      const int o = i / kk;
-      const int k = i - o * kk;
-      tens[k * ldt + o] = tg[i];
-    }
     // column offsets in both registers, once per stage
     for (int c = threadIdx.x; c < st.ncols; c += kThreads) {
       int rem = c, in_off = 0, out_off = 0;
@@ -144,50 +144,66 @@ __global__ void __launch_bounds__(kThreads)
       off_in[c] = in_off;
       off_out[c] = out_off;
     }
-    __syncthreads();  // tensor and offsets staged
+    const float* tg = static_cast<const float*>(st.t);
+    for (int a0 = 0; a0 < im; a0 += a_per) {
+      const int a1 = a0 + a_per < im ? a0 + a_per : im;
+      if (a0 > 0) __syncthreads();  // the previous chunk's sums are done
+      // tens[(k - a0 * in) * ldt + o] = T[o, k] in fp32 for the chunk's k
+      // (consecutive threads walk k, so the padded stride ldt spreads their
+      // stores over the banks)
+      const int kc = (a1 - a0) * inn;
+      for (int i = threadIdx.x; i < oo * kc; i += kThreads) {
+        const int o = i / kc;
+        const int k = i - o * kc;
+        tens[k * ldt + o] = tg[o * kk + a0 * inn + k];
+      }
+      __syncthreads();  // tensor chunk and offsets staged
 
-    // item j: output index o = j % oo of the kCols (row, column) pairs
-    // kCols * (j / oo) .. + kCols - 1, so a thread runs kCols independent
-    // sums that share each tensor load
-    const int n_rc = nrows * st.ncols;
-    const int n_items = oo * ((n_rc + kCols - 1) / kCols);
-    for (int j = threadIdx.x; j < n_items; j += kThreads) {
-      const int o = j % oo;
-      const int rc0 = (j / oo) * kCols;
-      const int i_m = o / on;
-      const int i_n = o - i_m * on;
-      const float* h[kCols];
-      int out_at[kCols];
+      // item j: output index o = j % oo of the kCols (row, column) pairs
+      // kCols * (j / oo) .. + kCols - 1, so a thread runs kCols independent
+      // sums that share each tensor load
+      const int n_rc = nrows * st.ncols;
+      const int n_items = oo * ((n_rc + kCols - 1) / kCols);
+      for (int j = threadIdx.x; j < n_items; j += kThreads) {
+        const int o = j % oo;
+        const int rc0 = (j / oo) * kCols;
+        const int i_m = o / on;
+        const int i_n = o - i_m * on;
+        const float* h[kCols];
+        int out_at[kCols];
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) {
-        // past the end: recompute the group's first pair, store nothing
-        const int rc = rc0 + u < n_rc ? rc0 + u : rc0;
-        const int r = rc / st.ncols;
-        const int c = rc - r * st.ncols;
-        h[u] = src + r * p.d_max + off_in[c];
-        out_at[u] = rc0 + u < n_rc
-                        ? r * p.d_max + off_out[c] + i_m * st.dm + i_n * st.dn
-                        : -1;
-      }
-      float acc[kCols];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) acc[u] = 0.f;
-      const float* tr = tens + o;
-      for (int a = 0; a < im; ++a) {
-        const float* ta = tr + a * inn * ldt;
-        const int ha = a * st.sm;
-        for (int b = 0; b < inn; ++b) {
-          const float t = ta[b * ldt];
-          const int off = ha + b * st.sn;
-#pragma unroll
-          for (int u = 0; u < kCols; ++u)
-            acc[u] = fmaf(t, h[u][off], acc[u]);
+        for (int u = 0; u < kCols; ++u) {
+          // past the end: recompute the group's first pair, store nothing
+          const int rc = rc0 + u < n_rc ? rc0 + u : rc0;
+          const int r = rc / st.ncols;
+          const int c = rc - r * st.ncols;
+          h[u] = src + r * p.d_max + off_in[c];
+          out_at[u] = rc0 + u < n_rc ? r * p.d_max + off_out[c] +
+                                           i_m * st.dm + i_n * st.dn
+                                     : -1;
         }
-      }
+        // the first chunk starts each sum at 0, a later one at its partial
+        float acc[kCols];
 #pragma unroll
-      for (int u = 0; u < kCols; ++u)
-        if (out_at[u] >= 0) dst[out_at[u]] = acc[u];
-    }
+        for (int u = 0; u < kCols; ++u)
+          acc[u] = a0 > 0 && out_at[u] >= 0 ? dst[out_at[u]] : 0.f;
+        const float* tr = tens + o;
+        for (int a = a0; a < a1; ++a) {
+          const float* ta = tr + (a - a0) * inn * ldt;
+          const int ha = a * st.sm;
+          for (int b = 0; b < inn; ++b) {
+            const float t = ta[b * ldt];
+            const int off = ha + b * st.sn;
+#pragma unroll
+            for (int u = 0; u < kCols; ++u)
+              acc[u] = fmaf(t, h[u][off], acc[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kCols; ++u)
+          if (out_at[u] >= 0) dst[out_at[u]] = acc[u];
+      }
+    }  // chunks of a
     float* tmp = src;
     src = dst;
     dst = tmp;
@@ -621,11 +637,12 @@ void strides(const int* d, int n, int* s) {
 }  // namespace
 
 // meta: n_axes, n_stages, dims_in[n_axes], then per stage m, n, om, on, im,
-// in.  tensors: host array of n_stages device pointers, contiguous
-// (om, on, im, in) tensors in the activation dtype.  dtype: 0 float32 (1,
-// bfloat16, takes quanta_chain_bf16_launch).  smem_limit: the shared
-// memory a block of this device may opt in to.  Returns the cudaError_t of
-// the launch.
+// in, then the tensor floats to stage at once (kernels/smem.py
+// chain_f32_plan).  tensors: host array of n_stages device pointers,
+// contiguous (om, on, im, in) tensors in the activation dtype.  dtype: 0
+// float32 (1, bfloat16, takes quanta_chain_bf16_launch).  smem_limit: the
+// shared memory a block of this device may opt in to.  Returns the
+// cudaError_t of the launch.
 extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
                                    long long rows, const int* meta,
                                    const void* const* tensors,
@@ -644,6 +661,7 @@ extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
     p.d_in *= cur[a];
   }
   p.d_max = p.d_in;
+  int a_row = 0;  // floats of one row a of the widest stage's tensor
   const int* sp = meta + 2 + n_axes;
   for (int s = 0; s < p.n_stages; ++s) {
     const int m = sp[6 * s + 0], n = sp[6 * s + 1];
@@ -677,6 +695,9 @@ extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
     }
     const int t_floats = st.im * st.in_ * (st.om * st.on + 1);
     p.t_floats = t_floats > p.t_floats ? t_floats : p.t_floats;
+    a_row = st.in_ * (st.om * st.on + 1) > a_row
+                ? st.in_ * (st.om * st.on + 1)
+                : a_row;
     p.max_cols = st.ncols > p.max_cols ? st.ncols : p.max_cols;
     int d = 1;
     for (int a = 0; a < n_axes; ++a) {
@@ -687,6 +708,11 @@ extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
   }
   p.d_out = 1;
   for (int a = 0; a < n_axes; ++a) p.d_out *= cur[a];
+  // the staging area the host planned (kernels/smem.py chain_f32_plan):
+  // every tensor whole, or at least one row a of the widest stage
+  const int t_cap = sp[6 * p.n_stages];
+  if (t_cap < a_row) return (int)cudaErrorInvalidValue;
+  p.t_floats = t_cap < p.t_floats ? t_cap : p.t_floats;
   p.rows = rows;
   p.rows_per_block = rows_per_block;
   if (rows <= 0) return 0;

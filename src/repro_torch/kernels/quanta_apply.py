@@ -25,8 +25,7 @@ from repro_torch.core.quanta import apply_sequential
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import route
 from repro_torch.kernels.smem import (
-    chain_plan, chain_plan_ints, chain_rows_per_block, chain_stage_words,
-    device_limits,
+    chain_f32_plan, chain_plan, chain_plan_ints, device_limits,
 )
 
 __all__ = ["quanta_apply", "chain_widths"]
@@ -75,7 +74,7 @@ def _launch_chain(x: torch.Tensor, tensors: List[torch.Tensor],
     x = x.contiguous()
     tensors = [t.contiguous() for t in tensors]
     shapes = tuple(tuple(t.shape) for t in tensors)
-    d_out, d_max = chain_widths(dims_in, shapes, pairs)
+    d_out, _ = chain_widths(dims_in, shapes, pairs)
     limits = device_limits(x.device)
     cap = _row_cap(x.shape[0], limits.sms)
     out = torch.empty((x.shape[0], d_out), dtype=x.dtype, device=x.device)
@@ -90,12 +89,12 @@ def _launch_chain(x: torch.Tensor, tensors: List[torch.Tensor],
             x_p, out_p, rows, (ctypes.c_int * len(ints))(*ints), len(ints),
             ptrs, plan.smem, limits.smem_block, _build.stream_ptr())
     else:
-        rows_per_block = chain_rows_per_block(
-            d_max, chain_stage_words(dims_in, shapes, pairs),
-            x.element_size(), limits.smem_block, cap=cap)
+        rows_per_block, t_floats = chain_f32_plan(
+            dims_in, shapes, pairs, limits.smem_block, cap=cap)
         meta = [len(dims_in), len(pairs), *dims_in]
         for s, (m, n) in zip(shapes, pairs):
             meta += [m, n, *s]
+        meta.append(t_floats)
         rc = _bind()(
             code, x_p, out_p, rows, (ctypes.c_int * len(meta))(*meta), ptrs,
             rows_per_block, limits.smem_block, _build.stream_ptr())

@@ -115,6 +115,41 @@ def chain_rows_per_block(d_max: int, stage_words: int, itemsize: int,
     return rows
 
 
+def chain_f32_plan(dims_in: Sequence[int],
+                   shapes: Sequence[Sequence[int]],
+                   pairs: Sequence[Tuple[int, int]], smem_limit: int,
+                   cap: int = 8) -> Tuple[int, int]:
+    """Row tile and tensor floats staged at once by the float32 chain body
+    (``quanta_chain_kernel``).
+
+    Every stage tensor staged whole (:func:`chain_rows_per_block`) where
+    that fits a row tile; otherwise the largest row tile (at most
+    ``cap``) beside which one ``a`` row of the widest stage fits (``in``
+    rows of the transposed tensor: ``in * (om*on + 1)`` floats), the rest
+    of the block's shared memory then holding as many ``a`` rows as fit:
+    the kernel streams each such stage's tensor in chunks of whole ``a``
+    rows, keeping each output's partial fp32 sum in its row buffer, so
+    the sum runs over k ascending as when the tensor is whole (yi-6b's
+    16-16-16: 256 x 257 floats a stage, 263 KB).  Returns ``(rows,
+    t_floats)``: ``t_floats`` is the whole largest tensor when it fits."""
+    cur = list(dims_in)
+    d_max = math.prod(cur)
+    full = a_row = cols = 0
+    for (om, on, im, in_), (m, n) in zip(shapes, pairs):
+        full = max(full, im * in_ * (om * on + 1))
+        a_row = max(a_row, in_ * (om * on + 1))
+        cols = max(cols, math.prod(cur) // (im * in_))
+        cur[m], cur[n] = om, on
+        d_max = max(d_max, math.prod(cur))
+    words = chain_stage_words(dims_in, shapes, pairs)
+    try:
+        return chain_rows_per_block(d_max, words, 4, smem_limit, cap), full
+    except ValueError:
+        pass
+    rows = chain_rows_per_block(d_max, a_row + 2 * cols, 4, smem_limit, cap)
+    return rows, min(full, smem_limit // 4 - 2 * cols - 2 * rows * d_max)
+
+
 # The bf16 chain body (``chain_bf16_kernel``): every stage reads its
 # input with its pair axes minor, K contiguous values padded to a multiple
 # of 8 per (row, column), and writes its output in the layout the next

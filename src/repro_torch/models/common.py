@@ -88,6 +88,9 @@ class ModelConfig:
     # training: recompute each layer's activations in the backward
     # (torch.utils.checkpoint per layer) instead of keeping them
     remat: bool = True
+    # the config's gradient accumulation for training (0: the caller's
+    # choice); a caller passes it to ``make_train_step(microbatches=)``
+    train_microbatches: int = 0
 
     @property
     def attn_dim(self) -> int:

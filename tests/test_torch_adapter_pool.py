@@ -4,8 +4,9 @@ against the JAX package's (same rows, same ids, same errors), and serving
 through a pool that churns -- tenants loaded, evicted and reloaded while
 requests defer and preempt -- gives the tokens of cold single-tenant
 engines and of the JAX pool engine (qwen2-0.5b SMOKE, folded QuanTA, LoRA
-and DoTA tenants made by the JAX package and carried over as numpy).  The
-JAX suite's fold-free byte test waits for fold-free QuanTA."""
+and DoTA tenants made by the JAX package and carried over as numpy), also
+for fold-free QuanTA tenants, whose resident cost is their factor rows
+(the JAX suite's fold-free byte test)."""
 
 import functools
 
@@ -122,12 +123,17 @@ def _noise(tree, seed, scale=0.15):
 @functools.lru_cache(maxsize=None)
 def _jax_side():
     """The JAX model, its params and tenants: folded QuanTA (the attach
-    pair), LoRA l0 and l1 (one structure group), LoRA rank 8, DoTA."""
+    pair), LoRA l0 and l1 (one structure group), LoRA rank 8, DoTA, and
+    fold-free QuanTA f0, f1, f2 (one structure group)."""
     model = j_build_model(j_get_smoke(ARCH))
     params = model.init(jax.random.PRNGKey(0))
     qbase, qset = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
         method="quanta", n_axes=3, noise_scale=0.3))
     tenants = {"qa": (qbase, qset)}
+    for i in range(3):
+        _, fset = j_attach(jax.random.PRNGKey(20 + i), params, JPeftConfig(
+            method="quanta", n_axes=3, noise_scale=0.3, fold=False))
+        tenants[f"f{i}"] = _noise(fset, 30 + i, 0.1)
     for i, (name, cfg) in enumerate((
             ("l0", JPeftConfig(method="lora", rank=4)),
             ("l1", JPeftConfig(method="lora", rank=4)),
@@ -360,6 +366,87 @@ def test_churn_matches_cold_engines(cache):
         assert outs == {r.uid: r.output for r in jreqs}
         assert st["adapter_loads"] == jeng.stats["adapter_loads"]
         assert st["adapter_evictions"] == jeng.stats["adapter_evictions"]
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+def test_foldfree_churn_matches_cold_engines_and_jax(backend):
+    """Three fold-free QuanTA tenants (one structure group) and a LoRA
+    tenant churning through a capacity-1 pool: token for token each
+    tenant's cold single-tenant fold-free engine and the JAX pool
+    engine, loads and evictions as JAX's."""
+    params, _ = _port_side()
+    names = ("f0", "f1", "l0", "f2")
+    pool = AdapterPool.build(params, _store(names), capacity=1)
+    rotation = list(names) + [None]
+    assigns = [(i, p, rotation[i % 5]) for i, p in enumerate(PROMPTS)]
+    outs, engine = _serve(params, assigns, adapters=pool, backend=backend)
+    st = engine.stats
+    assert st["adapter_loads"] >= 4 and st["adapter_evictions"] >= 2
+    assert all(pool.pins_of(n) == 0 for n in names), "leaked a pin"
+    for name in rotation:
+        for uid, out in _cold(name, assigns, backend).items():
+            assert outs[uid] == out, (uid, name)
+    j_outs, j_loads, j_evictions = _jax_foldfree_churn(tuple(names))
+    assert outs == j_outs
+    assert st["adapter_loads"] == j_loads
+    assert st["adapter_evictions"] == j_evictions
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_foldfree_churn(names):
+    """The JAX pool engine's tokens, loads and evictions for the churn
+    above (the same for either port backend)."""
+    rotation = list(names) + [None]
+    jmodel, jparams, jtenants = _jax_side()
+    jstore = JStore(max_tenants=8)
+    for n in names:
+        jstore.register(n, jtenants[n])
+    jeng = JEngine(jmodel, jparams, adapters=JPool.build(
+        jparams, jstore, capacity=1), n_slots=3, max_len=64)
+    jreqs = []
+    for i, prompt in enumerate(PROMPTS):
+        r = JRequest(uid=i, prompt=list(prompt), max_new_tokens=MAX_NEW)
+        jeng.submit(r, adapter=rotation[i % 5])
+        jreqs.append(r)
+    jeng.run()
+    return ({r.uid: r.output for r in jreqs}, jeng.stats["adapter_loads"],
+            jeng.stats["adapter_evictions"])
+
+
+def test_foldfree_quanta_resident_bytes_are_factor_bytes():
+    """The QuanTA paper's serving pitch: a fold-free tenant's resident
+    cost is its factor rows -- each bank group holds ``capacity + 1``
+    stacks of the factor tensors (T and S) and nothing dense; a folded
+    tenant carries a dense ``(d_in, d_out)`` base a layer in its
+    ``RebasedAdapter`` (the JAX suite's test, and the JAX pool's bytes)."""
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.core.peft import flatten_paths
+
+    params, tenants = _port_side()
+    store = AdapterStore(max_tenants=2)
+    store.register("f0", tenants["f0"])
+    capacity = 3
+    pool = AdapterPool.build(params, store, capacity=capacity)
+    flat_base = flatten_paths(params)
+    folded = AdapterStore(max_tenants=1)
+    folded.register("qa", tenants["qa"])
+    for path, (adapter, _spec) in store.get("f0").items():
+        assert adapter.fold_free
+        factor_bytes = tree_nbytes(adapter)
+        group_bytes = sum(tree_nbytes(g)
+                          for g in pool._path_node(path).groups)
+        assert group_bytes == (capacity + 1) * factor_bytes, path
+        w0 = flat_base[path]
+        dense = w0.numel() * w0.element_size()
+        assert group_bytes < (capacity + 1) * dense, path
+        rebased, _ = folded.get("qa")[path]
+        assert tree_nbytes(rebased) == dense + tree_nbytes(rebased.inner)
+    _, jparams, jtenants = _jax_side()
+    jstore = JStore(max_tenants=2)
+    jstore.register("f0", jtenants["f0"])
+    jpool = JPool.build(jparams, jstore, capacity=capacity)
+    assert pool.resident_nbytes() == jpool.resident_nbytes()
+    assert store.nbytes == jstore.nbytes
 
 
 def test_preemption_and_deferral_across_evict_reload():

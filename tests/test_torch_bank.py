@@ -2,9 +2,10 @@
 ``build`` lays out the same leaves, ``id_maps`` and group order bit for
 bit, and the port's engine serving a bank generates the JAX bank engine's
 greedy tokens exactly and each tenant's single-tenant tokens, for a mixed
-folded-QuanTA + LoRA + base batch on the llama2-7b-proxy and qwen2-0.5b
-SMOKE configs, on the dense cache and on a paged pool small enough to
-preempt (the preempted requests keep their tenants); also with LoRA
+folded-QuanTA + LoRA + base batch and for a fold-free QuanTA + LoRA +
+base batch on the llama2-7b-proxy and qwen2-0.5b SMOKE configs, on the
+dense cache and on a paged pool small enough to preempt (the preempted
+requests keep their tenants); also with LoRA
 groups of two ranks and DoRA, DoTA and KronA tenants, and under an NF4
 base.  Tenants are made by the JAX package (noise from numpy seeds) and
 carried over as numpy."""
@@ -23,7 +24,7 @@ from repro.core.peft import PeftConfig as JPeftConfig, attach as j_attach
 from repro.models import build_model as j_build_model
 from repro.serve import Request as JRequest, ServingEngine as JEngine
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.adapters import tree_leaves
 from repro_torch.core.bank import AdapterBank, BankedAdapter
 from repro_torch.core.peft import PeftConfig, attach, flatten_paths
@@ -33,8 +34,7 @@ from repro_torch.serve import Request, ServingEngine
 PROMPTS = [[5, 9, 13], [40, 2], [7, 7, 7, 7, 21, 3, 99], [100, 101],
            [1], [13, 5, 88, 4, 2], [250, 3, 17], [9] * 11]
 MAX_NEW = 5
-N_AXES = {"llama2-7b-proxy": 4, "qwen2-0.5b": 3}
-ARCHS = list(N_AXES)
+ARCHS = ["llama2-7b-proxy", "qwen2-0.5b"]
 # cache case -> engine options; 6 blocks of 4 tokens cannot hold three
 # growing requests, so the tight pool preempts (checked below)
 CACHES = {"dense": dict(cache="dense"),
@@ -59,11 +59,24 @@ def _jax_model(arch):
 @functools.lru_cache(maxsize=None)
 def _jax_tenants(arch, kind="mixed"):
     """name -> tenant entry (JAX): folded QuanTA (the attach pair) + LoRA
-    ("mixed"); LoRA ranks 4 and 8, DoRA, DoTA and KronA ("hetero")."""
+    ("mixed"); two fold-free QuanTA tenants (one structure group) + LoRA
+    ("foldfree"); LoRA ranks 4 and 8, DoRA, DoTA and KronA ("hetero")."""
     _, params = _jax_model(arch)
+    if kind == "foldfree":
+        out = {}
+        for i in range(2):
+            _, fset = j_attach(jax.random.PRNGKey(5 + i), params,
+                               JPeftConfig(method="quanta", fold=False,
+                                           n_axes=get_peft(arch).n_axes,
+                                           noise_scale=0.3))
+            out[f"f{i}"] = _noise(fset, 7 + i, 0.1)
+        _, lset = j_attach(jax.random.PRNGKey(2), params,
+                           JPeftConfig(method="lora", rank=4))
+        out["lo"] = _noise(lset, 3)
+        return out
     if kind == "mixed":
         qbase, qset = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
-            method="quanta", n_axes=N_AXES[arch], noise_scale=0.3))
+            method="quanta", n_axes=get_peft(arch).n_axes, noise_scale=0.3))
         _, lset = j_attach(jax.random.PRNGKey(2), params,
                            JPeftConfig(method="lora", rank=4))
         return {"qa": (qbase, qset), "lo": _noise(lset, 3)}
@@ -157,7 +170,64 @@ def test_bank_build_equals_jax(arch):
                 np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_foldfree_bank_build_equals_jax(arch):
+    """Fold-free QuanTA tenants bank bare: one delta-form group of the two
+    fold-free tenants (rows: neutral, f0, f1; T and S each) beside the
+    LoRA group, the same leaves and id_maps as the JAX bank bit for
+    bit."""
+    _, params = _jax_model(arch)
+    jbank = JBank.build(params, _jax_tenants(arch, "foldfree"))
+    tparams, tenants = _port_tenants(arch, "foldfree")
+    bank = AdapterBank.build(tparams, tenants)
+    assert bank.names == jbank.names == ("f0", "f1", "lo")
+    assert bank.nbytes == sum(
+        np.asarray(leaf).nbytes for leaf in jax.tree_util.tree_leaves(
+            jbank.tree))
+    jflat, tflat = flatten_paths(jbank.tree), flatten_paths(bank.tree)
+    assert sorted(jflat) == sorted(tflat) and len(tflat) == 2
+    for path, jnode in jflat.items():
+        node = tflat[path]
+        assert node.delta_forms == jnode.delta_forms == (True, True)
+        assert node.groups[0].fold_free
+        assert [m.tolist() for m in node.id_maps] == [[0, 1, 2, 0],
+                                                      [0, 0, 0, 1]]
+        for jm, tm in zip(jnode.id_maps, node.id_maps):
+            np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        for jg, tg, rows in zip(jnode.groups, node.groups, (3, 2)):
+            jl, tl = jax.tree_util.tree_leaves(jg), tree_leaves(tg)
+            assert len(jl) == len(tl)
+            for a, b in zip(jl, tl):
+                assert b.shape[1] == rows        # (L, G+1, ...)
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 # ------------------------------------------------------------ serving
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+@pytest.mark.parametrize("arch,case", [
+    ("llama2-7b-proxy", "dense"), ("llama2-7b-proxy", "paged tight"),
+    ("qwen2-0.5b", "dense")])
+def test_foldfree_bank_engine_matches_jax_and_single_tenants(arch, case,
+                                                             backend):
+    """Fold-free QuanTA and LoRA tenants and the base in one batch: the
+    JAX bank engine's greedy tokens and each tenant's single-tenant
+    (fold-free) engine's."""
+    want, j_preempt = _jax_bank_run(arch, "foldfree", case)
+    tparams, tenants = _port_tenants(arch, "foldfree")
+    bank = AdapterBank.build(tparams, tenants)
+    assigns = _assigns(tenants)
+    eng = _port_engine(arch, tparams, backend, adapters=bank,
+                       **CACHES[case])
+    got = _run(eng, Request, assigns, True)
+    assert got == want
+    assert eng.stats["preemptions"] == j_preempt
+    assert (j_preempt > 0) == (case == "paged tight")
+    for name in ("f0", "f1", "lo", None):
+        single = _single_tenant(arch, "foldfree", backend, name, assigns)
+        for uid, out in single.items():
+            assert got[uid][:MAX_NEW] == out, (uid, name)
+
+
 @pytest.mark.parametrize("backend", ["reference", "pallas"])
 @pytest.mark.parametrize("case", list(CACHES))
 @pytest.mark.parametrize("arch", ARCHS)

@@ -36,11 +36,18 @@ def smoke():
 
 
 # (d_in, d_out, dims_in, pairs): llama2-7b-proxy's and qwen2-0.5b's
-# schemes, every chain of the card tests (tests/test_torch_cuda.py CHAINS)
-# and a 12-stage schedule
+# schemes, the q_proj and v_proj chains of yi-6b (16-16-16, GQA 4096 ->
+# 512), phi3-medium-14b (16-8-8-5, 5120 -> 1280) and minicpm-2b
+# (16-12-12), every chain of the card tests (tests/test_torch_cuda.py
+# CHAINS) and a 12-stage schedule
 CHAINS = [
     (4096, 4096, (16, 8, 8, 4), None),
     (896, 896, (16, 8, 7), None),
+    (4096, 4096, (16, 16, 16), None),
+    (4096, 512, (64, 8, 8), None),
+    (5120, 5120, (16, 8, 8, 5), None),
+    (5120, 1280, (32, 8, 5, 4), None),
+    (2304, 2304, (16, 12, 12), None),
     (64, 64, (4, 4, 4), None),
     (24, 12, (4, 3, 2), None),
     (128, 256, (8, 4, 4), None),
@@ -147,6 +154,43 @@ def test_main_path_plan():
     tm, to = S.CHAIN_TILES[1]
     for st in lay.stages:
         assert (st.ncols // tm) * (st.o // to) == S.CHAIN_THREADS
+
+
+# (d_in, d_out, dims_in) -> (rows, resident, smem) of the plan at the
+# prefill row cap (8) and the decode tick's (1), at the H100's 232,448
+# bytes of opt-in shared memory a block
+DENSE_FAMILY_PLANS = {
+    (4096, 4096, (16, 16, 16)): ((4, False, 199872), (1, False, 150720)),
+    (4096, 512, (64, 8, 8)): ((8, True, 214080), (1, True, 99392)),
+    (5120, 5120, (16, 8, 8, 5)): ((4, True, 178688), (1, True, 117248)),
+    (5120, 1280, (32, 8, 5, 4)): ((8, True, 225472), (1, True, 53440)),
+    (2304, 2304, (16, 12, 12)): ((4, True, 228064), (1, True, 200416)),
+}
+
+
+@pytest.mark.parametrize("key", list(DENSE_FAMILY_PLANS),
+                         ids=lambda k: f"{k[0]}->{k[1]}")
+def test_dense_family_plans(key):
+    """The plans of yi-6b's, phi3-medium-14b's and minicpm-2b's q_proj and
+    v_proj chains: yi-6b's 16-16-16 streams its tensors (four rows), its
+    GQA v_proj contracts k = 512 in one stage, phi3's carries an axis of
+    5 and pads a k of 20 to 24, and minicpm-2b's fits 4,384 bytes under
+    the limit."""
+    d_in, d_out, dims = key
+    _, _, ad = _adapter(d_in, d_out, dims, None, torch.bfloat16)
+    for cap, (rows, resident, smem) in zip((8, 1), DENSE_FAMILY_PLANS[key]):
+        plan = _plan(ad, cap=cap)
+        assert (plan.rows, plan.resident, plan.smem) == (rows, resident,
+                                                         smem)
+        assert plan.variant == (cap == 1)
+    ks = [st.k for st in _plan(ad).layout.stages]
+    kps = [st.kp for st in _plan(ad).layout.stages]
+    if d_out == 512:
+        assert ks == [64, 512, 64]
+    if d_out == 1280:
+        assert (ks[0], kps[0]) == (20, 24)
+    if d_in == 2304:
+        assert H100_SMEM_BLOCK - _plan(ad).smem == 4384
 
 
 @pytest.mark.parametrize("d_in,d_out,dims,pairs", CHAINS)

@@ -1,0 +1,86 @@
+"""The port's config registry against the JAX package's: the five dense
+archs (llama2-7b-proxy, qwen2-0.5b, yi-6b, phi3-medium-14b, minicpm-2b)
+serve ``get_config``, ``get_smoke``, ``get_peft`` and ``get_notes``, each
+value equal to its JAX twin's field for field, with ``jnp`` dtypes mapped
+to ``torch``'s; the RoPE tables of yi-6b's base (5e6) equal the JAX
+package's."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import common as jcommon
+from repro_torch import configs
+from repro_torch.models import common as tcommon
+
+ARCHS = ["llama2-7b-proxy", "qwen2-0.5b", "yi-6b", "phi3-medium-14b",
+         "minicpm-2b"]
+DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _same(t_value, j_value):
+    if j_value in DTYPES:
+        return t_value is DTYPES[j_value]
+    return t_value == j_value
+
+
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_configs_equal_jax(arch, which):
+    """Every field of the port's ModelConfig equals the JAX twin's field of
+    that name; the JAX fields the port lacks belong to families it does
+    not run, and hold their defaults."""
+    got, want = getattr(configs, which)(arch), getattr(jconfigs, which)(arch)
+    t_fields = {f.name for f in dataclasses.fields(got)}
+    for name in t_fields:
+        assert _same(getattr(got, name), getattr(want, name)), name
+    defaults = type(want)(name="x", family="dense", n_layers=1, d_model=8,
+                          n_heads=1, n_kv_heads=1, head_dim=8, d_ff=8,
+                          vocab_size=8)
+    for f in dataclasses.fields(want):
+        if f.name not in t_fields:
+            assert getattr(want, f.name) == getattr(defaults, f.name), f.name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_peft_and_notes_equal_jax(arch):
+    got, want = configs.get_peft(arch), jconfigs.get_peft(arch)
+    for f in dataclasses.fields(got):
+        if f.name == "dtype":
+            assert got.dtype is DTYPES[want.dtype]
+        else:
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert configs.get_notes(arch) == jconfigs.get_notes(arch) != ""
+
+
+def test_registry_covers_the_dense_family():
+    dense = sorted(a for a in jconfigs._MODULES
+                   if jconfigs.get_config(a).family == "dense")
+    assert sorted(ARCHS) == dense
+    assert configs.get_config("phi3-medium-14b").train_microbatches == 16
+    assert configs.get_config("yi-6b").train_microbatches == 0
+    with pytest.raises(KeyError, match="mixtral"):
+        configs.get_peft("mixtral-8x7b")
+
+
+def test_rope_tables_take_the_configs_base():
+    """yi-6b's RoPE base reaches the tables as the JAX package builds
+    them: float32 powers of a Python scalar base, which differ from JAX's
+    in the last bit now and then, so the tables agree within 1e-5 at every
+    position below 4096 (an angle of 4096 radians carries a float32 ulp
+    of 4.9e-4); the default base gives other tables."""
+    theta = configs.get_config("yi-6b").rope_theta
+    assert theta == 5_000_000.0
+    pos = np.arange(0, 4096, 37, dtype=np.int32)[None, :]
+    jc, js = jcommon.make_rope(jnp.asarray(pos), 128, theta)
+    tc, ts = tcommon.make_rope(torch.from_numpy(pos), 128, theta)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0,
+                               atol=1e-5)
+    base, _ = tcommon.make_rope(torch.from_numpy(pos), 128, 10000.0)
+    assert not torch.allclose(base, tc)

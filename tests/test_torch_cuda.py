@@ -79,6 +79,15 @@ CHAINS = [
     (128, 256, (8, 4, 4), 301),       # rectangular, widening
     (896, 896, (16, 8, 7), 19),       # qwen2-0.5b's 16-8-7 scheme
     (4096, 4096, (16, 8, 8, 4), 9),   # llama2-7b's scheme, ragged tile
+    # the rest of the dense family's q_proj / v_proj chains: yi-6b's
+    # 16-16-16 (its tensors streamed) and GQA 4096 -> 512 (a k of 512),
+    # phi3-medium-14b's 16-8-8-5 and 5120 -> 1280 (a k of 20),
+    # minicpm-2b's 16-12-12 (4.3 KB under the bf16 limit)
+    (4096, 4096, (16, 16, 16), 9),
+    (4096, 512, (64, 8, 8), 9),
+    (5120, 5120, (16, 8, 8, 5), 9),
+    (5120, 1280, (32, 8, 5, 4), 9),
+    (2304, 2304, (16, 12, 12), 9),
 ]
 
 
@@ -1118,3 +1127,89 @@ def test_engine_raises_when_a_captured_leaf_moves(dev):
     eng.cache["len"] = eng.cache["len"].clone()
     with pytest.raises(RuntimeError, match="moved since the graph"):
         eng.step()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_foldfree_bank_delta_runs_the_chain_kernel(dtype, dev, monkeypatch):
+    """A bank of fold-free QuanTA tenants under the kernel backend: each
+    slot's T and S chains launch kernel 1 (two launches a slot, a slot on
+    the base included), the plain chain (``apply_sequential``) is never
+    called, and each slot's row equals its tenant's single-tenant
+    fold-free ``apply`` over the same batch bit for bit (kernel 1 keeps
+    each row's sums alone)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import quanta as Q
+    from repro_torch.core.bank import AdapterBank
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.kernels import quanta_apply as QA
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke("llama2-7b-proxy"), device=dev)
+    params = model.init(0)
+    tenants = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(2):
+        _, aset = attach(10 + i, params, PeftConfig(n_axes=4, fold=False),
+                         device=dev)
+        for a in aset.flat().values():
+            for t in a.tensors:
+                t.add_(0.05 * torch.randn(t.shape, generator=gen,
+                                          device=dev))
+        tenants[f"f{i}"] = aset
+    bank = AdapterBank.build(params, tenants)
+    names = ("f0", None, "f1", "f0")
+    ids = [bank.id_of(n) for n in names]
+    banked = bank.subtree("layers", ids)["attn"]["q_proj"].layer(0)
+    w = params["layers"]["attn"]["q_proj"][0].to(dtype)
+    x = torch.randn((len(ids), 7, w.shape[0]), generator=gen,
+                    device=dev).to(dtype)
+    want = {n: tenants[n]["layers"]["attn"]["q_proj"].layer(0).apply(
+        x, w, "pallas") for n in ("f0", "f1")}
+
+    def refused(*a, **k):
+        raise AssertionError("the plain chain ran on the card")
+
+    monkeypatch.setattr(Q, "apply_sequential", refused)
+    monkeypatch.setattr(QA, "apply_sequential", refused)
+    before = QA.quanta_apply.launches
+    got = banked.apply(x, w, "pallas")
+    torch.cuda.synchronize()
+    assert QA.quanta_apply.launches - before == 2 * len(ids)
+    base = x @ w
+    for b, name in enumerate(names):
+        ref = base[b] if name is None else want[name][b]
+        assert torch.equal(got[b], ref), (b, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_bank_group_runs_the_chain_kernel(dtype, dev, monkeypatch):
+    """A bank-stacked folded QuanTA group under the kernel backend: each
+    slot's chain launches kernel 1 once, the plain chain is never called,
+    and each slot's row equals the chain kernel on that row alone bit for
+    bit."""
+    from repro_torch.core import quanta as Q
+    from repro_torch.kernels import quanta_apply as QA
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = [Q.QuantaAdapter.create(gen, 256, n_axes=4, noise_scale=0.05,
+                                   device=dev) for _ in range(3)]
+    group = Q.QuantaAdapter(
+        tuple(torch.stack(ts) for ts in zip(*(a.tensors for a in rows))),
+        rows[0].dims_in, rows[0].dims_out, rows[0].pairs)
+    ids = torch.tensor([2, 0, 1, 2], device=dev)
+    x = torch.randn((4, 7, 256), generator=gen, device=dev).to(dtype)
+    want = [QA.quanta_apply(x[b], [t.to(dtype) for t in rows[i].tensors],
+                            rows[i].dims_in, rows[i].pairs)
+            for b, i in enumerate(ids.tolist())]
+
+    def refused(*a, **k):
+        raise AssertionError("the plain chain ran on the card")
+
+    monkeypatch.setattr(Q, "apply_sequential", refused)
+    monkeypatch.setattr(QA, "apply_sequential", refused)
+    before = QA.quanta_apply.launches
+    got = group.banked_delta(x, ids, "pallas")
+    torch.cuda.synchronize()
+    assert QA.quanta_apply.launches - before == len(want)
+    for b, ref in enumerate(want):
+        assert torch.equal(got[b], ref.to(dtype)), b

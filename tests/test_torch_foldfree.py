@@ -195,13 +195,25 @@ def test_frozen_copy_gets_no_gradient():
 
 
 def test_bank_refuses_fold_free_tenants():
-    """Fold-free bank tenants wait for a later slice: the bank raises
-    instead of serving them as folded."""
+    """The bank refuses to serve a fold-free tenant as folded: given as
+    the attach pair or as its adapter set alone, it banks bare, one
+    delta-form group per path whose rows are the factors T and S (row 0
+    all zeros), with no ``RebasedAdapter`` and no dense base copy."""
     from repro_torch.core.bank import AdapterBank
 
     m = build_model(get_smoke("llama2-7b-proxy"), device="cpu")
     params = m.init(0)
     tenant = TP.attach(1, params, TP.PeftConfig(n_axes=4, fold=False),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="fold-free"):
-        AdapterBank.build(params, {"ff": tenant})
+    for entry in (tenant, tenant[1]):
+        bank = AdapterBank.build(params, {"ff": entry})
+        for path, node in TP.flatten_paths(bank.tree).items():
+            assert node.delta_forms == (True,)
+            (group,) = node.groups
+            ad = tenant[1].flat()[path]
+            assert type(group) is type(ad) and group.fold_free
+            for g, t in zip(tree_leaves(group), tree_leaves(ad)):
+                assert g.shape == (t.shape[0], 2) + t.shape[1:]
+                assert not g[:, 0].any() and torch.equal(g[:, 1], t)
+        assert bank.nbytes == sum(
+            2 * t.numel() * 4 for t in tree_leaves(tenant[1])) + 2 * 2 * 4

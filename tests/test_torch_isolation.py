@@ -176,6 +176,18 @@ def test_serving_modules_are_covered(name):
     _covered(name)
 
 
+@pytest.mark.parametrize("name", [
+    "repro_torch.configs", "repro_torch.configs.llama2_7b_proxy",
+    "repro_torch.configs.qwen2_0_5b", "repro_torch.configs.yi_6b",
+    "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.minicpm_2b",
+])
+def test_config_modules_are_covered(name):
+    """The config registry and its five dense configs are among the
+    modules imported with ``jax`` and the JAX package blocked, and among
+    the files whose imports are read."""
+    _covered(name)
+
+
 def test_examples_are_covered():
     """The torch serving examples exist, are read for imports and are
     imported with ``jax`` blocked."""
@@ -233,6 +245,30 @@ def test_cpu_bank_path_launches_no_kernel():
     eng = ServingEngine(model, params, adapters=bank, n_slots=2, max_len=32,
                         device="cpu")
     for i, name in enumerate(("q", "l", None)):
+        eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4),
+                   adapter=name)
+    eng.run()
+    assert eng.stats["decode_calls"] > 0
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+def test_cpu_foldfree_bank_path_launches_no_kernel():
+    """Fold-free QuanTA tenants in a bank on the CPU under the kernel
+    backend: their banked delta takes the chain wrapper's plain version,
+    and no counter moves."""
+    from repro_torch.core.bank import AdapterBank
+
+    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas",
+                                               peft_backend="pallas")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    bank = AdapterBank.build(params, {
+        f"f{i}": attach(1 + i, params, PeftConfig(n_axes=4, fold=False),
+                        device="cpu")[1] for i in range(2)})
+    reset_launch_counts()
+    eng = ServingEngine(model, params, adapters=bank, n_slots=2, max_len=32,
+                        device="cpu")
+    for i, name in enumerate(("f0", "f1", None)):
         eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4),
                    adapter=name)
     eng.run()

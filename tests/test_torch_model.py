@@ -1,5 +1,7 @@
 """The port's dense transformer held against the JAX package on the
-llama2-7b-proxy and qwen2-0.5b SMOKE configs: weights and the attached,
+llama2-7b-proxy and qwen2-0.5b SMOKE configs (forward, prefill and decode
+also on yi-6b's, phi3-medium-14b's and minicpm-2b's: GQA groups of 2 and
+4, head_dim 18 with tied embeddings): weights and the attached,
 perturbed QuanTA adapters come from the JAX package through
 ``repro_torch.interop``; forward, prefill(lengths=) and decode_step
 logits must agree at f32 1e-4, and the port's merged model must match its
@@ -15,12 +17,11 @@ from repro.configs import get_smoke as j_get_smoke
 from repro.core.peft import PeftConfig as JPeftConfig, attach as j_attach
 from repro.models import build_model as j_build_model
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.peft import merge_all
 from repro_torch.models import build_model
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-N_AXES = {"llama2-7b-proxy": 4, "qwen2-0.5b": 3}
 
 
 def _pair(arch, backend):
@@ -33,7 +34,7 @@ def _pair(arch, backend):
     jm = j_build_model(jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     base, peft = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
-        method="quanta", n_axes=N_AXES[arch]))
+        method="quanta", n_axes=get_peft(arch).n_axes))
     rs = np.random.RandomState(2)
 
     def perturb(t):
@@ -60,10 +61,15 @@ def _tokens(b, s, vocab, seed=4):
 
 
 ARCHS = ["llama2-7b-proxy", "qwen2-0.5b"]
+# the rest of the dense family, on the tests that meet what differs (the
+# forward on the kernel backend's wrappers, the port's path)
+FAMILY = ["yi-6b", "phi3-medium-14b", "minicpm-2b"]
+DENSE = ARCHS + FAMILY
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,backend", [
+    (a, b) for a in ARCHS for b in ("reference", "pallas")] + [
+    (a, "pallas") for a in FAMILY])
 def test_forward_matches_jax(arch, backend):
     jm, base, peft, tm, tbase, tpeft = _pair(arch, backend)
     toks = _tokens(2, 40, jm.cfg.vocab_size)
@@ -73,7 +79,7 @@ def test_forward_matches_jax(arch, backend):
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_prefill_and_decode_match_jax(arch):
     jm, base, peft, tm, tbase, tpeft = _pair(arch, "reference")
     toks = _tokens(3, 24, jm.cfg.vocab_size)
@@ -195,18 +201,21 @@ def test_param_counts_vs_jax():
 @pytest.mark.parametrize("what", ["fold_free", "family"])
 def test_unported_options_raise(what):
     """What the port does not run yet raises instead of running something
-    else."""
+    else: a model family other than the dense one.  A fold-free QuanTA
+    bank tenant is not run as something else either: it banks as what it
+    is, a delta-form group of its factors over the shared base."""
     from repro_torch.core.bank import AdapterBank
-    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.core.peft import PeftConfig, attach, flatten_paths
 
     cfg = get_smoke("llama2-7b-proxy")
+    if what == "fold_free":
+        m = build_model(cfg, device="cpu")
+        params = m.init(0)
+        bank = AdapterBank.build(params, {"ff": attach(
+            1, params, PeftConfig(n_axes=4, fold=False), device="cpu")})
+        nodes = flatten_paths(bank.tree).values()
+        assert [n.delta_forms for n in nodes] == [(True,), (True,)]
+        assert all(n.groups[0].fold_free for n in nodes)
+        return
     with pytest.raises(NotImplementedError):
-        if what == "fold_free":
-            # fold-free QuanTA attaches and trains; as a bank tenant it is
-            # not ported yet
-            m = build_model(cfg, device="cpu")
-            params = m.init(0)
-            AdapterBank.build(params, {"ff": attach(
-                1, params, PeftConfig(n_axes=4, fold=False), device="cpu")})
-        else:
-            build_model(cfg.replace(family="moe"), device="cpu")
+        build_model(cfg.replace(family="moe"), device="cpu")

@@ -29,7 +29,7 @@ from repro.serve.paging import (
     BlockAllocator as JAllocator, PagedCacheView as JView,
 )
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.peft import merge_all
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import launch_counts
@@ -363,7 +363,6 @@ def test_paged_plain_ignores_the_block_size():
 # ------------------------------------------------------------ engine parity
 PROMPTS = [[3, 141, 59] * 3, [26, 5], [35, 89, 79, 32] * 4, [38, 46],
            [2, 7, 18]]
-N_AXES = {"llama2-7b-proxy": 4, "qwen2-0.5b": 3}
 # case -> (cfg.kv_quant, engine options); "tight" pools preempt
 CASES = {
     "rows": (None, dict(cache="paged", block_size=8)),
@@ -382,7 +381,8 @@ def _jax_weights(arch):
     model = j_build_model(j_get_smoke(arch))
     params = model.init(jax.random.PRNGKey(0))
     base, peft = j_attach(jax.random.PRNGKey(1), params,
-                          JPeftConfig(method="quanta", n_axes=N_AXES[arch]))
+                          JPeftConfig(method="quanta",
+                                      n_axes=get_peft(arch).n_axes))
     rs = np.random.RandomState(3)
     peft = jax.tree_util.tree_map(
         lambda t: t + jnp.asarray(0.05 * rs.standard_normal(t.shape),
@@ -448,6 +448,24 @@ def test_paged_engine_tokens_match_jax(arch, case, which, backend):
         # reference of the quantized pools (without preemption; see
         # test_tight_pool_follows_dense_twin_up_to_preemption)
         dense, _ = _serve(arch, case, which, backend, cache="dense")
+        assert dense == got
+
+
+@pytest.mark.parametrize("arch,case", [("yi-6b", "nf4 KV")] + [
+    (a, "nf4 KV, nf4 base, tight")
+    for a in ("yi-6b", "phi3-medium-14b", "minicpm-2b")])
+def test_dense_family_paged_nf4_tokens_match_jax(arch, case):
+    """The rest of the dense family's SMOKE configs, adapted, through the
+    kernel backend's wrappers: paged NF4 KV codes under an NF4 base in a
+    pool that preempts, and for yi-6b also paged NF4 KV alone beside the
+    dense twin of fake-quantized rows."""
+    want, j_preempt = _jax_run(arch, case, "adapted")
+    got, eng = _serve(arch, case, "adapted", "pallas")
+    assert got == want
+    assert eng.stats["preemptions"] == j_preempt
+    assert (j_preempt >= 1) == ("tight" in case)
+    if "tight" not in case:
+        dense, _ = _serve(arch, case, "adapted", "pallas", cache="dense")
         assert dense == got
 
 

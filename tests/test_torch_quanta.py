@@ -160,6 +160,38 @@ def test_plain_chain_matches_jax_kernel(d_in, d_out, dims, dtype):
     np.testing.assert_allclose(got, ref_t, **TOL)
 
 
+# the FULL configs' q_proj and v_proj chains: yi-6b's 16-16-16 (v_proj
+# 4096 -> 512), phi3-medium-14b's 16-8-8-5 (v_proj 5120 -> 1280) and
+# minicpm-2b's 16-12-12
+FULL_CHAINS = [
+    (4096, 4096, (16, 16, 16)), (4096, 512, (64, 8, 8)),
+    (5120, 5120, (16, 8, 8, 5)), (5120, 1280, (32, 8, 5, 4)),
+    (2304, 2304, (16, 12, 12)),
+]
+
+
+@pytest.mark.parametrize("d_in,d_out,dims", FULL_CHAINS,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_plain_chain_matches_jax_kernel_at_full_schemes(d_in, d_out, dims):
+    """The plain chain (``apply_sequential``) against the JAX kernel in
+    interpret mode at the FULL configs' schemes, 8 rows in f32, with the
+    dims ``choose_dims`` gives each projection."""
+    from repro_torch.core.peft import choose_dims
+
+    assert choose_dims(d_in, d_out, len(dims), None if d_in != d_out
+                       else "-".join(map(str, dims)))[0] == dims
+    ja = _jax_adapter(d_in, d_out, dims)
+    ta = interop.quanta_from_numpy(ja, "cpu")
+    assert ta.d_out == d_out
+    x = _x((8, d_in))
+    want = np.asarray(jops.quanta_apply_fused(jnp.asarray(x), ja,
+                                              block_rows=8))
+    got = _np(TQ.apply_sequential(torch.from_numpy(x), ta.tensors,
+                                  ta.dims_in, ta.pairs))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d_in,d_out,dims", SHAPES[:3] + SHAPES[4:])
 def test_plain_linear_matches_jax_kernel(d_in, d_out, dims, dtype):
@@ -206,8 +238,9 @@ def test_adapter_apply_matches_jax(d_in, d_out, dims, backend):
 
 def test_fold_free_adapters_are_refused():
     """Fold-free QuanTA (S kept as factors) crosses over with its S, and is
-    not served as folded: its delta subtracts S's chain.  As a bank tenant
-    it waits for a later slice, and the bank refuses it."""
+    refused as a folded adapter: its delta subtracts S's chain, and as a
+    bank tenant it stays bare (no ``RebasedAdapter``, no dense base),
+    as the JAX package's ``tenant_path_adapters`` keeps it."""
     from repro_torch.core.bank import tenant_path_adapters
     from repro_torch.core.peft import AdapterLeafSpec, AdapterSet
 
@@ -220,11 +253,45 @@ def test_fold_free_adapters_are_refused():
     assert np.abs(_np(ta.delta(torch.from_numpy(x)))).max() == 0.0
     aset = AdapterSet({"p": ta}, (AdapterLeafSpec("p", "quanta", False, 64,
                                                   64, fold=False),))
-    with pytest.raises(NotImplementedError, match="fold-free"):
-        tenant_path_adapters("ff", aset)
+    adapter, spec = tenant_path_adapters("ff", aset)["p"]
+    assert adapter is ta and spec.fold is False and adapter.delta_form
+    from repro.core.bank import tenant_path_adapters as j_tenant
+    from repro.core.peft import AdapterLeafSpec as JSpec, AdapterSet as JSet
+
+    j_adapter, _ = j_tenant("ff", JSet({"p": ff}, (JSpec(
+        "p", "quanta", False, 64, 64, fold=False),)))["p"]
+    assert j_adapter is ff
     gen = torch.Generator().manual_seed(0)
     ad = TQ.QuantaAdapter.create(gen, 64, 64, n_axes=3)
     assert ad.num_params == tfact.param_count(ad.dims_in, ad.pairs)
+
+
+@pytest.mark.parametrize("fold_free", [False, True])
+def test_banked_delta_matches_jax(fold_free):
+    """A bank-stacked QuanTA group (3 rows), folded or fold-free: its
+    per-slot delta under the kernel backend (the chain wrapper slot by
+    slot, its plain version on the CPU) and the reference gather both
+    equal the JAX bank's ``vmap`` of ``delta`` over gathered rows."""
+    rows = [_jax_adapter(64, 64, (4, 4, 4), seed=s) for s in range(3)]
+    frozen = None
+    if fold_free:
+        frozen = tuple(jnp.stack(ts) for ts in zip(*(
+            _jax_adapter(64, 64, (4, 4, 4), seed=10 + s).tensors
+            for s in range(3))))
+    ja = JQ.QuantaAdapter(
+        tuple(jnp.stack(ts) for ts in zip(*(a.tensors for a in rows))),
+        rows[0].dims_in, rows[0].dims_out, rows[0].pairs, frozen=frozen)
+    ta = interop.quanta_from_numpy(ja, "cpu")
+    ids = np.array([2, 0, 1, 2], dtype=np.int32)
+    x = _x((4, 5, 64))
+    want = np.asarray(ja.banked_delta(jnp.asarray(x), jnp.asarray(ids)))
+    assert np.abs(want).max() > 0
+    before = quanta_apply.launches
+    for backend in ("pallas", "reference"):
+        got = ta.banked_delta(torch.from_numpy(x),
+                              torch.from_numpy(ids).long(), backend)
+        np.testing.assert_allclose(_np(got), want, **TOL)
+    assert quanta_apply.launches == before
 
 
 def test_kernel_wrappers_route_cpu_to_plain():

@@ -26,7 +26,7 @@ from repro.kernels.quantized_matmul import (
 from repro.models import build_model as j_build_model
 from repro.serve import Request as JRequest, ServingEngine as JEngine
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core import quantize as TQ
 from repro_torch.core.peft import merge_all
 from repro_torch.kernels import launch_counts
@@ -175,7 +175,6 @@ def test_quantize_params_targets_and_is_idempotent():
 # ------------------------------------------------------------ engine parity
 PROMPTS = [[3, 141, 59] * 3, [26, 5], [35, 89, 79, 32] * 4, [38, 46],
            [2, 7, 18]]
-N_AXES = {"llama2-7b-proxy": 4, "qwen2-0.5b": 3}
 # (case, base_quant, engine options)
 BASE_CASES = {
     "nf4 dense": ("nf4", dict()),
@@ -190,7 +189,8 @@ def _jax_weights(arch):
     model = j_build_model(j_get_smoke(arch))
     params = model.init(jax.random.PRNGKey(0))
     base, peft = j_attach(jax.random.PRNGKey(1), params,
-                          JPeftConfig(method="quanta", n_axes=N_AXES[arch]))
+                          JPeftConfig(method="quanta",
+                                      n_axes=get_peft(arch).n_axes))
     rs = np.random.RandomState(3)
     peft = jax.tree_util.tree_map(
         lambda t: t + jnp.asarray(0.05 * rs.standard_normal(t.shape),

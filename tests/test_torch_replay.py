@@ -19,7 +19,7 @@ from repro.core.peft import PeftConfig as JPeftConfig, attach as j_attach
 from repro.models import build_model as j_build_model
 from repro.serve import Request as JRequest, ServingEngine as JEngine
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.bank import AdapterBank
 from repro_torch.models import build_model
 from repro_torch.serve import Request, ServingEngine
@@ -27,7 +27,6 @@ from repro_torch.serve import Request, ServingEngine
 PROMPTS = [[5, 9, 13], [40, 2], [7, 7, 7, 7, 21, 3, 99], [100, 101],
            [1], [13, 5, 88, 4, 2], [250, 3, 17], [9] * 11]
 ARCHS = ["llama2-7b-proxy", "qwen2-0.5b"]
-N_AXES = {"llama2-7b-proxy": 4, "qwen2-0.5b": 3}
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +34,8 @@ def _weights(arch):
     jm = j_build_model(j_get_smoke(arch))
     params = jm.init(jax.random.PRNGKey(0))
     base, peft = j_attach(jax.random.PRNGKey(1), params,
-                          JPeftConfig(method="quanta", n_axes=N_AXES[arch]))
+                          JPeftConfig(method="quanta",
+                                      n_axes=get_peft(arch).n_axes))
     rs = np.random.RandomState(3)
     peft = jax.tree_util.tree_map(
         lambda t: t + jnp.asarray(0.05 * rs.standard_normal(t.shape),

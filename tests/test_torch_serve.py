@@ -1,7 +1,8 @@
 """The port's ServingEngine on the CPU generates token for token what the
 JAX package's ServingEngine (dense cache, prefill admission) generates for
 the prompts of examples/serve_batched.py, for the adapted and the merged
-model (qwen2-0.5b SMOKE with perturbed QuanTA on q/v)."""
+model (qwen2-0.5b SMOKE with perturbed QuanTA on q/v), and for the adapted
+yi-6b, phi3-medium-14b and minicpm-2b SMOKE models."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ from repro.core.peft import (
 from repro.models import build_model as j_build_model
 from repro.serve import Request as JRequest, ServingEngine as JEngine
 from repro_torch import interop
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.peft import merge_all
 from repro_torch.kernels import launch_counts
 from repro_torch.models import build_model
@@ -81,6 +82,41 @@ def test_tokens_match_jax_engine(jax_side, which, backend):
     assert stats["prefill_calls"] == 2
     assert stats["tokens"] == 8 * len(PROMPTS)
     assert launch_counts() == before       # CPU tensors launch nothing
+
+
+def _jax_adapted(arch):
+    """JAX weights with perturbed QuanTA (the arch's n_axes) on q/v, and
+    the JAX engine's tokens for PROMPTS."""
+    model = j_build_model(j_get_smoke(arch))
+    params = model.init(jax.random.PRNGKey(0))
+    base, peft = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
+        method="quanta", n_axes=get_peft(arch).n_axes))
+    rs = np.random.RandomState(3)
+    peft = jax.tree_util.tree_map(
+        lambda t: t + jnp.asarray(0.05 * rs.standard_normal(t.shape),
+                                  t.dtype), peft)
+    eng = JEngine(model, base, peft, n_slots=4, max_len=64,
+                  admission="prefill")
+    reqs = [JRequest(uid=i, prompt=list(q), max_new_tokens=8)
+            for i, q in enumerate(PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return base, peft, [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "phi3-medium-14b", "minicpm-2b"])
+def test_dense_family_tokens_match_jax_engine(arch):
+    """GQA groups of 2 (yi-6b) and 4 (phi3-medium-14b), head_dim 18 and
+    tied embeddings (minicpm-2b) through the kernel backend's wrappers
+    (their plain versions on the CPU)."""
+    base, peft, want = _jax_adapted(arch)
+    model = build_model(get_smoke(arch).replace(
+        attn_backend="pallas", peft_backend="pallas"), device="cpu")
+    got, _ = _serve(model, interop.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, base), "cpu"),
+        interop.adapter_set_from_numpy(peft, "cpu"))
+    assert got == want
 
 
 def test_engine_frees_and_reuses_slots():

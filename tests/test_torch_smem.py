@@ -239,10 +239,25 @@ def _chain(dims, pairs=None):
     return dims, tensor_shapes(dims, pairs), pairs
 
 
+def _rect(dims_in, d0_out):
+    """A rectangular chain: axis 0 maps ``dims_in[0] -> d0_out``."""
+    from repro_torch.core.factorize import pair_schedule
+    from repro_torch.core.quanta import tensor_shapes
+
+    pairs = pair_schedule(len(dims_in))
+    return dims_in, tensor_shapes(dims_in, pairs,
+                                  (d0_out,) + tuple(dims_in[1:])), pairs
+
+
 # the QuanTA schemes the port serves (llama2-7b-proxy's 16-8-8-4 on q/v,
-# qwen2-0.5b's 16-8-7) and a 12-stage schedule
+# qwen2-0.5b's 16-8-7; yi-6b's 16-16-16 and its 4096 -> 512 v_proj,
+# phi3-medium-14b's 16-8-8-5 and its 5120 -> 1280 v_proj, minicpm-2b's
+# 16-12-12) and a 12-stage schedule
 SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
-                 _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2)]
+                 _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2),
+                 _chain((16, 16, 16)), _rect((64, 8, 8), 8),
+                 _chain((16, 8, 8, 5)), _rect((32, 8, 5, 4), 8),
+                 _chain((16, 12, 12))]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
@@ -258,8 +273,53 @@ def test_chain_plans_fit_a_block(chain, rows):
     assert plan.smem <= H100_SMEM_BLOCK and 1 <= plan.rows <= cap
     _, d_max = chain_widths(dims, shapes, pairs)
     words = S.chain_stage_words(dims, shapes, pairs)
-    f32 = S.chain_rows_per_block(d_max, words, 4, H100_SMEM_BLOCK, cap)
-    assert S.chain_smem_bytes(f32, d_max, words, 4) <= H100_SMEM_BLOCK
+    f32, t_floats = S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK,
+                                     cap)
+    assert 1 <= f32 <= cap
+    assert S.chain_smem_bytes(f32, d_max, words - _full_tensor(
+        dims, shapes, pairs) + t_floats, 4) <= H100_SMEM_BLOCK
+
+
+def _full_tensor(dims, shapes, pairs):
+    """Floats of the largest stage tensor, transposed and padded, as the
+    float32 body stages it whole."""
+    return max(im * i_n * (om * on + 1) for om, on, im, i_n in shapes)
+
+
+def test_f32_chain_streams_only_what_does_not_fit():
+    """The float32 body stages every tensor whole where that fits (the
+    row tile of ``chain_rows_per_block``); yi-6b's 16-16-16 (256 x 257
+    floats a stage) takes 4 rows and stages 6 of its 16 ``a`` rows of
+    4,112 floats at once; without room for one ``a`` row it raises."""
+    for chain in SERVED_CHAINS:
+        dims, shapes, pairs = chain
+        if chain is SERVED_CHAINS[3]:
+            continue
+        words = S.chain_stage_words(dims, shapes, pairs)
+        from repro_torch.kernels.quanta_apply import chain_widths
+
+        d_max = chain_widths(dims, shapes, pairs)[1]
+        assert S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK) == (
+            S.chain_rows_per_block(d_max, words, 4, H100_SMEM_BLOCK),
+            _full_tensor(dims, shapes, pairs))
+    dims, shapes, pairs = SERVED_CHAINS[3]
+    rows, t_floats = S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK)
+    # 16 columns a stage: two offset tables of 16 ints
+    assert rows == 4 and t_floats == H100_SMEM_BLOCK // 4 - 2 * 16 \
+        - 2 * 4 * 4096 == 25312
+    assert t_floats // (16 * 257) == 6
+    with pytest.raises(ValueError):
+        S.chain_f32_plan(dims, shapes, pairs, 2 * 4096 * 4 + 4112 * 4)
+
+
+def test_f32_chain_meta_mirrors_the_source():
+    """The float32 launcher reads the staged floats after the stages and
+    refuses fewer than one ``a`` row of the widest stage."""
+    text = (CSRC / "quanta_apply.cu").read_text()
+    assert "const int t_cap = sp[6 * p.n_stages];" in text
+    assert "if (t_cap < a_row) return (int)cudaErrorInvalidValue;" in text
+    src = (CSRC.parent / "kernels" / "quanta_apply.py").read_text()
+    assert "meta.append(t_floats)" in src
 
 
 @pytest.mark.parametrize("n,seq", [(8, 384), (8, 1), (4, 16), (5, 13),
@@ -373,6 +433,30 @@ def test_linear_plan_main_path():
     assert plan.gsplits * 8 * 4096 * 4 == 1 << 20
     assert S.quanta_linear_plan(3072, 4096, 4096, True, H100_SMS) == \
         S.LinearPlan(S.LINEAR_PREFILL, 1)
+
+
+def test_dense_family_k_splits():
+    """The K splits of the decode bodies at the dense family's tick (8
+    rows): kernel 2 over the adapted projections, kernel 7 over every
+    projection of yi-6b, phi3-medium-14b and minicpm-2b.  A prefill wave
+    (3072 rows) takes one split but for yi-6b's 4096 -> 512 v_proj."""
+    linear = {(4096, 4096): 8, (4096, 512): 64, (5120, 5120): 6,
+              (5120, 1280): 20, (2304, 2304): 12}
+    for (d_in, d_out), n in linear.items():
+        assert S.quanta_linear_plan(8, d_in, d_out, True, H100_SMS) == \
+            S.LinearPlan(S.LINEAR_DECODE, n)
+        assert S.quanta_linear_plan(3072, d_in, d_out, True, H100_SMS) == \
+            S.LinearPlan(S.LINEAR_PREFILL, 1)
+    qmm = {(4096, 512): 64, (4096, 11008): 3, (11008, 4096): 8,
+           (5120, 5120): 6, (5120, 1280): 20, (5120, 17920): 1,
+           (17920, 5120): 6, (2304, 2304): 12, (2304, 5760): 5,
+           (5760, 2304): 13}
+    for (d_in, d_out), n in qmm.items():
+        assert S.quantized_matmul_plan(8, d_in, d_out, True, H100_SMS) == \
+            (S.QMM_DECODE, n)
+        assert S.quantized_matmul_plan(3072, d_in, d_out, True,
+                                       H100_SMS) == \
+            (S.QMM_PREFILL, 2 if d_out == 512 else 1)
 
 
 def test_linear_plan_mirrors_the_source():

@@ -40,6 +40,7 @@ def _rs(seed):
     (16, 200, 256, 0.3),      # 8 chunks, padded vocab, ignored labels
     (13, 256, 256, 0.0),      # S not divisible: one chunk
     (8, 100, 128, 1.0),       # every label ignored: loss 0
+    (4, 122753, 122880, 0.2),  # minicpm-2b's vocab, padded by 127
 ])
 def test_fused_cross_entropy_matches_jax(s, vocab, vpad, ignore):
     rs = _rs(0)

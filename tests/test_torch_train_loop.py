@@ -6,7 +6,8 @@ to 1e-4 relative at every step over 10 steps (reference attention, and
 kernel 3's Function on its plain version against the JAX kernel in
 interpret mode); a JAX state carried in after 5 steps and run 5 more in
 the port ends where JAX's 10-step run ends; microbatches, fold-free
-QuanTA, ``full_ft`` and int8 compression run 3 steps against JAX."""
+QuanTA, ``full_ft`` and int8 compression run 3 steps against JAX; two
+steps on each of the yi-6b, phi3-medium-14b and minicpm-2b SMOKE configs."""
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +32,9 @@ from repro_torch.train import TrainState, make_eval_step, make_train_step
 RTOL = 1e-4
 
 
-def _setup(backend="reference", fold=True, method="quanta", **peft_kw):
-    jcfg = j_get_smoke("llama2-7b-proxy").replace(attn_backend=backend)
+def _setup(backend="reference", fold=True, method="quanta",
+           arch="llama2-7b-proxy", **peft_kw):
+    jcfg = j_get_smoke(arch).replace(attn_backend=backend)
     jm = j_build_model(jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     if method == "ft":
@@ -40,7 +42,7 @@ def _setup(backend="reference", fold=True, method="quanta", **peft_kw):
     else:
         base, peft = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
             method=method, n_axes=3, fold=fold, **peft_kw))
-    tm = build_model(get_smoke("llama2-7b-proxy").replace(
+    tm = build_model(get_smoke(arch).replace(
         attn_backend=backend), device="cpu")
     tbase = interop.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, base), "cpu")
@@ -98,6 +100,20 @@ def test_ten_steps_match_jax(backend):
     _agree(got, want)
     assert got[-1][0] < got[0][0]
     # the base was never touched, and took no gradient
+    for a, b in zip(tree_leaves(state.params), tree_leaves(tbase)):
+        assert a is b and not a.requires_grad and a.grad is None
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "phi3-medium-14b",
+                                  "minicpm-2b"])
+def test_two_steps_match_jax_on_the_dense_family(arch):
+    """Two AdamW steps of QuanTA (3 axes) on the SMOKE configs of the rest
+    of the dense family, kernel 3's Function on its plain version (GQA
+    groups of 2 and 4; minicpm-2b's head_dim 18 and tied embeddings)."""
+    jm, base, peft, tm, tbase, tpeft = _setup("pallas", arch=arch)
+    want, _ = _jax_run(jm, base, peft, 2)
+    got, state = _torch_run(tm, tbase, tpeft, 2)
+    _agree(got, want)
     for a, b in zip(tree_leaves(state.params), tree_leaves(tbase)):
         assert a is b and not a.requires_grad and a.grad is None
 

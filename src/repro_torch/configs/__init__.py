@@ -1,6 +1,6 @@
-"""Config registry of the port: the dense family of the JAX package's
-registry (``repro/configs``), each arch with its FULL and SMOKE model
-configs, its PEFT config and its notes.  ``get_shapes`` and
+"""Config registry of the port: the dense and MoE families of the JAX
+package's registry (``repro/configs``), each arch with its FULL and SMOKE
+model configs, its PEFT config and its notes.  ``get_shapes`` and
 ``list_cells`` (the JAX registry's shape grid) are not ported."""
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "yi-6b": "yi_6b",
     "llama2-7b-proxy": "llama2_7b_proxy",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 

@@ -1,4 +1,5 @@
-"""Model registry (port of ``repro/models/api.py``, dense family)."""
+"""Model registry (port of ``repro/models/api.py``, dense and MoE
+families)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ __all__ = ["build_model"]
 
 def build_model(cfg: ModelConfig, device=None) -> Transformer:
     """The model of ``cfg`` on ``device`` (default: the card; raises when
-    there is none).  Only the dense family is ported."""
+    there is none): the Transformer for the dense and MoE families; the
+    other families (Griffin, Mamba2) are not ported yet and raise."""
     return Transformer(cfg, device=device)
 

@@ -1,4 +1,4 @@
-"""Shared model-building blocks, dense subset (port of
+"""Shared model-building blocks, the dense and MoE subset (port of
 ``repro/models/common.py``): config, cache slot layout and surgery (dense
 stripes and paged block pools), norms, RoPE, the chunked LM-head cross
 entropy of training, init helpers.
@@ -43,8 +43,17 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of the dense family, with the JAX
-    package's field names and torch dtypes.
+    """Architecture hyperparameters of the dense and MoE families, with
+    the JAX package's field names and torch dtypes.
+
+    The MoE family (``n_experts > 0``: :attr:`is_moe`) routes each token
+    to ``top_k`` of ``n_experts`` expert FFNs (``models/moe.py``); a
+    training forward keeps ``capacity_factor`` times each expert's fair
+    share of tokens (serving never drops), in ``moe_groups`` token groups,
+    and the loss adds ``router_aux_weight`` times the summed router aux
+    loss.  ``fsdp`` is the JAX package's mesh setting (the params sharded
+    over the data axes); on one card it is recorded and has no effect
+    until the port has a mesh.
 
     ``kv_quant`` ("nf4" | "int8" | None) makes the decode step quantize
     each new K/V row on write (paged pools of codes, or the fake-quantized
@@ -91,6 +100,17 @@ class ModelConfig:
     # the config's gradient accumulation for training (0: the caller's
     # choice); a caller passes it to ``make_train_step(microbatches=)``
     train_microbatches: int = 0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_groups: int = 1
+    fsdp: bool = False
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     @property
     def attn_dim(self) -> int:

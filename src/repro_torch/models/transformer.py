@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family (port of
+"""Decoder-only transformer, dense and MoE families (port of
 ``repro/models/transformer.py``).
 
 Parameters are the JAX package's nested dict with layer-stacked leaves
@@ -16,7 +16,12 @@ backbone with one ``torch.utils.checkpoint`` per layer under
 while ``forward``, ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``.  Chunked prefill (:meth:`Transformer.prefill_chunk`)
 stages one prompt a fixed-size chunk at a time in a dense staging cache.
-The MoE branch is not ported yet.
+The MoE family (mixtral, llama4) replaces each layer's MLP by
+``models/moe.moe_ffn`` over the layer-stacked router ``(L, d, E)`` and
+expert stacks ``(L, E, d, ff)``; serving (decode, a chunk, a prefill
+with ``lengths``) never drops a token, while ``forward``, ``loss`` and a
+prefill without ``lengths`` keep the training dispatch, and ``loss``
+adds ``router_aux_weight`` times the aux loss summed over layers.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from repro_torch.models.common import (
     make_rope,
     rms_norm,
 )
+from repro_torch.models.moe import moe_ffn
 
 __all__ = ["Transformer", "padded_vocab"]
 
@@ -67,9 +73,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (dense only)"
+                f"model family {cfg.family!r} is not ported yet (dense and "
+                f"moe only)"
             )
         self.cfg = cfg
         self.device = default_device(device)
@@ -80,8 +87,8 @@ class Transformer(nn.Module):
     # ------------------------------------------------------------------ init
     def init(self, seed) -> Dict[str, Any]:
         """Random weights from ``seed`` (an int or a ``torch.Generator`` on
-        the model's device), drawn in fp32 layer by layer and stored in
-        ``cfg.param_dtype``."""
+        the model's device), drawn in fp32 layer by layer (MoE experts
+        expert by expert) and stored in ``cfg.param_dtype``."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.param_dtype
         if isinstance(seed, torch.Generator):
             gen = seed
@@ -108,16 +115,33 @@ class Transformer(nn.Module):
             attn["q_bias"] = torch.zeros((L, ad), dtype=dt, device=dev)
             attn["k_bias"] = torch.zeros((L, kvd), dtype=dt, device=dev)
             attn["v_bias"] = torch.zeros((L, kvd), dtype=dt, device=dev)
+
+        def experts(d_in, d_out):
+            e = cfg.n_experts
+            out = torch.empty((L, e, d_in, d_out), dtype=dt, device=dev)
+            for i in range(L):
+                for j in range(e):
+                    out[i, j] = dense_init(gen, d_in, d_out, dt, dev)
+            return out
+
         layers = {
             "attn": attn,
             "ln1": torch.ones((L, d), dtype=dt, device=dev),
             "ln2": torch.ones((L, d), dtype=dt, device=dev),
-            "mlp": {
+        }
+        if cfg.is_moe:
+            layers["moe"] = {
+                "router": stack(d, cfg.n_experts),
+                "gate_proj": experts(d, ff),
+                "up_proj": experts(d, ff),
+                "down_proj": experts(ff, d),
+            }
+        else:
+            layers["mlp"] = {
                 "gate_proj": stack(d, ff),
                 "up_proj": stack(d, ff),
                 "down_proj": stack(ff, d),
-            },
-        }
+            }
         params: Dict[str, Any] = {
             "layers": layers,
             "final_norm": torch.ones((d,), dtype=dt, device=dev),
@@ -236,7 +260,11 @@ class Transformer(nn.Module):
         return self._linear(F.silu(g) * u, lp["down_proj"],
                             get_adapter(la, "down_proj"))
 
-    def _layer(self, lp, la, x, *, rope, cache=None, chunk=None):
+    def _layer(self, lp, la, x, *, rope, cache=None, chunk=None,
+               no_drop=None):
+        """One layer: ``(x, aux, new_kv)``; ``aux`` is the MoE router's aux
+        loss (0.0 for the dense family).  ``no_drop`` (MoE) defaults to
+        serving's rule: a cache or a chunk never drops a token."""
         cfg = self.cfg
         h, new_kv = self._attn(
             lp["attn"], la.get("attn", {}),
@@ -245,7 +273,16 @@ class Transformer(nn.Module):
         )
         x = x + h
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + self._mlp(lp["mlp"], la.get("mlp", {}), hn), new_kv
+        if not cfg.is_moe:
+            out = self._mlp(lp["mlp"], la.get("mlp", {}), hn)
+            return x + out, 0.0, new_kv
+        if no_drop is None:
+            no_drop = cache is not None or chunk is not None
+        out, aux = moe_ffn(hn, lp["moe"], n_experts=cfg.n_experts,
+                           top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           no_drop=no_drop, groups=cfg.moe_groups)
+        return x + out, aux, new_kv
 
     def _layers(self, params, peft, adapter_ids=None):
         """``(layer params, layer adapters)`` views, layer by layer; a bank
@@ -257,22 +294,25 @@ class Transformer(nn.Module):
     # --------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, params, batch, peft=None):
-        """Full-sequence forward: ``(logits, aux)``; ``aux`` is 0 for the
-        dense family."""
+        """Full-sequence forward: ``(logits, aux)``; ``aux`` is the MoE
+        aux loss summed over layers (0.0 for the dense family)."""
         cfg = self.cfg
         x = self._embed(params, self._tokens(batch))
         s = x.shape[1]
         rope = make_rope(torch.arange(s, device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
+        aux = 0.0
         for _, lp, la in self._layers(params, peft):
-            x, _ = self._layer(lp, la, x, rope=rope)
+            x, aux_i, _ = self._layer(lp, la, x, rope=rope)
+            aux = aux + aux_i
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self._unembed(params, x), 0.0
+        return self._unembed(params, x), aux
 
     # ----------------------------------------------------------------- train
-    def _hidden(self, params, batch, peft=None) -> torch.Tensor:
-        """Backbone only: the final-norm hidden states ``(B, S, d)``.
-        Under ``cfg.remat`` (with grad on) each layer runs under
+    def _hidden(self, params, batch, peft=None):
+        """Backbone only: the final-norm hidden states ``(B, S, d)`` and
+        the aux loss summed over layers (0.0 for the dense family).  Under
+        ``cfg.remat`` (with grad on) each layer runs under
         ``torch.utils.checkpoint``: only its input is kept, and its
         activations are recomputed in the backward."""
         cfg = self.cfg
@@ -280,14 +320,15 @@ class Transformer(nn.Module):
         rope = make_rope(torch.arange(x.shape[1], device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = 0.0
         for _, lp, la in self._layers(params, peft):
             def body(h, lp=lp, la=la):
-                return self._layer(lp, la, h, rope=rope)[0]
+                return self._layer(lp, la, h, rope=rope)[:2]
 
-            x = (torch.utils.checkpoint.checkpoint(body, x,
-                                                   use_reentrant=False)
-                 if remat else body(x))
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x, aux_i = (torch.utils.checkpoint.checkpoint(
+                body, x, use_reentrant=False) if remat else body(x))
+            aux = aux + aux_i
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def head_weight(self, params) -> torch.Tensor:
         """The LM head ``(d, V_padded)`` in the compute dtype."""
@@ -300,13 +341,17 @@ class Transformer(nn.Module):
         """Training loss: the mean cross entropy of ``batch["labels"]``
         (-100 ignored) through the chunked LM head
         (``common.fused_cross_entropy``), which never holds the whole
-        ``(B, S, V)`` logits.  Differentiable in whatever leaves of
-        ``params`` and ``peft`` require grad."""
+        ``(B, S, V)`` logits, plus ``router_aux_weight`` times the MoE aux
+        loss.  Differentiable in whatever leaves of ``params`` and
+        ``peft`` require grad."""
         labels = torch.as_tensor(batch["labels"], dtype=torch.long,
                                  device=self.device)
-        x = self._hidden(params, batch, peft)
-        return fused_cross_entropy(x, self.head_weight(params), labels,
+        x, aux = self._hidden(params, batch, peft)
+        loss = fused_cross_entropy(x, self.head_weight(params), labels,
                                    self.cfg.vocab_size)
+        if self.cfg.is_moe:
+            loss = loss + self.cfg.router_aux_weight * aux
+        return loss
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None
@@ -347,7 +392,10 @@ class Transformer(nn.Module):
         """Batched prefill of right-padded rows: returns the logits of each
         row's last real position and the wave's cache.  Causality makes the
         right padding exact.  ``adapter_ids`` ``(B,)`` name each row's
-        tenant when ``peft`` is an adapter bank (0 = the base model)."""
+        tenant when ``peft`` is an adapter bank (0 = the base model).  A
+        serving wave (``lengths`` given) never drops an MoE token; without
+        ``lengths`` the training dispatch is kept, as the JAX package's
+        bulk prefill."""
         cfg = self.cfg
         x = self._embed(params, self._tokens(batch))
         b, s, _ = x.shape
@@ -356,8 +404,10 @@ class Transformer(nn.Module):
         shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
         k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_all = torch.empty(shape, dtype=x.dtype, device=x.device)
+        no_drop = lengths is not None
         for i, lp, la in self._layers(params, peft, adapter_ids):
-            x, (k, v) = self._layer(lp, la, x, rope=rope)
+            x, _, (k, v) = self._layer(lp, la, x, rope=rope,
+                                       no_drop=no_drop)
             k_all[i] = k
             v_all[i] = v
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -390,7 +440,7 @@ class Transformer(nn.Module):
         tail = (new_len,) if block_tables is None else (new_len,
                                                         block_tables)
         for i, lp, la in self._layers(params, peft, adapter_ids):
-            x, _ = self._layer(
+            x, _, _ = self._layer(
                 lp, la, x, rope=rope,
                 cache=tuple(cache[key][i] for key in keys) + tail,
             )
@@ -429,7 +479,7 @@ class Transformer(nn.Module):
         rows = torch.clamp(pos, 0, s_stage - c) + offs
         rope = make_rope(q_pos[None, :], cfg.head_dim, cfg.rope_theta)
         for i, lp, la in self._layers(params, peft, adapter_ids):
-            x, _ = self._layer(
+            x, _, _ = self._layer(
                 lp, la, x, rope=rope,
                 chunk=(cache["k"][i], cache["v"][i], rows, q_pos),
             )

@@ -38,8 +38,9 @@ def smoke():
 # (d_in, d_out, dims_in, pairs): llama2-7b-proxy's and qwen2-0.5b's
 # schemes, the q_proj and v_proj chains of yi-6b (16-16-16, GQA 4096 ->
 # 512), phi3-medium-14b (16-8-8-5, 5120 -> 1280) and minicpm-2b
-# (16-12-12), every chain of the card tests (tests/test_torch_cuda.py
-# CHAINS) and a 12-stage schedule
+# (16-12-12), the v_proj chains of mixtral-8x7b (GQA 4096 -> 1024) and
+# llama4-maverick (5120 -> 1024), every chain of the card tests
+# (tests/test_torch_cuda.py CHAINS) and a 12-stage schedule
 CHAINS = [
     (4096, 4096, (16, 8, 8, 4), None),
     (896, 896, (16, 8, 7), None),
@@ -48,6 +49,8 @@ CHAINS = [
     (5120, 5120, (16, 8, 8, 5), None),
     (5120, 1280, (32, 8, 5, 4), None),
     (2304, 2304, (16, 12, 12), None),
+    (4096, 1024, (64, 8, 8), None),
+    (5120, 1024, (40, 8, 4, 4), None),
     (64, 64, (4, 4, 4), None),
     (24, 12, (4, 3, 2), None),
     (128, 256, (8, 4, 4), None),
@@ -191,6 +194,33 @@ def test_dense_family_plans(key):
         assert (ks[0], kps[0]) == (20, 24)
     if d_in == 2304:
         assert H100_SMEM_BLOCK - _plan(ad).smem == 4384
+
+
+# the MoE family's new plans (its q_proj chains are yi-6b's 16-16-16 and
+# phi3-medium-14b's 16-8-8-5): (rows, resident, smem, variant) at the
+# prefill row cap (8) and the decode tick's (1)
+MOE_FAMILY_PLANS = {
+    (4096, 1024, (64, 8, 8)): ((2, True, 206400, 1), (1, True, 190016, 1)),
+    (5120, 1024, (40, 8, 4, 4)): ((8, True, 192128, 0),
+                                  (1, True, 48768, 1)),
+}
+
+
+@pytest.mark.parametrize("key", list(MOE_FAMILY_PLANS),
+                         ids=lambda k: f"{k[0]}->{k[1]}")
+def test_moe_family_plans(key):
+    """mixtral-8x7b's v_proj chain (64, 8, 8) -> (16, 8, 8) contracts k =
+    512 in its middle stage and, at the prefill cap, fits two rows with
+    its tensors resident (4 x 4 micro-tiles); llama4-maverick's (40, 8, 4,
+    4) -> (8, 8, 4, 4) carries an axis of 40 (k = 160) and fits eight."""
+    d_in, d_out, dims = key
+    _, _, ad = _adapter(d_in, d_out, dims, None, torch.bfloat16)
+    for cap, want in zip((8, 1), MOE_FAMILY_PLANS[key]):
+        plan = _plan(ad, cap=cap)
+        assert (plan.rows, plan.resident, plan.smem, plan.variant) == want
+    ks = [st.k for st in _plan(ad).layout.stages]
+    assert ks == ([64, 512, 128] if d_in == 4096
+                  else [16, 32, 160, 32, 32, 64])
 
 
 @pytest.mark.parametrize("d_in,d_out,dims,pairs", CHAINS)

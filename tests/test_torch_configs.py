@@ -1,9 +1,10 @@
 """The port's config registry against the JAX package's: the five dense
 archs (llama2-7b-proxy, qwen2-0.5b, yi-6b, phi3-medium-14b, minicpm-2b)
-serve ``get_config``, ``get_smoke``, ``get_peft`` and ``get_notes``, each
-value equal to its JAX twin's field for field, with ``jnp`` dtypes mapped
-to ``torch``'s; the RoPE tables of yi-6b's base (5e6) equal the JAX
-package's."""
+and the two MoE archs (mixtral-8x7b, llama4-maverick-400b-a17b) serve
+``get_config``, ``get_smoke``, ``get_peft`` and ``get_notes``, each value
+equal to its JAX twin's field for field (the MoE fields and ``fsdp``
+among them), with ``jnp`` dtypes mapped to ``torch``'s; the RoPE tables
+of yi-6b's base (5e6) equal the JAX package's."""
 
 import dataclasses
 
@@ -17,8 +18,10 @@ from repro.models import common as jcommon
 from repro_torch import configs
 from repro_torch.models import common as tcommon
 
-ARCHS = ["llama2-7b-proxy", "qwen2-0.5b", "yi-6b", "phi3-medium-14b",
+DENSE = ["llama2-7b-proxy", "qwen2-0.5b", "yi-6b", "phi3-medium-14b",
          "minicpm-2b"]
+MOE = ["mixtral-8x7b", "llama4-maverick-400b-a17b"]
+ARCHS = DENSE + MOE
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -58,13 +61,21 @@ def test_peft_and_notes_equal_jax(arch):
 
 
 def test_registry_covers_the_dense_family():
-    dense = sorted(a for a in jconfigs._MODULES
-                   if jconfigs.get_config(a).family == "dense")
-    assert sorted(ARCHS) == dense
+    """Every dense and MoE arch of the JAX registry, and no other: the
+    Griffin, Mamba2 and frontend archs raise."""
+    for family, archs in (("dense", DENSE), ("moe", MOE)):
+        assert sorted(archs) == sorted(
+            a for a in jconfigs._MODULES
+            if jconfigs.get_config(a).family == family)
     assert configs.get_config("phi3-medium-14b").train_microbatches == 16
     assert configs.get_config("yi-6b").train_microbatches == 0
-    with pytest.raises(KeyError, match="mixtral"):
-        configs.get_peft("mixtral-8x7b")
+    llama4 = configs.get_config("llama4-maverick-400b-a17b")
+    assert llama4.fsdp and llama4.is_moe and llama4.train_microbatches == 16
+    assert configs.get_smoke("mixtral-8x7b").sliding_window == 48
+    assert not configs.get_config("yi-6b").is_moe
+    for arch in sorted(set(jconfigs._MODULES) - set(ARCHS)):
+        with pytest.raises(KeyError, match=arch):
+            configs.get_peft(arch)
 
 
 def test_rope_tables_take_the_configs_base():

@@ -191,7 +191,8 @@ def test_chain_two_rounds_and_empty_rows(dev):
 
 @functools.lru_cache(maxsize=None)
 def _smoke():
-    """``chip_smoke.py`` as a module (its ``chain_with_product``)."""
+    """``chip_smoke.py`` as a module (its ``chain_with_product``, its MoE
+    reference and planted faults)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -1213,3 +1214,70 @@ def test_folded_bank_group_runs_the_chain_kernel(dtype, dev, monkeypatch):
     assert QA.quanta_apply.launches - before == len(want)
     for b, ref in enumerate(want):
         assert torch.equal(got[b], ref.to(dtype)), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,k,rows", [(8, 2, 300), (16, 1, 77)])
+def test_moe_ffn_matches_every_expert_on_every_token(e, k, rows, dtype,
+                                                     dev):
+    """The MoE FFN's no-drop dispatch on the card against every expert on
+    every token, top-k selected (``chip_smoke.dense_moe_reference``),
+    within the phase-9 limit; its two planted faults exceed it."""
+    smoke = _smoke()
+    from repro_torch.models import moe
+
+    d, ff = 128, 192
+    gen = torch.Generator(device=dev).manual_seed(e + k)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    p = {"router": rnd(d, e, scale=d ** -0.5),
+         "gate_proj": rnd(e, d, ff, scale=d ** -0.5),
+         "up_proj": rnd(e, d, ff, scale=d ** -0.5),
+         "down_proj": rnd(e, ff, d, scale=ff ** -0.5)}
+    x = rnd(1, rows, d)
+    want = smoke.dense_moe_reference(x[0], p, e, k).float()
+
+    def rel():
+        out = moe.moe_ffn(x, p, n_experts=e, top_k=k, capacity_factor=1.25,
+                          no_drop=True)[0][0].float()
+        return float((out - want).abs().max() / want.abs().max())
+
+    tol = smoke.MOE_FFN_TOL if dtype == torch.bfloat16 else 1e-5
+    assert rel() <= tol
+    for what in smoke.MOE_FAULTS:
+        with smoke.planted_moe_fault(what, e):
+            assert rel() > smoke.MOE_FFN_TOL, what
+
+
+def test_moe_engine_decodes_through_one_graph(dev):
+    """The mixtral SMOKE model (bf16, kernel backends) served on the card:
+    the MoE dispatch (sorts, searchsorted, gathers) captures with the
+    rest of the decode tick as one graph, whose tokens equal the same
+    engine's run eagerly, past the 48-token window."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke("mixtral-8x7b").replace(
+        attn_backend="pallas", peft_backend="pallas",
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev)
+    base, peft = attach(1, model.init(0), PeftConfig(n_axes=3), device=dev)
+    outs = {}
+    for eager in (False, True):
+        eng = ServingEngine(model, base, peft, n_slots=3, max_len=96,
+                            device=dev)
+        eng._decode.eager = eager
+        reqs = [Request(uid=i, prompt=[5 + i, 9, 3 * i + 1] * (8 + 6 * i),
+                        max_new_tokens=12) for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs[eager] = [r.output for r in reqs]
+        assert eng.compile_guard.counts() == {"decode": 0 if eager else 1}
+    assert outs[False] == outs[True]
+    assert max(3 * (8 + 6 * i) for i in range(4)) + 12 > cfg.sliding_window

@@ -167,12 +167,13 @@ def test_bank_modules_are_covered(name):
     "repro_torch.analysis", "repro_torch.analysis.sanitize",
     "repro_torch.serve.scheduler", "repro_torch.serve.frontend",
     "repro_torch.serve.engine", "repro_torch.models.attention",
+    "repro_torch.models.moe", "repro_torch.models.transformer",
 ])
 def test_serving_modules_are_covered(name):
     """The capture guard, the scheduler, the front end and the modules
-    the graph tick runs through are among those imported with ``jax``
-    and the JAX package blocked, and among the files whose imports are
-    read."""
+    the graph tick runs through (the MoE FFN among them) are among those
+    imported with ``jax`` and the JAX package blocked, and among the
+    files whose imports are read."""
     _covered(name)
 
 
@@ -180,11 +181,13 @@ def test_serving_modules_are_covered(name):
     "repro_torch.configs", "repro_torch.configs.llama2_7b_proxy",
     "repro_torch.configs.qwen2_0_5b", "repro_torch.configs.yi_6b",
     "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.minicpm_2b",
+    "repro_torch.configs.mixtral_8x7b",
+    "repro_torch.configs.llama4_maverick_400b_a17b",
 ])
 def test_config_modules_are_covered(name):
-    """The config registry and its five dense configs are among the
-    modules imported with ``jax`` and the JAX package blocked, and among
-    the files whose imports are read."""
+    """The config registry, its five dense and two MoE configs are among
+    the modules imported with ``jax`` and the JAX package blocked, and
+    among the files whose imports are read."""
     _covered(name)
 
 

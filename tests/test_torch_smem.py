@@ -252,12 +252,14 @@ def _rect(dims_in, d0_out):
 # the QuanTA schemes the port serves (llama2-7b-proxy's 16-8-8-4 on q/v,
 # qwen2-0.5b's 16-8-7; yi-6b's 16-16-16 and its 4096 -> 512 v_proj,
 # phi3-medium-14b's 16-8-8-5 and its 5120 -> 1280 v_proj, minicpm-2b's
-# 16-12-12) and a 12-stage schedule
+# 16-12-12; mixtral-8x7b's 4096 -> 1024 and llama4-maverick's 5120 ->
+# 1024 v_proj) and a 12-stage schedule
 SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
                  _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2),
                  _chain((16, 16, 16)), _rect((64, 8, 8), 8),
                  _chain((16, 8, 8, 5)), _rect((32, 8, 5, 4), 8),
-                 _chain((16, 12, 12))]
+                 _chain((16, 12, 12)), _rect((64, 8, 8), 16),
+                 _rect((40, 8, 4, 4), 8)]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
@@ -290,10 +292,12 @@ def test_f32_chain_streams_only_what_does_not_fit():
     """The float32 body stages every tensor whole where that fits (the
     row tile of ``chain_rows_per_block``); yi-6b's 16-16-16 (256 x 257
     floats a stage) takes 4 rows and stages 6 of its 16 ``a`` rows of
-    4,112 floats at once; without room for one ``a`` row it raises."""
+    4,112 floats at once, mixtral-8x7b's v_proj (a middle stage of 512 x
+    129 floats) 24 of its 64 ``a`` rows of 1,032; without room for one
+    ``a`` row it raises."""
     for chain in SERVED_CHAINS:
         dims, shapes, pairs = chain
-        if chain is SERVED_CHAINS[3]:
+        if chain is SERVED_CHAINS[3] or chain is SERVED_CHAINS[8]:
             continue
         words = S.chain_stage_words(dims, shapes, pairs)
         from repro_torch.kernels.quanta_apply import chain_widths
@@ -310,6 +314,13 @@ def test_f32_chain_streams_only_what_does_not_fit():
     assert t_floats // (16 * 257) == 6
     with pytest.raises(ValueError):
         S.chain_f32_plan(dims, shapes, pairs, 2 * 4096 * 4 + 4112 * 4)
+    dims, shapes, pairs = SERVED_CHAINS[8]
+    rows, t_floats = S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK)
+    # 64 columns in the widest stage: two offset tables of 64 ints
+    assert rows == 4 and t_floats == H100_SMEM_BLOCK // 4 - 2 * 64 \
+        - 2 * 4 * 4096 == 25216
+    assert t_floats // (8 * 129) == 24 and _full_tensor(
+        dims, shapes, pairs) == 512 * 129
 
 
 def test_f32_chain_meta_mirrors_the_source():
@@ -457,6 +468,25 @@ def test_dense_family_k_splits():
         assert S.quantized_matmul_plan(3072, d_in, d_out, True,
                                        H100_SMS) == \
             (S.QMM_PREFILL, 2 if d_out == 512 else 1)
+
+
+def test_moe_family_k_splits():
+    """The K splits of the decode bodies at the MoE family's tick (8 rows)
+    over its GQA v_proj and o_proj shapes: kernel 2 on mixtral-8x7b's 4096
+    -> 1024 and llama4-maverick's 5120 -> 1024 v_proj, kernel 7 on the
+    attention projections an NF4 base packs (the expert stacks stay
+    unpacked).  A prefill wave (3072 rows) takes one split."""
+    splits = {(4096, 1024): 32, (5120, 1024): 27, (4096, 4096): 8,
+              (5120, 5120): 6}
+    for (d_in, d_out), n in splits.items():
+        assert S.quanta_linear_plan(8, d_in, d_out, True, H100_SMS) == \
+            S.LinearPlan(S.LINEAR_DECODE, n)
+        assert S.quantized_matmul_plan(8, d_in, d_out, True, H100_SMS) == \
+            (S.QMM_DECODE, n)
+        assert S.quanta_linear_plan(3072, d_in, d_out, True, H100_SMS) == \
+            S.LinearPlan(S.LINEAR_PREFILL, 1)
+        assert S.quantized_matmul_plan(3072, d_in, d_out, True,
+                                       H100_SMS) == (S.QMM_PREFILL, 1)
 
 
 def test_linear_plan_mirrors_the_source():

@@ -252,3 +252,131 @@ def test_flash_grad_limit_lies_between_sound_and_coarse(smoke, window):
     coarse = (smoke.round_bits(t, smoke.GRAD_CONTROL_CAUGHT)
               for t in (q, k, v, g))
     assert smoke._grad_rel(smoke._flash_grads(fn, *coarse), ref) > tol
+
+
+def _moe_inputs(e, d, ff, rows, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+    p = {"router": rnd(d, e, scale=d ** -0.5),
+         "gate_proj": rnd(e, d, ff, scale=d ** -0.5),
+         "up_proj": rnd(e, d, ff, scale=d ** -0.5),
+         "down_proj": rnd(e, ff, d, scale=ff ** -0.5)}
+    return rnd(1, rows, d), p
+
+
+@pytest.mark.parametrize("e,k", [(8, 2), (16, 1)])
+def test_dense_moe_reference_and_planted_faults(smoke, e, k):
+    """Phase 9's reference (every expert on every token, top-k selected)
+    equals the JAX package's test model of it
+    (``tests/test_components.py`` ``_dense_moe_reference``) in f32; the
+    no-drop MoE FFN meets the phase's limit against it in bf16, and both
+    planted faults exceed it, the FFN whole again once each is lifted."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro_torch.models import moe
+
+    x, p = _moe_inputs(e, 32, 48, 96, torch.float32)
+    jp = {n: jnp.asarray(t.numpy()) for n, t in p.items()}
+    xj = jnp.asarray(x[0].numpy())
+    gv, gi = jax.lax.top_k(jax.nn.softmax(xj @ jp["router"], -1), k)
+    gv = gv / gv.sum(-1, keepdims=True)
+    h = jnp.einsum("td,edf->tef", xj, jp["gate_proj"])
+    u = jnp.einsum("td,edf->tef", xj, jp["up_proj"])
+    y = jnp.einsum("tef,efd->ted", jax.nn.silu(h) * u, jp["down_proj"])
+    want = (jnp.take_along_axis(y, gi[:, :, None], axis=1)
+            * gv[..., None]).sum(1)
+    np.testing.assert_allclose(
+        smoke.dense_moe_reference(x[0], p, e, k).numpy(), np.asarray(want),
+        rtol=1e-5, atol=1e-5)
+    xb, pb = _moe_inputs(e, 32, 48, 96, torch.bfloat16, seed=1)
+    ref = smoke.dense_moe_reference(xb[0], pb, e, k).float()
+
+    def rel():
+        out = moe.moe_ffn(xb, pb, n_experts=e, top_k=k, capacity_factor=1.25,
+                          no_drop=True)[0][0].float()
+        return float((out - ref).abs().max() / ref.abs().max())
+
+    sound = rel()
+    assert sound <= smoke.MOE_FFN_TOL
+    for what in smoke.MOE_FAULTS:
+        with smoke.planted_moe_fault(what, e):
+            assert rel() > smoke.MOE_FFN_TOL, what
+        assert rel() == sound
+
+
+def test_recorded_routing_sees_each_layer_and_restores(smoke):
+    """The routing recorder of phase 9 sees one call a layer, with the
+    experts the FFN picked and each token's top-k gap, and puts
+    ``top_k_gates`` back."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model, moe
+
+    real = moe.top_k_gates
+    cfg = get_smoke("mixtral-8x7b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    with smoke.recorded_routing() as calls:
+        model.forward(params, {"tokens": toks})
+    assert moe.top_k_gates is real
+    assert len(calls) == cfg.n_layers
+    for idx, gap in calls:
+        assert idx.shape == (1, 24, cfg.top_k) and gap.shape == (1, 24)
+        assert bool((gap >= 0).all())
+
+
+def test_pinned_routing_replays_the_recorded_experts(smoke):
+    """A prefill under ``pinned_routing`` of a recorded run picks that
+    run's experts in every layer: the same model gives the same logits,
+    another model (its router changed) routes as the recorded one did."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+
+    cfg = get_smoke("llama4-maverick-400b-a17b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    batch, lens = {"tokens": toks}, torch.tensor([12, 7])
+    with smoke.recorded_routing() as calls:
+        want, _ = model.prefill(params, None, batch, lengths=lens)
+    with smoke.pinned_routing(calls):
+        got, _ = model.prefill(params, None, batch, lengths=lens)
+    assert torch.equal(got, want)
+    other = dict(params, layers=dict(params["layers"], moe=dict(
+        params["layers"]["moe"],
+        router=params["layers"]["moe"]["router"].flip(-1))))
+    with smoke.recorded_routing() as free:
+        model.prefill(other, None, batch, lengths=lens)
+    with smoke.pinned_routing(calls), smoke.recorded_routing() as pinned:
+        model.prefill(other, None, batch, lengths=lens)
+    assert any(not torch.equal(a, b) for (a, _), (b, _) in zip(calls, free))
+    assert all(torch.equal(a, b) for (a, _), (b, _) in zip(calls, pinned))
+
+
+def test_correct_sums_is_a_sum_order_control(smoke):
+    """Under ``correct_sums`` the plain decode takes its fp32 product sums
+    correctly rounded: the same arithmetic in another sum order, within
+    the bf16 max_rel limit of the plain version (and off from it by a
+    share that the phase-9 long-window checks take as their floor);
+    ``torch.einsum`` is itself again afterwards."""
+    real = torch.einsum
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(4, 1, 8, 64, generator=gen).to(torch.bfloat16)
+    kc = torch.randn(4, 256, 2, 64, generator=gen).to(torch.bfloat16)
+    vc = torch.randn(4, 256, 2, 64, generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([256, 100, 7, 200], dtype=torch.int32)
+    want = FA.flash_decode_attention_plain(q, kc, vc, lens, window=64)
+    with smoke.correct_sums():
+        control = FA.flash_decode_attention_plain(q, kc, vc, lens, window=64)
+    assert torch.einsum is real
+    st = smoke.error_stats(control, want, torch.bfloat16)
+    assert st["max_rel"] <= 2 ** -7
+    _, ok, limits = smoke.judge("flash_decode_attention", control, want,
+                                torch.bfloat16, off_floor=st["off"])
+    assert ok and "control" in limits

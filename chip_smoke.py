@@ -123,7 +123,8 @@ Phases, one line or more each before the last:
    prefill wave, over 8 graph ticks (the profiler names the kernels a
    replay launches) and over one eager tick, by kernel, on the dense
    path, the QLoRA path (NF4 KV, then bf16 KV rows) and the bank (and in
-   phase 9 on each MoE cut's adapted dense path);
+   phase 9 on each MoE cut's adapted dense path, in phase 10 on
+   recurrentgemma-2b's);
 7. train: kernel 3 under autograd at the training shape (B 8, S 512, 32
    heads of 128; bf16 and f32, and a window): the Function's output
    equals the kernel's and its dq, dk, dv equal autograd of the plain
@@ -188,6 +189,25 @@ Phases, one line or more each before the last:
    and paged engines (identical tokens); (d) mixtral trains 3 steps at 8
    x 512 (capacity drops per layer and the aux term of the loss printed);
    the seconds of each part.
+10. the hybrid family: recurrentgemma-2b (Griffin) whole, 26 layers at
+   every width (7.10 GB in bf16), through phase 8's functions: (a) the
+   kernel checks at its shapes, a planted fault in every case (kernels 1
+   and 2 on its q_proj/rec_proj chain 16-16-10 and its 2560 -> 256
+   v_proj chain at 3072 and 8 rows, kernel 3 at head_dim 256 at (8, 384,
+   10 over 1) and over one 2600-token prompt under its 2048 window, both
+   judged with the sum-order control (on two more seeds too, untimed:
+   ``hd256_seeds``), its fault QK^T over the first 128
+   columns of head_dim; kernel 7 NF4 at its four shapes; no decode
+   kernel, which its ring decode does not run); (b) its f32 cut of 5
+   layers (one macro block and the 2-layer tail): kernel vs plain tokens
+   on the dense ring, paged rows, NF4 KV over shared codes and an NF4
+   base, and one 2040 + 32 token request, whose ring wraps, through the
+   dense, paged and plain engines; (c) bf16 serving adapted and merged
+   (held at ``HYBRID_SERVE_LOGIT_TOL``, as is the adapted model through
+   the plain versions), QLoRA, graph ticks bit for bit their eager
+   twins, then a 2600-token and a 2040-token request (32 new tokens each)
+   through the dense and paged engines (identical tokens); (d) 3 training
+   steps at 8 x 512; the seconds of each part.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -204,8 +224,10 @@ at the training shape, and its bf16 forward against its plain version
 there (``train_max_abs_err``, ``train_off``) beside the planted fault's
 ``train_fault_off``.  Each row also carries ``dense_family``: per config
 of phase 8 the kernel's launches in that config's serve runs and its
-readings at that config's shapes, and ``moe_family`` the same per MoE
-config, with ``long_launches`` from the long request's runs.
+readings at that config's shapes, ``moe_family`` the same per MoE
+config, with ``long_launches`` from the long request's runs, and
+``griffin`` the same for recurrentgemma-2b (its ``long_launches`` from
+the long requests' dense run; its readings with head_dim 256).
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -310,8 +332,15 @@ DENSE_KERNELS = ("quanta_apply", "quanta_linear", "flash_attention",
 # differ by where bf16 rounds (W0' + T merged in fp32 then rounded, vs the
 # chain rounded per stage), compounded over 32 layers.  About twice the
 # sound reading on the H100 (0.0285, PERF.md); a planted fault (the first
-# chain stage skipped, 0.549 there) must exceed it
+# chain stage skipped, 0.549 there) must exceed it.
 SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
+# the hybrid family (recurrentgemma-2b): QuanTA on every rec_proj runs
+# through the RG-LRU recurrence, and the bf16 rounding of the two sides
+# moves the logits further apart there.  Adapted vs merged read 7.176e-2
+# through the kernels and 7.562e-2 through the plain versions on the H100
+# (PERF.md): about twice those, as the dense family's 0.06 is twice its
+# reading.  The planted fault read 1.256.
+HYBRID_SERVE_LOGIT_TOL = 0.15
 # one decode step of the 32-layer bf16 model over an NF4 base: paged NF4 KV
 # pool vs dense cache of the fake-quantized rows.  Both hold the same
 # values.  The paged NF4 decode (kernel 6) and the dense bf16 decode
@@ -617,9 +646,14 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     quantized matmul (kernel 7, NF4) on every projection.  With
     ``extras`` (llama2-7b-proxy) also a masked tail of rows, sliding
     windows, int8 codes, a row-col normalized NF4 weight, the launch
-    splits, a planted fault of each kernel and kernel 8.  Returns the bf16
-    record of each kernel at the main shapes and every bf16 reading by
-    kernel and label."""
+    splits, a planted fault of each kernel and kernel 8.  The hybrid
+    family (Griffin: rec_proj shares q_proj's shape) skips kernels 4-6,
+    which its ring decode does not run, runs kernel 3 over one
+    ``GRIFFIN_LONG[0]``-token prompt under its ``local_window``, and
+    plants a fault in every case of kernels 1, 2, 3 and 7 (the forward's
+    at head_dim above 128: QK^T over its first 128 columns only).
+    Returns the bf16 record of each kernel at the main shapes and every
+    bf16 reading by kernel and label."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.peft import choose_dims
@@ -639,6 +673,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
 
     gen = torch.Generator(device=dev).manual_seed(11)
     records, readings = {}, {}
+    hybrid = cfg.family == "hybrid"
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     gqa = dict(enable_gqa=True) if kv != h else {}
@@ -654,6 +689,9 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                  else LONG_OFF_FACTOR
                  * error_stats(control, want, dtype)["off"])
         st, ok, limits = judge(name, got, want, dtype, floor)
+        if floor is not None:      # how far the kernel is from exact sums
+            limits += (f"; kernel off the control "
+                       f"{error_stats(got, control, dtype)['off']:.3e}")
         b_ms, b_by = bound(nbytes, flops, dtype)
         print(f"check {cfg.name} {name} {label} {str(dtype)[6:]}: "
               f"{stats_text(st)} ({limits}) {'ok' if ok else 'FAIL'} | "
@@ -690,7 +728,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     chain_rows = ((3072, "prefill", True), (8, "decode", False)) + (
         ((1001, "tail", False),) if extras else ())
     projs = {}
-    for proj, d_out in (("q_proj", h * hd), ("v_proj", kv * hd)):
+    for proj, d_out in (("q_proj", h * hd), ("v_proj", kv * hd)) + (
+            (("rec_proj", cfg.lru_width or d),) if hybrid else ()):
         projs.setdefault((d, d_out), proj)
     for dtype in (torch.bfloat16, torch.float32):
         sz = torch.tensor([], dtype=dtype).element_size()
@@ -734,6 +773,19 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                            x, tensors, dims, pairs)),
                        (rows * (d_in + d_out) + d_in * d_out) * sz + t_bytes,
                        2 * rows * (d_in * d_out + macs), main)
+                if hybrid and dtype == torch.bfloat16:
+                    planted("quanta_apply", "one stage's pair axes swapped",
+                            apply_sequential(x, swapped_stage(
+                                tensors, len(tensors) // 2), dims, pairs),
+                            chain)
+                    planted("quanta_linear", "the last K split dropped"
+                            if phase == "decode"
+                            else "x @ W rounded before the delta",
+                            last_split_dropped(x, w, chain,
+                                               device_limits(dev).sms)
+                            if phase == "decode"
+                            else ((x.float() @ w.float()).to(dtype).float()
+                                  + chain.float()).to(dtype), want)
                 if not (extras and dtype == torch.bfloat16):
                     continue
                 print(f"check {cfg.name} quanta_linear {label}: "
@@ -768,10 +820,10 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         attn = ((8, 384, None, "S=384", True),) + (
             ((8, 300, None, "S=300 tail", False),
              (8, 384, 100, "S=384 window=100", False)) if extras else ())
-        win = cfg.sliding_window
+        win = cfg.local_window if hybrid else cfg.sliding_window
+        long_s = GRIFFIN_LONG[0] if hybrid else LONG_PROMPT
         if win is not None and not extras:
-            attn += ((1, LONG_PROMPT, win, f"S={LONG_PROMPT} window={win}",
-                      False),)
+            attn += ((1, long_s, win, f"S={long_s} window={win}", False),)
         for b, s, window, label, main in attn:
             label = f"({b}, {s}) {heads} {label}"
             q = rnd(b, s, h, hd, dtype=dtype)
@@ -779,17 +831,25 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
             v = rnd(b, s, kv, hd, dtype=dtype)
             want = FA.flash_attention_plain(q, k, v, window=window)
             pairs_vis = sum(min(i + 1, window or i + 1) for i in range(s))
-            lib = None
-            if window is None:
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                lib = timed(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, **gqa))
-            # the long request's shape: bf16 judged with a sum-order
-            # control (correct_sums), the plain version (1.8 s a call)
-            # timed over 2 calls
-            long = s == LONG_PROMPT
+            # library: SDPA, causal, or under a window with the causal band
+            # (0 <= i - j < window) as a boolean mask
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            band = None
+            if window is not None:
+                i = torch.arange(s, device=dev)
+                band = ((i[:, None] >= i[None, :])
+                        & (i[:, None] - i[None, :] < window))
+            lib = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, is_causal=band is None, **gqa))
+            del qt, kt, vt, band
+            # the long request's shape, and any head_dim above 128 (where
+            # the control itself is off the plain version by more than
+            # 1e-4): bf16 judged with a sum-order control (correct_sums);
+            # the long shape's plain version (1.8 s a call) timed over 2
+            # calls
+            long = s == long_s
             control = None
-            if long and dtype == torch.bfloat16:
+            if (long or hd > 128) and dtype == torch.bfloat16:
                 with correct_sums():
                     control = FA.flash_attention_plain(q, k, v,
                                                        window=window)
@@ -806,6 +866,16 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                         FA.flash_attention_plain(q, k, v.float(),
                                                  window=window).to(dtype),
                         want, control)
+            if hybrid and hd > 128 and dtype == torch.bfloat16:
+                half = q.clone()
+                half[..., 128:] = 0
+                planted("flash_attention",
+                        "QK^T over the first 128 columns of head_dim",
+                        FA.flash_attention_plain(
+                            half, k, v, window=window,
+                            softmax_scale=1.0 / math.sqrt(hd)),
+                        want, control)
+                del half
             del q, k, v, control
 
         # decode attention: 8 slots over a 512-entry cache, mixed lengths,
@@ -813,11 +883,13 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         # cache of the long request's max_len, most of them past the
         # window; in bf16 the split decode (score chunks of 64 keys)
         b = 8
-        caches = [(512, (33, 100, 385, 512, 1, 64, 65, 200),
-                   ((None, "S_max=512", True),) + (
-                       ((50, "S_max=512 window=50", False),) if extras
-                       else ()))]
-        if win is not None and not extras:
+        # (none for the hybrid family: its ring decode is plain PyTorch)
+        caches = [] if hybrid else [
+            (512, (33, 100, 385, 512, 1, 64, 65, 200),
+             ((None, "S_max=512", True),) + (
+                 ((50, "S_max=512 window=50", False),) if extras
+                 else ()))]
+        if win is not None and not extras and not hybrid:
             caches.append((LONG_MAX_LEN, (LONG_PROMPT + LONG_NEW, win + 1,
                                           5000, LONG_MAX_LEN, 100, 4200,
                                           4500, 1),
@@ -826,14 +898,17 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         for s_max, lens, windows in caches:
             chunk = decode_plan(s_max, hd, h // kv).chunk
             lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-            mask = (torch.arange(s_max, device=dev)[None, :]
-                    < lens[:, None])[:, None, None, :]
             q = rnd(b, 1, h, hd, dtype=dtype)
 
-            def sdpa(kt, vt):            # over a dense (B, S, KV, hd) cache
+            def sdpa(kt, vt, window=None):   # over a dense (B, S, KV, hd)
+                # cache: the slot's rows, under a window its last ones
+                j = torch.arange(s_max, device=dev)[None, :]
+                mask = j < lens[:, None]
+                if window is not None:
+                    mask &= lens[:, None] - 1 - j < window
                 return F.scaled_dot_product_attention(
                     q.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
-                    attn_mask=mask, **gqa)
+                    attn_mask=mask[:, None, None, :], **gqa)
 
             kc = rnd(b, s_max, kv, hd, dtype=dtype)
             vc = rnd(b, s_max, kv, hd, dtype=dtype)
@@ -858,7 +933,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                            q, kc, vc, lens, window=window)),
                        timed(lambda: FA.flash_decode_attention_plain(
                            q, kc, vc, lens, window=window)),
-                       timed(lambda: sdpa(kc, vc)) if window is None else None,
+                       timed(lambda: sdpa(kc, vc, window)),
                        (2 * b * h * hd + 2 * sum(used) * kv * hd) * sz + 4 * b,
                        4 * hd * h * sum(used), main, control)
                 if (extras and main or long) and dtype == torch.bfloat16:
@@ -923,14 +998,13 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                     if (dtype == torch.bfloat16 or quant is None) and not same:
                         fail(f"{cfg.name}: {name} {label} differs from "
                              f"the dense decode kernel")
-                    lib = None
-                    if window is None and quant is None:
+                    if quant is None:
                         # SDPA over the cache gathered beforehand
-                        lib = timed(lambda: sdpa(kg, vg))
-                    elif window is None:
+                        lib = timed(lambda: sdpa(kg, vg, window))
+                    else:
                         # decode the codes, then SDPA: one timed call
                         lib = timed(lambda: sdpa(*FA.gather_kv(
-                            q, k_src, v_src, tables, **kw)))
+                            q, k_src, v_src, tables, **kw), window))
                     del kg, vg
                     report(name, label, dtype, got, want,
                            timed(lambda: FA.paged_flash_decode_attention(
@@ -1012,7 +1086,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                timed(lambda: torch.matmul(x, wd)),
                                rows * (d_in + d_out) * sz + w_bytes,
                                2 * rows * d_in * d_out, main)
-                        if extras and main and dtype == torch.bfloat16:
+                        if ((extras and main or hybrid and rows == 3072)
+                                and dtype == torch.bfloat16):
                             p = qw.packed
                             swapped = dataclasses.replace(
                                 qw, packed=(p << 4) | (p >> 4))
@@ -1292,19 +1367,41 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
+def _quanta(cfg, n_axes):
+    """Folded QuanTA at ``cfg``'s scheme: on q/v, and for the hybrid
+    family on its config's targets (attention q/v and every rec_proj)."""
+    from repro_torch.configs import get_peft
+    from repro_torch.core.peft import PeftConfig
+
+    kw = (dict(targets=get_peft(GRIFFIN).targets)
+          if cfg.family == "hybrid" else {})
+    return PeftConfig(method="quanta", n_axes=n_axes,
+                      scheme=cfg.quanta_scheme, **kw)
+
+
+def _targets_text(cfg):
+    return "q/v and every rec_proj" if cfg.family == "hybrid" else "q/v"
+
+
+def _attn_layers(cfg):
+    """Attention layers of ``cfg``: one a macro block in the hybrid
+    family, every layer otherwise."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period
+    return cfg.n_layers
+
+
 def _adapted(cfg, seed, dev, n_axes=4):
     """Random base + folded QuanTA on q/v (``n_axes``, the config's
-    scheme) with tensors perturbed away from S, so the adapter's delta is
-    not zero."""
+    scheme; :func:`_quanta`) with tensors perturbed away from S, so the
+    adapter's delta is not zero."""
     import torch
-    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.core.peft import attach
     from repro_torch.models import build_model
 
     model = build_model(cfg, device=dev)
     params = model.init(seed)
-    base, peft = attach(seed + 1, params, PeftConfig(
-        method="quanta", n_axes=n_axes, scheme=cfg.quanta_scheme),
-        device=dev)
+    base, peft = attach(seed + 1, params, _quanta(cfg, n_axes), device=dev)
     del params
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     for a in peft.flat().values():
@@ -1602,8 +1699,8 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
     print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.param_dtype}, QuanTA {cfg.quanta_scheme} on q/v "
-          f"({peft.num_params} params), set-up "
+          f"{cfg.param_dtype}, QuanTA {cfg.quanta_scheme} on "
+          f"{_targets_text(cfg)} ({peft.num_params} params), set-up "
           f"{time.monotonic() - t0:.1f} s")
     gen = torch.Generator().manual_seed(9)
     lengths = [32, 82, 132, 182, 232, 282, 332, 384]
@@ -1621,7 +1718,7 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
           f"8 prompts, {sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms "
           f"(wall, {stats['decode_calls']} ticks), stats {stats}, launches "
           f"{counts} [{card}]")
-    counts = {k: counts[k] for k in DENSE_KERNELS}
+    counts = {k: counts[k] for k in _path_kernels(cfg, DENSE_KERNELS)}
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         raise AssertionError(f"{cfg.name}: kernels never launched on the "
@@ -1666,11 +1763,30 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
         raise AssertionError(f"{cfg.name}: non-finite prefill logits")
     rel = float((la - lm).abs().max() / lm.abs().max())
     read["adapted_vs_merged_max_rel"] = rel
+    tol = SERVE_LOGIT_TOL
+    if cfg.family == "hybrid":
+        # the same adapted model through the plain versions, judged as the
+        # kernels are: what bf16 rounding alone puts between adapted and
+        # merged here
+        tol = HYBRID_SERVE_LOGIT_TOL
+        plain = type(model)(cfg.replace(attn_backend="reference",
+                                        peft_backend="reference"),
+                            device=dev)
+        lp, _ = plain.prefill(base, peft, batch, lengths=lens)
+        lp = lp[..., :cfg.vocab_size].float()
+        rel_p = float((lp - lm).abs().max() / lm.abs().max())
+        del lp, plain
+        read["plain_adapted_vs_merged_max_rel"] = rel_p
+        print(f"serve {cfg.name}: adapted (plain versions) vs merged "
+              f"prefill logits max_rel {rel_p:.3e} (tolerance {tol})")
+        if rel_p > tol:
+            fail(f"{cfg.name}: adapted (plain) and merged prefill logits "
+                 f"disagree")
     print(f"serve {cfg.name}: adapted vs merged prefill logits"
           f"{' (routing of the adapted run)' if cfg.is_moe else ''} max_rel "
-          f"{rel:.3e} (tolerance {SERVE_LOGIT_TOL}); logits shape "
+          f"{rel:.3e} (tolerance {tol}); logits shape "
           f"{tuple(la.shape)}")
-    if rel > SERVE_LOGIT_TOL:
+    if rel > tol:
         fail(f"{cfg.name}: adapted and merged prefill logits disagree")
     del la
     # planted fault: the first chain stage of every adapter skipped (its
@@ -1690,8 +1806,8 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
     del lf, lm
     print(f"fault serve {cfg.name} (first chain stage skipped): adapted vs "
           f"merged prefill logits max_rel {rel_f:.3e} "
-          f"{'caught' if rel_f > SERVE_LOGIT_TOL else 'passes: too loose'}")
-    if rel_f <= SERVE_LOGIT_TOL:
+          f"{'caught' if rel_f > tol else 'passes: too loose'}")
+    if rel_f <= tol:
         fail(f"{cfg.name}: a skipped chain stage passes the serve logit "
              f"tolerance")
     eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
@@ -1716,6 +1832,14 @@ QLORA_KERNELS = {
     "bf16 KV": ("quanta_apply", "flash_attention",
                 "paged_flash_decode_attention", "quantized_matmul"),
 }
+
+
+def _path_kernels(cfg, names):
+    """The kernels of ``names`` on ``cfg``'s serving path: the hybrid
+    family's ring decode runs no decode kernel (4-6)."""
+    if cfg.family != "hybrid":
+        return names
+    return tuple(n for n in names if "decode" not in n)
 
 
 def _decode_once(eng, toks):
@@ -1775,14 +1899,16 @@ def qlora_serve(card, dev, model, base, peft, prompts):
               f"{stats['peak_block_utilization']:.3f} of "
               f"{stats['blocks_total']} blocks, preemptions "
               f"{stats['preempted']}, launches {run} [{card}]")
-        missing = [k for k in QLORA_KERNELS[label] if run[k] == 0]
+        missing = [k for k in _path_kernels(cfg, QLORA_KERNELS[label])
+                   if run[k] == 0]
         if missing:
             raise AssertionError(f"{cfg.name}: kernels never launched on "
                                  f"the {label} path: {missing}")
         if any(len(r) != 32 for r in outs[label]):
             raise AssertionError(f"{cfg.name}: a request did not get its "
                                  f"32 tokens")
-        counts.update({k: run[k] for k in QLORA_KERNELS[label]
+        counts.update({k: run[k]
+                       for k in _path_kernels(cfg, QLORA_KERNELS[label])
                        if k.startswith(("paged", "quantized"))})
     agree = sum(a == b for ra, rb in zip(outs["nf4 KV"], outs["bf16 KV"])
                 for a, b in zip(ra, rb))
@@ -1816,9 +1942,11 @@ def qlora_serve(card, dev, model, base, peft, prompts):
     lp = _decode_once(ep, toks)
     ld = _decode_once(ed, toks)
     rel = rel_err(lp, ld)
-    print(f"qlora {cfg.name}: one decode step, paged NF4 pool (kernel 6, split decode "
-          f"with a code loader) vs dense fake-quantized cache (kernel 4, "
-          f"split decode), logits "
+    how = ("(kernel 6, split decode with a code loader) vs dense "
+           "fake-quantized cache (kernel 4, split decode)"
+           if cfg.family != "hybrid" else
+           "ring vs dense fake-quantized ring (plain PyTorch over both)")
+    print(f"qlora {cfg.name}: one decode step, paged NF4 pool {how}, logits "
           f"max_rel {rel:.3e} (tolerance {PAGED_LOGIT_TOL:g}); logits shape "
           f"{tuple(ld.shape)}")
     if rel > PAGED_LOGIT_TOL:
@@ -2113,8 +2241,9 @@ FE_POOL_BLOCKS = 24
 
 def graph_vs_eager(eng, label, card, ticks=8):
     """One decode tick of ``eng`` (its graph captured already) run eagerly
-    and then replayed from the same state (``len`` put back; the replay
-    rewrites the same K/V rows): the logits must be equal bit for bit.
+    and then replayed from the same state (``len`` and any recurrent
+    states put back; the replay rewrites the same K/V rows): the logits
+    must be equal bit for bit.
     Then the wall time of ``ticks`` graph ticks and of ``ticks`` eager
     ticks over the same engine, each tick to its tokens on the host, in
     the order graph, eager, eager, graph.  Returns the per-tick ms of the
@@ -2138,11 +2267,13 @@ def graph_vs_eager(eng, label, card, ticks=8):
 
     if eng.pager is not None:
         eng._ensure_growth(active)
-    before = eng.cache["len"].clone()
+    # the slot-state leaves (``len``, a recurrent model's states)
+    before = {k: eng.cache[k].clone() for k in eng._state_keys}
     eng._decode.eager = True
     le = eng.dispatch_decode(eng._last_token, active).clone()
     eng._decode.eager = False
-    eng.cache["len"].copy_(before)
+    for k, t in before.items():
+        eng.cache[k].copy_(t)
     lg = eng.dispatch_decode(eng._last_token, active).clone()
     eng._lengths[active] += 1
     same = torch.equal(le, lg)
@@ -2753,15 +2884,15 @@ def train_flash(card, dev):
 
 
 def _train_models(cfg, dev, seed, n_axes=4):
-    """A random base with folded QuanTA on q/v, and the training model
-    (``peft_backend="reference"``: the QuanTA kernels have no backward)."""
-    from repro_torch.core.peft import PeftConfig, attach
+    """A random base with folded QuanTA on q/v (:func:`_quanta`), and the
+    training model (``peft_backend="reference"``: the QuanTA kernels have
+    no backward)."""
+    from repro_torch.core.peft import attach
     from repro_torch.models import build_model
 
     model = build_model(cfg.replace(peft_backend="reference"), device=dev)
-    base, peft = attach(seed + 1, model.init(seed), PeftConfig(
-        method="quanta", n_axes=n_axes, scheme=cfg.quanta_scheme),
-        device=dev)
+    base, peft = attach(seed + 1, model.init(seed), _quanta(cfg, n_axes),
+                        device=dev)
     return model, base, peft
 
 
@@ -2937,7 +3068,8 @@ def full_train(card, dev, cfg, n_axes, steps, profile=False, extras=False):
     batch = max(TRAIN_BATCH, micro)
     torch.cuda.synchronize()
     print(f"train: {cfg.name}, {cfg.n_layers} layers, {cfg.param_dtype}, "
-          f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} trainable "
+          f"QuanTA {cfg.quanta_scheme} on {_targets_text(cfg)} "
+          f"({peft.num_params} trainable "
           f"params, float32), remat {cfg.remat}, set-up "
           f"{time.monotonic() - t0:.1f} s ({held / 2 ** 30:.2f} GiB held "
           f"on the card before it); {steps} AdamW steps (lr 5e-3, clip 1.0) "
@@ -2967,13 +3099,14 @@ def full_train(card, dev, cfg, n_axes, steps, profile=False, extras=False):
     same_base = [_checksum(t) for t in _leaves(state.params)] == sums
     no_grad = all(not t.requires_grad and t.grad is None
                   for t in _leaves(state.params))
+    n_attn = _attn_layers(cfg)
     ok = (all(math.isfinite(x) and x > 0 for m in metrics for x in m)
           and changed == len(start) and same_base and no_grad
-          and per_step == [2 * cfg.n_layers * micro] * steps)
+          and per_step == [2 * n_attn * micro] * steps)
     print(f"train {cfg.name}: {changed}/{len(start)} adapter tensors "
           f"changed; base weights unchanged bit for bit {same_base}, none "
           f"requires grad or holds .grad {no_grad}; kernel 3 launches per "
-          f"step {per_step} (expected {2 * cfg.n_layers * micro}: forward "
+          f"step {per_step} (expected {2 * n_attn * micro}: forward "
           f"plus remat, each microbatch) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{cfg.name}: the FULL training run is wrong")
@@ -3165,6 +3298,7 @@ def family_cut(dev, cut, n_axes):
              ("NF4 base", {}, qbase, dict(base_quant="nf4"),
               ("quantized_matmul", "quanta_apply")))
     for label, cfg_kw, params, kw, need in cases:
+        need = _path_kernels(cut, need) or ("quanta_linear",)
         outs, twins = {}, {}
         for backend in ("pallas", "reference"):
             m = type(model)(cut.replace(attn_backend=backend,
@@ -3222,6 +3356,7 @@ def _shared_codes(model, cut, cfg_kw, params, peft, prompts, kw, steps=16):
     them."""
     import numpy as np
     import torch
+    from repro_torch.models.common import PagedCacheLeafSpec
     from repro_torch.serve import Request, ServingEngine
 
     engines = []
@@ -3246,12 +3381,15 @@ def _shared_codes(model, cut, cfg_kw, params, peft, prompts, kw, steps=16):
         bs, valid = pool.shape[2], torch.zeros(
             pool.shape[1:3], dtype=torch.bool, device=pool.device)
         for slot in np.flatnonzero(active):
-            pos = np.arange(int(ek._lengths[slot]))
+            # the rows in use: the slot's positions, or a full ring's
+            pos = np.arange(min(int(ek._lengths[slot]),
+                                ek.pager.tokens_per_slot))
             valid[torch.as_tensor(tables[slot, pos // bs]),
                   torch.as_tensor(pos % bs)] = True
         n = [0, 0]
-        for k, t in ek.cache.items():
-            if k != "len":
+        for k, ls in ek.serve_spec.items():
+            if isinstance(ls, PagedCacheLeafSpec):
+                t = ek.cache[k]
                 n[t.is_floating_point()] += int(
                     (t != ep.cache[k])[:, valid].sum())
         return tuple(n)
@@ -3363,7 +3501,10 @@ LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4600, 32, 5120
 # readings (NVIDIA H100 80GB HBM3, 700 W): controls 4.391e-4 (forward,
 # S = 4600) and 3.052e-4 (decode, 5120 entries) against kernels 4.548e-4
 # and 4.883e-4 and the planted faults' 0.1199 and 0.1060; the 384- and
-# 512-position cases keep their limits
+# 512-position cases keep their limits.  Kernel 3 at head_dim 256 takes
+# it at every length (PR 23): its controls read 1.28e-4 to 1.74e-4 at
+# 384 positions and 2.0e-4 to 2.2e-4 at 2600 under the 2048 window, the
+# kernel 1.35e-4 to 1.73e-4 and 2.41e-4 to 2.66e-4 (three seeds)
 LONG_OFF_FACTOR = 2
 # kernel vs plain routing on the f32 cut: a token may pick other experts
 # only where its k-th and (k+1)-th router probabilities lie closer than
@@ -3809,6 +3950,177 @@ def moe_family(card, dev, arch, profile=False):
     return checks, counts, dict(read, seconds=secs)
 
 
+# ------------------------------------------------------------ phase 10
+# the hybrid family: recurrentgemma-2b (Griffin) whole, 26 layers at every
+# width (7.10 GB in bf16)
+GRIFFIN = "recurrentgemma-2b"
+# its long requests: a 2600-token prompt, over which kernel 3's 2048-row
+# window binds, and a 2040-token one whose ring wraps while it decodes,
+# each with LONG_NEW new tokens, in an engine of this max_len
+GRIFFIN_LONG = (2600, 2040)
+GRIFFIN_LONG_MAX_LEN = 2700
+# its f32 cut: one macro block (rec, rec, local attention) and the 2-layer
+# recurrent tail
+GRIFFIN_CUT_LAYERS = 5
+
+
+def griffin_long(card, cut, model, base, peft, lengths, plain=False):
+    """Requests of ``lengths`` prompt tokens and ``LONG_NEW`` new ones
+    (``max_len`` ``GRIFFIN_LONG_MAX_LEN``), one wave, through the dense
+    and the paged engine (and with ``plain`` the plain engine): kernel 3
+    over each prompt under the window, every ring past its 2048 rows
+    while it decodes.  Every engine must give the dense engine's tokens,
+    and kernel 3 must launch once a macro block a wave.  Returns kernel
+    3's launches in the dense run."""
+    import torch
+    from repro_torch import kernels
+
+    dev = model.device
+    gen = torch.Generator().manual_seed(21)
+    prompts = [torch.randint(0, cut.vocab_size, (n,), generator=gen).tolist()
+               for n in lengths]
+    runs = [("dense", model, {}),
+            ("paged", model, dict(cache="paged", block_size=16))]
+    if plain:
+        runs.append(("plain dense", type(model)(cut.replace(
+            attn_backend="reference", peft_backend="reference"),
+            device=dev), {}))
+    outs, launches = {}, 0
+    for label, m, kw in runs:
+        kernels.reset_launch_counts()
+        outs[label], stats, t_pre, t_dec = _serve(
+            m, base, peft, prompts, LONG_NEW, len(prompts),
+            GRIFFIN_LONG_MAX_LEN, **kw)
+        run = kernels.launch_counts()
+        print(f"griffin {cut.name} long requests ({cut.n_layers} layers, "
+              f"{str(cut.param_dtype)[6:]}), {label} engine: prompts "
+              f"{list(lengths)} + {LONG_NEW} tokens, window "
+              f"{cut.local_window}: prefill {t_pre * 1e3:.1f} ms, decode "
+              f"{t_dec * 1e3:.1f} ms (wall, {stats['decode_calls']} ticks); "
+              f"launches flash_attention {run['flash_attention']} "
+              f"[{card}]")
+        if label == "dense":
+            launches = run["flash_attention"]
+            want = _attn_layers(cut) * stats["prefill_calls"]
+            if launches != want:
+                fail(f"{cut.name}: kernel 3 launched {launches} times over "
+                     f"the long wave, want {want}")
+    same = all(o == outs["dense"] for o in outs.values())
+    print(f"griffin {cut.name} long requests: tokens identical across "
+          f"{list(outs)} {same}; first 8 of each "
+          f"{[o[:8] for o in outs['dense']]}")
+    if not same or any(len(o) != LONG_NEW for o in outs["dense"]):
+        fail(f"{cut.name}: the long requests' engines disagree")
+    return launches
+
+
+def hd256_seeds(card, dev, cfg, seeds=(12, 13)):
+    """Kernel 3 at ``cfg``'s head_dim (256) on more seeds than
+    ``check_kernels``' one: bf16 at (8, 384) and over one
+    ``GRIFFIN_LONG[0]``-token prompt under the window, each judged as
+    there, against the plain version with ``LONG_OFF_FACTOR`` x the
+    sum-order control as floor; prints the kernel's and the control's
+    off shares and the kernel's off the control (not timed)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    bf16, h, kv, hd = torch.bfloat16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for b, s, window in ((8, 384, None),
+                             (1, GRIFFIN_LONG[0], cfg.local_window)):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                       for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                     (b, s, kv, hd)))
+            got = FA.flash_attention(q, k, v, window=window)
+            want = FA.flash_attention_plain(q, k, v, window=window)
+            with correct_sums():
+                control = FA.flash_attention_plain(q, k, v, window=window)
+            ctl = error_stats(control, want, bf16)["off"]
+            st, ok, limits = judge("flash_attention", got, want, bf16,
+                                   LONG_OFF_FACTOR * ctl)
+            print(f"check {cfg.name} flash_attention seed {seed} ({b}, {s}) "
+                  f"window {window} hd {hd} bfloat16: {stats_text(st)} "
+                  f"({limits}; kernel off the control "
+                  f"{error_stats(got, control, bf16)['off']:.3e}) "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                fail(f"{cfg.name}: flash_attention at hd {hd}, seed {seed}, "
+                     f"disagrees with its plain version")
+            del q, k, v, got, want, control
+
+
+def griffin_family(card, dev, arch=GRIFFIN, profile=False):
+    """Phase 10: recurrentgemma-2b whole (26 layers, every width) through
+    phase 8's functions: (a) its kernels (``check_kernels``, a planted
+    fault in every case); (b) its f32 cut of ``GRIFFIN_CUT_LAYERS``
+    layers at full width (``family_cut``: kernel vs plain engines on the
+    dense ring, paged rows, NF4 KV over shared codes and an NF4 base) and
+    the 2040-token request through the kernel and plain engines; (c)
+    FULL bf16 serving (``full_serve``, ``qlora_serve``) and both long
+    requests through the dense and paged engines; (d) 3 FULL training
+    steps (``full_train``).  With ``profile``, ``profile_serve`` over the
+    adapted FULL model.  Returns the kernel readings, the launches of the
+    serve runs and the readings."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, get_peft
+
+    full, n_axes = get_config(arch), get_peft(arch).n_axes
+    secs, t0 = {}, time.monotonic()
+    _, checks = check_kernels(card, full, n_axes, dev)
+    hd256_seeds(card, dev, full)
+    secs["kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cut = full.replace(n_layers=GRIFFIN_CUT_LAYERS,
+                       param_dtype=torch.float32,
+                       compute_dtype=torch.float32, attn_backend="pallas",
+                       peft_backend="pallas")
+    model, base, peft, _, _ = family_cut(dev, cut, n_axes)
+    griffin_long(card, cut, model, base, peft, GRIFFIN_LONG[1:], plain=True)
+    del model, base, peft
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["f32 cut"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    counts, served, read = full_serve(card, dev, full, n_axes)
+    if profile:
+        profile_serve(card, *served, path=f"{arch} dense")
+    qlora_counts, qlora, ticks, qread = qlora_serve(card, dev, *served)
+    del qlora
+    counts.update(qlora_counts)
+    read.update(qread, qlora=ticks["paged NF4 KV, NF4 base"],
+                qlora_bf16_kv=ticks["paged bf16 KV, NF4 base"])
+    model, base, peft, _ = served
+    counts["long flash_attention"] = griffin_long(
+        card, full.replace(attn_backend="pallas", peft_backend="pallas"),
+        model, base, peft, GRIFFIN_LONG)
+    del served, model, base, peft
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, _, tread = full_train(card, dev, full, n_axes, FAMILY_TRAIN_STEPS)
+    read.update(tread)
+    secs["train"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"griffin {arch} summary ({full.n_layers} layers, every width): "
+          f"prefill wave {read['prefill_ms']:.1f} ms; graph / eager tick, "
+          f"replay: dense {'/'.join(f'{t:.2f}' for t in read['dense'])} "
+          f"ms, QLoRA {'/'.join(f'{t:.2f}' for t in read['qlora'])} ms, "
+          f"QLoRA bf16 KV "
+          f"{'/'.join(f'{t:.2f}' for t in read['qlora_bf16_kv'])} ms; "
+          f"param_bytes {read['param_bytes']} (NF4 base "
+          f"{read['qlora_param_bytes']}); train step {read['step_ms']:.1f} "
+          f"ms, {read['tokens_per_s']:.0f} tokens/s, peak "
+          f"{read['peak_gib']:.2f} GiB; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f" [{card}]")
+    return checks, counts, dict(read, seconds=secs)
+
+
 def _device_ms(prof, counts=None):
     """Device time by kernel name, in ms, from a finished profiler; with
     ``counts`` (a dict) also each kernel's number of launches."""
@@ -3924,7 +4236,8 @@ def main() -> int:
           f"{secs:.1f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "error" in line or "warning" in line:
+            if ("Used" in line or "error" in line or "warning" in line
+                    or "Performance Loss" in line):
                 print(f"build {name}: {line.strip()}")
     card_tests()
 
@@ -4005,6 +4318,9 @@ def main() -> int:
         t0 = time.monotonic()
         moe_runs[arch] = moe_family(card, dev, arch, profile)
         phase_s[arch] = time.monotonic() - t0
+    t0 = time.monotonic()
+    g_checks, g_counts, _ = griffin_family(card, dev, GRIFFIN, profile)
+    phase_s[GRIFFIN] = time.monotonic() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -4031,10 +4347,17 @@ def main() -> int:
                              long_launches=cnt.get(f"long {name}", 0),
                              checks=checks.get(name, {}))
                   for arch, (checks, cnt, _) in moe_runs.items()}
+        # Griffin: its launches on its serve runs (and the long
+        # requests' dense run) and its readings at its shapes, head_dim
+        # 256 among them
+        griffin = {GRIFFIN: dict(launches=g_counts.get(name, 0),
+                                 long_launches=g_counts.get(f"long {name}",
+                                                            0),
+                                 checks=g_checks.get(name, {}))}
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=counts[name],
                          **records[name], dense_family=at,
-                         moe_family=moe_at))
+                         moe_family=moe_at, griffin=griffin))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

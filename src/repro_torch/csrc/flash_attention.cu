@@ -67,7 +67,10 @@ namespace {
 constexpr int kRows = 64;     // query rows per block
 constexpr int kKeys = 64;     // keys per KV tile
 constexpr int kThreads = 256;
+// head_dim limits: the decodes (kernels 4-6) take up to 128, the forward
+// (kernel 3) up to 256
 constexpr int kMaxHd = 128;
+constexpr int kMaxFwdHd = 256;
 constexpr float kMask = -1e30f;
 constexpr int kMaxDevices = 64;
 
@@ -162,8 +165,9 @@ struct PagedQuantKV {
 // Rows r < n_rows of q (row stride q_rs elements) attend to the keys that
 // kv fetches, in tiles j_lo..j_hi; row r sits at position q_pos0 + r *
 // q_pos_step and sees key kv iff kv <= q_pos, kv < s_kv and (window < 0
-// or q_pos - kv < window).  Keys at or past s_kv are never fetched.
-template <typename T, typename KV>
+// or q_pos - kv < window).  Keys at or past s_kv are never fetched.  A
+// lane owns head dims lane + 32 * jd, jd < JD: hd <= 32 * JD.
+template <typename T, typename KV, int JD = 4>
 __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
                              const KV& kv, long long q_rs, int n_rows, int hd,
                              int q_pos0, int q_pos_step, int s_kv, int j_lo,
@@ -187,11 +191,11 @@ __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
     row_m[r] = kMask;
     row_l[r] = 0.f;
   }
-  float acc[8][4];
+  float acc[8][JD];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int jd = 0; jd < 4; ++jd) acc[i][jd] = 0.f;
+    for (int jd = 0; jd < JD; ++jd) acc[i][jd] = 0.f;
   __syncthreads();
 
   for (int j = j_lo; j <= j_hi; ++j) {
@@ -274,11 +278,11 @@ __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
         row_l[r] = fmaf(alpha, row_l[r], sum);
       }
 #pragma unroll
-      for (int jd = 0; jd < 4; ++jd) acc[i][jd] *= alpha;
+      for (int jd = 0; jd < JD; ++jd) acc[i][jd] *= alpha;
       for (int kk = 0; kk < kKeys; ++kk) {
         const float p = pr[kk];
 #pragma unroll
-        for (int jd = 0; jd < 4; ++jd) {
+        for (int jd = 0; jd < JD; ++jd) {
           const int d = lane + 32 * jd;
           if (d < hd) acc[i][jd] = fmaf(p, Vs[kk * hd + d], acc[i][jd]);
         }
@@ -293,15 +297,16 @@ __device__ void attend_block(const T* __restrict__ q, T* __restrict__ o,
     const float l = row_l[r];
     const float denom = l == 0.f ? 1.f : l;
 #pragma unroll
-    for (int jd = 0; jd < 4; ++jd) {
+    for (int jd = 0; jd < JD; ++jd) {
       const int d = lane + 32 * jd;
       if (d < hd) o[r * q_rs + d] = from_f<T>(acc[i][jd] / denom);
     }
   }
 }
 
-// grid (ceil(S/64), H, B): one block per (b, h, 64-query tile)
-template <typename T>
+// grid (ceil(S/64), H, B): one block per (b, h, 64-query tile); JD 8 for
+// hd above 128
+template <typename T, int JD>
 __global__ void __launch_bounds__(kThreads)
     flash_forward_kernel(const T* q, const T* k, const T* v, T* o, int S,
                          int H, int KV, int hd, int window, float scale) {
@@ -318,9 +323,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long q_off = (((long long)b * S + q_lo) * H + h) * hd;
   const long long kv_off = ((long long)b * S * KV + kvh) * hd;
   const DenseKV<T> kv{k + kv_off, v + kv_off, (long long)KV * hd};
-  attend_block<T>(q + q_off, o + q_off, kv, (long long)H * hd,
-                  min(kRows, S - q_lo), hd, q_lo, 1, S, j_lo, j_hi, window,
-                  scale);
+  attend_block<T, DenseKV<T>, JD>(q + q_off, o + q_off, kv, (long long)H * hd,
+                                  min(kRows, S - q_lo), hd, q_lo, 1, S, j_lo,
+                                  j_hi, window, scale);
 }
 
 // grid (KV, B): one block per (b, kv head) holding the G query rows of the
@@ -426,8 +431,18 @@ int allow_smem(K kernel, size_t bytes, int smem_limit, int* granted) {
 // kFwdStages shared-memory stages by 16-byte cp.async (zero-filled past S
 // and past hd), each thread's copies arriving on the stage's `full`
 // mbarrier as they land; the consumers free a stage through its `empty`
-// mbarrier.  HDP is hd rounded up to 64 or 128: the zero columns add exact
-// zeros to QK^T and are never stored.
+// mbarrier.  HDP is hd rounded up to 64, 128 or 256: the zero columns add
+// exact zeros to QK^T and are never stored.
+//
+// HDP 256 (Griffin's head_dim): the consumers' accumulator is 128 fp32
+// registers a thread, and Plan<256> holds 161 KB of shared memory, so one
+// block runs an SM (Regs<256>); QK^T runs over the keys in two halves of
+// 32 (N-32 products, double-buffered) and PV as two N-128 halves over the
+// four 64-wide panels of V.  Its 32 partials a score are added in order
+// with each addition's rounding error carried (TwoSum) and the score
+// rounded once: summed as the 16 partials of hd 128 are, 32 of them left
+// the bf16 output twice as far from the plain version as a correctly
+// rounded sum is, at 2600 positions under the 2048 window (PERF.md).
 //
 // QK^T is summed as the plain version sums it only up to the order: its
 // fp32 dot runs over hd in order, the tensor cores add many products at
@@ -441,13 +456,7 @@ namespace fwd {
 constexpr int kFwdRows = 64;      // query rows a block: one wgmma tile
 constexpr int kFwdStages = 2;
 constexpr int kFwdThreads = 256;
-// setmaxnreg moves the producer's registers to the consumers: two blocks
-// an SM start with 65536 / (2 * kFwdThreads) each and must not ask for
-// more in all, or the consumers' request never returns
-constexpr int kFwdProducerRegs = 40, kFwdConsumerRegs = 216;
-static_assert(128 * (kFwdProducerRegs + kFwdConsumerRegs) <=
-                  kFwdThreads * ((65536 / (2 * kFwdThreads)) & ~7),
-              "setmaxnreg asks for more registers than the block holds");
+constexpr int kSmemPerSm = 228 * 1024;   // shared memory of one H100 SM
 
 template <int HDP>
 struct Plan {
@@ -460,8 +469,29 @@ struct Plan {
       1024 + Q + kFwdStages * STAGE + 2 * kFwdStages * 8;
 };
 
+// Registers.  Up to HDP 128 two blocks run an SM: each enters with
+// 65536 / (2 * kFwdThreads) = 128 registers a thread, and setmaxnreg moves
+// the producer's to the consumers (SPLIT); the two counts must fit what
+// the block was given at launch, or the consumers' request never returns.
+// HDP 256 holds 161 KB of shared memory, so one block runs an SM: it takes
+// the launch bound of one block, every thread up to 255 registers from the
+// start, and no split (a split above the 128 of two blocks would need an
+// entry count the launch bound does not fix).
 template <int HDP>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+struct Regs {
+  static constexpr bool SPLIT = HDP <= 128;
+  static constexpr int BLOCKS = SPLIT ? 2 : 1;
+  static constexpr int PRODUCER = 40, CONSUMER = 216;
+  static_assert(!SPLIT || 128 * (PRODUCER + CONSUMER) <=
+                              kFwdThreads *
+                                  ((65536 / (BLOCKS * kFwdThreads)) & ~7),
+                "setmaxnreg asks for more registers than the block holds");
+  static_assert(SPLIT || 2 * (Plan<HDP>::BYTES + 1024) > kSmemPerSm,
+                "one block an SM is what the shared memory allows");
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(kFwdThreads, Regs<HDP>::BLOCKS)
     flash_forward_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -499,7 +529,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 
   if (tid >= 128) {
     // ---------------------------------------------------------- producer
-    sm90::reg_dealloc<kFwdProducerRegs>();
+    if constexpr (Regs<HDP>::SPLIT) sm90::reg_dealloc<Regs<HDP>::PRODUCER>();
     const int pt = tid - 128;
     const long long q_row = (long long)H * hd, kv_row = (long long)KV * hd;
     const __nv_bfloat16* qb = q + ((long long)b * S * H + h) * hd;
@@ -532,7 +562,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     sm90::cp_async_wait<0>();
   } else {
     // --------------------------------------------------------- consumers
-    sm90::reg_alloc<kFwdConsumerRegs>();
+    if constexpr (Regs<HDP>::SPLIT) sm90::reg_alloc<Regs<HDP>::CONSUMER>();
     const int lane = tid & 31, quad = lane & 3;
     const int r0 = 16 * (tid >> 5) + (lane >> 2);   // rows r0, r0 + 8
     const int pos[2] = {q_lo + r0, q_lo + r0 + 8};
@@ -561,32 +591,89 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
       const int j = j_lo + n;
       sm90::mbar_wait(full(s), (n / kFwdStages) & 1);
       const uint32_t ks = kv_s + s * P::STAGE, vs = ks + P::KV;
-      auto issue = [&](int p, float (&d)[32]) {
-        uint32_t a[4];
-        frag(p, a);
-        const int kk = p >> 1;   // the 16-deep slice of K it reads
-        const uint64_t db = sm90::desc(
-            ks + (kk >> 2) * P::PANEL + ((kk & 3) << 5), 16, 1024);
-        sm90::wgmma_fence();
-        sm90::wgmma_rs<64, 0>(d, a, db, 0);
-        sm90::wgmma_commit();
-      };
-      float sc[32], tp[2][32];
+      float sc[32];
+      if constexpr (HDP <= 128) {
+        auto issue = [&](int p, float (&d)[32]) {
+          uint32_t a[4];
+          frag(p, a);
+          const int kk = p >> 1;   // the 16-deep slice of K it reads
+          const uint64_t db = sm90::desc(
+              ks + (kk >> 2) * P::PANEL + ((kk & 3) << 5), 16, 1024);
+          sm90::wgmma_fence();
+          sm90::wgmma_rs<64, 0>(d, a, db, 0);
+          sm90::wgmma_commit();
+        };
+        float tp[2][32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) tp[0][i] = tp[1][i] = 0.f;
-      issue(0, tp[0]);
+        for (int i = 0; i < 32; ++i) tp[0][i] = tp[1][i] = 0.f;
+        issue(0, tp[0]);
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p) {
-        if (p + 1 < PARTS) {
-          issue(p + 1, tp[(p + 1) & 1]);
-          sm90::wgmma_wait<1>();
-        } else {
-          sm90::wgmma_wait<0>();
+        for (int p = 0; p < PARTS; ++p) {
+          if (p + 1 < PARTS) {
+            issue(p + 1, tp[(p + 1) & 1]);
+            sm90::wgmma_wait<1>();
+          } else {
+            sm90::wgmma_wait<0>();
+          }
+          sm90::fence_regs(tp[p & 1]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = p ? sc[i] + tp[p & 1][i] : tp[0][i];
         }
-        sm90::fence_regs(tp[p & 1]);
+      } else {
+        // hd 256: keys 0-31, then 32-63 (N-32 products), each score the
+        // in-order sum of its 32 partials carried as an unevaluated pair
+        // (TwoSum from 0: every addition's rounding error kept in lo),
+        // rounded once at the end of its half.  Products p and p + 1 are
+        // issued together and p summed while p + 1 runs, in a loop that is
+        // not unrolled, has no branch and leaves no product in flight
+        // across its back edge: unrolled, the 64 products and sums are
+        // about 140 KB of straight code a tile, past what the SM's
+        // instruction caches hold; a branch around a wgmma (C7518), or an
+        // accumulator read while a product is in flight across the back
+        // edge (C7514), makes ptxas serialize every wgmma
+        auto issue = [&](int half, int p, float (&d)[16]) {
+          uint32_t a[4];
+          frag(p, a);
+          const int kk = p >> 1;   // the 16-deep slice of K it reads
+          const uint64_t db = sm90::desc(
+              ks + (kk >> 2) * P::PANEL + ((kk & 3) << 5) + 4096 * half, 16,
+              1024);
+          sm90::wgmma_fence();
+          sm90::wgmma_rs<32, 0>(d, a, db, 0);
+          sm90::wgmma_commit();
+        };
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          sc[i] = p ? sc[i] + tp[p & 1][i] : tp[0][i];
+        for (int half = 0; half < 2; ++half) {
+          float tp[2][16], lo[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            tp[0][i] = tp[1][i] = lo[i] = 0.f;
+            sc[16 * half + i] = 0.f;
+          }
+          auto add = [&](float (&b)[16]) {
+            sm90::fence_regs(b);
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              float& hi = sc[16 * half + i];
+              const float sum = hi + b[i];
+              const float b_virt = sum - hi;
+              lo[i] += (hi - (sum - b_virt)) + (b[i] - b_virt);
+              hi = sum;
+            }
+          };
+#pragma unroll 1
+          for (int p = 0; p < PARTS; p += 2) {
+            issue(half, p, tp[0]);
+            issue(half, p + 1, tp[1]);
+            sm90::wgmma_wait<1>();
+            add(tp[0]);
+            sm90::wgmma_wait<0>();
+            add(tp[1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) sc[16 * half + i] += lo[i];
+        }
       }
 
       // online softmax on the accumulators: element i is row r0 + 8 *
@@ -638,9 +725,21 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
                                       sc[8 * kk + 2 * e + 1]);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_rs<HDP, 1>(
-            acc, pa[kk], sm90::desc(vs + kk * 2048, P::PANEL, 1024), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (HDP <= 128) {
+          sm90::wgmma_rs<HDP, 1>(
+              acc, pa[kk], sm90::desc(vs + kk * 2048, P::PANEL, 1024), 1);
+        } else {
+          // columns 0-127 (panels 0, 1) into acc[0..63], 128-255 (panels
+          // 2, 3) into acc[64..127]: the accumulator layout of one N-256
+          // product
+          sm90::wgmma_rs_n128<1, 0>(
+              acc, pa[kk], sm90::desc(vs + kk * 2048, P::PANEL, 1024), 1);
+          sm90::wgmma_rs_n128<1, 64>(
+              acc, pa[kk],
+              sm90::desc(vs + 2 * P::PANEL + kk * 2048, P::PANEL, 1024), 1);
+        }
+      }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -1488,16 +1587,16 @@ int launch_quant(const Args& a, int B, int splits, int smem_limit,
 
 }  // namespace dec
 
-template <typename T>
+template <typename T, int JD>
 int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
             int H, int KV, int hd, int window, float scale, int smem_limit,
             cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
   const size_t smem = smem_bytes(hd);
-  int err = allow_smem(flash_forward_kernel<T>, smem, smem_limit, granted);
+  int err = allow_smem(flash_forward_kernel<T, JD>, smem, smem_limit, granted);
   if (err) return err;
   dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_forward_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_forward_kernel<T, JD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, window,
       scale);
@@ -1532,8 +1631,8 @@ int paged(const PagedArgs& a, int B, int smem_limit, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool shapes_ok(int H, int KV, int hd) {
-  return hd >= 1 && hd <= kMaxHd && KV >= 1 && H % KV == 0 &&
+bool shapes_ok(int H, int KV, int hd, int max_hd = kMaxHd) {
+  return hd >= 1 && hd <= max_hd && KV >= 1 && H % KV == 0 &&
          H / KV <= kRows;
 }
 
@@ -1553,7 +1652,8 @@ bool plan_ok(int extent, int chunk_tiles, int splits, int stages) {
 }  // namespace
 
 // q, k, v, o contiguous (B, S, H|KV, hd) in one dtype (0 float32,
-// 1 bfloat16; bfloat16 needs hd % 8 == 0 and 16-byte aligned rows);
+// 1 bfloat16; bfloat16 needs hd % 8 == 0 and 16-byte aligned rows), hd up
+// to 256;
 // window < 0 means full causal attention.  smem_limit: the
 // shared memory a block of this device may opt in to.
 extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
@@ -1561,18 +1661,23 @@ extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
                                     int H, int KV, int hd, int window,
                                     float scale, int smem_limit,
                                     void* stream) {
-  if (!shapes_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(H, KV, hd, kMaxFwdHd)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return forward<float>(q, k, v, o, B, S, H, KV, hd, window, scale,
-                          smem_limit, s);
+    return hd <= 128 ? forward<float, 4>(q, k, v, o, B, S, H, KV, hd, window,
+                                         scale, smem_limit, s)
+                     : forward<float, 8>(q, k, v, o, B, S, H, KV, hd, window,
+                                         scale, smem_limit, s);
   if (dtype == 1) {
     if (hd % 8) return (int)cudaErrorInvalidValue;
     if (hd <= 64)
       return fwd::launch<64>(q, k, v, o, B, S, H, KV, hd, window, scale,
                              smem_limit, s);
-    return fwd::launch<128>(q, k, v, o, B, S, H, KV, hd, window, scale,
+    if (hd <= 128)
+      return fwd::launch<128>(q, k, v, o, B, S, H, KV, hd, window, scale,
+                              smem_limit, s);
+    return fwd::launch<256>(q, k, v, o, B, S, H, KV, hd, window, scale,
                             smem_limit, s);
   }
   return (int)cudaErrorInvalidValue;

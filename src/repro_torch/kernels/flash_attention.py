@@ -44,7 +44,7 @@ from repro_torch.kernels.dispatch import (
     MASK_VALUE, aligned16, masked_softmax, route,
 )
 from repro_torch.kernels.smem import (
-    attention_smem_bytes, decode_plan, device_limits,
+    FWD_MAX_HEAD_DIM, attention_smem_bytes, decode_plan, device_limits,
     flash_forward_smem_bytes,
 )
 
@@ -67,6 +67,8 @@ __all__ = [
 
 # query rows per block and keys per tile of both CUDA kernels
 KERNEL_BLOCK = 64
+# head_dim limit of the CUDA decodes (kernels 4-6); the forward (kernel 3)
+# takes up to FWD_MAX_HEAD_DIM (256, Griffin)
 _MAX_HEAD_DIM = 128
 
 
@@ -356,12 +358,16 @@ def _bind(name: str, n_ptrs: int, n_ints: int, n_lead: int = 1):
     return fn
 
 
-def _check_heads(h: int, kv: int, hd: int) -> None:
+def _check_heads(h: int, kv: int, hd: int,
+                 max_hd: int = _MAX_HEAD_DIM) -> None:
+    """Refuse heads a CUDA attention kernel cannot take: head_dim above
+    ``max_hd`` (the decodes' 128 by default, the forward's 256) or more
+    than 64 query heads over a KV head."""
     if h % kv:
         raise ValueError(f"n_heads {h} must be a multiple of n_kv_heads {kv}")
-    if hd > _MAX_HEAD_DIM or h // kv > KERNEL_BLOCK:
+    if hd > max_hd or h // kv > KERNEL_BLOCK:
         raise ValueError(
-            f"the CUDA attention kernels take head_dim <= {_MAX_HEAD_DIM} and "
+            f"this CUDA attention kernel takes head_dim <= {max_hd} and "
             f"at most {KERNEL_BLOCK} query heads per KV head"
         )
 
@@ -460,7 +466,7 @@ def _flash_forward(q, k, v, window: Optional[int], scale: float
     if route(q, k, v) == "plain":
         return flash_attention_plain(q, k, v, window=window,
                                      softmax_scale=scale)
-    _check_heads(h, kv, hd)
+    _check_heads(h, kv, hd, FWD_MAX_HEAD_DIM)
     if k.shape != (b, s, kv, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")

@@ -41,6 +41,7 @@ __all__ = [
     "decode_value_smem_bytes",
     "decode_quant_score_smem_bytes",
     "decode_quant_value_smem_bytes",
+    "flash_forward_panels",
     "flash_forward_smem_bytes",
     "QmmPlan",
     "qmm_smem_bytes",
@@ -162,6 +163,8 @@ CHAIN_MAX_STAGES = 28
 CHAIN_HEADER_INTS = 11        # the wire format of chain_plan_ints
 CHAIN_STAGE_INTS = 15 + 2 * CHAIN_MAX_COLS
 CHAIN_TILES = {0: (8, 8), 1: (4, 4)}   # variant -> (TM, TO) micro-tile
+CHAIN_MAX_LO_SHIFT = 5        # the most low item bits on the output tile
+                              # that bfc::unpack takes
 
 
 class ChainStage(NamedTuple):
@@ -365,7 +368,8 @@ def _chain_lanes(st: ChainStage, rows: int, ld: int, tm: int,
     n_ot = -(-st.o // to)
     best = None
     for rc_blocked in (0, 1):
-        for lo_shift in range(n_ot.bit_length()):
+        for lo_shift in range(min(n_ot.bit_length(),
+                                  CHAIN_MAX_LO_SHIFT + 1)):
             if n_ot % (1 << lo_shift) == 0:
                 cost = chain_lane_cost(st, rows, ld, tm, to, lo_shift,
                                        rc_blocked)
@@ -534,7 +538,14 @@ def decode_plan(extent: int, hd: int, g: int) -> DecodePlan:
 
 FWD_ROWS = 64     # query rows of a bf16 forward block (one wgmma tile),
                   # as the plain version's query tiles
-FWD_STAGES = 2    # K/V ring depth of the bf16 forward (two blocks an SM)
+FWD_STAGES = 2    # K/V ring depth of the bf16 forward
+FWD_MAX_HEAD_DIM = 256   # kMaxFwdHd: Griffin's head_dim
+
+
+def flash_forward_panels(hd: int) -> int:
+    """64-wide panels of head_dim in the bf16 forward's tiles (``HDP /
+    64``): head_dim padded to 64, 128 or 256."""
+    return 1 if hd <= 64 else 2 if hd <= 128 else 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -542,11 +553,12 @@ def flash_forward_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of one bf16 flash-forward block
     (``fwd::Plan::BYTES``): 1 KB of alignment slack, the Q tile and
     ``FWD_STAGES`` K and V tiles of 64 keys, each with head_dim padded to
-    64 or 128 (rows of 128-byte swizzled panels), and the mbarriers."""
-    if hd % 8 or not 0 < hd <= 128:
+    64, 128 or 256 (rows of 128-byte swizzled panels), and the mbarriers.
+    Up to 128 two blocks fit an SM; at 256 (161 KB) one does."""
+    if hd % 8 or not 0 < hd <= FWD_MAX_HEAD_DIM:
         raise ValueError(f"the bf16 flash forward takes head_dim a multiple "
-                         f"of 8 up to 128, got {hd}")
-    panels = 1 if hd <= 64 else 2
+                         f"of 8 up to {FWD_MAX_HEAD_DIM}, got {hd}")
+    panels = flash_forward_panels(hd)
     return (1024 + FWD_ROWS * 128 * panels
             + FWD_STAGES * 2 * ATTN_KEYS * 128 * panels + 2 * FWD_STAGES * 8)
 

@@ -1,7 +1,8 @@
-"""Shared model-building blocks, the dense and MoE subset (port of
-``repro/models/common.py``): config, cache slot layout and surgery (dense
-stripes and paged block pools), norms, RoPE, the chunked LM-head cross
-entropy of training, init helpers.
+"""Shared model-building blocks of the dense, MoE and hybrid families
+(port of ``repro/models/common.py``): config, cache slot layout and
+surgery (dense stripes and paged block pools, ring buffers among them),
+the conv-state hand-off of a right-padded prefill, norms, RoPE, the
+chunked LM-head cross entropy of training, init helpers.
 
 Parameters are nested dicts of tensors with the JAX package's layouts
 (linears ``(d_in, d_out)``, stacked ``(L, d_in, d_out)`` over layers), so
@@ -32,6 +33,7 @@ __all__ = [
     "merge_cache_slots",
     "scatter_cache_slots",
     "insert_cache_slots",
+    "gather_conv_tail",
     "rms_norm",
     "make_rope",
     "apply_rope",
@@ -43,8 +45,19 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of the dense and MoE families, with
-    the JAX package's field names and torch dtypes.
+    """Architecture hyperparameters of the dense, MoE and hybrid
+    families, with the JAX package's field names and torch dtypes.
+
+    The hybrid family (Griffin, ``models/griffin.py``) reads
+    ``conv_kernel`` (the recurrent block's causal conv taps),
+    ``lru_width`` (the RG-LRU width, 0: ``d_model``), ``attn_period``
+    (one local-attention layer per that many layers), ``local_window``
+    (the attention window and the decode ring's rows) and ``kv_block``
+    (the JAX flash kernel's KV tile, recorded: the port's kernel walks
+    64-key tiles).  ``seq_parallel_residual`` is the JAX package's
+    sequence-parallel residual constraint between macro blocks; it needs
+    ``dp_axes`` of a mesh, so on one card it is recorded and has no
+    effect, as ``fsdp``.
 
     The MoE family (``n_experts > 0``: :attr:`is_moe`) routes each token
     to ``top_k`` of ``n_experts`` expert FFNs (``models/moe.py``); a
@@ -107,6 +120,13 @@ class ModelConfig:
     router_aux_weight: float = 0.01
     moe_groups: int = 1
     fsdp: bool = False
+    # hybrid (RG-LRU / Griffin)
+    conv_kernel: int = 4
+    lru_width: int = 0
+    attn_period: int = 3          # 1 attention layer per `period` layers
+    local_window: int = 2048
+    kv_block: int = 512
+    seq_parallel_residual: bool = False
 
     @property
     def is_moe(self) -> bool:
@@ -149,6 +169,10 @@ class PagedCacheLeafSpec(CacheLeafSpec):
     block: scatter padding and the writes of freed slots land there and
     are never read.
 
+    ``ring=True`` marks a fixed-capacity ring buffer (Griffin's
+    local-attention window): the rows in use are ``[0, min(len,
+    extent))``, so a slot's blocks stop at ``ceil(extent / block_size)``.
+
     ``kv_quant`` ("nf4" | "int8" | None) marks a float leaf whose pool
     stores quantized rows: codes under the leaf's key plus a
     ``<key>_qscale`` sibling of fp32 scales per ``quant_block`` elements
@@ -158,6 +182,7 @@ class PagedCacheLeafSpec(CacheLeafSpec):
     """
 
     page_axis: int = 2
+    ring: bool = False
     kv_quant: Optional[str] = None
     quant_block: int = 64
 
@@ -285,6 +310,21 @@ def scatter_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,
                 idx[d] = slice(0, src.shape[d])
         dst[tuple(idx)] = src.to(dst.dtype)
     return cache
+
+
+def gather_conv_tail(x: torch.Tensor, lengths: torch.Tensor, window: int
+                     ) -> torch.Tensor:
+    """The last ``window`` pre-conv inputs of each right-padded row,
+    zeros where the prompt is shorter than ``window``: the rolling conv
+    state that decode keeps between steps, so a prefill hands decode the
+    state it would have built token by token.  ``x (B, S, C)``,
+    ``lengths (B,)`` -> ``(B, window, C)``."""
+    b, s = x.shape[0], x.shape[1]
+    idx = (lengths.to(x.device).long()[:, None] - window
+           + torch.arange(window, device=x.device))
+    tail = x[torch.arange(b, device=x.device)[:, None],
+             torch.clamp(idx, 0, s - 1)]
+    return torch.where((idx >= 0)[..., None], tail, torch.zeros_like(tail))
 
 
 def insert_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,

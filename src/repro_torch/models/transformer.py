@@ -73,10 +73,12 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        if cfg.family == "hybrid":
+            raise ValueError("the hybrid family is Griffin (build_model)")
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (dense and "
-                f"moe only)"
+                f"model family {cfg.family!r} is not ported yet (dense, moe "
+                f"and hybrid only)"
             )
         self.cfg = cfg
         self.device = default_device(device)

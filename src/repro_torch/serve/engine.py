@@ -13,16 +13,19 @@ of ``repro/serve/engine.py``, single device).
   ``seq_bucket``, prefilled in one call over ``n_slots`` rows, and their
   cache stripes scattered into free slots (``_admit`` ->
   ``_admit_prefill`` -> ``_insert_wave``).
-* Chunked prefill (``prefill_chunk=N``): a prompt longer than ``N``
-  tokens is prefilled one ``N``-token chunk a tick into a dense staging
-  cache (``_start_chunked`` / ``_step_chunked``), decode ticks running in
+* Chunked prefill (``prefill_chunk=N``, for a model with a
+  ``prefill_chunk`` step; others, Griffin among them, are admitted by
+  waves, as in the JAX engine): a prompt longer than ``N`` tokens is
+  prefilled one ``N``-token chunk a tick into a dense staging cache
+  (``_start_chunked`` / ``_step_chunked``), decode ticks running in
   between; the finished staging cache lands through the same
   ``insert_cache`` scatter as a wave.  One chunked admission at a time.
 * Replay admission (``admission="replay"``): prompts step token by token
   through the decode tick itself, batched across the wave, each step
   with the wave's own active mask.  Dense caches only.
 * One fused decode tick for every slot (``dispatch_decode``): the decode
-  step, the active-slot merge of the ``len`` leaf, the greedy sample and
+  step, the active-slot merge of the slot-state leaves (``len``, and a
+  recurrent model's O(1) states), the greedy sample and
   the token merge ``where(fresh, host, chain)`` (``chain``: the previous
   tick's sampled tokens, which stay on the device).  Its inputs live in
   static device buffers -- tokens ``(B, 1)``, the active and fresh masks,
@@ -100,7 +103,8 @@ from repro_torch.core.bank import AdapterBank
 from repro_torch.core.quantize import quantize_params
 from repro_torch.kernels.dispatch import default_device, upload
 from repro_torch.models.common import (
-    insert_cache_slots, merge_cache_slots, reset_cache_slots,
+    PagedCacheLeafSpec, insert_cache_slots, merge_cache_slots,
+    reset_cache_slots,
 )
 from repro_torch.serve.adapter_pool import AdapterPool
 from repro_torch.serve.metrics import LatencyHistogram
@@ -393,7 +397,10 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be positive")
         self.prefill_chunk = prefill_chunk
-        self._can_chunk = prefill_chunk is not None and admission == "prefill"
+        # only a model with a chunk step chunks (Griffin has none and is
+        # admitted by waves, as in the JAX engine)
+        self._can_chunk = (prefill_chunk is not None and admission == "prefill"
+                           and hasattr(model, "prefill_chunk"))
         # the one chunked admission in flight: req, slot, tokens, staging
         # cache, pos, tenant id
         self._chunking: Optional[Dict[str, Any]] = None
@@ -404,11 +411,18 @@ class ServingEngine:
             "tokens": torch.zeros((n_slots, 1), dtype=torch.long, device=dev),
             "fresh": torch.ones((n_slots,), dtype=torch.bool, device=dev),
             "active": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
-            "len_before": torch.zeros((n_slots,), dtype=torch.int32,
-                                      device=dev),
             "sampled": torch.zeros((n_slots, 1), dtype=torch.long,
                                    device=dev),
         }
+        # the slot-state leaves a tick overwrites for every slot in place
+        # (``len``, and a recurrent model's O(1) states): their values
+        # before the tick, put back where a slot is inactive.  Token-axis
+        # leaves are not among them: a tick writes them past each slot's
+        # length (or into the null block), where no reader looks.
+        self._state_keys = [k for k, ls in self.serve_spec.items()
+                            if not isinstance(ls, PagedCacheLeafSpec)]
+        for k in self._state_keys:
+            self._io[f"before.{k}"] = torch.empty_like(self.cache[k])
         if self.bank is not None:
             self._io["ids"] = torch.zeros((n_slots,), dtype=torch.int32,
                                           device=dev)
@@ -801,11 +815,14 @@ class ServingEngine:
     def _tick_body(self):
         """One decode tick over the static buffers: the token merge, the
         decode step (the cache updated in place), the active-slot merge
-        of ``len``, the greedy sample into ``io["sampled"]``.  Returns the
-        ``(B, 1, V)`` logits and the sampled tokens."""
+        of the slot-state leaves (``len``, recurrent states), the greedy
+        sample into ``io["sampled"]``.  Returns the ``(B, 1, V)`` logits
+        and the sampled tokens."""
         io = self._io
         toks = torch.where(io["fresh"][:, None], io["tokens"], io["sampled"])
-        io["len_before"].copy_(self.cache["len"])
+        before = {k: io[f"before.{k}"] for k in self._state_keys}
+        for k, t in before.items():
+            t.copy_(self.cache[k])
         logits, new_cache = self.model.decode_step(
             self.params, self.peft, self.cache, {"tokens": toks},
             block_tables=(self.pager.device_tables() if self._paged
@@ -813,8 +830,8 @@ class ServingEngine:
             adapter_ids=io.get("ids"),
         )
         merge_cache_slots(self.serve_spec, new_cache,
-                          dict(new_cache, len=io["len_before"]),
-                          io["active"], skip_paged=self._paged)
+                          dict(new_cache, **before), io["active"],
+                          skip_paged=self._paged)
         io["sampled"].copy_(self._sample(logits))
         return logits, io["sampled"]
 

@@ -39,7 +39,9 @@ def smoke():
 # schemes, the q_proj and v_proj chains of yi-6b (16-16-16, GQA 4096 ->
 # 512), phi3-medium-14b (16-8-8-5, 5120 -> 1280) and minicpm-2b
 # (16-12-12), the v_proj chains of mixtral-8x7b (GQA 4096 -> 1024) and
-# llama4-maverick (5120 -> 1024), every chain of the card tests
+# llama4-maverick (5120 -> 1024), recurrentgemma-2b's q_proj and
+# rec_proj chain (16-16-10) and its v_proj chain (MQA 2560 -> 256),
+# every chain of the card tests
 # (tests/test_torch_cuda.py CHAINS) and a 12-stage schedule
 CHAINS = [
     (4096, 4096, (16, 8, 8, 4), None),
@@ -51,6 +53,8 @@ CHAINS = [
     (2304, 2304, (16, 12, 12), None),
     (4096, 1024, (64, 8, 8), None),
     (5120, 1024, (40, 8, 4, 4), None),
+    (2560, 2560, (16, 16, 10), None),
+    (2560, 256, (80, 8, 4), None),
     (64, 64, (4, 4, 4), None),
     (24, 12, (4, 3, 2), None),
     (128, 256, (8, 4, 4), None),

@@ -1,10 +1,11 @@
 """The port's config registry against the JAX package's: the five dense
-archs (llama2-7b-proxy, qwen2-0.5b, yi-6b, phi3-medium-14b, minicpm-2b)
-and the two MoE archs (mixtral-8x7b, llama4-maverick-400b-a17b) serve
-``get_config``, ``get_smoke``, ``get_peft`` and ``get_notes``, each value
-equal to its JAX twin's field for field (the MoE fields and ``fsdp``
-among them), with ``jnp`` dtypes mapped to ``torch``'s; the RoPE tables
-of yi-6b's base (5e6) equal the JAX package's."""
+archs (llama2-7b-proxy, qwen2-0.5b, yi-6b, phi3-medium-14b, minicpm-2b),
+the two MoE archs (mixtral-8x7b, llama4-maverick-400b-a17b) and the
+hybrid one (recurrentgemma-2b) serve ``get_config``, ``get_smoke``,
+``get_peft`` and ``get_notes``, each value equal to its JAX twin's field
+for field (the MoE fields, the hybrid fields and ``fsdp`` among them),
+with ``jnp`` dtypes mapped to ``torch``'s; the RoPE tables of yi-6b's
+base (5e6) equal the JAX package's."""
 
 import dataclasses
 
@@ -21,7 +22,8 @@ from repro_torch.models import common as tcommon
 DENSE = ["llama2-7b-proxy", "qwen2-0.5b", "yi-6b", "phi3-medium-14b",
          "minicpm-2b"]
 MOE = ["mixtral-8x7b", "llama4-maverick-400b-a17b"]
-ARCHS = DENSE + MOE
+HYBRID = ["recurrentgemma-2b"]
+ARCHS = DENSE + MOE + HYBRID
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -61,9 +63,10 @@ def test_peft_and_notes_equal_jax(arch):
 
 
 def test_registry_covers_the_dense_family():
-    """Every dense and MoE arch of the JAX registry, and no other: the
-    Griffin, Mamba2 and frontend archs raise."""
-    for family, archs in (("dense", DENSE), ("moe", MOE)):
+    """Every dense, MoE and hybrid arch of the JAX registry, and no other:
+    the Mamba2 and frontend archs raise."""
+    for family, archs in (("dense", DENSE), ("moe", MOE),
+                          ("hybrid", HYBRID)):
         assert sorted(archs) == sorted(
             a for a in jconfigs._MODULES
             if jconfigs.get_config(a).family == family)
@@ -73,6 +76,13 @@ def test_registry_covers_the_dense_family():
     assert llama4.fsdp and llama4.is_moe and llama4.train_microbatches == 16
     assert configs.get_smoke("mixtral-8x7b").sliding_window == 48
     assert not configs.get_config("yi-6b").is_moe
+    griffin = configs.get_config("recurrentgemma-2b")
+    assert (griffin.head_dim, griffin.local_window, griffin.lru_width,
+            griffin.attn_period, griffin.conv_kernel) == (256, 2048, 2560,
+                                                           3, 4)
+    assert griffin.seq_parallel_residual and not griffin.fsdp
+    assert configs.get_peft("recurrentgemma-2b").targets == (
+        r".*/attn/(q_proj|v_proj)$", r".*/rec_proj$")
     for arch in sorted(set(jconfigs._MODULES) - set(ARCHS)):
         with pytest.raises(KeyError, match=arch):
             configs.get_peft(arch)

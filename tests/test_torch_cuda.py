@@ -13,6 +13,7 @@ JAX it runs on its own:
 
 import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -321,6 +322,45 @@ def test_flash_forward_edges_match_plain(b, s, h, kv, hd, window, dtype,
     _close(got, FA.flash_attention_plain(q, k, v, window=window), dtype)
 
 
+# (b, s, h, kv, hd, window): Griffin's heads (10 over 1 of 256), its
+# window binding, a head_dim between 128 and 256 (padded to 256) and tails
+# of a 64-key tile
+FWD_256 = [(8, 384, 10, 1, 256, None), (1, 2600, 10, 1, 256, 2048),
+           (2, 129, 4, 2, 256, None), (2, 65, 4, 1, 200, 30),
+           (1, 300, 10, 1, 256, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", FWD_256)
+def test_flash_forward_head_dim_256_matches_plain(b, s, h, kv, hd, window,
+                                                  dtype, dev):
+    """Kernel 3's head_dim-256 instance (bf16: one block an SM, PV as two
+    N-128 halves; float32: eight head dims a lane) against its plain
+    version; under autograd its Function gives the kernel's output and
+    the banded recompute's gradients."""
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    before = launch_counts()["flash_attention"]
+    got = FA.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    _close(got, FA.flash_attention_plain(q, k, v, window=window), dtype)
+    if s > 400:
+        return
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = FA.flash_attention(qg, kg, vg, window=window, block_q=64)
+    assert torch.equal(out.detach(), got)
+    g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+    grads = torch.autograd.grad(out, (qg, kg, vg), g)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = FA.banded_recompute(qr, kr, vr, block_q=64, window=window,
+                              scale=1.0 / math.sqrt(hd))
+    for a, b_ in zip(grads, torch.autograd.grad(ref, (qr, kr, vr), g)):
+        assert torch.equal(a, b_)
+
+
 def test_flash_forward_bf16_refuses_head_dims_off_16_bytes(dev):
     q = torch.zeros((1, 8, 2, 12), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -328,9 +368,13 @@ def test_flash_forward_bf16_refuses_head_dims_off_16_bytes(dev):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    q = torch.zeros((1, 8, 2, 256), device=dev)
+    q = torch.zeros((1, 8, 2, 264), device=dev)
     with pytest.raises(ValueError):
-        FA.flash_attention(q, q, q)          # head_dim above 128
+        FA.flash_attention(q, q, q)          # head_dim above 256
+    q = torch.zeros((1, 1, 2, 256), device=dev)
+    with pytest.raises(ValueError):          # the decodes stop at 128
+        FA.flash_decode_attention(q, q, q, torch.ones(
+            (1,), dtype=torch.int32, device=dev))
     q, k = torch.zeros((1, 8, 2, 64), device=dev), torch.zeros(
         (1, 7, 2, 64), device=dev)
     with pytest.raises(ValueError):
@@ -1281,3 +1325,45 @@ def test_moe_engine_decodes_through_one_graph(dev):
         assert eng.compile_guard.counts() == {"decode": 0 if eager else 1}
     assert outs[False] == outs[True]
     assert max(3 * (8 + 6 * i) for i in range(4)) + 12 > cfg.sliding_window
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_griffin_engine_decodes_through_one_graph(cache, dev):
+    """The recurrentgemma-2b SMOKE model (bf16, kernel backends, QuanTA on
+    q/v and every rec_proj) served on the card: the recurrent states'
+    in-place updates, the ring write at ``(len - 1) % window`` and the
+    ring attention capture with the rest of the decode tick as one graph,
+    whose tokens equal the same engine's run eagerly past the 32-row
+    window; kernel 3 runs each prefill wave once per macro block."""
+    from repro_torch.configs import get_peft, get_smoke
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke("recurrentgemma-2b").replace(
+        attn_backend="pallas", peft_backend="pallas",
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev)
+    peft_cfg = get_peft("recurrentgemma-2b")
+    base, peft = attach(1, model.init(0), PeftConfig(
+        n_axes=3, targets=peft_cfg.targets), device=dev)
+    outs = {}
+    for eager in (False, True):
+        eng = ServingEngine(model, base, peft, n_slots=3, max_len=96,
+                            cache=cache, block_size=8, device=dev)
+        eng._decode.eager = eager
+        reqs = [Request(uid=i, prompt=[5 + i, 9, 3 * i + 1] * (4 + 5 * i),
+                        max_new_tokens=12) for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        reset_launch_counts()
+        eng.run()
+        outs[eager] = [r.output for r in reqs]
+        counts = launch_counts()
+        assert counts["flash_attention"] == eng.stats["prefill_calls"]
+        assert counts["quanta_linear"] > 0
+        assert counts["flash_decode_attention"] == 0
+        assert eng.compile_guard.counts() == {"decode": 0 if eager else 1}
+    assert outs[False] == outs[True]
+    assert max(3 * (4 + 5 * i) for i in range(4)) + 12 > cfg.local_window

@@ -88,6 +88,9 @@ def _imports(path: Path):
                           ROOT / "tools" / "train_probe.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
+    """Every module of the port (``models/griffin.py`` and
+    ``configs/recurrentgemma_2b.py`` among them), the card script, the
+    tools and the examples."""
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
@@ -106,22 +109,30 @@ def test_entry_points_need_a_device(monkeypatch):
         attach(1, params, PeftConfig(n_axes=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model, params, n_slots=2, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_smoke("recurrentgemma-2b"))
 
 
 def test_cpu_path_launches_no_kernel():
-    cfg = get_smoke("llama2-7b-proxy").replace(attn_backend="pallas",
-                                               peft_backend="pallas")
-    model = build_model(cfg, device="cpu")
-    base, peft = attach(1, model.init(0), PeftConfig(n_axes=4),
-                        device="cpu")
-    reset_launch_counts()
-    eng = ServingEngine(model, base, peft, n_slots=2, max_len=32,
-                        device="cpu")
-    for i in range(3):
-        eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new_tokens=4))
-    eng.run()
-    assert eng.stats["decode_calls"] > 0
-    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    """Nor does Griffin's (its QuanTA on rec_proj and the tail too)."""
+    from repro_torch.configs import get_peft
+
+    for arch in ("llama2-7b-proxy", "recurrentgemma-2b"):
+        cfg = get_smoke(arch).replace(attn_backend="pallas",
+                                      peft_backend="pallas")
+        model = build_model(cfg, device="cpu")
+        peft_cfg = get_peft(arch)
+        base, peft = attach(1, model.init(0), PeftConfig(
+            n_axes=peft_cfg.n_axes, targets=peft_cfg.targets), device="cpu")
+        reset_launch_counts()
+        eng = ServingEngine(model, base, peft, n_slots=2, max_len=32,
+                            device="cpu")
+        for i in range(3):
+            eng.submit(Request(uid=i, prompt=[1 + i, 2, 3],
+                               max_new_tokens=4))
+        eng.run()
+        assert eng.stats["decode_calls"] > 0
+        assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 def test_cuda_tensors_never_take_the_plain_version():

@@ -40,10 +40,37 @@ def test_flash_forward_pads_head_dim_to_one_or_two_panels(hd):
         64 if hd <= 64 else 128)
 
 
-@pytest.mark.parametrize("hd", [0, 12, 136, 256])
+@pytest.mark.parametrize("hd", [0, 12, 264, 512])
 def test_flash_forward_refuses_head_dims_it_cannot_take(hd):
     with pytest.raises(ValueError):
         S.flash_forward_smem_bytes(hd)
+
+
+@pytest.mark.parametrize("hd", [136, 200, 256])
+def test_flash_forward_takes_griffin_head_dim_in_one_block_an_sm(hd):
+    """head_dim above 128 pads to 256: four 64-wide panels, 161 KB a
+    block, so one block runs an SM (the source's register split assumes
+    it) and it fits what a block may opt in to."""
+    smem = S.flash_forward_smem_bytes(hd)
+    assert S.flash_forward_panels(hd) == 4
+    assert smem == S.flash_forward_smem_bytes(256) == 164896
+    assert smem <= H100_SMEM_BLOCK < 2 * (smem + 1024) and smem + 1024 <= \
+        228 * 1024
+
+
+def test_decode_kernels_still_refuse_head_dim_256():
+    """Kernels 4-6 keep their 128 limit (Griffin decodes its ring in plain
+    PyTorch, as the JAX package does); kernel 3 takes 256."""
+    from repro_torch.kernels import flash_attention as FA
+
+    FA._check_heads(10, 1, 256, S.FWD_MAX_HEAD_DIM)
+    for hd in (136, 256):
+        with pytest.raises(ValueError, match="head_dim <= 128"):
+            FA._check_heads(10, 1, hd)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        FA._check_heads(10, 1, 264, S.FWD_MAX_HEAD_DIM)
+    c = _constants("flash_attention.cu")
+    assert (c["kMaxHd"], c["kMaxFwdHd"]) == (128, S.FWD_MAX_HEAD_DIM)
 
 
 def test_flash_forward_plan_mirrors_the_source():
@@ -253,13 +280,15 @@ def _rect(dims_in, d0_out):
 # qwen2-0.5b's 16-8-7; yi-6b's 16-16-16 and its 4096 -> 512 v_proj,
 # phi3-medium-14b's 16-8-8-5 and its 5120 -> 1280 v_proj, minicpm-2b's
 # 16-12-12; mixtral-8x7b's 4096 -> 1024 and llama4-maverick's 5120 ->
-# 1024 v_proj) and a 12-stage schedule
+# 1024 v_proj; recurrentgemma-2b's 16-16-10 on q_proj and rec_proj and
+# its 2560 -> 256 v_proj) and a 12-stage schedule
 SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
                  _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2),
                  _chain((16, 16, 16)), _rect((64, 8, 8), 8),
                  _chain((16, 8, 8, 5)), _rect((32, 8, 5, 4), 8),
                  _chain((16, 12, 12)), _rect((64, 8, 8), 16),
-                 _rect((40, 8, 4, 4), 8)]
+                 _rect((40, 8, 4, 4), 8), _chain((16, 16, 10)),
+                 _rect((80, 8, 4), 8)]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
@@ -282,6 +311,45 @@ def test_chain_plans_fit_a_block(chain, rows):
         dims, shapes, pairs) + t_floats, 4) <= H100_SMEM_BLOCK
 
 
+@pytest.mark.parametrize("cap", [1, 2, 4, 8])
+@pytest.mark.parametrize("chain", range(len(SERVED_CHAINS)))
+def test_chain_plan_ints_pass_the_sources_checks(chain, cap):
+    """Every served chain's plan at every row cap passes the checks with
+    which ``bfc::unpack`` refuses a plan (recurrentgemma-2b's 16-16-10 at
+    one and two rows once took a lane mapping of ``lo_shift`` 6, which
+    the kernel refuses: its decode tick failed at launch)."""
+    dims, shapes, pairs = SERVED_CHAINS[chain]
+    plan = S.chain_plan(dims, tuple(map(tuple, shapes)),
+                        tuple(map(tuple, pairs)), H100_SMEM_BLOCK, cap)
+    w = S.chain_plan_ints(plan)
+    n_axes, n_stages, d_in, d_out, ld = w[:5]
+    assert len(w) == (S.CHAIN_HEADER_INTS + 2 * n_axes
+                      + S.CHAIN_STAGE_INTS * n_stages)
+    assert ld % 8 == 0 and d_in <= ld and d_out <= ld
+    t_elems, tab_ints, variant = w[8], w[9], w[10]
+    to = S.CHAIN_TILES[variant][1]
+    sp = S.CHAIN_HEADER_INTS + 2 * n_axes
+    for i in range(n_stages):
+        (k, kp, o, on, ncols, n_col, _, _, t_off, tab_off, t_swz, otab_off,
+         ncols_shift, lo_shift, rc_blocked) = w[sp:sp + 15]
+        sp += S.CHAIN_STAGE_INTS
+        assert 1 <= k <= kp and kp % 8 == 0 and o % on == 0
+        assert 0 <= n_col <= S.CHAIN_MAX_COLS and ncols * kp <= ld
+        assert t_off % 8 == 0 and t_off + o * kp <= t_elems
+        assert tab_off + ncols <= tab_ints and otab_off + o <= tab_ints
+        assert not t_swz or (k % 8 == 0 and (t_swz + 1) * 8 <= kp)
+        assert ncols_shift < 0 or ncols == 1 << ncols_shift
+        assert 0 <= lo_shift <= S.CHAIN_MAX_LO_SHIFT
+        assert (-(-o // to)) % (1 << lo_shift) == 0
+        assert rc_blocked in (0, 1)
+
+
+def test_chain_lane_limit_mirrors_the_source():
+    text = (CSRC / "quanta_apply.cu").read_text()
+    assert (f"st.lo_shift < 0 || st.lo_shift > {S.CHAIN_MAX_LO_SHIFT} ||"
+            in text)
+
+
 def _full_tensor(dims, shapes, pairs):
     """Floats of the largest stage tensor, transposed and padded, as the
     float32 body stages it whole."""
@@ -293,11 +361,13 @@ def test_f32_chain_streams_only_what_does_not_fit():
     row tile of ``chain_rows_per_block``); yi-6b's 16-16-16 (256 x 257
     floats a stage) takes 4 rows and stages 6 of its 16 ``a`` rows of
     4,112 floats at once, mixtral-8x7b's v_proj (a middle stage of 512 x
-    129 floats) 24 of its 64 ``a`` rows of 1,032; without room for one
-    ``a`` row it raises."""
+    129 floats) 24 of its 64 ``a`` rows of 1,032, recurrentgemma-2b's
+    16-16-10 (a last stage of 256 x 257 floats) 4 of its 16 ``a`` rows of
+    4,112 at 8 rows of 2560; without room for one ``a`` row it raises."""
+    streamed = (SERVED_CHAINS[3], SERVED_CHAINS[8], SERVED_CHAINS[10])
     for chain in SERVED_CHAINS:
         dims, shapes, pairs = chain
-        if chain is SERVED_CHAINS[3] or chain is SERVED_CHAINS[8]:
+        if any(chain is c for c in streamed):
             continue
         words = S.chain_stage_words(dims, shapes, pairs)
         from repro_torch.kernels.quanta_apply import chain_widths
@@ -321,6 +391,12 @@ def test_f32_chain_streams_only_what_does_not_fit():
         - 2 * 4 * 4096 == 25216
     assert t_floats // (8 * 129) == 24 and _full_tensor(
         dims, shapes, pairs) == 512 * 129
+    dims, shapes, pairs = SERVED_CHAINS[10]
+    rows, t_floats = S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK)
+    assert rows == 8 and t_floats == H100_SMEM_BLOCK // 4 - 2 * 16 \
+        - 2 * 8 * 2560 == 17120
+    assert t_floats // (16 * 257) == 4 and _full_tensor(
+        dims, shapes, pairs) == 256 * 257
 
 
 def test_f32_chain_meta_mirrors_the_source():

@@ -380,3 +380,49 @@ def test_correct_sums_is_a_sum_order_control(smoke):
     _, ok, limits = smoke.judge("flash_decode_attention", control, want,
                                 torch.bfloat16, off_floor=st["off"])
     assert ok and "control" in limits
+
+
+def test_griffin_phase_helpers(smoke):
+    """Phase 10's helpers: Griffin attends in one layer of each macro
+    block (8 of recurrentgemma-2b's 26), its serving path runs no decode
+    kernel (its ring decode is plain PyTorch), and its QuanTA takes the
+    config's targets (q/v and every rec_proj); the dense family keeps
+    q/v and every kernel."""
+    from repro_torch.configs import get_config, get_peft
+    from repro_torch.core.peft import PeftConfig
+
+    griffin, llama = (get_config(a) for a in ("recurrentgemma-2b",
+                                              "llama2-7b-proxy"))
+    assert smoke._attn_layers(griffin) == 8
+    assert smoke._attn_layers(llama) == 32
+    assert smoke._path_kernels(griffin, smoke.DENSE_KERNELS) == (
+        "quanta_apply", "quanta_linear", "flash_attention")
+    assert smoke._path_kernels(llama, smoke.DENSE_KERNELS) == \
+        smoke.DENSE_KERNELS
+    assert smoke._quanta(griffin, 3).targets == get_peft(
+        "recurrentgemma-2b").targets
+    assert smoke._quanta(llama, 4).targets == PeftConfig().targets
+    assert smoke._quanta(griffin, 3).scheme == "16-16-10"
+
+
+def test_half_head_dim_fault_fails_the_hd256_limits(smoke):
+    """Kernel 3's planted fault at head_dim 256, QK^T over the first 128
+    columns only, fails its bf16 limits, while the correctly summed
+    control meets the floor it sets (twice its own share)."""
+    gen = torch.Generator().manual_seed(5)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=gen).to(bf16) for shape in
+               ((1, 96, 4, 256), (1, 96, 1, 256), (1, 96, 1, 256)))
+    want = FA.flash_attention_plain(q, k, v, window=40)
+    half = q.clone()
+    half[..., 128:] = 0
+    fault = FA.flash_attention_plain(half, k, v, window=40,
+                                     softmax_scale=1 / 16)
+    with smoke.correct_sums():
+        control = FA.flash_attention_plain(q, k, v, window=40)
+    floor = smoke.LONG_OFF_FACTOR * smoke.error_stats(control, want,
+                                                      bf16)["off"]
+    _, ok, _ = smoke.judge("flash_attention", fault, want, bf16, floor)
+    assert not ok
+    _, ok, _ = smoke.judge("flash_attention", control, want, bf16, floor)
+    assert ok

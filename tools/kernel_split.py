@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the adapted linear (kernel 2) and the paged decodes (kernels 5 and
 6), and the bf16 flash forward and dense decode beside them, at the main
-path's bf16 shapes (llama2-7b-proxy, 8 slots), each call also split into
-the kernels it launches.
+path's bf16 shapes (llama2-7b-proxy, 8 slots), and the flash forward at
+recurrentgemma-2b's head_dim of 256 (10 query heads over 1, 8 x 384 and
+one 2600-token prompt under its 2048 window) beside SDPA, each kernel
+call also split into the kernels it launches.
 
     python3 tools/kernel_split.py
 
@@ -21,6 +23,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core.factorize import pair_schedule  # noqa: E402
@@ -97,6 +100,21 @@ def main() -> int:
                  lambda: FA.paged_flash_decode_attention(
                      q, kq, vq, tables, lens, window=window, kv_quant=quant,
                      k_scales=ks, v_scales=vs))
+    for b, s, window in ((8, 384, None), (1, 2600, 2048)):
+        q, k = (torch.randn((b, s, n, 256), generator=gen,
+                            device=dev).to(bf) for n in (10, 1))
+        label = f"flash_attention hd=256 ({b}, {s}) window={window}"
+        line(label, lambda: FA.flash_attention(q, k, k, window=window))
+        band = None            # SDPA: causal, or the band as a mask
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            band = ((i[:, None] >= i[None, :])
+                    & (i[:, None] - i[None, :] < window))
+        qt, kt = q.transpose(1, 2), k.transpose(1, 2)
+        sdpa = cs.timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, kt, attn_mask=band, is_causal=band is None,
+            enable_gqa=True))
+        print(f"{label}: SDPA {sdpa:.4f} ms [{card}]", flush=True)
     return 0
 
 

@@ -208,6 +208,28 @@ Phases, one line or more each before the last:
    twins, then a 2600-token and a 2040-token request (32 new tokens each)
    through the dense and paged engines (identical tokens); (d) 3 training
    steps at 8 x 512; the seconds of each part.
+11. the SSM family: mamba2-1.3b (Mamba2, attention-free) whole, 48 layers
+   at every width (2.89 GB in bf16), through phase 8's functions: (a) the
+   kernel checks at its shapes, a planted fault in every case: kernels 1
+   and 2 on its widening x_proj chain (16, 16, 8) -> (32, 16, 8), whose
+   512 x 512 last stage tensor the bf16 chain streams in chunks of its
+   outputs (the plan printed), and its out_proj chain, at 3072 and 8
+   rows, bf16 and f32; kernel 7 NF4 and kernel 8 at 2048 -> 4096 and
+   4096 -> 2048; no attention kernel; (b) its f32 cut of 2 layers:
+   kernel vs plain tokens on the dense state cache, ``cache="paged"``
+   (no paged leaf: the dense cache and its bytes) and an NF4 base;
+   prefill vs replay admission (the chunked dual form against the
+   recurrence) for prompts of 37, 300 and 600 tokens; a bank of one
+   folded QuanTA and two LoRA tenants (ranks 16 and 8), kernel vs plain
+   vs single-tenant tokens (kernel 8 launched); (c) bf16 serving adapted and merged (held
+   at ``SSM_SERVE_LOGIT_TOL``, the adapted model through the plain
+   versions printed beside it), graph tick bit for bit its eager twin,
+   the NF4 base and its graph tick, then one wave of a 16384-token and a
+   5000-token prompt and the 5000-token prompt alone (32 new tokens
+   each; each wave's SSD chunk and chunk count, and the cache's bytes,
+   equal at max_len 16416 and 512); (d) 3 training steps at 8 x 512; the
+   launches of kernels 1, 2, 7 and 8 (nonzero) and 3-6 (zero); the
+   seconds of each part.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -227,7 +249,9 @@ of phase 8 the kernel's launches in that config's serve runs and its
 readings at that config's shapes, ``moe_family`` the same per MoE
 config, with ``long_launches`` from the long request's runs, and
 ``griffin`` the same for recurrentgemma-2b (its ``long_launches`` from
-the long requests' dense run; its readings with head_dim 256).
+the long requests' dense run; its readings with head_dim 256), and
+``mamba2`` for mamba2-1.3b (kernels 1 and 2 from its adapted serve run,
+kernel 7 from its NF4-base run, kernel 8 from its f32 bank's dense run).
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -341,6 +365,18 @@ SERVE_LOGIT_TOL = 0.06  # max |adapted - merged| / max |merged|
 # (PERF.md): about twice those, as the dense family's 0.06 is twice its
 # reading.  The planted fault read 1.256.
 HYBRID_SERVE_LOGIT_TOL = 0.15
+# the SSM family (mamba2-1.3b): QuanTA on x_proj, z_proj and out_proj of
+# 48 layers feeds the recurrence, and the two sides' bf16 roundings move
+# the logits further apart than the dense family's 0.06: adapted vs
+# merged read 0.1156 through the kernels and 9.296e-2 through the plain
+# versions on the H100 (PERF.md); about twice the plain reading.  The
+# planted fault read 1.245.
+SSM_SERVE_LOGIT_TOL = 0.2
+# the chunk rule's control on Mamba2's f32 cut: the 5000-token prompt's
+# last logits from a wave of 16384 positions (chunks of 256) and from one
+# of 5008 (chunks of 16), max |a - b| / max |b|; the SMOKE model's
+# chunked-vs-recurrent agreement in the JAX package's tests is 2e-4
+SSM_CHUNK_TOL = 1e-4
 # one decode step of the 32-layer bf16 model over an NF4 base: paged NF4 KV
 # pool vs dense cache of the fake-quantized rows.  Both hold the same
 # values.  The paged NF4 decode (kernel 6) and the dense bf16 decode
@@ -651,8 +687,12 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     which its ring decode does not run, runs kernel 3 over one
     ``GRIFFIN_LONG[0]``-token prompt under its ``local_window``, and
     plants a fault in every case of kernels 1, 2, 3 and 7 (the forward's
-    at head_dim above 128: QK^T over its first 128 columns only).
-    Returns the bf16 record of each kernel at the main shapes and every
+    at head_dim above 128: QK^T over its first 128 columns only).  The
+    SSM family (Mamba2, attention-free) runs kernels 1 and 2 on x_proj's
+    widening chain (z_proj shares it; its bf16 plan printed, whose last
+    stage tensor streams in chunks) and on out_proj's, kernel 7 NF4 at
+    those two shapes and kernel 8 at them too, a planted fault in every
+    case, and no attention kernel.  Returns the bf16 record of each kernel at the main shapes and every
     bf16 reading by kernel and label."""
     import torch
     import torch.nn.functional as F
@@ -669,11 +709,14 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     from repro_torch.kernels.quanta_linear import (
         quanta_linear, quanta_linear_plain,
     )
-    from repro_torch.kernels.smem import decode_plan, device_limits
+    from repro_torch.kernels.smem import (
+        chain_plan, decode_plan, device_limits,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(11)
     records, readings = {}, {}
     hybrid = cfg.family == "hybrid"
+    ssm = cfg.family == "ssm"
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     gqa = dict(enable_gqa=True) if kv != h else {}
@@ -731,6 +774,11 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     for proj, d_out in (("q_proj", h * hd), ("v_proj", kv * hd)) + (
             (("rec_proj", cfg.lru_width or d),) if hybrid else ()):
         projs.setdefault((d, d_out), proj)
+    if ssm:
+        # x_proj (z_proj shares its shape) widens d -> 2d, out_proj narrows
+        di = cfg.ssm_expand * d
+        projs = {(d, di): "x_proj", (di, d): "out_proj"}
+    main_proj = "x_proj" if ssm else "q_proj"
     for dtype in (torch.bfloat16, torch.float32):
         sz = torch.tensor([], dtype=dtype).element_size()
         for (d_in, d_out), proj in projs.items():
@@ -745,8 +793,27 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
             t_bytes = sum(t.numel() for t in tensors) * sz
             macs = _chain_macs(dims, shapes, pairs)
             w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
+            if ssm and dtype == torch.bfloat16:
+                lim = device_limits(dev).smem_block
+                for cap, rows in ((8, 3072), (1, 8)):
+                    plan = chain_plan(dims, tuple(map(tuple, shapes)),
+                                      tuple(map(tuple, pairs)), lim, cap)
+                    mode = ("resident" if plan.resident
+                            else "streamed in chunks" if any(
+                                oc < st.o for st, oc in zip(
+                                    plan.layout.stages, plan.chunks))
+                            else "a stage at a time")
+                    print(f"check {cfg.name} quanta_apply {proj} "
+                          f"{dims}->{dims_out} bf16 plan at {rows} rows: "
+                          f"{plan.rows} rows a block, tensors {mode}, "
+                          f"outputs staged at once per stage "
+                          f"{list(plan.chunks)} of "
+                          f"{[st.o for st in plan.layout.stages]}, "
+                          f"{plan.smem} bytes of {lim}, "
+                          f"{'8 x 8' if plan.variant == 0 else '4 x 4'} "
+                          f"micro-tiles")
             for rows, phase, main in chain_rows:
-                main = main and proj == "q_proj"
+                main = main and proj == main_proj
                 label = (f"{proj} {d_in}->{d_out} {dims}->{dims_out} "
                          f"rows={rows} {phase}")
                 x = rnd(rows, d_in, dtype=dtype)
@@ -773,7 +840,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                            x, tensors, dims, pairs)),
                        (rows * (d_in + d_out) + d_in * d_out) * sz + t_bytes,
                        2 * rows * (d_in * d_out + macs), main)
-                if hybrid and dtype == torch.bfloat16:
+                if (hybrid or ssm) and dtype == torch.bfloat16:
                     planted("quanta_apply", "one stage's pair axes swapped",
                             apply_sequential(x, swapped_stage(
                                 tensors, len(tensors) // 2), dims, pairs),
@@ -817,12 +884,12 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         # prefill attention: B=8 slots, S=384 at the config's heads; under
         # a window that binds at the config's length (mixtral's 4096) one
         # 4600-token prompt
-        attn = ((8, 384, None, "S=384", True),) + (
+        attn = () if ssm else ((8, 384, None, "S=384", True),) + (
             ((8, 300, None, "S=300 tail", False),
              (8, 384, 100, "S=384 window=100", False)) if extras else ())
         win = cfg.local_window if hybrid else cfg.sliding_window
         long_s = GRIFFIN_LONG[0] if hybrid else LONG_PROMPT
-        if win is not None and not extras:
+        if win is not None and not extras and not ssm:
             attn += ((1, long_s, win, f"S={long_s} window={win}", False),)
         for b, s, window, label, main in attn:
             label = f"({b}, {s}) {heads} {label}"
@@ -884,7 +951,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         # window; in bf16 the split decode (score chunks of 64 keys)
         b = 8
         # (none for the hybrid family: its ring decode is plain PyTorch)
-        caches = [] if hybrid else [
+        caches = [] if hybrid or ssm else [
             (512, (33, 100, 385, 512, 1, 64, 65, 200),
              ((None, "S_max=512", True),) + (
                  ((50, "S_max=512 window=50", False),) if extras
@@ -1059,6 +1126,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         shapes = {(d, hq), (d, hk), (hq, d)}
         if not cfg.is_moe:
             shapes |= {(d, ff), (ff, d)}
+        if ssm:     # x_proj / z_proj and out_proj: bc / dt_proj stay dense
+            shapes = set(projs)
         for fmt in ("nf4",) + (("int8",) if extras else ()):
             for d_in, d_out in sorted(shapes):
                 w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
@@ -1073,7 +1142,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                   for t in qw.tensors())
                     for rows, phase in ((3072, "prefill"), (8, "decode")):
                         x = rnd(rows, d_in, dtype=dtype)
-                        main = (fmt == "nf4" and d_in == d_out
+                        main = (fmt == "nf4" and (d_in == d_out or ssm
+                                                  and d_in == d)
                                 and norm is None and rows == 3072)
                         want = matmul_ref(x, qw)
                         label = (f"{fmt} {d_in}->{d_out}"
@@ -1086,7 +1156,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                timed(lambda: torch.matmul(x, wd)),
                                rows * (d_in + d_out) * sz + w_bytes,
                                2 * rows * d_in * d_out, main)
-                        if ((extras and main or hybrid and rows == 3072)
+                        if ((extras and main
+                             or (hybrid or ssm) and rows == 3072)
                                 and dtype == torch.bfloat16):
                             p = qw.packed
                             swapped = dataclasses.replace(
@@ -1099,16 +1170,22 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         if extras:
             # banked-gather LoRA (kernel 8), with and without the base
             check_banked(dtype, rnd, report, planted, dev, card)
+        elif ssm:
+            # at x_proj's and out_proj's shapes, a planted fault in each
+            check_banked(dtype, rnd, report, planted, dev, card,
+                         cases=((d, 16, di), (di, 16, d)))
     return records, readings
 
 
-def check_banked(dtype, rnd, report, planted, dev, card):
+def check_banked(dtype, rnd, report, planted, dev, card, cases=None):
     """Kernel 8 against its plain version: 8 slots of 384 rows (a prefill
     wave) and of 1 (a decode tick), 4096 -> 4096 and 4096 -> 4104 (no tile
     divides it), LoRA ranks 16 and 8, f32 factors (the path's) and, with
     bf16 activations, bf16 factors; ids ``BANK_IDS`` over a bank of 5 rows
     whose row 0 is neutral.  Library: one composite, ``torch.matmul`` for
-    the base plus two ``torch.bmm`` over the gathered rows."""
+    the base plus two ``torch.bmm`` over the gathered rows.  ``cases``
+    ``((d_in, rank, d_out), ...)`` takes other shapes instead (f32
+    factors; the first is the main one, each with the planted faults)."""
     import torch
     from repro_torch.kernels.banked_gather import (
         banked_lora_delta, banked_lora_linear,
@@ -1117,28 +1194,35 @@ def check_banked(dtype, rnd, report, planted, dev, card):
         banked_lora_delta_ref, banked_lora_linear_ref,
     )
 
-    d, n, scale = 4096, len(BANK_IDS), 2.0
+    n, scale = len(BANK_IDS), 2.0
     ids = torch.tensor(BANK_IDS, dtype=torch.int32, device=dev)
     rows_read = len(set(BANK_IDS))        # bank rows this data reads
     sz = torch.tensor([], dtype=dtype).element_size()
-    w = rnd(d, d + 8, dtype=dtype, scale=d ** -0.5)
+    shaped = cases is not None
+    if not shaped:
+        cases = ((4096, 16, 4096), (4096, 8, 4096), (4096, 16, 4104))
+        w = rnd(4096, 4104, dtype=dtype, scale=4096 ** -0.5)
     factor_dtypes = ((torch.float32, torch.bfloat16)
-                     if dtype == torch.bfloat16 else (torch.float32,))
+                     if dtype == torch.bfloat16 and not shaped
+                     else (torch.float32,))
     for a_dtype in factor_dtypes:
         asz = torch.tensor([], dtype=a_dtype).element_size()
-        for rank, d_out, seqs in ((16, d, (384, 1)), (8, d, (384, 1)),
-                                  (16, d + 8, (384, 1))):
-            if (rank, d_out) != (16, d) and a_dtype != torch.float32:
+        for ci, (d, rank, d_out) in enumerate(cases):
+            if ci and a_dtype != torch.float32:
                 continue
+            if shaped:
+                w = rnd(d, d_out, dtype=dtype, scale=d ** -0.5)
             a = rnd(5, d, rank, dtype=a_dtype, scale=d ** -0.5)
             b = rnd(5, rank, d_out, dtype=a_dtype, scale=0.1)
             a[0], b[0] = 0, 0                # the neutral row
             wd = w[:, :d_out].contiguous()
-            for seq in seqs:
+            # the faults' cases: the first (rank 16, f32 factors), and
+            # with other shapes every one
+            faults = a_dtype == torch.float32 and (shaped or ci == 0)
+            for seq in (384, 1):
                 m = n * seq
                 x = rnd(n, seq, d, dtype=dtype)
-                main = (seq == 384 and rank == 16 and d_out == d
-                        and a_dtype == torch.float32)
+                main = seq == 384 and ci == 0 and a_dtype == torch.float32
                 label = (f"rows={m} {'prefill' if seq > 1 else 'decode'} "
                          f"{d}->{d_out} r={rank} factors "
                          f"{str(a_dtype)[6:]}")
@@ -1181,8 +1265,8 @@ def check_banked(dtype, rnd, report, planted, dev, card):
                       f"rows add an exact zero: {neutral}")
                 if not neutral:
                     fail(f"kernel 8 {label}: a neutral row is not exact")
-                if (rank, d_out, a_dtype) == (16, d, torch.float32) and (
-                        dtype == torch.bfloat16):
+                if ci == 0 and a_dtype == torch.float32 and (
+                        dtype == torch.bfloat16) and not shaped:
                     for name, fn in (
                             ("banked_lora_linear", lambda: banked_lora_linear(
                                 x, wd, a, b, ids, scale=scale)),
@@ -1190,15 +1274,14 @@ def check_banked(dtype, rnd, report, planted, dev, card):
                                 x, a, b, ids, scale=scale))):
                         print(f"split {name} {label}: "
                               f"{split_text(launch_split(fn))} [{card}]")
-                if (dtype == torch.bfloat16 and seq == 1 and rank == 16
-                        and d_out == d and a_dtype == torch.float32):
+                if dtype == torch.bfloat16 and seq == 1 and faults:
                     # the decode body holds all 8 slots in one tile
                     planted("banked_lora_linear",
                             "every row on its tile's first row's id",
                             banked_lora_linear_ref(x, wd, a, b,
                                                    ids[:1].expand(n), scale),
                             want_l)
-                if main and dtype == torch.bfloat16:
+                if seq == 384 and faults and dtype == torch.bfloat16:
                     planted("banked_lora_linear",
                             "delta added into the fp32 accumulator",
                             (x.float() @ wd.float() + want.float()
@@ -1280,7 +1363,7 @@ def card_tests():
     env = dict(os.environ,
                HYPOTHESIS_STORAGE_DIRECTORY=str(HERE / "build" / "hypothesis"))
     res = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-rfE",
          "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
         cwd=HERE, env=env, capture_output=True, text=True, timeout=900,
     )
@@ -1288,6 +1371,11 @@ def card_tests():
     print(f"card tests: {lines[-1]} (rc {res.returncode})")
     if res.returncode != 0:
         print("\n".join(lines[-40:]))
+        # the failing tests' names on stderr too, where a caller that
+        # keeps only the end of stderr still sees them
+        for line in lines:
+            if line.startswith(("FAILED", "ERROR")):
+                print(f"card tests: {line}", file=sys.stderr)
         fail("the card tests failed")
 
 
@@ -1367,27 +1455,36 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
-def _quanta(cfg, n_axes):
-    """Folded QuanTA at ``cfg``'s scheme: on q/v, and for the hybrid
-    family on its config's targets (attention q/v and every rec_proj)."""
+def _targets(cfg):
+    """The adapter targets of ``cfg``'s family: the default (q/v), or for
+    the hybrid family its config's (attention q/v and every rec_proj) and
+    for the SSM family its config's (x_proj, z_proj and out_proj)."""
     from repro_torch.configs import get_peft
+
+    arch = {"hybrid": GRIFFIN, "ssm": MAMBA2}.get(cfg.family)
+    return {} if arch is None else dict(targets=get_peft(arch).targets)
+
+
+def _quanta(cfg, n_axes):
+    """Folded QuanTA at ``cfg``'s scheme on its family's targets."""
     from repro_torch.core.peft import PeftConfig
 
-    kw = (dict(targets=get_peft(GRIFFIN).targets)
-          if cfg.family == "hybrid" else {})
     return PeftConfig(method="quanta", n_axes=n_axes,
-                      scheme=cfg.quanta_scheme, **kw)
+                      scheme=cfg.quanta_scheme, **_targets(cfg))
 
 
 def _targets_text(cfg):
-    return "q/v and every rec_proj" if cfg.family == "hybrid" else "q/v"
+    return {"hybrid": "q/v and every rec_proj",
+            "ssm": "x_proj, z_proj and out_proj"}.get(cfg.family, "q/v")
 
 
 def _attn_layers(cfg):
     """Attention layers of ``cfg``: one a macro block in the hybrid
-    family, every layer otherwise."""
+    family, none in the SSM family, every layer otherwise."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_period
+    if cfg.family == "ssm":
+        return 0
     return cfg.n_layers
 
 
@@ -1515,12 +1612,13 @@ def f32_paged(dev, cfg):
                                  f"from the dense twin: {outs}")
 
 
-def _bank_setup(cfg, seed, dev, sigma, kinds=None):
+def _bank_setup(cfg, seed, dev, sigma, kinds=None, n_axes=4):
     """Random base params and the tenants of ``kinds`` (default
-    ``BANK_TENANTS``) over them: folded QuanTA as the (params, adapter
-    set) pair attach returns, fold-free QuanTA (``"quanta_ff"``) as its
-    adapter set, their tensors T moved off S, and LoRA tenants whose B
-    factors are moved off zero (Gaussian, scale ``sigma``)."""
+    ``BANK_TENANTS``) over them, on ``cfg``'s family's targets: folded
+    QuanTA (``n_axes``, the config's scheme) as the (params, adapter set)
+    pair attach returns, fold-free QuanTA (``"quanta_ff"``) as its adapter
+    set, their tensors T moved off S, and LoRA tenants whose B factors
+    are moved off zero (Gaussian, scale ``sigma``)."""
     import torch
     from repro_torch.core.peft import PeftConfig, attach
     from repro_torch.models import build_model
@@ -1532,9 +1630,8 @@ def _bank_setup(cfg, seed, dev, sigma, kinds=None):
     for i, (name, (method, rank, alpha)) in enumerate(
             (kinds or BANK_TENANTS).items()):
         if method.startswith("quanta"):
-            qparams, aset = attach(seed + 2 + i, params, PeftConfig(
-                n_axes=4, scheme=cfg.quanta_scheme,
-                fold=method == "quanta"), device=dev)
+            qparams, aset = attach(seed + 2 + i, params, dataclasses.replace(
+                _quanta(cfg, n_axes), fold=method == "quanta"), device=dev)
             for a in aset.flat().values():
                 for t in a.tensors:
                     t.add_(0.02 * torch.randn(t.shape, generator=gen,
@@ -1542,7 +1639,8 @@ def _bank_setup(cfg, seed, dev, sigma, kinds=None):
             tenants[name] = (qparams, aset) if method == "quanta" else aset
             continue
         _, aset = attach(seed + 2 + i, params, PeftConfig(
-            method="lora", rank=rank, alpha=alpha), device=dev)
+            method="lora", rank=rank, alpha=alpha, **_targets(cfg)),
+            device=dev)
         for a in aset.flat().values():
             a.b.add_(sigma * torch.randn(a.b.shape, generator=gen,
                                          device=dev, dtype=a.b.dtype))
@@ -1570,7 +1668,7 @@ F32_FF_BANK_MIX = ("F1", "L16a", "F2", "L8", None, "F1")
 F32_BANK_POOL_BLOCKS = 32
 
 
-def f32_bank(dev, cfg, foldfree=False):
+def f32_bank(dev, cfg, foldfree=False, kinds=None, mix=None, n_axes=4):
     """``cfg``: llama2-7b-proxy cut to 2 layers in float32.  A bank of
     folded QuanTA, two rank-16 and one rank-8 LoRA tenants (with
     ``foldfree``: two fold-free QuanTA tenants, one rank-16 and one
@@ -1580,18 +1678,25 @@ def f32_bank(dev, cfg, foldfree=False):
     dense base of their own: kernel 7, then kernel 8 without the base,
     and kernel 1 for fold-free tenants) and an ``AdapterPool`` of one row
     per group (the two rank-16 or the two fold-free tenants share it, so
-    it evicts and reloads), which must give the static bank's tokens."""
+    it evicts and reloads), which must give the static bank's tokens.
+    ``kinds`` and ``mix`` (with the scheme's ``n_axes``) take other
+    tenants; the SSM family has no token pool to run dry and skips the
+    tight paged pool, and the adapter pool (the CPU tests hold Mamba2's
+    pool against the JAX engine's).  Returns the dense kernel run's
+    launches."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.bank import AdapterBank
     from repro_torch.core.quantize import quantize_params
     from repro_torch.serve import AdapterPool, AdapterStore
 
-    mix = F32_FF_BANK_MIX if foldfree else F32_BANK_MIX
-    label0 = "f32 fold-free bank" if foldfree else "f32 bank"
+    mix = mix or (F32_FF_BANK_MIX if foldfree else F32_BANK_MIX)
+    label0 = (f"{cfg.name} " * (cfg.family == "ssm")
+              + ("f32 fold-free bank" if foldfree else "f32 bank"))
     model, params, tenants = _bank_setup(
         cfg, 500, dev, sigma=0.05,
-        kinds=FOLDFREE_BANK_TENANTS if foldfree else None)
+        kinds=kinds or (FOLDFREE_BANK_TENANTS if foldfree else None),
+        n_axes=n_axes)
     plain = type(model)(cfg.replace(attn_backend="reference",
                                     peft_backend="reference"), device=dev)
     gen = torch.Generator().manual_seed(7)
@@ -1608,7 +1713,9 @@ def f32_bank(dev, cfg, foldfree=False):
                               else "LoRA bank"), qbase,
               AdapterBank.build(qbase, lora), lora_mix,
               dict(base_quant="nf4")))
-    static = None
+    if cfg.family == "ssm":
+        cases = tuple(c for c in cases if c[0] != "paged tight")
+    static = launches = None
     for label, base, bnk, cmix, kw in cases:
         kernels.reset_launch_counts()
         out_k, st_k, _, _ = _serve(model, base, None, prompts, 16, 4, 256,
@@ -1645,6 +1752,7 @@ def f32_bank(dev, cfg, foldfree=False):
                 bool(st_k["preempted"]) != (label == "paged tight")):
             raise AssertionError(f"{label0} {label}: preemptions "
                                  f"{st_k['preempted']} {st_p['preempted']}")
+        _no_attention(cfg, run, f"{label0} {label}")
         need = (("quantized_matmul", "banked_lora_delta") if "NF4" in label
                 else ("banked_lora_linear", "banked_lora_delta"))
         need += ("quanta_apply",) if foldfree else (
@@ -1653,7 +1761,9 @@ def f32_bank(dev, cfg, foldfree=False):
             raise AssertionError(f"{label0} {label}: a kernel never "
                                  f"launched: {run}")
         if label == "dense":
-            static = out_k
+            static, launches = out_k, run
+    if cfg.family == "ssm":
+        return launches
     # the pool: one resident row per group over the same registry
     store = AdapterStore(max_tenants=8)
     for name, entry in tenants.items():
@@ -1674,6 +1784,7 @@ def f32_bank(dev, cfg, foldfree=False):
     if st["adapter_evictions"] < 1 or st["adapter_loads"] <= len(tenants):
         raise AssertionError(f"{label0} pool never evicted and reloaded: "
                              f"{st}")
+    return launches
 
 
 def full_serve(card, dev, cfg, n_axes, chunk=None):
@@ -1718,6 +1829,7 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
           f"8 prompts, {sum(lengths)} tokens), decode {t_dec * 1e3:.1f} ms "
           f"(wall, {stats['decode_calls']} ticks), stats {stats}, launches "
           f"{counts} [{card}]")
+    _no_attention(cfg, counts, "adapted serve")
     counts = {k: counts[k] for k in _path_kernels(cfg, DENSE_KERNELS)}
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
@@ -1764,11 +1876,12 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
     rel = float((la - lm).abs().max() / lm.abs().max())
     read["adapted_vs_merged_max_rel"] = rel
     tol = SERVE_LOGIT_TOL
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         # the same adapted model through the plain versions, judged as the
         # kernels are: what bf16 rounding alone puts between adapted and
         # merged here
-        tol = HYBRID_SERVE_LOGIT_TOL
+        tol = (HYBRID_SERVE_LOGIT_TOL if cfg.family == "hybrid"
+               else SSM_SERVE_LOGIT_TOL)
         plain = type(model)(cfg.replace(attn_backend="reference",
                                         peft_backend="reference"),
                             device=dev)
@@ -1834,12 +1947,30 @@ QLORA_KERNELS = {
 }
 
 
+ATTENTION_KERNELS = ("flash_attention", "flash_decode_attention",
+                     "paged_flash_decode_attention",
+                     "paged_flash_decode_attention_quant")
+
+
 def _path_kernels(cfg, names):
     """The kernels of ``names`` on ``cfg``'s serving path: the hybrid
-    family's ring decode runs no decode kernel (4-6)."""
-    if cfg.family != "hybrid":
-        return names
-    return tuple(n for n in names if "decode" not in n)
+    family's ring decode runs no decode kernel (4-6), the SSM family no
+    attention kernel (3-6)."""
+    if cfg.family == "hybrid":
+        return tuple(n for n in names if "decode" not in n)
+    if cfg.family == "ssm":
+        return tuple(n for n in names if n not in ATTENTION_KERNELS)
+    return names
+
+
+def _no_attention(cfg, run, label):
+    """An SSM run must launch no attention kernel (3-6)."""
+    if cfg.family != "ssm":
+        return
+    busy = {k: run[k] for k in ATTENTION_KERNELS if run[k]}
+    if busy:
+        fail(f"{cfg.name} {label}: attention kernels launched on an "
+             f"attention-free path: {busy}")
 
 
 def _decode_once(eng, toks):
@@ -3297,6 +3428,9 @@ def family_cut(dev, cut, n_axes):
               ("paged_flash_decode_attention_quant",)),
              ("NF4 base", {}, qbase, dict(base_quant="nf4"),
               ("quantized_matmul", "quanta_apply")))
+    if cut.family == "ssm":
+        # no K/V to quantize: "paged" is the dense O(1) state cache
+        cases = tuple(c for c in cases if c[0] != "paged NF4 KV")
     for label, cfg_kw, params, kw, need in cases:
         need = _path_kernels(cut, need) or ("quanta_linear",)
         outs, twins = {}, {}
@@ -3333,6 +3467,7 @@ def family_cut(dev, cut, n_axes):
                      f"differs from its dense twin")
         print(text + "; launches " + ", ".join(f"{k} {run[k]}"
                                                for k in need))
+        _no_attention(cut, run, f"f32 cut {label}")
         if any(run[k] == 0 for k in need):
             fail(f"{cut.name} f32 cut {label}: a kernel never launched")
         if cfg_kw:
@@ -4121,6 +4256,312 @@ def griffin_family(card, dev, arch=GRIFFIN, profile=False):
     return checks, counts, dict(read, seconds=secs)
 
 
+MAMBA2 = "mamba2-1.3b"
+# its f32 cut: 2 of its 48 layers at full width
+MAMBA2_CUT_LAYERS = 2
+# prefill against replay admission: prompts of several SSD chunks (the
+# 600-token one pads to 608 = 4 chunks of 152 at chunk 256)
+MAMBA2_REPLAY = (37, 300, 600)
+# the long wave: a 16384-token prompt (64 chunks of 256) beside a
+# 5000-token one in one wave, then the 5000-token one alone (its wave
+# pads to 5008 = 2^4 * 313: chunks of 16), each with LONG_NEW new tokens
+MAMBA2_LONG = (16384, 5000)
+MAMBA2_LONG_MAX_LEN = 16416
+# the f32 bank: a folded QuanTA tenant and LoRA tenants of two ranks (two
+# structure groups: the fused call takes one, the delta call the other)
+# beside the base
+SSM_BANK_TENANTS = {"Q": ("quanta", None, None),
+                    "L16a": ("lora", 16, 32.0),
+                    "L8": ("lora", 8, 16.0)}
+SSM_BANK_MIX = ("Q", "L16a", "L8", None, "Q", "L16a")
+# the kernels the Mamba2 path must launch (kernel 8 in the f32 bank)
+MAMBA2_KERNELS = ("quanta_apply", "quanta_linear", "quantized_matmul",
+                  "banked_lora_linear", "banked_lora_delta")
+
+
+def ssm_paged_view(dev, model, base, peft):
+    """``cache="paged"`` on the SSM family: the pager finds no token-axis
+    leaf, so the engine holds the dense O(1) state cache, with its
+    bytes."""
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.serve import ServingEngine
+
+    eng = ServingEngine(model, base, peft, n_slots=4, max_len=256,
+                        cache="paged", block_size=16, device=dev)
+    dense = tree_nbytes(model.init_cache(4, 256))
+    ok = (not eng.pager.paged and eng.pager.n_blocks == 0
+          and set(eng.cache) == {"ssm", "conv", "len"}
+          and eng.stats["cache_bytes_allocated"] == dense)
+    print(f"mamba2 {model.cfg.name} paged view: paged leaves "
+          f"{eng.pager.paged}, blocks {eng.pager.n_blocks}, leaves "
+          f"{sorted(eng.cache)}, cache_bytes_allocated "
+          f"{eng.stats['cache_bytes_allocated']} (the dense cache's "
+          f"{dense}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{model.cfg.name}: the paged view is not the dense cache")
+
+
+def ssm_replay(cut, model, base, peft):
+    """(b) Prefill admission (the chunked dual form over the wave) against
+    replay admission (each prompt stepped through the recurrence, the
+    decode graph) on the f32 cut: identical greedy tokens for prompts of
+    ``MAMBA2_REPLAY`` tokens, 16 new each."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.mamba2 import ssd_chunk
+
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, cut.vocab_size, (n,), generator=gen).tolist()
+               for n in MAMBA2_REPLAY]
+    outs = {}
+    for label, kw in (("prefill", {}), ("replay", dict(admission="replay"))):
+        kernels.reset_launch_counts()
+        outs[label], stats, t_adm, _ = _serve(model, base, peft, prompts, 16,
+                                              3, 640, **kw)
+        _no_attention(cut, kernels.launch_counts(), f"{label} admission")
+        print(f"mamba2 {cut.name} f32 cut {label} admission: prompts "
+              f"{list(MAMBA2_REPLAY)}, admitted in {t_adm * 1e3:.1f} ms "
+              f"(wall), prefill calls {stats['prefill_calls']}, decode "
+              f"calls {stats['decode_calls']}")
+    wave = -(-max(MAMBA2_REPLAY) // 16) * 16
+    q = ssd_chunk(wave, cut.ssm_chunk)
+    same = sum(a == b for a, b in zip(outs["prefill"], outs["replay"]))
+    print(f"mamba2 {cut.name} f32 cut: prefill (wave of {wave}, q {q}, nc "
+          f"{wave // q}) vs replay admission identical greedy tokens "
+          f"{same}/{len(prompts)} requests x 16 tokens")
+    if outs["prefill"] != outs["replay"]:
+        fail(f"{cut.name}: prefill and replay admission differ: "
+             f"{outs['prefill']} vs {outs['replay']}")
+
+
+def ssm_qlora(card, dev, model, base, peft, prompts):
+    """(c) The NF4-base serving path of the SSM family (no K/V to
+    quantize: the dense state cache): x_proj, z_proj and out_proj packed
+    to NF4 (kernel 7), the chains through kernel 1; 8 requests x 32
+    tokens, then a graph tick against its eager tick.  Returns kernel 7's
+    launches, the tick readings and the readings."""
+    from repro_torch import kernels
+    from repro_torch.core.quantize import quantize_params
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = model.cfg
+    t0 = time.monotonic()
+    qbase = quantize_params(base, "nf4", block_size=cfg.quant_block_size)
+    _sync(dev)
+    packed = sorted(k for k, v in qbase["layers"].items()
+                    if type(v).__name__ == "QuantizedLinear")
+    print(f"qlora {cfg.name}: {packed} packed to NF4 (blocks of "
+          f"{cfg.quant_block_size}) in {time.monotonic() - t0:.1f} s")
+    kernels.reset_launch_counts()
+    outs, stats, t_pre, t_dec = _serve(model, qbase, peft, prompts, 32, 8,
+                                       512, base_quant="nf4")
+    run = kernels.launch_counts()
+    print(f"qlora {cfg.name} NF4 base: prefill {t_pre * 1e3:.1f} ms (wall, "
+          f"first wave), decode {t_dec * 1e3:.1f} ms (wall, "
+          f"{stats['decode_calls']} ticks); param_bytes "
+          f"{stats['param_bytes']}, cache_bytes_allocated "
+          f"{stats['cache_bytes_allocated']}; launches {run} [{card}]")
+    _no_attention(cfg, run, "NF4 base serve")
+    missing = [k for k in ("quanta_apply", "quantized_matmul") if run[k] == 0]
+    if missing or any(len(r) != 32 for r in outs):
+        fail(f"{cfg.name}: the NF4-base run is wrong: missing {missing}")
+    eng = ServingEngine(model, qbase, peft, n_slots=8, max_len=512,
+                        base_quant="nf4", device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
+    eng.step()
+    ticks = graph_vs_eager(eng, f"{cfg.name} NF4 base", card)
+    del eng, qbase
+    return ({"quantized_matmul": run["quantized_matmul"]}, ticks,
+            dict(qlora_param_bytes=stats["param_bytes"]))
+
+
+def _long_prompts(vocab):
+    import torch
+
+    gen = torch.Generator().manual_seed(21)
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in MAMBA2_LONG]
+
+
+def chunk_rule_control(card, model, base, peft, tol=None):
+    """The second long prompt's last logits from the long wave (beside the
+    first, so chunks of 256) and from a wave of its own (padded to a
+    multiple of 16: chunks of 16): the same function summed in other
+    orders.  ``max |a - b| / max |b|`` and whether the greedy token
+    agrees; with ``tol`` judged against it."""
+    import torch
+    from repro_torch.models.mamba2 import ssd_chunk
+
+    cfg, dev = model.cfg, model.device
+    p0, p1 = _long_prompts(cfg.vocab_size)
+    n0, n1 = len(p0), len(p1)
+    s1 = -(-n1 // 16) * 16
+    logits = []
+    for s, rows in ((n0, (p0, p1)), (s1, (p1,))):
+        toks = torch.zeros((2, s), dtype=torch.long)
+        lens = torch.ones((2,), dtype=torch.int32)
+        for i, r in enumerate(rows):
+            toks[i, :len(r)] = torch.tensor(r)
+            lens[i] = len(r)
+        out, _ = model.prefill(base, peft, {"tokens": toks.to(dev)},
+                               lengths=lens.to(dev))
+        logits.append(out[len(rows) - 1, 0, :cfg.vocab_size].float())
+        del out
+    a, b = logits
+    rel = float((a - b).abs().max() / b.abs().max())
+    same = int(a.argmax()) == int(b.argmax())
+    ok = tol is None or rel <= tol
+    print(f"mamba2 {cfg.name} chunk rule ({cfg.n_layers} layers, "
+          f"{str(cfg.param_dtype)[6:]}): the {n1}-token prompt's last "
+          f"logits from a wave of {n0} (q {ssd_chunk(n0, cfg.ssm_chunk)}) "
+          f"and of {s1} (q {ssd_chunk(s1, cfg.ssm_chunk)}): max_rel "
+          f"{rel:.3e}{'' if tol is None else f' (tolerance {tol:g})'}, "
+          f"greedy token equal {same} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail(f"{cfg.name}: the chunked dual form depends on the chunk")
+    return rel
+
+
+def mamba2_long(card, cfg, model, base, peft):
+    """(c) One wave of the ``MAMBA2_LONG`` prompts through an engine of 2
+    slots and max_len ``MAMBA2_LONG_MAX_LEN``, ``LONG_NEW`` new tokens
+    each, then the 5000-token prompt alone: each wave's length, SSD chunk
+    ``q`` and chunk count ``nc`` (the largest-divisor rule), its prefill
+    and decode wall times; the engine's cache bytes at that max_len must
+    equal those at 512 (an O(1) state)."""
+    from repro_torch import kernels
+    from repro_torch.models.mamba2 import ssd_chunk
+    from repro_torch.serve import ServingEngine
+
+    prompts = _long_prompts(cfg.vocab_size)
+    read, outs = {}, {}
+    for label, ps in (("16384 + 5000", prompts), ("5000 alone", prompts[1:])):
+        kernels.reset_launch_counts()
+        outs[label], stats, t_pre, t_dec = _serve(
+            model, base, peft, ps, LONG_NEW, 2, MAMBA2_LONG_MAX_LEN)
+        run = kernels.launch_counts()
+        _no_attention(cfg, run, f"long wave {label}")
+        wave = min(-(-max(len(p) for p in ps) // 16) * 16,
+                   MAMBA2_LONG_MAX_LEN)
+        q = ssd_chunk(wave, cfg.ssm_chunk)
+        read[label] = dict(wave=wave, q=q, nc=wave // q,
+                           prefill_ms=t_pre * 1e3,
+                           tick_ms=t_dec * 1e3 / stats["decode_calls"],
+                           cache_bytes=stats["cache_bytes_allocated"])
+        print(f"mamba2 {cfg.name} long wave {label} ({cfg.n_layers} layers, "
+              f"{str(cfg.param_dtype)[6:]}): wave of {wave} positions x 2 "
+              f"rows, q {q}, nc {wave // q}; prefill {t_pre * 1e3:.1f} ms "
+              f"(wall), decode {t_dec * 1e3:.1f} ms (wall, "
+              f"{stats['decode_calls']} ticks); cache_bytes_allocated "
+              f"{stats['cache_bytes_allocated']}; launches quanta_linear "
+              f"{run['quanta_linear']}, quanta_apply {run['quanta_apply']} "
+              f"[{card}]")
+        if any(len(o) != LONG_NEW for o in outs[label]) or not run[
+                "quanta_linear"]:
+            fail(f"{cfg.name}: the long wave {label} is wrong")
+    small = ServingEngine(model, base, peft, n_slots=2, max_len=512,
+                          device=model.device).stats[
+                              "cache_bytes_allocated"]
+    big = read["16384 + 5000"]["cache_bytes"]
+    agree = sum(a == b for a, b in zip(outs["16384 + 5000"][1],
+                                       outs["5000 alone"][0]))
+    print(f"mamba2 {cfg.name} long waves: cache bytes at max_len "
+          f"{MAMBA2_LONG_MAX_LEN} {big}, at 512 {small} "
+          f"{'equal' if big == small else 'FAIL: differ'}; the 5000-token "
+          f"request's tokens in the two waves (chunks of 256 and of 16) "
+          f"agree {agree}/{LONG_NEW}")
+    if big != small:
+        fail(f"{cfg.name}: max_len sized the O(1) state cache")
+    return read
+
+
+def mamba2_family(card, dev, arch=MAMBA2, profile=False):
+    """Phase 11: mamba2-1.3b whole (48 layers, every width): (a) its
+    kernels (``check_kernels``: kernels 1 and 2 on x_proj's widening
+    chain, whose last stage tensor streams, and out_proj's, kernels 7 and
+    8 at those shapes, a planted fault in every case); (b) its f32 cut of
+    ``MAMBA2_CUT_LAYERS`` layers at full width (``family_cut``: kernel vs
+    plain tokens on the dense cache, ``cache="paged"`` and an NF4 base;
+    the paged view; prefill vs replay admission; a bank of a folded
+    QuanTA and two LoRA tenants, ``f32_bank``); (c) FULL bf16 serving
+    (``full_serve``, the NF4 base ``ssm_qlora``, the long waves); (d) 3
+    FULL training steps (``full_train``).  With ``profile``,
+    ``profile_serve`` over the adapted FULL model.  Returns the kernel
+    readings, the launches of the runs and the readings."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, get_peft
+
+    full, n_axes = get_config(arch), get_peft(arch).n_axes
+    secs, t0 = {}, time.monotonic()
+    _, checks = check_kernels(card, full, n_axes, dev)
+    secs["kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cut = full.replace(n_layers=MAMBA2_CUT_LAYERS,
+                       param_dtype=torch.float32,
+                       compute_dtype=torch.float32, attn_backend="pallas",
+                       peft_backend="pallas")
+    model, base, peft, _, _ = family_cut(dev, cut, n_axes)
+    ssm_paged_view(dev, model, base, peft)
+    ssm_replay(cut, model, base, peft)
+    chunk_rule_control(card, model, base, peft, SSM_CHUNK_TOL)
+    del model, base, peft
+    bank = f32_bank(dev, cut, kinds=SSM_BANK_TENANTS, mix=SSM_BANK_MIX,
+                    n_axes=n_axes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["f32 cut"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    counts, served, read = full_serve(card, dev, full, n_axes)
+    if profile:
+        profile_serve(card, *served, path=f"{arch} dense")
+    qcounts, qticks, qread = ssm_qlora(card, dev, *served)
+    counts.update(qcounts)
+    counts.update({k: bank[k] for k in ("banked_lora_linear",
+                                        "banked_lora_delta")})
+    read.update(qread, qlora=qticks)
+    model, base, peft, _ = served
+    read["long"] = mamba2_long(card, full.replace(
+        attn_backend="pallas", peft_backend="pallas"), model, base, peft)
+    read["chunk_rule_max_rel"] = chunk_rule_control(card, model, base, peft)
+    del served, model, base, peft
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, _, tread = full_train(card, dev, full, n_axes, FAMILY_TRAIN_STEPS)
+    read.update(tread)
+    secs["train"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    idle = [k for k in MAMBA2_KERNELS if not counts.get(k)]
+    if idle:
+        fail(f"{arch}: kernels never launched on its path: {idle}")
+    long = read["long"]
+    print(f"mamba2 {arch} summary ({full.n_layers} layers, every width): "
+          f"prefill wave {read['prefill_ms']:.1f} ms; graph / eager tick, "
+          f"replay: dense {'/'.join(f'{t:.2f}' for t in read['dense'])} "
+          f"ms, NF4 base {'/'.join(f'{t:.2f}' for t in read['qlora'])} ms; "
+          f"param_bytes {read['param_bytes']} (NF4 base "
+          f"{read['qlora_param_bytes']}); adapted vs merged max_rel "
+          f"{read['adapted_vs_merged_max_rel']:.3e} (plain versions "
+          f"{read['plain_adapted_vs_merged_max_rel']:.3e}); long waves "
+          + ", ".join(f"{k}: q {v['q']} nc {v['nc']} prefill "
+                      f"{v['prefill_ms']:.1f} ms" for k, v in long.items())
+          + f" (the chunk rule's logits apart by "
+          f"{read['chunk_rule_max_rel']:.3e})"
+          + f"; train step {read['step_ms']:.1f} ms, "
+          f"{read['tokens_per_s']:.0f} tokens/s, peak "
+          f"{read['peak_gib']:.2f} GiB; launches "
+          + ", ".join(f"{k} {counts.get(k, 0)}"
+                      for k in MAMBA2_KERNELS + ATTENTION_KERNELS)
+          + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f" [{card}]")
+    return checks, counts, dict(read, seconds=secs)
+
+
 def _device_ms(prof, counts=None):
     """Device time by kernel name, in ms, from a finished profiler; with
     ``counts`` (a dict) also each kernel's number of launches."""
@@ -4321,6 +4762,9 @@ def main() -> int:
     t0 = time.monotonic()
     g_checks, g_counts, _ = griffin_family(card, dev, GRIFFIN, profile)
     phase_s[GRIFFIN] = time.monotonic() - t0
+    t0 = time.monotonic()
+    m_checks, m_counts, _ = mamba2_family(card, dev, MAMBA2, profile)
+    phase_s[MAMBA2] = time.monotonic() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -4354,10 +4798,14 @@ def main() -> int:
                                  long_launches=g_counts.get(f"long {name}",
                                                             0),
                                  checks=g_checks.get(name, {}))}
+        # Mamba2: its launches on its runs (kernels 3-6: none, it is
+        # attention-free) and its readings at its shapes
+        mamba2 = {MAMBA2: dict(launches=m_counts.get(name, 0),
+                               checks=m_checks.get(name, {}))}
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=counts[name],
                          **records[name], dense_family=at,
-                         moe_family=moe_at, griffin=griffin))
+                         moe_family=moe_at, griffin=griffin, mamba2=mamba2))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

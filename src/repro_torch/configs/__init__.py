@@ -1,7 +1,8 @@
-"""Config registry of the port: the dense, MoE and hybrid (Griffin)
-families of the JAX package's registry (``repro/configs``), each arch
-with its FULL and SMOKE model configs, its PEFT config and its notes.  ``get_shapes`` and
-``list_cells`` (the JAX registry's shape grid) are not ported."""
+"""Config registry of the port: the dense, MoE, hybrid (Griffin) and SSM
+(Mamba2) families of the JAX package's registry (``repro/configs``), each
+arch with its FULL and SMOKE model configs, its PEFT config and its
+notes.  ``get_shapes`` and ``list_cells`` (the JAX registry's shape grid)
+are not ported."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 

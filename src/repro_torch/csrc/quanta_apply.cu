@@ -31,12 +31,18 @@
 // chain, ping-ponged between two bf16 buffers, and every stage tensor is
 // fetched into shared memory in bf16 by cp.async at the block's start
 // (stage 0's with the rows, the others while stage 0 runs), so no stage
-// waits on device memory.  Each stage stores its outputs in the layout
-// the next stage reads: that stage's pair axes minor, so every (row,
-// column) input is K contiguous values (padded to a multiple of 8), and
-// the last stage stores the canonical order.  The layouts are planned on
-// the host (kernels/smem.py chain_plan) and the kernel does index
-// arithmetic only: no permute copies.  A thread computes a TM x TO
+// waits on device memory.  Where they do not all fit, each stage's tensor
+// is fetched before the stage runs; where one tensor alone does not fit
+// beside the row buffers (mamba2-1.3b's widening x_proj chain: a last
+// stage of 512 x 512, 512 KB), it streams in equal chunks of its rows,
+// i.e. of its outputs, each chunk's outputs summed whole over k ascending
+// before the next chunk is fetched, so the sums keep their order.  Each
+// stage stores its outputs in the layout the next stage reads: that
+// stage's pair axes minor, so every (row, column) input is K contiguous
+// values (padded to a multiple of 8), and the last stage stores the
+// canonical order.  The layouts are planned on the host (kernels/smem.py
+// chain_plan) and the kernel does index arithmetic only: no permute
+// copies.  A thread computes a TM x TO
 // micro-tile of (row, column) pairs x outputs as an outer product in
 // registers: per 8 values of k, TM + TO 16-byte loads of activations and
 // tensor rows, converted to fp32 once and used TO or TM times, instead of
@@ -44,7 +50,8 @@
 // 16-byte chunks XOR-swizzled by row, so the rows a warp reads at once
 // fall in different banks.  8 x 8 micro-tiles for row tiles of 4 or more,
 // 4 x 4 below (a decode tick: one row a block, its 4096 outputs on all
-// 256 threads).  Rows past the end of x are masked, with no padding copy.
+// 256 threads) and when a tensor streams.  Rows past the end of x are
+// masked, with no padding copy.
 //
 // The float32 body (quanta_chain_kernel) is the first SIMT kernel: the
 // stage tensor staged per stage in fp32, transposed, one output index for
@@ -257,7 +264,7 @@ constexpr int kThreads = 256;
 // canonical dims of x and their strides in the first stage's layout, then
 // kStageInts per stage
 constexpr int kHeaderInts = 11;
-constexpr int kStageInts = 15 + 2 * kMaxCols;
+constexpr int kStageInts = 16 + 2 * kMaxCols;
 
 // One stage as the host planned it: K = im * in (padded to kp in the
 // layout it reads), O = om * on, the columns (ncols of them, column axes
@@ -265,11 +272,13 @@ constexpr int kStageInts = 15 + 2 * kMaxCols;
 // stage writes), the strides dm, dn of its pair axes there, the tensor's
 // element offset in the tensor area, its column and output tables'
 // offsets, the XOR mask of its tensor rows' 16-byte chunks, log2(ncols)
-// (-1: not a power of two), and the lane mapping of its micro-tiles
-// (kernels/smem.py chain_tile: lo_shift, rc_blocked).
+// (-1: not a power of two), the lane mapping of its micro-tiles
+// (kernels/smem.py chain_tile: lo_shift, rc_blocked), and oc, the tensor
+// rows (outputs) staged at once: o, or a divisor of o when the tensor
+// streams in chunks (kernels/smem.py chain_chunks).
 struct BStage {
   int k, kp, o, on, ncols, n_col, dm, dn, t_off, tab_off, t_swz, otab_off,
-      ncols_shift, lo_shift, rc_blocked;
+      ncols_shift, lo_shift, rc_blocked, oc;
   int col_dim[kMaxCols];
   int col_out[kMaxCols];
   const bf16* t;
@@ -307,28 +316,31 @@ __device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
   f[4] = lo_f(v.z); f[5] = hi_f(v.z); f[6] = lo_f(v.w); f[7] = hi_f(v.w);
 }
 
-// Stage tensor T (O, K) from device memory into shared memory as O rows of
-// kp, the 16-byte chunk c of row o at c ^ (o & t_swz): by cp.async when K
-// is a multiple of 8 (then t_swz may be non-zero), else element by element
-// (t_swz is 0).
-__device__ __forceinline__ void load_tensor(const BStage& st, bf16* dst) {
+// Stage rows o0 .. o0 + oc - 1 of tensor T (O, K) from device memory into
+// shared memory as oc rows of kp, the 16-byte chunk c of row o (counted
+// from o0) at c ^ (o & t_swz): by cp.async when K is a multiple of 8 (then
+// t_swz may be non-zero), else element by element (t_swz is 0).
+__device__ __forceinline__ void load_tensor(const BStage& st, bf16* dst,
+                                            int o0) {
   const bool vec = st.k % 8 == 0 && (reinterpret_cast<uintptr_t>(st.t) & 15) == 0;
+  const bf16* t = st.t + (size_t)o0 * st.k;
   if (vec) {
     const int per = st.k / 8;
-    for (int i = threadIdx.x; i < st.o * per; i += kThreads) {
+    for (int i = threadIdx.x; i < st.oc * per; i += kThreads) {
       const int o = i / per, c = i - o * per;
       sm90::cp_async16(sm90::smem_u32(dst + o * st.kp + 8 * (c ^ (o & st.t_swz))),
-                       st.t + (size_t)o * st.k + 8 * c, true);
+                       t + (size_t)o * st.k + 8 * c, true);
     }
   } else {
-    for (int i = threadIdx.x; i < st.o * st.k; i += kThreads) {
+    for (int i = threadIdx.x; i < st.oc * st.k; i += kThreads) {
       const int o = i / st.k, k = i - o * st.k;
-      dst[o * st.kp + k] = st.t[i];
+      dst[o * st.kp + k] = t[i];
     }
   }
 }
 
-// One stage over the tile's nrows rows: item j is the micro-tile of
+// One stage (or one chunk of its outputs: oc of them, otab from the
+// chunk's first) over the tile's nrows rows: item j is the micro-tile of
 // (row, column) pairs and outputs that kernels/smem.py chain_tile gives
 // it; every sum runs over k ascending, the next 8 values of k loaded
 // while the current 8 are summed.
@@ -340,7 +352,7 @@ __device__ __forceinline__ void stage(const BStage& st,
                                       const int* __restrict__ tab,
                                       const int* __restrict__ otab,
                                       int nrows, int ld) {
-  const int K = st.k, kp = st.kp, O = st.o;
+  const int K = st.k, kp = st.kp, O = st.oc;
   const int M = nrows * st.ncols;
   const int n_mt = (M + TM - 1) / TM, n_ot = (O + TO - 1) / TO;
   const int kc_end = K / 8, lo = 1 << st.lo_shift;
@@ -475,12 +487,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       src[r * p.ld + at] = xr[i];
     }
   }
-  load_tensor(p.st[0], tens + p.st[0].t_off);
+  load_tensor(p.st[0], tens + p.st[0].t_off, 0);
   sm90::cp_async_commit();
   // group 1: the other stages' tensors, when they all fit
   if (p.resident)
     for (int s = 1; s < p.n_stages; ++s)
-      load_tensor(p.st[s], tens + p.st[s].t_off);
+      load_tensor(p.st[s], tens + p.st[s].t_off, 0);
   sm90::cp_async_commit();
   // every stage's tables: where column c's outputs start in the next
   // layout, and where output o goes from there
@@ -503,8 +515,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int s = 0;;) {
     const BStage& st = p.st[s];
-    stage<TM, TO>(st, src, dst, tens + st.t_off, tab + st.tab_off,
-                  tab + st.otab_off, nrows, p.ld);
+    // a streamed tensor: its chunks of oc rows one after another, each
+    // output summed whole within its chunk
+    for (int o0 = 0;;) {
+      stage<TM, TO>(st, src, dst, tens + st.t_off, tab + st.tab_off,
+                    tab + st.otab_off + o0, nrows, p.ld);
+      o0 += st.oc;
+      if (o0 >= st.o) break;
+      __syncthreads();   // the chunk's sums are done with the tensor area
+      load_tensor(st, tens, o0);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+      __syncthreads();
+    }
     bf16* tmp = src;
     src = dst;
     dst = tmp;
@@ -514,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();   // stage s - 1 done; at s == 1 every tensor landed
     } else {
       __syncthreads();   // stage s - 1 done with the tensor area
-      load_tensor(p.st[s], tens);
+      load_tensor(p.st[s], tens, 0);
       sm90::cp_async_commit();
       sm90::cp_async_wait<0>();
       __syncthreads();
@@ -600,22 +623,24 @@ int unpack(const int* w, int n, BParams* p) {
     st.ncols_shift = sp[12];
     st.lo_shift = sp[13];
     st.rc_blocked = sp[14];
+    st.oc = sp[15];
     if (st.k < 1 || st.kp % 8 || st.kp < st.k || st.o < 1 || st.on < 1 ||
         st.o % st.on || st.ncols < 1 || st.n_col < 0 || st.n_col > kMaxCols ||
         (long long)st.ncols * st.kp > p->ld || st.t_off % 8 ||
-        st.t_off + st.o * st.kp > p->t_elems ||
+        st.oc < 1 || st.o % st.oc || (p->resident && st.oc != st.o) ||
+        st.t_off + st.oc * st.kp > p->t_elems ||
         st.tab_off + st.ncols > p->tab_ints ||
         st.otab_off + st.o > p->tab_ints ||
         (st.t_swz && (st.k % 8 || (st.t_swz + 1) * 8 > st.kp)) ||
         (st.ncols_shift >= 0 && st.ncols != 1 << st.ncols_shift) ||
         st.lo_shift < 0 || st.lo_shift > 5 ||
-        ((st.o + to - 1) / to) % (1 << st.lo_shift) ||
+        ((st.oc + to - 1) / to) % (1 << st.lo_shift) ||
         (st.rc_blocked != 0 && st.rc_blocked != 1))
       return 1;
     int cols = 1;
     for (int c = 0; c < st.n_col; ++c) {
-      st.col_dim[c] = sp[15 + c];
-      st.col_out[c] = sp[15 + kMaxCols + c];
+      st.col_dim[c] = sp[16 + c];
+      st.col_out[c] = sp[16 + kMaxCols + c];
       cols *= st.col_dim[c];
     }
     if (cols != st.ncols) return 1;

@@ -32,6 +32,7 @@ __all__ = [
     "chain_tile",
     "chain_lane_cost",
     "chain_bf16_smem_bytes",
+    "chain_chunks",
     "chain_plan",
     "chain_plan_ints",
     "attention_smem_bytes",
@@ -161,7 +162,7 @@ CHAIN_MAX_AXES = 8
 CHAIN_MAX_COLS = CHAIN_MAX_AXES - 2
 CHAIN_MAX_STAGES = 28
 CHAIN_HEADER_INTS = 11        # the wire format of chain_plan_ints
-CHAIN_STAGE_INTS = 15 + 2 * CHAIN_MAX_COLS
+CHAIN_STAGE_INTS = 16 + 2 * CHAIN_MAX_COLS
 CHAIN_TILES = {0: (8, 8), 1: (4, 4)}   # variant -> (TM, TO) micro-tile
 CHAIN_MAX_LO_SHIFT = 5        # the most low item bits on the output tile
                               # that bfc::unpack takes
@@ -203,6 +204,9 @@ class ChainPlan(NamedTuple):
     smem: int                 # bytes of a block
     layout: ChainLayout
     lanes: Tuple[Tuple[int, int], ...]  # per stage (lo_shift, rc_blocked)
+    chunks: Tuple[int, ...]   # per stage, tensor rows (outputs) staged at
+                              # once: all ``o`` unless the tensor streams
+    t_elems: int              # elements of the tensor area
 
 
 def _ceil8(n: int) -> int:
@@ -380,13 +384,49 @@ def _chain_lanes(st: ChainStage, rows: int, ld: int, tm: int,
 
 
 def chain_bf16_smem_bytes(rows: int, layout: ChainLayout,
-                          resident: bool) -> int:
+                          resident: bool, t_elems: int | None = None) -> int:
     """Shared memory of a bf16 chain block (``bfc::smem_bytes``): the
     column tables, the tensor area (every tensor, or the largest when they
-    stream stage by stage), two bf16 row buffers of ``rows`` x ``ld``."""
-    t = layout.t_elems if resident else layout.t_max
+    stream stage by stage, or ``t_elems``), two bf16 row buffers of
+    ``rows`` x ``ld``."""
+    t = (t_elems if t_elems is not None
+         else layout.t_elems if resident else layout.t_max)
     return (-(-4 * layout.tab_ints // 16) * 16 + -(-2 * t // 16) * 16
             + 4 * rows * layout.ld)
+
+
+def chain_chunks(layout: ChainLayout, rows: int, smem_limit: int,
+                 to: int) -> Tuple[int, ...] | None:
+    """Per stage, the tensor rows (outputs) a block of ``rows`` rows
+    stages at once when the largest stage tensor does not fit beside the
+    row buffers: the whole tensor where it fits the room left, else the
+    largest divisor of ``o`` that fits and is a multiple of the micro-tile's
+    ``to`` outputs (equal chunks, one lane mapping).  ``None`` when some
+    stage has no such chunk."""
+    room = (smem_limit - -(-4 * layout.tab_ints // 16) * 16
+            - 4 * rows * layout.ld) // 2
+    out = []
+    for st in layout.stages:
+        if st.o * st.kp <= room:
+            out.append(st.o)
+            continue
+        fits = [c for c in range(to, st.o, to)
+                if st.o % c == 0 and c * st.kp <= room]
+        if not fits:
+            return None
+        out.append(fits[-1])
+    return tuple(out)
+
+
+def _make_plan(layout: ChainLayout, rows: int, resident: bool,
+               variant: int, chunks: Tuple[int, ...],
+               t_elems: int) -> ChainPlan:
+    tm, to = CHAIN_TILES[variant]
+    lanes = tuple(_chain_lanes(st._replace(o=oc), rows, layout.ld, tm, to)
+                  for st, oc in zip(layout.stages, chunks))
+    return ChainPlan(rows, resident, variant,
+                     chain_bf16_smem_bytes(rows, layout, resident, t_elems),
+                     layout, lanes, chunks, t_elems)
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,23 +438,34 @@ def chain_plan(dims_in: Tuple[int, ...],
     most ``cap``) whose block fits ``smem_limit`` with every stage tensor
     resident (llama2-7b's 16-8-8-4 scheme: 8 rows, 128 KB of row buffers,
     84 KB of tensors, 1.75 KB of tables); failing that, with the tensors
-    streamed one stage at a time; 8 x 8 micro-tiles from 4 rows up."""
+    staged one stage at a time; failing that, with a tensor too large for
+    the block streamed in equal chunks of its rows (``chain_chunks``:
+    mamba2-1.3b's widening x_proj chain, whose last stage tensor is 512 x
+    512, at 8 rows in 8 chunks of 64 outputs), each output's sum still
+    over all of k ascending.  8 x 8 micro-tiles from 4 rows up, except
+    when a tensor streams: a chunk's 8 x 8 tiles would leave most of the
+    256 threads idle, so 4 x 4."""
     layout = chain_layout(dims_in, shapes, pairs)
+    whole = tuple(st.o for st in layout.stages)
     for resident in (True, False):
+        t_elems = layout.t_elems if resident else layout.t_max
         rows = cap
         while rows >= 1:
-            smem = chain_bf16_smem_bytes(rows, layout, resident)
-            if smem <= smem_limit:
-                variant = 0 if rows >= 4 else 1
-                tm, to = CHAIN_TILES[variant]
-                lanes = tuple(_chain_lanes(st, rows, layout.ld, tm, to)
-                              for st in layout.stages)
-                return ChainPlan(rows, resident, variant, smem, layout,
-                                 lanes)
+            if chain_bf16_smem_bytes(rows, layout, resident) <= smem_limit:
+                return _make_plan(layout, rows, resident,
+                                  0 if rows >= 4 else 1, whole, t_elems)
             rows //= 2
-    raise ValueError(f"one row of width {layout.ld} and a stage tensor of "
-                     f"{layout.t_max} elements do not fit a block's "
-                     f"{smem_limit} bytes of shared memory")
+    rows = cap
+    while rows >= 1:
+        chunks = chain_chunks(layout, rows, smem_limit, CHAIN_TILES[1][1])
+        if chunks is not None:
+            t_elems = max(oc * st.kp
+                          for st, oc in zip(layout.stages, chunks))
+            return _make_plan(layout, rows, False, 1, chunks, t_elems)
+        rows //= 2
+    raise ValueError(f"one row of width {layout.ld} and a chunk of a stage "
+                     f"tensor of {layout.t_max} elements do not fit a "
+                     f"block's {smem_limit} bytes of shared memory")
 
 
 def chain_plan_ints(plan: ChainPlan) -> Tuple[int, ...]:
@@ -424,13 +475,14 @@ def chain_plan_ints(plan: ChainPlan) -> Tuple[int, ...]:
     lay = plan.layout
     out = [len(lay.dims_in), len(lay.stages), math.prod(lay.dims_in),
            lay.d_out, lay.ld, plan.rows, int(plan.resident),
-           int(lay.in_identity), lay.t_elems if plan.resident else lay.t_max,
-           lay.tab_ints, plan.variant, *lay.dims_in, *lay.in_strides]
-    for st, (lo_shift, rc_blocked) in zip(lay.stages, plan.lanes):
+           int(lay.in_identity), plan.t_elems, lay.tab_ints, plan.variant,
+           *lay.dims_in, *lay.in_strides]
+    for st, (lo_shift, rc_blocked), oc in zip(lay.stages, plan.lanes,
+                                              plan.chunks):
         pad = [0] * (CHAIN_MAX_COLS - len(st.col_dims))
         out += [st.k, st.kp, st.o, st.on, st.ncols, len(st.col_dims), st.dm,
                 st.dn, st.t_off if plan.resident else 0, st.tab_off, st.t_swz,
-                st.otab_off, st.ncols_shift, lo_shift, rc_blocked,
+                st.otab_off, st.ncols_shift, lo_shift, rc_blocked, oc,
                 *st.col_dims, *pad, *st.col_out, *pad]
     return tuple(out)
 

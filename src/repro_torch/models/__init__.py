@@ -1,7 +1,8 @@
 from repro_torch.models.api import build_model
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.griffin import Griffin
+from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import Transformer, padded_vocab
 
-__all__ = ["build_model", "ModelConfig", "Griffin", "Transformer",
+__all__ = ["build_model", "ModelConfig", "Griffin", "Mamba2", "Transformer",
            "padded_vocab"]

@@ -1,8 +1,9 @@
-"""Shared model-building blocks of the dense, MoE and hybrid families
-(port of ``repro/models/common.py``): config, cache slot layout and
-surgery (dense stripes and paged block pools, ring buffers among them),
-the conv-state hand-off of a right-padded prefill, norms, RoPE, the
-chunked LM-head cross entropy of training, init helpers.
+"""Shared model-building blocks of the dense, MoE, hybrid and SSM
+families (port of ``repro/models/common.py``): config, cache slot layout
+and surgery (dense stripes and paged block pools, ring buffers among
+them), the conv-state hand-off of a right-padded prefill, the linear
+recurrence scan of the recurrent families, norms, RoPE, the chunked
+LM-head cross entropy of training, init helpers.
 
 Parameters are nested dicts of tensors with the JAX package's layouts
 (linears ``(d_in, d_out)``, stacked ``(L, d_in, d_out)`` over layers), so
@@ -34,6 +35,7 @@ __all__ = [
     "scatter_cache_slots",
     "insert_cache_slots",
     "gather_conv_tail",
+    "linear_scan",
     "rms_norm",
     "make_rope",
     "apply_rope",
@@ -45,8 +47,14 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of the dense, MoE and hybrid
+    """Architecture hyperparameters of the dense, MoE, hybrid and SSM
     families, with the JAX package's field names and torch dtypes.
+
+    The SSM family (Mamba2, ``models/mamba2.py``) reads ``ssm_state`` (the
+    state size N of each head), ``ssm_head_dim`` (P), ``ssm_expand`` (the
+    inner width over ``d_model``), ``ssm_chunk`` (the chunk length of the
+    chunked dual form; a sequence it does not divide takes its largest
+    divisor below it) and ``conv_kernel``.
 
     The hybrid family (Griffin, ``models/griffin.py``) reads
     ``conv_kernel`` (the recurrent block's causal conv taps),
@@ -120,7 +128,12 @@ class ModelConfig:
     router_aux_weight: float = 0.01
     moe_groups: int = 1
     fsdp: bool = False
-    # hybrid (RG-LRU / Griffin)
+    # SSM (Mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    # hybrid (RG-LRU / Griffin); conv_kernel also Mamba2's
     conv_kernel: int = 4
     lru_width: int = 0
     attn_period: int = 3          # 1 attention layer per `period` layers
@@ -325,6 +338,48 @@ def gather_conv_tail(x: torch.Tensor, lengths: torch.Tensor, window: int
     tail = x[torch.arange(b, device=x.device)[:, None],
              torch.clamp(idx, 0, s - 1)]
     return torch.where((idx >= 0)[..., None], tail, torch.zeros_like(tail))
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """``even[0], odd[0], even[1], ...`` along axis 1; ``even`` holds as
+    many entries as ``odd`` or one more."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2)
+    out = pairs.reshape(odd.shape[0], 2 * n, *odd.shape[2:])
+    if even.shape[1] > n:
+        out = torch.cat([out, even[:, n:]], dim=1)
+    return out
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 (``h_{-1} = 0``), by the
+    recursion of ``jax.lax.associative_scan`` with the combine ``(al, bl),
+    (ar, br) -> (al * ar, ar * bl + br)``: adjacent pairs combined, the
+    halves scanned, the even positions filled in; so each value is
+    rounded as the JAX package rounds it.  ``a`` broadcasts against ``b``
+    past axis 1 (Griffin's RG-LRU: both ``(B, S, d)``; Mamba2's chunk
+    decays ``(B, nc, H, 1, 1)`` over its ``(B, nc, H, N, P)`` states,
+    whose combine ``br + ar * bl`` is the same sum: IEEE addition
+    commutes).  Differentiable, static shapes."""
+
+    def combine(al, bl, ar, br):
+        return al * ar, ar * bl + br
+
+    def scan(a, b):
+        n = b.shape[1]
+        if n < 2:
+            return a, b
+        ra, rb = combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+        oa, ob = scan(ra, rb)
+        if n % 2 == 0:
+            ea, eb = combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+        else:
+            ea, eb = combine(oa, ob, a[:, 2::2], b[:, 2::2])
+        ea = torch.cat([a[:, :1], ea], dim=1)
+        eb = torch.cat([b[:, :1], eb], dim=1)
+        return _interleave(ea, oa), _interleave(eb, ob)
+
+    return scan(a, b)[1]
 
 
 def insert_cache_slots(spec: Dict[str, CacheLeafSpec], cache, slot_ids,

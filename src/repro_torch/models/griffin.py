@@ -16,10 +16,10 @@ RG-LRU (arXiv:2402.19427), its gates and recurrence in fp32::
     a_t = exp(-c * softplus(Lambda) * r_t),       c = 8
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-A sequence runs the recurrence as :func:`_lru_scan`, the recursion of
-``jax.lax.associative_scan`` (differentiable, static shapes); decode keeps
-an O(1) state per recurrent block (the LRU state and the conv's last
-``conv_kernel - 1`` inputs) and the local attention's K/V in a
+A sequence runs the recurrence as ``common.linear_scan``, the recursion
+of ``jax.lax.associative_scan`` (differentiable, static shapes); decode
+keeps an O(1) state per recurrent block (the LRU state and the conv's
+last ``conv_kernel - 1`` inputs) and the local attention's K/V in a
 ``local_window``-row ring buffer: row ``p % window`` holds position
 ``p``, with ``pos`` the position each row holds (-1: none).  Prefill runs
 the flash forward (kernel 3 under ``attn_backend="pallas"``) with the
@@ -60,6 +60,7 @@ from repro_torch.models.common import (
     fused_cross_entropy,
     gather_conv_tail,
     insert_cache_slots,
+    linear_scan,
     make_rope,
     rms_norm,
 )
@@ -68,44 +69,6 @@ from repro_torch.models.transformer import _mask_vocab_pad, padded_vocab
 __all__ = ["Griffin"]
 
 _LRU_C = 8.0
-
-
-def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    """``even[0], odd[0], even[1], ...`` along axis 1; ``even`` holds as
-    many entries as ``odd`` or one more."""
-    n = odd.shape[1]
-    pairs = torch.stack([even[:, :n], odd], dim=2)
-    out = pairs.reshape(odd.shape[0], 2 * n, *odd.shape[2:])
-    if even.shape[1] > n:
-        out = torch.cat([out, even[:, n:]], dim=1)
-    return out
-
-
-def _lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``h_t = a_t * h_{t-1} + b_t`` along axis 1 (``h_{-1} = 0``), by the
-    recursion of ``jax.lax.associative_scan`` with the combine ``(al, bl),
-    (ar, br) -> (al * ar, ar * bl + br)``: adjacent pairs combined, the
-    halves scanned, the even positions filled in; so each value is
-    rounded as the JAX package rounds it."""
-
-    def combine(al, bl, ar, br):
-        return al * ar, ar * bl + br
-
-    def scan(a, b):
-        n = a.shape[1]
-        if n < 2:
-            return a, b
-        ra, rb = combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
-        oa, ob = scan(ra, rb)
-        if n % 2 == 0:
-            ea, eb = combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
-        else:
-            ea, eb = combine(oa, ob, a[:, 2::2], b[:, 2::2])
-        ea = torch.cat([a[:, :1], ea], dim=1)
-        eb = torch.cat([b[:, :1], eb], dim=1)
-        return _interleave(ea, oa), _interleave(eb, ob)
-
-    return scan(a, b)[1]
 
 
 class Griffin(nn.Module):
@@ -224,9 +187,9 @@ class Griffin(nn.Module):
     def _rec_block(self, lp, la, x, state=None, prefill_lengths=None):
         """Griffin recurrent block.  ``state = (lru (B, dr), conv (B, K-1,
         dr))`` steps one token; ``None`` runs the sequence by
-        :func:`_lru_scan`.  With ``prefill_lengths`` (a right-padded wave)
-        pad positions take the identity update (a = 1, input 0), and the
-        block also returns each row's decode-ready (lru, conv) state.
+        ``common.linear_scan``.  With ``prefill_lengths`` (a right-padded
+        wave) pad positions take the identity update (a = 1, input 0), and
+        the block also returns each row's decode-ready (lru, conv) state.
         Returns ``(x + out, new_state)``."""
         cfg = self.cfg
         s = x.shape[1]
@@ -268,7 +231,7 @@ class Griffin(nn.Module):
             gated_in = gated_in * pad_mask
 
         if state is None:
-            h = _lru_scan(a, gated_in)                         # (B, S, dr)
+            h = linear_scan(a, gated_in)                       # (B, S, dr)
             new_state = None
             if prefill_lengths is not None:
                 new_state = (h[:, -1], gather_conv_tail(u_raw, lens, k - 1))

@@ -75,10 +75,13 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.family == "hybrid":
             raise ValueError("the hybrid family is Griffin (build_model)")
+        if cfg.family == "ssm":
+            raise ValueError("the ssm family is Mamba2 (build_model)")
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (dense, moe "
-                f"and hybrid only)"
+                f"model family {cfg.family!r} is not ported yet (dense, "
+                f"moe, hybrid and ssm only; the audio and vlm frontends "
+                f"are not)"
             )
         self.cfg = cfg
         self.device = default_device(device)

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from repro_torch.core.factorize import pair_schedule
-from repro_torch.core.quanta import QuantaAdapter, apply_sequential
+from repro_torch.core.quanta import (
+    QuantaAdapter, _stage_product, apply_sequential,
+)
 from repro_torch.kernels import smem as S
 
 H100_SMEM_BLOCK = 232448
@@ -41,6 +43,8 @@ def smoke():
 # (16-12-12), the v_proj chains of mixtral-8x7b (GQA 4096 -> 1024) and
 # llama4-maverick (5120 -> 1024), recurrentgemma-2b's q_proj and
 # rec_proj chain (16-16-10) and its v_proj chain (MQA 2560 -> 256),
+# mamba2-1.3b's widening x_proj / z_proj chain (2048 -> 4096, its last
+# stage tensor streamed in chunks) and its out_proj chain (4096 -> 2048),
 # every chain of the card tests
 # (tests/test_torch_cuda.py CHAINS) and a 12-stage schedule
 CHAINS = [
@@ -55,6 +59,8 @@ CHAINS = [
     (5120, 1024, (40, 8, 4, 4), None),
     (2560, 2560, (16, 16, 10), None),
     (2560, 256, (80, 8, 4), None),
+    (2048, 4096, (16, 16, 8), None),
+    (4096, 2048, (32, 16, 8), None),
     (64, 64, (4, 4, 4), None),
     (24, 12, (4, 3, 2), None),
     (128, 256, (8, 4, 4), None),
@@ -78,7 +84,10 @@ def _plan(ad, limit=H100_SMEM_BLOCK, cap=8):
 
 def emulate(x, tensors, plan, swapped_stage=None):
     """The kernel's data movement over one tile of x's rows, with each
-    stage's product in fp32 as the plain version computes it."""
+    stage's product in fp32 as the plain version computes it (in a 16-bit
+    dtype summed over k ascending, ``_stage_product``): a streamed
+    tensor's chunks of rows (``plan.chunks``) staged one after another,
+    each chunk's outputs from its own tensor area."""
     lay = plan.layout
     rows, dt = x.shape[0], x.dtype
     nan = float("nan")
@@ -89,18 +98,21 @@ def emulate(x, tensors, plan, swapped_stage=None):
         f = f // dim
     at = sum(i * s for i, s in zip(reversed(idx), lay.in_strides))
     buf[:, at] = x
-    acc = torch.promote_types(dt, torch.float32)
-    for s, (st, t) in enumerate(zip(lay.stages, tensors)):
+    for s, (st, t, oc) in enumerate(zip(lay.stages, tensors, plan.chunks)):
         t = t.reshape(st.o, st.k)
-        # the tensor area: row o's 16-byte chunk c at c ^ (o & t_swz)
-        area = torch.full((st.o, st.kp), nan, dtype=dt)
-        o = torch.arange(st.o)[:, None]
-        k = torch.arange(st.k)[None, :]
-        area[o, 8 * ((k // 8) ^ (o & st.t_swz)) + k % 8] = t
-        t_read = area[o, 8 * ((k // 8) ^ (o & st.t_swz)) + k % 8]
         h = buf[:, :st.ncols * st.kp].reshape(rows, st.ncols, st.kp)
-        y = (h[..., :st.k].reshape(-1, st.k).to(acc)
-             @ t_read.to(acc).T).to(dt)
+        h = h[..., :st.k].reshape(-1, st.k)
+        ys = []
+        for o0 in range(0, st.o, oc):
+            # the tensor area: the chunk's row o (counted from o0), its
+            # 16-byte chunk c at c ^ (o & t_swz)
+            area = torch.full((oc, st.kp), nan, dtype=dt)
+            o = torch.arange(oc)[:, None]
+            k = torch.arange(st.k)[None, :]
+            area[o, 8 * ((k // 8) ^ (o & st.t_swz)) + k % 8] = t[o0:o0 + oc]
+            t_read = area[o, 8 * ((k // 8) ^ (o & st.t_swz)) + k % 8]
+            ys.append(_stage_product(h, t_read))
+        y = torch.cat(ys, dim=1)
         otab = torch.tensor(S.chain_output_table(st))
         if s == swapped_stage:      # (i_m, i_n) stored where (i_n, i_m) is
             o = torch.arange(st.o)
@@ -237,8 +249,10 @@ def test_lane_mappings_cover_every_output_once(d_in, d_out, dims, pairs):
     for cap in (1, 2, 8):
         plan = _plan(ad, cap=cap)
         tm, to = S.CHAIN_TILES[plan.variant]
-        for st, (lo_shift, rc_blocked) in zip(plan.layout.stages,
-                                              plan.lanes):
+        for st, (lo_shift, rc_blocked), oc in zip(
+                plan.layout.stages, plan.lanes, plan.chunks):
+            # a streamed tensor: the mapping of one chunk of oc outputs
+            st = st._replace(o=oc)
             m = plan.rows * st.ncols
             n_mt, n_ot = -(-m // tm), -(-st.o // to)
             assert n_ot % (1 << lo_shift) == 0
@@ -262,8 +276,8 @@ def test_plans_fit_a_block_and_pad_k_to_eight(d_in, d_out, dims, pairs):
     for cap in (1, 2, 4, 8):
         plan = _plan(ad, cap=cap)
         assert plan.smem <= H100_SMEM_BLOCK and plan.rows <= cap
-        assert plan.smem == S.chain_bf16_smem_bytes(plan.rows, plan.layout,
-                                                     plan.resident)
+        assert plan.smem == S.chain_bf16_smem_bytes(
+            plan.rows, plan.layout, plan.resident, plan.t_elems)
         for st in plan.layout.stages:
             assert st.kp % 8 == 0 and st.k <= st.kp < st.k + 8
             assert st.ncols * st.kp <= plan.layout.ld
@@ -273,8 +287,10 @@ def test_plans_fit_a_block_and_pad_k_to_eight(d_in, d_out, dims, pairs):
 def test_wide_schedules_stream_their_tensors():
     """Twelve stages at llama2-7b's widths keep every tensor resident at 2
     rows, twenty-four stream theirs; a block of 99 KB streams the
-    six-stage scheme's tensors one stage at a time at 2 rows; nothing fits
-    48 KB."""
+    six-stage scheme's tensors one stage at a time at 2 rows; a block of
+    48 KB, where the two 128 x 128 tensors do not fit beside two rows,
+    streams them in four chunks of 32 outputs at two rows (4 x 4 tiles);
+    a block without room for one row's buffers raises."""
     dims = (16, 8, 8, 4)
     _, _, ad = _adapter(4096, 4096, dims, pair_schedule(4) * 2,
                         torch.bfloat16)
@@ -287,8 +303,12 @@ def test_wide_schedules_stream_their_tensors():
     plan = _plan(ad, limit=101_376)
     assert (plan.rows, plan.resident) == (2, False)
     assert plan.smem == 896 * 4 + 16384 * 2 + 4 * 2 * 4096
+    plan = _plan(ad, limit=48 * 1024)
+    assert (plan.rows, plan.resident, plan.variant) == (2, False, 1)
+    assert plan.chunks == (32, 32, 64, 64, 32, 32)
+    assert plan.t_elems == 32 * 128
     with pytest.raises(ValueError):
-        _plan(ad, limit=48 * 1024)
+        _plan(ad, limit=16 * 1024)
 
 
 def test_wire_format_mirrors_the_source():
@@ -297,7 +317,7 @@ def test_wire_format_mirrors_the_source():
     text = (CSRC / "quanta_apply.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", text))
     assert consts["kHeaderInts"] == str(S.CHAIN_HEADER_INTS)
-    assert consts["kStageInts"] == "15 + 2 * kMaxCols"
+    assert consts["kStageInts"] == "16 + 2 * kMaxCols"
     assert int(consts["kMaxAxes"]) == S.CHAIN_MAX_AXES
     assert int(consts["kMaxStages"]) == S.CHAIN_MAX_STAGES
     assert "kThreads = 256" in text and S.CHAIN_THREADS == 256

@@ -1,9 +1,10 @@
 """The port's config registry against the JAX package's: the five dense
 archs (llama2-7b-proxy, qwen2-0.5b, yi-6b, phi3-medium-14b, minicpm-2b),
-the two MoE archs (mixtral-8x7b, llama4-maverick-400b-a17b) and the
-hybrid one (recurrentgemma-2b) serve ``get_config``, ``get_smoke``,
-``get_peft`` and ``get_notes``, each value equal to its JAX twin's field
-for field (the MoE fields, the hybrid fields and ``fsdp`` among them),
+the two MoE archs (mixtral-8x7b, llama4-maverick-400b-a17b), the hybrid
+one (recurrentgemma-2b) and the SSM one (mamba2-1.3b) serve
+``get_config``, ``get_smoke``, ``get_peft`` and ``get_notes``, each value
+equal to its JAX twin's field for field (the MoE, hybrid and SSM fields
+and ``fsdp`` among them),
 with ``jnp`` dtypes mapped to ``torch``'s; the RoPE tables of yi-6b's
 base (5e6) equal the JAX package's."""
 
@@ -23,7 +24,8 @@ DENSE = ["llama2-7b-proxy", "qwen2-0.5b", "yi-6b", "phi3-medium-14b",
          "minicpm-2b"]
 MOE = ["mixtral-8x7b", "llama4-maverick-400b-a17b"]
 HYBRID = ["recurrentgemma-2b"]
-ARCHS = DENSE + MOE + HYBRID
+SSM = ["mamba2-1.3b"]
+ARCHS = DENSE + MOE + HYBRID + SSM
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -63,10 +65,10 @@ def test_peft_and_notes_equal_jax(arch):
 
 
 def test_registry_covers_the_dense_family():
-    """Every dense, MoE and hybrid arch of the JAX registry, and no other:
-    the Mamba2 and frontend archs raise."""
+    """Every dense, MoE, hybrid and SSM arch of the JAX registry, and no
+    other: the frontend archs raise."""
     for family, archs in (("dense", DENSE), ("moe", MOE),
-                          ("hybrid", HYBRID)):
+                          ("hybrid", HYBRID), ("ssm", SSM)):
         assert sorted(archs) == sorted(
             a for a in jconfigs._MODULES
             if jconfigs.get_config(a).family == family)
@@ -83,6 +85,12 @@ def test_registry_covers_the_dense_family():
     assert griffin.seq_parallel_residual and not griffin.fsdp
     assert configs.get_peft("recurrentgemma-2b").targets == (
         r".*/attn/(q_proj|v_proj)$", r".*/rec_proj$")
+    mamba = configs.get_config("mamba2-1.3b")
+    assert (mamba.ssm_state, mamba.ssm_head_dim, mamba.ssm_expand,
+            mamba.ssm_chunk, mamba.conv_kernel) == (128, 64, 2, 256, 4)
+    assert configs.get_smoke("mamba2-1.3b").ssm_chunk == 32
+    assert configs.get_peft("mamba2-1.3b").targets == (
+        r".*/(x_proj|z_proj|out_proj)$",)
     for arch in sorted(set(jconfigs._MODULES) - set(ARCHS)):
         with pytest.raises(KeyError, match=arch):
             configs.get_peft(arch)

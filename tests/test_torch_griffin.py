@@ -1,6 +1,7 @@
 """The port's Griffin (recurrentgemma-2b SMOKE: one macro block and a
-1-layer tail) held against the JAX package on the same inputs: the RG-LRU
-scan against ``jax.lax.associative_scan`` at f32 1e-6, the recurrent block
+1-layer tail) held against the JAX package on the same inputs: the linear
+scan it shares with Mamba2 against ``jax.lax.associative_scan`` at f32
+1e-6, the recurrent block
 with and without prefill lengths and one decode step, the local-attention
 prefill with its ring and each decode branch (dense ring, paged ring of
 rows, paged ring of NF4 codes), forward and loss with the QuanTA
@@ -38,7 +39,6 @@ from repro_torch.core.peft import (
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import Griffin, build_model
 from repro_torch.models import common as tcommon
-from repro_torch.models import griffin as tgriffin
 
 jfa = importlib.import_module("repro.kernels.flash_attention")
 
@@ -92,29 +92,49 @@ def _close(got, want, **tol):
         np.asarray(want), **(tol or TOL))
 
 
-@pytest.mark.parametrize("s", [1, 2, 3, 7, 64, 384])
-def test_lru_scan_matches_associative_scan(s):
-    """Each position of the recursion at f32 1e-6 against the JAX
-    package's ``_lru_scan`` (``jax.lax.associative_scan``), odd lengths
-    included; the scan also carries gradients."""
-    rs = np.random.RandomState(s)
-    a = rs.uniform(0.5, 1.0, (2, s, 8)).astype(np.float32)
-    b = rs.standard_normal((2, s, 8)).astype(np.float32)
-    want = np.asarray(jax.jit(jgriffin._lru_scan)(jnp.asarray(a),
-                                                  jnp.asarray(b)))
+# Griffin's RG-LRU: a and b (2, s, 8); Mamba2's chunk states: a (B, nc, H,
+# 1, 1) broadcast over b (B, nc, H, N, P), nc chunks
+SCAN_CASES = [(2, s, 8) for s in (1, 2, 3, 7, 64, 384)] + [
+    (2, nc, 3, 4, 5) for nc in (1, 5, 64)]
+
+
+@pytest.mark.parametrize("shape", SCAN_CASES, ids=lambda sh: (
+    f"mamba2-nc{sh[1]}" if len(sh) == 5 else str(sh[1])))
+def test_lru_scan_matches_associative_scan(shape):
+    """The shared linear scan (``common.linear_scan``) at each position at
+    f32 1e-6 against ``jax.lax.associative_scan``: Griffin's ``_lru_scan``
+    at odd lengths included, and Mamba2's combine ``(al * ar, sr + ar *
+    sl)`` with ``a`` broadcast over the ``(N, P)`` state; the scan also
+    carries gradients."""
+    rs = np.random.RandomState(shape[1])
+    mamba = len(shape) == 5
+    a_shape = shape[:3] + (1, 1) if mamba else shape
+    a = rs.uniform(0.5, 1.0, a_shape).astype(np.float32)
+    b = rs.standard_normal(shape).astype(np.float32)
+    if mamba:
+        def combine(left, right):
+            al, sl = left
+            ar, sr = right
+            return al * ar, sr + ar * sl
+
+        want = np.asarray(jax.jit(lambda a, b: jax.lax.associative_scan(
+            combine, (a, b), axis=1)[1])(jnp.asarray(a), jnp.asarray(b)))
+    else:
+        want = np.asarray(jax.jit(jgriffin._lru_scan)(jnp.asarray(a),
+                                                      jnp.asarray(b)))
     ta, tb = (torch.from_numpy(t).requires_grad_(True) for t in (a, b))
-    got = tgriffin._lru_scan(ta, tb)
+    got = tcommon.linear_scan(ta, tb)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
                                atol=1e-6)
     # the recurrence itself, as a plain loop
-    h, ref = np.zeros((2, 8), np.float32), []
-    for t in range(s):
+    h, ref = np.zeros((shape[0],) + shape[2:], np.float32), []
+    for t in range(shape[1]):
         h = a[:, t] * h + b[:, t]
         ref.append(h)
     np.testing.assert_allclose(want, np.stack(ref, 1), rtol=1e-5, atol=1e-5)
     got.sum().backward()
     assert torch.isfinite(tb.grad).all() and tb.grad[:, -1].eq(1).all()
-    assert s == 1 or torch.isfinite(ta.grad).all()
+    assert shape[1] == 1 or torch.isfinite(ta.grad).all()
 
 
 def _block(tree, key, i=0):

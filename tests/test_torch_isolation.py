@@ -85,12 +85,13 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py",
                           ROOT / "tools" / "kernel_split.py",
-                          ROOT / "tools" / "train_probe.py"] + EXAMPLES,
+                          ROOT / "tools" / "train_probe.py",
+                          ROOT / "tools" / "chain_plans.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
-    """Every module of the port (``models/griffin.py`` and
-    ``configs/recurrentgemma_2b.py`` among them), the card script, the
-    tools and the examples."""
+    """Every module of the port (``models/griffin.py``,
+    ``models/mamba2.py`` and their configs among them), the card script,
+    the tools and the examples."""
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, name)

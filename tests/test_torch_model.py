@@ -201,8 +201,8 @@ def test_param_counts_vs_jax():
 @pytest.mark.parametrize("what", ["fold_free", "family"])
 def test_unported_options_raise(what):
     """What the port does not run yet raises instead of running something
-    else: a model family other than the dense, MoE and hybrid ones
-    (Mamba2's ``ssm``).  A fold-free QuanTA
+    else: a model family other than the dense, MoE, hybrid and SSM ones
+    (musicgen's ``audio`` frontend).  A fold-free QuanTA
     bank tenant is not run as something else either: it banks as what it
     is, a delta-form group of its factors over the shared base."""
     from repro_torch.core.bank import AdapterBank
@@ -219,4 +219,4 @@ def test_unported_options_raise(what):
         assert all(n.groups[0].fold_free for n in nodes)
         return
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="ssm"), device="cpu")
+        build_model(cfg.replace(family="audio"), device="cpu")

@@ -321,7 +321,9 @@ def test_chain_row_tile_fits_a_block(dtype, limit, rows):
     SIMT body): two row buffers plus the staged fp32 tensor and offset
     tables.  bf16 (the register-tiled body, ``smem.chain_plan``): two row
     buffers, the column tables and every stage tensor in bf16, or, on the
-    99 KB card, the largest one streamed a stage at a time."""
+    99 KB card, the largest one streamed a stage at a time; only a block
+    without room for one row's buffers raises (at 48 KB the tensors
+    stream in chunks of their rows)."""
     from repro_torch.kernels import smem
 
     dims, pairs = (16, 8, 8, 4), tfact.pair_schedule(4)
@@ -332,7 +334,7 @@ def test_chain_row_tile_fits_a_block(dtype, limit, rows):
         assert plan.smem <= limit < smem.chain_bf16_smem_bytes(
             2 * rows, plan.layout, plan.resident)
         with pytest.raises(ValueError):
-            smem.chain_plan(dims, shapes, pairs, 48 * 1024)
+            smem.chain_plan(dims, shapes, pairs, 16 * 1024)
         return
     words = smem.chain_stage_words(dims, shapes, pairs)
     assert words == 128 * 129 + 2 * 128

@@ -281,14 +281,16 @@ def _rect(dims_in, d0_out):
 # phi3-medium-14b's 16-8-8-5 and its 5120 -> 1280 v_proj, minicpm-2b's
 # 16-12-12; mixtral-8x7b's 4096 -> 1024 and llama4-maverick's 5120 ->
 # 1024 v_proj; recurrentgemma-2b's 16-16-10 on q_proj and rec_proj and
-# its 2560 -> 256 v_proj) and a 12-stage schedule
+# its 2560 -> 256 v_proj; mamba2-1.3b's widening 2048 -> 4096 x_proj and
+# z_proj and its 4096 -> 2048 out_proj, 16-16-8) and a 12-stage schedule
 SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
                  _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2),
                  _chain((16, 16, 16)), _rect((64, 8, 8), 8),
                  _chain((16, 8, 8, 5)), _rect((32, 8, 5, 4), 8),
                  _chain((16, 12, 12)), _rect((64, 8, 8), 16),
                  _rect((40, 8, 4, 4), 8), _chain((16, 16, 10)),
-                 _rect((80, 8, 4), 8)]
+                 _rect((80, 8, 4), 8), _rect((16, 16, 8), 32),
+                 _rect((32, 16, 8), 16)]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
@@ -331,16 +333,17 @@ def test_chain_plan_ints_pass_the_sources_checks(chain, cap):
     sp = S.CHAIN_HEADER_INTS + 2 * n_axes
     for i in range(n_stages):
         (k, kp, o, on, ncols, n_col, _, _, t_off, tab_off, t_swz, otab_off,
-         ncols_shift, lo_shift, rc_blocked) = w[sp:sp + 15]
+         ncols_shift, lo_shift, rc_blocked, oc) = w[sp:sp + 16]
         sp += S.CHAIN_STAGE_INTS
         assert 1 <= k <= kp and kp % 8 == 0 and o % on == 0
         assert 0 <= n_col <= S.CHAIN_MAX_COLS and ncols * kp <= ld
-        assert t_off % 8 == 0 and t_off + o * kp <= t_elems
+        assert oc >= 1 and o % oc == 0 and (oc == o or not w[6])
+        assert t_off % 8 == 0 and t_off + oc * kp <= t_elems
         assert tab_off + ncols <= tab_ints and otab_off + o <= tab_ints
         assert not t_swz or (k % 8 == 0 and (t_swz + 1) * 8 <= kp)
         assert ncols_shift < 0 or ncols == 1 << ncols_shift
         assert 0 <= lo_shift <= S.CHAIN_MAX_LO_SHIFT
-        assert (-(-o // to)) % (1 << lo_shift) == 0
+        assert (-(-oc // to)) % (1 << lo_shift) == 0
         assert rc_blocked in (0, 1)
 
 
@@ -364,7 +367,8 @@ def test_f32_chain_streams_only_what_does_not_fit():
     129 floats) 24 of its 64 ``a`` rows of 1,032, recurrentgemma-2b's
     16-16-10 (a last stage of 256 x 257 floats) 4 of its 16 ``a`` rows of
     4,112 at 8 rows of 2560; without room for one ``a`` row it raises."""
-    streamed = (SERVED_CHAINS[3], SERVED_CHAINS[8], SERVED_CHAINS[10])
+    streamed = (SERVED_CHAINS[3], SERVED_CHAINS[8], SERVED_CHAINS[10],
+                SERVED_CHAINS[12], SERVED_CHAINS[13])
     for chain in SERVED_CHAINS:
         dims, shapes, pairs = chain
         if any(chain is c for c in streamed):
@@ -397,6 +401,67 @@ def test_f32_chain_streams_only_what_does_not_fit():
         - 2 * 8 * 2560 == 17120
     assert t_floats // (16 * 257) == 4 and _full_tensor(
         dims, shapes, pairs) == 256 * 257
+
+
+# mamba2-1.3b's chains (16-16-8): dims -> (bf16 plan at the prefill cap 8
+# and the decode tick's 1 as (rows, chunks, smem), f32 (rows, floats))
+MAMBA2_CHAINS = {
+    12: (((8, (128, 256, 64), 200352), (1, (128, 256, 128), 151200)),
+         (4, 25312)),
+    13: (((4, (128, 128, 256), 198880), (1, (128, 128, 256), 149728)),
+         (4, 25280)),
+}
+
+
+@pytest.mark.parametrize("chain", list(MAMBA2_CHAINS))
+def test_mamba2_chains_stream_in_chunks_that_cover_each_output_once(chain):
+    """mamba2-1.3b's widening x_proj / z_proj chain (16, 16, 8) -> (32, 16,
+    8), whose last stage tensor is 512 x 512 (512 KB in bf16), and its
+    out_proj chain (32, 16, 8) -> (16, 16, 8) plan within 227 KB in bf16
+    and in float32.  The widening chain's bf16 plan streams that tensor in
+    equal chunks of its rows (outputs): the chunks cover every output
+    exactly once, in order, and each chunk holds whole rows of k; the
+    narrowing chain's tensors all fit whole one stage at a time.  In
+    float32 both stream ``a`` rows of their last stage (3 of 32 rows of
+    16 x 513 floats; 6 of 16 rows of 16 x 257)."""
+    dims, shapes, pairs = SERVED_CHAINS[chain]
+    (prefill, decode), f32 = MAMBA2_CHAINS[chain]
+    for cap, (rows, chunks, smem) in ((8, prefill), (1, decode)):
+        plan = S.chain_plan(dims, tuple(map(tuple, shapes)),
+                            tuple(map(tuple, pairs)), H100_SMEM_BLOCK, cap)
+        assert (plan.rows, plan.chunks, plan.smem) == (rows, chunks, smem)
+        assert plan.smem <= H100_SMEM_BLOCK and not plan.resident
+        streams = any(oc < st.o for st, oc in zip(plan.layout.stages,
+                                                  plan.chunks))
+        assert streams == (chain == 12)
+        assert plan.variant == (1 if streams or cap == 1 else 0)
+        for st, oc in zip(plan.layout.stages, plan.chunks):
+            starts = list(range(0, st.o, oc))
+            covered = [o0 + i for o0 in starts for i in range(oc)]
+            assert covered == list(range(st.o))
+            assert oc * st.kp <= plan.t_elems
+        ints = S.chain_plan_ints(plan)
+        assert ints[8] == plan.t_elems
+    big = plan.layout.stages[-1]
+    if chain == 12:
+        assert (big.o, big.k) == (512, 512) and plan.t_elems == 128 * 512
+    assert S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK) == f32
+    a_row = shapes[-1][3] * (shapes[-1][0] * shapes[-1][1] + 1)
+    assert f32[1] // a_row == (3 if chain == 12 else 6)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 4, 8])
+def test_earlier_chains_keep_their_plans(cap):
+    """No chain served before mamba2-1.3b streams a tensor: every stage
+    of their plans stages all its outputs at once, resident or one stage
+    at a time, with the area of the whole tensors or of the largest."""
+    for dims, shapes, pairs in SERVED_CHAINS[:12]:
+        plan = S.chain_plan(dims, tuple(map(tuple, shapes)),
+                            tuple(map(tuple, pairs)), H100_SMEM_BLOCK, cap)
+        assert plan.chunks == tuple(st.o for st in plan.layout.stages)
+        assert plan.t_elems == (plan.layout.t_elems if plan.resident
+                                else plan.layout.t_max)
+        assert plan.variant == (0 if plan.rows >= 4 else 1)
 
 
 def test_f32_chain_meta_mirrors_the_source():

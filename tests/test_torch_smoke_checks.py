@@ -405,6 +405,35 @@ def test_griffin_phase_helpers(smoke):
     assert smoke._quanta(griffin, 3).scheme == "16-16-10"
 
 
+def test_mamba2_phase_helpers(smoke):
+    """Phase 11's helpers: Mamba2 attends nowhere, its serving path runs
+    kernels 1 and 2 and no attention kernel, an attention kernel launched
+    on its runs is a failure, its QuanTA and LoRA tenants take the
+    config's targets (x_proj, z_proj, out_proj) at its 3-axis scheme, and
+    its serve limit is the constant set from the plain versions'
+    reading, which the planted fault's 1.245 exceeds."""
+    from repro_torch.configs import get_config, get_peft
+
+    mamba = get_config("mamba2-1.3b")
+    assert smoke._attn_layers(mamba) == 0
+    assert smoke._path_kernels(mamba, smoke.DENSE_KERNELS) == (
+        "quanta_apply", "quanta_linear")
+    targets = get_peft("mamba2-1.3b").targets
+    assert smoke._quanta(mamba, 3).targets == targets
+    assert smoke._quanta(mamba, 3).scheme == "16-16-8"
+    assert smoke._targets(mamba) == dict(targets=targets)
+    assert smoke._targets_text(mamba) == "x_proj, z_proj and out_proj"
+    before = list(smoke.FAILURES)
+    run = dict.fromkeys(smoke.ATTENTION_KERNELS, 0)
+    smoke._no_attention(mamba, run, "quiet")
+    assert smoke.FAILURES == before
+    smoke._no_attention(mamba, dict(run, flash_attention=1), "busy")
+    assert len(smoke.FAILURES) == len(before) + 1
+    del smoke.FAILURES[len(before):]
+    assert smoke.SERVE_LOGIT_TOL < smoke.SSM_SERVE_LOGIT_TOL < 1.245
+    assert smoke.MAMBA2_LONG == (16384, 5000)
+
+
 def test_half_head_dim_fault_fails_the_hd256_limits(smoke):
     """Kernel 3's planted fault at head_dim 256, QK^T over the first 128
     columns only, fails its bf16 limits, while the correctly summed

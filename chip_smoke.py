@@ -196,7 +196,7 @@ Phases, one line or more each before the last:
    v_proj chain at 3072 and 8 rows, kernel 3 at head_dim 256 at (8, 384,
    10 over 1) and over one 2600-token prompt under its 2048 window, both
    judged with the sum-order control (on two more seeds too, untimed:
-   ``hd256_seeds``), its fault QK^T over the first 128
+   ``kernel3_seeds``), its fault QK^T over the first 128
    columns of head_dim; kernel 7 NF4 at its four shapes; no decode
    kernel, which its ring decode does not run); (b) its f32 cut of 5
    layers (one macro block and the 2-layer tail): kernel vs plain tokens
@@ -230,6 +230,39 @@ Phases, one line or more each before the last:
    equal at max_len 16416 and 512); (d) 3 training steps at 8 x 512; the
    launches of kernels 1, 2, 7 and 8 (nonzero) and 3-6 (zero); the
    seconds of each part.
+12. the frontends, each whole at every width: musicgen-large (48 layers,
+   audio: frame embeddings in, no token table, MHA 32 heads of 64, QuanTA
+   16-16-8) and pixtral-12b (40 layers, vision: 1024 patch embeddings
+   before the text, 32 over 8 heads of 128, its q_proj rectangular 5120
+   -> 4096).  No engine serves frame embeddings, and the engine admits
+   pixtral (a frontend model) by replay on the dense cache, as the JAX
+   engine: (a) the kernel checks at its shapes, a planted fault in every
+   case of kernels 1, 2 and 7, its chain plans printed; for pixtral
+   kernel 3 at 8 x (1024 + 384) positions (judged with the sum-order
+   control, on two more seeds too, untimed: ``kernel3_seeds``) and kernel
+   8 at its q_proj and v_proj; (b) its f32 cut of 2
+   layers: musicgen's 48 teacher-forced decode steps over frame
+   embeddings against the forward (1e-4) and the kernels against the
+   plain versions (1e-5); pixtral's kernel vs plain engines (replay:
+   dense cache, NF4 base, a bank of a folded QuanTA and two LoRA tenants
+   against each tenant alone) and a model-level wave of 1024 patches plus
+   text, then 16 greedy decode steps, identical tokens; the refusals
+   (prefill admission, a paged cache, ``ServeFrontend``; any engine over
+   musicgen); (c) FULL bf16: pixtral's replay engine (ms a replay step
+   and a tick), a graph tick bit for bit its eager twin, its NF4-base and
+   bank ticks; a model-level wave (pixtral: 8 rows of 1024 patches plus
+   32-384 tokens; musicgen: 8 x 384 frames, also on an NF4 base) and 32
+   decode steps; adapted vs merged prefill logits of the wave with its
+   planted fault; (d) 3 training steps at 8 x 512 frames / 8 x (1024 +
+   512) positions; (e) Thm. 6.2 at full width in float64 through
+   ``core/analysis.py``: the identity_noise chains' operator rank (2048,
+   and 4096 for pixtral's rectangular q_proj), musicgen's rank-deficient
+   chains within the bounds on three seeds and on two whose ranks lie
+   near full (a lower bound above 0), the equal-budget LoRA rank, the
+   trained q_proj update's rank and effective rank; each FULL run's
+   launches a unit (a wave, a decode step, an engine's tick) at exactly
+   the count its path implies (``frontend_units``: kernels 1-4 and 7, 8
+   on pixtral's bank; 5-6 in none); the seconds of each part.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -251,7 +284,11 @@ config, with ``long_launches`` from the long request's runs, and
 ``griffin`` the same for recurrentgemma-2b (its ``long_launches`` from
 the long requests' dense run; its readings with head_dim 256), and
 ``mamba2`` for mamba2-1.3b (kernels 1 and 2 from its adapted serve run,
-kernel 7 from its NF4-base run, kernel 8 from its f32 bank's dense run).
+kernel 7 from its NF4-base run, kernel 8 from its f32 bank's dense run),
+and ``frontends`` for musicgen-large and pixtral-12b (each kernel's
+launches summed over the config's FULL phase-12 runs, each run counted
+from 0 just before it; under ``runs`` each run's own launches, units and
+launches a unit; the f32 cut's launches apart, ``cut_launches``).
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -692,8 +729,13 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     widening chain (z_proj shares it; its bf16 plan printed, whose last
     stage tensor streams in chunks) and on out_proj's, kernel 7 NF4 at
     those two shapes and kernel 8 at them too, a planted fault in every
-    case, and no attention kernel.  Returns the bf16 record of each kernel at the main shapes and every
-    bf16 reading by kernel and label."""
+    case, and no attention kernel.  The frontends (musicgen, pixtral) plant
+    a fault in every case of kernels 1, 2 and 7 and print their chain
+    plans; pixtral (a vision frontend) also runs kernel 3 at 8 rows of its
+    ``n_patches`` + 384 positions, judged with the sum-order control, and
+    kernel 8 at its q_proj and v_proj shapes.  Returns the bf16 record of
+    each kernel at the main shapes and every bf16 reading by kernel and
+    label."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.peft import choose_dims
@@ -717,6 +759,10 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     records, readings = {}, {}
     hybrid = cfg.family == "hybrid"
     ssm = cfg.family == "ssm"
+    frontend = cfg.frontend is not None
+    vision = cfg.frontend == "vision_embeds"
+    # families whose every case of kernels 1, 2 and 7 carries a fault
+    faulted = hybrid or ssm or frontend
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     gqa = dict(enable_gqa=True) if kv != h else {}
@@ -793,7 +839,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
             t_bytes = sum(t.numel() for t in tensors) * sz
             macs = _chain_macs(dims, shapes, pairs)
             w = rnd(d_in, d_out, dtype=dtype, scale=d_in ** -0.5)
-            if ssm and dtype == torch.bfloat16:
+            if (ssm or frontend) and dtype == torch.bfloat16:
                 lim = device_limits(dev).smem_block
                 for cap, rows in ((8, 3072), (1, 8)):
                     plan = chain_plan(dims, tuple(map(tuple, shapes)),
@@ -840,7 +886,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                            x, tensors, dims, pairs)),
                        (rows * (d_in + d_out) + d_in * d_out) * sz + t_bytes,
                        2 * rows * (d_in * d_out + macs), main)
-                if (hybrid or ssm) and dtype == torch.bfloat16:
+                if faulted and dtype == torch.bfloat16:
                     planted("quanta_apply", "one stage's pair axes swapped",
                             apply_sequential(x, swapped_stage(
                                 tensors, len(tensors) // 2), dims, pairs),
@@ -883,10 +929,15 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
 
         # prefill attention: B=8 slots, S=384 at the config's heads; under
         # a window that binds at the config's length (mixtral's 4096) one
-        # 4600-token prompt
+        # 4600-token prompt; a vision frontend's multimodal wave, its
+        # patches before 384 tokens
         attn = () if ssm else ((8, 384, None, "S=384", True),) + (
             ((8, 300, None, "S=300 tail", False),
              (8, 384, 100, "S=384 window=100", False)) if extras else ())
+        mm_s = cfg.n_patches + 384
+        if vision:
+            attn += ((8, mm_s, None,
+                      f"S={cfg.n_patches}+384 multimodal", False),)
         win = cfg.local_window if hybrid else cfg.sliding_window
         long_s = GRIFFIN_LONG[0] if hybrid else LONG_PROMPT
         if win is not None and not extras and not ssm:
@@ -909,14 +960,15 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
             lib = timed(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, is_causal=band is None, **gqa))
             del qt, kt, vt, band
-            # the long request's shape, and any head_dim above 128 (where
-            # the control itself is off the plain version by more than
-            # 1e-4): bf16 judged with a sum-order control (correct_sums);
-            # the long shape's plain version (1.8 s a call) timed over 2
-            # calls
+            # the long request's shape, a vision frontend's multimodal
+            # wave, and any head_dim above 128 (where the control itself is
+            # off the plain version by more than 1e-4): bf16 judged with a
+            # sum-order control (correct_sums); the long shape's plain
+            # version (1.8 s a call) timed over 2 calls
             long = s == long_s
+            multimodal = vision and s == mm_s
             control = None
-            if (long or hd > 128) and dtype == torch.bfloat16:
+            if (long or multimodal or hd > 128) and dtype == torch.bfloat16:
                 with correct_sums():
                     control = FA.flash_attention_plain(q, k, v,
                                                        window=window)
@@ -928,7 +980,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                        q, k, v, window=window), **it),
                    lib, 2 * b * s * (h + kv) * hd * sz,
                    4 * hd * pairs_vis * h * b, main, control)
-            if (extras and main or long) and dtype == torch.bfloat16:
+            if (extras and main or long or multimodal) and (
+                    dtype == torch.bfloat16):
                 planted("flash_attention", "p not cast before PV",
                         FA.flash_attention_plain(q, k, v.float(),
                                                  window=window).to(dtype),
@@ -1156,8 +1209,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                timed(lambda: torch.matmul(x, wd)),
                                rows * (d_in + d_out) * sz + w_bytes,
                                2 * rows * d_in * d_out, main)
-                        if ((extras and main
-                             or (hybrid or ssm) and rows == 3072)
+                        if ((extras and main or faulted and rows == 3072)
                                 and dtype == torch.bfloat16):
                             p = qw.packed
                             swapped = dataclasses.replace(
@@ -1170,10 +1222,12 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
         if extras:
             # banked-gather LoRA (kernel 8), with and without the base
             check_banked(dtype, rnd, report, planted, dev, card)
-        elif ssm:
-            # at x_proj's and out_proj's shapes, a planted fault in each
+        elif ssm or vision:
+            # at the adapted projections' shapes (Mamba2's x_proj and
+            # out_proj, pixtral's q_proj and v_proj), a planted fault in each
             check_banked(dtype, rnd, report, planted, dev, card,
-                         cases=((d, 16, di), (di, 16, d)))
+                         cases=tuple((d_in, 16, d_out)
+                                     for d_in, d_out in projs))
     return records, readings
 
 
@@ -1408,9 +1462,11 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     outputs, the engine's stats and the wall times of the first wave's
     prefill and of the rest of the run.  The stats add ``readmit_s``, the
     wall time of the prefills after the first wave (each timed to the
-    device's end), ``preempted``, ``(request, tokens it had)`` for each
-    preemption, and ``guard``, the capture guard's counts, which must be
-    one decode graph (none with ``eager``)."""
+    device's end), ``admit_decode_calls``, the decode ticks of the first
+    admission (a replay engine's replay steps), ``preempted``,
+    ``(request, tokens it had)`` for each preemption, and ``guard``, the
+    capture guard's counts, which must be one decode graph (none with
+    ``eager``)."""
     from repro_torch.serve import Request, ServingEngine
 
     dev = model.device
@@ -1429,6 +1485,7 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     _sync(dev)
     t1 = time.monotonic()
     first_wave_bytes = eng.stats.get("cache_bytes_allocated")
+    admit_calls = eng.stats["decode_calls"]
     readmit, preempted = [0.0], []
     admit, preempt = eng._admit, eng._preempt
 
@@ -1451,7 +1508,8 @@ def _serve(model, params, peft, prompts, max_new, n_slots, max_len,
     t2 = time.monotonic()
     guard = _guard_ok(eng, "serve", eager)
     stats = dict(eng.stats, cache_bytes_first_wave=first_wave_bytes,
-                 readmit_s=readmit[0], preempted=preempted, guard=guard)
+                 admit_decode_calls=admit_calls, readmit_s=readmit[0],
+                 preempted=preempted, guard=guard)
     return [r.output for r in reqs], stats, t1 - t0, t2 - t1
 
 
@@ -1787,6 +1845,83 @@ def f32_bank(dev, cfg, foldfree=False, kinds=None, mix=None, n_axes=4):
     return launches
 
 
+def merged_check(card, label, cfg, model, base, peft, batch, lens, tol,
+                 plain=False):
+    """Adapted vs merged prefill logits of the wave ``batch`` (``lens``),
+    max |a - m| / max |m| within ``tol``: through the kernels and, with
+    ``plain``, through the plain versions too; then the planted fault (the
+    first chain stage of every adapter skipped: its tensor made the
+    identity, then put back) must exceed ``tol``.  An MoE merged model
+    routes as the adapted one did (its gates at those experts), so that
+    the two differ where the dense family's do, by bf16 rounding, and not
+    by experts that a near tie flips.  Returns the readings."""
+    import torch
+    from repro_torch.core.peft import merge_all
+
+    merged = merge_all(base, peft)
+    with recorded_routing() as calls:
+        la, _ = model.prefill(base, peft, batch, lengths=lens)
+    pin = contextlib.nullcontext
+    if cfg.is_moe:
+        free_routing(cfg, model, merged, batch, lens, calls, la)
+
+        def pin():
+            return pinned_routing(calls)
+    with pin():
+        lm, _ = model.prefill(merged, None, batch, lengths=lens)
+    del merged
+    la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
+    if not (torch.isfinite(la).all() and torch.isfinite(lm).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    rel = float((la - lm).abs().max() / lm.abs().max())
+    read = dict(adapted_vs_merged_max_rel=rel)
+    del la
+    if plain:
+        pm = type(model)(cfg.replace(attn_backend="reference",
+                                     peft_backend="reference"),
+                         device=model.device)
+        lp, _ = pm.prefill(base, peft, batch, lengths=lens)
+        lp = lp[..., :cfg.vocab_size].float()
+        if not torch.isfinite(lp).all():
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits "
+                                 f"(plain versions)")
+        rel_p = float((lp - lm).abs().max() / lm.abs().max())
+        del lp, pm
+        read["plain_adapted_vs_merged_max_rel"] = rel_p
+        print(f"{label} {cfg.name}: adapted (plain versions) vs merged "
+              f"prefill logits max_rel {rel_p:.3e} (tolerance {tol})")
+        if rel_p > tol:
+            fail(f"{cfg.name}: adapted (plain) and merged prefill logits "
+                 f"disagree")
+    print(f"{label} {cfg.name}: adapted vs merged prefill logits"
+          f"{' (routing of the adapted run)' if cfg.is_moe else ''} max_rel "
+          f"{rel:.3e} (tolerance {tol}); logits shape {tuple(lm.shape)} "
+          f"[{card}]")
+    if rel > tol:
+        fail(f"{cfg.name}: adapted and merged prefill logits disagree")
+    firsts = [a.tensors[0] for a in peft.flat().values()]
+    saved = [t.clone() for t in firsts]
+    for t in firsts:               # (..., om, on, im, in), maybe stacked
+        om, on, im, i_n = t.shape[-4:]
+        t.copy_(torch.eye(om * on, im * i_n, device=t.device, dtype=t.dtype
+                          ).reshape(om, on, im, i_n).expand_as(t))
+    with pin():
+        lf, _ = model.prefill(base, peft, batch, lengths=lens)
+    for t, old in zip(firsts, saved):
+        t.copy_(old)
+    lf = lf[..., :cfg.vocab_size].float()
+    rel_f = float((lf - lm).abs().max() / lm.abs().max())
+    del lf, lm
+    read["fault_max_rel"] = rel_f
+    print(f"fault {label} {cfg.name} (first chain stage skipped): adapted vs "
+          f"merged prefill logits max_rel {rel_f:.3e} "
+          f"{'caught' if rel_f > tol else 'passes: too loose'}")
+    if rel_f <= tol:
+        fail(f"{cfg.name}: a skipped chain stage passes the serve logit "
+             f"tolerance")
+    return read
+
+
 def full_serve(card, dev, cfg, n_axes, chunk=None):
     """``cfg``: a FULL config (bf16) with folded, perturbed QuanTA on q/v
     at its scheme.  8 requests (prompts of 32-384 tokens, 32 new tokens)
@@ -1849,80 +1984,21 @@ def full_serve(card, dev, cfg, n_axes, chunk=None):
     if any(len(r) != 32 for r in out_a + out_m):
         raise AssertionError(f"{cfg.name}: a request did not get its 32 "
                              f"tokens")
+    del merged
     wave = 384 if chunk is None else chunk // 4
     toks = torch.zeros((8, wave), dtype=torch.long)
     for i, p in enumerate(prompts):
         toks[i, :min(len(p), wave)] = torch.tensor(p[:wave])
     lens = torch.tensor([min(n, wave) for n in lengths], dtype=torch.int32,
                         device=dev)
-    batch = {"tokens": toks.to(dev)}
-    with recorded_routing() as calls:
-        la, _ = model.prefill(base, peft, batch, lengths=lens)
-    # MoE: the merged model routes as the adapted one did (its gates at
-    # those experts), so that the two differ where the dense family's do,
-    # by bf16 rounding, and not by experts that a near tie flips
-    pin = contextlib.nullcontext
-    if cfg.is_moe:
-        free_routing(cfg, model, merged, batch, lens, calls, la)
-
-        def pin():
-            return pinned_routing(calls)
-    with pin():
-        lm, _ = model.prefill(merged, None, batch, lengths=lens)
-    del merged
-    la, lm = la[..., :cfg.vocab_size].float(), lm[..., :cfg.vocab_size].float()
-    if not (torch.isfinite(la).all() and torch.isfinite(lm).all()):
-        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
-    rel = float((la - lm).abs().max() / lm.abs().max())
-    read["adapted_vs_merged_max_rel"] = rel
-    tol = SERVE_LOGIT_TOL
-    if cfg.family in ("hybrid", "ssm"):
-        # the same adapted model through the plain versions, judged as the
-        # kernels are: what bf16 rounding alone puts between adapted and
-        # merged here
-        tol = (HYBRID_SERVE_LOGIT_TOL if cfg.family == "hybrid"
-               else SSM_SERVE_LOGIT_TOL)
-        plain = type(model)(cfg.replace(attn_backend="reference",
-                                        peft_backend="reference"),
-                            device=dev)
-        lp, _ = plain.prefill(base, peft, batch, lengths=lens)
-        lp = lp[..., :cfg.vocab_size].float()
-        rel_p = float((lp - lm).abs().max() / lm.abs().max())
-        del lp, plain
-        read["plain_adapted_vs_merged_max_rel"] = rel_p
-        print(f"serve {cfg.name}: adapted (plain versions) vs merged "
-              f"prefill logits max_rel {rel_p:.3e} (tolerance {tol})")
-        if rel_p > tol:
-            fail(f"{cfg.name}: adapted (plain) and merged prefill logits "
-                 f"disagree")
-    print(f"serve {cfg.name}: adapted vs merged prefill logits"
-          f"{' (routing of the adapted run)' if cfg.is_moe else ''} max_rel "
-          f"{rel:.3e} (tolerance {tol}); logits shape "
-          f"{tuple(la.shape)}")
-    if rel > tol:
-        fail(f"{cfg.name}: adapted and merged prefill logits disagree")
-    del la
-    # planted fault: the first chain stage of every adapter skipped (its
-    # tensor made the identity), then put back
-    firsts = [a.tensors[0] for a in peft.flat().values()]
-    saved = [t.clone() for t in firsts]
-    for t in firsts:               # (..., om, on, im, in), maybe stacked
-        om, on, im, i_n = t.shape[-4:]
-        t.copy_(torch.eye(om * on, im * i_n, device=dev, dtype=t.dtype
-                          ).reshape(om, on, im, i_n).expand_as(t))
-    with pin():
-        lf, _ = model.prefill(base, peft, batch, lengths=lens)
-    for t, old in zip(firsts, saved):
-        t.copy_(old)
-    lf = lf[..., :cfg.vocab_size].float()
-    rel_f = float((lf - lm).abs().max() / lm.abs().max())
-    del lf, lm
-    print(f"fault serve {cfg.name} (first chain stage skipped): adapted vs "
-          f"merged prefill logits max_rel {rel_f:.3e} "
-          f"{'caught' if rel_f > tol else 'passes: too loose'}")
-    if rel_f <= tol:
-        fail(f"{cfg.name}: a skipped chain stage passes the serve logit "
-             f"tolerance")
+    # hybrid, ssm: the same adapted model through the plain versions too,
+    # judged as the kernels are (what bf16 rounding alone puts between
+    # adapted and merged there sets their tolerance)
+    tol = {"hybrid": HYBRID_SERVE_LOGIT_TOL, "ssm": SSM_SERVE_LOGIT_TOL}.get(
+        cfg.family, SERVE_LOGIT_TOL)
+    read.update(merged_check(card, "serve", cfg, model, base, peft,
+                             {"tokens": toks.to(dev)}, lens, tol,
+                             plain=cfg.family in ("hybrid", "ssm")))
     eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
                         device=dev, **kw)
     for i, p in enumerate(prompts):
@@ -4149,21 +4225,19 @@ def griffin_long(card, cut, model, base, peft, lengths, plain=False):
     return launches
 
 
-def hd256_seeds(card, dev, cfg, seeds=(12, 13)):
-    """Kernel 3 at ``cfg``'s head_dim (256) on more seeds than
-    ``check_kernels``' one: bf16 at (8, 384) and over one
-    ``GRIFFIN_LONG[0]``-token prompt under the window, each judged as
-    there, against the plain version with ``LONG_OFF_FACTOR`` x the
-    sum-order control as floor; prints the kernel's and the control's
-    off shares and the kernel's off the control (not timed)."""
+def kernel3_seeds(card, dev, cfg, shapes, seeds=(12, 13)):
+    """Kernel 3 at ``cfg``'s heads on more seeds than ``check_kernels``'
+    one: bf16 at each ``(b, s, window)`` of ``shapes``, judged as there,
+    against the plain version with ``LONG_OFF_FACTOR`` x the sum-order
+    control as floor; prints the kernel's and the control's off shares
+    and the kernel's off the control (not timed)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
 
     bf16, h, kv, hd = torch.bfloat16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for seed in seeds:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for b, s, window in ((8, 384, None),
-                             (1, GRIFFIN_LONG[0], cfg.local_window)):
+        for b, s, window in shapes:
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
                        for shape in ((b, s, h, hd), (b, s, kv, hd),
                                      (b, s, kv, hd)))
@@ -4180,8 +4254,8 @@ def hd256_seeds(card, dev, cfg, seeds=(12, 13)):
                   f"{error_stats(got, control, bf16)['off']:.3e}) "
                   f"{'ok' if ok else 'FAIL'} [{card}]")
             if not ok:
-                fail(f"{cfg.name}: flash_attention at hd {hd}, seed {seed}, "
-                     f"disagrees with its plain version")
+                fail(f"{cfg.name}: flash_attention ({b}, {s}) at hd {hd}, "
+                     f"seed {seed}, disagrees with its plain version")
             del q, k, v, got, want, control
 
 
@@ -4205,7 +4279,8 @@ def griffin_family(card, dev, arch=GRIFFIN, profile=False):
     full, n_axes = get_config(arch), get_peft(arch).n_axes
     secs, t0 = {}, time.monotonic()
     _, checks = check_kernels(card, full, n_axes, dev)
-    hd256_seeds(card, dev, full)
+    kernel3_seeds(card, dev, full, ((8, 384, None),
+                                    (1, GRIFFIN_LONG[0], full.local_window)))
     secs["kernels"] = time.monotonic() - t0
     t0 = time.monotonic()
     cut = full.replace(n_layers=GRIFFIN_CUT_LAYERS,
@@ -4562,6 +4637,691 @@ def mamba2_family(card, dev, arch=MAMBA2, profile=False):
     return checks, counts, dict(read, seconds=secs)
 
 
+# --------------------------------------------------------------- phase 12
+FRONTENDS = ("musicgen-large", "pixtral-12b")
+# and none of these in any run: the reference refuses a paged cache under
+# replay
+FRONTEND_IDLE = ("paged_flash_decode_attention",
+                 "paged_flash_decode_attention_quant")
+# musicgen's f32 cut: teacher-forced decode steps against the forward's
+# logits (the JAX package's own check holds them at 2e-4 on its SMOKE
+# config), and the kernels' logits against the plain versions'; both max
+# |a - b| / max |b|
+FRONTEND_DECODE_TOL = 1e-4
+FRONTEND_KERNEL_TOL = 1e-5
+# the frontends' stub embeddings (frames, patches) at the scale of the
+# token table's rows (``embed_init``: std 0.02)
+FRONTEND_EMBED_SCALE = 0.02
+# decode steps after a model-level wave
+FRONTEND_STEPS = 32
+# the FULL pixtral engines' text prompts (replay steps each through the
+# decode tick: 256 ticks for the longest), and the graph engine's
+FRONTEND_PROMPTS = (32, 64, 96, 128, 160, 192, 224, 256)
+FRONTEND_GRAPH_PROMPT = 16
+# the f32 cut's engines: 4 text prompts x 16 tokens over 4 slots
+FRONTEND_CUT_PROMPTS = (37, 80, 129, 64)
+# pixtral's bank runs: a folded QuanTA tenant and LoRA tenants of ranks 16
+# and 8 (two structure groups: kernel 8's fused call takes one, its delta
+# call the other)
+FRONTEND_LORA = {"L16a": (16, 32.0), "L8": (8, 16.0)}
+FRONTEND_BANK_MIX = ("Q", "L16a", "L8", None, "Q", "L16a", "L8", None)
+# the model-level waves: pixtral's text after its patches, musicgen's
+# frames
+FRONTEND_WAVE = {"pixtral-12b": (32, 82, 132, 182, 232, 282, 332, 384),
+                 "musicgen-large": (384,) * 8}
+
+
+def frontend_units(cfg):
+    """Each FULL phase-12 run of ``cfg`` and its launches a unit, as its
+    path implies: a unit is a model-level wave (one ``prefill``), a
+    decode step, or an engine's tick (a graph replay adds the captured
+    tick's launches, so every tick counts once).  Per layer: the chain
+    kernel (1) once per adapted target (q/v), inside kernel 2 over a
+    dense base, beside kernel 7 over an NF4 base, which takes the seven
+    projections q, k, v, o, gate, up and down; kernel 3 once in a wave,
+    kernel 4 once in a step or tick.  pixtral's bank (``FRONTEND_LORA``
+    and the folded QuanTA tenant): per target, kernel 8's fused call for
+    the first LoRA group, its delta call for the other, and the QuanTA
+    row's own kernel-2 apply.  Every kernel absent from a unit's entry
+    launches 0 times in that run."""
+    n, t = cfg.n_layers, 2
+    chain = {"quanta_apply": t * n, "quanta_linear": t * n}
+    nf4 = {"quanta_apply": t * n, "quantized_matmul": 7 * n}
+    units = {"wave": dict(chain, flash_attention=n),
+             "decode steps": dict(chain, flash_decode_attention=n)}
+    if cfg.frontend == "audio_tokens":
+        units.update({
+            "NF4-base wave": dict(nf4, flash_attention=n),
+            "NF4-base decode steps": dict(nf4, flash_decode_attention=n)})
+        return units
+    tick = dict(chain, flash_decode_attention=n)
+    units.update({
+        "replay engine": tick, "graph engine": tick,
+        "NF4-base engine": dict(nf4, flash_decode_attention=n),
+        "bank engine": dict(tick, banked_lora_linear=t * n,
+                            banked_lora_delta=t * n)})
+    return units
+
+
+def judge_units(cfg, runs, card):
+    """Each FULL run's launches (``runs``: label -> (launches, units))
+    against :func:`frontend_units`: every kernel at exactly its count a
+    unit times the run's units (so each kernel of a run's path launched,
+    and none off it).  Prints each run's launches a unit."""
+    want = frontend_units(cfg)
+    if set(runs) != set(want):
+        fail(f"{cfg.name}: FULL runs {sorted(runs)}, expected "
+             f"{sorted(want)}")
+    for label, (counts, n) in runs.items():
+        per = want.get(label, {})
+        bad = {k: counts.get(k, 0) for k in SOURCES
+               if n < 1 or counts.get(k, 0) != per.get(k, 0) * n}
+        print(f"frontends {cfg.name} FULL {label}: {n} units; launches a "
+              f"unit " + ", ".join(f"{k} {counts[k] / max(n, 1):g}"
+                                   for k in SOURCES
+                                   if counts.get(k)) + " (expected "
+              + ", ".join(f"{k} {v}" for k, v in per.items())
+              + f"; every other kernel 0) {'ok' if not bad else 'FAIL'} "
+              f"[{card}]")
+        if bad:
+            fail(f"{cfg.name} FULL {label}: launches off the path's count "
+                 f"({n} units): {bad}")
+
+
+def _frontend_batch(cfg, lens, seed, dev, dtype):
+    """A model-level batch of ``len(lens)`` right-padded rows: frame
+    embeddings (audio), or ``n_patches`` patch embeddings before text
+    tokens (vision), and each row's length (vision: patches included)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, s, d = len(lens), max(lens), cfg.d_model
+
+    def embeds(n):
+        return (FRONTEND_EMBED_SCALE * torch.randn(
+            (b, n, d), generator=gen, device=dev)).to(dtype)
+
+    if cfg.frontend == "audio_tokens":
+        batch, lens = {"embeds": embeds(s)}, list(lens)
+    else:
+        batch = {"patch_embeds": embeds(cfg.n_patches),
+                 "tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev)}
+        lens = [cfg.n_patches + n for n in lens]
+    return batch, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _wave_then_decode(model, params, peft, batch, lens, steps, seed):
+    """``model.prefill`` of the wave, its cache inserted into a dense cache
+    of the longest row plus ``steps``, then ``steps`` greedy decode steps
+    (audio: random frame embeddings, teacher-forced).  Returns the wave's
+    logits, each step's greedy tokens, the wall ms of the wave and of a
+    step (each to the device's end), and the kernels' launches of the
+    wave and of the steps (``{"wave": ..., "decode steps": ...}``)."""
+    import torch
+    from repro_torch import kernels
+
+    cfg, dev = model.cfg, model.device
+    b = lens.shape[0]
+    _sync(dev)
+    c0 = kernels.launch_counts()
+    t0 = time.monotonic()
+    logits, wave = model.prefill(params, peft, batch, lengths=lens)
+    _sync(dev)
+    t1 = time.monotonic()
+    c1 = kernels.launch_counts()
+    cache = model.init_cache(b, int(lens.max()) + steps)
+    model.insert_cache(cache, torch.arange(b, device=dev), wave, lens)
+    del wave
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = (FRONTEND_EMBED_SCALE * torch.randn(
+        (steps, b, 1, cfg.d_model), generator=gen, device=dev)).to(
+        cfg.compute_dtype) if cfg.frontend == "audio_tokens" else None
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    tokens = [tok.tolist()]
+    _sync(dev)
+    t2 = time.monotonic()
+    for i in range(steps):
+        step_in = ({"embeds": frames[i]} if frames is not None
+                   else {"tokens": tok[:, None]})
+        out, cache = model.decode_step(params, peft, cache, step_in)
+        tok = out[:, -1, :cfg.vocab_size].argmax(-1)
+        tokens.append(tok)
+    _sync(dev)
+    t3 = time.monotonic()
+    c3 = kernels.launch_counts()
+    tokens = tokens[:1] + [t.tolist() for t in tokens[1:]]
+    launches = {"wave": {k: c1[k] - c0[k] for k in c0},
+                "decode steps": {k: c3[k] - c1[k] for k in c0}}
+    return (logits, tokens, (t1 - t0) * 1e3, (t3 - t2) * 1e3 / steps,
+            launches)
+
+
+def _refusals(cfg, model, base, peft):
+    """What the reference refuses for a frontend model raises here too:
+    any engine over an audio model; prefill admission, a paged cache and
+    ``ServeFrontend`` over a vision model's replay engine."""
+    from repro_torch.serve import ServeFrontend, ServingEngine
+
+    def engine(**kw):
+        return ServingEngine(model, base, peft, n_slots=2, max_len=64,
+                             device=model.device, **kw)
+
+    cases = ([("an engine", engine)] if cfg.frontend == "audio_tokens" else
+             [("admission='prefill'", lambda: engine(admission="prefill")),
+              ("cache='paged'", lambda: engine(cache="paged")),
+              ("ServeFrontend", lambda: ServeFrontend(engine()))])
+    said = []
+    for label, make in cases:
+        try:
+            make()
+        except ValueError as e:
+            said.append(f"{label} raises ({e})")
+            continue
+        fail(f"{cfg.name}: {label} does not raise")
+    print(f"frontends {cfg.name} refusals: " + "; ".join(said))
+
+
+def frontend_cut(card, dev, cut, n_axes):
+    """Phase 12 (b): ``cut`` at 2 layers, full width, float32.  musicgen:
+    48 teacher-forced decode steps over frame embeddings against the
+    forward's logits, through the kernels and through the plain versions,
+    and against each other.  pixtral: kernel vs plain engines (replay
+    admission under ``"auto"``) on the dense cache, an NF4 base and a bank
+    of a folded QuanTA and two LoRA tenants (each row against its
+    tenant's single-tenant engine), identical greedy tokens; a model-level
+    wave of ``n_patches`` patches plus text, then 16 greedy decode steps,
+    identical through the kernels and the plain versions.  Then the
+    refusals.
+    Returns the launches of the kernel runs."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.bank import AdapterBank
+
+    model, base, peft = _adapted(cut, 1200, dev, n_axes)
+    plain = type(model)(cut.replace(attn_backend="reference",
+                                    peft_backend="reference"), device=dev)
+    counts = {}
+
+    def add(run):
+        for k, v in run.items():
+            counts[k] = counts.get(k, 0) + v
+
+    if cut.frontend == "audio_tokens":
+        s = 48
+        batch, lens = _frontend_batch(cut, [s, s], 1201, dev, torch.float32)
+        frames = batch["embeds"]
+        logits = {}
+        for label, m in (("kernels", model), ("plain", plain)):
+            kernels.reset_launch_counts()
+            full, _ = m.forward(base, batch, peft)
+            cache = m.init_cache(2, s)
+            steps = []
+            for t in range(s):
+                out, cache = m.decode_step(base, peft, cache,
+                                           {"embeds": frames[:, t:t + 1]})
+                steps.append(out[:, 0])
+            if m is model:
+                add(kernels.launch_counts())
+            logits[label] = (full, torch.stack(steps, 1))
+        rel = {}
+        for label, (full, dec) in logits.items():
+            rel[label] = float((dec - full).abs().max() / full.abs().max())
+        (kf, kd), (pf, pd) = logits["kernels"], logits["plain"]
+        rel_kp = max(float((kf - pf).abs().max() / pf.abs().max()),
+                     float((kd - pd).abs().max() / pd.abs().max()))
+        print(f"frontends {cut.name} f32 cut ({cut.n_layers} layers, d_model "
+              f"{cut.d_model}): {s} teacher-forced decode steps over frame "
+              f"embeddings vs the forward's logits max_rel "
+              f"{rel['kernels']:.3e} through the kernels, "
+              f"{rel['plain']:.3e} through the plain versions (tolerance "
+              f"{FRONTEND_DECODE_TOL:g}); kernels vs plain versions (forward "
+              f"and decode) max_rel {rel_kp:.3e} (tolerance "
+              f"{FRONTEND_KERNEL_TOL:g})")
+        if max(rel.values()) > FRONTEND_DECODE_TOL:
+            fail(f"{cut.name}: decode steps disagree with the forward")
+        if rel_kp > FRONTEND_KERNEL_TOL:
+            fail(f"{cut.name}: the kernels disagree with the plain versions")
+        _refusals(cut, model, base, peft)
+        return counts
+
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cut.vocab_size, (n,), generator=gen).tolist()
+               for n in FRONTEND_CUT_PROMPTS]
+    for label, kw in (("dense", {}), ("NF4 base", dict(base_quant="nf4"))):
+        kernels.reset_launch_counts()
+        out_k, st_k, _, _ = _serve(model, base, peft, prompts, 16, 4, 256,
+                                   **kw)
+        add(kernels.launch_counts())
+        out_p, st_p, _, _ = _serve(plain, base, peft, prompts, 16, 4, 256,
+                                   **kw)
+        same = sum(a == b for a, b in zip(out_k, out_p))
+        print(f"frontends {cut.name} f32 cut {label}: replay admission "
+              f"(prefill calls {st_k['prefill_calls']}, decode calls "
+              f"{st_k['decode_calls']}); kernel vs plain engine identical "
+              f"greedy tokens {same}/{len(prompts)} requests x 16 tokens")
+        if out_k != out_p or st_k["prefill_calls"] or st_p["prefill_calls"]:
+            fail(f"{cut.name} f32 cut {label}: kernel and plain engines "
+                 f"differ, or admitted by prefill")
+    # the bank over the cut's (folded) base: the QuanTA tenant is the
+    # adapted model itself, the LoRA tenant attached over the same base
+    tenants = _frontend_tenants(cut, base, peft, 1210, dev)
+    bank = AdapterBank.build(base, tenants)
+    mix = FRONTEND_BANK_MIX[:len(prompts)]
+    kernels.reset_launch_counts()
+    out_k, _, _, _ = _serve(model, base, None, prompts, 16, 4, 256,
+                            tenants=mix, adapters=bank)
+    add(kernels.launch_counts())
+    out_p, _, _, _ = _serve(plain, base, None, prompts, 16, 4, 256,
+                            tenants=mix, adapters=bank)
+    single = {}
+    for name in set(mix):
+        p, a = _tenant(tenants, base, name)
+        idx = [i for i, t in enumerate(mix) if t == name]
+        outs, _, _, _ = _serve(model, p, a, [prompts[i] for i in idx], 16,
+                               4, 256)
+        single.update(zip(idx, outs))
+    same_s = sum(out_k[i] == single[i] for i in range(len(mix)))
+    print(f"frontends {cut.name} f32 cut bank {list(mix)}: identical greedy "
+          f"tokens kernel vs plain engine "
+          f"{sum(a == b for a, b in zip(out_k, out_p))}/{len(mix)}, kernel "
+          f"vs single-tenant engines {same_s}/{len(mix)} requests x 16 "
+          f"tokens")
+    if out_k != out_p or same_s != len(mix):
+        fail(f"{cut.name} f32 cut bank: tokens differ")
+    del bank, tenants
+    # the multimodal wave: patches, then text, then 16 greedy decode steps
+    # (a cache of n_patches + 384 + 16 rows)
+    batch, lens = _frontend_batch(cut, [384, 200], 1220, dev, torch.float32)
+    toks = {}
+    for label, m in (("kernels", model), ("plain", plain)):
+        kernels.reset_launch_counts()
+        _, toks[label], _, _, _ = _wave_then_decode(m, base, peft, batch,
+                                                    lens, 16, 1221)
+        if m is model:
+            run = kernels.launch_counts()
+            add(run)
+    print(f"frontends {cut.name} f32 cut model-level wave of "
+          f"{cut.n_patches} patches + (384, 200) tokens, then 16 greedy "
+          f"decode steps: identical tokens through the kernels and the plain "
+          f"versions {toks['kernels'] == toks['plain']} (kernel 3 launches "
+          f"{run['flash_attention']}, kernel 4 {run['flash_decode_attention']}"
+          f")")
+    if toks["kernels"] != toks["plain"]:
+        fail(f"{cut.name} f32 cut: the multimodal wave's tokens differ")
+    _refusals(cut, model, base, peft)
+    return counts
+
+
+def _frontend_tenants(cfg, base, peft, seed, dev):
+    """pixtral's bank tenants over ``base``: the folded QuanTA tenant (the
+    adapted model: its base and adapter) and the LoRA tenants of
+    ``FRONTEND_LORA`` on the same targets, their B factors moved off
+    zero."""
+    import torch
+    from repro_torch.core.peft import PeftConfig, attach
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tenants = {"Q": (base, peft)}
+    for i, (name, (rank, alpha)) in enumerate(FRONTEND_LORA.items()):
+        _, lora = attach(seed + 1 + i, base, PeftConfig(
+            method="lora", rank=rank, alpha=alpha, **_targets(cfg)),
+            device=dev)
+        for a in lora.flat().values():
+            a.b.add_(0.05 * torch.randn(a.b.shape, generator=gen, device=dev,
+                                        dtype=a.b.dtype))
+        tenants[name] = lora
+    return tenants
+
+
+def frontend_full(card, dev, full, n_axes):
+    """Phase 12 (c): ``full`` (bf16, every layer) with folded, perturbed
+    QuanTA on q/v.  pixtral: 8 text prompts served by replay (the replay's
+    ms a step, the closed loop's ms a tick), a graph tick against its eager
+    tick bit for bit, the NF4-base engine and the bank engine (a folded
+    QuanTA tenant and two LoRA tenants, rows on the base too); then, as
+    musicgen, a model-level wave (pixtral: patches before 32-384 tokens;
+    musicgen: 32-384 frames), ``FRONTEND_STEPS`` decode steps, on the bf16
+    base and (musicgen) on an NF4 base; adapted vs merged prefill logits.
+    Returns each run's launches (label -> (launches, units), each counted
+    from 0 just before its run: :func:`frontend_units`) and the
+    readings."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.bank import AdapterBank
+    from repro_torch.core.quantize import quantize_params
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = full.replace(attn_backend="pallas", peft_backend="pallas")
+    t0 = time.monotonic()
+    model, base, peft = _adapted(cfg, 1400, dev, n_axes)
+    _sync(dev)
+    print(f"frontends serve: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"frontend {cfg.frontend}, {cfg.param_dtype}, QuanTA "
+          f"{cfg.quanta_scheme} on q/v ({peft.num_params} params), set-up "
+          f"{time.monotonic() - t0:.1f} s")
+    runs, read = {}, {}
+
+    def engine(label, fn, *a, **kw):
+        """``fn`` (an engine's run), its launches kept under ``label`` with
+        the engine's ticks as units."""
+        kernels.reset_launch_counts()
+        out = fn(*a, **kw)
+        runs[label] = (kernels.launch_counts(), out[1]["decode_calls"])
+        return out
+
+    if cfg.frontend == "vision_embeds":
+        gen = torch.Generator().manual_seed(9)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in FRONTEND_PROMPTS]
+        out, st, t_pre, t_dec = engine("replay engine", _serve, model, base,
+                                       peft, prompts, 32, 8, 512)
+        # the first admission's ticks replay the prompts; the rest decode
+        replay = st["admit_decode_calls"]
+        ticks = st["decode_calls"] - replay
+        read.update(replay_ms=t_pre * 1e3 / replay,
+                    tick_ms=t_dec * 1e3 / ticks, param_bytes=st["param_bytes"])
+        print(f"frontends serve {cfg.name} adapted: replay admission of "
+              f"{len(prompts)} prompts ({sum(FRONTEND_PROMPTS)} tokens) "
+              f"{t_pre * 1e3:.1f} ms wall, {read['replay_ms']:.2f} ms a "
+              f"replay step ({replay} steps); decode {t_dec * 1e3:.1f} ms "
+              f"({ticks} ticks, {read['tick_ms']:.2f} ms a tick, closed "
+              f"loop); prefill calls {st['prefill_calls']}; every request "
+              f"its 32 tokens {all(len(r) == 32 for r in out)} [{card}]")
+        if st["prefill_calls"] or any(len(r) != 32 for r in out):
+            fail(f"{cfg.name}: the replay engine admitted by prefill or "
+                 f"left a request short")
+        short = [p[:FRONTEND_GRAPH_PROMPT] for p in prompts]
+
+        def graph_tick():
+            eng = ServingEngine(model, base, peft, n_slots=8, max_len=512,
+                                device=dev)
+            for i, p in enumerate(short):
+                eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=64))
+            eng.step()
+            return (graph_vs_eager(eng, f"{cfg.name} dense adapted (replay)",
+                                   card), eng.stats)
+
+        read["dense"] = engine("graph engine", graph_tick)[0]
+        _, st, _, t_dec = engine("NF4-base engine", _serve, model, base, peft,
+                                 short, 32, 8, 512, base_quant="nf4")
+        ticks = st["decode_calls"] - st["admit_decode_calls"]
+        read.update(qlora_tick_ms=t_dec * 1e3 / ticks,
+                    qlora_param_bytes=st["param_bytes"])
+        print(f"frontends serve {cfg.name} NF4 base: "
+              f"{read['qlora_tick_ms']:.2f} ms a tick ({ticks} ticks after "
+              f"{st['admit_decode_calls']} replay steps), param_bytes "
+              f"{st['param_bytes']} (bf16 base {read['param_bytes']}) "
+              f"[{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tenants = _frontend_tenants(cfg, base, peft, 1410, dev)
+        bank = AdapterBank.build(base, tenants)
+        out, st, _, t_dec = engine("bank engine", _serve, model, base, None,
+                                   short, 32, 8, 512,
+                                   tenants=FRONTEND_BANK_MIX, adapters=bank)
+        ticks = st["decode_calls"] - st["admit_decode_calls"]
+        read["bank_tick_ms"] = t_dec * 1e3 / ticks
+        print(f"frontends serve {cfg.name} bank {list(FRONTEND_BANK_MIX)}: "
+              f"{read['bank_tick_ms']:.2f} ms a tick ({ticks} ticks after "
+              f"{st['admit_decode_calls']} replay steps), adapter_bytes "
+              f"{st['adapter_bytes']} [{card}]")
+        del bank, tenants
+        gc.collect()
+        torch.cuda.empty_cache()
+    wave = FRONTEND_WAVE[cfg.name]
+    batch, lens = _frontend_batch(cfg, wave, 1420, dev, cfg.compute_dtype)
+    rows = (f"{len(wave)} rows of {cfg.n_patches} patches + {wave[0]}-"
+            f"{wave[-1]} tokens" if cfg.frontend == "vision_embeds" else
+            f"{len(wave)} x {wave[0]} frames")
+    _, _, wave_ms, step_ms, parts = _wave_then_decode(
+        model, base, peft, batch, lens, FRONTEND_STEPS, 1421)
+    runs["wave"] = (parts["wave"], 1)
+    runs["decode steps"] = (parts["decode steps"], FRONTEND_STEPS)
+    read.update(wave_ms=wave_ms, step_ms=step_ms)
+    print(f"frontends serve {cfg.name} model level: a wave of {rows} "
+          f"{wave_ms:.1f} ms, then {FRONTEND_STEPS} decode steps "
+          f"{step_ms:.2f} ms a step (wall, eager) [{card}]")
+    if cfg.frontend == "audio_tokens":
+        qbase = quantize_params(base, "nf4", block_size=cfg.quant_block_size)
+        _, _, q_wave, q_step, parts = _wave_then_decode(
+            model, qbase, peft, batch, lens, FRONTEND_STEPS, 1421)
+        runs["NF4-base wave"] = (parts["wave"], 1)
+        runs["NF4-base decode steps"] = (parts["decode steps"],
+                                         FRONTEND_STEPS)
+        read.update(qlora_wave_ms=q_wave, qlora_step_ms=q_step)
+        print(f"frontends serve {cfg.name} model level, NF4 base: the wave "
+              f"{q_wave:.1f} ms, {q_step:.2f} ms a decode step (wall, eager) "
+              f"[{card}]")
+        del qbase
+    read.update(merged_check(card, "frontends", cfg, model, base, peft,
+                             batch, lens, SERVE_LOGIT_TOL, plain=True))
+    del model, base, peft, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, read
+
+
+def frontend_train(card, dev, full, n_axes, steps=FAMILY_TRAIN_STEPS):
+    """Phase 12 (d): ``steps`` AdamW steps of folded QuanTA on q/v at FULL
+    (bf16 base, kernel 3 under autograd) on 8 rows of 512 frames
+    (musicgen) or of ``n_patches`` patches plus 512 tokens with labels
+    over every position (pixtral), random labels from a seed; the step's
+    wall ms, tokens/s and peak memory; every loss finite, the adapters
+    changed, the base kept.  Returns the readings and layer 0's q_proj
+    tensors before and after."""
+    import torch
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = full.replace(attn_backend="pallas")
+    model, base, peft = _train_models(cfg, dev, 1500, n_axes)
+    q0 = peft.flat()["layers/attn/q_proj"]
+    start_q = [t[0].clone() for t in q0.tensors]
+    start = [t.clone() for t in _leaves(peft)]
+    sums = [_checksum(t) for t in _leaves(base)]
+    b, n = TRAIN_BATCH, TRAIN_SEQ
+    batch, _ = _frontend_batch(cfg, [n] * b, 1501, dev, cfg.compute_dtype)
+    s = n + cfg.n_patches
+    gen = torch.Generator(device=dev).manual_seed(1502)
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device=dev)
+    opt = AdamW(lr=5e-3, max_grad_norm=1.0)
+    state = TrainState.create(base, peft, opt)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(walls[1:])[len(walls[1:]) // 2]
+    changed = sum(not torch.equal(a, c) for a, c in
+                  zip(_leaves(state.peft), start))
+    kept = [_checksum(t) for t in _leaves(state.params)] == sums
+    ok = (all(math.isfinite(x) for mt in metrics for x in mt)
+          and changed == len(start) and kept)
+    what = ("frames" if cfg.frontend == "audio_tokens"
+            else f"{cfg.n_patches} patches + {n} tokens")
+    print(f"frontends train {cfg.name}: {steps} AdamW steps of {b} x {s} "
+          f"positions ({what}, labels over all {s}), microbatches 1: (loss, "
+          f"grad norm) "
+          f"{metrics}; median step (steps 2-{steps}) {med * 1e3:.1f} ms "
+          f"wall, {b * s / med:.0f} tokens/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (param_bytes "
+          f"{tree_nbytes(base) / 2 ** 30:.2f} GiB); {changed}/{len(start)} "
+          f"adapter tensors changed, base kept bit for bit {kept} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        fail(f"{cfg.name}: the FULL training run is wrong")
+    trained_q = [t[0].detach().clone() for t in
+                 state.peft.flat()["layers/attn/q_proj"].tensors]
+    read = dict(train_step_ms=med * 1e3, tokens_per_s=b * s / med,
+                peak_gib=peak / 2 ** 30, losses=[mt[0] for mt in metrics])
+    return read, (q0, start_q, trained_q)
+
+
+def frontend_theory(card, dev, full, n_axes, trained):
+    """Phase 12 (e): Thm. 6.2 at full width through ``core/analysis.py``,
+    every operator materialized in float64 (in float32 at d = 2048 the
+    rounding noise, about d * eps * sigma_max, sits above the 1e-5 and
+    1e-6 rank tolerances).  identity_noise tensors give a full-rank
+    operator (musicgen: 2048; pixtral's rectangular q_proj: 4096, App. B);
+    musicgen's chain of rank-deficient tensors, three seeds (and two with
+    ranks near full, where the lower bound is above 0), lies within
+    ``rank_bounds``; the equal-budget LoRA rank beside each; then the
+    trained q_proj update of layer 0 (phase 12 (d)): its rank and
+    effective rank (read, not judged) and its similarity grid with itself
+    (diagonal 1 within 1e-5)."""
+    import torch
+    from repro_torch.core import (
+        effective_rank, materialize, operator_rank, rank_bounds,
+        similarity_grid,
+    )
+    from repro_torch.core.peft import choose_dims
+    from repro_torch.core.quanta import init_tensors
+
+    f64 = torch.float64
+    d_in, d_out = full.d_model, full.attn_dim
+    dims, dims_out = choose_dims(d_in, d_out, n_axes, full.quanta_scheme)
+    q0, start_q, trained_q = trained
+    pairs = q0.pairs
+    gen = torch.Generator(device=dev).manual_seed(1600)
+    t0 = time.monotonic()
+    ts = init_tensors(gen, dims, dims_out, pairs, init="identity_noise",
+                      dtype=f64, device=dev)
+    rank = operator_rank(materialize(ts, dims, pairs, dims_out))
+    n_params = sum(t.numel() for t in ts)
+    lora_r = n_params // (d_in + d_out)
+    want = min(d_in, d_out)
+    print(f"theory {full.name}: identity_noise QuanTA {dims}->{dims_out} "
+          f"({d_in} -> {d_out}), float64: operator_rank {rank} (full: "
+          f"{want}) {'ok' if rank == want else 'FAIL'}; {n_params} "
+          f"parameters, the equal-budget LoRA rank {lora_r} "
+          f"({time.monotonic() - t0:.1f} s)")
+    if rank != want:
+        fail(f"{full.name}: the identity_noise chain is not full rank")
+    read = dict(full_rank=rank, lora_equal_budget_rank=lora_r)
+    if full.frontend == "audio_tokens":
+        d = d_in
+        # seeds 0-2 draw each tensor's rank from [1, dd], where the lower
+        # bound is mostly 0; seeds 3-4 from the top eighth, [dd - dd // 8,
+        # dd], where it lies above 0 and is judged too
+        for seed in (0, 1, 2, 3, 4):
+            near_full = seed >= 3
+            rs = torch.Generator(device=dev).manual_seed(1610 + seed)
+            tensors, ranks, sizes = [], [], []
+            for om, on, im, i_n in (tuple(t.shape) for t in ts):
+                dd = om * on
+                r = int(torch.randint(dd - dd // 8 if near_full else 1,
+                                      dd + 1, (1,), generator=rs,
+                                      device=dev))
+                a = torch.randn((dd, r), generator=rs, device=dev, dtype=f64)
+                bm = torch.randn((r, dd), generator=rs, device=dev, dtype=f64)
+                tensors.append((a @ bm).reshape(om, on, im, i_n))
+                ranks.append(r)
+                sizes.append(dd)
+            got = operator_rank(materialize(tensors, dims, pairs), rtol=1e-6)
+            lo, hi = rank_bounds(ranks, sizes, d)
+            ok = lo <= got <= hi and (lo > 0 or not near_full)
+            print(f"theory {full.name} seed {seed}"
+                  f"{' (ranks near full)' if near_full else ''}: tensor ranks "
+                  f"{ranks} of {sizes}, operator_rank (rtol 1e-6) {got}, Thm. "
+                  f"6.2 bounds [{lo}, {hi}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{full.name}: operator rank outside Thm. 6.2's bounds, "
+                     f"or a near-full draw's lower bound is 0")
+        upd = (materialize([t.to(f64) for t in trained_q], dims, pairs,
+                           dims_out)
+               - materialize([t.to(f64) for t in start_q], dims, pairs,
+                             dims_out))
+        grid = similarity_grid(upd, upd, 8, 8)
+        diag = float((torch.diagonal(grid) - 1).abs().max())
+        read.update(update_rank=operator_rank(upd),
+                    update_effective_rank=effective_rank(upd))
+        print(f"theory {full.name}: layer 0's trained q_proj update "
+              f"({d_in} x {d_out}, float64): operator_rank "
+              f"{read['update_rank']}, effective_rank "
+              f"{read['update_effective_rank']:.1f} (read, not judged); "
+              f"similarity_grid with itself: diagonal off 1 by {diag:.2e} "
+              f"(tolerance 1e-5)")
+        if diag > 1e-5:
+            fail(f"{full.name}: an update's similarity with itself is not 1")
+    return read
+
+
+def frontend_family(card, dev, arch):
+    """Phase 12 for one frontend config, every layer at every width: (a)
+    its kernels (``check_kernels``); (b) its f32 cut of 2 layers
+    (``frontend_cut``); (c) FULL bf16 serving (``frontend_full``); (d) 3
+    FULL training steps (``frontend_train``); (e) Thm. 6.2 at full width
+    (``frontend_theory``).  (``--profile`` adds nothing here:
+    ``profile_serve`` profiles a prefill wave, which a replay engine does
+    not run.)  Returns the kernel readings, the launches of the runs and
+    the readings."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, get_peft
+
+    full, n_axes = get_config(arch), get_peft(arch).n_axes
+    secs, t0 = {}, time.monotonic()
+    _, checks = check_kernels(card, full, n_axes, dev)
+    if full.frontend == "vision_embeds":
+        kernel3_seeds(card, dev, full, ((8, full.n_patches + 384, None),))
+    secs["kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cut = full.replace(n_layers=2, param_dtype=torch.float32,
+                       compute_dtype=torch.float32, attn_backend="pallas",
+                       peft_backend="pallas")
+    cut_counts = frontend_cut(card, dev, cut, n_axes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["f32 cut"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs, read = frontend_full(card, dev, full, n_axes)
+    judge_units(full, runs, card)
+    secs["serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    tread, trained = frontend_train(card, dev, full, n_axes)
+    read.update(tread)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    read.update(frontend_theory(card, dev, full, n_axes, trained))
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["theory"] = time.monotonic() - t0
+    busy = [k for k in FRONTEND_IDLE if cut_counts.get(k)]
+    if busy:
+        fail(f"{arch}: the f32 cut launched kernels off its path {busy}")
+    # the FULL runs' launches (each run counted from 0 just before it) and
+    # each run's own, for the kernel line
+    counts = {k: sum(c.get(k, 0) for c, _ in runs.values()) for k in SOURCES}
+    print(f"frontends {arch} summary ({full.n_layers} layers, every width): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in read.items()
+                      if isinstance(v, float))
+          + "; FULL launches " + ", ".join(f"{k} {counts[k]}"
+                                           for k in SOURCES)
+          + "; f32 cut launches " + ", ".join(
+              f"{k} {cut_counts.get(k, 0)}" for k in SOURCES)
+          + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f" [{card}]")
+    return checks, (counts, runs, cut_counts), dict(read, seconds=secs)
+
+
 def _device_ms(prof, counts=None):
     """Device time by kernel name, in ms, from a finished profiler; with
     ``counts`` (a dict) also each kernel's number of launches."""
@@ -4765,6 +5525,11 @@ def main() -> int:
     t0 = time.monotonic()
     m_checks, m_counts, _ = mamba2_family(card, dev, MAMBA2, profile)
     phase_s[MAMBA2] = time.monotonic() - t0
+    fe_runs = {}
+    for arch in FRONTENDS:
+        t0 = time.monotonic()
+        fe_runs[arch] = frontend_family(card, dev, arch)
+        phase_s[arch] = time.monotonic() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -4802,10 +5567,22 @@ def main() -> int:
         # attention-free) and its readings at its shapes
         mamba2 = {MAMBA2: dict(launches=m_counts.get(name, 0),
                                checks=m_checks.get(name, {}))}
+        # the frontends: launches over each config's FULL phase-12 runs
+        # (model entry points; pixtral's replay engines too), each run's
+        # own and a unit's (a wave, a decode step, an engine's tick), the
+        # f32 cut's apart, and the readings at its shapes
+        frontends = {arch: dict(
+            launches=cnt[name],
+            runs={label: dict(launches=c.get(name, 0), units=n,
+                              per_unit=c.get(name, 0) / n)
+                  for label, (c, n) in runs.items()},
+            cut_launches=cut.get(name, 0), checks=checks.get(name, {}))
+            for arch, (checks, (cnt, runs, cut), _) in fe_runs.items()}
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=counts[name],
                          **records[name], dense_family=at,
-                         moe_family=moe_at, griffin=griffin, mamba2=mamba2))
+                         moe_family=moe_at, griffin=griffin, mamba2=mamba2,
+                         frontends=frontends))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,34 +1,45 @@
-"""Config registry of the port: the dense, MoE, hybrid (Griffin) and SSM
-(Mamba2) families of the JAX package's registry (``repro/configs``), each
-arch with its FULL and SMOKE model configs, its PEFT config and its
-notes.  ``get_shapes`` and ``list_cells`` (the JAX registry's shape grid)
-are not ported."""
+"""Config registry of the port: every arch of the JAX package's registry
+(``repro/configs``) -- the dense, MoE, hybrid (Griffin) and SSM (Mamba2)
+families and the audio (musicgen) and VLM (pixtral) frontends -- each
+with its FULL and SMOKE model configs, its PEFT config and its notes.
+``ARCH_IDS`` is the assigned grid's archs, as the JAX registry defines
+it (every arch but the paper's own llama2-7b-proxy base).
+``get_shapes`` and ``list_cells`` (the JAX registry's shape grid) are
+not ported."""
 
 from __future__ import annotations
 
 import importlib
+from typing import Dict, Tuple
 
 from repro_torch.core.peft import PeftConfig
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["get_config", "get_smoke", "get_peft", "get_notes"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke", "get_peft", "get_notes"]
 
-_MODULES = {
+# arch id -> module name, in the JAX registry's order
+_MODULES: Dict[str, str] = {
     "phi3-medium-14b": "phi3_medium_14b",
     "minicpm-2b": "minicpm_2b",
     "qwen2-0.5b": "qwen2_0_5b",
     "yi-6b": "yi_6b",
-    "llama2-7b-proxy": "llama2_7b_proxy",
     "mixtral-8x7b": "mixtral_8x7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "musicgen-large": "musicgen_large",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "pixtral-12b": "pixtral_12b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "llama2-7b-proxy": "llama2_7b_proxy",
 }
+
+ARCH_IDS: Tuple[str, ...] = tuple(k for k in _MODULES
+                                  if k != "llama2-7b-proxy")
 
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; available: "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

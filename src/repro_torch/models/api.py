@@ -1,26 +1,86 @@
-"""Model registry (port of ``repro/models/api.py``): the dense, MoE,
-hybrid and SSM families."""
+"""Model registry and input stand-ins (port of ``repro/models/api.py``).
+
+``build_model(cfg)`` returns the model of every family of the JAX
+package's registry: the Transformer for the dense and MoE families and
+the audio (musicgen) and VLM (pixtral) frontends, Griffin for the hybrid
+family, Mamba2 for the SSM one.  Each exposes ``init``, ``forward``,
+``loss``, ``init_cache``, ``prefill``, ``decode_step``, ``cache_spec``
+and ``insert_cache``.
+
+``input_specs(cfg, shape)`` gives the step's ``batch`` of an (arch x
+shape) cell as tensors on the ``meta`` device: the JAX package's shapes
+and dtypes, the frontends' batch layout among them, and no memory.
+``cache_slot_spec(cfg)`` is the decode cache's slot layout (a
+``CacheLeafSpec`` per leaf, mirroring ``init_cache``).
+
+The JAX package's ``cache_specs`` and ``param_specs`` are ``eval_shape``
+tools of its multi-pod dry run; they are not ported (the port's dry run
+on the ``meta`` device is still to come).
+"""
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Union
 
-from repro_torch.models.common import ModelConfig
+import torch
+
+from repro_torch.models.common import ModelConfig, ShapeConfig
 from repro_torch.models.griffin import Griffin
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "input_specs", "cache_slot_spec"]
 
 
 def build_model(cfg: ModelConfig, device=None
                 ) -> Union[Transformer, Griffin, Mamba2]:
     """The model of ``cfg`` on ``device`` (default: the card; raises when
-    there is none): the Transformer for the dense and MoE families,
-    Griffin for the hybrid one, Mamba2 for the SSM one; the audio and VLM
-    frontends (musicgen, pixtral) are not ported yet and raise."""
+    there is none): Griffin for the hybrid family, Mamba2 for the SSM
+    one, and the Transformer for the dense, MoE, audio and VLM ones."""
     if cfg.family == "hybrid":
         return Griffin(cfg, device=device)
     if cfg.family == "ssm":
         return Mamba2(cfg, device=device)
     return Transformer(cfg, device=device)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """``meta``-device stand-ins for the step's ``batch``: int32 tokens
+    and labels, frame embeddings (audio) or patch embeddings before
+    ``seq_len - n_patches`` tokens (vision) in the activation dtype
+    (bf16 where the config computes in bf16, else its compute dtype).
+    A decode step takes one token, or one frame embedding.  Raises for a
+    vision model whose ``seq_len`` does not exceed ``n_patches``."""
+    b, s = shape.global_batch, shape.seq_len
+    act = cfg.compute_dtype
+    tok = torch.int32
+
+    if shape.kind == "decode":
+        if cfg.frontend == "audio_tokens":
+            return {"embeds": _meta((b, 1, cfg.d_model), act)}
+        return {"tokens": _meta((b, 1), tok)}
+
+    if cfg.frontend == "audio_tokens":
+        batch = {"embeds": _meta((b, s, cfg.d_model), act)}
+    elif cfg.frontend == "vision_embeds":
+        p = cfg.n_patches
+        if s <= p:
+            raise ValueError(f"seq {s} must exceed n_patches {p}")
+        batch = {"patch_embeds": _meta((b, p, cfg.d_model), act),
+                 "tokens": _meta((b, s - p), tok)}
+    else:
+        batch = {"tokens": _meta((b, s), tok)}
+    if shape.kind == "train":
+        batch["labels"] = _meta((b, s), tok)
+    return batch
+
+
+def cache_slot_spec(cfg: ModelConfig):
+    """Per-leaf serving-slot layout of the decode cache
+    (``CacheLeafSpec``), without building the weights."""
+    return build_model(cfg, device="meta").cache_spec()

@@ -1,5 +1,6 @@
 """Shared model-building blocks of the dense, MoE, hybrid and SSM
-families (port of ``repro/models/common.py``): config, cache slot layout
+families and the audio and VLM frontends (port of
+``repro/models/common.py``): config, input-shape cell, cache slot layout
 and surgery (dense stripes and paged block pools, ring buffers among
 them), the conv-state hand-off of a right-padded prefill, the linear
 recurrence scan of the recurrent families, norms, RoPE, the chunked
@@ -28,6 +29,7 @@ from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 
 __all__ = [
     "ModelConfig",
+    "ShapeConfig",
     "CacheLeafSpec",
     "PagedCacheLeafSpec",
     "reset_cache_slots",
@@ -48,7 +50,15 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters of the dense, MoE, hybrid and SSM
-    families, with the JAX package's field names and torch dtypes.
+    families and the audio and VLM frontends, with the JAX package's field
+    names and torch dtypes.
+
+    ``frontend`` stubs a modality frontend on the Transformer: under
+    ``"audio_tokens"`` (musicgen) the model takes precomputed frame
+    embeddings ``batch["embeds"] (B, S, d_model)`` and has no embedding
+    table (``n_codebooks`` is recorded: one EnCodec stream); under
+    ``"vision_embeds"`` (pixtral) it takes ``batch["patch_embeds"] (B,
+    n_patches, d_model)`` as a prefix before the embedded text tokens.
 
     The SSM family (Mamba2, ``models/mamba2.py``) reads ``ssm_state`` (the
     state size N of each head), ``ssm_head_dim`` (P), ``ssm_expand`` (the
@@ -140,6 +150,10 @@ class ModelConfig:
     local_window: int = 2048
     kv_block: int = 512
     seq_parallel_residual: bool = False
+    # modality frontend stubs: None | "audio_tokens" | "vision_embeds"
+    frontend: Optional[str] = None
+    n_codebooks: int = 1          # audio (EnCodec streams)
+    n_patches: int = 0            # vlm: image patch count per example
 
     @property
     def is_moe(self) -> bool:
@@ -155,6 +169,17 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a ``seq_len`` x ``global_batch`` point."""
+
+    name: str                     # train_4k | prefill_32k | decode_32k | ...
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+    microbatches: int = 1         # gradient-accumulation steps (train only)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense and MoE families (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer: the dense and MoE families and the audio
+and VLM frontends (port of ``repro/models/transformer.py``).
 
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``params["layers"]`` leaves have leading dim L); the layer loop takes
@@ -22,6 +22,13 @@ expert stacks ``(L, E, d, ff)``; serving (decode, a chunk, a prefill
 with ``lengths``) never drops a token, while ``forward``, ``loss`` and a
 prefill without ``lengths`` keep the training dispatch, and ``loss``
 adds ``router_aux_weight`` times the aux loss summed over layers.
+The frontends are stubs, as in the JAX package: an ``audio_tokens``
+model (musicgen) has no embedding table and reads precomputed frame
+embeddings, ``batch["embeds"] (B, S, d)`` (``(B, 1, d)`` in
+``decode_step``); a ``vision_embeds`` model (pixtral) reads
+``batch["patch_embeds"] (B, n_patches, d)`` as a prefix before its
+embedded ``batch["tokens"]`` in ``forward``, ``loss`` and ``prefill``,
+and tokens alone in ``decode_step`` and ``prefill_chunk``.
 """
 
 from __future__ import annotations
@@ -65,8 +72,10 @@ def padded_vocab(vocab: int) -> int:
 
 
 class Transformer(nn.Module):
-    """Decoder-only transformer whose methods take the params dict (the
-    JAX package's functional layout, so weights carry over by a copy).
+    """Decoder-only transformer of the dense, MoE, audio and VLM families
+    (``build_model`` gives Griffin and Mamba2 for the hybrid and SSM
+    ones), whose methods take the params dict (the JAX package's
+    functional layout, so weights carry over by a copy).
 
     Runs on ``device`` (default: the card; raises when there is none).
     """
@@ -77,12 +86,8 @@ class Transformer(nn.Module):
             raise ValueError("the hybrid family is Griffin (build_model)")
         if cfg.family == "ssm":
             raise ValueError("the ssm family is Mamba2 (build_model)")
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (dense, "
-                f"moe, hybrid and ssm only; the audio and vlm frontends "
-                f"are not)"
-            )
+        if cfg.family not in ("dense", "moe", "audio", "vlm"):
+            raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
         self.device = default_device(device)
 
@@ -150,8 +155,10 @@ class Transformer(nn.Module):
         params: Dict[str, Any] = {
             "layers": layers,
             "final_norm": torch.ones((d,), dtype=dt, device=dev),
-            "embed": {"tokens": embed_init(gen, vpad, d, dt, dev)},
         }
+        # audio backbone: the frontend stub gives frame embeddings, no table
+        if cfg.frontend != "audio_tokens":
+            params["embed"] = {"tokens": embed_init(gen, vpad, d, dt, dev)}
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, d, vpad, dt, dev)
         return params
@@ -161,8 +168,26 @@ class Transformer(nn.Module):
         return torch.as_tensor(batch["tokens"], dtype=torch.long,
                                device=self.device)
 
-    def _embed(self, params, tokens) -> torch.Tensor:
-        return params["embed"]["tokens"][tokens].to(self.cfg.compute_dtype)
+    def _embed(self, params, batch) -> torch.Tensor:
+        """The input sequence ``(B, S, d)`` in the compute dtype: frame
+        embeddings (audio), ``[patch_embeds ; embedded tokens]`` (vision;
+        the patches cast to the table's dtype before the concatenation,
+        as in the JAX package) or embedded tokens."""
+        cfg = self.cfg
+        if cfg.frontend == "audio_tokens":
+            return self._input(batch, "embeds").to(cfg.compute_dtype)
+        tok = self._table(params, batch)
+        if cfg.frontend == "vision_embeds":
+            patches = self._input(batch, "patch_embeds").to(tok.dtype)
+            tok = torch.cat([patches, tok], dim=1)
+        return tok.to(cfg.compute_dtype)
+
+    def _input(self, batch, key) -> torch.Tensor:
+        return torch.as_tensor(batch[key], device=self.device)
+
+    def _table(self, params, batch) -> torch.Tensor:
+        """``batch["tokens"]`` looked up in the embedding table."""
+        return params["embed"]["tokens"][self._tokens(batch)]
 
     def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -302,7 +327,7 @@ class Transformer(nn.Module):
         """Full-sequence forward: ``(logits, aux)``; ``aux`` is the MoE
         aux loss summed over layers (0.0 for the dense family)."""
         cfg = self.cfg
-        x = self._embed(params, self._tokens(batch))
+        x = self._embed(params, batch)
         s = x.shape[1]
         rope = make_rope(torch.arange(s, device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
@@ -321,7 +346,7 @@ class Transformer(nn.Module):
         ``torch.utils.checkpoint``: only its input is kept, and its
         activations are recomputed in the backward."""
         cfg = self.cfg
-        x = self._embed(params, self._tokens(batch))
+        x = self._embed(params, batch)
         rope = make_rope(torch.arange(x.shape[1], device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -402,7 +427,7 @@ class Transformer(nn.Module):
         ``lengths`` the training dispatch is kept, as the JAX package's
         bulk prefill."""
         cfg = self.cfg
-        x = self._embed(params, self._tokens(batch))
+        x = self._embed(params, batch)
         b, s, _ = x.shape
         rope = make_rope(torch.arange(s, device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
@@ -432,11 +457,14 @@ class Transformer(nn.Module):
         ``block_tables (B, max_blocks)`` the KV leaves are paged pools
         (codes and ``*_qscale`` scales when the cache holds them);
         ``adapter_ids`` ``(B,)`` select each slot's tenant of a bank.
-        Returns ``(logits, cache)`` with ``cache["len"]`` advanced by one
-        in place (every leaf keeps its storage, so a captured CUDA graph
+        ``batch`` holds ``tokens (B, 1)``, or for an audio model the new
+        frame embedding ``embeds (B, 1, d)``.  Returns ``(logits,
+        cache)`` with ``cache["len"]`` advanced by one in place (every leaf keeps its storage, so a captured CUDA graph
         of the step reads and writes the same cache at every replay)."""
         cfg = self.cfg
-        x = self._embed(params, self._tokens(batch))            # (B, 1, d)
+        # a vision model decodes text tokens
+        x = (self._input(batch, "embeds") if cfg.frontend == "audio_tokens"
+             else self._table(params, batch)).to(cfg.compute_dtype)
         new_len = cache["len"]
         new_len += 1
         rope = make_rope((new_len - 1)[:, None], cfg.head_dim, cfg.rope_theta)
@@ -473,7 +501,13 @@ class Transformer(nn.Module):
         cache lands in the serving cache through the same
         ``insert_cache`` scatter as a wave."""
         cfg = self.cfg
-        x = self._embed(params, self._tokens(batch))            # (B, C, d)
+        if cfg.frontend == "audio_tokens":
+            raise ValueError(
+                f"{cfg.name}: an audio_tokens model has no token table, so "
+                f"it has no chunked prefill of tokens")
+        # tokens alone, as the JAX package's chunk step (a vision model
+        # chunks its text)
+        x = self._table(params, batch).to(cfg.compute_dtype)    # (B, C, d)
         b, c, _ = x.shape
         dev = x.device
         s_stage = cache["k"].shape[2]

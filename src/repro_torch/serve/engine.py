@@ -22,7 +22,11 @@ of ``repro/serve/engine.py``, single device).
   ``insert_cache`` scatter as a wave.  One chunked admission at a time.
 * Replay admission (``admission="replay"``): prompts step token by token
   through the decode tick itself, batched across the wave, each step
-  with the wave's own active mask.  Dense caches only.
+  with the wave's own active mask.  Dense caches only.  ``"auto"`` (the
+  default) admits by prefill wave, and by replay a model with a
+  frontend (pixtral, served text only), which cannot take
+  ``admission="prefill"``; an audio model (musicgen: frame embeddings,
+  no tokens) takes no engine.
 * One fused decode tick for every slot (``dispatch_decode``): the decode
   step, the active-slot merge of the slot-state leaves (``len``, and a
   recurrent model's O(1) states), the greedy sample and
@@ -293,6 +297,12 @@ class ServingEngine:
                     "selection)")
         if cache not in ("dense", "paged"):
             raise ValueError(f"unknown cache mode {cache!r}")
+        if model.cfg.frontend == "audio_tokens":
+            # the JAX engine fails at its first step (KeyError 'embeds')
+            raise ValueError(
+                f"model {model.cfg.name!r} reads frame embeddings "
+                f"(audio_tokens frontend) and the engine feeds tokens: "
+                f"drive it through its own prefill and decode_step")
         self.device = default_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -385,10 +395,18 @@ class ServingEngine:
             "kv_quant": self.kv_quant or "none",
         }
 
+        # a frontend model is served text only, by replay, as in the JAX
+        # engine: its prefill takes the frontend's embeddings, which no
+        # request carries
+        can_prefill = (hasattr(model, "prefill")
+                       and self.cfg.frontend is None)
         if admission == "auto":
-            admission = "prefill"
+            admission = "prefill" if can_prefill else "replay"
         if admission not in ("prefill", "replay"):
             raise ValueError(f"unknown admission mode {admission!r}")
+        if admission == "prefill" and not can_prefill:
+            raise ValueError(
+                f"model {self.cfg.name!r} cannot use prefill admission")
         if admission == "replay" and self._paged:
             raise ValueError(
                 "replay admission writes through dense slot stripes; "

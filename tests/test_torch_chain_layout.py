@@ -45,6 +45,8 @@ def smoke():
 # rec_proj chain (16-16-10) and its v_proj chain (MQA 2560 -> 256),
 # mamba2-1.3b's widening x_proj / z_proj chain (2048 -> 4096, its last
 # stage tensor streamed in chunks) and its out_proj chain (4096 -> 2048),
+# musicgen-large's q/v chain (16-16-8, 2048 -> 2048) and pixtral-12b's
+# rectangular q_proj chain (5120 -> 4096: (40, 8, 4, 4) -> (32, 8, 4, 4)),
 # every chain of the card tests
 # (tests/test_torch_cuda.py CHAINS) and a 12-stage schedule
 CHAINS = [
@@ -61,6 +63,8 @@ CHAINS = [
     (2560, 256, (80, 8, 4), None),
     (2048, 4096, (16, 16, 8), None),
     (4096, 2048, (32, 16, 8), None),
+    (2048, 2048, (16, 16, 8), None),
+    (5120, 4096, (40, 8, 4, 4), None),
     (64, 64, (4, 4, 4), None),
     (24, 12, (4, 3, 2), None),
     (128, 256, (8, 4, 4), None),

@@ -26,6 +26,10 @@ MOE = ["mixtral-8x7b", "llama4-maverick-400b-a17b"]
 HYBRID = ["recurrentgemma-2b"]
 SSM = ["mamba2-1.3b"]
 ARCHS = DENSE + MOE + HYBRID + SSM
+# the frontends' configs are held against the JAX registry's in
+# tests/test_torch_frontends.py (over ARCH_IDS)
+AUDIO = ["musicgen-large"]
+VLM = ["pixtral-12b"]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -65,10 +69,11 @@ def test_peft_and_notes_equal_jax(arch):
 
 
 def test_registry_covers_the_dense_family():
-    """Every dense, MoE, hybrid and SSM arch of the JAX registry, and no
-    other: the frontend archs raise."""
+    """Every arch of the JAX registry, family by family, and nothing else:
+    an unknown arch raises."""
     for family, archs in (("dense", DENSE), ("moe", MOE),
-                          ("hybrid", HYBRID), ("ssm", SSM)):
+                          ("hybrid", HYBRID), ("ssm", SSM),
+                          ("audio", AUDIO), ("vlm", VLM)):
         assert sorted(archs) == sorted(
             a for a in jconfigs._MODULES
             if jconfigs.get_config(a).family == family)
@@ -91,9 +96,13 @@ def test_registry_covers_the_dense_family():
     assert configs.get_smoke("mamba2-1.3b").ssm_chunk == 32
     assert configs.get_peft("mamba2-1.3b").targets == (
         r".*/(x_proj|z_proj|out_proj)$",)
-    for arch in sorted(set(jconfigs._MODULES) - set(ARCHS)):
-        with pytest.raises(KeyError, match=arch):
-            configs.get_peft(arch)
+    assert sorted(jconfigs._MODULES) == sorted(ARCHS + AUDIO + VLM)
+    pixtral = configs.get_config("pixtral-12b")
+    assert (pixtral.frontend, pixtral.n_patches, pixtral.attn_dim) == (
+        "vision_embeds", 1024, 4096)
+    assert configs.get_config("musicgen-large").frontend == "audio_tokens"
+    with pytest.raises(KeyError, match="no-such-arch"):
+        configs.get_peft("no-such-arch")
 
 
 def test_rope_tables_take_the_configs_base():

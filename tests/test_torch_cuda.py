@@ -280,6 +280,30 @@ def test_streamed_bf16_chain_equals_plain_bit_for_bit(rows, dev):
     assert ok, (st, limits)
 
 
+@pytest.mark.parametrize("rows", [1, 8, 3072])
+@pytest.mark.parametrize("d_in,d_out,dims,dims_out", [
+    (2048, 2048, (16, 16, 8), (16, 16, 8)),
+    (5120, 4096, (40, 8, 4, 4), (32, 8, 4, 4))])
+def test_frontend_chains_equal_plain_bit_for_bit(d_in, d_out, dims,
+                                                 dims_out, rows, dev):
+    """The frontends' chains: musicgen-large's q/v 16-16-8 (its tensors
+    resident beside four rows, 864 bytes under the limit) and
+    pixtral-12b's rectangular q_proj (40, 8, 4, 4) -> (32, 8, 4, 4)
+    (App. B; its tensors staged a stage at a time): at a decode tick's
+    rows and a prefill wave's, kernel 1 equals its plain version bit for
+    bit (0 ulp)."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d_out)
+    bf = torch.bfloat16
+    ad = QuantaAdapter.create(gen, d_in, d_out, dims_in=dims,
+                              dims_out=dims_out, noise_scale=0.05,
+                              dtype=bf, device=dev)
+    x = torch.randn((rows, d_in), generator=gen, device=dev).to(bf)
+    got = quanta_apply(x, ad.tensors, ad.dims_in, ad.pairs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, apply_sequential(x, ad.tensors, ad.dims_in,
+                                             ad.pairs))
+
+
 def test_chain_routes_on_the_dtype(dev):
     """bf16 launches the register-tiled body, float32 the first SIMT one,
     one kernel a call."""

@@ -200,11 +200,14 @@ def test_param_counts_vs_jax():
 
 @pytest.mark.parametrize("what", ["fold_free", "family"])
 def test_unported_options_raise(what):
-    """What the port does not run yet raises instead of running something
-    else: a model family other than the dense, MoE, hybrid and SSM ones
-    (musicgen's ``audio`` frontend).  A fold-free QuanTA
-    bank tenant is not run as something else either: it banks as what it
-    is, a delta-form group of its factors over the shared base."""
+    """What the port does not run raises instead of running something
+    else: every family builds now, and what stays refused on this path is
+    an engine over an ``audio_tokens`` model (musicgen: its decode step
+    reads frame embeddings, the engine feeds tokens), which raises at
+    construction, where the JAX engine fails at its first step with
+    ``KeyError: 'embeds'``.  A fold-free QuanTA bank tenant is not run as
+    something else either: it banks as what it is, a delta-form group of
+    its factors over the shared base."""
     from repro_torch.core.bank import AdapterBank
     from repro_torch.core.peft import PeftConfig, attach, flatten_paths
 
@@ -218,5 +221,15 @@ def test_unported_options_raise(what):
         assert [n.delta_forms for n in nodes] == [(True,), (True,)]
         assert all(n.groups[0].fold_free for n in nodes)
         return
-    with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="audio"), device="cpu")
+    from repro.serve import Request as JRequest, ServingEngine as JEngine
+    from repro_torch.serve import ServingEngine
+
+    audio = dict(family="audio", frontend="audio_tokens")
+    m = build_model(cfg.replace(**audio), device="cpu")
+    with pytest.raises(ValueError, match="frame embeddings"):
+        ServingEngine(m, m.init(0), n_slots=2, max_len=16, device="cpu")
+    jm = j_build_model(j_get_smoke("llama2-7b-proxy").replace(**audio))
+    eng = JEngine(jm, jm.init(jax.random.PRNGKey(0)), n_slots=2, max_len=16)
+    eng.submit(JRequest(uid=0, prompt=[1, 2], max_new_tokens=2))
+    with pytest.raises(KeyError, match="embeds"):
+        eng.run()

@@ -282,7 +282,9 @@ def _rect(dims_in, d0_out):
 # 16-12-12; mixtral-8x7b's 4096 -> 1024 and llama4-maverick's 5120 ->
 # 1024 v_proj; recurrentgemma-2b's 16-16-10 on q_proj and rec_proj and
 # its 2560 -> 256 v_proj; mamba2-1.3b's widening 2048 -> 4096 x_proj and
-# z_proj and its 4096 -> 2048 out_proj, 16-16-8) and a 12-stage schedule
+# z_proj and its 4096 -> 2048 out_proj, 16-16-8; musicgen-large's square
+# 2048 -> 2048 q/v, 16-16-8, and pixtral-12b's rectangular 5120 -> 4096
+# q_proj, whose v_proj is llama4-maverick's) and a 12-stage schedule
 SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
                  _chain((16, 8, 8, 4), _chain((16, 8, 8, 4))[2] * 2),
                  _chain((16, 16, 16)), _rect((64, 8, 8), 8),
@@ -290,7 +292,8 @@ SERVED_CHAINS = [_chain((16, 8, 8, 4)), _chain((16, 8, 7)),
                  _chain((16, 12, 12)), _rect((64, 8, 8), 16),
                  _rect((40, 8, 4, 4), 8), _chain((16, 16, 10)),
                  _rect((80, 8, 4), 8), _rect((16, 16, 8), 32),
-                 _rect((32, 16, 8), 16)]
+                 _rect((32, 16, 8), 16), _chain((16, 16, 8)),
+                 _rect((40, 8, 4, 4), 32)]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1001, 3072])
@@ -368,7 +371,8 @@ def test_f32_chain_streams_only_what_does_not_fit():
     16-16-10 (a last stage of 256 x 257 floats) 4 of its 16 ``a`` rows of
     4,112 at 8 rows of 2560; without room for one ``a`` row it raises."""
     streamed = (SERVED_CHAINS[3], SERVED_CHAINS[8], SERVED_CHAINS[10],
-                SERVED_CHAINS[12], SERVED_CHAINS[13])
+                SERVED_CHAINS[12], SERVED_CHAINS[13], SERVED_CHAINS[14],
+                SERVED_CHAINS[15])
     for chain in SERVED_CHAINS:
         dims, shapes, pairs = chain
         if any(chain is c for c in streamed):
@@ -448,6 +452,43 @@ def test_mamba2_chains_stream_in_chunks_that_cover_each_output_once(chain):
     assert S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK) == f32
     a_row = shapes[-1][3] * (shapes[-1][0] * shapes[-1][1] + 1)
     assert f32[1] // a_row == (3 if chain == 12 else 6)
+
+
+# the frontends' chains: musicgen-large's q/v (16, 16, 8) (index 14) and
+# pixtral-12b's q_proj (40, 8, 4, 4) -> (32, 8, 4, 4) (index 15): (bf16
+# plan at the prefill cap 8 and the decode tick's 1 as (rows, resident,
+# smem, variant), f32 (rows, floats))
+FRONTEND_CHAINS = {
+    14: (((4, True, 231584, 0), (1, True, 207008, 1)), (8, 25312)),
+    15: (((4, False, 218112, 0), (1, False, 156672, 1)), (4, 16512)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("chain", list(FRONTEND_CHAINS))
+def test_frontend_chains_plan_within_a_block(chain, dtype):
+    """musicgen-large's 16-16-8 q/v chain keeps its three tensors resident
+    beside four rows (bf16: 864 bytes under the limit; one row at a
+    decode tick), pixtral-12b's rectangular q_proj chain (App. B: axis 0
+    maps 40 -> 32) stages its six tensors one at a time; every stage
+    stages all its outputs at once (nothing streams in bf16).  In float32
+    both stream ``a`` rows of their largest stage (256 x 257 floats)."""
+    dims, shapes, pairs = SERVED_CHAINS[chain]
+    bf16, f32 = FRONTEND_CHAINS[chain]
+    if dtype == "f32":
+        assert S.chain_f32_plan(dims, shapes, pairs, H100_SMEM_BLOCK) == f32
+        assert f32[1] < _full_tensor(dims, shapes, pairs) == 256 * 257
+        return
+    for cap, want in zip((8, 1), bf16):
+        plan = S.chain_plan(dims, tuple(map(tuple, shapes)),
+                            tuple(map(tuple, pairs)), H100_SMEM_BLOCK, cap)
+        assert (plan.rows, plan.resident, plan.smem, plan.variant) == want
+        assert plan.chunks == tuple(st.o for st in plan.layout.stages)
+    if chain == 14:
+        assert H100_SMEM_BLOCK - bf16[0][2] == 864
+    else:
+        assert [st.o for st in plan.layout.stages] == [16, 32, 128, 32, 128,
+                                                       256]
 
 
 @pytest.mark.parametrize("cap", [1, 2, 4, 8])

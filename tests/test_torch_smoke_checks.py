@@ -455,3 +455,58 @@ def test_half_head_dim_fault_fails_the_hd256_limits(smoke):
     assert not ok
     _, ok, _ = smoke.judge("flash_attention", control, want, bf16, floor)
     assert ok
+
+
+def test_frontend_units_and_their_judge(smoke):
+    """Phase 12's launch table: each FULL run of musicgen-large and
+    pixtral-12b names its kernels a unit (kernels 1 and 2 once per q/v
+    target and layer, 3 once a wave, 4 once a step or tick, 7 on the
+    seven projections of an NF4 base, 8 on pixtral's bank; 5 and 6 in no
+    run), and ``judge_units`` passes exact counts and fails a count off
+    by one, a kernel off its run's path, a run with no units and a
+    missing run."""
+    from repro_torch.configs import get_config
+
+    music, pix = (get_config(a) for a in smoke.FRONTENDS)
+    mu, pu = smoke.frontend_units(music), smoke.frontend_units(pix)
+    assert mu["wave"] == dict(quanta_apply=96, quanta_linear=96,
+                              flash_attention=48)
+    assert mu["NF4-base decode steps"] == dict(
+        quanta_apply=96, quantized_matmul=336, flash_decode_attention=48)
+    assert pu["replay engine"] == dict(quanta_apply=80, quanta_linear=80,
+                                       flash_decode_attention=40)
+    assert pu["bank engine"]["banked_lora_linear"] == 80
+    assert pu["NF4-base engine"]["quantized_matmul"] == 280
+    for units, extra in ((mu, ()), (pu, ("banked_lora_linear",
+                                         "banked_lora_delta"))):
+        used = {k for per in units.values() for k in per}
+        assert used == {"quanta_apply", "quanta_linear", "flash_attention",
+                        "flash_decode_attention", "quantized_matmul",
+                        *extra}
+        assert not used & set(smoke.FRONTEND_IDLE)
+    assert not any("flash_attention" in pu[k] for k in pu if "engine" in k)
+
+    def exact(units, n=3):
+        return {label: ({k: v * n for k, v in per.items()}, n)
+                for label, per in units.items()}
+
+    def failures(runs):
+        before = len(smoke.FAILURES)
+        smoke.judge_units(pix, runs, "cpu")
+        found = smoke.FAILURES[before:]
+        del smoke.FAILURES[before:]
+        return found
+
+    assert failures(exact(pu)) == []
+    runs = exact(pu)
+    runs["wave"][0]["flash_attention"] -= 1
+    assert failures(runs)
+    runs = exact(pu)
+    runs["replay engine"][0]["flash_attention"] = 3
+    assert failures(runs)
+    runs = exact(pu)
+    runs["bank engine"] = ({}, 0)
+    assert failures(runs)
+    runs = exact(pu)
+    del runs["NF4-base engine"]
+    assert failures(runs)

@@ -152,12 +152,16 @@ Phases, one line or more each before the last:
    Last, a forward-only kernel called under autograd must raise.
 8. the dense family: for each of yi-6b (GQA 32 over 4 heads, QuanTA
    16-16-16), phi3-medium-14b (40 layers, 5120 wide, 40 over 10 heads,
-   16-8-8-5) and minicpm-2b (36 heads of 64, tied embeddings, vocab
-   122753, 16-12-12), the functions of phases 3, 5 and 7 at its config:
+   16-8-8-5), minicpm-2b (36 heads of 64, tied embeddings, vocab
+   122753, 16-12-12) and qwen2-0.5b (24 layers, 896 wide, 14 over 2
+   heads of 64: GQA group 7, QKV bias, tied embeddings, vocab 151936,
+   16-8-7), the functions of phases 3, 5 and 7 at its config:
    (a) the check phase's kernel checks at its shapes (kernels 1 and 2 on
    its q_proj and v_proj chains, kernel 7 NF4 on each of its
    projections, kernels 3-6 at its heads), without the tail, window,
-   int8, planted-fault and kernel-8 cases; (b) its 2-layer f32 cut at
+   int8 and kernel-8 cases, and for qwen2-0.5b alone a planted fault in
+   every case of kernels 1, 2 and 7 and at the main shape of kernels
+   3-6 (``check_kernels(faults=True)``); (b) its 2-layer f32 cut at
    full width: kernel vs plain engines' greedy tokens identical on the
    dense cache, a paged pool of rows and an NF4 base; on a paged NF4-KV
    pool each engine gives its dense fake-quantized twin's tokens, and
@@ -263,6 +267,24 @@ Phases, one line or more each before the last:
    launches a unit (a wave, a decode step, an engine's tick) at exactly
    the count its path implies (``frontend_units``: kernels 1-4 and 7, 8
    on pixtral's bank; 5-6 in none); the seconds of each part.
+13. checkpoints and elastic recovery on qwen2-0.5b FULL (bf16, QuanTA
+   16-8-7 on q/v, ``checkpoint_full``), the checkpoint in a temporary
+   directory under ``build/``, deleted at the end: 6 AdamW steps of 8 x
+   512 through ``AsyncCheckpointer(keep=2)``, saved after step 3 and at
+   the end; step 3 restored onto a template from ``param_specs``,
+   ``attach`` and ``TrainState.create`` on ``meta`` (every leaf the
+   saved state's bit for bit) and resumed to 6 (losses and every leaf
+   the uninterrupted run's bit for bit, else within ``RESUME_RTOL``,
+   the largest difference printed); planted faults (a flipped byte in a
+   leaf file raises ``IOError``; a stale ``.tmp_`` directory is ignored
+   and removed; a third checkpoint leaves two); ``ElasticController`` on
+   8 hosts losing two, ``restore_resharded`` of its step onto cuda:0
+   (bit for bit; a mesh placement raises); the restored adapters served
+   through kernels 1-4 (greedy tokens those of the never-saved state),
+   the merged twin too, adapted vs merged prefill logits within
+   ``SERVE_LOGIT_TOL`` with the planted fault caught; per checkpoint its
+   bytes, the caller's stall (host copy), the background write, and the
+   restores' and crc's seconds.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -288,7 +310,10 @@ kernel 7 from its NF4-base run, kernel 8 from its f32 bank's dense run),
 and ``frontends`` for musicgen-large and pixtral-12b (each kernel's
 launches summed over the config's FULL phase-12 runs, each run counted
 from 0 just before it; under ``runs`` each run's own launches, units and
-launches a unit; the f32 cut's launches apart, ``cut_launches``).
+launches a unit; the f32 cut's launches apart, ``cut_launches``), and
+``checkpoint`` for qwen2-0.5b in phase 13 (``launches`` over the phase,
+``train_launches`` over its 10 training steps, ``serve_launches`` of the
+restored adapters' serve run).
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -303,6 +328,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -709,7 +735,7 @@ def _chain_macs(dims_in, shapes, pairs):
     return macs
 
 
-def check_kernels(card, cfg, n_axes, dev, extras=False):
+def check_kernels(card, cfg, n_axes, dev, extras=False, faults=False):
     """Every kernel against its plain version at ``cfg``'s serving shapes,
     in bf16 and in float32: the chain (kernel 1) and the adapted linear
     (kernel 2) on q_proj and v_proj (QuanTA at the config's scheme) at a
@@ -733,9 +759,13 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     a fault in every case of kernels 1, 2 and 7 and print their chain
     plans; pixtral (a vision frontend) also runs kernel 3 at 8 rows of its
     ``n_patches`` + 384 positions, judged with the sum-order control, and
-    kernel 8 at its q_proj and v_proj shapes.  Returns the bf16 record of
-    each kernel at the main shapes and every bf16 reading by kernel and
-    label."""
+    kernel 8 at its q_proj and v_proj shapes.  With ``faults``
+    (qwen2-0.5b) the dense family's cases carry the planted faults too:
+    every case of kernels 1, 2 and 7, and kernels 3-6 at their main
+    shapes (``p`` not cast before PV; each slot's last score chunk
+    dropped; the table ignored; a scale block off by one, the nibbles
+    swapped).  Returns the bf16 record of each kernel at the main shapes
+    and every bf16 reading by kernel and label."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.peft import choose_dims
@@ -762,7 +792,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
     frontend = cfg.frontend is not None
     vision = cfg.frontend == "vision_embeds"
     # families whose every case of kernels 1, 2 and 7 carries a fault
-    faulted = hybrid or ssm or frontend
+    faulted = hybrid or ssm or frontend or faults
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     gqa = dict(enable_gqa=True) if kv != h else {}
@@ -980,7 +1010,7 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                        q, k, v, window=window), **it),
                    lib, 2 * b * s * (h + kv) * hd * sz,
                    4 * hd * pairs_vis * h * b, main, control)
-            if (extras and main or long or multimodal) and (
+            if ((extras or faults) and main or long or multimodal) and (
                     dtype == torch.bfloat16):
                 planted("flash_attention", "p not cast before PV",
                         FA.flash_attention_plain(q, k, v.float(),
@@ -1056,13 +1086,14 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                        timed(lambda: sdpa(kc, vc, window)),
                        (2 * b * h * hd + 2 * sum(used) * kv * hd) * sz + 4 * b,
                        4 * hd * h * sum(used), main, control)
-                if (extras and main or long) and dtype == torch.bfloat16:
+                if ((extras or faults) and main or long) and (
+                        dtype == torch.bfloat16):
                     planted("flash_decode_attention", "p not cast before PV",
                             FA.flash_decode_attention_plain(
                                 q, kc, vc.float(), lens,
                                 window=window).to(dtype),
                             want, control)
-                if extras and main and dtype == torch.bfloat16:
+                if (extras or faults) and main and dtype == torch.bfloat16:
                     planted("flash_decode_attention", split_fault,
                             FA.flash_decode_attention_plain(
                                 q, kc, vc, without_last_chunk(lens, chunk)),
@@ -1135,9 +1166,10 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                **kw)),
                            lib, io + sum(used) * per_key,
                            4 * hd * h * sum(used), main)
-                    if not (extras and dtype == torch.bfloat16):
+                    if not ((extras or faults)
+                            and dtype == torch.bfloat16):
                         continue
-                    if window is None:
+                    if extras and window is None:
                         split = launch_split(
                             lambda: FA.paged_flash_decode_attention(
                                 q, k_src, v_src, tables, lens, **kw))
@@ -1154,8 +1186,8 @@ def check_kernels(card, cfg, n_axes, dev, extras=False):
                                     q, kp, vp, tables,
                                     without_last_chunk(lens, chunk)), want)
                     else:
-                        off = dict(kw, k_scales=ks.roll(1, dims=-1),
-                                   v_scales=vs.roll(1, dims=-1))
+                        off = dict(kw, k_scales=scales_off_by_one(ks),
+                                   v_scales=scales_off_by_one(vs))
                         planted(name, "scale block off by one",
                                 FA.paged_decode_attention_plain(
                                     q, k_src, v_src, tables, lens, **off),
@@ -1361,6 +1393,16 @@ def last_split_dropped(x, w, chain, sms):
     keep = (plan.gsplits - 1) * per
     return (x[:, :keep].float() @ w[:keep].float()
             + chain.float()).to(x.dtype)
+
+
+def scales_off_by_one(scales):
+    """KV scales ``(..., KV, blocks)`` each read one block over: rolled
+    along a head's blocks, or, where a head has one block (head_dim 64
+    at 64-element blocks, where that roll is the identity), along the
+    token's heads."""
+    if scales.shape[-1] > 1:
+        return scales.roll(1, dims=-1)
+    return scales.roll(1, dims=-2)
 
 
 def nibbles_swapped(codes):
@@ -3468,7 +3510,10 @@ def train_guard(dev):
 # the rest of the dense family, each config in turn through the phases
 # llama2-7b-proxy runs: its kernels at its shapes, its f32 2-layer cut,
 # FULL serving (dense and QLoRA) and FULL training
-DENSE_FAMILY = ("yi-6b", "phi3-medium-14b", "minicpm-2b")
+DENSE_FAMILY = ("yi-6b", "phi3-medium-14b", "minicpm-2b", "qwen2-0.5b")
+# the config of phase 13, whose kernel checks in phase 8 also plant a
+# fault in every case (``check_kernels(faults=True)``)
+QWEN2 = "qwen2-0.5b"
 FAMILY_TRAIN_STEPS = 3
 
 
@@ -3649,7 +3694,7 @@ def dense_family(card, dev, arch):
 
     full, n_axes = get_config(arch), get_peft(arch).n_axes
     secs, t0 = {}, time.monotonic()
-    _, checks = check_kernels(card, full, n_axes, dev)
+    _, checks = check_kernels(card, full, n_axes, dev, faults=arch == QWEN2)
     secs["kernels"] = time.monotonic() - t0
     t0 = time.monotonic()
     family_cut(dev, full.replace(
@@ -4094,7 +4139,7 @@ def moe_family(card, dev, arch, profile=False):
     full, n_axes = get_config(arch), get_peft(arch).n_axes
     cut = full.replace(n_layers=MOE_FAMILY[arch])
     secs, t0 = {}, time.monotonic()
-    _, checks = check_kernels(card, full, n_axes, dev)
+    _, checks = check_kernels(card, full, n_axes, dev, faults=arch == QWEN2)
     secs["kernels"] = time.monotonic() - t0
     read = {}
     if full.sliding_window is not None:
@@ -4571,7 +4616,7 @@ def mamba2_family(card, dev, arch=MAMBA2, profile=False):
 
     full, n_axes = get_config(arch), get_peft(arch).n_axes
     secs, t0 = {}, time.monotonic()
-    _, checks = check_kernels(card, full, n_axes, dev)
+    _, checks = check_kernels(card, full, n_axes, dev, faults=arch == QWEN2)
     secs["kernels"] = time.monotonic() - t0
     t0 = time.monotonic()
     cut = full.replace(n_layers=MAMBA2_CUT_LAYERS,
@@ -5322,6 +5367,366 @@ def frontend_family(card, dev, arch):
     return checks, (counts, runs, cut_counts), dict(read, seconds=secs)
 
 
+# --------------------------------------------------------------- phase 13
+# checkpoints and elastic recovery on qwen2-0.5b FULL (bf16, its QuanTA
+# 16-8-7 on q/v): 6 training steps saved after step 3 and at the end,
+# step 3 restored onto a meta template and resumed to 6, three planted
+# faults, the elastic plan and its one-device restore, the restored
+# adapters served
+CKPT_AT, CKPT_STEPS = 3, 6
+# the JAX example's tolerance on a resumed run's loss, held (and every
+# leaf) where the resumed run is not the uninterrupted one bit for bit
+RESUME_RTOL = 1e-5
+# the elastic example's fleet: 8 hosts of 64 chips, model parallel 16,
+# global batch 256; two hosts lost
+ELASTIC = dict(hosts=[f"host{i}" for i in range(8)], devices_per_host=64,
+               model_parallel=16, global_batch=256)
+ELASTIC_LOST = ["host2", "host5"]
+
+
+def _bit_view(t):
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def leaf_diff(got, want):
+    """``got`` against ``want`` leaf for leaf in the checkpoint store's
+    flattening: whether their key paths are equal, the leaves equal bit
+    for bit (dtype, shape and device too), the leaves, and the largest
+    relative difference (max |a - b| / max |b|) with its path."""
+    import torch
+    from repro_torch.checkpoint import tree_flatten_with_paths
+
+    (gp, gl), (wp, wl) = (tree_flatten_with_paths(t) for t in (got, want))
+    same, worst, where = 0, 0.0, None
+    for path, a, b in zip(wp, gl, wl):
+        if not isinstance(b, torch.Tensor):
+            eq, rel = a == b, 0.0 if a == b else math.inf
+        else:
+            eq = (a.dtype == b.dtype and a.shape == b.shape
+                  and a.device == b.device
+                  and torch.equal(_bit_view(a), _bit_view(b)))
+            rel = 0.0 if eq else float(
+                (a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp(min=1e-30))
+        same += bool(eq)
+        if rel > worst:
+            worst, where = rel, path
+    return gp == wp, same, len(wl), worst, where
+
+
+def _restore_timed(fn, dev):
+    """``fn()`` (a restore) and its wall seconds to the device's end."""
+    _sync(dev)
+    t0 = time.monotonic()
+    out = fn()
+    _sync(dev)
+    return out, time.monotonic() - t0
+
+
+def _crc_seconds(ckpt_dir):
+    """Seconds to read every leaf file of ``ckpt_dir`` (warm) and to hash
+    the arrays alone, as ``restore`` hashes them, and their bytes."""
+    import numpy as np
+    from repro_torch.checkpoint import store
+
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        files = [e["file"] for e in json.load(f)["leaves"]]
+    t0 = time.monotonic()
+    arrays = [np.load(os.path.join(ckpt_dir, n)) for n in files]
+    t1 = time.monotonic()
+    for a in arrays:
+        store._crc32(a)
+    return t1 - t0, time.monotonic() - t1, sum(a.nbytes for a in arrays)
+
+
+def _flip_byte(path):
+    """The last byte of ``path`` (a leaf's data) inverted, in place."""
+    with open(path, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def checkpoint_full(card, dev, arch=QWEN2):
+    """Phase 13 on ``arch`` FULL (bf16, its ``get_peft`` QuanTA on q/v,
+    ``attn_backend="pallas"``), the checkpoint under ``build/`` (deleted
+    at the end): (1) 6 AdamW steps of 8 x 512 through an
+    ``AsyncCheckpointer(keep=2)``, saved after step 3 and after step 6;
+    (2) step 3 restored onto a template from ``param_specs``, ``attach``
+    and ``TrainState.create`` on ``meta``: every leaf the saved state's
+    bit for bit; (3) resumed 3 -> 6: the losses and every leaf at step 6
+    those of the uninterrupted run bit for bit (else within
+    ``RESUME_RTOL``, the largest difference printed); (4) planted faults:
+    a byte flipped in one leaf file must raise ``IOError``, a stale
+    ``.tmp_`` directory must be ignored by ``latest_step`` and removed by
+    the next save, and a third checkpoint (step 7) must leave two;
+    (5) ``ElasticController`` on the elastic example's 8 hosts, then
+    ``restore_resharded`` of its plan's step onto ``cuda:0`` (bit for
+    bit the never-saved state), where a mesh placement must raise;
+    (6) the restored step-7 adapters served (the phase-5 prompts, 32 new
+    tokens, ``ServingEngine(n_slots=8, max_len=512)``) through kernels
+    1-4, their greedy tokens those of the never-saved state, the merged
+    twin served too, and adapted vs merged prefill logits within
+    ``SERVE_LOGIT_TOL`` with the planted fault caught; (7) per
+    checkpoint its bytes, the caller's stall (host copy), the
+    background write, and the restores' and crc's seconds.  Returns each
+    kernel's launches (the phase's, its training's and the restored
+    serve run's) and the readings."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint import (
+        AsyncCheckpointer, latest_step, restore, restore_resharded,
+    )
+    from repro_torch.configs import get_config, get_peft
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.core.peft import attach, merge_all
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.models import param_specs
+    from repro_torch.optim import AdamW
+    from repro_torch.train import (
+        ElasticController, TrainState, make_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch).replace(attn_backend="pallas")
+    n_axes = get_peft(arch).n_axes
+    secs, t0 = {}, time.monotonic()
+    kernels.reset_launch_counts()
+    model, base, peft = _train_models(cfg, dev, 1300, n_axes)
+    opt = AdamW(lr=5e-3, max_grad_norm=1.0)
+    micro = max(1, cfg.train_microbatches)
+    batch = max(TRAIN_BATCH, micro)
+    step = make_train_step(model, opt, microbatches=micro)
+    data = SyntheticSeq2Task(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=batch, task_rank=8, seed=0)
+    (HERE / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="checkpoint_", dir=HERE / "build")
+    ck = AsyncCheckpointer(ckdir, keep=2)
+
+    def step_dir(s):
+        return os.path.join(ckdir, f"step_{s:012d}")
+
+    def run(state, first, last, save_at=()):
+        losses = []
+        for i in range(first, last):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+            if state.step in save_at:
+                ck.save(state.step, state)
+        return state, losses
+
+    print(f"checkpoint: {arch}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"QuanTA {cfg.quanta_scheme} on q/v ({peft.num_params} trainable "
+          f"params), param_bytes {tree_nbytes(base)}; {CKPT_STEPS} AdamW "
+          f"steps of {batch} x {TRAIN_SEQ} in {micro} microbatch"
+          f"{'es' * (micro > 1)}, saved after steps {CKPT_AT} and "
+          f"{CKPT_STEPS} under {os.path.relpath(ckdir, HERE)}")
+    try:
+        s3, losses = run(TrainState.create(base, peft, opt), 0, CKPT_AT,
+                         (CKPT_AT,))
+        s6, more = run(s3, CKPT_AT, CKPT_STEPS, (CKPT_STEPS,))
+        losses += more
+        ck.wait()
+        secs["train and save"] = time.monotonic() - t0
+
+        # (2) step 3 onto the meta template
+        t0 = time.monotonic()
+        tbase, tpeft = attach(1301, param_specs(cfg), _quanta(cfg, n_axes),
+                              device="meta")
+        template = TrainState.create(tbase, tpeft, opt)
+        back, restore_s = _restore_timed(
+            lambda: restore(ckdir, CKPT_AT, template, device=dev), dev)
+        read_s, crc_s, nbytes = _crc_seconds(step_dir(CKPT_AT))
+        paths_ok, same, n, worst, where = leaf_diff(back, s3)
+        ok = paths_ok and same == n and back.step == CKPT_AT
+        print(f"checkpoint {arch} restore of step {CKPT_AT} onto the meta "
+              f"template: {same}/{n} leaves equal the saved state's bit for "
+              f"bit, key paths equal {paths_ok}, step counters {back.step}, "
+              f"{back.opt_state.step} (ints); restore {restore_s:.3f} s "
+              f"({nbytes / restore_s / 1e9:.2f} GB/s: read, crc32, "
+              f"upload), the leaf files read again (warm) {read_s:.3f} s, "
+              f"their crc32 alone {crc_s:.3f} s "
+              f"({nbytes / crc_s / 1e9:.2f} GB/s) [{card}] "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: the restored step {CKPT_AT} is not the saved "
+                 f"state (worst {worst:.3e} at {where})")
+
+        # (3) resumed 3 -> 6 against the uninterrupted run
+        r6, resumed = run(back, CKPT_AT, CKPT_STEPS)
+        paths_ok, same, n, worst, where = leaf_diff(r6, s6)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(resumed, losses[CKPT_AT:]))
+        exact = resumed == losses[CKPT_AT:] and same == n
+        ok = paths_ok and (exact or (loss_rel <= RESUME_RTOL
+                                     and worst <= RESUME_RTOL))
+        print(f"checkpoint {arch} resumed {CKPT_AT} -> {CKPT_STEPS}: losses "
+              f"{resumed} against the uninterrupted run's "
+              f"{losses[CKPT_AT:]} (all {CKPT_STEPS}: {losses}), equal "
+              f"{resumed == losses[CKPT_AT:]}; {same}/{n} leaves at step "
+              f"{CKPT_STEPS} equal bit for bit; largest difference: loss "
+              f"{loss_rel:.3e}, leaf {worst:.3e}"
+              f"{f' at {where}' if where else ''} (tolerance "
+              f"{RESUME_RTOL:g} where not bit for bit) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: the resumed run is not the uninterrupted one")
+        del back, s6
+        secs["restore and resume"] = time.monotonic() - t0
+
+        # (4) the planted faults
+        t0 = time.monotonic()
+        with open(os.path.join(step_dir(CKPT_AT), "manifest.json")) as f:
+            entry = next(e for e in json.load(f)["leaves"]
+                         if e["path"].startswith(".peft/"))
+        _flip_byte(os.path.join(step_dir(CKPT_AT), entry["file"]))
+        try:
+            restore(ckdir, CKPT_AT, template, device=dev)
+            caught = "restored: not caught"
+        except IOError as e:
+            caught = f"IOError ({e}): caught"
+        print(f"fault checkpoint {arch} (one byte of {entry['path']} "
+              f"flipped): {caught}")
+        if not caught.endswith(": caught"):
+            fail(f"{arch}: a corrupted leaf file restored")
+        stale = step_dir(99) + ".tmp_1"
+        os.makedirs(stale)
+        with open(os.path.join(stale, "manifest.json"), "w") as f:
+            f.write("{}")
+        latest = latest_step(ckdir)
+        s7, _ = run(r6, CKPT_STEPS, CKPT_STEPS + 1, (CKPT_STEPS + 1,))
+        ck.wait()
+        kept = sorted(os.listdir(ckdir))
+        want = [os.path.basename(step_dir(s))
+                for s in (CKPT_STEPS, CKPT_STEPS + 1)]
+        ok = (latest == CKPT_STEPS and kept == want
+              and latest_step(ckdir) == CKPT_STEPS + 1)
+        print(f"fault checkpoint {arch} (a stale .tmp_ directory with a "
+              f"manifest): latest_step {latest} before the next save; a "
+              f"third checkpoint (step {CKPT_STEPS + 1}, keep=2) leaves "
+              f"{kept} {'ok: ignored, removed, two kept' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: the stale .tmp_ directory or keep=2 not held")
+        train_counts = kernels.launch_counts()
+        train_steps = CKPT_STEPS + (CKPT_STEPS - CKPT_AT) + 1
+        n_attn = _attn_layers(cfg)
+        want_k3 = 2 * n_attn * micro * train_steps
+        ok = (train_counts["flash_attention"] == want_k3
+              and sum(train_counts.values()) == want_k3)
+        print(f"checkpoint {arch} training ({train_steps} steps): launches "
+              f"{train_counts} (kernel 3 expected {want_k3}: forward plus "
+              f"remat, each microbatch; no other kernel) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: phase 13's training launches are wrong")
+
+        # (5) the elastic plan and its one-device restore
+        ctl = ElasticController(checkpoint_dir=ckdir, **ELASTIC)
+        plan = ctl.on_host_failure(ELASTIC_LOST)
+        target = torch.device("cuda", 0) if dev.type == "cuda" else dev
+        rs, resharded_s = _restore_timed(
+            lambda: restore_resharded(ckdir, plan.restore_step, template,
+                                      target), dev)
+        paths_ok, same, n, worst, where = leaf_diff(rs, s7)
+        try:
+            restore_resharded(ckdir, plan.restore_step, template,
+                              {"mesh": plan.mesh_shape})
+            mesh = "restored: not refused"
+        except NotImplementedError as e:
+            mesh = f"NotImplementedError ({e}): refused"
+        ok = (plan.restore_step == CKPT_STEPS + 1 and paths_ok and same == n
+              and mesh.endswith(": refused"))
+        print(f"checkpoint {arch} elastic: {len(ELASTIC['hosts'])} hosts, "
+              f"{ELASTIC_LOST} lost -> plan mesh {plan.mesh_shape} "
+              f"{plan.mesh_axes}, data_shards {plan.data_shards}, "
+              f"restore_step {plan.restore_step}; restore_resharded onto "
+              f"{target} in {resharded_s:.3f} s: {same}/{n} leaves the "
+              f"never-saved state's bit for bit; a mesh placement: {mesh} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: the elastic restore is wrong")
+        secs["faults and elastic"] = time.monotonic() - t0
+
+        # (6) the restored adapters served, adapted and merged
+        t0 = time.monotonic()
+        scfg = cfg.replace(peft_backend="pallas")
+        serve_model = type(model)(scfg, device=dev)
+        gen = torch.Generator().manual_seed(9)
+        lengths = [32, 82, 132, 182, 232, 282, 332, 384]
+        prompts = [torch.randint(0, cfg.vocab_size, (k,),
+                                 generator=gen).tolist() for k in lengths]
+        kernels.reset_launch_counts()
+        out_r, stats, t_pre, t_dec = _serve(serve_model, rs.params, rs.peft,
+                                            prompts, 32, 8, 512)
+        serve_counts = kernels.launch_counts()
+        out_n, _, _, _ = _serve(serve_model, s7.params, s7.peft, prompts,
+                                32, 8, 512)
+        merged = merge_all(rs.params, rs.peft)
+        out_m, _, _, _ = _serve(serve_model, merged, None, prompts, 32, 8,
+                                512)
+        del merged
+        need = [k for k in DENSE_KERNELS if serve_counts[k] == 0]
+        agree = sum(a == b for ra, rb in zip(out_r, out_m)
+                    for a, b in zip(ra, rb))
+        ok = (out_r == out_n and not need
+              and all(len(r) == 32 for r in out_r))
+        print(f"checkpoint {arch} serve of the restored step "
+              f"{plan.restore_step}: prefill {t_pre * 1e3:.1f} ms, decode "
+              f"{t_dec * 1e3:.1f} ms (wall, {stats['decode_calls']} ticks), "
+              f"launches {serve_counts}; greedy tokens equal the "
+              f"never-saved state's {out_r == out_n}; adapted vs merged "
+              f"token agreement {agree}/{sum(len(r) for r in out_r)} "
+              f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{arch}: the restored adapters serve wrong (kernels not "
+                 f"launched: {need})")
+        toks = torch.zeros((8, 384), dtype=torch.long)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = torch.tensor(p)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        read = merged_check(card, "checkpoint", scfg, serve_model, rs.params,
+                            rs.peft, {"tokens": toks.to(dev)}, lens,
+                            SERVE_LOGIT_TOL)
+        secs["serve"] = time.monotonic() - t0
+
+        # (7) per checkpoint
+        for s, t in sorted(ck.timings.items()):
+            print(f"checkpoint {arch} step {s}: {t['bytes']} bytes written "
+                  f"({t['bytes'] / 2 ** 30:.3f} GiB), the caller's stall "
+                  f"(host copy) {t['snapshot_s']:.3f} s "
+                  f"({t['bytes'] / t['snapshot_s'] / 1e9:.2f} GB/s; waiting "
+                  f"on the previous save {t['wait_s']:.3f} s), background "
+                  f"write {t['write_s']:.3f} s "
+                  f"({t['bytes'] / t['write_s'] / 1e9:.2f} GB/s) [{card}]")
+        read.update(restore_s=restore_s, resharded_s=resharded_s,
+                    crc_s=crc_s, read_s=read_s, restore_bytes=nbytes,
+                    losses=losses, resumed=resumed, timings=ck.timings,
+                    seconds=secs)
+    finally:
+        ck.close()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    total = kernels.launch_counts()
+    print(f"checkpoint {arch}: launches over the phase after the training "
+          f"{total}; seconds " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()))
+    counts = {k: dict(launches=train_counts[k] + total[k],
+                      train_launches=train_counts[k],
+                      serve_launches=serve_counts[k]) for k in total}
+    del model, serve_model, base, peft, s3, r6, s7, rs, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, read
+
+
 def _device_ms(prof, counts=None):
     """Device time by kernel name, in ms, from a finished profiler; with
     ``counts`` (a dict) also each kernel's number of launches."""
@@ -5530,6 +5935,9 @@ def main() -> int:
         t0 = time.monotonic()
         fe_runs[arch] = frontend_family(card, dev, arch)
         phase_s[arch] = time.monotonic() - t0
+    t0 = time.monotonic()
+    ck_counts, _ = checkpoint_full(card, dev)
+    phase_s["checkpoint"] = time.monotonic() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -5578,11 +5986,14 @@ def main() -> int:
                   for label, (c, n) in runs.items()},
             cut_launches=cut.get(name, 0), checks=checks.get(name, {}))
             for arch, (checks, (cnt, runs, cut), _) in fe_runs.items()}
+        # phase 13: the launches over the phase, its training's and the
+        # restored adapters' serve run's
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=counts[name],
                          **records[name], dense_family=at,
                          moe_family=moe_at, griffin=griffin, mamba2=mamba2,
-                         frontends=frontends))
+                         frontends=frontends,
+                         checkpoint={QWEN2: ck_counts[name]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,21 @@ families and the audio (musicgen) and VLM (pixtral) frontends -- each
 with its FULL and SMOKE model configs, its PEFT config and its notes.
 ``ARCH_IDS`` is the assigned grid's archs, as the JAX registry defines
 it (every arch but the paper's own llama2-7b-proxy base).
-``get_shapes`` and ``list_cells`` (the JAX registry's shape grid) are
-not ported."""
+``get_shapes`` and ``list_cells`` give the assigned input-shape grid
+(``configs/shapes.py``): each arch's runnable shapes and every (arch,
+shape) cell, as the JAX registry gives them."""
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
+from repro_torch.configs.shapes import SHAPES, shapes_for
 from repro_torch.core.peft import PeftConfig
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, ShapeConfig
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke", "get_peft", "get_notes"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke", "get_peft", "get_shapes",
+           "get_notes", "list_cells"]
 
 # arch id -> module name, in the JAX registry's order
 _MODULES: Dict[str, str] = {
@@ -57,3 +60,20 @@ def get_peft(arch: str) -> PeftConfig:
 
 def get_notes(arch: str) -> str:
     return getattr(_module(arch), "NOTES", "")
+
+
+def get_shapes(arch: str) -> Tuple[ShapeConfig, ...]:
+    return shapes_for(get_config(arch).family)
+
+
+def list_cells(include_skipped: bool = False
+               ) -> List[Tuple[str, ShapeConfig, bool]]:
+    """All (arch, shape, runnable) cells of the assigned grid."""
+    cells = []
+    for arch in ARCH_IDS:
+        fam = get_config(arch).family
+        for shape in SHAPES:
+            runnable = shape in shapes_for(fam)
+            if runnable or include_skipped:
+                cells.append((arch, shape, runnable))
+    return cells

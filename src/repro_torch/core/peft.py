@@ -30,7 +30,7 @@ from repro_torch.core.baselines import (
     DoraAdapter, DotaAdapter, KronaAdapter, LoraAdapter,
 )
 from repro_torch.core.factorize import factorize, pair_schedule, parse_scheme
-from repro_torch.kernels.dispatch import default_device
+from repro_torch.kernels.dispatch import default_device, seeded_generator
 
 __all__ = [
     "PeftConfig",
@@ -246,11 +246,7 @@ def attach(
     device = default_device(device)
     if cfg.method in ("ft", "none"):
         return params, {}
-    if isinstance(seed, torch.Generator):
-        gen = seed
-    else:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+    gen = seeded_generator(seed, device)
     flat = flatten_paths(params)
     targets = {p: w for p, w in flat.items() if _match(p, cfg.targets)}
     if not targets:

@@ -89,6 +89,19 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def seeded_generator(seed, device) -> torch.Generator:
+    """``seed`` as the generator of an entry point's draws on ``device``:
+    a ``torch.Generator`` is returned as it is, an int seeds a new one on
+    ``device``.  The ``meta`` device draws nothing (its tensors hold no
+    memory), so a CPU generator stands in for it there."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(int(seed))
+    return gen
+
+
 def upload(dst: torch.Tensor, src) -> torch.Tensor:
     """Copy ``src`` (a numpy array or a tensor) into ``dst`` in place.  A
     host array bound for the card goes through pinned memory with

@@ -13,14 +13,16 @@ and dtypes, the frontends' batch layout among them, and no memory.
 ``cache_slot_spec(cfg)`` is the decode cache's slot layout (a
 ``CacheLeafSpec`` per leaf, mirroring ``init_cache``).
 
-The JAX package's ``cache_specs`` and ``param_specs`` are ``eval_shape``
-tools of its multi-pod dry run; they are not ported (the port's dry run
-on the ``meta`` device is still to come).
+``param_specs(cfg)`` and ``cache_specs(cfg, shape)`` are the port's
+``jax.eval_shape``: the model's ``init`` and ``init_cache`` run on the
+``meta`` device, with no memory, and give the JAX package's shapes and
+dtypes leaf for leaf.  With ``attach`` and ``TrainState.create`` on
+those specs they give ``checkpoint.restore`` its template.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Any, Dict, Union
 
 import torch
 
@@ -29,7 +31,8 @@ from repro_torch.models.griffin import Griffin
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["build_model", "input_specs", "cache_slot_spec"]
+__all__ = ["build_model", "input_specs", "cache_specs", "cache_slot_spec",
+           "param_specs"]
 
 
 def build_model(cfg: ModelConfig, device=None
@@ -84,3 +87,16 @@ def cache_slot_spec(cfg: ModelConfig):
     """Per-leaf serving-slot layout of the decode cache
     (``CacheLeafSpec``), without building the weights."""
     return build_model(cfg, device="meta").cache_spec()
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``cfg`` as ``meta`` tensors (shapes and
+    dtypes of ``init``, no memory)."""
+    return build_model(cfg, device="meta").init(0)
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The decode cache of a (cfg x shape) cell as ``meta`` tensors:
+    ``init_cache(shape.global_batch, shape.seq_len)``, no memory."""
+    return build_model(cfg, device="meta").init_cache(shape.global_batch,
+                                                      shape.seq_len)

@@ -47,7 +47,7 @@ from repro_torch.core.quantize import (
     fake_quantize_kv, kv_dequant_values, quantize_kv,
 )
 from repro_torch.kernels.dispatch import (
-    MASK_VALUE, default_device, masked_softmax,
+    MASK_VALUE, default_device, masked_softmax, seeded_generator,
 )
 from repro_torch.models.attention import blockwise_causal_attention
 from repro_torch.models.common import (
@@ -99,11 +99,7 @@ class Griffin(nn.Module):
         ``cfg.param_dtype``; norms at one, conv biases at zero, Lambda at
         softplus^-1 of decays from 0.9 to 0.999."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.param_dtype
-        if isinstance(seed, torch.Generator):
-            gen = seed
-        else:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
+        gen = seeded_generator(seed, dev)
         d, dr, ff, k = cfg.d_model, self.d_rnn, cfg.d_ff, cfg.conv_kernel
         decay = torch.exp(torch.linspace(math.log(0.9), math.log(0.999), dr,
                                          device=dev))

@@ -43,7 +43,7 @@ from torch import nn
 from repro_torch.core.peft import (
     adapter_subtree, get_adapter, layer_tree, peft_linear,
 )
-from repro_torch.kernels.dispatch import default_device
+from repro_torch.kernels.dispatch import default_device, seeded_generator
 from repro_torch.models.common import (
     CacheLeafSpec,
     ModelConfig,
@@ -111,11 +111,7 @@ class Mamba2(nn.Module):
         the skip ``D`` at one, conv biases at zero, ``dt_bias`` at
         softplus^-1 of steps from 1e-3 to 0.1, ``a_log`` at log of 1..16."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.param_dtype
-        if isinstance(seed, torch.Generator):
-            gen = seed
-        else:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
+        gen = seeded_generator(seed, dev)
         d, di, hs, h = cfg.d_model, self.d_inner, cfg.ssm_state, \
             self.n_ssm_heads
         n, k = cfg.n_layers, cfg.conv_kernel

@@ -44,7 +44,7 @@ from repro_torch.core.peft import (
     adapter_subtree, get_adapter, layer_tree, peft_linear,
 )
 from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
-from repro_torch.kernels.dispatch import default_device
+from repro_torch.kernels.dispatch import default_device, seeded_generator
 from repro_torch.models.attention import (
     blockwise_causal_attention, chunk_attention, decode_attention,
     paged_decode_attention,
@@ -100,11 +100,7 @@ class Transformer(nn.Module):
         the model's device), drawn in fp32 layer by layer (MoE experts
         expert by expert) and stored in ``cfg.param_dtype``."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.param_dtype
-        if isinstance(seed, torch.Generator):
-            gen = seed
-        else:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
+        gen = seeded_generator(seed, dev)
         L = cfg.n_layers
         vpad = padded_vocab(cfg.vocab_size)
         d, ad, kvd, ff = cfg.d_model, cfg.attn_dim, cfg.kv_dim, cfg.d_ff

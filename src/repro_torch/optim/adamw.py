@@ -17,7 +17,7 @@ place), as the JAX update does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, ClassVar, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ class AdamWState:
     step: int
     mu: Any
     nu: Any
+    # the checkpoint store writes ``step`` as a 0-d int32 leaf
+    int_leaves: ClassVar[Tuple[str, ...]] = ("step",)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

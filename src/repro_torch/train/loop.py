@@ -18,7 +18,7 @@ the mesh slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,9 @@ class TrainState:
     opt_state: AdamWState
     ef_state: Optional[ErrorFeedbackState]
     step: int
+    # the checkpoint store writes ``step`` as a 0-d int32 leaf, as the
+    # JAX package holds it
+    int_leaves: ClassVar[Tuple[str, ...]] = ("step",)
 
     @staticmethod
     def create(params, peft, optimizer: AdamW, *, compress: bool = False,

@@ -1437,3 +1437,56 @@ def test_griffin_engine_decodes_through_one_graph(cache, dev):
         assert eng.compile_guard.counts() == {"decode": 0 if eager else 1}
     assert outs[False] == outs[True]
     assert max(3 * (4 + 5 * i) for i in range(4)) + 12 > cfg.local_window
+
+
+def test_bf16_train_state_saved_on_the_card_restores_bit_for_bit(
+        dev, tmp_path):
+    """Two bf16 training steps on the card (kernel 3 under autograd, int8
+    compression on), an async save, then a restore onto the ``meta``
+    template: every leaf back on the card, bit for bit, the step
+    counters ints; the resumed step equals the uninterrupted one."""
+    from repro_torch.checkpoint import (
+        AsyncCheckpointer, restore, tree_flatten_with_paths,
+    )
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.data import SyntheticSeq2Task
+    from repro_torch.models import build_model, param_specs
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = get_smoke("llama2-7b-proxy").replace(
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+        attn_backend="pallas")
+    model = build_model(cfg, device=dev)
+    peft_cfg = PeftConfig(n_axes=3)
+    base, peft = attach(1, model.init(0), peft_cfg, device=dev)
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(model, opt, compress=True)
+    data = SyntheticSeq2Task(vocab_size=cfg.vocab_size, seq_len=32,
+                             global_batch=8, task_rank=8)
+    state = TrainState.create(base, peft, opt, compress=True)
+    for i in range(2):
+        state, _ = step(state, data.batch(i))
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(state.step, state)
+    ck.close()
+    tbase, tpeft = attach(1, param_specs(cfg), peft_cfg, device="meta")
+    back = restore(str(tmp_path), 2, TrainState.create(
+        tbase, tpeft, opt, compress=True))
+    assert back.step == 2 and back.opt_state.step == 2
+    got, want = (tree_flatten_with_paths(t) for t in (back, state))
+    assert got[0] == want[0]
+    for path, a, b in zip(got[0], got[1], want[1]):
+        if isinstance(b, int):
+            assert a == b, path
+            continue
+        assert a.device == b.device and a.dtype == b.dtype, path
+        bits = (lambda t: t.view(torch.int16)) if a.dtype == torch.bfloat16 \
+            else (lambda t: t)
+        assert torch.equal(bits(a), bits(b)), path
+    assert any(t.dtype == torch.bfloat16 for t in want[1]
+               if isinstance(t, torch.Tensor))
+    s1, m1 = step(state, data.batch(2))
+    s2, m2 = step(back, data.batch(2))
+    assert torch.equal(m1["loss"], m2["loss"])

@@ -24,7 +24,8 @@ PKG = ROOT / "src" / "repro_torch"
 # the port's examples, imported (not run) with jax blocked
 EXAMPLES = [ROOT / "examples" / name for name in (
     "torch_quickstart.py", "torch_serve_batched.py",
-    "torch_serve_streaming.py")]
+    "torch_serve_streaming.py", "torch_finetune_e2e.py",
+    "torch_elastic_restart.py")]
 
 
 def _modules():
@@ -186,6 +187,19 @@ def test_serving_modules_are_covered(name):
     the graph tick runs through (the MoE FFN among them) are among those
     imported with ``jax`` and the JAX package blocked, and among the
     files whose imports are read."""
+    _covered(name)
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.train.elastic", "repro_torch.configs.shapes",
+    "repro_torch.models.api",
+])
+def test_checkpoint_modules_are_covered(name):
+    """The checkpoint store, the elastic control plane, the shape grid
+    and the meta-device specs are among the modules imported with
+    ``jax`` and the JAX package blocked, and among the files whose
+    imports are read."""
     _covered(name)
 
 

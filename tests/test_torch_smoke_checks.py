@@ -510,3 +510,61 @@ def test_frontend_units_and_their_judge(smoke):
     runs = exact(pu)
     del runs["NF4-base engine"]
     assert failures(runs)
+
+
+@pytest.mark.parametrize("h,hd", [(2, 64), (4, 128)])
+def test_scale_block_fault_fails_the_kernel6_limits(smoke, h, hd):
+    """NF4 KV scales read one block over fail kernel 6's bf16 limits at
+    head_dim 64, where a head has one 64-element scale block (the scales
+    move across the token's heads: rolling a head's one block would be
+    the identity), as at 128 (along each head's blocks)."""
+    from repro_torch.core.quantize import quantize_kv
+
+    gen = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    b, s_max, bs = 4, 128, 16
+    q = torch.randn((b, 1, h, hd), generator=gen).to(bf)
+    lens = torch.tensor([128, 100, 65, 1], dtype=torch.int32)
+    n_blocks = b * (s_max // bs) + 1
+    tables = smoke.paged_tables(lens.tolist(), bs, s_max // bs, n_blocks, 0)
+    (kc, ks), (vc, vs) = (quantize_kv(torch.randn(
+        (n_blocks, bs, h, hd), generator=gen).to(bf), "nf4")
+        for _ in range(2))
+    assert ks.shape[-2:] == (h, hd // 64)
+    off_k, off_v = smoke.scales_off_by_one(ks), smoke.scales_off_by_one(vs)
+    assert not torch.equal(off_k, ks)
+    if hd // 64 > 1:
+        assert torch.equal(off_k, ks.roll(1, dims=-1))
+    name = "paged_flash_decode_attention_quant"
+    want = FA.paged_decode_attention_plain(q, kc, vc, tables, lens,
+                                           kv_quant="nf4", k_scales=ks,
+                                           v_scales=vs)
+    faulty = FA.paged_decode_attention_plain(q, kc, vc, tables, lens,
+                                             kv_quant="nf4", k_scales=off_k,
+                                             v_scales=off_v)
+    _, ok, _ = smoke.judge(name, want, want, bf)
+    assert ok
+    _, ok, _ = smoke.judge(name, faulty, want, bf)
+    assert not ok
+
+
+def test_leaf_diff_reads_bits_paths_and_the_worst_leaf(smoke):
+    """Phase 13's comparison: equal trees are equal bit for bit; a
+    changed tensor leaf, a changed step counter and a changed dtype are
+    each seen, the worst relative difference at its path."""
+    from repro_torch.optim import AdamWState
+
+    def tree(w, step=3, dtype=torch.bfloat16):
+        return AdamWState(step=step, mu={"b": torch.ones(3, dtype=dtype),
+                                         "a": w}, nu={})
+
+    w = torch.arange(4.0)
+    assert smoke.leaf_diff(tree(w), tree(w.clone())) == (True, 3, 3, 0.0,
+                                                         None)
+    paths_ok, same, n, worst, where = smoke.leaf_diff(
+        tree(w + torch.tensor([0.0, 0.0, 0.0, 0.3])), tree(w))
+    assert (paths_ok, same, n, where) == (True, 2, 3, ".mu/a")
+    assert worst == pytest.approx(0.1)
+    assert smoke.leaf_diff(tree(w, step=4), tree(w))[1:] == (
+        2, 3, float("inf"), ".step")
+    assert smoke.leaf_diff(tree(w, dtype=torch.float32), tree(w))[1] == 2

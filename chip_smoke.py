@@ -285,6 +285,17 @@ Phases, one line or more each before the last:
    ``SERVE_LOGIT_TOL`` with the planted fault caught; per checkpoint its
    bytes, the caller's stall (host copy), the background write, and the
    restores' and crc's seconds.
+14. contracts: the kernel-contract checker of ``python -m
+   repro_torch.analysis`` on the card (``check_kernels(card=True)``):
+   every case (the representative shapes and every FULL config's at 3072
+   prefill and 8 decode rows) recorded from its real wrapper on the CPU,
+   its launcher's ``*_describe`` export (the launch's own geometry, no
+   launch) held equal to the Python geometry model, and the ragged cases
+   launched on the card with each output and a 64-byte guard band on each
+   side filled with NaN (outputs finite, bands untouched); two planted
+   faults (the model with one tile dropped, a describe result with one
+   grid dimension short) must be caught; ``contracts: <cases> cases,
+   <findings> findings, <s> s``.
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -5802,6 +5813,67 @@ def profile_serve(card, model, base, peft, prompts, path="dense",
             print(f"profile {label} top: {v:.3f} ms {name[:90]}")
 
 
+# --------------------------------------------------------------- phase 14
+def contracts(card):
+    """Phase 14: the kernel-contract checker with its card checks, and a
+    planted fault for each of them.  Returns its seconds."""
+    from repro_torch.analysis import geometry
+    from repro_torch.analysis import kernels as contract
+
+    t0 = time.monotonic()
+    stats = {}
+    findings = contract.check_kernels(card=True, stats=stats)
+    secs = time.monotonic() - t0
+    for f in findings:
+        print(f"contracts finding: {f}")
+    print(f"contracts: {stats['cases']} cases, {len(findings)} findings, "
+          f"{secs:.1f} s [{card}]")
+    if findings:
+        fail(f"contracts: {len(findings)} findings")
+
+    name, rec = contract.family_cases("quantized_matmul", full=False)[0]
+    launches = geometry.model(rec)
+    first = launches[0]
+
+    def one_dropped():
+        writes, reads, gathers = first.tiles()
+        w = writes[0]
+        return ([geometry.Box(w.tensor, w.view, w.lo[1:], w.hi[1:])]
+                + writes[1:], reads, gathers)
+
+    faulty = [dataclasses.replace(first, tiles=one_dropped)] + launches[1:]
+    got = contract.check_record("quantized_matmul", name, rec,
+                                smem_block=contract.H100.smem_block,
+                                launches=faulty)
+    caught = any(f.check == "coverage" for f in got)
+    print(f"fault contracts (the model with one tile of {first.kernel} "
+          f"dropped): {'caught' if caught else 'passes'}")
+    if not caught:
+        fail("contracts: a model with one tile dropped passes the coverage "
+             "check")
+
+    real = contract.describe
+
+    def one_short(r):
+        rc, grids = real(r)
+        return rc, [(g[0] - 1,) + tuple(g[1:]) for g in grids[:1]] \
+            + grids[1:]
+
+    contract.describe = one_short
+    try:
+        got = contract.check_describe("quantized_matmul", name, rec,
+                                      launches)
+    finally:
+        contract.describe = real
+    caught = any(f.check == "grid" for f in got)
+    print(f"fault contracts (a describe result of {first.kernel} with grid "
+          f"x one short): {'caught' if caught else 'passes'}")
+    if not caught:
+        fail("contracts: a describe result one grid dimension short "
+             "passes the grid check")
+    return time.monotonic() - t0
+
+
 def main() -> int:
     import torch
 
@@ -5938,6 +6010,7 @@ def main() -> int:
     t0 = time.monotonic()
     ck_counts, _ = checkpoint_full(card, dev)
     phase_s["checkpoint"] = time.monotonic() - t0
+    phase_s["contracts"] = contracts(card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 

@@ -1,23 +1,29 @@
 """Capture guard: runtime checks behind ``REPRO_SANITIZE=1`` (port of
 ``repro/analysis/sanitize.py``).
 
-Every captured entry point of a ``ServingEngine`` is registered on a
-:class:`CompileGuard` with its documented bound
-(``ServingEngine.compilation_bounds``).  Where the JAX package counts the
-traces in a function's jit cache, the port counts the CUDA graphs it has
-captured: a registered callable exposes ``_cache_size()``, and the guard
-raises :class:`RetraceError` when an entry point captured more graphs
-than its bound -- the one-graph-per-engine discipline of the decode tick,
-enforced at every tick rather than by one-off tests.  Callables without
-``_cache_size`` (eager entry points: prefill waves, chunk steps, the
-insert scatter) are skipped at registration, as in the JAX package.
+Two mechanisms:
 
-The JAX module's ``install()`` (``jax_check_tracer_leaks`` and the
-``backend_compile`` event counter) has no PyTorch counterpart: nothing is
-traced, so nothing can leak from a trace, and graph captures are counted
-by the entry points themselves.  It is left out.
+* **Capture counting** -- every captured entry point of a
+  ``ServingEngine`` is registered on a :class:`CompileGuard` with its
+  documented bound (``ServingEngine.compilation_bounds``).  Where the JAX
+  package counts the traces in a function's jit cache, the port counts the
+  CUDA graphs it has captured: a registered callable exposes
+  ``_cache_size()``, and the guard raises :class:`RetraceError` when an
+  entry point captured more graphs than its bound -- the
+  one-graph-per-engine discipline of the decode tick, enforced at every
+  tick rather than by one-off tests.  Callables without ``_cache_size``
+  (eager entry points: prefill waves, chunk steps, the insert scatter) are
+  skipped at registration, as in the JAX package.
+* **A global capture counter** -- ``install()`` starts counting the CUDA
+  graphs every engine captures (each engine's decode graph reports its
+  capture through :func:`record_capture`), the counterpart of the JAX
+  package's ``backend_compile`` event counter, for workload-level
+  assertions (:func:`global_compile_count`).  The JAX ``install()`` also
+  turns on ``jax_check_tracer_leaks``; nothing is traced here, so nothing
+  can leak from a trace, and that half has no counterpart.
 
-Enable for a run with ``REPRO_SANITIZE=1``.
+``install()`` is idempotent and cheap.  Enable the per-tick guard for a
+run with ``REPRO_SANITIZE=1``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,15 @@ import dataclasses
 import os
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["CompileGuard", "RetraceError", "enabled"]
+__all__ = [
+    "CompileGuard",
+    "RetraceError",
+    "enabled",
+    "install",
+    "installed",
+    "global_compile_count",
+    "record_capture",
+]
 
 
 def enabled() -> bool:
@@ -38,6 +52,37 @@ def enabled() -> bool:
 
 class RetraceError(AssertionError):
     """An entry point captured more graphs than its documented bound."""
+
+
+# ---------------------------------------------------------------- installer
+
+_installed = False
+_global_captures = 0
+
+
+def install() -> None:
+    """Start the global capture counter.  Idempotent; safe to call from
+    ``conftest.py`` at collection time."""
+    global _installed
+    _installed = True
+
+
+def installed() -> bool:
+    return _installed
+
+
+def record_capture() -> None:
+    """Count one CUDA-graph capture (an engine's decode graph calls this
+    after each capture); counted only once :func:`install` has run."""
+    global _global_captures
+    if _installed:
+        _global_captures += 1
+
+
+def global_compile_count() -> int:
+    """CUDA-graph captures by every engine since :func:`install` (0 if
+    never installed)."""
+    return _global_captures
 
 
 @dataclasses.dataclass

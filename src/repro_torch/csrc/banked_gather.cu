@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "tiled_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -354,63 +355,20 @@ struct Args {
   int splits, k_split, gsplits, smem_limit;
 };
 
-template <int BN, typename AT>
-int launch_prefill(const Args& g, cudaStream_t s) {
-  static int granted[wg::kMaxDevices] = {};
-  const int M = g.n_slots * g.S;
-  constexpr int smem = wg::GemmPlan<BN>::BYTES;
-  int err = wg::allow_smem(fused_wgmma_kernel<BN, AT>, smem, g.smem_limit,
-                           granted);
-  if (err) return err;
-  CUtensorMap tmx, tmw;
-  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, wg::kGemmBM, 64)) ||
-      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
-    return err;
-  dim3 grid((g.d_out + BN - 1) / BN, (M + wg::kGemmBM - 1) / wg::kGemmBM);
-  fused_wgmma_kernel<BN, AT><<<grid, wg::kGemmThreads, smem, s>>>(
-      tmx, tmw, g.za, g.zpart, g.splits, static_cast<const AT*>(g.b), g.ids,
-      static_cast<bf16*>(g.out), M, g.d_out, g.d_in, g.S, g.r, g.n_bank,
-      g.scale);
-  return (int)cudaGetLastError();
-}
-
-template <int RN, typename AT>
-int launch_decode_rn(const Args& g, cudaStream_t s) {
-  static int granted[wg::kMaxDevices] = {};
-  const int M = g.n_slots * g.S;
-  constexpr int smem = wg::DecPlan<RN>::BYTES;
-  int err =
-      wg::allow_smem(decode_gemm_kernel<RN>, smem, g.smem_limit, granted);
-  if (err) return err;
-  const int steps = (g.d_in + 63) / 64;
-  const int per = (steps + g.gsplits - 1) / g.gsplits;
-  if (g.gpart == nullptr || (steps + per - 1) / per != g.gsplits)
+// The launches of banked_lora_launch, in order: the shrink, grid
+// (ceil(S/16), n_slots, splits); with several splits and no bf16 base, the
+// reduce of za; then the delta alone, grid (M, ceil(d_out/256)), or the
+// fused product: float32 (ceil(d_out/64), ceil(M/64)), bf16 prefill
+// (ceil(d_out/256), ceil(M/128)), or bf16 decode (ceil(d_out/64), gsplits)
+// and its combine (ceil(d_out/256), M).  M = n_slots * S.
+int geometry(const Args& g, int x_dtype, int a_dtype, geom::Geometry* out) {
+  if (g.n_slots <= 0 || g.S <= 0 || g.d_out <= 0) return 0;
+  if (g.r < 1 || g.r > MAX_RANK || g.n_bank < 1 || g.d_in < 1)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tmx, tmw;
-  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, RN, 64)) ||
-      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
-    return err;
-  decode_gemm_kernel<RN>
-      <<<dim3((g.d_out + wg::kDecBN - 1) / wg::kDecBN, g.gsplits),
-         wg::kDecThreads, smem, s>>>(tmx, tmw, g.gpart, M, g.d_out, g.d_in,
-                                     per);
-  if ((err = (int)cudaGetLastError())) return err;
-  combine_kernel<AT><<<dim3((g.d_out + 255) / 256, M), 256, 0, s>>>(
-      g.gpart, g.gsplits, g.za, g.zpart, g.splits,
-      static_cast<const AT*>(g.b), g.ids, static_cast<bf16*>(g.out), M,
-      g.d_out, g.S, g.r, g.n_bank, g.scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename XT, typename AT>
-int launch(const Args& g, cudaStream_t s) {
-  const XT* x = static_cast<const XT*>(g.x);
-  const AT* a = static_cast<const AT*>(g.a);
-  const AT* b = static_cast<const AT*>(g.b);
-  XT* out = static_cast<XT*>(g.out);
-  const int M = g.n_slots * g.S, S = g.S, r = g.r, d_in = g.d_in,
-            d_out = g.d_out;
-  const bool bf16_base = g.w != nullptr && sizeof(XT) == 2;
+  if ((x_dtype != 0 && x_dtype != 1) || (a_dtype != 0 && a_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int M = g.n_slots * g.S, d_in = g.d_in, d_out = g.d_out;
+  const bool bf16_base = g.w != nullptr && x_dtype == 1;
   if (g.splits < 1 || g.k_split % SK ||
       (g.splits > 1 && g.zpart == nullptr) ||
       (size_t)(g.splits - 1) * g.k_split >= (size_t)d_in)
@@ -422,28 +380,110 @@ int launch(const Args& g, cudaStream_t s) {
     return (int)cudaErrorInvalidValue;
   if (g.w != nullptr && !bf16_base && g.variant != 2)
     return (int)cudaErrorInvalidValue;
-  shrink_kernel<XT, AT>
-      <<<dim3((S + SR - 1) / SR, g.n_slots, g.splits), 256, 0, s>>>(
-          x, a, g.ids, g.za, g.zpart, S, d_in, r, g.n_bank, g.k_split);
+  out->add(dim3((g.S + SR - 1) / SR, g.n_slots, g.splits), 256, 0);
   // the bf16 fused bodies add the split sums as they read za
   if (g.splits > 1 && !bf16_base)
-    reduce_kernel<AT><<<(M * r + 255) / 256, 256, 0, s>>>(g.zpart, g.za,
-                                                         M * r, g.splits);
+    out->add(dim3((M * g.r + 255) / 256), 256, 0);
   if (g.w == nullptr) {
-    delta_kernel<XT, AT><<<dim3(M, (d_out + 255) / 256), 256, 0, s>>>(
+    out->add(dim3(M, (d_out + 255) / 256), 256, 0);
+  } else if (x_dtype == 0) {
+    out->add(dim3((d_out + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
+                  (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM),
+             256, 0);
+  } else if (g.variant == 0) {
+    constexpr int smem = wg::GemmPlan<256>::BYTES;
+    if (smem > g.smem_limit) return (int)cudaErrorInvalidValue;
+    out->add(dim3((d_out + 255) / 256, (M + wg::kGemmBM - 1) / wg::kGemmBM),
+             wg::kGemmThreads, smem);
+  } else {
+    const int smem = M <= 8 ? wg::DecPlan<8>::BYTES : wg::DecPlan<64>::BYTES;
+    if (smem > g.smem_limit) return (int)cudaErrorInvalidValue;
+    const int steps = (d_in + 63) / 64;
+    if (g.gsplits < 1 || g.gpart == nullptr ||
+        (steps + (steps + g.gsplits - 1) / g.gsplits - 1) /
+                ((steps + g.gsplits - 1) / g.gsplits) != g.gsplits)
+      return (int)cudaErrorInvalidValue;
+    out->add(dim3((d_out + wg::kDecBN - 1) / wg::kDecBN, g.gsplits),
+             wg::kDecThreads, smem);
+    out->add(dim3((d_out + 255) / 256, M), 256, 0);
+  }
+  return 0;
+}
+
+template <int BN, typename AT>
+int launch_prefill(const Args& g, const geom::Launch& l, cudaStream_t s) {
+  static int granted[wg::kMaxDevices] = {};
+  const int M = g.n_slots * g.S;
+  int err = wg::allow_smem(fused_wgmma_kernel<BN, AT>, l.smem, g.smem_limit,
+                           granted);
+  if (err) return err;
+  CUtensorMap tmx, tmw;
+  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, wg::kGemmBM, 64)) ||
+      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
+    return err;
+  fused_wgmma_kernel<BN, AT><<<l.grid, l.threads, l.smem, s>>>(
+      tmx, tmw, g.za, g.zpart, g.splits, static_cast<const AT*>(g.b), g.ids,
+      static_cast<bf16*>(g.out), M, g.d_out, g.d_in, g.S, g.r, g.n_bank,
+      g.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int RN, typename AT>
+int launch_decode_rn(const Args& g, const geom::Launch& ld,
+                     const geom::Launch& lc, cudaStream_t s) {
+  static int granted[wg::kMaxDevices] = {};
+  const int M = g.n_slots * g.S;
+  int err =
+      wg::allow_smem(decode_gemm_kernel<RN>, ld.smem, g.smem_limit, granted);
+  if (err) return err;
+  const int steps = (g.d_in + 63) / 64;
+  const int per = (steps + g.gsplits - 1) / g.gsplits;
+  CUtensorMap tmx, tmw;
+  if ((err = wg::tensor_map(&tmx, g.x, M, g.d_in, RN, 64)) ||
+      (err = wg::tensor_map(&tmw, g.w, g.d_in, g.d_out, 64, 64)))
+    return err;
+  decode_gemm_kernel<RN><<<ld.grid, ld.threads, ld.smem, s>>>(
+      tmx, tmw, g.gpart, M, g.d_out, g.d_in, per);
+  if ((err = (int)cudaGetLastError())) return err;
+  combine_kernel<AT><<<lc.grid, lc.threads, lc.smem, s>>>(
+      g.gpart, g.gsplits, g.za, g.zpart, g.splits,
+      static_cast<const AT*>(g.b), g.ids, static_cast<bf16*>(g.out), M,
+      g.d_out, g.S, g.r, g.n_bank, g.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT, typename AT>
+int launch(const Args& g, const geom::Geometry& geo, cudaStream_t s) {
+  const XT* x = static_cast<const XT*>(g.x);
+  const AT* a = static_cast<const AT*>(g.a);
+  const AT* b = static_cast<const AT*>(g.b);
+  XT* out = static_cast<XT*>(g.out);
+  const int M = g.n_slots * g.S, S = g.S, r = g.r, d_in = g.d_in,
+            d_out = g.d_out;
+  const bool bf16_base = g.w != nullptr && sizeof(XT) == 2;
+  int i = 0;
+  const geom::Launch& ls = geo.l[i++];
+  shrink_kernel<XT, AT><<<ls.grid, ls.threads, ls.smem, s>>>(
+      x, a, g.ids, g.za, g.zpart, S, d_in, r, g.n_bank, g.k_split);
+  if (g.splits > 1 && !bf16_base) {
+    const geom::Launch& l = geo.l[i++];
+    reduce_kernel<AT><<<l.grid, l.threads, l.smem, s>>>(g.zpart, g.za, M * r,
+                                                        g.splits);
+  }
+  const geom::Launch& l = geo.l[i];
+  if (g.w == nullptr) {
+    delta_kernel<XT, AT><<<l.grid, l.threads, l.smem, s>>>(
         g.za, b, g.ids, out, d_out, S, r, g.n_bank, g.scale);
   } else if constexpr (sizeof(XT) == 4) {
-    dim3 grid((d_out + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
-              (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM);
-    fused_f32_kernel<AT><<<grid, 256, 0, s>>>(
+    fused_f32_kernel<AT><<<l.grid, l.threads, l.smem, s>>>(
         x, static_cast<const float*>(g.w), g.za, b, g.ids, out, M, d_out,
         d_in, S, r, g.n_bank, g.scale);
   } else {
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    if (g.variant == 0) return launch_prefill<256, AT>(g, s);
-    return M <= 8 ? launch_decode_rn<8, AT>(g, s)
-                  : launch_decode_rn<64, AT>(g, s);
+    if (g.variant == 0) return launch_prefill<256, AT>(g, l, s);
+    return M <= 8 ? launch_decode_rn<8, AT>(g, l, geo.l[i + 1], s)
+                  : launch_decode_rn<64, AT>(g, l, geo.l[i + 1], s);
   }
   return (int)cudaGetLastError();
 }
@@ -472,17 +512,34 @@ extern "C" int banked_lora_launch(int x_dtype, int a_dtype, int variant,
                                   float scale, int splits, int k_split,
                                   int gsplits, int smem_limit,
                                   void* stream) {
-  if (n_slots <= 0 || S <= 0 || d_out <= 0) return 0;
-  if (r < 1 || r > MAX_RANK || n_bank < 1 || d_in < 1)
-    return (int)cudaErrorInvalidValue;
   const Args g{variant, x, a, b, w, static_cast<const int*>(ids),
                static_cast<float*>(za), static_cast<float*>(zpart),
                static_cast<float*>(gpart), out, n_slots, S, d_in, d_out, r,
                n_bank, scale, splits, k_split, gsplits, smem_limit};
+  geom::Geometry geo;
+  const int err = geometry(g, x_dtype, a_dtype, &geo);
+  if (err || geo.n == 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && a_dtype == 0) return launch<float, float>(g, s);
-  if (x_dtype == 0 && a_dtype == 1) return launch<float, bf16>(g, s);
-  if (x_dtype == 1 && a_dtype == 0) return launch<bf16, float>(g, s);
-  if (x_dtype == 1 && a_dtype == 1) return launch<bf16, bf16>(g, s);
-  return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0 && a_dtype == 0) return launch<float, float>(g, geo, s);
+  if (x_dtype == 0 && a_dtype == 1) return launch<float, bf16>(g, geo, s);
+  if (x_dtype == 1 && a_dtype == 0) return launch<bf16, float>(g, geo, s);
+  return launch<bf16, bf16>(g, geo, s);
+}
+
+// banked_lora_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int banked_lora_describe(int x_dtype, int a_dtype, int variant,
+                                    const void* x, const void* a,
+                                    const void* b, const void* ids,
+                                    const void* w, void* za, void* zpart,
+                                    void* gpart, void* out, int n_slots,
+                                    int S, int d_in, int d_out, int r,
+                                    int n_bank, float scale, int splits,
+                                    int k_split, int gsplits, int smem_limit,
+                                    int* desc, int cap) {
+  const Args g{variant, x, a, b, w, static_cast<const int*>(ids),
+               static_cast<float*>(za), static_cast<float*>(zpart),
+               static_cast<float*>(gpart), out, n_slots, S, d_in, d_out, r,
+               n_bank, scale, splits, k_split, gsplits, smem_limit};
+  geom::Geometry geo;
+  return geom::describe(geometry(g, x_dtype, a_dtype, &geo), geo, desc, cap);
 }

@@ -60,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -780,16 +781,14 @@ __global__ void __launch_bounds__(kFwdThreads, Regs<HDP>::BLOCKS)
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int hd, int window, float scale, int smem_limit,
-           cudaStream_t stream) {
+int launch(const geom::Launch& l, const void* q, const void* k, const void* v,
+           void* o, int S, int H, int KV, int hd, int window, float scale,
+           int smem_limit, cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
-  const size_t smem = Plan<HDP>::BYTES;
-  int err = allow_smem(flash_forward_bf16_kernel<HDP>, smem, smem_limit,
+  int err = allow_smem(flash_forward_bf16_kernel<HDP>, l.smem, smem_limit,
                        granted);
   if (err) return err;
-  dim3 grid((S + kFwdRows - 1) / kFwdRows, H, B);
-  flash_forward_bf16_kernel<HDP><<<grid, kFwdThreads, smem, stream>>>(
+  flash_forward_bf16_kernel<HDP><<<l.grid, l.threads, l.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -1542,61 +1541,70 @@ int* granted() {
   return table;
 }
 
+// the two passes' launches (geometry(): the score pass, then the value
+// pass)
 template <typename S, typename V>
-int run(S scores, size_t s_smem, int* s_granted, V values, size_t v_smem,
-        int* v_granted, const Args& a, int B, int splits, int smem_limit,
-        cudaStream_t s) {
-  int err = allow_smem(scores, s_smem, smem_limit, s_granted);
-  if (!err) err = allow_smem(values, v_smem, smem_limit, v_granted);
+int run(S scores, int* s_granted, V values, int* v_granted, const Args& a,
+        const geom::Geometry& g, int smem_limit, cudaStream_t s) {
+  const geom::Launch &ls = g.l[0], &lv = g.l[1];
+  int err = allow_smem(scores, ls.smem, smem_limit, s_granted);
+  if (!err) err = allow_smem(values, lv.smem, smem_limit, v_granted);
   if (err) return err;
-  scores<<<dim3(splits, a.KV, B), kDecThreads, s_smem, s>>>(a);
+  scores<<<ls.grid, ls.threads, ls.smem, s>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  values<<<dim3((a.hd + kDecSlice - 1) / kDecSlice, a.KV, B), kDecThreads,
-           v_smem, s>>>(a);
+  values<<<lv.grid, lv.threads, lv.smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The two passes of B slots: the score pass of grid (splits, KV, B), the
+// value pass of grid (head-dim slices, KV, B); fmt -1 over bf16 rows, 0
+// NF4 or 1 int8 over codes.  Refuses a pass the block cannot hold.
+int geometry(int fmt, int hd, int H, int KV, int B, int splits, int stages,
+             int smem_limit, geom::Geometry* g) {
+  const int G = H / KV;
+  const size_t s_smem = fmt < 0 ? score_smem(hd, G, stages)
+                                : quant_score_smem(hd, G, stages, fmt);
+  const size_t v_smem = fmt < 0 ? value_smem(G) : quant_value_smem(G, fmt);
+  if (s_smem > (size_t)smem_limit || v_smem > (size_t)smem_limit)
+    return (int)cudaErrorInvalidValue;
+  g->add(dim3(splits, KV, B), kDecThreads, s_smem);
+  g->add(dim3((hd + kDecSlice - 1) / kDecSlice, KV, B), kDecThreads, v_smem);
+  return 0;
+}
+
 template <int HDP, bool PAGED>
-int launch(const Args& a, int B, int splits, int smem_limit,
+int launch(const Args& a, const geom::Geometry& g, int smem_limit,
            cudaStream_t s) {
   constexpr int score = 2 + 2 * PAGED + (HDP == 128);
-  const int G = a.H / a.KV;
-  const size_t s_smem = score_smem(a.hd, G, a.stages), v_smem = value_smem(G);
   if constexpr (PAGED)
-    return run(paged_score_pass<HDP>, s_smem, granted<score>(),
-               paged_value_pass, v_smem, granted<1>(), a, B, splits,
-               smem_limit, s);
+    return run(paged_score_pass<HDP>, granted<score>(), paged_value_pass,
+               granted<1>(), a, g, smem_limit, s);
   else
-    return run(dense_score_pass<HDP>, s_smem, granted<score>(),
-               dense_value_pass, v_smem, granted<0>(), a, B, splits,
-               smem_limit, s);
+    return run(dense_score_pass<HDP>, granted<score>(), dense_value_pass,
+               granted<0>(), a, g, smem_limit, s);
 }
 
 // the code path over NF4 (FMT 0) or int8 (FMT 1) pools
 template <int HDP, int FMT>
-int launch_quant(const Args& a, int B, int splits, int smem_limit,
+int launch_quant(const Args& a, const geom::Geometry& g, int smem_limit,
                  cudaStream_t s) {
-  const int G = a.H / a.KV;
   return run(quant_score_pass<HDP, FMT>,
-             quant_score_smem(a.hd, G, a.stages, FMT),
              granted<6 + 2 * FMT + (HDP == 128)>(), quant_value_pass<FMT>,
-             quant_value_smem(G, FMT), granted<10 + FMT>(), a, B, splits,
-             smem_limit, s);
+             granted<10 + FMT>(), a, g, smem_limit, s);
 }
 
 }  // namespace dec
 
 template <typename T, int JD>
-int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
-            int H, int KV, int hd, int window, float scale, int smem_limit,
-            cudaStream_t stream) {
+int forward(const geom::Launch& l, const void* q, const void* k, const void* v,
+            void* o, int S, int H, int KV, int hd, int window, float scale,
+            int smem_limit, cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
-  const size_t smem = smem_bytes(hd);
-  int err = allow_smem(flash_forward_kernel<T, JD>, smem, smem_limit, granted);
+  int err =
+      allow_smem(flash_forward_kernel<T, JD>, l.smem, smem_limit, granted);
   if (err) return err;
-  dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_forward_kernel<T, JD><<<grid, kThreads, smem, stream>>>(
+  flash_forward_kernel<T, JD><<<l.grid, l.threads, l.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, window,
       scale);
@@ -1604,30 +1612,31 @@ int forward(const void* q, const void* k, const void* v, void* o, int B, int S,
 }
 
 template <typename T>
-int decode(const void* q, const void* kc, const void* vc, const int* lens,
-           void* o, int B, int S_max, int H, int KV, int hd, int window,
-           float scale, int smem_limit, cudaStream_t stream) {
+int decode(const geom::Launch& l, const void* q, const void* kc,
+           const void* vc, const int* lens, void* o, int S_max, int H, int KV,
+           int hd, int window, float scale, int smem_limit,
+           cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
-  const size_t smem = smem_bytes(hd);
-  int err = allow_smem(flash_decode_kernel<T>, smem, smem_limit, granted);
+  int err = allow_smem(flash_decode_kernel<T>, l.smem, smem_limit, granted);
   if (err) return err;
-  dim3 grid(KV, B);
-  flash_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_decode_kernel<T><<<l.grid, l.threads, l.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), lens, static_cast<T*>(o), S_max, H, KV, hd,
       window, scale);
   return (int)cudaGetLastError();
 }
 
+// the paged kernel's static codebook beside its dynamic shared memory
+constexpr size_t kCodebookBytes = 16 * sizeof(float);
+
 template <typename T, int FMT>
-int paged(const PagedArgs& a, int B, int smem_limit, cudaStream_t stream) {
+int paged(const geom::Launch& l, const PagedArgs& a, int smem_limit,
+          cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
-  const size_t smem = smem_bytes(a.hd);
-  int err = allow_smem(paged_decode_kernel<T, FMT>, smem + 16 * sizeof(float),
+  int err = allow_smem(paged_decode_kernel<T, FMT>, l.smem + kCodebookBytes,
                        smem_limit, granted);
   if (err) return err;
-  dim3 grid(a.KV, B);
-  paged_decode_kernel<T, FMT><<<grid, kThreads, smem, stream>>>(a);
+  paged_decode_kernel<T, FMT><<<l.grid, l.threads, l.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1649,6 +1658,92 @@ bool plan_ok(int extent, int chunk_tiles, int splits, int stages) {
          (splits - 1) * keys < (extent ? extent : 1);
 }
 
+// The launch of flash_forward_launch: grid (ceil(S/64), H, B).
+int forward_geometry(int dtype, int B, int S, int H, int KV, int hd,
+                     int smem_limit, geom::Geometry* g) {
+  if (!shapes_ok(H, KV, hd, kMaxFwdHd)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0) return 0;
+  size_t smem;
+  int threads;
+  if (dtype == 0) {
+    smem = smem_bytes(hd);
+    threads = kThreads;
+  } else if (dtype == 1) {
+    if (hd % 8) return (int)cudaErrorInvalidValue;
+    smem = hd <= 64    ? fwd::Plan<64>::BYTES
+           : hd <= 128 ? fwd::Plan<128>::BYTES
+                       : fwd::Plan<256>::BYTES;
+    threads = fwd::kFwdThreads;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
+  g->add(dim3((S + kRows - 1) / kRows, H, B), threads, smem);
+  return 0;
+}
+
+// The launch of flash_decode_launch (float32): grid (KV, B).
+int decode_geometry(int dtype, int B, int H, int KV, int hd, int smem_limit,
+                    geom::Geometry* g) {
+  if (!shapes_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16 takes split_decode_launch
+  if (smem_bytes(hd) > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
+  g->add(dim3(KV, B), kThreads, smem_bytes(hd));
+  return 0;
+}
+
+// The launch of paged_decode_launch (float32): grid (KV, B).
+int paged_geometry(int dtype, int fmt, const void* ks, const void* vs,
+                   const void* codebook, int B, int n_b, int bs, int H,
+                   int KV, int hd, int qb, int smem_limit,
+                   geom::Geometry* g) {
+  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1)
+    return (int)cudaErrorInvalidValue;
+  if (fmt >= 0 && (qb < 1 || ks == nullptr || vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (fmt == 0 && (codebook == nullptr || hd % 2))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  // bf16 takes split_decode_launch (rows) or quant_split_decode_launch
+  // (codes)
+  if (dtype != 0 || fmt < -1 || fmt > 1) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(hd) + kCodebookBytes > (size_t)smem_limit)
+    return (int)cudaErrorInvalidValue;
+  g->add(dim3(KV, B), kThreads, smem_bytes(hd));
+  return 0;
+}
+
+// The launches of split_decode_launch (dec::geometry).
+int split_geometry(const void* tables, int B, int extent, int n_b, int bs,
+                   int H, int KV, int hd, int chunk_tiles, int splits,
+                   int stages, const void* scores, int smem_limit,
+                   geom::Geometry* g) {
+  if (!shapes_ok(H, KV, hd) || !plan_ok(extent, chunk_tiles, splits, stages) ||
+      scores == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (tables != nullptr && (bs < 1 || n_b < 1 || extent != n_b * bs))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  return dec::geometry(-1, hd, H, KV, B, splits, stages, smem_limit, g);
+}
+
+// The launches of quant_split_decode_launch (dec::geometry).
+int quant_split_geometry(int fmt, const void* ks, const void* vs,
+                         const void* codebook, const void* tables,
+                         const void* scores, int B, int n_b, int bs, int H,
+                         int KV, int hd, int qb, int chunk_tiles, int splits,
+                         int stages, int smem_limit, geom::Geometry* g) {
+  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1 || qb < 1 ||
+      !plan_ok(n_b * bs, chunk_tiles, splits, stages) || scores == nullptr ||
+      tables == nullptr || ks == nullptr || vs == nullptr ||
+      (fmt != 0 && fmt != 1) ||
+      (fmt == 0 && (codebook == nullptr || hd % 2)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  return dec::geometry(fmt, hd, H, KV, B, splits, stages, smem_limit, g);
+}
+
 }  // namespace
 
 // q, k, v, o contiguous (B, S, H|KV, hd) in one dtype (0 float32,
@@ -1661,26 +1756,35 @@ extern "C" int flash_forward_launch(int dtype, const void* q, const void* k,
                                     int H, int KV, int hd, int window,
                                     float scale, int smem_limit,
                                     void* stream) {
-  if (!shapes_ok(H, KV, hd, kMaxFwdHd)) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || S <= 0) return 0;
+  geom::Geometry g;
+  const int err = forward_geometry(dtype, B, S, H, KV, hd, smem_limit, &g);
+  if (err || g.n == 0) return err;
+  const geom::Launch& l = g.l[0];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return hd <= 128 ? forward<float, 4>(q, k, v, o, B, S, H, KV, hd, window,
+    return hd <= 128 ? forward<float, 4>(l, q, k, v, o, S, H, KV, hd, window,
                                          scale, smem_limit, s)
-                     : forward<float, 8>(q, k, v, o, B, S, H, KV, hd, window,
+                     : forward<float, 8>(l, q, k, v, o, S, H, KV, hd, window,
                                          scale, smem_limit, s);
-  if (dtype == 1) {
-    if (hd % 8) return (int)cudaErrorInvalidValue;
-    if (hd <= 64)
-      return fwd::launch<64>(q, k, v, o, B, S, H, KV, hd, window, scale,
-                             smem_limit, s);
-    if (hd <= 128)
-      return fwd::launch<128>(q, k, v, o, B, S, H, KV, hd, window, scale,
-                              smem_limit, s);
-    return fwd::launch<256>(q, k, v, o, B, S, H, KV, hd, window, scale,
+  if (hd <= 64)
+    return fwd::launch<64>(l, q, k, v, o, S, H, KV, hd, window, scale,
+                           smem_limit, s);
+  if (hd <= 128)
+    return fwd::launch<128>(l, q, k, v, o, S, H, KV, hd, window, scale,
                             smem_limit, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return fwd::launch<256>(l, q, k, v, o, S, H, KV, hd, window, scale,
+                          smem_limit, s);
+}
+
+// flash_forward_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int flash_forward_describe(int dtype, const void* q, const void* k,
+                                      const void* v, void* o, int B, int S,
+                                      int H, int KV, int hd, int window,
+                                      float scale, int smem_limit, int* out,
+                                      int cap) {
+  geom::Geometry g;
+  return geom::describe(
+      forward_geometry(dtype, B, S, H, KV, hd, smem_limit, &g), g, out, cap);
 }
 
 // float32: q, o contiguous (B, 1, H, hd); caches contiguous (B, S_max, KV,
@@ -1690,14 +1794,23 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* kc,
                                    int B, int S_max, int H, int KV, int hd,
                                    int window, float scale, int smem_limit,
                                    void* stream) {
-  if (!shapes_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* l = static_cast<const int*>(lens);
-  if (dtype == 0)
-    return decode<float>(q, kc, vc, l, o, B, S_max, H, KV, hd, window, scale,
-                         smem_limit, s);
-  return (int)cudaErrorInvalidValue;  // bf16 takes split_decode_launch
+  geom::Geometry g;
+  const int err = decode_geometry(dtype, B, H, KV, hd, smem_limit, &g);
+  if (err || g.n == 0) return err;
+  return decode<float>(g.l[0], q, kc, vc, static_cast<const int*>(lens), o,
+                       S_max, H, KV, hd, window, scale, smem_limit,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// flash_decode_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int flash_decode_describe(int dtype, const void* q, const void* kc,
+                                     const void* vc, const void* lens,
+                                     void* o, int B, int S_max, int H, int KV,
+                                     int hd, int window, float scale,
+                                     int smem_limit, int* out, int cap) {
+  geom::Geometry g;
+  return geom::describe(decode_geometry(dtype, B, H, KV, hd, smem_limit, &g),
+                        g, out, cap);
 }
 
 // float32: q, o contiguous (B, 1, H, hd).  fmt -1: k/v pools contiguous
@@ -1715,26 +1828,34 @@ extern "C" int paged_decode_launch(int dtype, int fmt, const void* q,
                                    int bs, int H, int KV, int hd, int qb,
                                    int window, float scale, int smem_limit,
                                    void* stream) {
-  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1)
-    return (int)cudaErrorInvalidValue;
-  if (fmt >= 0 && (qb < 1 || ks == nullptr || vs == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (fmt == 0 && (codebook == nullptr || hd % 2))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
+  geom::Geometry g;
+  const int err = paged_geometry(dtype, fmt, ks, vs, codebook, B, n_b, bs, H,
+                                 KV, hd, qb, smem_limit, &g);
+  if (err || g.n == 0) return err;
   PagedArgs a{q, o, k, v, static_cast<const float*>(ks),
               static_cast<const float*>(vs),
               static_cast<const float*>(codebook),
               static_cast<const int*>(tables), static_cast<const int*>(lens),
               n_b, bs, H, KV, hd, qb, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // bf16 takes split_decode_launch (rows) or quant_split_decode_launch
-  // (codes)
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (fmt == -1) return paged<float, -1>(a, B, smem_limit, s);
-  if (fmt == 0) return paged<float, 0>(a, B, smem_limit, s);
-  if (fmt == 1) return paged<float, 1>(a, B, smem_limit, s);
-  return (int)cudaErrorInvalidValue;
+  if (fmt == -1) return paged<float, -1>(g.l[0], a, smem_limit, s);
+  if (fmt == 0) return paged<float, 0>(g.l[0], a, smem_limit, s);
+  return paged<float, 1>(g.l[0], a, smem_limit, s);
+}
+
+// paged_decode_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int paged_decode_describe(int dtype, int fmt, const void* q,
+                                     const void* k, const void* v,
+                                     const void* ks, const void* vs,
+                                     const void* codebook, const void* tables,
+                                     const void* lens, void* o, int B,
+                                     int n_b, int bs, int H, int KV, int hd,
+                                     int qb, int window, float scale,
+                                     int smem_limit, int* out, int cap) {
+  geom::Geometry g;
+  return geom::describe(paged_geometry(dtype, fmt, ks, vs, codebook, B, n_b,
+                                       bs, H, KV, hd, qb, smem_limit, &g),
+                        g, out, cap);
 }
 
 // The bf16 split decode.  q, o contiguous (B, 1, H, hd) bfloat16; k, v a
@@ -1753,12 +1874,11 @@ extern "C" int split_decode_launch(const void* q, const void* k,
                                    int chunk_tiles, int splits, int stages,
                                    float scale, int smem_limit,
                                    void* stream) {
-  if (!shapes_ok(H, KV, hd) || !plan_ok(extent, chunk_tiles, splits, stages) ||
-      scores == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (tables != nullptr && (bs < 1 || n_b < 1 || extent != n_b * bs))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
+  geom::Geometry g;
+  const int err =
+      split_geometry(tables, B, extent, n_b, bs, H, KV, hd, chunk_tiles,
+                     splits, stages, scores, smem_limit, &g);
+  if (err || g.n == 0) return err;
   dec::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -1781,10 +1901,26 @@ extern "C" int split_decode_launch(const void* q, const void* k,
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables != nullptr)
-    return hd <= 64 ? dec::launch<64, true>(a, B, splits, smem_limit, s)
-                    : dec::launch<128, true>(a, B, splits, smem_limit, s);
-  return hd <= 64 ? dec::launch<64, false>(a, B, splits, smem_limit, s)
-                  : dec::launch<128, false>(a, B, splits, smem_limit, s);
+    return hd <= 64 ? dec::launch<64, true>(a, g, smem_limit, s)
+                    : dec::launch<128, true>(a, g, smem_limit, s);
+  return hd <= 64 ? dec::launch<64, false>(a, g, smem_limit, s)
+                  : dec::launch<128, false>(a, g, smem_limit, s);
+}
+
+// split_decode_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int split_decode_describe(const void* q, const void* k,
+                                     const void* v, const void* tables,
+                                     const void* lens, void* o, void* scores,
+                                     int B, int extent, int n_b, int bs,
+                                     int H, int KV, int hd, int window,
+                                     int chunk_tiles, int splits, int stages,
+                                     float scale, int smem_limit, int* out,
+                                     int cap) {
+  geom::Geometry g;
+  return geom::describe(
+      split_geometry(tables, B, extent, n_b, bs, H, KV, hd, chunk_tiles,
+                     splits, stages, scores, smem_limit, &g),
+      g, out, cap);
 }
 
 // The bf16 split decode over code pools (kernel 6).  q, o contiguous (B, 1,
@@ -1800,13 +1936,11 @@ extern "C" int quant_split_decode_launch(
     int KV, int hd, int qb, int window, int chunk_tiles, int splits,
     int stages, float scale, int smem_limit, void* stream) {
   const int extent = n_b * bs;
-  if (!shapes_ok(H, KV, hd) || bs < 1 || n_b < 1 || qb < 1 ||
-      !plan_ok(extent, chunk_tiles, splits, stages) || scores == nullptr ||
-      tables == nullptr || ks == nullptr || vs == nullptr ||
-      (fmt != 0 && fmt != 1) ||
-      (fmt == 0 && (codebook == nullptr || hd % 2)))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
+  geom::Geometry g;
+  const int err = quant_split_geometry(fmt, ks, vs, codebook, tables, scores,
+                                       B, n_b, bs, H, KV, hd, qb, chunk_tiles,
+                                       splits, stages, smem_limit, &g);
+  if (err || g.n == 0) return err;
   dec::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kq = static_cast<const uint8_t*>(kq);
@@ -1838,8 +1972,23 @@ extern "C" int quant_split_decode_launch(
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fmt == 0)
-    return hd <= 64 ? dec::launch_quant<64, 0>(a, B, splits, smem_limit, s)
-                    : dec::launch_quant<128, 0>(a, B, splits, smem_limit, s);
-  return hd <= 64 ? dec::launch_quant<64, 1>(a, B, splits, smem_limit, s)
-                  : dec::launch_quant<128, 1>(a, B, splits, smem_limit, s);
+    return hd <= 64 ? dec::launch_quant<64, 0>(a, g, smem_limit, s)
+                    : dec::launch_quant<128, 0>(a, g, smem_limit, s);
+  return hd <= 64 ? dec::launch_quant<64, 1>(a, g, smem_limit, s)
+                  : dec::launch_quant<128, 1>(a, g, smem_limit, s);
+}
+
+// quant_split_decode_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int quant_split_decode_describe(
+    int fmt, const void* q, const void* kq, const void* vq, const void* ks,
+    const void* vs, const void* codebook, const void* tables,
+    const void* lens, void* o, void* scores, int B, int n_b, int bs, int H,
+    int KV, int hd, int qb, int window, int chunk_tiles, int splits,
+    int stages, float scale, int smem_limit, int* out, int cap) {
+  geom::Geometry g;
+  return geom::describe(
+      quant_split_geometry(fmt, ks, vs, codebook, tables, scores, B, n_b, bs,
+                           H, KV, hd, qb, chunk_tiles, splits, stages,
+                           smem_limit, &g),
+      g, out, cap);
 }

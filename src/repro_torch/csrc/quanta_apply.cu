@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -239,16 +240,22 @@ int allow_smem(K kernel, size_t bytes, int* granted) {
   return 0;
 }
 
-int launch_f32(const void* x, void* out, const ChainParams& p,
-               int smem_limit, cudaStream_t stream) {
-  static int granted[kMaxDevices] = {};
+// The float32 body's launch: a block per rows_per_block rows.
+int f32_geometry(const ChainParams& p, int smem_limit, geom::Geometry* g) {
   const size_t smem = ((size_t)p.t_floats + 2 * (size_t)p.max_cols) * 4 +
                       2 * (size_t)p.rows_per_block * p.d_max * 4;
   if (smem > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(quanta_chain_kernel, smem, granted);
-  if (err) return err;
   const long long blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
-  quanta_chain_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  g->add(dim3((unsigned)blocks), kThreads, smem);
+  return 0;
+}
+
+int launch_f32(const geom::Launch& l, const void* x, void* out,
+               const ChainParams& p, cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const int err = allow_smem(quanta_chain_kernel, l.smem, granted);
+  if (err) return err;
+  quanta_chain_kernel<<<l.grid, l.threads, l.smem, stream>>>(
       static_cast<const float*>(x), static_cast<float*>(out), p);
   return (int)cudaGetLastError();
 }
@@ -561,17 +568,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int TM, int TO>
-int launch(const bf16* x, bf16* out, const BParams& p, int smem_limit,
-           cudaStream_t stream) {
-  static int granted[kMaxDevices] = {};
+// The bf16 body's launch: a block per rows_per_block rows.
+int geometry(const BParams& p, int smem_limit, geom::Geometry* g) {
   const size_t smem = smem_bytes(p);
   if (smem > (size_t)smem_limit) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(chain_bf16_kernel<TM, TO>, smem, granted);
-  if (err) return err;
   const long long blocks = (p.rows + p.rows_per_block - 1) / p.rows_per_block;
-  chain_bf16_kernel<TM, TO><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      x, out, p);
+  g->add(dim3((unsigned)blocks), kThreads, smem);
+  return 0;
+}
+
+template <int TM, int TO>
+int launch(const geom::Launch& l, const bf16* x, bf16* out, const BParams& p,
+           cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const int err = allow_smem(chain_bf16_kernel<TM, TO>, l.smem, granted);
+  if (err) return err;
+  chain_bf16_kernel<TM, TO><<<l.grid, l.threads, l.smem, stream>>>(x, out, p);
   return (int)cudaGetLastError();
 }
 
@@ -659,21 +671,10 @@ void strides(const int* d, int n, int* s) {
   }
 }
 
-}  // namespace
-
-// meta: n_axes, n_stages, dims_in[n_axes], then per stage m, n, om, on, im,
-// in, then the tensor floats to stage at once (kernels/smem.py
-// chain_f32_plan).  tensors: host array of n_stages device pointers,
-// contiguous (om, on, im, in) tensors in the activation dtype.  dtype: 0
-// float32 (1, bfloat16, takes quanta_chain_bf16_launch).  smem_limit: the
-// shared memory a block of this device may opt in to.  Returns the
-// cudaError_t of the launch.
-extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
-                                   long long rows, const int* meta,
-                                   const void* const* tensors,
-                                   int rows_per_block, int smem_limit,
-                                   void* stream) {
-  ChainParams p{};
+// The float32 body's parameters from quanta_apply_launch's meta.
+int f32_params(const int* meta, const void* const* tensors, long long rows,
+               int rows_per_block, ChainParams* out) {
+  ChainParams& p = *out;
   const int n_axes = meta[0];
   p.n_stages = meta[1];
   if (n_axes < 1 || n_axes > kMaxAxes || p.n_stages < 1 ||
@@ -740,10 +741,67 @@ extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
   p.t_floats = t_cap < p.t_floats ? t_cap : p.t_floats;
   p.rows = rows;
   p.rows_per_block = rows_per_block;
+  return 0;
+}
+
+// The launch of quanta_apply_launch: the parameters from meta, then the
+// float32 body's geometry (bf16 takes quanta_chain_bf16_launch).
+int apply_geometry(int dtype, const int* meta, const void* const* tensors,
+                   long long rows, int rows_per_block, int smem_limit,
+                   ChainParams* p, geom::Geometry* g) {
+  const int err = f32_params(meta, tensors, rows, rows_per_block, p);
+  if (err || rows <= 0) return err;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return f32_geometry(*p, smem_limit, g);
+}
+
+// The launch of quanta_chain_bf16_launch.
+int bf16_geometry(const int* plan, int n_plan, const void* const* tensors,
+                  long long rows, int smem, int smem_limit, bfc::BParams* p,
+                  geom::Geometry* g) {
+  if (bfc::unpack(plan, n_plan, p)) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < p->n_stages; ++s)
+    p->st[s].t = static_cast<const __nv_bfloat16*>(tensors[s]);
+  p->rows = rows;
+  if (bfc::smem_bytes(*p) != (size_t)smem) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(x, out, p, smem_limit, s);
-  return (int)cudaErrorInvalidValue;  // bf16 takes quanta_chain_bf16_launch
+  if (p->variant != 0 && p->variant != 1) return (int)cudaErrorInvalidValue;
+  return bfc::geometry(*p, smem_limit, g);
+}
+
+}  // namespace
+
+// meta: n_axes, n_stages, dims_in[n_axes], then per stage m, n, om, on, im,
+// in, then the tensor floats to stage at once (kernels/smem.py
+// chain_f32_plan).  tensors: host array of n_stages device pointers,
+// contiguous (om, on, im, in) tensors in the activation dtype.  dtype: 0
+// float32 (1, bfloat16, takes quanta_chain_bf16_launch).  smem_limit: the
+// shared memory a block of this device may opt in to.  Returns the
+// cudaError_t of the launch.
+extern "C" int quanta_apply_launch(int dtype, const void* x, void* out,
+                                   long long rows, const int* meta,
+                                   const void* const* tensors,
+                                   int rows_per_block, int smem_limit,
+                                   void* stream) {
+  ChainParams p{};
+  geom::Geometry g;
+  const int err = apply_geometry(dtype, meta, tensors, rows, rows_per_block,
+                                 smem_limit, &p, &g);
+  if (err || g.n == 0) return err;
+  return launch_f32(g.l[0], x, out, p, static_cast<cudaStream_t>(stream));
+}
+
+// quanta_apply_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int quanta_apply_describe(int dtype, const void* x, void* out,
+                                     long long rows, const int* meta,
+                                     const void* const* tensors,
+                                     int rows_per_block, int smem_limit,
+                                     int* desc, int cap) {
+  ChainParams p{};
+  geom::Geometry g;
+  return geom::describe(apply_geometry(dtype, meta, tensors, rows,
+                                       rows_per_block, smem_limit, &p, &g),
+                        g, desc, cap);
 }
 
 // The bf16 chain (chain_bf16_kernel) of x (rows, d_in) into out (rows,
@@ -759,17 +817,27 @@ extern "C" int quanta_chain_bf16_launch(const void* x, void* out,
                                         int smem_bytes, int smem_limit,
                                         void* stream) {
   bfc::BParams p{};
-  if (bfc::unpack(plan, n_plan, &p)) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < p.n_stages; ++s)
-    p.st[s].t = static_cast<const __nv_bfloat16*>(tensors[s]);
-  p.rows = rows;
-  if (bfc::smem_bytes(p) != (size_t)smem_bytes)
-    return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return 0;
+  geom::Geometry g;
+  const int err = bf16_geometry(plan, n_plan, tensors, rows, smem_bytes,
+                                smem_limit, &p, &g);
+  if (err || g.n == 0) return err;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.variant == 0) return bfc::launch<8, 8>(xb, ob, p, smem_limit, s);
-  if (p.variant == 1) return bfc::launch<4, 4>(xb, ob, p, smem_limit, s);
-  return (int)cudaErrorInvalidValue;
+  if (p.variant == 0) return bfc::launch<8, 8>(g.l[0], xb, ob, p, s);
+  return bfc::launch<4, 4>(g.l[0], xb, ob, p, s);
+}
+
+// quanta_chain_bf16_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int quanta_chain_bf16_describe(const void* x, void* out,
+                                          long long rows, const int* plan,
+                                          int n_plan,
+                                          const void* const* tensors,
+                                          int smem_bytes, int smem_limit,
+                                          int* desc, int cap) {
+  bfc::BParams p{};
+  geom::Geometry g;
+  return geom::describe(bf16_geometry(plan, n_plan, tensors, rows, smem_bytes,
+                                      smem_limit, &p, &g),
+                        g, desc, cap);
 }

@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "tiled_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -113,49 +114,84 @@ __global__ void __launch_bounds__(256)
   });
 }
 
-int launch_prefill(const bf16* x, const bf16* w, const bf16* delta,
-                   bf16* out, int M, int N, int K, int smem_limit,
-                   cudaStream_t s) {
+int launch_prefill(const geom::Launch& l, const bf16* x, const bf16* w,
+                   const bf16* delta, bf16* out, int M, int N, int K,
+                   int smem_limit, cudaStream_t s) {
   static int granted[wg::kMaxDevices] = {};
-  constexpr int smem = wg::GemmPlan<kPrefillBN>::BYTES;
-  int err = wg::allow_smem(ql_wgmma_kernel, smem, smem_limit, granted);
+  int err = wg::allow_smem(ql_wgmma_kernel, l.smem, smem_limit, granted);
   if (err) return err;
   CUtensorMap tmx, tmw;
   if ((err = wg::tensor_map(&tmx, x, M, K, wg::kGemmBM, 64)) ||
       (err = wg::tensor_map(&tmw, w, K, N, 64, 64)))
     return err;
-  dim3 grid((N + kPrefillBN - 1) / kPrefillBN,
-            (M + wg::kGemmBM - 1) / wg::kGemmBM);
-  ql_wgmma_kernel<<<grid, wg::kGemmThreads, smem, s>>>(tmx, tmw, delta, out,
-                                                       M, N, K);
+  ql_wgmma_kernel<<<l.grid, l.threads, l.smem, s>>>(tmx, tmw, delta, out, M,
+                                                    N, K);
   return (int)cudaGetLastError();
 }
 
 template <int RN>
-int launch_decode(const bf16* x, const bf16* w, const bf16* delta,
-                  float* part, bf16* out, int M, int N, int K, int splits,
-                  int smem_limit, cudaStream_t s) {
+int launch_decode(const geom::Geometry& g, const bf16* x, const bf16* w,
+                  const bf16* delta, float* part, bf16* out, int M, int N,
+                  int K, int smem_limit, cudaStream_t s) {
   static int granted[wg::kMaxDevices] = {};
-  constexpr int smem = wg::DecPlan<RN>::BYTES;
+  const geom::Launch &lp = g.l[0], &ls = g.l[1];
   int err =
-      wg::allow_smem(ql_partials_kernel<RN>, smem, smem_limit, granted);
+      wg::allow_smem(ql_partials_kernel<RN>, lp.smem, smem_limit, granted);
   if (err) return err;
   const int steps = (K + 63) / 64;
-  const int per = (steps + splits - 1) / splits;
-  // every split holds at least one K step
-  if (part == nullptr || (steps + per - 1) / per != splits)
-    return (int)cudaErrorInvalidValue;
+  const int per = (steps + (int)lp.grid.y - 1) / (int)lp.grid.y;
   CUtensorMap tmx, tmw;
   if ((err = wg::tensor_map(&tmx, x, M, K, RN, 64)) ||
       (err = wg::tensor_map(&tmw, w, K, N, 64, 64)))
     return err;
-  ql_partials_kernel<RN>
-      <<<dim3((N + wg::kDecBN - 1) / wg::kDecBN, splits), wg::kDecThreads,
-         smem, s>>>(tmx, tmw, part, M, N, K, per);
+  ql_partials_kernel<RN><<<lp.grid, lp.threads, lp.smem, s>>>(
+      tmx, tmw, part, M, N, K, per);
   if ((err = (int)cudaGetLastError())) return err;
-  ql_sum_kernel<<<(M * N + 255) / 256, 256, 0, s>>>(part, splits, delta, out,
-                                                    M * N);
+  ql_sum_kernel<<<ls.grid, ls.threads, ls.smem, s>>>(part, (int)lp.grid.y,
+                                                     delta, out, M * N);
   return (int)cudaGetLastError();
+}
+
+// The launches of quanta_linear_gemm_launch: the float32 tile's grid
+// (ceil(N/64), ceil(M/64)); the bf16 prefill body's (ceil(N/256),
+// ceil(M/128)); the decode body's (ceil(N/64), splits), then the sum's
+// ceil(M*N/256) blocks.
+int geometry(int dtype, int variant, const void* x, const void* w,
+             const void* part, int M, int N, int K, int splits,
+             int smem_limit, geom::Geometry* g) {
+  if (M <= 0 || N <= 0) return 0;
+  if (dtype == 0 && variant == 2) {
+    g->add(dim3((N + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
+                (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM),
+           256, 0);
+    return 0;
+  }
+  if (dtype != 1 || K < 1 || K % 8 || N % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (variant == 0) {
+    constexpr int smem = wg::GemmPlan<kPrefillBN>::BYTES;
+    if (smem > smem_limit) return (int)cudaErrorInvalidValue;
+    g->add(dim3((N + kPrefillBN - 1) / kPrefillBN,
+                (M + wg::kGemmBM - 1) / wg::kGemmBM),
+           wg::kGemmThreads, smem);
+    return 0;
+  }
+  if (variant != 1 || M > 64) return (int)cudaErrorInvalidValue;
+  const int smem =
+      M <= 8 ? wg::DecPlan<8>::BYTES : wg::DecPlan<64>::BYTES;
+  if (smem > smem_limit) return (int)cudaErrorInvalidValue;
+  const int steps = (K + 63) / 64;
+  // every split holds at least one K step
+  if (splits < 1 || part == nullptr ||
+      (steps + (steps + splits - 1) / splits - 1) /
+              ((steps + splits - 1) / splits) != splits)
+    return (int)cudaErrorInvalidValue;
+  g->add(dim3((N + wg::kDecBN - 1) / wg::kDecBN, splits), wg::kDecThreads,
+         smem);
+  g->add(dim3((M * N + 255) / 256), 256, 0);
+  return 0;
 }
 
 }  // namespace
@@ -174,30 +210,40 @@ extern "C" int quanta_linear_gemm_launch(int dtype, int variant,
                                          void* out, int M, int N, int K,
                                          int splits, int smem_limit,
                                          void* stream) {
-  if (M <= 0 || N <= 0) return 0;
+  geom::Geometry g;
+  const int err = geometry(dtype, variant, x, w, part, M, N, K, splits,
+                           smem_limit, &g);
+  if (err || g.n == 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && variant == 2) {
-    dim3 grid((N + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
-              (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM);
-    gemm_f32_kernel<<<grid, 256, 0, s>>>(
+  if (dtype == 0) {
+    const geom::Launch& l = g.l[0];
+    gemm_f32_kernel<<<l.grid, l.threads, l.smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(delta), static_cast<float*>(out), M, N, K);
     return (int)cudaGetLastError();
   }
-  if (dtype != 1 || K < 1 || K % 8 || N % 8 ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16)
-    return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   const bf16* db = static_cast<const bf16*>(delta);
   bf16* ob = static_cast<bf16*>(out);
   float* pf = static_cast<float*>(part);
   if (variant == 0)
-    return launch_prefill(xb, wb, db, ob, M, N, K, smem_limit, s);
-  if (variant != 1 || M > 64) return (int)cudaErrorInvalidValue;
-  return M <= 8 ? launch_decode<8>(xb, wb, db, pf, ob, M, N, K, splits,
+    return launch_prefill(g.l[0], xb, wb, db, ob, M, N, K, smem_limit, s);
+  return M <= 8 ? launch_decode<8>(g, xb, wb, db, pf, ob, M, N, K,
                                    smem_limit, s)
-                : launch_decode<64>(xb, wb, db, pf, ob, M, N, K, splits,
+                : launch_decode<64>(g, xb, wb, db, pf, ob, M, N, K,
                                     smem_limit, s);
+}
+
+// quanta_linear_gemm_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int quanta_linear_gemm_describe(int dtype, int variant,
+                                           const void* x, const void* w,
+                                           const void* delta, void* part,
+                                           void* out, int M, int N, int K,
+                                           int splits, int smem_limit,
+                                           int* desc, int cap) {
+  geom::Geometry g;
+  return geom::describe(geometry(dtype, variant, x, w, part, M, N, K, splits,
+                                 smem_limit, &g),
+                        g, desc, cap);
 }

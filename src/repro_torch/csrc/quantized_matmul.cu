@@ -58,6 +58,7 @@
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "sm90.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -772,58 +773,81 @@ int allow_smem(K kernel, size_t bytes, int smem_limit, int* granted) {
 }
 
 template <int FMT>
-int launch_prefill(const Args& a, int splits, int smem_limit,
+int launch_prefill(const geom::Launch& l, const Args& a, int smem_limit,
                    cudaStream_t st) {
   static int granted[kMaxDevices] = {};
-  constexpr int smem = Pre<FMT>::BYTES;
-  int err = allow_smem(qmm_prefill_kernel<FMT>, smem, smem_limit, granted);
+  int err =
+      allow_smem(qmm_prefill_kernel<FMT>, l.smem, smem_limit, granted);
   if (err) return err;
   // x (M, K) bf16 as 128-row x 64-column boxes, 128-byte swizzled, zero
   // past the matrix
   CUtensorMap tmx;
   err = wg::tensor_map(&tmx, a.x, a.M, a.K, kPreBM, BK);
   if (err) return err;
-  dim3 grid((a.N + kPreBN - 1) / kPreBN, (a.M + kPreBM - 1) / kPreBM,
-            splits);
-  qmm_prefill_kernel<FMT><<<grid, kPreThreads, smem, st>>>(a, tmx);
+  qmm_prefill_kernel<FMT><<<l.grid, l.threads, l.smem, st>>>(a, tmx);
   return (int)cudaGetLastError();
 }
 
 template <int FMT, int RN>
-int launch_decode_rn(const Args& a, int splits, int smem_limit,
-                     cudaStream_t st) {
+int launch_decode(const geom::Launch& l, const Args& a, int smem_limit,
+                  cudaStream_t st) {
   static int granted[kMaxDevices] = {};
-  constexpr int smem = DecPlan<RN>::BYTES;
-  int err = allow_smem(qmm_decode_kernel<FMT, RN>, smem, smem_limit, granted);
+  int err =
+      allow_smem(qmm_decode_kernel<FMT, RN>, l.smem, smem_limit, granted);
   if (err) return err;
-  dim3 grid((a.N + kDecBN - 1) / kDecBN, 1, splits);
-  qmm_decode_kernel<FMT, RN><<<grid, kDecThreads, smem, st>>>(a);
+  qmm_decode_kernel<FMT, RN><<<l.grid, l.threads, l.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int FMT>
-int launch_decode(const Args& a, int splits, int smem_limit,
-                  cudaStream_t st) {
-  if (a.M <= 8) return launch_decode_rn<FMT, 8>(a, splits, smem_limit, st);
-  if (a.M <= 64) return launch_decode_rn<FMT, 64>(a, splits, smem_limit, st);
-  return (int)cudaErrorInvalidValue;
+int launch(const geom::Launch& l, int variant, const Args& a, int smem_limit,
+           cudaStream_t st) {
+  if (variant == kPrefill) return launch_prefill<FMT>(l, a, smem_limit, st);
+  if (variant == kDecode)
+    return a.M <= 8 ? launch_decode<FMT, 8>(l, a, smem_limit, st)
+                    : launch_decode<FMT, 64>(l, a, smem_limit, st);
+  qmm_f32_kernel<FMT><<<l.grid, l.threads, l.smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-template <int FMT>
-int launch(int dtype, int variant, const Args& a, int splits, int smem_limit,
-           cudaStream_t st) {
-  if (dtype == 1 && a.bs < kMinBlock) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && variant == kPrefill)
-    return launch_prefill<FMT>(a, splits, smem_limit, st);
-  if (dtype == 1 && variant == kDecode)
-    return launch_decode<FMT>(a, splits, smem_limit, st);
-  if (dtype == 0 && variant == kF32) {
-    dim3 grid((a.N + kF32BN - 1) / kF32BN, (a.M + kF32BM - 1) / kF32BM,
-              splits);
-    qmm_f32_kernel<FMT><<<grid, kF32Threads, 0, st>>>(a);
-    return (int)cudaGetLastError();
+// The launches of quantized_matmul_launch: the body's grid (prefill
+// (ceil(N/192), ceil(M/128), splits); decode (ceil(N/64), 1, splits);
+// float32 (ceil(N/64), ceil(M/64), splits)), splits the non-empty K
+// splits, then with more than one the reduce's blocks.
+int geometry(int dtype, int fmt, int variant, const void* codebook,
+             const void* partial, int M, int N, int K, int bs, int splits,
+             int smem_limit, geom::Geometry* g) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K <= 0 || K % 8 || bs <= 0 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  if (fmt == kNf4 && codebook == nullptr) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if (fmt != kNf4 && fmt != kInt8) return (int)cudaErrorInvalidValue;
+  const int steps = (K + BK - 1) / BK;
+  const int per = (steps + splits - 1) / splits;
+  splits = (steps + per - 1) / per;  // none empty
+  if (dtype == 1 && bs < kMinBlock) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && variant == kPrefill) {
+    const int smem = fmt == kNf4 ? Pre<kNf4>::BYTES : Pre<kInt8>::BYTES;
+    if (smem > smem_limit) return (int)cudaErrorInvalidValue;
+    g->add(dim3((N + kPreBN - 1) / kPreBN, (M + kPreBM - 1) / kPreBM, splits),
+           kPreThreads, smem);
+  } else if (dtype == 1 && variant == kDecode && M <= 64) {
+    const int smem = M <= 8 ? DecPlan<8>::BYTES : DecPlan<64>::BYTES;
+    if (smem > smem_limit) return (int)cudaErrorInvalidValue;
+    g->add(dim3((N + kDecBN - 1) / kDecBN, 1, splits), kDecThreads, smem);
+  } else if (dtype == 0 && variant == kF32) {
+    g->add(dim3((N + kF32BN - 1) / kF32BN, (M + kF32BM - 1) / kF32BM, splits),
+           kF32Threads, 0);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  if (splits > 1) {
+    const size_t mn = (size_t)M * N;
+    g->add(dim3((unsigned)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096)),
+           256, 0);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -844,11 +868,10 @@ extern "C" int quantized_matmul_launch(
     const void* scales, const void* row_norm, const void* col_norm,
     const void* codebook, void* out, void* partial, int M, int N, int K,
     int bs, int splits, int smem_limit, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || K % 8 || bs <= 0 || splits < 1)
-    return (int)cudaErrorInvalidValue;
-  if (fmt == kNf4 && codebook == nullptr) return (int)cudaErrorInvalidValue;
-  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  geom::Geometry g;
+  int err = geometry(dtype, fmt, variant, codebook, partial, M, N, K, bs,
+                     splits, smem_limit, &g);
+  if (err || g.n == 0) return err;
   const int steps = (K + BK - 1) / BK;
   Args a;
   a.x = x;
@@ -858,27 +881,36 @@ extern "C" int quantized_matmul_launch(
   a.col_norm = static_cast<const float*>(col_norm);
   a.codebook = static_cast<const float*>(codebook);
   a.out = out;
-  a.partial = splits > 1 ? static_cast<float*>(partial) : nullptr;
   a.M = M;
   a.N = N;
   a.K = K;
   a.bs = bs;
   a.steps_per_split = (steps + splits - 1) / splits;
-  splits = (steps + a.steps_per_split - 1) / a.steps_per_split;  // none empty
+  splits = (int)g.l[0].grid.z;  // (steps + steps_per_split - 1) / it
+  a.partial = splits > 1 ? static_cast<float*>(partial) : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = fmt == kNf4
-                ? launch<kNf4>(dtype, variant, a, splits, smem_limit, st)
-            : fmt == kInt8
-                ? launch<kInt8>(dtype, variant, a, splits, smem_limit, st)
-                : (int)cudaErrorInvalidValue;
+  err = fmt == kNf4 ? launch<kNf4>(g.l[0], variant, a, smem_limit, st)
+                    : launch<kInt8>(g.l[0], variant, a, smem_limit, st);
   if (err || splits == 1) return err;
   const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  const geom::Launch& l = g.l[1];
   if (dtype == 1)
-    reduce_splits_kernel<bf16><<<blocks, 256, 0, st>>>(
+    reduce_splits_kernel<bf16><<<l.grid, l.threads, l.smem, st>>>(
         a.partial, static_cast<bf16*>(out), splits, mn);
   else
-    reduce_splits_kernel<float><<<blocks, 256, 0, st>>>(
+    reduce_splits_kernel<float><<<l.grid, l.threads, l.smem, st>>>(
         a.partial, static_cast<float*>(out), splits, mn);
   return (int)cudaGetLastError();
+}
+
+// quantized_matmul_launch's geometry (geometry.cuh), launching nothing.
+extern "C" int quantized_matmul_describe(
+    int dtype, int fmt, int variant, const void* x, const void* packed,
+    const void* scales, const void* row_norm, const void* col_norm,
+    const void* codebook, void* out, void* partial, int M, int N, int K,
+    int bs, int splits, int smem_limit, int* desc, int cap) {
+  geom::Geometry g;
+  return geom::describe(geometry(dtype, fmt, variant, codebook, partial, M, N,
+                                 K, bs, splits, smem_limit, &g),
+                        g, desc, cap);
 }

@@ -256,6 +256,7 @@ class _DecodeGraph:
                           if during[k] != before[k]}
         self.graph = graph
         self.captures += 1
+        sanitize.record_capture()
         self.capture_s = time.monotonic() - t0
         return out
 
@@ -659,7 +660,7 @@ class ServingEngine:
         self.stats["prefill_calls"] += 1
         slot_ids = np.asarray(free[: len(wave)], np.int64)
         self._insert_wave(slot_ids, wave_cache, lengths)
-        first = self._sample(logits).cpu().numpy()[:, 0]
+        first = self._sample(logits).cpu().numpy()[:, 0]  # repro: allow(host-sync) the wave's first tokens land once per admission, not per tick
         for row, (slot, req) in enumerate(zip(free, wave)):
             self._land_admitted(slot, req, int(lengths[row]),
                                 int(wave_ids[row]), int(first[row]))
@@ -745,7 +746,7 @@ class ServingEngine:
         slot = st["slot"]
         self._insert_wave(np.asarray([slot], np.int64), st["staged"],
                           np.asarray([len(tokens)], np.int32))
-        tok = int(self._sample(logits).cpu()[0, 0])
+        tok = int(self._sample(logits).cpu()[0, 0])  # repro: allow(host-sync) the first token lands once, after a request's last chunk
         self._chunking = None
         self._land_admitted(slot, req, len(tokens), st["aid"], tok)
         self._update_gauges()

@@ -545,7 +545,7 @@ def test_banked_plan_mirrors_the_source():
     assert gemm["kDecBN"] == S.BANKED_TILES[S.BANKED_DECODE][1]
     assert gemm["kDecBlocksPerSm"] == S.BANKED_DEC_BLOCKS_PER_SM
     text = (CSRC / "banked_gather.cu").read_text()
-    assert "launch_prefill<%d, AT>(g, s)" % S.BANKED_TILES[
+    assert "launch_prefill<%d, AT>(g, l, s)" % S.BANKED_TILES[
         S.BANKED_PREFILL][1] in text
     bn = S.BANKED_TILES[S.BANKED_PREFILL][1]
     # GemmPlan<BN>: 1 KB slack, stages of the x tile (128 rows of 128 B)

@@ -279,7 +279,9 @@ Phases, one line or more each before the last:
    leaf file raises ``IOError``; a stale ``.tmp_`` directory is ignored
    and removed; a third checkpoint leaves two); ``ElasticController`` on
    8 hosts losing two, ``restore_resharded`` of its step onto cuda:0
-   (bit for bit; a mesh placement raises); the restored adapters served
+   (bit for bit; a placement that is neither a device nor a DeviceMesh
+   with specs raises; the mesh restores are phase 15's CPU twin,
+   ``tests/test_torch_mesh.py``); the restored adapters served
    through kernels 1-4 (greedy tokens those of the never-saved state),
    the merged twin too, adapted vs merged prefill logits within
    ``SERVE_LOGIT_TOL`` with the planted fault caught; per checkpoint its
@@ -324,7 +326,11 @@ from 0 just before it; under ``runs`` each run's own launches, units and
 launches a unit; the f32 cut's launches apart, ``cut_launches``), and
 ``checkpoint`` for qwen2-0.5b in phase 13 (``launches`` over the phase,
 ``train_launches`` over its 10 training steps, ``serve_launches`` of the
-restored adapters' serve run).
+restored adapters' serve run), and ``mesh`` from phase 15 (its
+launches in each (a) engine and each (c) rank, counted from 0 just before
+each run; for kernels 5 and 6 ``per_arena``: at 2 and 4 arenas the
+per-arena launches, bit equality with the whole pool's launch, and the
+ms of the whole launch, of all arenas' launches and of one arena's).
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -5477,7 +5483,8 @@ def checkpoint_full(card, dev, arch=QWEN2):
     the next save, and a third checkpoint (step 7) must leave two;
     (5) ``ElasticController`` on the elastic example's 8 hosts, then
     ``restore_resharded`` of its plan's step onto ``cuda:0`` (bit for
-    bit the never-saved state), where a mesh placement must raise;
+    bit the never-saved state), where a placement that is neither a
+    device nor a DeviceMesh with specs must raise;
     (6) the restored step-7 adapters served (the phase-5 prompts, 32 new
     tokens, ``ServingEngine(n_slots=8, max_len=512)``) through kernels
     1-4, their greedy tokens those of the never-saved state, the merged
@@ -5652,8 +5659,8 @@ def checkpoint_full(card, dev, arch=QWEN2):
             restore_resharded(ckdir, plan.restore_step, template,
                               {"mesh": plan.mesh_shape})
             mesh = "restored: not refused"
-        except NotImplementedError as e:
-            mesh = f"NotImplementedError ({e}): refused"
+        except TypeError as e:
+            mesh = f"TypeError ({e}): refused"
         ok = (plan.restore_step == CKPT_STEPS + 1 and paths_ok and same == n
               and mesh.endswith(": refused"))
         print(f"checkpoint {arch} elastic: {len(ELASTIC['hosts'])} hosts, "
@@ -5661,7 +5668,8 @@ def checkpoint_full(card, dev, arch=QWEN2):
               f"{plan.mesh_axes}, data_shards {plan.data_shards}, "
               f"restore_step {plan.restore_step}; restore_resharded onto "
               f"{target} in {resharded_s:.3f} s: {same}/{n} leaves the "
-              f"never-saved state's bit for bit; a mesh placement: {mesh} "
+              f"never-saved state's bit for bit; a placement that is neither a "
+              f"device nor a DeviceMesh with specs: {mesh} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{arch}: the elastic restore is wrong")
@@ -5874,6 +5882,301 @@ def contracts(card):
     return time.monotonic() - t0
 
 
+# --------------------------------------------------------------- phase 15
+# (a): one engine a case on a world of one, each against its meshless twin
+MESH_CASES = (("paged bf16", dict(cache="paged", block_size=16), None),
+              ("paged nf4 kv", dict(cache="paged", block_size=16), "nf4"),
+              ("dense", {}, None))
+MESH_KERNELS = {
+    "paged bf16": ("quanta_apply", "quanta_linear", "flash_attention",
+                   "paged_flash_decode_attention"),
+    "paged nf4 kv": ("quanta_apply", "quanta_linear", "flash_attention",
+                     "paged_flash_decode_attention_quant"),
+    "dense": ("quanta_apply", "quanta_linear", "flash_attention",
+              "flash_decode_attention"),
+}
+MESH_SEED = 1500
+# (b): the per-arena decode at these arena counts, 8 slots of up to 512
+# tokens in blocks of 16 (the (a) engines' decode shapes)
+MESH_SHARDS = (2, 4)
+MESH_SLOTS, MESH_LEN, MESH_BLOCK = 8, 512, 16
+
+
+def _numerics():
+    """The matmul settings every phase runs under (``main`` prints them)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products reduce in fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _mesh_model(dev, arch=QWEN2):
+    """``arch`` FULL (bf16, the kernels on), adapted as in phase 5 (seed
+    ``MESH_SEED``), and phase 5's 8 prompts of 32-384 tokens."""
+    import torch
+    from repro_torch.configs import get_config, get_peft
+
+    cfg = get_config(arch).replace(attn_backend="pallas",
+                                   peft_backend="pallas")
+    model, base, peft = _adapted(cfg, MESH_SEED, dev, get_peft(arch).n_axes)
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (32, 82, 132, 182, 232, 282, 332, 384)]
+    return cfg, model, base, peft, prompts
+
+
+def mesh_world_of_one(card, dev):
+    """Phase 15 (a): a real world of one (``make_host_mesh(1, 1)`` on the
+    card sets up NCCL over an in-memory store) and qwen2-0.5b FULL served
+    through ``ServingEngine(mesh=)`` on the paged bf16 pool, the paged
+    NF4-KV pool and the dense cache (8 prompts, 32 new tokens; the decode
+    tick captured as a graph, as without a mesh).  Each engine's greedy
+    tokens must be its meshless twin's, and kernels 1-3 and its decode
+    kernel (4, 5 or 6) launched.  Returns the runs and the bf16-paged
+    tokens (which (c) is held against)."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    cfg, model, base, peft, prompts = _mesh_model(dev)
+    mesh = make_host_mesh(1, 1, device=dev)
+    print(f"mesh (a): {QWEN2}, {cfg.n_layers} layers, mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over "
+          f"{dist.get_world_size()} rank ({dist.get_backend()}, "
+          f"{mesh.device_type})")
+    runs, paged_tokens = {}, None
+    for label, kw, kv_quant in MESH_CASES:
+        m = (model if kv_quant is None
+             else build_model(cfg.replace(kv_quant=kv_quant), device=dev))
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out, stats, _, _ = _serve(m, base, peft, prompts, 32, 8, 512,
+                                  mesh=mesh, **kw)
+        wall = time.monotonic() - t0
+        counts = kernels.launch_counts()
+        twin, _, _, _ = _serve(m, base, peft, prompts, 32, 8, 512, **kw)
+        equal = sum(a == b for ra, rb in zip(out, twin)
+                    for a, b in zip(ra, rb))
+        total = sum(len(r) for r in twin)
+        launches = {k: counts[k] for k in MESH_KERNELS[label]}
+        runs[label] = dict(tokens_equal=equal, tokens=total, wall_s=wall,
+                           launches=launches, guard=stats["guard"])
+        if out != twin:
+            fail(f"mesh (a) {label}: {equal}/{total} tokens equal to the "
+                 f"meshless engine's")
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            fail(f"mesh (a) {label}: kernels never launched: {missing}")
+        if label == "paged bf16":
+            paged_tokens = out
+    return runs, paged_tokens, prompts
+
+
+def per_arena(card, dev):
+    """Phase 15 (b): the per-arena paged decode at ``data_shards`` 2 and
+    4, in one process.  A ``PagedCacheView(data_shards=D)`` at qwen2-0.5b
+    FULL's decode shapes, its tables churned; random bf16 rows (and their
+    NF4 codes).  Each arena's ``paged_decode_shard`` (kernel 5, or 6 over
+    codes: its rows, its arena's pool rows, tables shifted by its
+    offset), stacked, must equal one launch over the whole pool with the
+    global tables bit for bit; a shard whose tables are not shifted
+    (four arenas: shard 1 over the pool from its arena on, shift 0) must
+    differ.  Returns each kernel's per-arena launches and readings."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import quantize_kv
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import paged_decode_shard
+    from repro_torch.serve.paging import PagedCacheView
+
+    cfg = get_config(QWEN2)
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    b, h, kv, hd = MESH_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = {}
+    for d in MESH_SHARDS:
+        view = PagedCacheView(model, b, MESH_LEN, MESH_BLOCK, data_shards=d)
+        rng = np.random.default_rng(d)
+        for _ in range(64):                          # churned free lists
+            slot = int(rng.integers(b))
+            if rng.random() < 0.3:
+                view.release(slot)
+            elif view.can_admit(MESH_LEN, slot):
+                view.ensure(slot, int(rng.integers(1, MESH_LEN)))
+        lens = rng.integers(1, MESH_LEN, b).astype(np.int32)
+        for slot in range(b):
+            view.release(slot)
+        for slot in range(b):
+            view.ensure(slot, int(lens[slot]))
+        tables = view.device_tables().clone()
+        lens_t = torch.from_numpy(lens).to(dev)
+        rows = view.n_blocks
+        k = torch.randn((rows, MESH_BLOCK, kv, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn((rows, MESH_BLOCK, kv, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        arena, per = view.arena_size, b // d
+        for quant in (None, "nf4"):
+            name = ("paged_flash_decode_attention" if quant is None
+                    else "paged_flash_decode_attention_quant")
+            if quant is None:
+                kp, vp, extra = k, v, {}
+            else:
+                (kp, ks), (vp, vs) = (quantize_kv(k, quant,
+                                                  block_size=cfg.quant_block_size),
+                                      quantize_kv(v, quant,
+                                                  block_size=cfg.quant_block_size))
+                extra = dict(kv_quant=quant, k_scales=ks, v_scales=vs,
+                             quant_block=cfg.quant_block_size,
+                             value_dtype=torch.bfloat16)
+
+            def shard(s, shift=True, to_end=False):
+                sl = slice(s * per, (s + 1) * per)
+                al = slice(s * arena, None if to_end else (s + 1) * arena)
+                part = {n: (t[al] if n.endswith("scales") else t)
+                        for n, t in extra.items()}
+                return paged_decode_shard(
+                    q[sl], kp[al], vp[al], tables[sl], lens_t[sl],
+                    s if shift else 0, backend="pallas", **part)
+
+            def whole():
+                return FA.paged_flash_decode_attention(
+                    q, kp, vp, tables, lens_t, **extra)
+
+            want = whole()
+            kernels.reset_launch_counts()
+            got = torch.cat([shard(s) for s in range(d)])
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()[name]
+            same = torch.equal(got, want)
+            rec = dict(launches=launches, bit_equal=same,
+                       max_abs_err=float((got.float() - want.float()).abs()
+                                         .max()),
+                       whole_ms=timed(whole),
+                       arenas_ms=timed(lambda: [shard(s) for s in range(d)]),
+                       arena_ms=timed(lambda: shard(d - 1)))
+            if not same:
+                fail(f"mesh (b) {name} at {d} arenas: the stacked arenas "
+                     f"differ from the whole pool's launch "
+                     f"({rec['max_abs_err']})")
+            if launches != d:
+                fail(f"mesh (b) {name} at {d} arenas: {launches} launches")
+            if d == 4:
+                wrong = shard(1, shift=False, to_end=True)
+                caught = not torch.equal(wrong, want[per:2 * per])
+                rec["fault_caught"] = caught
+                print(f"fault mesh (b) {name} (shard 1's tables not "
+                      f"shifted by its arena offset): "
+                      f"{'caught' if caught else 'passes'}")
+                if not caught:
+                    fail(f"mesh (b) {name}: unshifted tables pass")
+            out.setdefault(name, {})[f"{d} arenas"] = rec
+    return out
+
+
+def _two_rank_main(rank, store, out_dir, prompts):
+    """Phase 15 (c), one rank: gloo over a file store, both ranks on card
+    0, the ``(2, 1)`` data-sharded engine over the paged bf16 pool."""
+    import json as _json
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE / "src"))
+    _numerics()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(2, 1, device=dev)
+    _, model, base, peft, _ = _mesh_model(dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out, stats, _, _ = _serve(model, base, peft, prompts, 32, 8, 512,
+                              eager=True, mesh=mesh, cache="paged",
+                              block_size=MESH_BLOCK)
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        _json.dump(dict(tokens=out, wall_s=wall, launches={
+            k: counts[k] for k in MESH_KERNELS["paged bf16"]}), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def two_ranks_one_card(card, prompts, want):
+    """Phase 15 (c): the ``(2, 1)`` data-sharded engine across two
+    spawned ranks on the one card (gloo: NCCL takes one rank a device),
+    each rank's tokens held against (a)'s paged bf16 engine's."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=HERE / "build")
+    t0 = time.monotonic()
+    try:
+        mp.spawn(_two_rank_main, args=(os.path.join(tmp, "store"), tmp,
+                                       prompts), nprocs=2, join=True)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(_json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = sum(len(r) for r in want)
+    runs = {}
+    for r, got in enumerate(ranks):
+        equal = sum(a == b for ra, rb in zip(got["tokens"], want)
+                    for a, b in zip(ra, rb))
+        runs[f"rank {r}"] = dict(tokens_equal=equal, tokens=total,
+                                 wall_s=got["wall_s"],
+                                 launches=got["launches"])
+        if got["tokens"] != want:
+            fail(f"mesh (c) rank {r}: {equal}/{total} tokens equal to "
+                 f"(a)'s")
+        missing = [k for k, n in got["launches"].items() if n == 0]
+        if missing:
+            fail(f"mesh (c) rank {r}: kernels never launched: {missing}")
+    return runs, time.monotonic() - t0
+
+
+def mesh_phase(card, dev):
+    """Phase 15: (a), (b) and (c); prints the ``mesh`` line and returns
+    each kernel's mesh record and the phase's seconds."""
+    import torch.distributed as dist
+
+    t0 = time.monotonic()
+    runs, paged_tokens, prompts = mesh_world_of_one(card, dev)
+    dist.destroy_process_group()         # the world of one (a) set up
+    arenas = per_arena(card, dev)
+    two, two_s = two_ranks_one_card(card, prompts, paged_tokens)
+    line = {"a": runs, "b": arenas, "c": two, "c_s": two_s,
+            "card": card}
+    print("mesh " + json.dumps(line))
+    records = {}
+    for label, run in list(runs.items()) + [
+            (f"(c) {k}", v) for k, v in two.items()]:
+        for name, n in run["launches"].items():
+            records.setdefault(name, {})[label] = n
+    for name, per in arenas.items():
+        records.setdefault(name, {})["per_arena"] = per
+    return records, time.monotonic() - t0
+
+
 def main() -> int:
     import torch
 
@@ -5896,10 +6199,7 @@ def main() -> int:
     print(f"device: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the plain versions' bf16 products reduce in fp32, as the kernels do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _numerics()
     print(f"numerics: matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} "
@@ -6011,6 +6311,7 @@ def main() -> int:
     ck_counts, _ = checkpoint_full(card, dev)
     phase_s["checkpoint"] = time.monotonic() - t0
     phase_s["contracts"] = contracts(card)
+    mesh_records, phase_s["mesh"] = mesh_phase(card, dev)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -6066,7 +6367,8 @@ def main() -> int:
                          **records[name], dense_family=at,
                          moe_family=moe_at, griffin=griffin, mamba2=mamba2,
                          frontends=frontends,
-                         checkpoint={QWEN2: ck_counts[name]}))
+                         checkpoint={QWEN2: ck_counts[name]},
+                         mesh=mesh_records.get(name, {})))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ training goes on with async checkpoints (one at step 20); a "host
 failure" event gives a recovery plan (a smaller mesh, the checkpoint
 step, the new data-shard count); training resumes from the checkpoint,
 restored onto a ``meta``-device template and placed on this process's
-one device (``restore_resharded``; a mesh placement waits for the mesh
-slice), with the deterministic data pipeline replaying the same global
+one device (``restore_resharded``, which also takes a ``DeviceMesh``
+and a spec tree), with the deterministic data pipeline replaying the same global
 token stream, and ends with the loss of the original run.  Runs on the
 card by default (the attention through the flash kernel and its
 recompute backward); ``--device cpu`` runs the plain versions.

@@ -15,9 +15,10 @@ deployment generates the adapter-attached model's tokens.
   allocated at admission, freed on completion) while the adapted engine
   keeps dense slot stripes, so the token check also holds paged against
   dense.
-* One device: the JAX example builds a mesh (weights over `model`, slots
-  and block arenas over `data`); the port serves on one device, since
-  its mesh slice is not ported yet.
+* The merged engine is mesh-aware, as the JAX example's: it serves under
+  ``make_host_mesh(1, 1)`` (slots and block arenas over `data`, weights
+  replicated; on one device a world of one, set up when there is no
+  process group: NCCL on the card, gloo on the CPU).
 * Every decode tick after the first is one replay of a captured CUDA graph
   on the card (the CPU runs the same step eagerly); the capture guard's
   counts are printed.
@@ -42,6 +43,7 @@ from torch_quickstart import make_model, train  # noqa: E402
 
 from repro_torch.core.bank import AdapterBank  # noqa: E402
 from repro_torch.core.peft import PeftConfig, attach, merge_all  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.serve import Request, ServingEngine  # noqa: E402
 
 PROMPTS = [[3, 141, 59], [26, 5], [35, 89, 79, 32], [38, 46], [2, 7, 18]]
@@ -65,8 +67,11 @@ def main(device=None, base_quant=None):
     state, _ = train(model, base, peft, steps=20, log=lambda _: None)
     merged = merge_all(state.params, state.peft)
 
+    # serve on a mesh: slots and block arenas over `data`, weights
+    # replicated (1 x 1 on one device)
+    mesh = make_host_mesh(1, 1, device=model.device)
     engine = ServingEngine(model, merged, n_slots=4, max_len=64,
-                           cache="paged", block_size=16,
+                           cache="paged", block_size=16, mesh=mesh,
                            base_quant=base_quant, device=model.device)
     if base_quant is None:
         ref_name = "adapter"
@@ -84,8 +89,10 @@ def main(device=None, base_quant=None):
         assert rm.output == ra.output, f"merged serving must match {ref_name}"
     print(f"all merged-weight generations match the {ref_name} engine")
     print(f"paged engine stats: {engine.stats}")
-    print(f"one device ({model.device}): the port has no mesh yet; capture "
-          f"guard {engine.compile_guard.counts()} of bounds "
+    print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over "
+          f"{mesh.size()} {mesh.device_type} rank(s); cache bytes "
+          f"{engine.stats['cache_bytes_allocated']}; capture guard "
+          f"{engine.compile_guard.counts()} of bounds "
           f"{engine.compilation_bounds()}")
     if base_quant is not None:
         fp = ServingEngine(model, merged, n_slots=4, max_len=64,

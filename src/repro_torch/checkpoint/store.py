@@ -35,8 +35,8 @@ tree of ``meta`` tensors (``models.param_specs``, ``attach`` and
 leaf goes to its template leaf's device, or to ``device`` where the
 template leaf is on ``meta``, and else to the card: never to the CPU
 unless the caller asks.  ``restore_resharded`` places every leaf on one
-``torch.device``; a mesh or DTensor placement raises
-``NotImplementedError`` until the mesh slice is ported.
+``torch.device``, or as DTensors on a ``DeviceMesh`` by a tree of
+``launch.shardings`` specs.
 """
 
 from __future__ import annotations
@@ -270,18 +270,31 @@ def restore(directory: str, step: int, template: Any, *,
 
 
 def restore_resharded(directory: str, step: int, template: Any,
-                      placement: Any) -> Any:
-    """Elastic restore: every leaf on ``placement``, one ``torch.device``
-    (or a string naming one), whatever device saved it.  A mesh or
-    DTensor placement raises ``NotImplementedError``: sharded placement
-    waits for the mesh slice."""
-    if not isinstance(placement, (torch.device, str)):
-        raise NotImplementedError(
-            f"restore_resharded onto {type(placement).__name__}: the port "
-            "places a restored tree on one torch.device; mesh and DTensor "
-            "placements wait for the mesh slice")
-    dev = default_device(placement)
-    return _restore(directory, step, template, lambda _: dev)
+                      placement: Any, specs: Any = None) -> Any:
+    """Elastic restore onto a new placement, whatever saved it.
+
+    ``placement`` is one ``torch.device`` (or a string naming one): every
+    leaf goes there.  Or it is a ``DeviceMesh`` with ``specs``, a tree of
+    ``launch.shardings`` specs mirroring ``template`` (``param_shardings``,
+    ``state_shardings``, ...): every rank reads the whole leaves onto its
+    device and keeps its shard, each leaf a DTensor with the spec's
+    placements.  Anything else raises ``TypeError``."""
+    if isinstance(placement, (torch.device, str)):
+        dev = default_device(placement)
+        return _restore(directory, step, template, lambda _: dev)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(placement, DeviceMesh) or specs is None:
+        raise TypeError(
+            f"restore_resharded onto {type(placement).__name__}"
+            f"{' without specs' if isinstance(placement, DeviceMesh) else ''}"
+            ": pass a torch.device, or a DeviceMesh with a spec tree")
+    from repro_torch.launch.shardings import distribute_tree
+
+    kind = placement.device_type
+    dev = default_device(kind if kind != "cuda" else None)
+    tree = _restore(directory, step, template, lambda _: dev)
+    return distribute_tree(tree, placement, specs)
 
 
 class AsyncCheckpointer:

@@ -292,6 +292,23 @@ class AdapterBank:
         """Bytes of every bank tensor (groups and id_maps)."""
         return tree_nbytes(self.tree)
 
+    def bank_axis_tree(self) -> "AdapterBank":
+        """The bank with each tensor replaced by the index of its bank
+        axis (1 behind the layers of a stacked path, else 0; -1 for the
+        ``id_maps``): ``launch.shardings.peft_shardings(bank_dp=True)``
+        reads it to split the bank axis over the DP axes."""
+        def per(node):
+            if isinstance(node, dict):
+                return {k: per(v) for k, v in node.items()}
+            ax = 1 if node.stacked else 0
+            return dataclasses.replace(
+                node,
+                groups=tuple(tree_map(lambda _: ax, g)
+                             for g in node.groups),
+                id_maps=tuple(-1 for _ in node.id_maps))
+
+        return dataclasses.replace(self, tree=per(self.tree))
+
     @staticmethod
     def build(base_params: Dict[str, Any],
               tenants: Mapping[str, TenantEntry]) -> "AdapterBank":

@@ -136,6 +136,10 @@ def init_tensors(
     device = torch.device(device) if device is not None else generator.device
     tensors = []
     for (om, on, im, in_) in tensor_shapes(dims_in, pairs, dims_out):
+        if device.type == "meta":           # shapes alone: nothing to draw
+            tensors.append(torch.empty((om, on, im, in_), dtype=dtype,
+                                       device=device))
+            continue
         noise = torch.randn((om, on, im, in_), generator=generator,
                             dtype=dtype, device=device)
         if init == "identity_noise":

@@ -73,18 +73,21 @@ class ModelConfig:
     (the attention window and the decode ring's rows) and ``kv_block``
     (the JAX flash kernel's KV tile, recorded: the port's kernel walks
     64-key tiles).  ``seq_parallel_residual`` is the JAX package's
-    sequence-parallel residual constraint between macro blocks; it needs
-    ``dp_axes`` of a mesh, so on one card it is recorded and has no
-    effect, as ``fsdp``.
+    sequence-parallel residual constraint between macro blocks: a layout
+    constraint on an activation, which only a forward over DTensors could
+    take.  The port's forwards run on each rank's whole local tensors
+    (the sharded engine and the data-parallel step hand every model call
+    plain tensors), so it is recorded and changes nothing, as the MoE
+    group-axis constraint of the JAX package's ``moe._constrain``.
 
     The MoE family (``n_experts > 0``: :attr:`is_moe`) routes each token
     to ``top_k`` of ``n_experts`` expert FFNs (``models/moe.py``); a
     training forward keeps ``capacity_factor`` times each expert's fair
     share of tokens (serving never drops), in ``moe_groups`` token groups,
     and the loss adds ``router_aux_weight`` times the summed router aux
-    loss.  ``fsdp`` is the JAX package's mesh setting (the params sharded
-    over the data axes); on one card it is recorded and has no effect
-    until the port has a mesh.
+    loss.  ``fsdp`` shards the expert stacks' ``d_ff`` over `data` in the
+    placement rules (``launch.shardings.param_shardings``); values never
+    change.
 
     ``kv_quant`` ("nf4" | "int8" | None) makes the decode step quantize
     each new K/V row on write (paged pools of codes, or the fake-quantized

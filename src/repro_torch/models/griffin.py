@@ -552,15 +552,21 @@ class Griffin(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, params, peft, cache, batch, block_tables=None,
-                    adapter_ids=None):
+                    adapter_ids=None, mesh=None):
         """One decode step: each recurrent block's states and each ring
         take the new token in place (a paged ring through
         ``block_tables``; codes and ``*_qscale`` scales when the cache
-        holds them).  Returns ``(logits, cache)`` with ``cache["len"]``
+        holds them).  ``mesh`` (a data-sharded paged engine): the ring
+        pools are this data rank's arena, which its global table rows
+        reach shifted by the arena's offset.  Returns ``(logits, cache)`` with ``cache["len"]``
         advanced by one in place: every leaf keeps its storage, so a
         captured CUDA graph of the step reads and writes the same cache at
         every replay."""
         cfg = self.cfg
+        if mesh is not None and block_tables is not None:
+            from repro_torch.launch.mesh import dp_index
+
+            block_tables = block_tables - dp_index(mesh) * cache["k"].shape[1]
         x = self._embed(params, batch)                               # (B,1,d)
         new_len = cache["len"]
         new_len += 1

@@ -406,14 +406,14 @@ class Mamba2(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, params, peft, cache, batch, block_tables=None,
-                    adapter_ids=None):
+                    adapter_ids=None, mesh=None):
         """One decode step: every layer's SSM state and conv window take
-        the new token in place (``block_tables`` unused: nothing is
-        paged).  Returns ``(logits, cache)`` with ``cache["len"]`` advanced
+        the new token in place (``block_tables`` and ``mesh`` unused:
+        nothing is paged).  Returns ``(logits, cache)`` with ``cache["len"]`` advanced
         by one in place: every leaf keeps its storage, so a captured CUDA
         graph of the step reads and writes the same cache at every
         replay."""
-        del block_tables
+        del block_tables, mesh
         cfg = self.cfg
         x = self._embed(params, batch)                           # (B,1,d)
         cache["len"] += 1

@@ -17,8 +17,10 @@ Differences from the JAX package, none of which changes a value:
 - the top k come from a stable descending sort, which, as
   ``jax.lax.top_k``, picks the lower expert index among equal
   probabilities (``torch.topk`` promises no order among ties);
-- the JAX package's ``dp_axes`` sharding constraints have no counterpart
-  on one card.
+- the JAX package's ``dp_axes`` sharding constraints (``_constrain``:
+  the group axis pinned to the DP axes) are layout constraints on
+  activations; the port's forwards hold each rank's plain local tensors,
+  never DTensors, so there is nothing to constrain and they are left out.
 
 The router and the experts are frozen in training: gradients reach ``x``
 through the gate values (and the router's softmax) and through the

@@ -33,6 +33,7 @@ and tokens alone in ``decode_step`` and ``prefill_chunk``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -47,6 +48,7 @@ from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 from repro_torch.kernels.dispatch import default_device, seeded_generator
 from repro_torch.models.attention import (
     blockwise_causal_attention, chunk_attention, decode_attention,
+    local_paged_decode,
     paged_decode_attention,
 )
 from repro_torch.models.common import (
@@ -105,9 +107,12 @@ class Transformer(nn.Module):
         vpad = padded_vocab(cfg.vocab_size)
         d, ad, kvd, ff = cfg.d_model, cfg.attn_dim, cfg.kv_dim, cfg.d_ff
 
+        # a ``meta`` tree holds shapes alone: no draws to make
+        draws = torch.device(dev).type != "meta"
+
         def stack(d_in, d_out):
             out = torch.empty((L, d_in, d_out), dtype=dt, device=dev)
-            for i in range(L):
+            for i in range(L if draws else 0):
                 out[i] = dense_init(gen, d_in, d_out, dt, dev)
             return out
 
@@ -125,7 +130,7 @@ class Transformer(nn.Module):
         def experts(d_in, d_out):
             e = cfg.n_experts
             out = torch.empty((L, e, d_in, d_out), dtype=dt, device=dev)
-            for i in range(L):
+            for i in range(L if draws else 0):
                 for j in range(e):
                     out[i, j] = dense_init(gen, d_in, d_out, dt, dev)
             return out
@@ -192,7 +197,8 @@ class Transformer(nn.Module):
         return x @ params["lm_head"].to(cfg.compute_dtype)
 
     # ------------------------------------------------------------ layer body
-    def _attn(self, lp, la, x, *, rope, window, cache=None, chunk=None):
+    def _attn(self, lp, la, x, *, rope, window, cache=None, chunk=None,
+              mesh=None):
         """Attention sub-block.  ``cache`` for decode is ``(k_cache,
         v_cache, cache_len)`` (dense), ``(k_pool, v_pool, cache_len,
         block_tables)`` (paged) or ``(k_codes, k_scales, v_codes, v_scales,
@@ -203,7 +209,11 @@ class Transformer(nn.Module):
         v_stage, rows, q_pos)`` is one chunked-prefill piece: its K/V are
         written in place at staging rows ``rows`` and its queries (at
         absolute positions ``q_pos``, which ``rope`` carries) attend over
-        the whole staging buffer.  Returns ``(out, new_kv)``."""
+        the whole staging buffer.  ``mesh`` (paged, a data-sharded engine):
+        ``x`` and the pools are this data rank's slots and arena, the
+        tables name global pool rows, and the write and the decode read
+        the arena through them (``attention.local_paged_decode``).
+        Returns ``(out, new_kv)``."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self._linear(x, lp["q_proj"], get_adapter(la, "q_proj"),
@@ -256,6 +266,10 @@ class Transformer(nn.Module):
             idx = (cache_len - 1).long()
             row = idx % bs
             blk = bt[torch.arange(b, device=x.device), idx // bs].long()
+            if mesh is not None:
+                from repro_torch.launch.mesh import dp_index
+
+                blk = blk - dp_index(mesh) * pools[0].shape[0]
             if len(pools) == 2:
                 rows = (k[:, 0], v[:, 0])
                 quant = {}
@@ -270,7 +284,9 @@ class Transformer(nn.Module):
             for pool, r in zip(pools, rows):
                 pool[blk, row] = r.to(pool.dtype)
             k_pool, v_pool = (pools[0], pools[2]) if quant else pools
-            out = paged_decode_attention(
+            decode = (paged_decode_attention if mesh is None else
+                      functools.partial(local_paged_decode, mesh=mesh))
+            out = decode(
                 q, k_pool, v_pool, bt, cache_len,
                 window=window, fast_softmax=cfg.fast_softmax,
                 backend=cfg.attn_backend, **quant,
@@ -287,7 +303,7 @@ class Transformer(nn.Module):
                             get_adapter(la, "down_proj"))
 
     def _layer(self, lp, la, x, *, rope, cache=None, chunk=None,
-               no_drop=None):
+               no_drop=None, mesh=None):
         """One layer: ``(x, aux, new_kv)``; ``aux`` is the MoE router's aux
         loss (0.0 for the dense family).  ``no_drop`` (MoE) defaults to
         serving's rule: a cache or a chunk never drops a token."""
@@ -296,6 +312,7 @@ class Transformer(nn.Module):
             lp["attn"], la.get("attn", {}),
             rms_norm(x, lp["ln1"], cfg.norm_eps),
             rope=rope, window=cfg.sliding_window, cache=cache, chunk=chunk,
+            mesh=mesh,
         )
         x = x + h
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -447,16 +464,19 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, params, peft, cache, batch, block_tables=None,
-                    adapter_ids=None):
+                    adapter_ids=None, mesh=None):
         """One decode step: writes each slot's new K/V at ``len`` in place
         and attends over the first ``len + 1`` entries.  With
         ``block_tables (B, max_blocks)`` the KV leaves are paged pools
         (codes and ``*_qscale`` scales when the cache holds them);
         ``adapter_ids`` ``(B,)`` select each slot's tenant of a bank.
         ``batch`` holds ``tokens (B, 1)``, or for an audio model the new
-        frame embedding ``embeds (B, 1, d)``.  Returns ``(logits,
-        cache)`` with ``cache["len"]`` advanced by one in place (every leaf keeps its storage, so a captured CUDA graph
-        of the step reads and writes the same cache at every replay)."""
+        frame embedding ``embeds (B, 1, d)``.  ``mesh`` (a data-sharded
+        paged engine): the batch, cache and tables are one data rank's
+        slots and arena, and the paged decode runs per arena.  Returns
+        ``(logits, cache)`` with ``cache["len"]`` advanced by one in place
+        (every leaf keeps its storage, so a captured CUDA graph of the step
+        reads and writes the same cache at every replay)."""
         cfg = self.cfg
         # a vision model decodes text tokens
         x = (self._input(batch, "embeds") if cfg.frontend == "audio_tokens"
@@ -472,6 +492,7 @@ class Transformer(nn.Module):
             x, _, _ = self._layer(
                 lp, la, x, rope=rope,
                 cache=tuple(cache[key][i] for key in keys) + tail,
+                mesh=mesh,
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._unembed(params, x)

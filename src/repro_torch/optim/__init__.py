@@ -5,8 +5,8 @@ from repro_torch.optim.adamw import (
     AdamW, AdamWState, clip_by_global_norm, global_norm,
 )
 from repro_torch.optim.compress import (
-    ErrorFeedbackState, compress_int8, decompress_int8, ef_compress_grads,
-    ef_init,
+    ErrorFeedbackState, compress_int8, compressed_psum, decompress_int8,
+    ef_compress_grads, ef_init,
 )
 from repro_torch.optim.schedules import (
     constant_schedule, linear_warmup_schedule, wsd_schedule,

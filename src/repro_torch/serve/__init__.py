@@ -1,6 +1,6 @@
 """Serving runtime of the port: the continuous-batching engine (dense or
-paged KV cache, one device; the decode tick a captured CUDA graph on the
-card) over merged, adapter-attached or multi-tenant models (an
+paged KV cache, one device or a mesh; the decode tick a captured CUDA
+graph on the card) over merged, adapter-attached or multi-tenant models (an
 ``AdapterBank``, or hot-swapped tenants through ``AdapterStore`` +
 ``AdapterPool``), and the SLA-scheduled, double-buffered streaming front
 end (``ServeFrontend``) over it."""

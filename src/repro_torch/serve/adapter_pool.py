@@ -21,7 +21,9 @@ tenant at admission (the last admission check: an unloadable tenant defers
 the request) and releases it when the request leaves its slot, so an
 in-flight tenant cannot be evicted (``evict`` returns False).
 
-Placing the bank on a mesh (``AdapterPool.place``) is not ported yet.
+Under a mesh, :meth:`AdapterPool.place` places the resident bank by
+``launch.shardings.peft_shardings``' adapter rule: replicated, a whole
+copy on every rank, so every rank swaps the same rows in place.
 """
 
 from __future__ import annotations
@@ -79,6 +81,13 @@ class RowAllocator:
             raise ValueError(f"double free of bank row {row}")
         self._free.append(row)
         self._free_set.add(row)
+
+
+def _bank_tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a nested dict of bank paths."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _bank_tensors(v)]
+    return list(tree.tensors())
 
 
 class AdapterStore:
@@ -169,6 +178,8 @@ class AdapterPool:
         self.acquire_denied = 0
         self.evict_denied = 0
         self.swap_hist = LatencyHistogram()
+        self._placed_mesh = None
+        self.placement = None         # the resident bank's specs, once placed
 
     @staticmethod
     def build(base_params: Dict[str, Any], store: AdapterStore, *,
@@ -347,6 +358,25 @@ class AdapterPool:
             return False
         self._evict(name)
         return True
+
+    # ------------------------------------------------------------ placement
+    def place(self, mesh) -> Any:
+        """Place the resident bank under ``mesh`` (a ``DeviceMesh``) by the
+        adapter rule of ``launch.shardings.peft_shardings``: replicated.
+        Each rank keeps a whole copy on the mesh's device (a replicated
+        leaf's local tensor is the leaf), so the rows stay the tensors that
+        ``load`` rewrites in place.  Returns the bank's specs."""
+        from repro_torch.launch.shardings import peft_shardings
+
+        if mesh is None or self._placed_mesh is mesh:
+            return self.placement
+        if any(t.device.type != mesh.device_type
+               for t in _bank_tensors(self.tree)):
+            raise ValueError(f"the pool's bank is not on the mesh's "
+                             f"{mesh.device_type} device")
+        self.placement = peft_shardings(mesh, self._bank)
+        self._placed_mesh = mesh
+        return self.placement
 
     # -------------------------------------------------------------- gauges
     def resident_nbytes(self) -> int:

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over a dense or a paged cache (port
-of ``repro/serve/engine.py``, single device).
+of ``repro/serve/engine.py``), on one device or a mesh.
 
 * A fixed ``n_slots`` decode batch; each slot owns a stripe of the dense
   KV cache ``(L, n_slots, max_len, KV, hd)``, or (``cache="paged"``) the
@@ -84,8 +84,36 @@ view, the chunk cadence left to its interleave policy), ``requeue_hook``
 and ``victim_hook`` (preemption into the class queues, SLA-aware
 victims), ``_fresh`` (slots whose next token admission wrote on the
 host), ``clock``, ``tick_hist``, the per-class TTFT histograms
-(``ttft_hists``, ``ttft_all()``) and ``queue_depths()``.  Meshes are not
-ported yet.
+(``ttft_hists``, ``ttft_all()``) and ``queue_depths()``.
+
+Sharded serving (``mesh=``, a ``DeviceMesh`` from ``launch.mesh``, one
+rank a device, over the whole process group).  Every rank runs the same
+scheduler on the same requests (submit each request on every rank), so
+host state -- queues, slots, block tables -- is the same everywhere.
+
+* Placement: the cache by ``launch.shardings.cache_shardings`` on the
+  data axes alone (the slot axis, or a paged pool's block axis, over
+  them); a paged pool is cut into one arena a data shard
+  (``PagedCacheView(data_shards=)``).  Params, adapters and banks are
+  replicated (a pool through ``AdapterPool.place``), and so is the cache
+  over `model`: the forward holds plain local tensors and every
+  hand-written kernel takes whole operands, so a leaf split over `model`
+  would be gathered whole at every call and save nothing.  The ranks of
+  one data shard repeat its work.  ``stats`` byte gauges count what this
+  rank holds.
+* Work: a data rank prefills the wave rows of its own slots and runs a
+  chunked admission only when the slot is its own; it decodes its own
+  slots (``n_slots / dp`` rows) on its own cache shard, and the paged
+  decode runs on its arena alone (the mesh reaches attention only when
+  the pool has more than one arena: ``attention.local_paged_decode``,
+  kernel 5 or 6 per arena).  The first tokens of an admission and each
+  tick's sampled tokens are shared over the mesh (one ``all_reduce``
+  each, one rank of each data shard contributing), so every rank lands
+  every slot's token; ``dispatch_decode`` returns this rank's rows of
+  the logits.
+* Graph ticks: on a world of one the tick is captured as one CUDA graph
+  as without a mesh; with more ranks the tick runs eagerly (its token
+  share is a collective outside the graph).
 """
 
 from __future__ import annotations
@@ -282,10 +310,6 @@ class ServingEngine:
         kv_quant: Optional[str] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) is not ported yet: the port "
-                "serves on one device")
         if adapters is not None:
             if not isinstance(adapters, (AdapterBank, AdapterPool)):
                 raise TypeError(
@@ -309,6 +333,7 @@ class ServingEngine:
             raise ValueError(
                 f"model on {model.device}, engine asked for {self.device}"
             )
+        self._mesh_layout(mesh, n_slots)
         self.model = model
         self.cfg = model.cfg
         # frozen-base quantization: every projection packed once here;
@@ -346,14 +371,17 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.spec = model.cache_spec()
         self.pager = (PagedCacheView(model, n_slots, max_len, block_size,
-                                     n_blocks)
+                                     n_blocks, data_shards=self._dp)
                       if cache == "paged" else None)
         self._paged = self.pager is not None and self.pager.paged
         # spec of the serving cache: with quantized pools it has the
         # ``*_qscale`` leaves that every cache surgery must see
         self.serve_spec = self.pager.serve_spec if self._paged else self.spec
-        self.cache = (self.pager.init_cache() if self.pager is not None
-                      else model.init_cache(n_slots, max_len))
+        if mesh is None:
+            self.cache = (self.pager.init_cache() if self.pager is not None
+                          else model.init_cache(n_slots, max_len))
+        else:
+            self._place(n_slots, max_len)
         self._lengths = np.zeros((n_slots,), np.int32)      # host-side
         self._last_token = np.zeros((n_slots,), np.int32)
         # per-slot global tenant ids (0 = base model), bank mode only
@@ -424,15 +452,20 @@ class ServingEngine:
         # cache, pos, tenant id
         self._chunking: Optional[Dict[str, Any]] = None
 
-        # the decode tick's static buffers, and its graph
+        # the decode tick's static buffers (this rank's slots), and its
+        # graph
         dev = self.device
+        rows = self._hi - self._lo
         self._io: Dict[str, torch.Tensor] = {
-            "tokens": torch.zeros((n_slots, 1), dtype=torch.long, device=dev),
-            "fresh": torch.ones((n_slots,), dtype=torch.bool, device=dev),
-            "active": torch.zeros((n_slots,), dtype=torch.bool, device=dev),
-            "sampled": torch.zeros((n_slots, 1), dtype=torch.long,
-                                   device=dev),
+            "tokens": torch.zeros((rows, 1), dtype=torch.long, device=dev),
+            "fresh": torch.ones((rows,), dtype=torch.bool, device=dev),
+            "active": torch.zeros((rows,), dtype=torch.bool, device=dev),
+            "sampled": torch.zeros((rows, 1), dtype=torch.long, device=dev),
         }
+        if self._world > 1:
+            # every slot's token, gathered over the data axes
+            self._io["gathered"] = torch.zeros((n_slots, 1),
+                                               dtype=torch.long, device=dev)
         # the slot-state leaves a tick overwrites for every slot in place
         # (``len``, and a recurrent model's O(1) states): their values
         # before the tick, put back where a slot is inactive.  Token-axis
@@ -443,16 +476,122 @@ class ServingEngine:
         for k in self._state_keys:
             self._io[f"before.{k}"] = torch.empty_like(self.cache[k])
         if self.bank is not None:
-            self._io["ids"] = torch.zeros((n_slots,), dtype=torch.int32,
+            self._io["ids"] = torch.zeros((rows,), dtype=torch.int32,
                                           device=dev)
         self._all_fresh = np.ones((n_slots,), bool)
         self._decode = _DecodeGraph(self._tick_body, self._tick_buffers, dev)
+        # more than one rank: the tick's token gather is a collective, and
+        # the tick runs eagerly
+        self._decode.eager = self._world > 1
         self._landing: Optional[_Landing] = None
         self.compile_guard = sanitize.CompileGuard("ServingEngine")
         if dev.type == "cuda":
             self.compile_guard.register("decode", self._decode,
                                         self.compilation_bounds()["decode"])
         self._update_gauges()
+
+    # ------------------------------------------------------------------ mesh
+    def _mesh_layout(self, mesh, n_slots: int) -> None:
+        """This rank's share of the slots under ``mesh``: data shard
+        ``_shard`` of ``_dp`` owns slots ``[_lo, _hi)``; ``_lead`` ranks
+        (coordinate 0 off the data axes) share their shard's tokens."""
+        self.mesh = mesh
+        self._dp, self._shard, self._world, self._lead = 1, 0, 1, True
+        self._lo, self._hi = 0, n_slots
+        if mesh is None:
+            return
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.launch.mesh import (
+            dp_axes, dp_index, dp_size, mesh_coordinate,
+        )
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh= takes a torch DeviceMesh (launch.mesh."
+                f"make_host_mesh), got {type(mesh).__name__}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve an "
+                             f"engine on {self.device}")
+        self._world = dist.get_world_size()
+        if mesh.size() != self._world:
+            raise ValueError(f"the mesh has {mesh.size()} ranks, the process "
+                             f"group {self._world}: serve over all of it")
+        dp = dp_size(mesh)
+        if dp > 1 and n_slots % dp:
+            # the slot axis shards over the data axes: an uneven split
+            # would mis-shard the cache
+            raise ValueError(
+                f"n_slots={n_slots} must be a multiple of the mesh "
+                f"data-parallel size {dp}: the slot axis shards over the "
+                "data axes")
+        self._dp, self._shard = dp, dp_index(mesh)
+        rows = n_slots // dp
+        self._lo, self._hi = self._shard * rows, (self._shard + 1) * rows
+        data = dp_axes(mesh)
+        self._lead = all(v == 0 for a, v in mesh_coordinate(mesh).items()
+                         if a not in data)
+
+    def _place(self, n_slots: int, max_len: int) -> None:
+        """Place adapters and the cache under ``self.mesh`` (the cache
+        over the data axes only; see the module docstring)."""
+        from repro_torch.launch.mesh import dp_axes
+        from repro_torch.launch.shardings import (
+            P, cache_shardings, peft_shardings, placed_zeros,
+        )
+
+        mesh = self.mesh
+        if self.pool is not None:
+            self.peft_specs = self.pool.place(mesh)
+            self.peft = self.pool.device_bank()
+        else:
+            self.peft_specs = peft_shardings(mesh, self.peft)
+        if self.pager is not None:
+            struct = self.pager.meta_struct()
+        else:
+            struct = self.model.init_cache(n_slots, max_len, device="meta")
+        data = set(dp_axes(mesh))
+
+        def data_only(spec):
+            return P(*(e if e is not None and set(
+                (e,) if isinstance(e, str) else e) <= data else None
+                for e in spec))
+
+        specs = cache_shardings(
+            self.cfg, mesh, struct, spec=self.serve_spec, paged=self._paged,
+            pool_data_shards=self.pager.data_shards if self._paged else None)
+        self.cache_specs = {k: data_only(v) for k, v in specs.items()}
+        placed = (self.pager.init_cache(mesh, self.cache_specs)
+                  if self.pager is not None
+                  else placed_zeros(struct, mesh, self.cache_specs,
+                                    self.device))
+        self.placed_cache = placed
+        self.cache = {k: v.to_local() for k, v in placed.items()}
+
+    def _share_tokens(self, toks: Optional[torch.Tensor], mine,
+                      n: int) -> torch.Tensor:
+        """The ``n`` device tokens of which this rank computed ``toks``,
+        entries ``mine`` (None where it computed none), on every rank:
+        one ``all_reduce`` to which the lead rank of each data shard
+        contributes.  A world of one computed all of them."""
+        if self._world == 1:
+            return toks
+        import torch.distributed as dist
+
+        out = torch.zeros((n,), dtype=torch.long, device=self.device)
+        if self._lead and len(mine):
+            out[torch.as_tensor(mine, device=self.device)] = toks
+        dist.all_reduce(out)
+        return out
+
+    def _local_slots(self, slot_ids):
+        """``(positions, local slot indices)`` of the slots in
+        ``slot_ids`` this rank holds."""
+        pos = [i for i, s in enumerate(slot_ids)
+               if self._lo <= int(s) < self._hi]
+        return pos, np.asarray([int(slot_ids[i]) - self._lo for i in pos],
+                               np.int64)
 
     # ------------------------------------------------------ capture bounds
     def compilation_bounds(self) -> Dict[str, int]:
@@ -610,8 +749,15 @@ class ServingEngine:
         while q and len(wave) < len(free):
             nxt = q[0]
             n_tok = len(self._tokens(nxt))
-            if self._paged and not self.pager.can_admit(n_tok):
-                break                 # no room: wait for frees
+            if self._paged:
+                # a remaining free slot whose arena holds the request: a
+                # full arena must not hold up admission into another
+                # shard's free slots
+                cand = next((j for j in range(len(wave), len(free))
+                             if self.pager.can_admit(n_tok, free[j])), None)
+                if cand is None:
+                    break             # no arena has room: wait for frees
+                free[len(wave)], free[cand] = free[cand], free[len(wave)]
             if self._can_chunk and n_tok > self.prefill_chunk:
                 # a long prompt goes through the chunked pipeline (one at
                 # a time); shorter ones behind it may still join the wave
@@ -640,30 +786,37 @@ class ServingEngine:
 
     def _admit_prefill(self, free: Sequence[int], wave: List[Request]) -> None:
         """One prefill over the right-padded wave, then scatter its cache
-        stripes into the free slots."""
+        stripes into the free slots.  Under a mesh a data rank prefills the
+        rows of its own slots (padded to its ``n_slots / dp`` rows)."""
         streams = [self._tokens(r) for r in wave]
         lengths = np.array([len(p) for p in streams], np.int32)
-        s = self._bucket(int(lengths.max()))
-        toks = np.zeros((self.n_slots, s), np.int64)
-        lens = np.ones((self.n_slots,), np.int32)     # dummy rows: length 1
-        wave_ids = np.zeros((self.n_slots,), np.int32)  # dummy rows: base
-        for row, (p, req) in enumerate(zip(streams, wave)):
-            toks[row, : len(p)] = p
-            lens[row] = len(p)
-            wave_ids[row] = self._req_adapter_id(req)
-        logits, wave_cache = self.model.prefill(
-            self.params, self.peft,
-            {"tokens": torch.from_numpy(toks).to(self.device)},
-            lengths=torch.from_numpy(lens).to(self.device),
-            adapter_ids=self._device_ids(wave_ids),
-        )
-        self.stats["prefill_calls"] += 1
+        aids = np.array([self._req_adapter_id(r) for r in wave], np.int32)
         slot_ids = np.asarray(free[: len(wave)], np.int64)
+        mine, _ = self._local_slots(slot_ids)
+        s = self._bucket(int(lengths.max()))
+        rows = self._hi - self._lo
+        toks = np.zeros((rows, s), np.int64)
+        lens = np.ones((rows,), np.int32)     # dummy rows: length 1
+        wave_ids = np.zeros((rows,), np.int32)  # dummy rows: base
+        for row, i in enumerate(mine):
+            toks[row, : lengths[i]] = streams[i]
+            lens[row] = lengths[i]
+            wave_ids[row] = aids[i]
+        first, wave_cache = None, None
+        if mine:
+            logits, wave_cache = self.model.prefill(
+                self.params, self.peft,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                lengths=torch.from_numpy(lens).to(self.device),
+                adapter_ids=self._device_ids(wave_ids),
+            )
+            first = self._sample(logits)[: len(mine), 0]
+        self.stats["prefill_calls"] += 1
         self._insert_wave(slot_ids, wave_cache, lengths)
-        first = self._sample(logits).cpu().numpy()[:, 0]  # repro: allow(host-sync) the wave's first tokens land once per admission, not per tick
+        first = self._share_tokens(first, mine, len(wave)).cpu().numpy()  # repro: allow(host-sync) the wave's first tokens land once per admission, not per tick
         for row, (slot, req) in enumerate(zip(free, wave)):
             self._land_admitted(slot, req, int(lengths[row]),
-                                int(wave_ids[row]), int(first[row]))
+                                int(aids[row]), int(first[row]))
         self._update_gauges()
 
     def _land_admitted(self, slot: int, req: Request, length: int, aid: int,
@@ -681,19 +834,35 @@ class ServingEngine:
     def _insert_wave(self, slot_ids, wave_cache, lengths) -> None:
         """Land a prefill wave (or a finished staging cache) in the serving
         cache: by slot, or through the block tables after allocating each
-        row's blocks."""
-        if not self._paged:
-            self.cache = self.model.insert_cache(
-                self.cache, slot_ids, wave_cache, lengths)
+        row's blocks.  ``wave_cache`` holds, in order, the rows of the
+        slots of ``slot_ids`` this rank holds (every slot without a mesh;
+        None where it holds none).  Every rank allocates every row's
+        blocks (the tables are shared) and lands its own rows, in its own
+        arena."""
+        if self._paged:
+            for slot, n in zip(slot_ids, lengths):
+                self.pager.ensure(int(slot), int(n))
+        mine, local = self._local_slots(slot_ids)
+        if not mine:
             return
-        for slot, n in zip(slot_ids, lengths):
-            self.pager.ensure(int(slot), int(n))
+        lengths = np.asarray(lengths)[mine]
+        if not self._paged:
+            self.model.insert_cache(self.cache, local, wave_cache, lengths)
+            return
         nb = -(-self.pager.wave_page_extent(wave_cache)
                // self.pager.block_size)
-        tables = self.pager.wave_tables(slot_ids, nb)
-        self.cache = insert_cache_slots(self.serve_spec, self.cache,
-                                        slot_ids, wave_cache, lengths,
-                                        block_tables=tables)
+        # global pool rows to this rank's arena rows
+        tables = (self.pager.wave_tables(np.asarray(slot_ids)[mine], nb)
+                  - self._arena_base())
+        insert_cache_slots(self.serve_spec, self.cache, local, wave_cache,
+                           lengths, block_tables=tables)
+
+    def _arena_base(self) -> int:
+        """The first global pool row of the arena this rank holds (0
+        when it holds the whole pool)."""
+        if not self._paged or self.pager.data_shards == 1:
+            return 0
+        return self.pager.null_of(self._shard)
 
     # --------------------------------------------------- chunked admission
     def _start_chunked(self, req: Request, slot: int) -> None:
@@ -711,11 +880,13 @@ class ServingEngine:
             # checked can_admit), so a concurrent wave or append cannot
             # take them before the staging cache lands
             self.pager.ensure(slot, len(tokens))
+        # under a mesh only the slot's data shard stages and runs chunks
+        own = self._lo <= slot < self._hi
         self._chunking = {
             "req": req,
             "slot": slot,
             "tokens": tokens,
-            "staged": self.model.init_cache(1, s_stage),
+            "staged": self.model.init_cache(1, s_stage) if own else None,
             "pos": 0,
             "aid": self._req_adapter_id(req),
         }
@@ -731,12 +902,15 @@ class ServingEngine:
         n_valid = min(c, len(tokens) - pos)
         toks = np.zeros((1, c), np.int64)
         toks[0, :n_valid] = tokens[pos: pos + n_valid]
-        logits, st["staged"] = self.model.prefill_chunk(
-            self.params, self.peft,
-            {"tokens": torch.from_numpy(toks).to(self.device)},
-            st["staged"], pos, n_valid,
-            adapter_ids=self._device_ids(np.asarray([st["aid"]], np.int32)),
-        )
+        own = st["staged"] is not None
+        if own:
+            logits, st["staged"] = self.model.prefill_chunk(
+                self.params, self.peft,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                st["staged"], pos, n_valid,
+                adapter_ids=self._device_ids(np.asarray([st["aid"]],
+                                                        np.int32)),
+            )
         self.stats["chunk_calls"] += 1
         st["pos"] = pos + n_valid
         if st["pos"] < len(tokens):
@@ -746,7 +920,8 @@ class ServingEngine:
         slot = st["slot"]
         self._insert_wave(np.asarray([slot], np.int64), st["staged"],
                           np.asarray([len(tokens)], np.int32))
-        tok = int(self._sample(logits).cpu()[0, 0])  # repro: allow(host-sync) the first token lands once, after a request's last chunk
+        tok = self._sample(logits)[0] if own else None
+        tok = int(self._share_tokens(tok, [0] if own else [], 1).cpu()[0])  # repro: allow(host-sync) the first token lands once, after a request's last chunk
         self._chunking = None
         self._land_admitted(slot, req, len(tokens), st["aid"], tok)
         self._update_gauges()
@@ -758,8 +933,8 @@ class ServingEngine:
         own active mask (on the card: the captured graph)."""
         streams = [self._tokens(r) for r in wave]
         max_p = max(len(p) for p in streams)
-        slot_ids = np.asarray(free[: len(wave)], np.int64)
-        self.cache = reset_cache_slots(self.spec, self.cache, slot_ids)
+        _, local = self._local_slots(free[: len(wave)])
+        reset_cache_slots(self.spec, self.cache, local)
         for slot, req in zip(free, wave):
             self._adapter_ids[slot] = self._req_adapter_id(req)
         for t in range(max_p):
@@ -809,7 +984,11 @@ class ServingEngine:
             try:
                 self.pager.ensure(i, int(self._lengths[i]) + 1)
             except MemoryError:
-                cands = [j for j in range(self.n_slots) if active[j]]
+                # the victim shares slot i's arena (a victim elsewhere
+                # frees nothing slot i can use)
+                shard = self.pager.shard_of(i)
+                cands = [j for j in range(self.n_slots)
+                         if active[j] and self.pager.shard_of(j) == shard]
                 victim = (self.victim_hook(cands, self.slots)
                           if self.victim_hook is not None else max(cands))
                 self._preempt(victim)
@@ -831,6 +1010,13 @@ class ServingEngine:
             out["tables"] = self.pager.device_tables()
         return out
 
+    def _tick_tables(self) -> Optional[torch.Tensor]:
+        """This rank's slots' rows of the device block tables (global pool
+        rows), or None for a dense cache."""
+        if not self._paged:
+            return None
+        return self.pager.device_tables()[self._lo:self._hi]
+
     def _tick_body(self):
         """One decode tick over the static buffers: the token merge, the
         decode step (the cache updated in place), the active-slot merge
@@ -839,35 +1025,48 @@ class ServingEngine:
         and the sampled tokens."""
         io = self._io
         toks = torch.where(io["fresh"][:, None], io["tokens"], io["sampled"])
+        cache = self.cache
         before = {k: io[f"before.{k}"] for k in self._state_keys}
         for k, t in before.items():
-            t.copy_(self.cache[k])
+            t.copy_(cache[k])
+        # the mesh reaches attention only when the pool has an arena a
+        # data shard
+        kw = ({"mesh": self.mesh}
+              if self._paged and self.pager.data_shards > 1 else {})
         logits, new_cache = self.model.decode_step(
-            self.params, self.peft, self.cache, {"tokens": toks},
-            block_tables=(self.pager.device_tables() if self._paged
-                          else None),
-            adapter_ids=io.get("ids"),
-        )
+            self.params, self.peft, cache, {"tokens": toks},
+            block_tables=self._tick_tables(), adapter_ids=io.get("ids"), **kw)
         merge_cache_slots(self.serve_spec, new_cache,
                           dict(new_cache, **before), io["active"],
                           skip_paged=self._paged)
         io["sampled"].copy_(self._sample(logits))
-        return logits, io["sampled"]
+        if self._world == 1:
+            return logits, io["sampled"]
+        import torch.distributed as dist
+
+        out = io["gathered"]
+        out.zero_()
+        if self._lead:
+            out[self._lo:self._hi] = io["sampled"]
+        dist.all_reduce(out)
+        return logits, out
 
     def _upload_tick(self, toks, active: np.ndarray,
                      fresh: Optional[np.ndarray]) -> None:
         """The tick's inputs into the static buffers.  ``toks``: ``(B, 1)``
         or ``(B,)`` host tokens, or a ``(B, 1)`` device tensor."""
         io = self._io
+        lo, hi = self._lo, self._hi
         if isinstance(toks, torch.Tensor):
-            io["tokens"].copy_(toks.reshape(self.n_slots, 1))
+            io["tokens"].copy_(toks.reshape(self.n_slots, 1)[lo:hi])
         else:
-            upload(io["tokens"], np.asarray(toks, np.int64).reshape(-1, 1))
-        upload(io["active"], np.asarray(active, bool))
-        upload(io["fresh"], self._all_fresh if fresh is None
-               else np.asarray(fresh, bool))
+            upload(io["tokens"],
+                   np.asarray(toks, np.int64).reshape(-1, 1)[lo:hi])
+        upload(io["active"], np.asarray(active, bool)[lo:hi])
+        upload(io["fresh"], (self._all_fresh if fresh is None
+                             else np.asarray(fresh, bool))[lo:hi])
         if "ids" in io:
-            upload(io["ids"], self._adapter_ids)
+            upload(io["ids"], self._adapter_ids[lo:hi])
         if self._paged:
             self.pager.device_tables()          # refreshed after edits
 
@@ -875,7 +1074,8 @@ class ServingEngine:
                         fresh: Optional[np.ndarray] = None) -> torch.Tensor:
         """One fused decode tick for the whole slot batch; returns its
         ``(B, 1, V)`` logits (the graph's output buffer on the card: valid
-        until the next tick).  Only ``active`` slots advance their length.
+        until the next tick; under a mesh, this rank's slots' rows).  Only
+        ``active`` slots advance their length.
         ``fresh`` (default: every slot) marks the slots whose token comes
         from ``toks``; the others take the previous tick's sampled token
         on the device (a chained dispatch).  The tick's sampled tokens

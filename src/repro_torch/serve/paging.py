@@ -1,5 +1,5 @@
 """Paged KV cache, host-side control plane (port of
-``repro/serve/paging.py``, single device).
+``repro/serve/paging.py``).
 
 * :class:`BlockAllocator` -- a LIFO free list over ``n_blocks`` pool
   blocks of ``block_size`` tokens.  Block 0 is the null block: it is never
@@ -17,8 +17,13 @@
 * Accounting: blocks in use, bytes allocated and peak utilization, which
   ``ServingEngine.stats`` reports.
 
-Sharded pools (``data_shards > 1``, one arena per data shard) come with
-the mesh slice and raise here.
+Sharded pools (``data_shards > 1``): the pool splits into equal arenas,
+one a data shard, each with its own allocator and its own null block (the
+arena's local row 0).  Slot ``s`` belongs to shard ``s // (n_slots /
+data_shards)`` (the contiguous chunks of a ``P(dp)`` slot split) and
+allocates from its arena alone; tables hold GLOBAL pool rows (``shard *
+arena_size + local``), so the paged decode of one shard reads its arena
+through ``table - shard * arena_size`` (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ NULL_BLOCK = 0
 
 
 def addressable_nbytes(leaf: torch.Tensor) -> int:
-    """Device bytes held by ``leaf``; on one device, its size in bytes."""
-    return int(leaf.numel() * leaf.element_size())
+    """Device bytes this rank holds of ``leaf``: a DTensor's local shard,
+    else the tensor's size in bytes."""
+    local = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+    return int(local.numel() * local.element_size())
 
 
 class BlockAllocator:
@@ -97,17 +104,17 @@ class PagedCacheView:
     the model's ``cfg.kv_quant``) is stored as codes plus a ``<key>_qscale``
     pool of scales per ``quant_block`` elements of the last axis;
     ``serve_spec`` is the spec of that serving cache, and the byte gauges
-    count the packed bytes.
+    count the packed bytes.  ``data_shards > 1`` partitions the pool into
+    that many equal arenas (``n_blocks`` rounded up to a multiple; by
+    default every slot full plus one null block an arena).
     """
 
     def __init__(self, model, n_slots: int, max_len: int, block_size: int,
                  n_blocks: Optional[int] = None, data_shards: int = 1):
         if block_size < 1:
             raise ValueError("block_size must be positive")
-        if data_shards != 1:
-            raise NotImplementedError(
-                "data_shards > 1 (one pool arena per data shard) comes with "
-                "the mesh slice; it is not ported yet")
+        if data_shards < 1:
+            raise ValueError("data_shards must be positive")
         self.n_slots = n_slots
         self.block_size = block_size
         self.device = model.device
@@ -121,14 +128,31 @@ class PagedCacheView:
         if len(extents) > 1:
             raise ValueError(f"paged leaves disagree on extent: {extents}")
         self.paged = bool(extents)
+        self.data_shards = data_shards if self.paged else 1
+        if self.paged and n_slots % self.data_shards:
+            raise ValueError(
+                f"n_slots {n_slots} must divide evenly across "
+                f"{self.data_shards} data shards")
         self.tokens_per_slot = extents.pop() if extents else 0
         self.max_blocks_per_slot = -(-self.tokens_per_slot // block_size)
         if n_blocks is None:
-            n_blocks = n_slots * self.max_blocks_per_slot + 1
+            n_blocks = n_slots * self.max_blocks_per_slot + self.data_shards
+        elif n_blocks % self.data_shards:
+            n_blocks += self.data_shards - n_blocks % self.data_shards
         self.n_blocks = n_blocks if self.paged else 0
-        self.allocator = BlockAllocator(n_blocks) if self.paged else None
+        self.arena_size = n_blocks // self.data_shards if self.paged else 0
+        # one allocator an arena, handing out LOCAL rows 1..arena_size-1
+        self._arenas = ([BlockAllocator(self.arena_size)
+                         for _ in range(self.data_shards)]
+                        if self.paged else None)
+        # the one allocator of an unsharded pool
+        self.allocator = (self._arenas[0]
+                          if self.paged and self.data_shards == 1 else None)
         self._tables = np.full(
             (n_slots, max(self.max_blocks_per_slot, 1)), NULL_BLOCK, np.int32)
+        if self.paged:
+            for slot in range(n_slots):
+                self._tables[slot, :] = self.null_of(self.shard_of(slot))
         self._counts = np.zeros((n_slots,), np.int32)
         self._device_tables = torch.empty(self._tables.shape,
                                           dtype=torch.int32,
@@ -137,6 +161,7 @@ class PagedCacheView:
         self.uploads = 0
         self._bytes_per_block = 0.0   # filled by init_cache
         self._dense_bytes = 0         # filled by init_cache
+        self._local_arena = None      # the arena a placed cache holds
         self.kv_quant = None          # resolved per leaf below
         self.serve_spec, self._serve_shapes = self._apply_kv_quant()
 
@@ -175,11 +200,22 @@ class PagedCacheView:
             self.kv_quant = fmt
         return out_spec, out_shapes
 
+    # ------------------------------------------------------------- sharding
+    def shard_of(self, slot: int) -> int:
+        """Data shard owning ``slot`` (contiguous chunks of slots)."""
+        if not self.paged or self.data_shards == 1:
+            return 0
+        return int(slot) // (self.n_slots // self.data_shards)
+
+    def null_of(self, shard: int) -> int:
+        """Global pool row of ``shard``'s null block (its arena's row 0)."""
+        return shard * self.arena_size
+
     @property
     def max_request_blocks(self) -> int:
-        """Most blocks one request can hold: the pool minus the null
-        block."""
-        return self.n_blocks - 1
+        """Most blocks one request can hold: its arena minus the arena's
+        null block."""
+        return self.arena_size - 1
 
     # ----------------------------------------------------------- pool init
     def _pool_shape(self, ls: PagedCacheLeafSpec, dense_shape):
@@ -199,19 +235,42 @@ class PagedCacheView:
             for shape, dt in [self._serve_shapes[key]]
         }
 
-    def init_cache(self) -> Dict[str, torch.Tensor]:
+    def meta_struct(self) -> Dict[str, torch.Tensor]:
+        """:meth:`struct` as ``meta`` tensors (what the sharding rules
+        take)."""
+        return {key: torch.empty(shape, dtype=dt, device="meta")
+                for key, (shape, dt) in self.struct().items()}
+
+    def init_cache(self, mesh=None, specs=None) -> Dict[str, torch.Tensor]:
         """Zero-filled serving cache on the model's device: block pools for
-        paged leaves, the dense layout otherwise.  Sets the byte gauges."""
-        cache = {key: torch.zeros(shape, dtype=dt, device=self.device)
-                 for key, (shape, dt) in self.struct().items()}
-        per_block, dense = 0.0, 0
+        paged leaves, the dense layout otherwise.  With a ``DeviceMesh``
+        and ``launch.shardings.cache_shardings`` ``specs``, each leaf is a
+        DTensor of which this rank allocates its shard only (its arena of
+        a DP-split pool).  Sets the byte gauges from what this rank holds:
+        a block's bytes are the local pool bytes over the local pool
+        rows."""
+        if mesh is None:
+            cache = {key: torch.zeros(shape, dtype=dt, device=self.device)
+                     for key, (shape, dt) in self.struct().items()}
+        else:
+            from repro_torch.launch.mesh import dp_index
+            from repro_torch.launch.shardings import placed_zeros
+
+            cache = placed_zeros(self.meta_struct(), mesh, specs, self.device)
+        per_block, dense, split = 0.0, 0, False
         for key, ls in self.serve_spec.items():
+            leaf = cache[key]
             if self.paged and isinstance(ls, PagedCacheLeafSpec):
-                per_block += addressable_nbytes(cache[key]) / self.n_blocks
+                rows = (leaf.to_local() if mesh is not None
+                        else leaf).shape[ls.slot_axis]
+                split = split or rows != self.n_blocks
+                per_block += addressable_nbytes(leaf) / rows
             else:
-                dense += addressable_nbytes(cache[key])
+                dense += addressable_nbytes(leaf)
         self._bytes_per_block = per_block
         self._dense_bytes = dense
+        # a rank holding one arena bills that arena's blocks
+        self._local_arena = dp_index(mesh) if split else None
         return cache
 
     # ------------------------------------------------------- block tables
@@ -220,9 +279,10 @@ class PagedCacheView:
         return -(-min(n_tokens, self.tokens_per_slot) // self.block_size)
 
     def can_admit(self, n_tokens: int, slot: int = 0) -> bool:
-        """Whether the pool can hold ``n_tokens`` more for a new slot now."""
+        """Whether ``slot``'s arena can hold ``n_tokens`` now."""
         return (not self.paged) or (
-            self.blocks_for(n_tokens) <= self.allocator.available)
+            self.blocks_for(n_tokens)
+            <= self._arenas[self.shard_of(slot)].available)
 
     def ensure(self, slot: int, n_tokens: int) -> None:
         """Grow ``slot``'s table to cover ``n_tokens`` (alloc on append).
@@ -233,17 +293,22 @@ class PagedCacheView:
         have = int(self._counts[slot])
         if need <= have:
             return
-        self._tables[slot, have:need] = self.allocator.alloc(need - have)
+        shard = self.shard_of(slot)
+        local = self._arenas[shard].alloc(need - have)
+        base = self.null_of(shard)
+        self._tables[slot, have:need] = [base + b for b in local]
         self._counts[slot] = need
         self._dirty = True
 
     def release(self, slot: int) -> None:
         if not self.paged:
             return
+        shard = self.shard_of(slot)
+        base = self.null_of(shard)
         c = int(self._counts[slot])
         if c:
-            self.allocator.free(self._tables[slot, :c])
-        self._tables[slot, :] = NULL_BLOCK
+            self._arenas[shard].free(self._tables[slot, :c] - base)
+        self._tables[slot, :] = base
         self._counts[slot] = 0
         self._dirty = True
 
@@ -277,11 +342,12 @@ class PagedCacheView:
 
     def wave_tables(self, slot_ids, n_logical_blocks: int) -> np.ndarray:
         """``(len(slot_ids), n_logical_blocks)`` scatter table of a prefill
-        wave: each row's blocks, then the null block as padding."""
+        wave: each row's blocks, then its arena's null block as padding."""
         out = np.full((len(slot_ids), n_logical_blocks), NULL_BLOCK,
                       np.int32)
         for row, slot in enumerate(slot_ids):
             c = min(int(self._counts[slot]), n_logical_blocks)
+            out[row, :] = self.null_of(self.shard_of(int(slot)))
             out[row, :c] = self._tables[slot, :c]
         return out
 
@@ -296,15 +362,19 @@ class PagedCacheView:
                 "peak_block_utilization": 0.0,
                 "kv_quant": None,
             }
-        in_use = self.allocator.in_use
-        usable = self.n_blocks - 1
-        peak = self.allocator.peak_in_use
+        in_use = sum(a.in_use for a in self._arenas)
+        usable = self.n_blocks - self.data_shards     # minus arena nulls
+        # per-arena peaks may fall on different ticks: their sum bounds
+        # the concurrent peak from above
+        peak = sum(a.peak_in_use for a in self._arenas)
+        held = (in_use if self._local_arena is None
+                else self._arenas[self._local_arena].in_use)
         return {
             "blocks_in_use": in_use,
             "blocks_total": usable,
             "peak_blocks_in_use": peak,
             "cache_bytes_allocated": int(
-                self._dense_bytes + in_use * self._bytes_per_block),
+                self._dense_bytes + held * self._bytes_per_block),
             "peak_block_utilization": peak / usable,
             "kv_quant": self.kv_quant,
         }

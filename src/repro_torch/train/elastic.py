@@ -16,8 +16,8 @@ deterministic data re-sharding) are real and tested:
   re-dealt without replaying or skipping a single token.
 * :class:`ElasticController` — failure-event state machine: on host loss it
   emits a (new mesh, checkpoint step, shard remap) recovery plan; the
-  restore itself is ``repro_torch.checkpoint.restore_resharded`` (one
-  device until the mesh slice is ported).
+  restore itself is ``repro_torch.checkpoint.restore_resharded`` (onto
+  one device, or a ``DeviceMesh`` with a spec tree).
 """
 
 from __future__ import annotations

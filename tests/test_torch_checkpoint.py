@@ -298,9 +298,14 @@ def test_restore_resharded_onto_one_device_and_refuses_a_mesh(tmp_path):
     _assert_bits_equal(leaves, tree_flatten_with_paths(ts)[1])
     assert all(t.device.type == "cpu" for t in leaves
                if isinstance(t, torch.Tensor))
-    for mesh in ({"w": "cpu"}, ("data", "model"), object()):
-        with pytest.raises(NotImplementedError, match="mesh slice"):
-            restore_resharded(str(tmp_path), STEP, template, mesh)
+    # a placement is a device, or a DeviceMesh with a spec tree (held on
+    # gloo ranks in tests/test_torch_mesh.py); anything else raises
+    from repro_torch.launch import make_abstract_mesh
+
+    for placement in ({"w": "cpu"}, ("data", "model"), object(),
+                      make_abstract_mesh((2, 1), ("data", "model"))):
+        with pytest.raises(TypeError, match="DeviceMesh with a spec"):
+            restore_resharded(str(tmp_path), STEP, template, placement)
 
 
 def test_restore_onto_meta_defaults_to_the_card(tmp_path, monkeypatch):

@@ -220,8 +220,32 @@ def test_reset_and_merge_cache_slots_match_jax(skip_paged):
 
 
 def test_view_refuses_data_shards():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _views(n_slots=2, max_len=32, block_size=8, data_shards=2)
+    """``data_shards=2`` (once refused here) cuts the pool into the JAX
+    view's arenas: the same blocks from each slot's own arena, per-arena
+    null rows in the tables and the wave padding, the same stats; an
+    uneven slot split still raises."""
+    jv, tv = _views(n_slots=4, max_len=64, block_size=8, data_shards=2)
+    assert (tv.n_blocks, tv.arena_size, tv.max_request_blocks) == (
+        jv.n_blocks, jv.arena_size, jv.max_request_blocks)
+    for slot, n in ((0, 20), (3, 9), (2, 30)):
+        tv.ensure(slot, n)
+        jv.ensure(slot, n)
+    tv.release(2)
+    jv.release(2)
+    tv.ensure(1, 17)
+    jv.ensure(1, 17)
+    np.testing.assert_array_equal(tv.host_tables(),
+                                  np.asarray(jv.device_tables()))
+    np.testing.assert_array_equal(tv.wave_tables(np.array([3, 1]), 4),
+                                  jv.wave_tables(np.array([3, 1]), 4))
+    assert [tv.shard_of(s) for s in range(4)] == [
+        jv.shard_of(s) for s in range(4)]
+    assert tv.null_of(1) == jv.null_of(1) == tv.arena_size
+    for key in ("blocks_in_use", "blocks_total", "peak_blocks_in_use"):
+        assert tv.stats()[key] == jv.stats()[key]
+    with pytest.raises(ValueError, match="divide evenly"):
+        PagedCacheView(build_model(get_smoke("qwen2-0.5b"), device="cpu"),
+                       n_slots=3, max_len=32, block_size=8, data_shards=2)
 
 
 # ----------------------------------- paged decode: plain vs JAX interpret

@@ -139,8 +139,11 @@ def test_engine_frees_and_reuses_slots():
     pytest.param(dict(mesh=object()), id="option1"),
 ])
 def test_unported_engine_options_raise(option):
+    """``mesh=`` (once refused) takes a ``DeviceMesh``: anything else
+    raises ``TypeError`` (the sharded engine itself is held in
+    ``tests/test_torch_mesh.py``)."""
     model = build_model(get_smoke("llama2-7b-proxy"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(model, model.init(0), n_slots=2, max_len=32,
                       device="cpu", **option)
 

@@ -298,6 +298,19 @@ Phases, one line or more each before the last:
    faults (the model with one tile dropped, a describe result with one
    grid dimension short) must be caught; ``contracts: <cases> cases,
    <findings> findings, <s> s``.
+15. mesh: qwen2-0.5b FULL under a world of one, the per-arena paged
+   decode, and the ``(2, 1)`` engine on two gloo ranks (``mesh_phase``;
+   one ``mesh`` line).
+16. dry run: qwen2-0.5b FULL at phase 8's shapes (a training step of 8
+   x 512, a prefill wave of 8 x 384, a decode tick of 8 slots of 512):
+   (a) ``launch/op_cost.py``'s FLOPs by dtype of the reference step on
+   ``meta`` equal its count of the same step on the card; (b) the card's
+   ``max_memory_allocated`` over the step within ``DRYRUN_PEAK_BAND`` of
+   the dry run's peak of live tensors; (c) phase 8's measured training
+   step, prefill wave and graph tick over the dry run's
+   ``step_time_bound_s`` of the kernel config, each at least 1; (d)
+   ``python -m repro_torch.launch.dryrun`` on one FULL cell in a child
+   process writes its record (one ``dryrun`` line).
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -352,8 +365,6 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 HOLD_CYCLES = 40_000_000                  # ~20 ms of card time, see timed()
 HOLD_CYCLES_PER_S = 2e9                   # at most the H100's 1.98 GHz boost
 # kernel vs plain in float32: (rtol, atol), as the JAX package's own tests
@@ -557,11 +568,14 @@ def bound(nbytes, flops, dtype):
     peak; those of different types run on different units (bf16 on the
     tensor cores, float32 on the CUDA cores), which may overlap, so the
     slowest unit's time bounds them."""
+    # the H100's data-sheet peaks, the dry run's (launch/roofline.py HW)
+    from repro_torch.launch.roofline import HW, compute_seconds
+
     per_type = {}
     for f, dt in (flops if isinstance(flops, list) else [(flops, dtype)]):
         per_type[str(dt)] = per_type.get(str(dt), 0) + f
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(f / PEAK_FLOPS[dt] * 1e3 for dt, f in per_type.items())
+    t_bytes = nbytes / HW["hbm_bw"] * 1e3
+    t_ops = compute_seconds(per_type) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -6177,6 +6191,179 @@ def mesh_phase(card, dev):
     return records, time.monotonic() - t0
 
 
+# --------------------------------------------------------------- phase 16
+# the card's max_memory_allocated over a step against the dry run's peak
+# of live tensor bytes, real / dry: the band was written in PERF.md before
+# the first reading (the allocator rounds each block up to 512 bytes, and
+# a library call's workspace is no tensor the counter sees)
+DRYRUN_PEAK_BAND = (0.95, 1.25)
+# phase 8's shapes of qwen2-0.5b: a training step of 8 x 512 (one
+# microbatch), a prefill wave of 8 x 384, a decode tick of 8 slots of 512
+DRYRUN_SHAPES = (("train", 512), ("prefill", 384), ("decode", 512))
+DRYRUN_SEED = 1600
+
+
+def _real_args(progs, peft_cfg, dev, seed):
+    """The step's arguments on the card: random weights, folded QuanTA
+    (``peft_cfg``) and AdamW for training, a random batch of the meta
+    batch's shapes and dtypes, for decode a dense cache holding 384
+    rows."""
+    import torch
+    from repro_torch.core.peft import attach
+    from repro_torch.train import TrainState
+
+    model, shape = progs.model, progs.shape
+    base, peft = attach(seed + 1, model.init(seed), peft_cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    batch = {k: torch.randint(0, progs.cfg.vocab_size, v.shape, generator=gen,
+                              dtype=v.dtype, device=dev)
+             for k, v in progs.batch_specs.items()}
+    if shape.kind == "train":
+        return TrainState.create(base, peft, progs.optimizer), batch
+    if shape.kind == "prefill":
+        return base, peft, batch
+    cache = model.init_cache(shape.global_batch, shape.seq_len, device=dev)
+    cache["len"].fill_(384)
+    return base, peft, cache, batch
+
+
+def dryrun_cli(card):
+    """Phase 16 (d): ``python -m repro_torch.launch.dryrun`` on one cell
+    in a child process (a fake world of 256 ranks there; this process may
+    hold a process group); returns its record."""
+    out_dir = HERE / "build" / "dryrun_phase16"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           QWEN2, "--shape", "decode_32k", "--mesh", "single", "--out",
+           str(out_dir)]
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(HERE / "src")))
+    wall = time.monotonic() - t0
+    path = out_dir / f"{QWEN2}__decode_32k__single.json"
+    rec = None
+    if res.returncode == 0 and path.is_file():
+        rec = json.loads(path.read_text())
+    print(f"dryrun (d): {' '.join(cmd[1:])}: exit {res.returncode}, "
+          f"{wall:.1f} s, record "
+          f"{'written' if rec else 'missing'}: "
+          + (res.stdout.strip().splitlines() or [""])[0])
+    if rec is None:
+        print(res.stdout[-2000:] + res.stderr[-2000:])
+        fail("dryrun (d): the CLI wrote no record")
+        return None
+    roof = rec["roofline"]
+    if not (rec["n_chips"] == 256 and roof["step_time_bound_s"] > 0
+            and rec["memory"]["fits"]):
+        fail(f"dryrun (d): the record is wrong: {rec['memory']}")
+    return dict(exit=res.returncode, wall_s=wall, meta_s=rec["meta_s"],
+                bound_ms=roof["step_time_bound_s"] * 1e3,
+                dominant=roof["dominant"],
+                peak_bytes=rec["memory"]["total_hbm_bytes"])
+
+
+def dryrun_phase(card, dev, measured=None):
+    """Phase 16: the dry run (``launch/{op_cost,roofline,dryrun}.py``)
+    against real steps of qwen2-0.5b FULL at phase 8's shapes.  (a) the
+    op counter's FLOPs (by dtype) of the reference step on ``meta`` equal
+    its count of the same step run on the card; (b) the card's
+    ``max_memory_allocated`` over that step within ``DRYRUN_PEAK_BAND`` of
+    the dry run's peak; (c) phase 8's measured training step, prefill
+    wave and graph tick (``measured``, the kernel config: kernel 3 in
+    training, kernels 1-4 serving) over the dry run's
+    ``step_time_bound_s`` of that config, each at least 1; (d) the CLI
+    in a child process.  Prints the ``dryrun`` line; returns it and the
+    phase's seconds."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, get_peft
+    from repro_torch.launch import dryrun, op_cost, roofline
+    from repro_torch.launch.steps import build_programs
+    from repro_torch.models.common import ShapeConfig
+
+    t0 = time.monotonic()
+    full = get_config(QWEN2)
+    peft_cfg = _quanta(full, get_peft(QWEN2).n_axes)
+    ref = full.replace(attn_backend="reference", peft_backend="reference")
+    serve_k = full.replace(attn_backend="pallas", peft_backend="pallas")
+    kernel_cfg = {"train": full.replace(attn_backend="pallas"),
+                  "prefill": serve_k, "decode": serve_k}
+    line = {}
+    for kind, seq in DRYRUN_SHAPES:
+        shape = ShapeConfig(f"{kind}_8x{seq}", seq_len=seq, global_batch=8,
+                            kind=kind)
+        tm = time.monotonic()
+        dry = dryrun.cell_cost(ref, peft_cfg, shape)["cost"]
+        meta_s = time.monotonic() - tm
+        progs = build_programs(ref, shape, dp_axes=None, device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        args = _real_args(progs, peft_cfg, dev, DRYRUN_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tm = time.monotonic()
+        real = op_cost.count(progs.step_fn, *args)
+        torch.cuda.synchronize()
+        card_s = time.monotonic() - tm
+        peak = torch.cuda.max_memory_allocated() - held
+        del args, progs
+        gc.collect()
+        torch.cuda.empty_cache()
+        terms = roofline.roofline_terms(
+            kernel_cfg[kind], shape, 1, dry,
+            roofline.parse_collective_bytes(dry["collectives"]),
+            device_shape=shape)
+        bound_ms = terms["step_time_bound_s"] * 1e3
+        rec = dict(meta_flops=dry["flops"], card_flops=real["flops"],
+                   flops_by_dtype=dry["flops_by_dtype"],
+                   meta_bytes=dry["bytes accessed"],
+                   card_bytes=real["bytes accessed"],
+                   dry_peak_bytes=dry["peak_bytes"],
+                   card_counter_peak_bytes=real["peak_bytes"],
+                   card_peak_bytes=peak, peak_ratio=peak / dry["peak_bytes"],
+                   bound_ms=bound_ms, dominant=terms["dominant"],
+                   compute_ms=terms["compute_s"] * 1e3,
+                   memory_ms=terms["memory_s"] * 1e3, meta_s=meta_s,
+                   card_counted_s=card_s)
+        same = real["flops_by_dtype"] == dry["flops_by_dtype"]
+        lo, hi = DRYRUN_PEAK_BAND
+        band = lo <= rec["peak_ratio"] <= hi
+        if measured and measured.get(kind) is not None:
+            rec["measured_ms"] = measured[kind]
+            rec["measured_over_bound"] = measured[kind] / bound_ms
+        print(f"dryrun {QWEN2} {kind} 8 x {seq}: (a) FLOPs meta "
+              f"{dry['flops']:.6e} card {real['flops']:.6e} "
+              f"{'equal' if same else 'DIFFER'} ({dry['flops_by_dtype']}); "
+              f"bytes meta {dry['bytes accessed']:.6e} card "
+              f"{real['bytes accessed']:.6e}; (b) peak: card "
+              f"{peak / 2 ** 30:.4f} GiB (max_memory_allocated) vs dry "
+              f"{dry['peak_bytes'] / 2 ** 30:.4f} GiB, ratio "
+              f"{rec['peak_ratio']:.4f} (band {lo}-{hi}); (c) bound "
+              f"{bound_ms:.3f} ms ({terms['dominant']}: compute "
+              f"{rec['compute_ms']:.3f}, memory {rec['memory_ms']:.3f})"
+              + (f", measured {rec['measured_ms']:.2f} ms, measured / bound"
+                 f" {rec['measured_over_bound']:.2f}"
+                 if "measured_ms" in rec else ", no phase 8 reading")
+              + f"; meta {meta_s:.1f} s, card count {card_s:.1f} s "
+              f"[{card}]")
+        if not same:
+            fail(f"dryrun (a) {kind}: the meta count's FLOPs differ from "
+                 f"the card's")
+        if not band:
+            fail(f"dryrun (b) {kind}: peak ratio {rec['peak_ratio']:.4f} "
+                 f"outside {DRYRUN_PEAK_BAND}")
+        if rec.get("measured_over_bound", 1.0) < 1.0:
+            fail(f"dryrun (c) {kind}: measured under the roofline bound")
+        line[kind] = rec
+    line["cli"] = dryrun_cli(card)
+    line["card"] = card
+    print("dryrun " + json.dumps(line))
+    return line, time.monotonic() - t0
+
+
 def main() -> int:
     import torch
 
@@ -6312,6 +6499,10 @@ def main() -> int:
     phase_s["checkpoint"] = time.monotonic() - t0
     phase_s["contracts"] = contracts(card)
     mesh_records, phase_s["mesh"] = mesh_phase(card, dev)
+    q_read = family[QWEN2][2]
+    _, phase_s["dryrun"] = dryrun_phase(card, dev, {
+        "train": q_read["step_ms"], "prefill": q_read["prefill_ms"],
+        "decode": q_read["dense"][0]})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 

@@ -124,6 +124,9 @@ class ModelConfig:
     fast_softmax: bool = False    # reference attention only
     kv_cache: str = "dense"
     kv_block_size: int = 64
+    # the dry run's mean share of max_len a paged slot holds (the roofline
+    # bills paged decode reads by it: ``launch/roofline.py``)
+    kv_occupancy: float = 0.5
     base_quant: Optional[str] = None
     quant_block_size: int = 64
     kv_quant: Optional[str] = None

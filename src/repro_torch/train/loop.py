@@ -84,9 +84,11 @@ def _split_microbatches(batch: Dict[str, Any], m: int, share=(0, 1)):
     return out
 
 
-def _valid(mb) -> float:
-    """Valid labels of a microbatch (the loss's token count)."""
-    return float((torch.as_tensor(mb["labels"]) >= 0).sum())
+def _valid(mb) -> torch.Tensor:
+    """Valid labels of a microbatch (the loss's token count), a float64
+    tensor on the labels' device: the step never reads it back to the
+    host."""
+    return (torch.as_tensor(mb["labels"]) >= 0).sum().to(torch.float64)
 
 
 def make_train_step(
@@ -155,7 +157,10 @@ def make_train_step(
         loss = torch.zeros((), dtype=torch.float32)
         for whole, mb in zip(_split_microbatches(batch, microbatches),
                              _split_microbatches(batch, microbatches, share)):
-            w = _valid(mb) / max(_valid(whole), 1.0) / microbatches
+            # the share in float64, cast once to float32 (as a Python
+            # float multiplies a float32 tensor)
+            w = (_valid(mb) / torch.clamp(_valid(whole), min=1.0)
+                 / microbatches).float()
             loss_i, g = grad_fn(trainable, frozen, mb)
             grads = tree_map(lambda a, b: a + b.float() * w, grads, g)
             loss = loss.to(loss_i.device) + loss_i.float() * w

@@ -311,6 +311,18 @@ Phases, one line or more each before the last:
    ``step_time_bound_s`` of the kernel config, each at least 1; (d)
    ``python -m repro_torch.launch.dryrun`` on one FULL cell in a child
    process writes its record (one ``dryrun`` line).
+17. tp: tensor parallelism over `model` (``tp_phase``): two spawned gloo
+   ranks serve qwen2-0.5b FULL at ``(1, 2)``, each holding its shards of
+   the weights and its KV heads, while this process serves the meshless
+   twins; the dense adapted (kernels 1-4), paged (5), NF4 base + NF4 KV
+   (6, 7) and two-tenant LoRA bank (8) engines: first-wave logits within
+   ``SERVE_LOGIT_TOL`` of the twin's, the agreeing greedy tokens
+   counted, every kernel of each path launched on both ranks; the f32 cut
+   (2 layers) gives the twin's tokens exactly; each rank's
+   ``param_bytes`` and peak allocation under the whole model's bytes;
+   gloo's bf16 ``all_reduce`` and ``all_gather`` on CUDA tensors; a
+   planted fault (rank 0 keeping its partial sums in place of the
+   ``all_reduce``) caught (one ``tp`` line).
 
 Each kernel reports the launches of the serve run whose path it is on:
 kernels 1-4 of the dense adapted run, the NF4-KV decode and the
@@ -343,7 +355,12 @@ restored adapters' serve run), and ``mesh`` from phase 15 (its
 launches in each (a) engine and each (c) rank, counted from 0 just before
 each run; for kernels 5 and 6 ``per_arena``: at 2 and 4 arenas the
 per-arena launches, bit equality with the whole pool's launch, and the
-ms of the whole launch, of all arenas' launches and of one arena's).
+ms of the whole launch, of all arenas' launches and of one arena's), and
+``tp`` from phase 17 (its launches in each engine on each rank, counted
+from 0 just before each run).  Kernel 2's readings in phase 3 (llama2)
+and phase 8 (qwen2-0.5b) include a column shard (rank 1 of 2: the delta
+read at the chain's column ``d_out / 2``) with the planted fault of the
+offset ignored.
 
 Then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  An error raises at
@@ -947,6 +964,29 @@ def check_kernels(card, cfg, n_axes, dev, extras=False, faults=False):
                            x, tensors, dims, pairs)),
                        (rows * (d_in + d_out) + d_in * d_out) * sz + t_bytes,
                        2 * rows * (d_in * d_out + macs), main)
+                if (extras or faults) and dtype == torch.bfloat16:
+                    # a column shard of two (tensor parallelism over
+                    # `model`): rank 1's columns of W, its delta read in
+                    # place at the chain's column d_out / 2
+                    n = d_out // 2
+                    wl = w[:, n:].contiguous()
+                    want_c = quanta_linear_plain(x, wl, tensors, dims, pairs,
+                                                 n)
+                    report("quanta_linear", f"{label} cols [{n}, {d_out})",
+                           dtype, quanta_linear(x, wl, tensors, dims, pairs,
+                                                n), want_c,
+                           timed(lambda: quanta_linear(x, wl, tensors, dims,
+                                                       pairs, n)),
+                           timed(lambda: quanta_linear_plain(
+                               x, wl, tensors, dims, pairs, n)),
+                           timed(lambda: torch.matmul(x, wl) + apply_einsum(
+                               x, tensors, dims, pairs)[:, n:]),
+                           (rows * (d_in + n) + d_in * n) * sz + t_bytes,
+                           2 * rows * (d_in * n + macs), False)
+                    planted("quanta_linear", "the column offset ignored: "
+                            "the neighbour's columns of the delta",
+                            quanta_linear(x, wl, tensors, dims, pairs, 0),
+                            want_c)
                 if faulted and dtype == torch.bfloat16:
                     planted("quanta_apply", "one stage's pair axes swapped",
                             apply_sequential(x, swapped_stage(
@@ -5929,16 +5969,22 @@ def _numerics():
 def _mesh_model(dev, arch=QWEN2):
     """``arch`` FULL (bf16, the kernels on), adapted as in phase 5 (seed
     ``MESH_SEED``), and phase 5's 8 prompts of 32-384 tokens."""
-    import torch
     from repro_torch.configs import get_config, get_peft
 
     cfg = get_config(arch).replace(attn_backend="pallas",
                                    peft_backend="pallas")
     model, base, peft = _adapted(cfg, MESH_SEED, dev, get_peft(arch).n_axes)
+    return cfg, model, base, peft, _mesh_prompts(cfg.vocab_size)
+
+
+def _mesh_prompts(vocab):
+    """Phase 5's 8 prompts of 32-384 tokens over ``vocab`` (phases 15 and
+    17 serve them)."""
+    import torch
+
     gen = torch.Generator().manual_seed(9)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in (32, 82, 132, 182, 232, 282, 332, 384)]
-    return cfg, model, base, peft, prompts
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in (32, 82, 132, 182, 232, 282, 332, 384)]
 
 
 def mesh_world_of_one(card, dev):
@@ -6364,6 +6410,362 @@ def dryrun_phase(card, dev, measured=None):
     return line, time.monotonic() - t0
 
 
+# --------------------------------------------------------------- phase 17
+# qwen2-0.5b FULL (14 heads over 2 KV heads, d_ff 4864: `model` = 2
+# divides all three) served tensor-parallel at (1, 2) on two gloo ranks on
+# the one card, each engine against its meshless twin in this process
+TP_SEED = 1700
+TP_NEW = 16
+TP_TARGETS = (r".*/(q_proj|v_proj|o_proj|down_proj)$",)
+TP_TENANTS = {"L16": (16, 32.0), "L8": (8, 16.0)}
+TP_MIX = ("L16", "L8", None, "L16", "L8", None, "L16", "L8")
+# label -> (engine options, cfg.kv_quant, LoRA bank, the kernels of its
+# path, each of which must launch on both ranks)
+TP_CASES = {
+    "dense bf16": ({}, None, False,
+                   ("quanta_apply", "quanta_linear", "flash_attention",
+                    "flash_decode_attention")),
+    "paged bf16": (dict(cache="paged", block_size=16), None, False,
+                   ("quanta_apply", "quanta_linear", "flash_attention",
+                    "paged_flash_decode_attention")),
+    "nf4 base nf4 kv": (dict(cache="paged", block_size=16,
+                             base_quant="nf4", kv_quant="nf4"), "nf4", False,
+                        ("quanta_apply", "quantized_matmul",
+                         "flash_attention",
+                         "paged_flash_decode_attention_quant")),
+    "bank": ({}, None, True,
+             ("banked_lora_linear", "banked_lora_delta", "flash_attention",
+              "flash_decode_attention")),
+}
+TP_CUT_LAYERS = 2
+TP_THREADS = 2
+
+
+def _tp_weights(cfg, seed, n_axes):
+    """Weights drawn on the host from CPU generators (each rank draws the
+    same): the base with folded, perturbed QuanTA on q/v (:func:`_quanta`)
+    and two LoRA tenants of ranks 16 and 8 on q/v/o/down (B filled), so
+    kernel 8 runs on column and row shards alike."""
+    import torch
+    from repro_torch.core.peft import PeftConfig, attach
+    from repro_torch.models import build_model
+
+    params = build_model(cfg, device="cpu").init(seed)
+    base, peft = attach(seed + 1, params, _quanta(cfg, n_axes),
+                        device="cpu")
+    gen = torch.Generator().manual_seed(seed + 2)
+    for a in peft.flat().values():
+        for t in a.tensors:
+            t.add_(0.02 * torch.randn(t.shape, generator=gen, dtype=t.dtype))
+    tenants = {}
+    for i, (name, (rank, alpha)) in enumerate(TP_TENANTS.items()):
+        _, lora = attach(seed + 10 + i, params, PeftConfig(
+            method="lora", rank=rank, alpha=alpha, targets=TP_TARGETS),
+            device="cpu")
+        for a in lora.flat().values():
+            a.b.add_(0.02 * torch.randn(a.b.shape, generator=gen,
+                                        dtype=a.b.dtype))
+        tenants[name] = lora
+    return base, peft, tenants
+
+
+def _on(tree, dev):
+    from repro_torch.core.adapters import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _wave(prompts, bucket=16):
+    """The first admission wave of ``prompts`` as the engine builds it:
+    right-padded to a multiple of ``bucket``, and the lengths."""
+    import numpy as np
+    import torch
+
+    s = -(-max(map(len, prompts)) // bucket) * bucket
+    toks = np.zeros((len(prompts), s), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    return (torch.from_numpy(toks),
+            torch.tensor([len(p) for p in prompts], dtype=torch.int32))
+
+
+def _tp_runs(dev, prompts, mesh=None, out_dir=None):
+    """Every ``TP_CASES`` engine of qwen2-0.5b FULL (bf16, the kernels
+    on) over ``prompts`` (``TP_NEW`` new tokens; the bank on
+    ``TP_MIX``), then the f32 cut's dense engine: meshless, or under
+    ``mesh`` with the host weights handed to the engine (it keeps this
+    rank's shards).  Per run: the tokens, the launches counted from 0
+    just before it, the engine's ``param_bytes``, ``model_shards`` and
+    the card's peak allocation over its build and run, and the first
+    wave's logits (saved under ``out_dir``).  Under a mesh, the planted
+    fault: a prefill of that wave on the dense engine's shards in which
+    this rank keeps its own partial sums wherever it should
+    ``all_reduce`` (rank 0; rank 1 takes part as usual)."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_peft
+    from repro_torch.core.adapters import tree_nbytes
+    from repro_torch.core.bank import AdapterBank
+    from repro_torch.models import build_model
+
+    full = get_config(QWEN2).replace(attn_backend="pallas",
+                                     peft_backend="pallas")
+    n_axes = get_peft(QWEN2).n_axes
+    cut = full.replace(n_layers=TP_CUT_LAYERS, param_dtype=torch.float32,
+                       compute_dtype=torch.float32)
+    out = {}
+    for cfg, cases in ((full, TP_CASES), (cut, {"f32 cut": TP_CASES[
+            "dense bf16"]})):
+        t0 = time.monotonic()
+        base, peft, tenants = _tp_weights(cfg, TP_SEED, n_axes)
+        out[f"weights {cfg.n_layers} layers s"] = time.monotonic() - t0
+        whole = tree_nbytes(base)
+        if mesh is None:                    # the twin holds it all
+            base = _on(base, dev)
+        for label, (kw, kv_quant, banked, _) in cases.items():
+            model = build_model(cfg.replace(kv_quant=kv_quant), device=dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            first = []
+            real = model.prefill
+
+            def recorded(*a, real=real, first=first, **k):
+                res = real(*a, **k)
+                if not first:
+                    first.append(res[0].detach().float().cpu())
+                return res
+
+            model.prefill = recorded
+            adapter_kw = {}
+            if banked:
+                adapter_kw = dict(adapters=AdapterBank.build(
+                    base, {n: _on(t, dev) for n, t in tenants.items()}),
+                    tenants=TP_MIX)
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            toks, stats, _, _ = _serve(
+                model, base, None if banked else _on(peft, dev), prompts,
+                TP_NEW, len(prompts), 512, eager=mesh is not None,
+                mesh=mesh, **kw, **adapter_kw)
+            _sync(dev)
+            rec = dict(tokens=toks, launches=kernels.launch_counts(),
+                       param_bytes=stats["param_bytes"], whole_bytes=whole,
+                       model_shards=stats["model_shards"],
+                       peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       wall_s=time.monotonic() - t0)
+            if out_dir is not None:
+                rec["logits"] = os.path.join(out_dir, f"{label}.pt")
+                torch.save(first[0], rec["logits"])
+            else:
+                rec["logits"] = first[0]
+            out[label] = rec
+            del model.prefill
+            if mesh is not None and label == "dense bf16":
+                out["fault"] = _tp_fault(model, base, peft, prompts, mesh,
+                                         dev, out_dir)
+        del base, peft, tenants
+    return out
+
+
+def _tp_fault(model, base, peft, prompts, mesh, dev, out_dir):
+    """The planted fault's prefill logits on this rank (saved)."""
+    import torch
+    from repro_torch.launch.shardings import local_params
+    from repro_torch.models.tensor_parallel import model_group
+
+    tp = model_group(mesh)
+
+    class SkipReduce:
+        """Takes part in every ``all_reduce`` and keeps its own partial."""
+
+        size, rank = tp.size, tp.rank
+        span, local, all_gather = tp.span, tp.local, tp.all_gather
+
+        @staticmethod
+        def all_reduce(t):
+            tp.all_reduce(t.clone())
+            return t
+
+    toks, lens = _wave(prompts)
+    logits, _ = model.prefill(
+        local_params(model.cfg, mesh, base, dev), _on(peft, dev),
+        {"tokens": toks.to(dev)}, lengths=lens.to(dev),
+        tp=SkipReduce() if tp.rank == 0 else tp)
+    path = os.path.join(out_dir, "fault.pt")
+    torch.save(logits.float().cpu(), path)
+    return path
+
+
+def _gloo_probe(dev):
+    """Whether gloo takes bf16 CUDA tensors in ``all_reduce`` and
+    ``all_gather`` (the sum and the gathered values checked)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, res = dist.get_rank(), {}
+    t = torch.full((64,), rank + 1.0, dtype=torch.bfloat16, device=dev)
+    try:
+        dist.all_reduce(t)
+        res["all_reduce_bf16"] = bool((t == 3.0).all())
+    except RuntimeError as e:                  # recorded and judged below
+        res["all_reduce_bf16"] = f"refused: {e}"
+    t = torch.full((64,), rank + 1.0, dtype=torch.bfloat16, device=dev)
+    parts = [torch.empty_like(t) for _ in range(2)]
+    try:
+        dist.all_gather(parts, t)
+        res["all_gather_bf16"] = bool((parts[0] == 1.0).all()
+                                      and (parts[1] == 2.0).all())
+    except RuntimeError as e:
+        res["all_gather_bf16"] = f"refused: {e}"
+    return res
+
+
+def _tp_rank_main(rank, store, out_dir, prompts):
+    """Phase 17, one rank: gloo over a file store, both ranks on card 0,
+    a ``(1, 2)`` mesh."""
+    import json as _json
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE / "src"))
+    _numerics()
+    # three processes share the host's cores: two ranks and the twins
+    torch.set_num_threads(TP_THREADS)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 2, device=dev)
+    t0 = time.monotonic()
+    probe = _gloo_probe(dev)
+    mine = os.path.join(out_dir, f"rank{rank}")
+    os.makedirs(mine, exist_ok=True)
+    runs = _tp_runs(dev, prompts, mesh, mine)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        _json.dump(dict(runs=runs, gloo=probe,
+                        wall_s=time.monotonic() - t0), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tp_phase(card, dev):
+    """Phase 17: tensor parallelism over `model`.  Two spawned ranks (gloo:
+    NCCL takes one rank a device) serve qwen2-0.5b FULL at ``(1, 2)``
+    while this process serves the meshless twins.  (a) The dense adapted
+    engine (kernels 1-4), the paged one (kernel 5), NF4 base with NF4 KV
+    (kernels 6, 7) and a two-tenant LoRA bank (kernel 8): first-wave
+    prefill logits within ``SERVE_LOGIT_TOL`` (max_rel) of the twin's on
+    both ranks, the greedy tokens that agree counted, every kernel of the
+    path launched on both ranks; the f32 cut (2 layers) gives the twin's
+    tokens exactly.  (b) Each rank's ``param_bytes`` and the card's peak
+    allocation over each engine's build and run under the whole model's
+    bytes.  (c) The planted fault: rank 0 keeping its own partial sums in
+    place of the ``all_reduce`` moves its logits past the tolerance.
+    Prints the ``tp`` line; returns each kernel's record and the phase's
+    seconds."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    t0 = time.monotonic()
+    prompts = _mesh_prompts(get_config(QWEN2).vocab_size)
+    (HERE / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tp_", dir=HERE / "build")
+    try:
+        ctx = mp.start_processes(_tp_rank_main, args=(
+            os.path.join(tmp, "store"), tmp, prompts), nprocs=2, join=False,
+            start_method="spawn")
+        twin = _tp_runs(dev, prompts)
+        while not ctx.join():
+            pass
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                got = _json.load(f)
+            for rec in got["runs"].values():
+                if isinstance(rec, dict):
+                    rec["logits"] = torch.load(rec["logits"])
+            got["runs"]["fault"] = torch.load(got["runs"]["fault"])
+            ranks.append(got)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cases, records = {}, {}
+    for label, want in twin.items():
+        if not isinstance(want, dict):
+            continue
+        exact = label == "f32 cut"
+        need = TP_CASES["dense bf16" if exact else label][3]
+        total = sum(len(t) for t in want["tokens"])
+        rec = dict(tokens=total, whole_bytes=want["whole_bytes"],
+                   twin_peak_bytes=want["peak_bytes"], ranks=[])
+        for r, got in enumerate(ranks):
+            run = got["runs"][label]
+            equal = sum(a == b for ta, tb in zip(run["tokens"],
+                                                 want["tokens"])
+                        for a, b in zip(ta, tb))
+            rel = _max_rel(run["logits"], want["logits"])
+            launches = {k: run["launches"][k] for k in need}
+            rec["ranks"].append(dict(
+                tokens_equal=equal, max_rel=rel, launches=launches,
+                model_shards=run["model_shards"],
+                param_bytes=run["param_bytes"],
+                peak_bytes=run["peak_bytes"], wall_s=run["wall_s"]))
+            for k, n in launches.items():
+                records.setdefault(k, {})[f"{label} rank {r}"] = n
+            if run["model_shards"] != 2:
+                fail(f"tp {label} rank {r}: model_shards "
+                     f"{run['model_shards']}")
+            if exact and run["tokens"] != want["tokens"]:
+                fail(f"tp {label} rank {r}: {equal}/{total} tokens equal "
+                     "to the meshless twin's")
+            if not exact and rel > SERVE_LOGIT_TOL:
+                fail(f"tp {label} rank {r}: first-wave logits max_rel "
+                     f"{rel:.4g} over {SERVE_LOGIT_TOL}")
+            missing = [k for k, n in launches.items() if n == 0]
+            if missing:
+                fail(f"tp {label} rank {r}: kernels never launched: "
+                     f"{missing}")
+            if not run["param_bytes"] < want["whole_bytes"] or \
+                    not run["peak_bytes"] < want["whole_bytes"]:
+                fail(f"tp {label} rank {r}: holds {run['param_bytes']} "
+                     f"param bytes, peak {run['peak_bytes']}, against "
+                     f"the whole model's {want['whole_bytes']}")
+        cases[label] = rec
+    fault = _max_rel(ranks[0]["runs"]["fault"], twin["dense bf16"]["logits"])
+    caught = fault > SERVE_LOGIT_TOL
+    print(f"fault tp (rank 0 keeps its partial sums in place of the "
+          f"all_reduce): max_rel {fault:.4g} against "
+          f"{SERVE_LOGIT_TOL}: {'caught' if caught else 'passes'}")
+    if not caught:
+        fail("tp: the skipped all_reduce passes the logit tolerance")
+    gloo = ranks[0]["gloo"]
+    if gloo != {"all_reduce_bf16": True, "all_gather_bf16": True}:
+        fail(f"tp: gloo on bf16 CUDA tensors: {gloo}")
+    secs = time.monotonic() - t0
+    print("tp " + _json.dumps(dict(
+        mesh=[1, 2], arch=QWEN2, cases=cases, fault_max_rel=fault,
+        gloo_bf16=gloo, rank_wall_s=[g["wall_s"] for g in ranks],
+        weights_s={k: [twin[k]] + [g["runs"][k] for g in ranks]
+                   for k in twin if not isinstance(twin[k], dict)},
+        phase_s=secs, card=card)))
+    return records, secs
+
+
 def main() -> int:
     import torch
 
@@ -6503,6 +6905,7 @@ def main() -> int:
     _, phase_s["dryrun"] = dryrun_phase(card, dev, {
         "train": q_read["step_ms"], "prefill": q_read["prefill_ms"],
         "decode": q_read["dense"][0]})
+    tp_records, phase_s["tp"] = tp_phase(card, dev)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -6559,7 +6962,8 @@ def main() -> int:
                          moe_family=moe_at, griffin=griffin, mamba2=mamba2,
                          frontends=frontends,
                          checkpoint={QWEN2: ck_counts[name]},
-                         mesh=mesh_records.get(name, {})))
+                         mesh=mesh_records.get(name, {}),
+                         tp=tp_records.get(name, {})))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -433,15 +433,25 @@ def _tile_writes(out: str, view, bm: int, bn: int, grid, split=None):
 def _quanta_linear(rec) -> List[Launch]:
     a = rec.args
     M, N, K, variant = a["M"], a["N"], a["K"], a["variant"]
+    ldd, dcol = a["ldd"], a["dcol"]
     if M <= 0 or N <= 0:
         return []
+
+    def delta_tiles(grid, bm, bn):
+        """The delta columns each output tile reads: ``[dcol, dcol + N)``
+        of rows of ``ldd``."""
+        x, y, _ = _blocks(grid)
+        return box("delta", (M, ldd), (y * bm, dcol + x * bn),
+                   (bm, np.minimum(bn, N - x * bn)))
+
     if a["dtype"] == 0 and variant == 2:
         grid = (_cdiv(N, SIMT), _cdiv(M, SIMT), 1)
 
         def tiles():
             _, y, _ = _blocks(grid)
             return ([_tile_writes("out", (M, N), SIMT, SIMT, grid)],
-                    [box("x", (M, K), (y * SIMT, 0), (SIMT, K))], [])
+                    [box("x", (M, K), (y * SIMT, 0), (SIMT, K)),
+                     delta_tiles(grid, SIMT, SIMT)], [])
         return [_launch("gemm_f32_kernel", grid, SIMT_THREADS, 0,
                         S.qmm_smem_bytes(S.QMM_F32, M), tiles)]
     if variant == 0:
@@ -450,7 +460,8 @@ def _quanta_linear(rec) -> List[Launch]:
         def tiles():
             _, y, _ = _blocks(grid)
             return ([_tile_writes("out", (M, N), GEMM_BM, LINEAR_BN, grid)],
-                    [box("x", (M, K), (y * GEMM_BM, 0), (GEMM_BM, K))], [])
+                    [box("x", (M, K), (y * GEMM_BM, 0), (GEMM_BM, K)),
+                     delta_tiles(grid, GEMM_BM, LINEAR_BN)], [])
         return [_launch("ql_wgmma_kernel", grid, GEMM_THREADS,
                         gemm_smem(LINEAR_BN),
                         S.banked_smem_bytes(S.BANKED_PREFILL, M), tiles)]
@@ -471,7 +482,7 @@ def _quanta_linear(rec) -> List[Launch]:
     def sum_tiles():
         e, _, _ = _blocks(s_grid)
         return ([box("out", (M * N,), (e * ELEMENTWISE,), (ELEMENTWISE,))],
-                [], [])
+                [box("delta", (M, ldd), (0, dcol), (M, N))], [])
     return [
         _launch("ql_partials_kernel", grid, WG_DEC_THREADS,
                 wg_decode_smem(M), S.banked_smem_bytes(S.BANKED_DECODE, M),

@@ -165,8 +165,8 @@ _SIGNATURES = {
         "x:p out:p rows:q plan:ia n_plan:i tensors:pa smem_bytes:i "
         "smem_limit:i stream:s",
     "quanta_linear_gemm_launch":
-        "dtype:i variant:i x:p w:p delta:p part:p out:p M:i N:i K:i "
-        "splits:i smem_limit:i stream:s",
+        "dtype:i variant:i x:p w:p delta:p part:p out:p M:i N:i K:i ldd:i "
+        "dcol:i splits:i smem_limit:i stream:s",
     "quantized_matmul_launch":
         "dtype:i fmt:i variant:i x:p packed:p scales:p row_norm:p "
         "col_norm:p codebook:p out:p partial:p M:i N:i K:i bs:i splits:i "
@@ -980,15 +980,22 @@ def _quanta_apply_cases(make: Maker) -> List[Case]:
 def _quanta_linear_cases(make: Maker) -> List[Case]:
     from repro_torch.kernels.quanta_linear import quanta_linear
 
-    def run(rows, d, dims, dtype=torch.bfloat16):
+    def run(rows, d, dims, dtype=torch.bfloat16, shards=1, col=0):
         tensors, dims, pairs = _chain(make, d, d, dims, dtype=dtype)
         x = make.t((rows, d), dtype)
-        w = make.t((d, d), dtype, scale=d ** -0.5)
-        return lambda: quanta_linear(x, w, tensors, dims, pairs)
+        w = make.t((d, d // shards), dtype, scale=d ** -0.5)
+        return lambda: quanta_linear(x, w, tensors, dims, pairs, col)
 
     return [
         # wgmma prefill, a ragged last row tile
         Case("qwen2_d896", run(200, 896, (16, 8, 7)), ragged=True),
+        # a column shard (tensor parallelism over `model`): the delta read
+        # at the second of two column blocks, by its row stride
+        Case("qwen2_d896_cols", run(200, 896, (16, 8, 7), shards=2,
+                                    col=448), ragged=True),
+        Case("d512_rows8_cols", run(8, 512, (8, 8, 8), shards=4, col=256)),
+        Case("f32_d512_cols", run(100, 512, (8, 8, 8), torch.float32,
+                                  shards=2, col=256), ragged=True),
         # split-K decode over 8 rows (wgmma N 8) and 40 (N 64)
         Case("d512_rows8", run(8, 512, (8, 8, 8))),
         Case("d512_rows40", run(40, 512, (8, 8, 8)), ragged=True),

@@ -15,6 +15,12 @@
   adapter (every tensor with a leading bank axis) with per-slot rows.
 * ``num_params`` -- trainable parameter count.
 * ``delta_form`` -- class flag: ``apply == x @ w + delta(x)``.
+* ``apply_cols`` / ``apply_rows`` -- the adapted linear on one rank's
+  shard of ``w`` under tensor parallelism over `model` (column-parallel:
+  this rank's output columns; row-parallel: its input rows, as a partial
+  sum plus what is added after the reduction); the adapter itself stays
+  whole on every rank.  ``shardable`` says whether a method has them
+  (LoRA, QuanTA); the others raise.
 
 Adapters are frozen dataclasses.  Their tensor fields (and fields holding
 tuples of tensors or nested adapters) are the leaves that :func:`tree_map`
@@ -39,8 +45,9 @@ import torch
 
 from repro_torch.core.quantize import base_matmul
 
-__all__ = ["Adapter", "RebasedAdapter", "base_matmul", "tree_map",
-           "tree_leaves", "tree_unflatten", "tree_nbytes", "structure"]
+__all__ = ["Adapter", "ColumnSlice", "RebasedAdapter", "base_matmul",
+           "tree_map", "tree_leaves", "tree_unflatten", "tree_nbytes",
+           "structure", "unsharded_method"]
 
 
 def _is_container(v) -> bool:
@@ -120,11 +127,21 @@ def structure(tree) -> Any:
     return tree
 
 
+def unsharded_method(adapter) -> str:
+    """Why ``adapter`` cannot run on a `model` shard."""
+    return (f"{type(adapter).__name__} is not served on a `model` shard: "
+            "the port shards LoRA and QuanTA only (DoRA's and DoTA's column "
+            "norms need a cross-rank reduction it does not have; DoRA, "
+            "DoTA and KronA on shards are a ROADMAP item)")
+
+
 class Adapter:
     """Protocol base class (mixin; concrete adapters are dataclasses)."""
 
     # True when apply(x, w) == x @ w + delta(x) with delta independent of w
     delta_form: ClassVar[bool] = True
+    # True when the method runs on a `model` shard (apply_cols/apply_rows)
+    shardable: ClassVar[bool] = False
 
     def delta(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
@@ -179,6 +196,37 @@ class Adapter:
         del x, w, ids, backend
         return None
 
+    # --- on a `model` shard ---------------------------------------------
+    # ``span`` is ``(offset, n)``: this rank's block of W's output columns
+    # (column-parallel) or of its input rows (row-parallel).
+
+    def col_view(self, off: int, n: int) -> "Adapter":
+        """A delta-form adapter whose ``delta`` is columns ``[off, off +
+        n)`` of this one's."""
+        raise ValueError(unsharded_method(self))
+
+    def row_view(self, off: int, n: int):
+        """A delta-form adapter whose ``delta`` of x's columns ``[off, off
+        + n)`` is this rank's part of the partial sum, or None when the
+        delta reads the whole input."""
+        raise ValueError(unsharded_method(self))
+
+    def apply_cols(self, x: torch.Tensor, w, span,
+                   backend: str = "reference") -> torch.Tensor:
+        """Columns ``span`` of ``apply(x, W)``, ``w`` those columns of W
+        (a column-parallel shard; ``x`` whole)."""
+        return self.col_view(*span).apply(x, w, backend)
+
+    def apply_rows(self, x: torch.Tensor, w, span, gathered,
+                   backend: str = "reference"):
+        """A row-parallel shard: ``x`` holds the input's columns ``span``
+        and ``w`` those rows of W.  Returns ``(partial, post)`` with
+        ``apply(x_whole, W) == all_reduce(partial) + post`` (``post`` None
+        when nothing follows the reduction); ``gathered()`` is the whole
+        input (one ``all_gather`` a layer, made on first use)."""
+        del gathered
+        return self.row_view(*span).apply(x, w, backend), None
+
     @property
     def num_params(self) -> int:
         return sum(t.numel() for t in tree_leaves(self))
@@ -219,3 +267,35 @@ class RebasedAdapter(Adapter):
     @property
     def num_params(self) -> int:
         return self.inner.num_params
+
+    @property
+    def shardable(self) -> bool:
+        return self.inner.shardable
+
+    def apply_cols(self, x: torch.Tensor, w, span,
+                   backend: str = "reference") -> torch.Tensor:
+        off, n = span
+        return self.inner.apply_cols(x, self.base[..., off:off + n], span,
+                                     backend)
+
+    def apply_rows(self, x: torch.Tensor, w, span, gathered,
+                   backend: str = "reference"):
+        off, n = span
+        return self.inner.apply_rows(x, self.base[..., off:off + n, :],
+                                     span, gathered, backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnSlice(Adapter):
+    """Columns ``[off, off + n)`` of a bank group whose delta cannot be
+    cut before it is computed (QuanTA's chain): the whole banked delta,
+    then the slice."""
+
+    inner: Any
+    off: int
+    n: int
+
+    def banked_delta(self, x: torch.Tensor, ids: torch.Tensor,
+                     backend: str = "reference") -> torch.Tensor:
+        return self.inner.banked_delta(x, ids, backend)[
+            ..., self.off:self.off + self.n]

@@ -152,6 +152,18 @@ class BankedAdapter(Adapter):
 
     def apply(self, x: torch.Tensor, w,
               backend: str = "reference") -> torch.Tensor:
+        return self._select(x, w, backend, lambda g: g,
+                            lambda a: a.apply(x, w, backend))
+
+    def apply_cols(self, x: torch.Tensor, w, span,
+                   backend: str = "reference") -> torch.Tensor:
+        """A column-parallel shard: each delta-form group's columns
+        ``span`` (LoRA multiplies by those columns of B), each non-delta
+        row's ``apply_cols``."""
+        return self._select(x, w, backend, lambda g: g.col_view(*span),
+                            lambda a: a.apply_cols(x, w, span, backend))
+
+    def _select(self, x, w, backend, view, full_of) -> torch.Tensor:
         # Under the kernel backend the first delta-form group may fuse the
         # shared base product with its gathered delta (banked_linear: the
         # banked-gather kernel for LoRA over a dense w); the other
@@ -160,10 +172,12 @@ class BankedAdapter(Adapter):
         y = None
         deferred = []
         for g, lid, dform in zip(self.groups, self.ids, self.delta_forms):
-            if y is None and dform and backend == "pallas":
-                y = g.banked_linear(x, w, lid, backend)
-                if y is not None:
-                    continue
+            if dform:
+                g = view(g)
+                if y is None and backend == "pallas":
+                    y = g.banked_linear(x, w, lid, backend)
+                    if y is not None:
+                        continue
             deferred.append((g, lid, dform))
         if y is None:
             y = base_matmul(x, w, backend)
@@ -173,10 +187,48 @@ class BankedAdapter(Adapter):
                 continue
             lid = lid.reshape((-1,) + (1,) * (y.dim() - 1))
             for row in range(1, tree_leaves(g)[0].shape[0]):
-                full = tree_map(lambda t, r=row: t[r], g).apply(x, w,
-                                                                backend)
+                full = full_of(tree_map(lambda t, r=row: t[r], g))
                 y = torch.where(lid == row, full, y)
         return y
+
+    def apply_rows(self, x: torch.Tensor, w, span, gathered,
+                   backend: str = "reference"):
+        """A row-parallel shard as ``(partial, post)``: LoRA groups go
+        inside the partial sum (A's rows ``span``; under the kernel
+        backend the first one fused with the base product), QuanTA groups
+        after the reduction over the gathered input, and each non-delta
+        row's own ``(partial, post)`` is selected for that row's slots."""
+        partial, post, deferred = None, None, []
+        for g, lid, dform in zip(self.groups, self.ids, self.delta_forms):
+            if dform:
+                rows = g.row_view(*span)
+                if rows is None:
+                    d = g.banked_delta(gathered(), lid, backend)
+                    post = d if post is None else post + d
+                    continue
+                g = rows
+                if partial is None and backend == "pallas":
+                    partial = g.banked_linear(x, w, lid, backend)
+                    if partial is not None:
+                        continue
+            deferred.append((g, lid, dform))
+        if partial is None:
+            partial = base_matmul(x, w, backend)
+        for g, lid, dform in deferred:
+            if dform:
+                partial = partial + g.banked_delta(x, lid, backend)
+                continue
+            lid = lid.reshape((-1,) + (1,) * (partial.dim() - 1))
+            for row in range(1, tree_leaves(g)[0].shape[0]):
+                fp, fpost = tree_map(lambda t, r=row: t[r], g).apply_rows(
+                    x, w, span, gathered, backend)
+                partial = torch.where(lid == row, fp, partial)
+                if fpost is not None or post is not None:
+                    post = torch.where(
+                        lid == row,
+                        torch.zeros_like(post) if fpost is None else fpost,
+                        torch.zeros_like(fpost) if post is None else post)
+        return partial, post
 
 
 TenantEntry = Union[AdapterSet, Tuple[Any, AdapterSet]]

@@ -81,6 +81,16 @@ class LoraAdapter(Adapter):
     def matrix(self) -> torch.Tensor:
         return self.scale * (self.a @ self.b)
 
+    # --- on a `model` shard: B's columns, or A's rows inside the partial
+    # sum ((x_r @ A_r) @ B summed over the ranks is (x @ A) @ B)
+    shardable = True
+
+    def col_view(self, off: int, n: int) -> "LoraAdapter":
+        return LoraAdapter(self.a, self.b[..., off:off + n], self.alpha)
+
+    def row_view(self, off: int, n: int) -> "LoraAdapter":
+        return LoraAdapter(self.a[..., off:off + n, :], self.b, self.alpha)
+
     # --- banked application: the banked-gather kernel -----------------
     # The CUDA kernel tiles K, so unlike the JAX package there is no VMEM
     # gate: the kernel backend takes it at every shape.

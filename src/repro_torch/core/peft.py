@@ -6,7 +6,8 @@ layers, ``(L, d_in, d_out)``.  :func:`attach` builds an
 stacked along the layer axis for stacked weights) for QuanTA, LoRA, DoRA,
 DoTA or KronA; for QuanTA it also returns the base params with the frozen
 copy folded in (``W0' = W0 - S``).  :func:`peft_linear` is the adapted
-linear every model calls; :func:`merge_all` merges trained adapters into
+linear every model calls (:func:`sharded_linear` its form on one rank's
+shard of the weight under tensor parallelism); :func:`merge_all` merges trained adapters into
 the weights; :func:`adapter_subtree` gives a model group's adapters from
 an ``AdapterSet`` or, with per-request ids, a serving bank
 (``core/bank.py``).  ``PeftConfig(fold=False)`` attaches fold-free
@@ -40,6 +41,7 @@ __all__ = [
     "attach",
     "merge_all",
     "peft_linear",
+    "sharded_linear",
     "adapter_subtree",
     "get_adapter",
     "layer_tree",
@@ -327,6 +329,51 @@ def peft_linear(
     if bias is not None:
         y = y + bias
     return y
+
+
+def sharded_linear(
+    x: torch.Tensor,
+    w,
+    adapter,
+    bias: Optional[torch.Tensor],
+    backend: str,
+    tp,
+    kind: str,
+) -> torch.Tensor:
+    """:func:`peft_linear` on this rank's shard of ``w`` (``tp``: a
+    ``models.tensor_parallel.ModelGroup``), Megatron style.
+
+    * ``kind="col"`` (column-parallel): ``x`` whole, ``w`` and ``bias``
+      this rank's output columns; the result is those columns.
+    * ``kind="row"`` (row-parallel): ``x`` this rank's input columns and
+      ``w`` those rows; the partial products are summed over the group
+      (one ``all_reduce``) and the adapter's part that reads the whole
+      input (QuanTA's chain, on one ``all_gather`` of ``x``) is added
+      after it.  The result is whole on every rank.
+    """
+    if kind == "col":
+        span = tp.span(w.shape[-1])
+        y = (base_matmul(x, w, backend) if adapter is None
+             else adapter.apply_cols(x, w, span, backend))
+    elif kind == "row":
+        if adapter is None:
+            y = tp.all_reduce(base_matmul(x, w, backend))
+        else:
+            whole = []
+
+            def gathered():
+                if not whole:
+                    whole.append(tp.all_gather(x))
+                return whole[0]
+
+            partial, post = adapter.apply_rows(x, w, tp.span(x.shape[-1]),
+                                               gathered, backend)
+            y = tp.all_reduce(partial)
+            if post is not None:
+                y = y + post
+    else:
+        raise ValueError(f"unknown shard kind {kind!r}")
+    return y if bias is None else y + bias
 
 
 def merge_all(params: Dict[str, Any], peft) -> Dict[str, Any]:

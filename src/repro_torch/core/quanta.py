@@ -353,23 +353,60 @@ class QuantaAdapter(Adapter):
         product and two chain-kernel launches, one for T and one for S.
         ``"reference"`` is plain PyTorch.
         """
-        if backend == "pallas":
-            from repro_torch.kernels.ops import (
-                quanta_apply_fused, quanta_linear_fused,
-            )
+        return self.apply_cols(x, w, (0, self.d_out), backend)
 
-            if self.frozen is not None:
-                s_view = self.unfrozen(self.frozen_detached())
-                return base_matmul(x, w, backend) + (
-                    quanta_apply_fused(x, self.unfrozen())
-                    - quanta_apply_fused(x, s_view)).to(x.dtype)
-            if isinstance(w, QuantizedLinear):
-                return base_matmul(x, w, backend) + quanta_apply_fused(
-                    x, self).to(x.dtype)
-            return quanta_linear_fused(x, w, self)
-        if backend != "reference":
+    def _delta_on(self, x: torch.Tensor, backend: str) -> torch.Tensor:
+        """``delta(x)``; under ``"pallas"`` through the chain kernel (T,
+        and S for a fold-free adapter), cast to x's dtype."""
+        if backend == "reference":
+            return self.delta(x)
+        if backend != "pallas":
             raise ValueError(f"unknown PEFT backend {backend!r}")
-        return base_matmul(x, w, backend) + self.delta(x)
+        from repro_torch.kernels.ops import quanta_apply_fused
+
+        y = quanta_apply_fused(x, self.unfrozen())
+        if self.frozen is not None:
+            y = y - quanta_apply_fused(
+                x, self.unfrozen(self.frozen_detached()))
+        return y.to(x.dtype)
+
+    # --- on a `model` shard: the whole chain on the whole input, then this
+    # rank's columns (column-parallel) or, after the reduction, all of it
+    # (row-parallel)
+    shardable = True
+
+    def col_view(self, off: int, n: int):
+        from repro_torch.core.adapters import ColumnSlice
+
+        return ColumnSlice(self, off, n)
+
+    def row_view(self, off: int, n: int):
+        return None
+
+    def apply_cols(self, x: torch.Tensor, w, span,
+                   backend: str = "reference") -> torch.Tensor:
+        """``x @ w + delta(x)[..., span]``: on a folded adapter over a
+        dense ``w`` under ``"pallas"`` one ``quanta_linear`` call, whose
+        GEMM reads the chain's ``(rows, d_out)`` output at the span's
+        column offset."""
+        off, n = span
+        if (backend == "pallas" and self.frozen is None
+                and not isinstance(w, QuantizedLinear)):
+            from repro_torch.kernels.ops import quanta_linear_fused
+
+            return quanta_linear_fused(x, w, self, col=off)
+        # the base product first: what a checkpointed layer's backward
+        # recomputes depends on the order (tests/test_torch_dryrun.py)
+        y = base_matmul(x, w, backend)
+        delta = self._delta_on(x, backend)
+        if n != delta.shape[-1]:
+            delta = delta[..., off:off + n]
+        return y + delta
+
+    def apply_rows(self, x: torch.Tensor, w, span, gathered,
+                   backend: str = "reference"):
+        return base_matmul(x, w, backend), self._delta_on(gathered(),
+                                                          backend)
 
     def merge(self, w: torch.Tensor) -> torch.Tensor:
         """``W = W0' + T_theta`` (paper §6, no inference overhead); for a

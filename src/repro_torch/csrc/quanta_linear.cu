@@ -16,7 +16,9 @@
 //       before a single rounding: out = round(acc + float(delta)).
 // The TPU's chain output is already rounded to the activation dtype before
 // it enters the fp32 scratch, so keeping the delta in that dtype loses
-// nothing.
+// nothing.  On a column-parallel shard (tensor parallelism over `model`)
+// W holds N of the chain's ldd output columns, from column dcol: (b)
+// reads delta[row * ldd + dcol + col] in place, and no copy is made.
 //
 // What bounds (b) on the H100: at prefill (3072 rows of 4096 -> 4096) the
 // tensor cores, 2 * 3072 * 4096 * 4096 operations; at decode (8 rows)
@@ -53,7 +55,7 @@ __global__ void __launch_bounds__(wg::kGemmThreads, 1)
     ql_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmw,
                     const bf16* __restrict__ delta, bf16* __restrict__ out,
-                    int M, int N, int K) {
+                    int M, int N, int K, int ldd, int dcol) {
   extern __shared__ uint8_t ql_smem[];
   wg::gemm_tile<kPrefillBN>(
       &tmx, &tmw, K, ql_smem,
@@ -70,7 +72,8 @@ __global__ void __launch_bounds__(wg::kGemmThreads, 1)
             if (col >= N) continue;
             const size_t o = (size_t)row * N + col;
             const float2 d = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(delta + o));
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    delta + (size_t)row * ldd + dcol + col));
             *reinterpret_cast<uint32_t*>(out + o) = sm90::pack_bf16(
                 acc[j / 16][4 * (j % 16) + 2 * h] + d.x,
                 acc[j / 16][4 * (j % 16) + 2 * h + 1] + d.y);
@@ -96,27 +99,27 @@ __global__ void __launch_bounds__(wg::kDecThreads, wg::kDecBlocksPerSm)
 __global__ void __launch_bounds__(256)
     ql_sum_kernel(const float* __restrict__ part, int splits,
                   const bf16* __restrict__ delta, bf16* __restrict__ out,
-                  int MN) {
+                  int N, int MN, int ldd, int dcol) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   if (e >= MN) return;
   float v = 0.f;
   for (int z = 0; z < splits; ++z) v += part[(size_t)z * MN + e];
-  out[e] = __float2bfloat16(v + __bfloat162float(delta[e]));
+  const size_t d = (size_t)(e / N) * ldd + dcol + e % N;
+  out[e] = __float2bfloat16(v + __bfloat162float(delta[d]));
 }
 
 __global__ void __launch_bounds__(256)
     gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ delta, float* __restrict__ out,
-                    int M, int N, int K) {
+                    int M, int N, int K, int ldd, int dcol) {
   tiled::simt_gemm_f32(x, w, M, N, K, [=](int r, int c, float v) {
-    const size_t o = (size_t)r * N + c;
-    out[o] = v + delta[o];
+    out[(size_t)r * N + c] = v + delta[(size_t)r * ldd + dcol + c];
   });
 }
 
 int launch_prefill(const geom::Launch& l, const bf16* x, const bf16* w,
-                   const bf16* delta, bf16* out, int M, int N, int K,
-                   int smem_limit, cudaStream_t s) {
+                   const bf16* delta, bf16* out, int M, int N, int K, int ldd,
+                   int dcol, int smem_limit, cudaStream_t s) {
   static int granted[wg::kMaxDevices] = {};
   int err = wg::allow_smem(ql_wgmma_kernel, l.smem, smem_limit, granted);
   if (err) return err;
@@ -125,14 +128,14 @@ int launch_prefill(const geom::Launch& l, const bf16* x, const bf16* w,
       (err = wg::tensor_map(&tmw, w, K, N, 64, 64)))
     return err;
   ql_wgmma_kernel<<<l.grid, l.threads, l.smem, s>>>(tmx, tmw, delta, out, M,
-                                                    N, K);
+                                                    N, K, ldd, dcol);
   return (int)cudaGetLastError();
 }
 
 template <int RN>
 int launch_decode(const geom::Geometry& g, const bf16* x, const bf16* w,
                   const bf16* delta, float* part, bf16* out, int M, int N,
-                  int K, int smem_limit, cudaStream_t s) {
+                  int K, int ldd, int dcol, int smem_limit, cudaStream_t s) {
   static int granted[wg::kMaxDevices] = {};
   const geom::Launch &lp = g.l[0], &ls = g.l[1];
   int err =
@@ -148,7 +151,8 @@ int launch_decode(const geom::Geometry& g, const bf16* x, const bf16* w,
       tmx, tmw, part, M, N, K, per);
   if ((err = (int)cudaGetLastError())) return err;
   ql_sum_kernel<<<ls.grid, ls.threads, ls.smem, s>>>(part, (int)lp.grid.y,
-                                                     delta, out, M * N);
+                                                     delta, out, N, M * N,
+                                                     ldd, dcol);
   return (int)cudaGetLastError();
 }
 
@@ -157,9 +161,12 @@ int launch_decode(const geom::Geometry& g, const bf16* x, const bf16* w,
 // ceil(M/128)); the decode body's (ceil(N/64), splits), then the sum's
 // ceil(M*N/256) blocks.
 int geometry(int dtype, int variant, const void* x, const void* w,
-             const void* part, int M, int N, int K, int splits,
-             int smem_limit, geom::Geometry* g) {
+             const void* part, int M, int N, int K, int ldd, int dcol,
+             int splits, int smem_limit, geom::Geometry* g) {
   if (M <= 0 || N <= 0) return 0;
+  // the delta's columns [dcol, dcol + N) of rows of ldd; bf16 reads pairs
+  if (dcol < 0 || ldd < dcol + N || (dtype == 1 && (ldd % 2 || dcol % 2)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0 && variant == 2) {
     g->add(dim3((N + tiled::SIMT_BN - 1) / tiled::SIMT_BN,
                 (M + tiled::SIMT_BM - 1) / tiled::SIMT_BM),
@@ -196,8 +203,9 @@ int geometry(int dtype, int variant, const void* x, const void* w,
 
 }  // namespace
 
-// out (M, N) = x (M, K) @ w (K, N) + delta (M, N), all row-major and
-// contiguous in one dtype (0 float32, 1 bfloat16).  variant
+// out (M, N) = x (M, K) @ w (K, N) + delta[:, dcol:dcol + N], all
+// row-major and contiguous in one dtype (0 float32, 1 bfloat16); delta
+// has rows of ldd >= dcol + N elements (both even in bf16).  variant
 // (kernels/smem.py quanta_linear_plan): 0 the bf16 prefill body, 1 the
 // bf16 decode body (M <= 64; part an fp32 (splits, M, N) scratch, K split
 // into `splits` non-empty parts of 64-row steps), 2 the float32 tile.  The
@@ -208,18 +216,19 @@ extern "C" int quanta_linear_gemm_launch(int dtype, int variant,
                                          const void* x, const void* w,
                                          const void* delta, void* part,
                                          void* out, int M, int N, int K,
-                                         int splits, int smem_limit,
-                                         void* stream) {
+                                         int ldd, int dcol, int splits,
+                                         int smem_limit, void* stream) {
   geom::Geometry g;
-  const int err = geometry(dtype, variant, x, w, part, M, N, K, splits,
-                           smem_limit, &g);
+  const int err = geometry(dtype, variant, x, w, part, M, N, K, ldd, dcol,
+                           splits, smem_limit, &g);
   if (err || g.n == 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const geom::Launch& l = g.l[0];
     gemm_f32_kernel<<<l.grid, l.threads, l.smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(delta), static_cast<float*>(out), M, N, K);
+        static_cast<const float*>(delta), static_cast<float*>(out), M, N, K,
+        ldd, dcol);
     return (int)cudaGetLastError();
   }
   const bf16* xb = static_cast<const bf16*>(x);
@@ -228,11 +237,12 @@ extern "C" int quanta_linear_gemm_launch(int dtype, int variant,
   bf16* ob = static_cast<bf16*>(out);
   float* pf = static_cast<float*>(part);
   if (variant == 0)
-    return launch_prefill(g.l[0], xb, wb, db, ob, M, N, K, smem_limit, s);
-  return M <= 8 ? launch_decode<8>(g, xb, wb, db, pf, ob, M, N, K,
-                                   smem_limit, s)
-                : launch_decode<64>(g, xb, wb, db, pf, ob, M, N, K,
-                                    smem_limit, s);
+    return launch_prefill(g.l[0], xb, wb, db, ob, M, N, K, ldd, dcol,
+                          smem_limit, s);
+  return M <= 8 ? launch_decode<8>(g, xb, wb, db, pf, ob, M, N, K, ldd,
+                                   dcol, smem_limit, s)
+                : launch_decode<64>(g, xb, wb, db, pf, ob, M, N, K, ldd,
+                                    dcol, smem_limit, s);
 }
 
 // quanta_linear_gemm_launch's geometry (geometry.cuh), launching nothing.
@@ -240,10 +250,11 @@ extern "C" int quanta_linear_gemm_describe(int dtype, int variant,
                                            const void* x, const void* w,
                                            const void* delta, void* part,
                                            void* out, int M, int N, int K,
-                                           int splits, int smem_limit,
-                                           int* desc, int cap) {
+                                           int ldd, int dcol, int splits,
+                                           int smem_limit, int* desc,
+                                           int cap) {
   geom::Geometry g;
-  return geom::describe(geometry(dtype, variant, x, w, part, M, N, K, splits,
-                                 smem_limit, &g),
+  return geom::describe(geometry(dtype, variant, x, w, part, M, N, K, ldd,
+                                 dcol, splits, smem_limit, &g),
                         g, desc, cap);
 }

@@ -35,11 +35,12 @@ def quanta_apply_fused(x: torch.Tensor, adapter) -> torch.Tensor:
     return out.reshape(*batch, adapter.d_out)
 
 
-def quanta_linear_fused(x: torch.Tensor, w: torch.Tensor,
-                        adapter) -> torch.Tensor:
-    """Adapted linear ``x @ w + chain(x)`` through the two-phase kernel."""
+def quanta_linear_fused(x: torch.Tensor, w: torch.Tensor, adapter,
+                        col: int = 0) -> torch.Tensor:
+    """Adapted linear ``x @ w + chain(x)`` through the two-phase kernel;
+    for a column shard ``w`` the chain's columns from ``col`` on."""
     xf, batch = _rows(x)
     tensors = [t.to(x.dtype) for t in adapter.tensors]
     out = quanta_linear(xf, w.to(x.dtype), tensors, adapter.dims_in,
-                        adapter.pairs)
+                        adapter.pairs, col)
     return out.reshape(*batch, w.shape[1])

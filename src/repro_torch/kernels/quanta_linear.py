@@ -14,6 +14,11 @@ every SM (K split, then an ordered sum of the splits plus the delta;
 ``kernels/smem.py`` ``quanta_linear_plan``).  There is no full-width
 scratch, so the JAX wrapper's VMEM gate (``fused_vmem_ok``) has no
 counterpart: every shape takes the kernel.
+
+On a column-parallel shard (tensor parallelism over `model`) ``w`` holds
+the rank's ``d_out`` columns of W at offset ``col`` and the chain runs
+whole: (b) reads the delta's columns ``[col, col + d_out)`` in place, by
+its row stride and that offset, so no copy of them is made.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ import torch
 from repro_torch.core.quanta import apply_sequential
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import aligned16, route
-from repro_torch.kernels.quanta_apply import _check, _launch_chain
+from repro_torch.kernels.quanta_apply import (
+    _check, _launch_chain, chain_widths,
+)
 from repro_torch.kernels.smem import (
     LINEAR_DECODE, device_limits, quanta_linear_plan,
 )
@@ -40,10 +47,13 @@ def quanta_linear_plain(
     tensors: Sequence[torch.Tensor],
     dims_in: Tuple[int, ...],
     pairs: Sequence[Tuple[int, int]],
+    col: int = 0,
 ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: the chain in x's dtype,
-    then ``x @ w`` accumulated in fp32 plus that delta, rounded once."""
+    then ``x @ w`` accumulated in fp32 plus the chain's columns ``[col,
+    col + d_out)``, rounded once."""
     delta = apply_sequential(x, tensors, dims_in, pairs)
+    delta = delta[:, col:col + w.shape[1]]
     return (x.float() @ w.float() + delta.float()).to(x.dtype)
 
 
@@ -52,7 +62,7 @@ def _bind():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return fn
 
 
@@ -62,9 +72,12 @@ def quanta_linear(
     tensors: Sequence[torch.Tensor],
     dims_in: Tuple[int, ...],
     pairs: Sequence[Tuple[int, int]],
+    col: int = 0,
 ) -> torch.Tensor:
-    """``x @ w + chain(x)`` in x's dtype.  CPU tensors run the plain
-    version; CUDA tensors launch the two kernels or raise."""
+    """``x @ w + chain(x)[:, col:col + d_out]`` in x's dtype (``col`` > 0
+    or ``d_out`` below the chain's width: ``w`` is a column shard).  CPU
+    tensors run the plain version; CUDA tensors launch the two kernels or
+    raise."""
     tensors = list(tensors)
     _check(x, tensors, dims_in, pairs)
     if w.dim() != 2 or w.shape[0] != x.shape[1] or w.dtype != x.dtype:
@@ -72,8 +85,13 @@ def quanta_linear(
             f"w {tuple(w.shape)} {w.dtype} does not fit x "
             f"{tuple(x.shape)} {x.dtype}"
         )
+    width, _ = chain_widths(dims_in, [t.shape for t in tensors], pairs)
+    if col < 0 or col + w.shape[1] > width:
+        raise ValueError(f"columns [{col}, {col + w.shape[1]}) of a chain "
+                         f"of width {width}")
     if route(x, w, *tensors) == "plain":
-        return quanta_linear_plain(x, w, tensors, tuple(dims_in), pairs)
+        return quanta_linear_plain(x, w, tensors, tuple(dims_in), pairs,
+                                   col)
     rows, d_in = x.shape
     d_out = w.shape[1]
     if x.dtype == torch.bfloat16 and (d_in % 8 or d_out % 8):
@@ -83,9 +101,10 @@ def quanta_linear(
     plan = quanta_linear_plan(rows, d_in, d_out, code == 1, limits.sms)
     x = aligned16(x)
     w = aligned16(w)
+    if x.dtype == torch.bfloat16 and (width % 2 or col % 2):
+        raise ValueError("the bf16 GEMM reads the delta in pairs: the "
+                         "chain's width and the column offset must be even")
     delta = _launch_chain(x, tensors, tuple(dims_in), pairs)   # phase (a)
-    if delta.shape[1] != d_out:
-        raise ValueError(f"chain output {delta.shape[1]} != w cols {d_out}")
     out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
     # the decode body's fp32 partial products, one (rows, d_out) per split
     part = (torch.empty((plan.gsplits, rows, d_out), dtype=torch.float32,
@@ -95,8 +114,8 @@ def quanta_linear(
         code, plan.variant, ctypes.c_void_p(x.data_ptr()),
         ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(delta.data_ptr()),
         ctypes.c_void_p(0 if part is None else part.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), rows, d_out, d_in, plan.gsplits,
-        limits.smem_block, _build.stream_ptr(),
+        ctypes.c_void_p(out.data_ptr()), rows, d_out, d_in, width, col,
+        plan.gsplits, limits.smem_block, _build.stream_ptr(),
     )                                                          # phase (b)
     _build.check(rc, "quanta_linear")
     quanta_linear.launches += 1

@@ -27,7 +27,10 @@ of names (the dim split over their flattened sub-mesh) or ``None``.
 :func:`placements` turns a spec into DTensor placements (``Shard(d)`` /
 ``Replicate()``) on a ``DeviceMesh`` and :func:`distribute_tree` places a
 tree by its specs.  The rules take an ``AbstractMesh``
-(``launch/mesh.py``) or a ``DeviceMesh``.
+(``launch/mesh.py``) or a ``DeviceMesh``.  :func:`local_params` is one
+rank's share of a parameter tree under the decode rules, as plain local
+tensors: what the tensor-parallel forward (``models/tensor_parallel.py``)
+runs on.
 """
 
 from __future__ import annotations
@@ -40,14 +43,16 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import axis_sizes, dp_axes, dp_size
+from repro_torch.launch.mesh import (
+    axis_sizes, dp_axes, dp_size, mesh_coordinate,
+)
 from repro_torch.models.common import ModelConfig, PagedCacheLeafSpec
 
 __all__ = [
     "P", "PartitionSpec", "param_shardings", "batch_shardings",
     "cache_shardings", "peft_shardings", "replicated", "state_shardings",
     "placements", "local_shape", "distribute_tree", "placed_zeros",
-    "map_with_paths",
+    "map_with_paths", "local_params", "row_blocks",
 ]
 
 
@@ -382,3 +387,131 @@ def placed_zeros(struct: Any, mesh, specs: Any, device) -> Any:
                                                      device="meta").stride())
 
     return map_with_paths(one, struct, specs)
+
+
+# ------------------------------------------------------- a rank's shards
+def row_blocks(d_in: int, block_size: int, m: int, rank: int
+               ) -> Tuple[int, int, int, int]:
+    """``(off, n, lo, hi)``: rank ``rank``'s rows ``[off, off + n)`` of a
+    row-parallel quantized weight split ``m`` ways, and the quant blocks
+    ``[lo, hi)`` they read.  Each local block must be one whole block of
+    the weight (the shard starts on a block boundary, or lies inside one
+    block: its rows then read that block's scale) and ``n`` a multiple of
+    8 (the kernel's K step); raises otherwise."""
+    if d_in % m:
+        raise ValueError(f"model={m} does not divide d_in {d_in}")
+    n = d_in // m
+    off = rank * n
+    lo, hi = off // block_size, -(-(off + n) // block_size)
+    if n % 8 or (off % block_size and hi - lo != 1):
+        raise ValueError(
+            f"a row shard of {n} of {d_in} rows in quant blocks of "
+            f"{block_size} does not map onto whole blocks (rows "
+            f"[{off}, {off + n})): the local d_in must be a multiple of 8 "
+            f"and start on a block boundary or lie inside one block")
+    return off, n, lo, hi
+
+
+def local_params(cfg: ModelConfig, mesh, params: Any, device=None,
+                 base_quant: Optional[str] = None,
+                 block_size: int = 64) -> Any:
+    """This rank's share of ``params`` under ``param_shardings(cfg, mesh,
+    params, decode=True)`` on its `model` coordinate, as plain tensors on
+    ``device`` (default: each leaf's own).
+
+    A leaf the rule shards over `model` keeps this rank's block
+    (``local_shape``), sliced where it lies (on the host for host
+    params) and copied fresh, so nothing of the whole leaf stays held;
+    every other leaf is kept whole.  A DTensor (``checkpoint.store
+    .restore_resharded`` with the same specs) must be placed by those
+    specs and gives its local tensor as it is.  A row-parallel quantized
+    projection whose block axis the rule left whole (the blocks do not
+    divide) keeps the scales of the blocks its rows read
+    (:func:`row_blocks`).  ``base_quant`` packs every dense projection of
+    ``core.quantize.QUANT_TARGETS`` on the device from its shard, each
+    row shard from the whole blocks it reads, so the codes and scales
+    are those of the whole weight quantized, sliced."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.quantize import (
+        QUANT_TARGETS, QuantizedLinear, quantize_linear,
+    )
+
+    specs = param_shardings(cfg, mesh, params, decode=True)
+    m = axis_sizes(mesh).get("model", 1)
+    r = mesh_coordinate(mesh)["model"] if m > 1 else 0
+
+    def take(t, spec):
+        if isinstance(t, DTensor):
+            if list(t.placements) != placements(mesh, spec):
+                raise ValueError(f"a leaf placed as {list(t.placements)} "
+                                 f"where the decode rule says {spec}")
+            return t.to_local()
+        for d, entry in enumerate(spec):
+            if "model" in _axes(entry):
+                n = t.shape[d] // m
+                t = t.narrow(d, r * n, n)
+        return t
+
+    def fresh(t):
+        dev = t.device if device is None else device
+        return torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+
+    def place(t, spec):
+        if not isinstance(t, torch.Tensor):
+            return t
+        local = take(t, spec)
+        split = tuple(local.shape) != tuple(t.shape)
+        return fresh(local) if split else (
+            local if device is None else local.to(device))
+
+    def quantized(name, w, spec, row):
+        """A dense projection packed from this rank's shard."""
+        if not row:
+            return quantize_linear(fresh(take(w, spec)), base_quant,
+                                   block_size=block_size)
+        d_in = w.shape[-2]
+        off, n, lo, hi = row_blocks(d_in, block_size, m, r)
+        a, b = lo * block_size, min(hi * block_size, d_in)
+        if isinstance(w, DTensor):
+            if (a, b) != (off, off + n):
+                raise ValueError(
+                    f"{name}: a placed row shard that reads part of a quant "
+                    "block cannot be packed alone; pack it before placing")
+            rows = take(w, spec)
+        else:
+            rows = w.narrow(-2, a, b - a)
+        q = quantize_linear(fresh(rows), base_quant, block_size=block_size)
+        cut = off - a
+        per = 2 if base_quant == "nf4" else 1
+        return dataclasses.replace(
+            q, packed=q.packed.narrow(-2, cut // per, n // per).contiguous())
+
+    def packed_leaf(name, qw, spec, row):
+        """An already packed projection: its shards by the rule, the
+        scales of a row shard by the blocks its rows read."""
+        out = map_with_paths(lambda _, t, sp: place(t, sp), qw, spec)
+        if row and not any("model" in _axes(e) for e in spec.scales):
+            _, _, lo, hi = row_blocks(qw.d_in, qw.block_size or qw.d_in,
+                                      m, r)
+            scales = take(qw.scales, spec.scales)
+            out = dataclasses.replace(out, scales=fresh(
+                scales.narrow(-2, lo, hi - lo)))
+        elif row:
+            row_blocks(qw.d_in, qw.block_size or qw.d_in, m, r)
+        return out
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], path + (k,))
+                    for k, v in node.items()}
+        name = path[-1] if path else ""
+        row = name in _ROW
+        if isinstance(node, QuantizedLinear):
+            return packed_leaf("/".join(path), node, spec, row)
+        if (base_quant is not None and name in QUANT_TARGETS
+                and isinstance(node, torch.Tensor) and node.dim() in (2, 3)):
+            return quantized("/".join(path), node, spec, row)
+        return place(node, spec)
+
+    return walk(params, specs, ())

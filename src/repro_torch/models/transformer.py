@@ -16,6 +16,17 @@ backbone with one ``torch.utils.checkpoint`` per layer under
 while ``forward``, ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``.  Chunked prefill (:meth:`Transformer.prefill_chunk`)
 stages one prompt a fixed-size chunk at a time in a dense staging cache.
+Tensor parallelism over `model` (``tp=``, a
+``models.tensor_parallel.ModelGroup``; the dense and frontend families):
+``params`` are this rank's shards by the JAX decode rules
+(``launch.shardings.local_params``) and the layers run Megatron style on
+plain local tensors -- q/k/v and gate/up column-parallel (``n_heads / m``
+and ``n_kv_heads / m`` whole local heads, so the GQA map stays local),
+o_proj and down_proj row-parallel with one ``all_reduce`` each, the
+d_model-sharded table looked up locally and ``all_gather``-ed, the tied
+head's partial logits ``all_reduce``-d and an untied head's vocab
+columns ``all_gather``-ed: every rank holds the whole logits.  The cache
+holds the rank's KV heads.
 The MoE family (mixtral, llama4) replaces each layer's MLP by
 ``models/moe.moe_ffn`` over the layer-stacked router ``(L, d, E)`` and
 expert stacks ``(L, E, d, ff)``; serving (decode, a chunk, a prefill
@@ -42,7 +53,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.peft import (
-    adapter_subtree, get_adapter, layer_tree, peft_linear,
+    adapter_subtree, get_adapter, layer_tree, peft_linear, sharded_linear,
 )
 from repro_torch.core.quantize import fake_quantize_kv, quantize_kv
 from repro_torch.kernels.dispatch import default_device, seeded_generator
@@ -64,6 +75,7 @@ from repro_torch.models.common import (
     rms_norm,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.tensor_parallel import ONE
 
 __all__ = ["Transformer", "padded_vocab"]
 
@@ -93,8 +105,20 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.device = default_device(device)
 
-    def _linear(self, x, w, adapter=None, bias=None):
-        return peft_linear(x, w, adapter, bias, backend=self.cfg.peft_backend)
+    def _linear(self, x, w, adapter=None, bias=None, kind=None, tp=ONE):
+        """The adapted linear; under ``tp`` of more than one rank on this
+        rank's shard (``kind``: "col" or "row")."""
+        if tp.size == 1:
+            return peft_linear(x, w, adapter, bias,
+                               backend=self.cfg.peft_backend)
+        return sharded_linear(x, w, adapter, bias, self.cfg.peft_backend,
+                              tp, kind)
+
+    def _heads(self, tp=ONE):
+        """``(query heads, KV heads)`` this rank holds under ``tp``."""
+        cfg = self.cfg
+        return (tp.local(cfg.n_heads, "n_heads"),
+                tp.local(cfg.n_kv_heads, "n_kv_heads"))
 
     # ------------------------------------------------------------------ init
     def init(self, seed) -> Dict[str, Any]:
@@ -169,7 +193,7 @@ class Transformer(nn.Module):
         return torch.as_tensor(batch["tokens"], dtype=torch.long,
                                device=self.device)
 
-    def _embed(self, params, batch) -> torch.Tensor:
+    def _embed(self, params, batch, tp=ONE) -> torch.Tensor:
         """The input sequence ``(B, S, d)`` in the compute dtype: frame
         embeddings (audio), ``[patch_embeds ; embedded tokens]`` (vision;
         the patches cast to the table's dtype before the concatenation,
@@ -177,7 +201,7 @@ class Transformer(nn.Module):
         cfg = self.cfg
         if cfg.frontend == "audio_tokens":
             return self._input(batch, "embeds").to(cfg.compute_dtype)
-        tok = self._table(params, batch)
+        tok = self._table(params, batch, tp)
         if cfg.frontend == "vision_embeds":
             patches = self._input(batch, "patch_embeds").to(tok.dtype)
             tok = torch.cat([patches, tok], dim=1)
@@ -186,19 +210,24 @@ class Transformer(nn.Module):
     def _input(self, batch, key) -> torch.Tensor:
         return torch.as_tensor(batch[key], device=self.device)
 
-    def _table(self, params, batch) -> torch.Tensor:
-        """``batch["tokens"]`` looked up in the embedding table."""
-        return params["embed"]["tokens"][self._tokens(batch)]
+    def _table(self, params, batch, tp=ONE) -> torch.Tensor:
+        """``batch["tokens"]`` looked up in the embedding table (under
+        ``tp`` this rank's d_model columns, then gathered)."""
+        return tp.all_gather(params["embed"]["tokens"][self._tokens(batch)])
 
-    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, params, x: torch.Tensor, tp=ONE) -> torch.Tensor:
         cfg = self.cfg
         if cfg.tie_embeddings:
-            return x @ params["embed"]["tokens"].to(cfg.compute_dtype).T
-        return x @ params["lm_head"].to(cfg.compute_dtype)
+            table = params["embed"]["tokens"].to(cfg.compute_dtype)
+            if tp.size > 1:
+                off, n = tp.span(table.shape[-1])
+                return tp.all_reduce(x[..., off:off + n] @ table.T)
+            return x @ table.T
+        return tp.all_gather(x @ params["lm_head"].to(cfg.compute_dtype))
 
     # ------------------------------------------------------------ layer body
     def _attn(self, lp, la, x, *, rope, window, cache=None, chunk=None,
-              mesh=None):
+              mesh=None, tp=ONE):
         """Attention sub-block.  ``cache`` for decode is ``(k_cache,
         v_cache, cache_len)`` (dense), ``(k_pool, v_pool, cache_len,
         block_tables)`` (paged) or ``(k_codes, k_scales, v_codes, v_scales,
@@ -213,18 +242,20 @@ class Transformer(nn.Module):
         ``x`` and the pools are this data rank's slots and arena, the
         tables name global pool rows, and the write and the decode read
         the arena through them (``attention.local_paged_decode``).
+        ``tp``: this rank's heads of q, k, v and the cache.
         Returns ``(out, new_kv)``."""
         cfg = self.cfg
         b, s, _ = x.shape
+        h, kv = self._heads(tp)
         q = self._linear(x, lp["q_proj"], get_adapter(la, "q_proj"),
-                         lp.get("q_bias"))
+                         lp.get("q_bias"), "col", tp)
         k = self._linear(x, lp["k_proj"], get_adapter(la, "k_proj"),
-                         lp.get("k_bias"))
+                         lp.get("k_bias"), "col", tp)
         v = self._linear(x, lp["v_proj"], get_adapter(la, "v_proj"),
-                         lp.get("v_bias"))
-        q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+                         lp.get("v_bias"), "col", tp)
+        q = q.reshape(b, s, h, cfg.head_dim)
+        k = k.reshape(b, s, kv, cfg.head_dim)
+        v = v.reshape(b, s, kv, cfg.head_dim)
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -292,18 +323,21 @@ class Transformer(nn.Module):
                 backend=cfg.attn_backend, **quant,
             )
             new_kv = tuple(pools)
-        out = out.reshape(b, s, cfg.attn_dim)
-        out = self._linear(out, lp["o_proj"], get_adapter(la, "o_proj"))
+        out = out.reshape(b, s, h * cfg.head_dim)
+        out = self._linear(out, lp["o_proj"], get_adapter(la, "o_proj"),
+                           None, "row", tp)
         return out, new_kv
 
-    def _mlp(self, lp, la, x):
-        g = self._linear(x, lp["gate_proj"], get_adapter(la, "gate_proj"))
-        u = self._linear(x, lp["up_proj"], get_adapter(la, "up_proj"))
+    def _mlp(self, lp, la, x, tp=ONE):
+        g = self._linear(x, lp["gate_proj"], get_adapter(la, "gate_proj"),
+                         None, "col", tp)
+        u = self._linear(x, lp["up_proj"], get_adapter(la, "up_proj"),
+                         None, "col", tp)
         return self._linear(F.silu(g) * u, lp["down_proj"],
-                            get_adapter(la, "down_proj"))
+                            get_adapter(la, "down_proj"), None, "row", tp)
 
     def _layer(self, lp, la, x, *, rope, cache=None, chunk=None,
-               no_drop=None, mesh=None):
+               no_drop=None, mesh=None, tp=ONE):
         """One layer: ``(x, aux, new_kv)``; ``aux`` is the MoE router's aux
         loss (0.0 for the dense family).  ``no_drop`` (MoE) defaults to
         serving's rule: a cache or a chunk never drops a token."""
@@ -312,12 +346,12 @@ class Transformer(nn.Module):
             lp["attn"], la.get("attn", {}),
             rms_norm(x, lp["ln1"], cfg.norm_eps),
             rope=rope, window=cfg.sliding_window, cache=cache, chunk=chunk,
-            mesh=mesh,
+            mesh=mesh, tp=tp,
         )
         x = x + h
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
         if not cfg.is_moe:
-            out = self._mlp(lp["mlp"], la.get("mlp", {}), hn)
+            out = self._mlp(lp["mlp"], la.get("mlp", {}), hn, tp)
             return x + out, 0.0, new_kv
         if no_drop is None:
             no_drop = cache is not None or chunk is not None
@@ -397,14 +431,16 @@ class Transformer(nn.Module):
         return loss
 
     # ----------------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_len: int, dtype=None, device=None
-                   ) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   tp=None) -> Dict[str, torch.Tensor]:
         """The dense decode cache, on ``device`` (default: the model's;
-        ``"meta"`` gives its shapes and dtypes without memory)."""
+        ``"meta"`` gives its shapes and dtypes without memory); under
+        ``tp`` this rank's KV heads."""
         cfg = self.cfg
         dt = dtype or cfg.param_dtype
         dev = self.device if device is None else device
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, batch, max_len, self._heads(tp or ONE)[1],
+                 cfg.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -431,26 +467,29 @@ class Transformer(nn.Module):
                                   prefill_cache, lengths, block_tables)
 
     @torch.no_grad()
-    def prefill(self, params, peft, batch, lengths=None, adapter_ids=None):
+    def prefill(self, params, peft, batch, lengths=None, adapter_ids=None,
+                tp=None):
         """Batched prefill of right-padded rows: returns the logits of each
         row's last real position and the wave's cache.  Causality makes the
         right padding exact.  ``adapter_ids`` ``(B,)`` name each row's
         tenant when ``peft`` is an adapter bank (0 = the base model).  A
         serving wave (``lengths`` given) never drops an MoE token; without
         ``lengths`` the training dispatch is kept, as the JAX package's
-        bulk prefill."""
+        bulk prefill.  ``tp``: this rank's shards (the module docstring);
+        the wave's cache holds its KV heads."""
         cfg = self.cfg
-        x = self._embed(params, batch)
+        tp = tp or ONE
+        x = self._embed(params, batch, tp)
         b, s, _ = x.shape
         rope = make_rope(torch.arange(s, device=x.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
-        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, b, s, self._heads(tp)[1], cfg.head_dim)
         k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
         v_all = torch.empty(shape, dtype=x.dtype, device=x.device)
         no_drop = lengths is not None
         for i, lp, la in self._layers(params, peft, adapter_ids):
             x, _, (k, v) = self._layer(lp, la, x, rope=rope,
-                                       no_drop=no_drop)
+                                       no_drop=no_drop, tp=tp)
             k_all[i] = k
             v_all[i] = v
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -459,12 +498,12 @@ class Transformer(nn.Module):
         else:
             lens = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
         x = x[torch.arange(b, device=x.device), lens.long() - 1][:, None]
-        logits = self._unembed(params, x)
+        logits = self._unembed(params, x, tp)
         return logits, {"k": k_all, "v": v_all, "len": lens}
 
     @torch.no_grad()
     def decode_step(self, params, peft, cache, batch, block_tables=None,
-                    adapter_ids=None, mesh=None):
+                    adapter_ids=None, mesh=None, tp=None):
         """One decode step: writes each slot's new K/V at ``len`` in place
         and attends over the first ``len + 1`` entries.  With
         ``block_tables (B, max_blocks)`` the KV leaves are paged pools
@@ -473,14 +512,16 @@ class Transformer(nn.Module):
         ``batch`` holds ``tokens (B, 1)``, or for an audio model the new
         frame embedding ``embeds (B, 1, d)``.  ``mesh`` (a data-sharded
         paged engine): the batch, cache and tables are one data rank's
-        slots and arena, and the paged decode runs per arena.  Returns
+        slots and arena, and the paged decode runs per arena.  ``tp``:
+        this rank's shards and KV heads.  Returns
         ``(logits, cache)`` with ``cache["len"]`` advanced by one in place
         (every leaf keeps its storage, so a captured CUDA graph of the step
         reads and writes the same cache at every replay)."""
         cfg = self.cfg
+        tp = tp or ONE
         # a vision model decodes text tokens
         x = (self._input(batch, "embeds") if cfg.frontend == "audio_tokens"
-             else self._table(params, batch)).to(cfg.compute_dtype)
+             else self._table(params, batch, tp)).to(cfg.compute_dtype)
         new_len = cache["len"]
         new_len += 1
         rope = make_rope((new_len - 1)[:, None], cfg.head_dim, cfg.rope_theta)
@@ -492,15 +533,15 @@ class Transformer(nn.Module):
             x, _, _ = self._layer(
                 lp, la, x, rope=rope,
                 cache=tuple(cache[key][i] for key in keys) + tail,
-                mesh=mesh,
+                mesh=mesh, tp=tp,
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._unembed(params, x)
+        logits = self._unembed(params, x, tp)
         return _mask_vocab_pad(logits, cfg.vocab_size), dict(cache)
 
     @torch.no_grad()
     def prefill_chunk(self, params, peft, batch, cache, pos, n_valid,
-                      adapter_ids=None):
+                      adapter_ids=None, tp=None):
         """One fixed-size chunk of a chunked prefill.
 
         ``batch["tokens"]`` ``(B, C)`` is the chunk, right-padded on the
@@ -516,15 +557,17 @@ class Transformer(nn.Module):
         ``logits (B, 1, V)`` at the chunk's last real position, and the
         staging cache with ``len = pos + n_valid``.  The finished staging
         cache lands in the serving cache through the same
-        ``insert_cache`` scatter as a wave."""
+        ``insert_cache`` scatter as a wave.  ``tp``: this rank's shards
+        (the staging cache holds its KV heads)."""
         cfg = self.cfg
+        tp = tp or ONE
         if cfg.frontend == "audio_tokens":
             raise ValueError(
                 f"{cfg.name}: an audio_tokens model has no token table, so "
                 f"it has no chunked prefill of tokens")
         # tokens alone, as the JAX package's chunk step (a vision model
         # chunks its text)
-        x = self._table(params, batch).to(cfg.compute_dtype)    # (B, C, d)
+        x = self._table(params, batch, tp).to(cfg.compute_dtype)  # (B, C, d)
         b, c, _ = x.shape
         dev = x.device
         s_stage = cache["k"].shape[2]
@@ -537,11 +580,11 @@ class Transformer(nn.Module):
         for i, lp, la in self._layers(params, peft, adapter_ids):
             x, _, _ = self._layer(
                 lp, la, x, rope=rope,
-                chunk=(cache["k"][i], cache["v"][i], rows, q_pos),
+                chunk=(cache["k"][i], cache["v"][i], rows, q_pos), tp=tp,
             )
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         x = x[torch.arange(b, device=dev), n_valid - 1][:, None]  # (B, 1, d)
-        logits = self._unembed(params, x)
+        logits = self._unembed(params, x, tp)
         new_len = (pos + n_valid).to(torch.int32).expand(b).clone()
         return (_mask_vocab_pad(logits, cfg.vocab_size),
                 dict(cache, len=new_len))

@@ -92,15 +92,29 @@ scheduler on the same requests (submit each request on every rank), so
 host state -- queues, slots, block tables -- is the same everywhere.
 
 * Placement: the cache by ``launch.shardings.cache_shardings`` on the
-  data axes alone (the slot axis, or a paged pool's block axis, over
-  them); a paged pool is cut into one arena a data shard
-  (``PagedCacheView(data_shards=)``).  Params, adapters and banks are
-  replicated (a pool through ``AdapterPool.place``), and so is the cache
-  over `model`: the forward holds plain local tensors and every
-  hand-written kernel takes whole operands, so a leaf split over `model`
-  would be gathered whole at every call and save nothing.  The ranks of
-  one data shard repeat its work.  ``stats`` byte gauges count what this
-  rank holds.
+  data axes (the slot axis, or a paged pool's block axis, over them); a
+  paged pool is cut into one arena a data shard
+  (``PagedCacheView(data_shards=)``).  Adapters and banks are replicated
+  (a pool through ``AdapterPool.place``).
+* Tensor parallelism over `model`, for the dense family (a
+  ``Transformer`` that is not MoE; its frontend models too): each rank
+  holds its shards of the params by the JAX decode rules
+  (``launch.shardings.local_params`` of ``param_shardings(decode=True)``:
+  q/k/v and gate/up column-parallel, o_proj and down_proj row-parallel,
+  the table on d_model, an untied ``lm_head`` on the vocab) and runs the
+  forward Megatron style on plain local tensors, with explicit
+  collectives on the `model` sub-group (``models/tensor_parallel.py``);
+  every kernel runs on the rank's shards.  The cache holds the rank's KV
+  heads: the engine puts `model` on the KV-head axis of every KV leaf
+  itself, where the JAX ``cache_shardings`` gives it to the last dim
+  that divides (head_dim), because the whole-head kernels need the heads
+  local.  ``model`` must divide ``n_heads``, ``n_kv_heads``, ``d_ff`` and
+  ``d_model``, and the adapters be LoRA or QuanTA; anything else raises
+  at construction (the head_dim split, and DoRA, DoTA and KronA on
+  shards, are ROADMAP items).  Griffin, Mamba2 and the MoE branch keep
+  the `model` axis replicated: its ranks repeat their data shard's work
+  (``stats["model_shards"]`` reads 1 for them, ``m`` for the dense
+  family).  ``stats`` byte gauges count what this rank holds.
 * Work: a data rank prefills the wave rows of its own slots and runs a
   chunked admission only when the slot is its own; it decodes its own
   slots (``n_slots / dp`` rows) on its own cache shard, and the paged
@@ -130,14 +144,17 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.analysis import sanitize
-from repro_torch.core.adapters import tree_nbytes
+from repro_torch.core.adapters import tree_nbytes, unsharded_method
 from repro_torch.core.bank import AdapterBank
+from repro_torch.core.peft import flatten_paths
 from repro_torch.core.quantize import quantize_params
 from repro_torch.kernels.dispatch import default_device, upload
 from repro_torch.models.common import (
     PagedCacheLeafSpec, insert_cache_slots, merge_cache_slots,
     reset_cache_slots,
 )
+from repro_torch.models.tensor_parallel import ONE, model_group
+from repro_torch.models.transformer import Transformer
 from repro_torch.serve.adapter_pool import AdapterPool
 from repro_torch.serve.metrics import LatencyHistogram
 from repro_torch.serve.paging import PagedCacheView
@@ -333,13 +350,21 @@ class ServingEngine:
             raise ValueError(
                 f"model on {model.device}, engine asked for {self.device}"
             )
-        self._mesh_layout(mesh, n_slots)
+        self._mesh_layout(mesh, n_slots, model)
         self.model = model
         self.cfg = model.cfg
         # frozen-base quantization: every projection packed once here;
         # already quantized leaves are kept
         self.base_quant = base_quant
-        if base_quant is not None:
+        if self._tp.size > 1:
+            self._check_tp(adapters if adapters is not None else peft)
+            from repro_torch.launch.shardings import local_params
+
+            # this rank's shards, packed from them under base_quant
+            params = local_params(self.cfg, mesh, params, self.device,
+                                  base_quant,
+                                  block_size=self.cfg.quant_block_size)
+        elif base_quant is not None:
             params = quantize_params(params, base_quant,
                                      block_size=self.cfg.quant_block_size)
         # the model quantizes KV on write (cfg.kv_quant); the engine knob
@@ -420,6 +445,7 @@ class ServingEngine:
             "adapter_tenants": (self.bank.num_tenants
                                 if self.bank is not None else 0),
             "param_bytes": tree_nbytes(self.params),
+            "model_shards": self._tp.size,
             "base_quant": base_quant or "none",
             "kv_quant": self.kv_quant or "none",
         }
@@ -491,13 +517,17 @@ class ServingEngine:
         self._update_gauges()
 
     # ------------------------------------------------------------------ mesh
-    def _mesh_layout(self, mesh, n_slots: int) -> None:
+    def _mesh_layout(self, mesh, n_slots: int, model) -> None:
         """This rank's share of the slots under ``mesh``: data shard
         ``_shard`` of ``_dp`` owns slots ``[_lo, _hi)``; ``_lead`` ranks
-        (coordinate 0 off the data axes) share their shard's tokens."""
+        (coordinate 0 off the data axes) share their shard's tokens;
+        ``_tp`` is the rank's `model` group for the dense family (a group
+        of one otherwise), and ``_model_kw`` what the model calls take for
+        it."""
         self.mesh = mesh
         self._dp, self._shard, self._world, self._lead = 1, 0, 1, True
         self._lo, self._hi = 0, n_slots
+        self._tp, self._model_kw = ONE, {}
         if mesh is None:
             return
         import torch.distributed as dist
@@ -532,6 +562,31 @@ class ServingEngine:
         data = dp_axes(mesh)
         self._lead = all(v == 0 for a, v in mesh_coordinate(mesh).items()
                          if a not in data)
+        if isinstance(model, Transformer) and not model.cfg.is_moe:
+            self._tp = model_group(mesh)
+            if self._tp.size > 1:
+                self._model_kw = {"tp": self._tp}
+
+    def _check_tp(self, adapters) -> None:
+        """What a `model` split of the dense family refuses: a head count,
+        ``d_ff`` or ``d_model`` that ``m`` does not divide, and adapters
+        other than LoRA and QuanTA."""
+        cfg, m = self.cfg, self._tp.size
+        for n, what in ((cfg.n_heads, "n_heads"),
+                        (cfg.n_kv_heads, "n_kv_heads")):
+            if n % m:
+                raise ValueError(
+                    f"model={m} does not divide {what}={n}: the port's "
+                    "attention kernels take whole local heads, and the "
+                    "JAX package's head_dim split is a ROADMAP item")
+        for n, what in ((cfg.d_ff, "d_ff"), (cfg.d_model, "d_model")):
+            if n % m:
+                raise ValueError(f"model={m} does not divide {what}={n}")
+        tree = getattr(adapters, "tree", adapters) or {}
+        for leaf in flatten_paths(tree).values():
+            for a in getattr(leaf, "groups", (leaf,)):
+                if not a.shardable:
+                    raise ValueError(unsharded_method(a))
 
     def _place(self, n_slots: int, max_len: int) -> None:
         """Place adapters and the cache under ``self.mesh`` (the cache
@@ -558,10 +613,18 @@ class ServingEngine:
                 (e,) if isinstance(e, str) else e) <= data else None
                 for e in spec))
 
+        def kv_heads(key, spec):
+            # the KV-head axis (..., KV, hd) of a KV leaf over `model`
+            if self._tp.size == 1 or not isinstance(self.serve_spec[key],
+                                                    PagedCacheLeafSpec):
+                return spec
+            return P(*spec[:-2], "model", spec[-1])
+
         specs = cache_shardings(
             self.cfg, mesh, struct, spec=self.serve_spec, paged=self._paged,
             pool_data_shards=self.pager.data_shards if self._paged else None)
-        self.cache_specs = {k: data_only(v) for k, v in specs.items()}
+        self.cache_specs = {k: kv_heads(k, data_only(v))
+                            for k, v in specs.items()}
         placed = (self.pager.init_cache(mesh, self.cache_specs)
                   if self.pager is not None
                   else placed_zeros(struct, mesh, self.cache_specs,
@@ -808,7 +871,7 @@ class ServingEngine:
                 self.params, self.peft,
                 {"tokens": torch.from_numpy(toks).to(self.device)},
                 lengths=torch.from_numpy(lens).to(self.device),
-                adapter_ids=self._device_ids(wave_ids),
+                adapter_ids=self._device_ids(wave_ids), **self._model_kw,
             )
             first = self._sample(logits)[: len(mine), 0]
         self.stats["prefill_calls"] += 1
@@ -886,7 +949,8 @@ class ServingEngine:
             "req": req,
             "slot": slot,
             "tokens": tokens,
-            "staged": self.model.init_cache(1, s_stage) if own else None,
+            "staged": (self.model.init_cache(1, s_stage, **self._model_kw)
+                       if own else None),
             "pos": 0,
             "aid": self._req_adapter_id(req),
         }
@@ -910,6 +974,7 @@ class ServingEngine:
                 st["staged"], pos, n_valid,
                 adapter_ids=self._device_ids(np.asarray([st["aid"]],
                                                         np.int32)),
+                **self._model_kw,
             )
         self.stats["chunk_calls"] += 1
         st["pos"] = pos + n_valid
@@ -1031,8 +1096,9 @@ class ServingEngine:
             t.copy_(cache[k])
         # the mesh reaches attention only when the pool has an arena a
         # data shard
-        kw = ({"mesh": self.mesh}
-              if self._paged and self.pager.data_shards > 1 else {})
+        kw = dict(self._model_kw)
+        if self._paged and self.pager.data_shards > 1:
+            kw["mesh"] = self.mesh
         logits, new_cache = self.model.decode_step(
             self.params, self.peft, cache, {"tokens": toks},
             block_tables=self._tick_tables(), adapter_ids=io.get("ids"), **kw)

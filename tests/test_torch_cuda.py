@@ -158,6 +158,47 @@ def test_linear_bf16_bodies_match_plain(d_in, d_out, dims, rows, dev):
                                           ad.pairs))
 
 
+@pytest.mark.parametrize("rows", [8, 40, 65, 1001])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_column_shards_match_plain(rows, dtype, dev):
+    """Kernel 2 on a column shard (tensor parallelism over `model`): ``w``
+    holds 256 of the chain's 1024 columns from ``col``, the delta read in
+    place.  Each of the four shards matches the plain version at its
+    offset (float32: its columns of the whole call bit for bit, the SIMT
+    tile's K order being the same); the offset ignored fails the bf16
+    limits; an odd offset (bf16 reads the delta in pairs) and columns past
+    the chain raise."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    d_in, d_out, n = 512, 1024, 256
+    ad = QuantaAdapter.create(gen, d_in, d_out, dims_in=(8, 8, 8),
+                              dtype=dtype, noise_scale=0.05, device=dev)
+    x = torch.randn((rows, d_in), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev)
+         * d_in ** -0.5).to(dtype)
+    whole = quanta_linear(x, w, ad.tensors, ad.dims_in, ad.pairs)
+    for col in range(0, d_out, n):
+        wl = w[:, col:col + n].contiguous()
+        got = quanta_linear(x, wl, ad.tensors, ad.dims_in, ad.pairs, col)
+        want = quanta_linear_plain(x, wl, ad.tensors, ad.dims_in, ad.pairs,
+                                   col)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+        if dtype == torch.float32:
+            assert torch.equal(got, whole[:, col:col + n])
+        else:
+            st, ok, limits = _smoke().judge("quanta_linear", got, want,
+                                            dtype)
+            assert ok, (st, limits)
+    if dtype == torch.bfloat16:
+        wrong = quanta_linear(x, wl, ad.tensors, ad.dims_in, ad.pairs, 0)
+        _, ok, _ = _smoke().judge("quanta_linear", wrong, want, dtype)
+        assert not ok
+        with pytest.raises(ValueError, match="even"):
+            quanta_linear(x, wl, ad.tensors, ad.dims_in, ad.pairs, 1)
+    with pytest.raises(ValueError, match="columns"):
+        quanta_linear(x, wl, ad.tensors, ad.dims_in, ad.pairs, d_out - 8)
+
+
 def test_linear_routes_on_rows_and_dtype(dev):
     """bf16 with at most 64 rows launches the decode body (partials, then
     the ordered sum), with more the wgmma tile body, float32 the SIMT

@@ -11,7 +11,18 @@ runs and the JAX package's.
   ``AdapterPool``, chunked prefill, a preemption that resumes (two arenas
   of 6 blocks), admission past a full arena and the front end; Griffin
   (paged rings) and Mamba2 against the meshless port engine; and every
-  rank's byte gauges count what it holds.
+  rank's byte gauges count what it holds.  Over a `model` axis of 2 the
+  qwen2-0.5b engines run tensor-parallel (each rank its shards of the
+  weights and its KV heads); Griffin and Mamba2 keep `model` replicated.
+* Tensor parallelism at the model level, ``(1, 2)``: ``prefill`` and
+  three ``decode_step``s of the qwen2-0.5b (tied table, q/k/v biases) and
+  llama2-7b-proxy (untied head) SMOKE models on each rank's shards, with
+  folded QuanTA on q/v and LoRA on o_proj and down_proj, against the JAX
+  meshless model at 1e-4; a rank that skips the row-parallel
+  ``all_reduce`` is caught; each rank's ``local_params`` against the JAX
+  decode specs and the whole leaves (also placed as DTensors, and packed
+  NF4); and the refusals (KV heads that `model` does not divide, DoRA,
+  DoTA, KronA).
 * The paged decode under ``mesh=`` on arena-partitioned pools, each
   rank's rows stacked: the global plain paged decode and the JAX kernel
   in interpret mode, at 2e-5 (f32).
@@ -43,10 +54,14 @@ import torch_mesh_worker as W
 from repro.checkpoint import store as j_store
 from repro.configs import get_smoke as j_get_smoke
 from repro.core.bank import AdapterBank as JBank
-from repro.core.peft import PeftConfig as JPeftConfig, attach as j_attach
+from repro.core.peft import (
+    AdapterSet as JAdapterSet, PeftConfig as JPeftConfig, attach as j_attach,
+)
 from repro.core.quantize import (
     quantize_kv as j_quantize_kv, quantize_params as j_quantize_params,
 )
+from repro.launch import mesh as j_mesh
+from repro.launch import shardings as j_sh
 from repro.models import build_model as j_build_model
 from repro.optim.compress import compress_int8 as j_compress_int8
 from repro.serve import (
@@ -56,11 +71,16 @@ from repro.serve import (
 from repro.train.pipeline import pipeline_apply as j_pipeline_apply
 from repro_torch import interop
 from repro_torch.checkpoint import restore, save, tree_flatten_with_paths
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_peft, get_smoke
 from repro_torch.core.adapters import tree_leaves
 from repro_torch.core.bank import AdapterBank
 from repro_torch.core.peft import PeftConfig, attach
+from repro_torch.core.quantize import dequantize, quantize_params
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.launch import make_abstract_mesh
+from repro_torch.launch.shardings import (
+    local_shape, map_with_paths, param_shardings,
+)
 from repro_torch.models import build_model
 from repro_torch.models.attention import paged_decode_shard
 from repro_torch.optim import AdamW
@@ -401,12 +421,92 @@ RESTORES = {"state (2, 1)": ((2, 1), "port", 3, "state"),
             "jax rows (2, 1)": ((2, 1), "jax", 5, "rows")}
 
 
+# ------------------------------------------- tensor parallelism inputs
+TP_ARCHS = ("qwen2-0.5b", "llama2-7b-proxy")
+TP_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_pair(arch):
+    """The JAX model with the shared numpy weights, folded and perturbed
+    QuanTA on q/v and LoRA (B filled) on o_proj and down_proj in one
+    adapter set, and the port's copies of the base and the set."""
+    model, params, _ = _jax_side(arch)
+    base, quanta = j_attach(jax.random.PRNGKey(1), params, JPeftConfig(
+        method="quanta", n_axes=get_peft(arch).n_axes))
+    _, lora = j_attach(jax.random.PRNGKey(2), base, JPeftConfig(
+        method="lora", rank=4, targets=(r".*/(o_proj|down_proj)$",)))
+    rs = np.random.RandomState(3)
+
+    def noise(t, scale):
+        return t + jnp.asarray(scale * rs.standard_normal(t.shape), t.dtype)
+
+    tree = {"layers": {"attn": dict(quanta.tree["layers"]["attn"])}}
+    for k, ad in quanta.tree["layers"]["attn"].items():
+        tree["layers"]["attn"][k] = type(ad)(
+            tuple(noise(t, 0.05) for t in ad.tensors), ad.dims_in,
+            ad.dims_out, ad.pairs)
+    for group, k in (("attn", "o_proj"), ("mlp", "down_proj")):
+        ad = lora.tree["layers"][group][k]
+        tree["layers"].setdefault(group, {})[k] = type(ad)(
+            ad.a, noise(ad.b, 0.1), ad.alpha)
+    peft = JAdapterSet(tree=tree, specs=quanta.specs + lora.specs)
+    return (model, base, peft,
+            interop.params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                             base), "cpu"),
+            interop.adapter_set_from_numpy(peft, "cpu"))
+
+
+def _tp_batch(vocab):
+    rs = np.random.RandomState(4)
+    toks = rs.randint(0, vocab, (3, 24)).astype(np.int32)
+    lens = np.array([24, 7, 13], np.int32)
+    steps = [rs.randint(0, vocab, (4, 1)).astype(np.int32) for _ in range(3)]
+    return toks, lens, steps
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_jax_logits(arch):
+    """The JAX meshless model's prefill and decode-step logits."""
+    jm, base, peft, _, _ = _tp_pair(arch)
+    toks, lens, steps = _tp_batch(jm.cfg.vocab_size)
+    logits, wave = jm.prefill(base, peft, {"tokens": jnp.asarray(toks)},
+                              lengths=jnp.asarray(lens))
+    out = [np.asarray(logits)]
+    cache = jm.insert_cache(jm.init_cache(4, 48), np.array([2, 0, 1]), wave)
+    for nxt in steps:
+        logits, cache = jm.decode_step(base, peft, cache,
+                                       {"tokens": jnp.asarray(nxt)})
+        out.append(np.asarray(logits))
+    return out
+
+
+def _tp_job(arch, fault=False):
+    jm, _, _, base, peft = _tp_pair(arch)
+    toks, lens, steps = _tp_batch(jm.cfg.vocab_size)
+    return "tp_model", dict(
+        mesh_shape=(1, 2), arch=arch, base=base, peft=peft,
+        tokens=torch.from_numpy(toks).long(), lens=torch.from_numpy(lens),
+        steps=[torch.from_numpy(t).long() for t in steps], fault=fault)
+
+
+def _refused_pefts():
+    params, _ = _port_side(ARCH)
+    return {method: attach(1, params, PeftConfig(method=method, rank=4,
+                                                 n_axes=3, krona_a=8),
+                           device="cpu")[1]
+            for method in ("dora", "dota", "krona")}
+
+
 # ------------------------------------------------------------- spawns
 def _jobs(world):
     jobs = {}
     for shape in MESHES[world]:
         for case in CASES:
             jobs[(case, shape)] = _serve_job(case, shape)
+        if shape[1] == 2:
+            jobs[("tp leaves", shape)] = ("tp_leaves", dict(
+                mesh_shape=shape, arch=ARCH, params=_port_side(ARCH)[0]))
         if shape[0] == 2:
             kw = _serve_job("preempt", shape)[1]
             kw.update(prompts=(), arena_probe=True)
@@ -422,6 +522,12 @@ def _jobs(world):
                     tables=torch.from_numpy(t), lens=torch.from_numpy(lens),
                     **_torch(extra)))
     if world == 2:
+        for arch in TP_ARCHS:
+            jobs[("tp model", arch)] = _tp_job(arch)
+        jobs[("tp fault", TP_ARCHS[1])] = _tp_job(TP_ARCHS[1], fault=True)
+        jobs["tp refusals"] = ("tp_refusals", dict(
+            mesh_shape=(1, 2), arch=ARCH, params=_port_side(ARCH)[0],
+            pefts=_refused_pefts()))
         model, base, peft, batches = _train_setup()
         for compress in (False, True):
             jobs[("train", compress)] = ("train_dp", dict(
@@ -483,6 +589,8 @@ def spawned(tmp_path_factory):
             _jax_tokens(case)
         _port_tokens(case)
     _jax_pipeline()
+    for arch in TP_ARCHS:
+        _tp_jax_logits(arch)
     starter.join()
     assert set(ctxs) == set(dirs), "the ranks did not start"
     for world, ctx in ctxs.items():
@@ -529,7 +637,9 @@ SHAPES = [(2, 1), (1, 2), (2, 2)]
 def test_sharded_engine_matches_single_device(case, shape, request):
     """Every rank's greedy tokens are the meshless port engine's and the
     JAX single-device engine's; the pool is cut into one arena a data
-    shard; byte gauges count what the rank holds."""
+    shard; byte gauges count what the rank holds.  Over a `model` axis of
+    2 the qwen2-0.5b engine splits its weights (no sharded leaf held
+    whole); Griffin and Mamba2 keep `model` replicated."""
     runs = _results(_world(request, shape), (case, shape))
     arch = CASES[case][0]
     # Griffin and Mamba2 against the meshless port engine, which their
@@ -544,6 +654,8 @@ def test_sharded_engine_matches_single_device(case, shape, request):
             "mamba2-1.3b"
         assert got["data_shards"] == (shape[0] if paged else 1)
         assert got["eager"]                 # more than one rank
+        assert got["model_shards"] == (shape[1] if arch == ARCH else 1)
+        assert got["whole_sharded"] == []
         # drained: every block free, only the dense leaves billed
         assert got["stats"]["blocks_in_use"] == 0
         assert got["stats"]["cache_bytes_allocated"] == got["dense_bytes"]
@@ -584,12 +696,26 @@ def test_host_mesh_world_of_one_serves_as_meshless():
         dist.destroy_process_group()
 
 
+def _shard_bytes(params, shape):
+    """Bytes one rank holds of ``params`` on a ``shape`` mesh: the
+    replicated leaves whole, each leaf the decode rule shards over
+    `model` at its ``local_shape``."""
+    mesh = make_abstract_mesh(shape, ("data", "model"))
+    specs = param_shardings(get_smoke(ARCH), mesh, params, decode=True)
+    total = []
+    map_with_paths(lambda _, t, sp: total.append(
+        int(np.prod(local_shape(tuple(t.shape), sp, mesh)))
+        * t.element_size()), params, specs)
+    return sum(total)
+
+
 def test_gauges_count_each_ranks_shards(world2, world4):
     """Per-rank byte gauges, counted from each rank's own leaves: a dense
-    cache bills its data shard's slots (half on ``(2, 1)`` and ``(2, 2)``,
-    all on ``(1, 2)``, whose `model` axis replicates); params are whole on
-    every rank; a ``(2, 1)`` paged pool bills one arena (a block's bytes:
-    the local pool over its rows)."""
+    cache bills its data shard's slots of its KV heads (``1 / (data x
+    model)`` of the meshless cache); params bill the replicated leaves
+    plus each sharded leaf's ``local_shape`` (whole on ``(2, 1)``, less
+    on ``(1, 2)`` and ``(2, 2)``); a ``(2, 1)`` paged pool bills one
+    arena (a block's bytes: the local pool over its rows)."""
     params, _ = _port_side(ARCH)
     whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     model = build_model(get_smoke(ARCH), device="cpu")
@@ -597,10 +723,12 @@ def test_gauges_count_each_ranks_shards(world2, world4):
     kv = one.cache["k"].numel() * one.cache["k"].element_size()
     for spawned, shape in ((world2, (2, 1)), (world2, (1, 2)),
                            (world4, (2, 2))):
+        want = _shard_bytes(params, shape)
+        assert (want == whole) == (shape[1] == 1) and want <= whole
         for got in _results(spawned, ("dense", shape)):
-            assert got["leaf_bytes"]["k"] * shape[0] == kv
+            assert got["leaf_bytes"]["k"] * shape[0] * shape[1] == kv
             assert got["first_bytes"] == sum(got["leaf_bytes"].values())
-            assert got["param_bytes"] == whole
+            assert got["param_bytes"] == want
     pool = ServingEngine(model, params, device="cpu", n_blocks=34,
                          **_kw("paged"))
     rows = pool.pager.n_blocks
@@ -610,6 +738,99 @@ def test_gauges_count_each_ranks_shards(world2, world4):
         assert got["per_block"] == pool.pager._bytes_per_block
         assert got["per_block"] * rows / 2 == sum(
             got["leaf_bytes"][k] for k in ("k", "v"))
+
+
+# ------------------------------------------------- tensor parallelism
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_model_matches_jax(arch, world2):
+    """``(1, 2)``: prefill and three decode steps on each rank's shards
+    give the JAX meshless model's logits at 1e-4 on both ranks, over the
+    rank's KV heads."""
+    want = _tp_jax_logits(arch)
+    for got in _results(world2, ("tp model", arch)):
+        assert got["kv_heads"] == get_smoke(arch).n_kv_heads // 2
+        assert len(got["logits"]) == len(want)
+        for g, w in zip(got["logits"], want):
+            np.testing.assert_allclose(g.numpy(), w, **TP_TOL)
+
+
+def test_tp_skipped_all_reduce_is_caught(world2):
+    """A planted fault: rank 0 keeps its own partial sums in place of the
+    row-parallel ``all_reduce``; its logits leave the tolerance far
+    behind."""
+    want = _tp_jax_logits(TP_ARCHS[1])
+    got = _results(world2, ("tp fault", TP_ARCHS[1]))[0]
+    err = max(float(np.abs(g.numpy() - w).max())
+              for g, w in zip(got["logits"], want))
+    assert err > 100 * TP_TOL["atol"], err
+
+
+def _jax_decode_specs(shape):
+    _, jparams, _ = _jax_side(ARCH)
+    specs = j_sh.param_shardings(j_get_smoke(ARCH), j_mesh.make_abstract_mesh(
+        shape, ("data", "model")), jparams, decode=True)
+    flat, _ = jax.tree_util.tree_flatten_with_path(specs)
+    return {"/".join(str(getattr(k, "key", k)) for k in path): tuple(s.spec)
+            for path, s in flat}
+
+
+def _flat(tree):
+    out = {}
+    map_with_paths(lambda p, t: out.__setitem__("/".join(p), t), tree)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_tp_local_leaves_match_jax_decode_specs(shape, request):
+    """Each rank's ``local_params``: every leaf has the shape the JAX
+    decode spec gives one rank and equals that rank's block of the whole
+    leaf; placed as DTensors by the specs, the params give the same
+    local leaves; packed NF4 from the shards, each projection decodes to
+    its block of the whole weight packed NF4 (a row shard of o_proj reads
+    half of its one quant block), and has the codes and scales that the
+    whole packed weight's shards have."""
+    params, _ = _port_side(ARCH)
+    whole = _flat(params)
+    packed = quantize_params(params, "nf4",
+                             block_size=get_smoke(ARCH).quant_block_size)
+    jspecs = _jax_decode_specs(shape)
+    for got in _results(_world(request, shape), ("tp leaves", shape)):
+        r = got["coord"]
+        assert got["dtensor_same"]
+        local = _flat(got["local"])
+        assert set(local) == set(whole) == set(jspecs)
+        for path, t in local.items():
+            want = whole[path]
+            for d, entry in enumerate(jspecs[path]):
+                if entry == "model" or (isinstance(entry, tuple)
+                                        and "model" in entry):
+                    n = want.shape[d] // shape[1]
+                    want = want.narrow(d, r * n, n)
+            assert torch.equal(t, want), path
+        for group in ("attn", "mlp"):
+            for name, qw in got["nf4"]["layers"][group].items():
+                if not name.endswith("proj"):
+                    continue
+                full = dequantize(packed["layers"][group][name])
+                dim = -2 if name in ("o_proj", "down_proj") else -1
+                n = full.shape[dim] // shape[1]
+                assert torch.equal(dequantize(qw),
+                                   full.narrow(dim, r * n, n)), name
+                # the whole weight packed first: the same codes and scales
+                again = got["nf4 packed"]["layers"][group][name]
+                assert torch.equal(again.packed, qw.packed), name
+                assert torch.equal(again.scales, qw.scales), name
+
+
+def test_tp_refusals(world2):
+    """Under a `model` split of 2: KV heads it does not divide raise
+    (naming the head_dim split), and so do DoRA, DoTA and KronA."""
+    for got in _results(world2, "tp refusals"):
+        assert "head_dim split" in got["kv heads"]
+        for method in ("dora", "dota", "krona"):
+            assert got[method] is not None and \
+                "not served on a `model` shard" in got[method], method
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (2, 2)],

@@ -182,6 +182,38 @@ def test_kernel2_and_kernel6_faults_fail_the_bf16_limits(smoke):
     assert not ok
 
 
+def test_column_offset_fault_and_tp_helpers(smoke):
+    """Kernel 2 on a column shard: the plain version at the rank's offset
+    meets the bf16 limits and equals its columns of the whole product's
+    arithmetic; the planted fault (the offset ignored: the neighbour's
+    columns of the delta) fails them.  Phase 17's wave is the engine's
+    right-padded first wave, and its cases name kernels that exist."""
+    from repro_torch import kernels
+    from repro_torch.kernels.quanta_linear import quanta_linear_plain
+
+    gen = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    d, dims, pairs = 256, (8, 4, 4, 2), pair_schedule(4)
+    ad = QuantaAdapter.create(gen, d, dims_in=dims, dtype=bf,
+                              noise_scale=0.05)
+    x = torch.randn((40, d), generator=gen).to(bf)
+    w = (torch.randn((d, d // 2), generator=gen) * d ** -0.5).to(bf)
+    want = quanta_linear_plain(x, w, ad.tensors, dims, pairs, d // 2)
+    chain = apply_sequential(x, ad.tensors, dims, pairs)
+    assert torch.equal(want, (x.float() @ w.float()
+                              + chain[:, d // 2:].float()).to(bf))
+    _, ok, _ = smoke.judge("quanta_linear", want, want, bf)
+    assert ok
+    faulty = quanta_linear_plain(x, w, ad.tensors, dims, pairs, 0)
+    _, ok, _ = smoke.judge("quanta_linear", faulty, want, bf)
+    assert not ok
+    toks, lens = smoke._wave([[1, 2, 3], [4] * 17, [5]])
+    assert toks.shape == (3, 32) and lens.tolist() == [3, 17, 1]
+    assert toks[1, :17].tolist() == [4] * 17 and not toks[1, 17:].any()
+    for _, _, _, need in smoke.TP_CASES.values():
+        assert set(need) <= set(kernels.KERNELS)
+
+
 # kernels that run only in float32 (TF32 would change the numbers): the
 # profile groups, which book the bf16 serving paths, need not name them
 FLOAT32_KERNELS = {"flash_forward_kernel", "flash_decode_kernel",

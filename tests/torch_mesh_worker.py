@@ -115,6 +115,8 @@ def serve(mesh_shape, arch, params, cfg_kw=None, peft=None, bank=None,
            "leaf_bytes": {k: addressable_nbytes(v)
                           for k, v in eng.placed_cache.items()},
            "param_bytes": eng.stats["param_bytes"],
+           "model_shards": eng.stats["model_shards"],
+           "whole_sharded": _whole_sharded(eng, params),
            "per_block": eng.pager._bytes_per_block if eng.pager else 0.0,
            "eager": eng._decode.eager}
     reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new,
@@ -177,6 +179,123 @@ def serve(mesh_shape, arch, params, cfg_kw=None, peft=None, bank=None,
     out["seconds"] = time.monotonic() - t0
     if pool is not None:
         out["pins"] = [adapters.pins_of(n) for n in pool["tenants"]]
+    return out
+
+
+def _whole_sharded(eng, params):
+    """Paths of the leaves the decode rule shards over `model` that the
+    engine holds whole (none under tensor parallelism)."""
+    from repro_torch.launch.shardings import map_with_paths, param_shardings
+
+    if eng.stats["model_shards"] == 1:
+        return []
+    specs = param_shardings(eng.cfg, eng.mesh, params, decode=True)
+    held = {}
+    map_with_paths(lambda p, t: held.__setitem__("/".join(p), t.shape),
+                   eng.params)
+    out = []
+    map_with_paths(lambda p, t, sp: out.append("/".join(p)) if (
+        "model" in sp and held.get("/".join(p)) == t.shape) else None,
+        params, specs)
+    return out
+
+
+# ------------------------------------------------ tensor parallelism
+class _SkipReduce:
+    """A planted fault: this rank's `model` group takes part in every
+    ``all_reduce`` but keeps its own partial sum."""
+
+    def __init__(self, tp):
+        self.tp = tp
+        self.size, self.rank = tp.size, tp.rank
+
+    def __getattr__(self, name):
+        return getattr(self.tp, name)
+
+    def all_reduce(self, t):
+        self.tp.all_reduce(t.clone())
+        return t
+
+
+def tp_model(mesh_shape, arch, base, peft, tokens, lens, steps, fault=False):
+    """``prefill`` and ``decode_step``s of ``arch``'s SMOKE model on this
+    rank's shards (``local_params``) under the mesh's `model` group: the
+    logits of each call (with ``fault``, rank 0 skips every
+    ``all_reduce``)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.shardings import local_params
+    from repro_torch.models import build_model
+    from repro_torch.models.tensor_parallel import model_group
+
+    mesh = _mesh(mesh_shape)
+    model = build_model(get_smoke(arch), device="cpu")
+    tp = model_group(mesh)
+    if fault and tp.rank == 0:
+        tp = _SkipReduce(tp)
+    params = local_params(model.cfg, mesh, base)
+    logits, wave = model.prefill(params, peft, {"tokens": tokens},
+                                 lengths=lens, tp=tp)
+    out = [logits]
+    cache = model.init_cache(4, 48, tp=tp)
+    model.insert_cache(cache, np.array([2, 0, 1]), wave)
+    for nxt in steps:
+        logits, cache = model.decode_step(params, peft, cache,
+                                          {"tokens": nxt}, tp=tp)
+        out.append(logits.clone())
+    return {"logits": out, "kv_heads": cache["k"].shape[3]}
+
+
+def tp_leaves(mesh_shape, arch, params):
+    """This rank's ``local_params`` of ``params`` (and of them packed NF4
+    from the shards, and of the whole params packed NF4 first), its
+    `model` coordinate, and whether the same params placed as DTensors by
+    the decode specs give the same local leaves."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import mesh_coordinate
+    from repro_torch.launch.shardings import (
+        distribute_tree, local_params, param_shardings,
+    )
+    from repro_torch.core.adapters import tree_leaves
+
+    mesh = _mesh(mesh_shape)
+    cfg = get_smoke(arch)
+    local = local_params(cfg, mesh, params)
+    placed = distribute_tree(params, mesh,
+                             param_shardings(cfg, mesh, params, decode=True))
+    again = local_params(cfg, mesh, placed)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(local),
+                                                 tree_leaves(again)))
+    from repro_torch.core.quantize import quantize_params
+
+    bs = cfg.quant_block_size
+    return {"local": local, "coord": mesh_coordinate(mesh)["model"],
+            "dtensor_same": same,
+            "nf4": local_params(cfg, mesh, params, base_quant="nf4",
+                                block_size=bs),
+            "nf4 packed": local_params(cfg, mesh, quantize_params(
+                params, "nf4", block_size=bs))}
+
+
+def tp_refusals(mesh_shape, arch, params, pefts):
+    """What a `model` split refuses: KV heads that ``model`` does not
+    divide, and each adapter set in ``pefts`` (DoRA, DoTA, KronA)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    mesh = _mesh(mesh_shape)
+    out = {}
+    odd = build_model(get_smoke(arch).replace(n_kv_heads=1), device="cpu")
+    cases = [("kv heads", odd, odd.init(0), None)] + [
+        (name, build_model(get_smoke(arch), device="cpu"), params, peft)
+        for name, peft in pefts.items()]
+    for name, model, p, peft in cases:
+        try:
+            ServingEngine(model, p, peft, n_slots=4, max_len=64,
+                          device="cpu", mesh=mesh)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
     return out
 
 
